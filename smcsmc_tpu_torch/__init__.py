@@ -1,0 +1,13 @@
+"""PyTorch + CUDA port of the smcsmc_tpu particle-filter sweep.
+
+The module names mirror ``smcsmc_tpu`` so each counterpart is easy to find
+(``kernels.tree``, ``kernels.likelihood``, ``smc``, ``em``, ``cli``).  The
+port covers the plain sweep: one population, piecewise-constant Ne, phased
+data, one chunk.  The recombination trip runs as a hand-written CUDA kernel
+(``csrc/trip.cu``) on a CUDA device and as plain torch on the CPU.
+
+The framework-free modules of ``smcsmc_tpu`` (demography, segio, simulate,
+outfmt, pattern) are shared, not copied; this package never imports jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,362 @@
+"""The recombination trip: plain torch version and the CUDA kernel's wrapper.
+
+Counterpart of the Pallas kernel ``smcsmc_tpu/kernels/pallas_trip.py``
+(``_trip_kernel`` :91, entered through ``fused_trip`` :356).  One trip, per
+particle whose next recombination ``next_rec`` lies inside the segment
+(``next_rec < L``):
+
+1. the no-mutation weight update ``log_w -= mu*B*delta`` and the
+   recombination opportunity ``delta*tl_e``;
+2. a uniform recombination point (c, h_r) on the local tree;
+3. the SMC' re-coalescence time t_c, inverting the piecewise-linear hazard
+   sum k(t)/2Ne(t) over the candidates {node times} U {epoch starts};
+4. a uniform coalescence target among the branches crossing t_c;
+5. coal opp/cnt, mig opp and recomb cnt added into ``pending``;
+6. the SPR on the parent/child arrays and ``time``;
+7. refreshed ``tl``, ``tl_e`` and data branch length ``B`` (``leaf_status``
+   -1 gives 0, 1 gives tl, 0 the informative branches only);
+8. the next gap, Exp(1)/(rho*tl).
+
+Randomness comes in as four pre-drawn uniforms per particle and trip
+(``uniforms[j]`` is trip j's row), so the plain version, the CUDA kernel and
+the JAX reference can be fed identical numbers.  Both versions update their
+tensor arguments IN PLACE; particles that are inactive keep every value.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .tree import INF, _pick, branch_lengths, data_branch_length, parent_time
+
+# compile-time caps of the CUDA kernel (csrc/trip.cu MAX_LEAVES/MAX_EPOCHS)
+MAX_LEAVES = 8
+MAX_EPOCHS = 64
+
+# the tensors a trip updates, in argument order
+FIELDS = ("time", "parent", "child0", "child1", "next_rec", "upd", "log_w",
+          "tl", "B", "tl_e", "pending")
+TREE_FIELDS = ("parent", "child0", "child1")
+FLOAT_FIELDS = tuple(k for k in FIELDS if k not in TREE_FIELDS)
+
+
+def _onehot(idx: torch.Tensor, N: int) -> torch.Tensor:
+    """[P] index -> [P, N] one-hot (all False for idx < 0)."""
+    return torch.arange(N, device=idx.device)[None, :] == idx[:, None]
+
+
+def _trip_once(u, leaf_status, time, parent, child0, child1, next_rec, upd,
+               log_w, tl, B, tl_e, pending, L, mu, rho, est, eend, i2n,
+               has_data):
+    """One trip over the population; returns the updated tensors.
+
+    Follows ``pallas_trip._trip_kernel`` step for step, except for the
+    mixed-data branch length, which is computed as ``data_branch_length``
+    (the kernel's ancestor-chain walk restarts at node 0 after passing the
+    root; see ROADMAP, faults)."""
+    P, N = time.shape
+    E = est.shape[0]
+    f32 = torch.float32
+    u = u.clamp(1e-7, 1.0 - 1e-7)
+    u_pt, u_exp, u_tgt, u_gap = u[:, 0], u[:, 1], u[:, 2], u[:, 3]
+    zero = torch.zeros_like(next_rec)
+    inf = torch.full_like(next_rec, INF)
+
+    active = next_rec < L
+    delta = torch.where(active, next_rec - upd, zero)
+
+    # ---- extension: no-mutation likelihood + recombination opportunity ----
+    log_w = log_w - mu * B * delta
+    recomb_opp_add = delta[:, None] * tl_e  # [P, E]
+
+    # ---- recombination point: uniform on the local tree -------------------
+    pt = parent_time(time, parent)
+    bl = branch_lengths(time, parent)
+    cum = bl.cumsum(dim=1)
+    total = cum[:, N - 1]
+    x_pt = u_pt * total
+    hit = cum >= x_pt[:, None]
+    c = torch.where(hit.any(dim=1), hit.to(torch.int32).argmax(dim=1),
+                    torch.full_like(parent[:, 0], -1)).to(torch.int32)
+    cc = c[:, None]
+    prev = _pick(cum, cc)[:, 0] - _pick(bl, cc)[:, 0]
+    h_r = _pick(time, cc)[:, 0] + (x_pt - prev)
+
+    # ---- hazard inversion over the (epoch x node) grid --------------------
+    # lam(v) = sum_{e,j} inv2ne_e * |branch_j ∩ epoch_e ∩ [h_r, v]|
+    lo = torch.maximum(time[:, None, :],
+                       torch.maximum(est[None, :, None], h_r[:, None, None]))
+    hi = torch.minimum(pt[:, None, :], eend[None, :, None])  # [P, E, N]
+    w = i2n[None, :, None]
+    x_exp = -torch.log1p(-u_exp)
+    vcand = torch.cat([time, est[None, :].expand(P, E)], dim=1)  # [P, V]
+    ov = (torch.minimum(hi[:, None], vcand[:, :, None, None])
+          - lo[:, None]).clamp(min=0.0)  # [P, V, E, N]
+    lam_v = (ov * w[:, None]).sum(dim=(2, 3))
+    t_lo = torch.where(lam_v <= x_exp[:, None], vcand,
+                       torch.full_like(vcand, -INF)).max(dim=1).values
+    t_lo = torch.maximum(t_lo, h_r)
+    lam_lo = ((torch.minimum(hi, t_lo[:, None, None]) - lo).clamp(min=0.0)
+              * w).sum(dim=(1, 2))
+    in_e_lo = (t_lo[:, None] >= est[None]) & (t_lo[:, None] < eend[None])
+    inv2ne_lo = torch.where(in_e_lo, i2n[None], 0.0).sum(dim=1)
+    k_lo = ((time <= t_lo[:, None]) & (t_lo[:, None] < pt)).to(f32).sum(dim=1)
+    rate_lo = k_lo * inv2ne_lo
+    t_c = t_lo + torch.where(rate_lo > 0,
+                             (x_exp - lam_lo) / rate_lo.clamp(min=1e-30), inf)
+    t_c = t_c.clamp(max=0.99 * INF)
+
+    # ---- coalescence target -----------------------------------------------
+    cross = (time <= t_c[:, None]) & (t_c[:, None] < pt)
+    kc = cross.to(f32).sum(dim=1)
+    r = torch.floor(u_tgt * kc.clamp(min=1.0)).to(torch.int32)
+    csum = cross.to(torch.int32).cumsum(dim=1) - 1
+    d_hit = (csum == r[:, None]) & cross
+    d = torch.where(d_hit.any(dim=1), d_hit.to(torch.int32).argmax(dim=1),
+                    torch.full_like(r, -1)).to(torch.int32)
+
+    # ---- opportunity / count records --------------------------------------
+    # pending layout (Pp=1): [coal_opp | coal_cnt | mig_opp | mig_cnt |
+    #                         recomb_opp | recomb_cnt], E columns each
+    actf = active.to(f32)[:, None]
+    ov_c = (torch.minimum(hi, t_c[:, None, None]) - lo).clamp(min=0.0)
+    coal_opp_add = actf * ov_c.sum(dim=2)
+    span_e = (torch.minimum(eend[None], t_c[:, None])
+              - torch.maximum(est[None], h_r[:, None])).clamp(min=0.0)
+    mig_opp_add = actf * span_e
+    in_e_c = (t_c[:, None] >= est[None]) & (t_c[:, None] < eend[None])
+    in_e_r = (h_r[:, None] >= est[None]) & (h_r[:, None] < eend[None])
+    coal_cnt_add = actf * in_e_c.to(f32)
+    recomb_cnt_add = actf * in_e_r.to(f32)
+    pending = pending + torch.cat(
+        [coal_opp_add, coal_cnt_add, mig_opp_add, torch.zeros_like(span_e),
+         recomb_opp_add, recomb_cnt_add], dim=1)
+
+    # ---- SPR: cut the branch above c, regraft onto d at t_c ---------------
+    p = _pick(parent, cc)[:, 0]  # parent of c (c is never the root)
+    pp = p[:, None]
+    sib0 = _pick(child0, pp)[:, 0]
+    sib1 = _pick(child1, pp)[:, 0]
+    o = torch.where(sib0 == c, sib1, sib0)
+    g = _pick(parent, pp)[:, 0]
+    noop = d == c
+    d_eff = torch.where(d == p, o, d)
+    gp = torch.where(d_eff == o, g, _pick(parent, d_eff[:, None])[:, 0])
+    o_oh, p_oh = _onehot(o, N), _onehot(p, N)
+    g_oh, deff_oh, gp_oh = _onehot(g, N), _onehot(d_eff, N), _onehot(gp, N)
+
+    new_par = torch.where(o_oh, g[:, None], parent)
+    new_par = torch.where(deff_oh, p[:, None], new_par)
+    new_par = torch.where(p_oh, gp[:, None], new_par)
+    new_c0 = torch.where(g_oh & (child0 == pp), o[:, None], child0)
+    new_c1 = torch.where(g_oh & (child1 == pp), o[:, None], child1)
+    new_c0 = torch.where(p_oh, c[:, None], new_c0)
+    new_c1 = torch.where(p_oh, d_eff[:, None], new_c1)
+    new_c0 = torch.where(gp_oh & (new_c0 == d_eff[:, None]), pp, new_c0)
+    new_c1 = torch.where(gp_oh & (new_c1 == d_eff[:, None]), pp, new_c1)
+    new_time = torch.where(p_oh, t_c[:, None], time)
+
+    chg = (active & ~noop)[:, None]
+    par2 = torch.where(chg, new_par, parent)
+    c0_2 = torch.where(chg, new_c0, child0)
+    c1_2 = torch.where(chg, new_c1, child1)
+    t2 = torch.where(chg, new_time, time)
+
+    # ---- refreshed tree summaries ------------------------------------------
+    pt2 = parent_time(t2, par2)
+    ov2 = (torch.minimum(pt2[:, None, :], eend[None, :, None])
+           - torch.maximum(t2[:, None, :], est[None, :, None])).clamp(min=0.0)
+    ov2 = ov2 * (par2 >= 0).to(f32)[:, None, :]  # [P, E, N]
+    tle2 = ov2.sum(dim=2)
+    tl2 = ov2.reshape(P, E * N).sum(dim=1)
+    if leaf_status == 1:
+        B2 = tl2
+    elif leaf_status == -1:
+        B2 = torch.zeros_like(tl2)
+    else:
+        B2 = data_branch_length(t2, par2, has_data)
+
+    act1 = active[:, None]
+    tl_out = torch.where(active, tl2, tl)
+    B_out = torch.where(active, B2, B)
+
+    # ---- next recombination gap (from the refreshed tree length) ----------
+    gap = -torch.log1p(-u_gap) / (rho * tl_out).clamp(min=1e-30)
+    upd_out = torch.where(active, next_rec, upd)
+    nr_out = torch.where(active, next_rec + gap, next_rec)
+    return (t2, par2, c0_2, c1_2, nr_out, upd_out, log_w, tl_out, B_out,
+            torch.where(act1, tle2, tl_e), pending)
+
+
+def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
+               upd, log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start,
+               inv2ne, has_data):
+    """Plain torch version of :func:`trip` on any device (same arguments,
+    same in-place contract).  Stops early once no particle is active."""
+    f32 = torch.float32
+    dev = time.device
+    L = torch.tensor(L, dtype=f32, device=dev)
+    mu = torch.tensor(mu, dtype=f32, device=dev)
+    rho = torch.tensor(rho, dtype=f32, device=dev)
+    est = epoch_start
+    eend = torch.cat([est[1:], est.new_full((1,), INF)])
+    outs = (time, parent, child0, child1, next_rec, upd, log_w, tl, B, tl_e,
+            pending)
+    cur = outs
+    for j in range(uniforms.shape[0]):
+        if not bool((cur[4] < L).any()):
+            break
+        (t, p, c0, c1, nr, up, lw, tl_, B_, tle, pend) = cur
+        cur = _trip_once(uniforms[j], int(leaf_status), t, p, c0, c1, nr, up,
+                         lw, tl_, B_, tle, pend, L, mu, rho, est, eend,
+                         inv2ne, has_data)
+    if cur is not outs:
+        for dst, src in zip(outs, cur):
+            dst.copy_(src)
+
+
+def float_tolerances(ref: dict, L: float, mu: float, scale: float = 1e-5
+                     ) -> dict:
+    """Absolute tolerance of each float output of a trip, in its own units.
+
+    The unit is one node height: ``scale`` times the tallest node h_max
+    (generations).  Tree length, data branch length, per-epoch tree length
+    and coalescence opportunity sum N branches (N x unit); migration
+    opportunity is one lineage's span (unit); the recombination
+    opportunity is bp x generations (L x N x unit); the weight update
+    ``mu*B*delta`` is in nats (mu x L x N x unit); positions ``next_rec``
+    and ``upd`` are bp (scale x L).  Counts are whole events, so half an
+    event tells an equal count from one that differs."""
+    N = ref["time"].shape[1]
+    E = ref["tl_e"].shape[1]
+    unit = scale * float(ref["time"].max())
+    tree = N * unit
+    per_block = torch.tensor([tree, 0.5, unit, 0.5, L * tree, 0.5],
+                             dtype=torch.float64, device=ref["time"].device)
+    return {"time": unit, "next_rec": scale * L, "upd": scale * L,
+            "log_w": mu * L * tree, "tl": tree, "B": tree, "tl_e": tree,
+            "pending": per_block.repeat_interleave(E)}
+
+
+def disagreement(got: dict, ref: dict, L: float, mu: float,
+                 rtol: float = 1e-4):
+    """Where two trip results (dicts of :data:`FIELDS`) differ.
+
+    Returns ``(tree_differs, floats_differ, errs)``: [P] bool masks of the
+    particles whose tree arrays differ, and of those whose tree arrays
+    agree but a float lies beyond ``rtol * |ref| + atol`` (atol from
+    :func:`float_tolerances`); ``errs[field] = (max abs error, max
+    error / tolerance)`` over the particles whose tree arrays agree."""
+    tree_differs = torch.zeros(ref["parent"].shape[0], dtype=torch.bool,
+                               device=ref["parent"].device)
+    for k in TREE_FIELDS:
+        tree_differs |= (got[k] != ref[k]).any(dim=1)
+    atol = float_tolerances(ref, L, mu)
+    floats_differ = torch.zeros_like(tree_differs)
+    errs = {}
+    for k in FLOAT_FIELDS:
+        a, b = got[k].double(), ref[k].double()
+        err = (a - b).abs()
+        ratio = torch.where(err > 0, err / (rtol * b.abs() + atol[k]), 0.0)
+        if err.dim() > 1:
+            err, ratio = err.amax(dim=1), ratio.amax(dim=1)
+        err = torch.where(tree_differs, 0.0, err)
+        ratio = torch.where(tree_differs, 0.0, ratio)
+        floats_differ |= ratio > 1.0
+        errs[k] = (float(err.max()), float(ratio.max()))
+    return tree_differs, floats_differ, errs
+
+
+def _check(uniforms, time, parent, child0, child1, next_rec, upd, log_w, tl,
+           B, tl_e, pending, epoch_start, inv2ne, has_data):
+    """Validate what the CUDA kernel takes; raise on anything else."""
+    dev = time.device
+    P, N = time.shape
+    E = epoch_start.shape[0]
+    n = (N + 1) // 2
+    if N != 2 * n - 1 or n < 2 or n > MAX_LEAVES:
+        raise ValueError(f"trip kernel supports 2..{MAX_LEAVES} leaves, got N={N}")
+    if E < 1 or E > MAX_EPOCHS:
+        raise ValueError(f"trip kernel supports 1..{MAX_EPOCHS} epochs, got {E}")
+    spec = [
+        ("uniforms", uniforms, torch.float32, (uniforms.shape[0], P, 4)),
+        ("time", time, torch.float32, (P, N)),
+        ("parent", parent, torch.int32, (P, N)),
+        ("child0", child0, torch.int32, (P, N)),
+        ("child1", child1, torch.int32, (P, N)),
+        ("next_rec", next_rec, torch.float32, (P,)),
+        ("upd", upd, torch.float32, (P,)),
+        ("log_w", log_w, torch.float32, (P,)),
+        ("tl", tl, torch.float32, (P,)),
+        ("B", B, torch.float32, (P,)),
+        ("tl_e", tl_e, torch.float32, (P, E)),
+        ("pending", pending, torch.float32, (P, 6 * E)),
+        ("epoch_start", epoch_start, torch.float32, (E,)),
+        ("inv2ne", inv2ne, torch.float32, (E,)),
+        ("has_data", has_data, torch.bool, (n,)),
+    ]
+    for name, x, dtype, shape in spec:
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if uniforms.shape[0] < 1:
+        raise ValueError("uniforms must hold at least one trip")
+
+
+def trip(uniforms, leaf_status, time, parent, child0, child1, next_rec, upd,
+         log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start, inv2ne,
+         has_data):
+    """Up to ``uniforms.shape[0]`` recombination trips, IN PLACE.
+
+    uniforms [T, P, 4] f32 (row j feeds trip j); time [P, N] f32; parent,
+    child0, child1 [P, N] i32; next_rec, upd, log_w, tl, B [P] f32; tl_e
+    [P, E] f32; pending [P, 6E] f32; L, mu, rho python floats; leaf_status
+    -1/0/1; epoch_start, inv2ne [E] f32; has_data [n] bool.  A particle
+    stops after the trip that takes ``next_rec`` to or past ``L``.
+
+    CPU tensors run :func:`trip_plain`.  CUDA tensors launch the kernel of
+    ``csrc/trip.cu`` on the current stream (one launch for all T trips) or
+    raise; nothing falls back."""
+    dev = time.device
+    if dev.type == "cpu":
+        trip_plain(uniforms, leaf_status, time, parent, child0, child1,
+                   next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
+                   epoch_start, inv2ne, has_data)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"trip: unsupported device {dev}")
+    _check(uniforms, time, parent, child0, child1, next_rec, upd, log_w, tl,
+           B, tl_e, pending, epoch_start, inv2ne, has_data)
+    from ._build import load_trip_library
+
+    lib = load_trip_library()
+    P, N = time.shape
+    vp = ctypes.c_void_p
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.smc_trip_launch(
+            vp(uniforms.data_ptr()), int(uniforms.shape[0]), int(P),
+            int((N + 1) // 2), int(epoch_start.shape[0]), int(leaf_status),
+            vp(time.data_ptr()), vp(parent.data_ptr()),
+            vp(child0.data_ptr()), vp(child1.data_ptr()),
+            vp(next_rec.data_ptr()), vp(upd.data_ptr()),
+            vp(log_w.data_ptr()), vp(tl.data_ptr()), vp(B.data_ptr()),
+            vp(tl_e.data_ptr()), vp(pending.data_ptr()),
+            float(L), float(mu), float(rho),
+            vp(epoch_start.data_ptr()), vp(inv2ne.data_ptr()),
+            vp(has_data.data_ptr()), vp(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"trip kernel launch failed: CUDA error {err} "
+                           f"({lib.smc_cuda_error_string(err).decode()})")
+    trip.launches += 1
+
+
+trip.launches = 0

@@ -1,0 +1,282 @@
+"""The torch port's recombination trip against the Pallas trip kernel.
+
+``fused_trip(..., interpret=True)`` runs the TPU kernel's math on the CPU;
+the port's plain version must reproduce it on identical trees and
+uniforms: tree arrays exactly, floats to f32 tolerance: rtol 1e-5, and on
+node heights and the opportunity sums ``pending``/``tl_e`` an atol of 1e-5
+times the tallest node (at least 1e-2, as in tests/test_pallas_trip.py).
+The hazard sums run in another order than XLA's, and the re-coalescence
+time divides their last-bit difference by a rate of order 1/(2 Ne), so the
+new node height carries an absolute difference of order 2 Ne * 1e-7; every
+overlap that height bounds carries it too.  The mixed-data branch length B is held
+against the XLA path's ``_tree_summaries`` instead: the Pallas kernel's
+ancestor-chain walk restarts at node 0 after passing the root.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from smcsmc_tpu.demography import Demography
+from smcsmc_tpu_torch.kernels.trip import (
+    disagreement,
+    float_tolerances,
+    trip,
+    trip_plain,
+)
+
+torch.set_num_threads(1)
+
+
+def _jax():
+    """The JAX reference, imported on use: the ``cuda`` test below needs no
+    JAX, so this file also runs where only torch is installed
+    (``pytest --noconftest -m cuda tests/test_torch_trip.py``)."""
+    import jax
+    import jax.numpy as jnp
+
+    from smcsmc_tpu.kernels import pallas_trip, tree
+    from smcsmc_tpu import smc
+
+    return jax, jnp, pallas_trip, tree, smc
+
+P = 64
+L_SEG = 30000.0
+MU, RHO = 1e-8, 1e-9
+
+
+def _demo(E, n):
+    change = (np.array([0.0]) if E == 1
+              else np.concatenate([[0.0], np.logspace(3.2, 4.5, E - 1)]))
+    return Demography(
+        change_times=change, pop_sizes=np.full((E, 1), 10000.0),
+        mig_rates=np.zeros((E, 1, 1)), sample_pops=np.zeros(n, np.int32),
+        mutation_rate=MU, recombination_rate=RHO, sequence_length=2e5,
+    )
+
+
+def _has_data(n, leaf_status):
+    hd = np.ones(n, bool)
+    if leaf_status == 0:
+        hd[0] = False  # leaf 0 without data exercises the ancestor walk
+        hd[n // 2] = False
+    return hd
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_trees(n, E, seed):
+    jax, _, _, tree, smc = _jax()
+    epochs = tree.epochs_from_demography(_demo(E, n))
+    st = smc.init_state(jax.random.PRNGKey(seed), epochs,
+                        smc.PFConfig(num_particles=P, num_leaves=n),
+                        np.zeros(n, np.int32), RHO)
+    return epochs, st.trees, np.asarray(st.log_w)
+
+
+def _inputs(n, E, leaf_status, seed=0, L=L_SEG):
+    """Shared numpy inputs: trees from the JAX initial sampler, summaries
+    from the JAX XLA path, a mix of active and inactive particles."""
+    _, jnp, _, _, smc = _jax()
+    epochs, trees, log_w = _jax_trees(n, E, seed)
+    hd = _has_data(n, leaf_status)
+    tl, tle, B = smc._tree_summaries(trees, epochs, jnp.int8(leaf_status),
+                                     jnp.asarray(hd))
+    rng = np.random.default_rng(seed + 10 * n + E)
+    K = 6 * E
+    d = dict(
+        time=np.asarray(trees.time), parent=np.asarray(trees.parent),
+        child0=np.asarray(trees.child0), child1=np.asarray(trees.child1),
+        next_rec=rng.uniform(0.0, 1.5 * L, P).astype(np.float32),
+        upd=np.zeros(P, np.float32), log_w=log_w.astype(np.float32),
+        tl=np.asarray(tl), B=np.asarray(B), tl_e=np.asarray(tle),
+        pending=rng.uniform(0.0, 1.0, (P, K)).astype(np.float32),
+    )
+    return epochs, hd, d
+
+
+_ORDER = ("time", "parent", "child0", "child1", "next_rec", "upd", "log_w",
+          "tl", "B", "tl_e", "pending")
+
+
+def _run_jax(u, leaf_status, epochs, hd, d, L=L_SEG):
+    _, jnp, pallas_trip, _, _ = _jax()
+    n = hd.shape[0]
+    out = pallas_trip.fused_trip(
+        jnp.asarray(u), leaf_status,
+        *(jnp.asarray(d[k]) for k in _ORDER),
+        jnp.float32(L), jnp.float32(MU), jnp.float32(RHO), epochs.start,
+        1.0 / (2.0 * epochs.ne[:, 0]), jnp.asarray(hd.astype(np.float32)),
+        N=2 * n - 1, E=epochs.num_epochs, BLK=P, interpret=True,
+    )
+    return dict(zip(_ORDER, (np.asarray(x) for x in out)))
+
+
+def _run_torch(u, leaf_status, epochs, hd, d, L=L_SEG, fn=trip):
+    t = {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+    fn(torch.from_numpy(np.asarray(u, np.float32)), leaf_status,
+       *(t[k] for k in _ORDER), L, MU, RHO,
+       torch.from_numpy(np.array(epochs.start)),
+       torch.from_numpy(np.array(1.0 / (2.0 * epochs.ne[:, 0]))),
+       torch.from_numpy(hd))
+    return {k: v.numpy() for k, v in t.items()}
+
+
+def _assert_match(got, ref, epochs, hd, leaf_status):
+    for k in ("parent", "child0", "child1"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    for k in ("next_rec", "upd", "log_w", "tl"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, err_msg=k)
+    atol = max(1e-2, 1e-5 * float(ref["time"].max()))
+    for k in ("time", "tl_e", "pending"):
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, atol=atol,
+                                   err_msg=k)
+    if leaf_status != 0:
+        np.testing.assert_allclose(got["B"], ref["B"], rtol=1e-5)
+    else:
+        _, jnp, _, tree, smc = _jax()
+        trees2 = tree.Trees(parent=jnp.asarray(ref["parent"]),
+                        time=jnp.asarray(ref["time"]),
+                        pop=jnp.zeros_like(jnp.asarray(ref["parent"])),
+                        child0=jnp.asarray(ref["child0"]),
+                        child1=jnp.asarray(ref["child1"]))
+        _, _, B_xla = smc._tree_summaries(trees2, epochs, jnp.int8(0),
+                                      jnp.asarray(hd))
+        active = ref["upd"] != 0.0  # trip taken: B refreshed
+        np.testing.assert_allclose(got["B"][active],
+                                   np.asarray(B_xla)[active], rtol=1e-5)
+        np.testing.assert_array_equal(got["B"][~active], ref["B"][~active])
+
+
+@pytest.mark.parametrize("leaf_status", [1, 0, -1])
+@pytest.mark.parametrize("E", [1, 3, 8])
+@pytest.mark.parametrize("n", [4, 8])
+def test_plain_trip_matches_pallas_interpret(n, E, leaf_status):
+    epochs, hd, d = _inputs(n, E, leaf_status)
+    u = np.random.default_rng(100 + n + E).uniform(size=(P, 4)).astype(
+        np.float32)
+    ref = _run_jax(u, leaf_status, epochs, hd, d)
+    got = _run_torch(u[None], leaf_status, epochs, hd, d)
+    assert (d["next_rec"] < L_SEG).sum() > P // 2  # most particles trip
+    _assert_match(got, ref, epochs, hd, leaf_status)
+    # inactive particles keep every value
+    idle = d["next_rec"] >= L_SEG
+    for k in _ORDER:
+        np.testing.assert_array_equal(got[k][idle], d[k][idle], err_msg=k)
+
+
+def test_multi_trip_matches_sequential_pallas_trips():
+    """trips=T in one call equals T JAX kernel calls in a row."""
+    T, L = 6, 80000.0
+    epochs, hd, d = _inputs(4, 3, 1, seed=3, L=L)
+    d["next_rec"] = d["next_rec"] * 0.2
+    u = np.random.default_rng(7).uniform(size=(T, P, 4)).astype(np.float32)
+    ref = d
+    for j in range(T):
+        ref = _run_jax(u[j], 1, epochs, hd, ref, L=L)
+    got = _run_torch(u, 1, epochs, hd, d, L=L)
+    _assert_match(got, ref, epochs, hd, 1)
+
+
+@pytest.mark.parametrize("leaf_status", [1, 0])
+def test_trips_call_equals_single_trips(leaf_status):
+    T, L = 8, 80000.0
+    epochs, hd, d = _inputs(8, 3, leaf_status, seed=5, L=L)
+    d["next_rec"] = d["next_rec"] * 0.1
+    u = np.random.default_rng(11).uniform(size=(T, P, 4)).astype(np.float32)
+    once = _run_torch(u, leaf_status, epochs, hd, d, L=L)
+    step = d
+    for j in range(T):
+        step = _run_torch(u[j:j + 1], leaf_status, epochs, hd, step, L=L)
+        if j == 0:
+            assert np.sum(step["next_rec"] < L) > P // 4  # repeat trippers
+    for k in _ORDER:
+        np.testing.assert_array_equal(once[k], step[k], err_msg=k)
+
+
+def test_disagreement_holds_each_field_in_its_own_units():
+    """The kernel-vs-plain check: a float off by less than its tolerance
+    passes, by more fails, and a tree difference is counted apart."""
+    epochs, hd, d = _inputs(4, 3, 1)
+    ref = {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+    L = L_SEG
+    atol = float_tolerances(ref, L, MU)
+    E = ref["tl_e"].shape[1]
+    h = 1e-5 * float(ref["time"].max())
+    assert atol["time"] == pytest.approx(h)
+    assert atol["log_w"] == pytest.approx(MU * L * 7 * h)
+    assert atol["next_rec"] == pytest.approx(1e-5 * L)
+    assert float(atol["pending"][4 * E]) == pytest.approx(L * 7 * h)
+    assert float(atol["pending"][E]) == 0.5  # counts: half an event
+
+    def nudged(k, p, by, col=None):
+        got = {key: v.clone() for key, v in ref.items()}
+        if col is None:
+            got[k][p] += by
+        else:
+            got[k][p, col] += by
+        return disagreement(got, ref, L, MU)
+
+    trees, floats, _ = disagreement(ref, ref, L, MU)
+    assert not trees.any() and not floats.any()
+    tol_lw = 1e-4 * abs(float(ref["log_w"][3])) + atol["log_w"]
+    assert not nudged("log_w", 3, 0.5 * tol_lw)[1].any()
+    assert nudged("log_w", 3, 2.0 * tol_lw)[1].nonzero().flatten().tolist() == [3]
+    assert nudged("pending", 5, 1.0, col=E)[1].nonzero().flatten().tolist() == [5]
+    trees, floats, errs = nudged("parent", 9, 1, col=0)
+    assert trees.nonzero().flatten().tolist() == [9] and not floats.any()
+    assert errs["time"] == (0.0, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_status", [1, 0, -1])
+def test_cuda_kernel_matches_plain(leaf_status):
+    """Kernel vs plain version on the card, inputs from the port's own
+    initial trees (no JAX), floats held to rtol 1e-4 plus an atol in each
+    field's own units (``float_tolerances``), as in chip_smoke.py.  One
+    trip: trees equal in >= 99.9% of particles and every float within
+    tolerance where they are.  64 trips over the sweep's longest segment
+    (50 kb): >= 99.9% of particles agree in trees and floats, since a chain
+    of trips can amplify a last-bit difference in a node height."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from smcsmc_tpu_torch.kernels.tree import (
+        epochs_from_demography,
+        make_initial_trees,
+    )
+    from smcsmc_tpu_torch.smc import tree_summaries
+
+    Pc, n, E = 4096, 8, 8
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21 + leaf_status)
+    epochs = epochs_from_demography(_demo(E, n), dev)
+    trees = make_initial_trees(gen, epochs, Pc, [0] * n)
+    hd = torch.from_numpy(_has_data(n, leaf_status)).to(dev)
+    if leaf_status == -1:
+        hd[:] = False
+    tl, tle, B = tree_summaries(trees, epochs, leaf_status, hd)
+    for T, L, nr_scale in ((1, 20000.0, 1.5), (64, 50000.0, 0.1)):
+        base = dict(time=trees.time, parent=trees.parent,
+                    child0=trees.child0, child1=trees.child1,
+                    next_rec=torch.rand(Pc, generator=gen, device=dev)
+                    * nr_scale * L,
+                    upd=torch.zeros(Pc, device=dev),
+                    log_w=torch.zeros(Pc, device=dev), tl=tl, B=B, tl_e=tle,
+                    pending=torch.zeros((Pc, 6 * E), device=dev))
+        u = torch.rand((T, Pc, 4), generator=gen, device=dev)
+        outs = {}
+        for name, fn in (("plain", trip_plain), ("kernel", trip)):
+            st = {k: v.clone().contiguous() for k, v in base.items()}
+            fn(u, leaf_status, *(st[k] for k in _ORDER), L, MU, RHO,
+               epochs.start.contiguous(), epochs.inv2ne.contiguous(), hd)
+            outs[name] = st
+        torch.cuda.synchronize()
+        trees_d, floats_d, errs = disagreement(outs["kernel"], outs["plain"],
+                                               L, MU)
+        assert int(trees_d.sum()) <= 0.001 * Pc, (T, int(trees_d.sum()))
+        if T == 1:
+            assert not floats_d.any(), errs
+        else:
+            assert int((trees_d | floats_d).sum()) <= 0.001 * Pc, errs
