@@ -63,7 +63,7 @@ def _demo(n: int, E: int, L: float = 2e6):
     """bench.py's single_pop_demo for E=8; the -P 133 133016 grid else."""
     import numpy as np
 
-    from smcsmc_tpu_torch.shared import Demography
+    from smcsmc_tpu_torch.demography import Demography
 
     if E == 8:
         change = np.concatenate([[0.0], np.logspace(2.5, 5.0, E - 1)])
@@ -282,7 +282,7 @@ def phase_main_path(trip, card, seg):
     import numpy as np
 
     from smcsmc_tpu_torch import cli
-    from smcsmc_tpu_torch.shared import write_seg
+    from smcsmc_tpu_torch.segio import write_seg
 
     P, em_iters = 10000, 1
     rec = _Records()
@@ -378,7 +378,7 @@ def main() -> int:
         if "registers" in ln or "spill" in ln or "stack frame" in ln:
             _log("  ptxas: " + ln.strip())
 
-    from smcsmc_tpu_torch.shared import split_long_segments
+    from smcsmc_tpu_torch.segio import split_long_segments
     from smcsmc_tpu_torch.sweep_profile import (
         bench_data,
         profile_sweep,

@@ -6,8 +6,10 @@ port covers the plain sweep: one population, piecewise-constant Ne, phased
 data, one chunk.  The recombination trip runs as a hand-written CUDA kernel
 (``csrc/trip.cu``) on a CUDA device and as plain torch on the CPU.
 
-The framework-free modules of ``smcsmc_tpu`` (demography, segio, simulate,
-outfmt, pattern) are shared, not copied; this package never imports jax.
+The package stands alone: it imports neither jax nor anything of
+``smcsmc_tpu``.  Its host-side modules ``demography``, ``pattern``, ``segio``,
+``simulate`` and ``outfmt``, and the demography helpers in ``cli``, are copies
+of the JAX package's numpy-only modules, kept letter for letter.
 """
 
 __version__ = "0.1.0"

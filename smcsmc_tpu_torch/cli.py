@@ -2,8 +2,10 @@
 of ``smcsmc_tpu.cli.smcsmc_main``).
 
 It accepts the main-path subset of the ``smc2`` flags plus ``-device``;
-every other flag is refused with a message naming it.  The demography is
-built by the shared ``smcsmc_tpu.cli.build_demography``.
+every other flag is refused with a message naming it.  The helpers that
+turn flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
+``_is_number``, ``resolve_n0``, ``build_demography``) are copied from
+``smcsmc_tpu/cli.py`` at commit dfc2fad and kept letter for letter.
 """
 
 from __future__ import annotations
@@ -16,12 +18,173 @@ import numpy as np
 
 from .device import resolve_device
 from .em import EMConfig, run_em
-from .shared import build_demography, load_option_file, read_seg
+from .segio import read_seg
 
 logger = logging.getLogger("smcsmc_tpu_torch")
 
 _NOT_PORTED = ("is not yet in the torch port (ROADMAP queue 1, item 18: CLI "
                "and API surface); run it with smc2 (smcsmc_tpu)")
+
+
+# ---------------------------------------------------------------------------
+# copied from smcsmc_tpu/cli.py (:20-36, :318-347, :350-371, :374-447)
+# ---------------------------------------------------------------------------
+
+
+def load_option_file(argv: list[str]) -> list[str]:
+    """-@ file indirection (model.py:331-342): tokens from the file are
+    spliced in at the option's position."""
+    out = []
+    i = 0
+    while i < len(argv):
+        if argv[i] == "-@":
+            with open(argv[i + 1]) as fh:
+                for line in fh:
+                    line = line.split("#")[0].strip()
+                    if line:
+                        out += line.split()
+            i += 2
+        else:
+            out.append(argv[i])
+            i += 1
+    return out
+
+
+TIMED_FLAGS = ("-eI", "-ej", "-eM", "-ema", "-em", "-eN", "-en")
+
+
+def _split_timed_opts(args: list[str]):
+    """Partition flat scrm args into timed options [(time, [flag, t, ...])]
+    and the remainder (reference set_pattern, model.py:483-491)."""
+    timed, remain = [], []
+    i = 0
+    while i < len(args):
+        o = args[i]
+        grp = [o]
+        i += 1
+        while i < len(args) and not (
+            args[i].startswith("-") and not _is_number(args[i])
+        ):
+            grp.append(args[i])
+            i += 1
+        if o in TIMED_FLAGS:
+            timed.append((float(grp[1]), grp))
+        else:
+            remain += grp
+    return timed, remain
+
+
+def _is_number(tok: str) -> bool:
+    try:
+        float(tok)
+        return True
+    except ValueError:
+        return False
+
+
+def resolve_n0(io, seg=None):
+    """Default N0 = Watterson θ̂ / (4 μ) when -N0 is absent
+    (reference model.py:705-711; θ̂ from model.py:567-621)."""
+    if io["N0"] is not None:
+        return io["N0"]
+    if io["mu"] is not None and seg is not None:
+        from .segio import watterson_estimate
+
+        theta_w = watterson_estimate(
+            seg, startpos=io.get("startpos"), length=io.get("length")
+        )
+        if theta_w > 0:
+            n0 = theta_w / (4.0 * io["mu"])
+            logger.info(
+                "Setting N0 from mutation rate and Watterson's estimate "
+                "of theta (%.4g): N0 = %.1f", theta_w, n0,
+            )
+            io["N0"] = n0
+            return n0
+    raise SystemExit(
+        "smc2: N0 required -- use -N0, or (implicitly) -mu with seg data"
+    )
+
+
+def build_demography(cfg, demo_args, io, seg=None):
+    """Assemble the Demography from flags (+ -P pattern rewriting of ALL
+    timed options onto the log-spaced epoch grid, model.py:470-536;
+    Watterson default N0, model.py:705-711)."""
+    from .demography import parse_scrm_args
+    from .pattern import smc2_pattern_times
+
+    n0 = resolve_n0(io, seg)
+    args = list(demo_args)
+    # translate -mu/-rho/-length into -t / -r
+    L = io["length"]
+    if L is None and seg is not None:
+        L = float(seg.end)
+    if L is None:
+        L = 2e7
+    if io["mu"] is not None and "-t" not in args:
+        args += ["-t", str(4 * n0 * io["mu"] * L)]
+    if io["rho"] is not None and "-r" not in args:
+        args += ["-r", str(4 * n0 * io["rho"] * L), str(L)]
+    if io["nsam"] is not None and "-nsam" not in args:
+        args += ["-nsam", str(io["nsam"])]
+    elif seg is not None and "-nsam" not in args and "-I" not in args:
+        args += ["-nsam", str(seg.num_samples)]
+
+    if io["pattern"] is None and io.get("p_pattern"):
+        # binary-style -p/-tmax epoch grid (pfparam.cpp:290-296): pattern
+        # times are in 4N0 units already (pattern.cpp:139-149)
+        from .pattern import epoch_times_from_pattern
+
+        times_4n0 = epoch_times_from_pattern(io["p_pattern"], io["tmax"])
+        for t in times_4n0:
+            if t > 0:
+                args += ["-eN", str(t), "1.0"]
+        logger.info(
+            "Epoch grid from -p %s -tmax %g: %s",
+            io["p_pattern"], io["tmax"],
+            " ".join(f"{t:.4g}" for t in times_4n0),
+        )
+
+    if io["pattern"] is not None:
+        # -P start end pattern (model.py:470-536 set_pattern): generate the
+        # log-spaced epoch grid, re-emit user -eN sizes carried forward onto
+        # grid times, and snap every other timed option's time to the
+        # largest grid time <= its own.  User -eN rows are consumed; -en
+        # rows are left as-is (reference note: best not combined with -P).
+        start, end, patt = io["pattern"]
+        times = smc2_pattern_times(float(start), float(end), patt, n0=n0)
+        timed, remain = _split_timed_opts(args)
+        new_timed = []
+        for t in times:
+            # last user -eN with time <= t sets the size (default 1.0)
+            size = "1.0"
+            best = -1.0
+            for ut, grp in timed:
+                if grp[0] == "-eN" and ut <= t and ut >= best:
+                    best, size = ut, grp[2]
+            new_timed.append((t, ["-eN", str(t), size]))
+        for ut, grp in timed:
+            if grp[0] == "-eN":
+                continue
+            below = [t for t in times if t <= ut]
+            newtime = below[-1] if below else times[0]
+            new_timed.append((newtime, [grp[0], str(newtime)] + grp[2:]))
+        new_timed.sort(key=lambda x: x[0])
+        args = remain + [tok for _, grp in new_timed for tok in grp]
+        logger.info(
+            "Population structure options after -P: %s",
+            " ".join(" ".join(grp) for _, grp in new_timed),
+        )
+
+    demo = parse_scrm_args(args, n0=n0)
+    if L is not None:
+        demo.sequence_length = L
+    return demo
+
+
+# ---------------------------------------------------------------------------
+# the port's own parser and entry point
+# ---------------------------------------------------------------------------
 
 
 def parse_args(argv: list[str]):

@@ -1,287 +1,639 @@
-// Recombination trip of the SMC' particle filter, one thread per particle.
+// Recombination trips of the SMC' particle filter: a group of lanes per
+// particle, the particle's tree in shared memory.
 //
 // Replaces the Pallas TPU kernel smcsmc_tpu/kernels/pallas_trip.py
-// (_trip_kernel, entered through fused_trip).  The plain torch version it is
-// held against is smcsmc_tpu_torch/kernels/trip.py (trip_plain); the math is
-// the same step for step, including the INF = 3e38 arithmetic, the uniform
-// clip to [1e-7, 1 - 1e-7], first-true selection in node order and the
-// 0.99*INF clamp on the re-coalescence time.
+// (_trip_kernel, entered through fused_trip).  Two entry points share one
+// __device__ trip:
 //
-// What bounds it on Hopper: not bytes and not FLOPs.  Each particle does a
-// few hundred to a few tens of thousands of scalar operations on a tree of
-// at most 15 nodes and up to 64 epochs, with data-dependent control flow
-// (first-true selection, SPR pointer surgery, ancestor chains), so the
-// kernel is latency- and occupancy-bound.  Per-thread rows live in local
-// arrays (spilled to L1), and the [P, N] rows are read with a stride of N
-// elements between neighbouring threads, which is only partly coalesced.
+//   trip          up to T trips per particle on pre-drawn uniforms
+//                 [T, P, 4], state updated in place, inactive particles
+//                 untouched.  Held against kernels/trip.py::trip_plain.
+//   segment_pass  a segment's whole tree pass in one launch: tree summaries
+//                 (tl, tl_e, B) from the trees alone, all trips, the final
+//                 extension to the segment end and the push of the
+//                 segment's statistics into FIFO slot 0.  The per-particle
+//                 `upd` and `pending` never reach device memory.  Held
+//                 against kernels/trip.py::segment_pass_plain.
 //
-// What the design does about it: one launch runs ALL trips of a segment
-// (the per-particle loop over the pre-drawn uniforms [T, P, 4]), so the
-// host neither synchronises nor launches per trip; a particle leaves the
-// loop as soon as its next recombination passes the segment end, and
-// particles that start inactive touch nothing.  The epoch tables sit in
-// shared memory.  A transposed (node-major) layout and register-resident
-// trees are left for later work.
+// What bounds it on Hopper: launch and latency, neither bytes nor FLOPs.
+// At the sweep's shape (10,000 particles, 4 leaves, 9 epochs, about one
+// particle in ten recombining in a mean segment) `trip` has to move about
+// 0.85 MB and `segment_pass` about 6 MB, i.e. 0.25 us and 2 us at
+// 3.35 TB/s, with under 0.1 us of float32 arithmetic; an empty launch
+// alone takes longer.  What the kernel spends is the dependent chain of one
+// particle's trip.
+//
+// What the design does about it:
+//
+// * A group of GROUP lanes (8, 16 or 32, a launch argument) owns one
+//   particle; consecutive groups own consecutive particles, so a block's
+//   loads of the [P, N] rows are contiguous.  The tree (time, parent time,
+//   parent, children), the per-epoch tree length and, for segment_pass, the
+//   pending statistics live in the group's slice of shared memory, padded
+//   to an odd stride so that groups of one warp hit different banks.
+//   Nothing is indexed dynamically in registers, so there is no stack frame.
+// * The (epoch x node) sums are split over the lanes by epoch; O(N) steps
+//   are computed redundantly by every lane, which keeps the scalars
+//   (next_rec, upd, log_w, tl, B) identical in all lanes without
+//   broadcasts; "first true in node order" is a short scan; the SPR pointer
+//   surgery is done by lane 0 on shared memory between two group syncs.
+// * The hazard is inverted over sorted breakpoints instead of evaluating
+//   lam(v) on the whole grid for every candidate v: epoch starts are sorted
+//   already, so one pass gives each epoch's full hazard mass
+//   full_e = sum_j |branch_j ∩ epoch_e ∩ [h_r, inf)|, a running sum finds
+//   the epoch e* in which lam crosses x_exp, and only the node times inside
+//   e* are evaluated: O(E*N/GROUP + E + N*N/GROUP) per trip instead of
+//   O((N+E)*E*N).  The same full_e serve as the coalescence opportunity of
+//   every epoch that ends below t_c.  This sums in another order than the
+//   plain version, so t_c can differ in its last bits.
+// * All particles fit on the card at once (GROUP * P threads), so a launch
+//   lasts as long as its longest chain of trips.
+//
+// Semantics kept from the plain version: INF = 3e38 arithmetic, the uniform
+// clip to [1e-7, 1 - 1e-7], first-true selection in node order, the d_eff
+// remap, the 0.99*INF clamp, B for mixed data as data_branch_length, the
+// gap from the refreshed tree length.  Built with -fmad=false so that each
+// product and sum rounds as the plain version's separate operations do.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #define MAX_LEAVES 8
-#define MAX_NODES (2 * MAX_LEAVES - 1)
 #define MAX_EPOCHS 64
 #define BLOCK 128
+#define BIG 3e38f
 
-static __device__ __forceinline__ float clip_u(float u) {
+namespace {
+
+struct Args {
+  // both entry points
+  const float* uniforms;  // [trips, P, 4]
+  int trips, P, n, E, leaf_status;
+  float* time;  // [P, N]
+  int* parent;
+  int* child0;
+  int* child1;
+  float* next_rec;  // [P]
+  float* log_w;     // [P]
+  float L, mu, rho;
+  const float* epoch_start;  // [E]
+  const float* inv2ne;       // [E]
+  const unsigned char* has_data;  // [n]
+  // trip
+  float* upd;      // [P]
+  float* tl;       // [P]
+  float* B;        // [P], may alias tl (complete data)
+  float* tl_e;     // [P, E]
+  float* pending;  // [P, 6E]
+  // segment_pass
+  float* fifo;  // [P, F, 6E]; slot 0 of each particle is updated
+  long long fifo_stride;    // F * 6E
+  const float* fifo_mask;   // [6E]
+  float* tl_out;            // [P] post-trip tree length
+};
+
+// per-block tables in shared memory, and the launch's scalars
+struct Tables {
+  const float* est;
+  const float* eend;
+  const float* i2n;
+  const int* hd;
+  int n, N, E, total_data, leaf_status;
+  float L, mu, rho;
+};
+
+// one particle's slice of shared memory
+struct Work {
+  float* t;     // [N] node times
+  float* pt;    // [N] parent times, BIG at the root
+  int* par;     // [N]
+  int* c0;      // [N]
+  int* c1;      // [N]
+  int* below;   // [N] bit l set: data leaf l hangs below the node
+  float* tle;   // [E] tree length per epoch
+  float* full;  // [E] hazard mass of each epoch above h_r
+};
+
+__host__ __device__ inline int tables_words(int E) { return 3 * E + MAX_LEAVES; }
+
+__host__ __device__ inline int work_words(int N, int E, bool with_pending) {
+  return (6 * N + 2 * E + (with_pending ? 6 * E : 0)) | 1;  // odd stride
+}
+
+__device__ __forceinline__ float clip_u(float u) {
   return fminf(fmaxf(u, 1e-7f), (float)(1.0 - 1e-7));
 }
 
-__global__ void __launch_bounds__(BLOCK)
-trip_kernel(const float* __restrict__ uniforms, int trips, int P, int n,
-            int E, int leaf_status, float* __restrict__ time,
-            int* __restrict__ parent, int* __restrict__ child0,
-            int* __restrict__ child1, float* __restrict__ next_rec,
-            float* __restrict__ upd, float* __restrict__ log_w,
-            float* tl, float* B,  // may alias: B is tl for complete data
-            float* __restrict__ tl_e, float* __restrict__ pending, float L,
-            float mu, float rho, const float* __restrict__ epoch_start,
-            const float* __restrict__ inv2ne,
-            const unsigned char* __restrict__ has_data) {
-  const float INF = 3e38f;
-  __shared__ float s_est[MAX_EPOCHS];
-  __shared__ float s_eend[MAX_EPOCHS];
-  __shared__ float s_i2n[MAX_EPOCHS];
-  __shared__ int s_hd[MAX_LEAVES];
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if (G >= 32) return 0xffffffffu;
+  return ((1u << (G & 31)) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+}
+
+template <int G>
+__device__ __forceinline__ float group_max(float v, unsigned gm) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(gm, v, off));
+  return v;
+}
+
+// Block-wide: epoch tables into shared memory; then carve this group's
+// slice.  Returns the particle index of the calling thread's group.
+template <int G>
+__device__ int setup(const Args& a, float* smem, bool with_pending,
+                     Tables& tb, Work& w, float*& pend) {
+  const int E = a.E, N = 2 * a.n - 1;
+  float* s_est = smem;
+  float* s_eend = smem + E;
+  float* s_i2n = smem + 2 * E;
+  int* s_hd = reinterpret_cast<int*>(smem + 3 * E);
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
-    s_est[e] = epoch_start[e];
-    s_eend[e] = (e + 1 < E) ? epoch_start[e + 1] : INF;
-    s_i2n[e] = inv2ne[e];
+    s_est[e] = a.epoch_start[e];
+    s_eend[e] = (e + 1 < E) ? a.epoch_start[e + 1] : BIG;
+    s_i2n[e] = a.inv2ne[e];
   }
-  for (int l = threadIdx.x; l < n; l += blockDim.x) s_hd[l] = has_data[l] != 0;
+  for (int l = threadIdx.x; l < MAX_LEAVES; l += blockDim.x)
+    s_hd[l] = (l < a.n && a.has_data[l] != 0) ? 1 : 0;
   __syncthreads();
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P) return;
-  float nr = next_rec[i];
-  if (!(nr < L)) return;  // inactive: every output stays as it is
-
-  const int N = 2 * n - 1;
-  float t[MAX_NODES], pt[MAX_NODES], bl[MAX_NODES];
-  int par[MAX_NODES], c0[MAX_NODES], c1[MAX_NODES];
-  float tle[MAX_EPOCHS];
-  for (int j = 0; j < N; ++j) {
-    t[j] = time[(size_t)i * N + j];
-    par[j] = parent[(size_t)i * N + j];
-    c0[j] = child0[(size_t)i * N + j];
-    c1[j] = child1[(size_t)i * N + j];
-  }
-  for (int e = 0; e < E; ++e) tle[e] = tl_e[(size_t)i * E + e];
-  float up = upd[i], lw = log_w[i], tli = tl[i], Bi = B[i];
-  float* pend = pending + (size_t)i * 6 * E;
   int total_data = 0;
-  for (int l = 0; l < n; ++l) total_data += s_hd[l];
+  for (int l = 0; l < a.n; ++l) total_data += s_hd[l];
+  tb.est = s_est;
+  tb.eend = s_eend;
+  tb.i2n = s_i2n;
+  tb.hd = s_hd;
+  tb.n = a.n;
+  tb.N = N;
+  tb.E = E;
+  tb.total_data = total_data;
+  tb.leaf_status = a.leaf_status;
+  tb.L = a.L;
+  tb.mu = a.mu;
+  tb.rho = a.rho;
 
-  for (int k = 0; k < trips; ++k) {
-    if (!(nr < L)) break;
-    const float* u4 = uniforms + ((size_t)k * P + i) * 4;
-    const float u_pt = clip_u(u4[0]), u_exp = clip_u(u4[1]);
-    const float u_tgt = clip_u(u4[2]), u_gap = clip_u(u4[3]);
+  const int group = threadIdx.x / G;
+  float* base = smem + tables_words(E)
+      + (size_t)group * work_words(N, E, with_pending);
+  w.t = base;
+  w.pt = base + N;
+  w.par = reinterpret_cast<int*>(base + 2 * N);
+  w.c0 = reinterpret_cast<int*>(base + 3 * N);
+  w.c1 = reinterpret_cast<int*>(base + 4 * N);
+  w.below = reinterpret_cast<int*>(base + 5 * N);
+  w.tle = base + 6 * N;
+  w.full = base + 6 * N + E;
+  pend = base + 6 * N + 2 * E;  // only there when with_pending
+  return blockIdx.x * (blockDim.x / G) + group;
+}
 
-    // ---- extension: no-mutation likelihood + recombination opportunity --
-    const float delta = nr - up;
-    lw = lw - mu * Bi * delta;
+template <int G>
+__device__ void load_tree(const Args& a, const Work& w, int i, int N,
+                          int lane) {
+  for (int j = lane; j < N; j += G) {
+    w.t[j] = a.time[(size_t)i * N + j];
+    w.par[j] = a.parent[(size_t)i * N + j];
+    w.c0[j] = a.child0[(size_t)i * N + j];
+    w.c1[j] = a.child1[(size_t)i * N + j];
+  }
+}
 
-    // ---- recombination point: first node whose prefix sum >= u*total ----
-    for (int j = 0; j < N; ++j) {
-      pt[j] = par[j] < 0 ? INF : t[par[j]];
-      bl[j] = par[j] < 0 ? 0.0f : pt[j] - t[j];
-    }
-    float total = 0.0f;
-    for (int j = 0; j < N; ++j) total += bl[j];
-    const float x_pt = u_pt * total;
-    int c = -1;
-    float prev = 0.0f, cum = 0.0f;
-    for (int j = 0; j < N; ++j) {
-      cum += bl[j];
-      if (c < 0 && cum >= x_pt) {
-        c = j;
-        prev = cum - bl[j];
+template <int G>
+__device__ void store_tree(const Args& a, const Work& w, int i, int N,
+                           int lane) {
+  for (int j = lane; j < N; j += G) {
+    a.time[(size_t)i * N + j] = w.t[j];
+    a.parent[(size_t)i * N + j] = w.par[j];
+    a.child0[(size_t)i * N + j] = w.c0[j];
+    a.child1[(size_t)i * N + j] = w.c1[j];
+  }
+}
+
+// Parent times of the tree in w.t / w.par.  Ends with a group sync.
+template <int G>
+__device__ void parent_times(const Work& w, int N, int lane, unsigned gm) {
+  for (int j = lane; j < N; j += G) {
+    const int p = w.par[j];
+    w.pt[j] = p < 0 ? BIG : w.t[p];
+    w.below[j] = 0;
+  }
+  __syncwarp(gm);
+}
+
+// Tree summaries of the tree in w.t / w.par: parent times, tree length per
+// epoch (w.tle), tree length, data branch length.  Every lane returns the
+// same tl and B.  Starts from a synchronised group and ends with one.
+template <int G>
+__device__ void refresh(const Tables& tb, const Work& w, int lane,
+                        unsigned gm, float& tl, float& B) {
+  const int N = tb.N, E = tb.E;
+  parent_times<G>(w, N, lane, gm);
+  for (int e = lane; e < E; e += G) {
+    const float lo_e = tb.est[e], hi_e = tb.eend[e];
+    float s = 0.0f;
+    for (int j = 0; j < N; ++j)
+      if (w.par[j] >= 0)
+        s += fmaxf(fminf(w.pt[j], hi_e) - fmaxf(w.t[j], lo_e), 0.0f);
+    w.tle[e] = s;
+  }
+  if (tb.leaf_status == 0) {
+    // each data leaf marks itself on its ancestor chain
+    for (int l = lane; l < tb.n; l += G) {
+      if (!tb.hd[l]) continue;
+      int cur = l;
+      for (int s = 0; s < tb.n && cur >= 0; ++s) {
+        atomicOr(&w.below[cur], 1 << l);
+        cur = w.par[cur];
       }
     }
-    const float h_r = (c >= 0 ? t[c] : 0.0f) + (x_pt - prev);
-
-    // ---- SMC' hazard inversion over {node times} U {epoch starts} -------
-    // lam(v) = sum_{e,j} inv2ne_e * |branch_j ∩ epoch_e ∩ [h_r, v]|
-    const float x_exp = -log1pf(-u_exp);
-    float t_lo = -INF;
-    for (int v = 0; v < N + E; ++v) {
-      const float vc = v < N ? t[v] : s_est[v - N];
-      float lam = 0.0f;
-      for (int e = 0; e < E; ++e) {
-        const float lo_e = fmaxf(s_est[e], h_r);
-        for (int j = 0; j < N; ++j) {
-          const float lo = fmaxf(t[j], lo_e);
-          const float hi = fminf(pt[j], s_eend[e]);
-          lam += fmaxf(fminf(hi, vc) - lo, 0.0f) * s_i2n[e];
-        }
-      }
-      if (lam <= x_exp) t_lo = fmaxf(t_lo, vc);
+  }
+  __syncwarp(gm);
+  float sum = 0.0f;
+  for (int e = 0; e < E; ++e) sum += w.tle[e];
+  tl = sum;
+  if (tb.leaf_status == 1) {
+    B = sum;
+  } else if (tb.leaf_status == -1) {
+    B = 0.0f;
+  } else {
+    // informative branches: at least one and not all data leaves below
+    float b = 0.0f;
+    for (int j = 0; j < N; ++j) {
+      const int cnt = __popc(w.below[j]);
+      if (cnt >= 1 && cnt < tb.total_data && w.par[j] >= 0)
+        b += w.pt[j] - w.t[j];
     }
-    t_lo = fmaxf(t_lo, h_r);
-    float lam_lo = 0.0f, inv2ne_lo = 0.0f;
+    B = b;
+  }
+}
+
+// sum_j |branch_j ∩ [lo, hi_e) ∩ (-inf, v]|
+__device__ __forceinline__ float overlap_below(const Work& w, int N, float lo,
+                                               float hi_e, float v) {
+  float s = 0.0f;
+  for (int j = 0; j < N; ++j)
+    s += fmaxf(fminf(fminf(w.pt[j], hi_e), v) - fmaxf(w.t[j], lo), 0.0f);
+  return s;
+}
+
+// One trip of the particle in `w`.  Called by all lanes of a synchronised
+// group with identical scalars, w.pt and w.tle up to date; returns the same
+// way.  `pend` ([6E], shared or global) takes the trip's statistics.
+template <int G>
+__device__ void one_trip(const Tables& tb, const Work& w, int lane,
+                         unsigned gm, const float4 u, float* pend, float& nr,
+                         float& up, float& lw, float& tl, float& B) {
+  const int N = tb.N, E = tb.E;
+  const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
+  const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
+
+  // ---- extension: no-mutation likelihood + recombination opportunity ----
+  const float delta = nr - up;
+  lw = lw - tb.mu * B * delta;
+
+  // ---- recombination point: first node whose prefix sum >= u*total ------
+  float total = 0.0f;
+  for (int j = 0; j < N; ++j)
+    total += w.par[j] < 0 ? 0.0f : w.pt[j] - w.t[j];
+  const float x_pt = u_pt * total;
+  int c = -1;
+  float prev = 0.0f, cum = 0.0f;
+  for (int j = 0; j < N; ++j) {
+    const float bl = w.par[j] < 0 ? 0.0f : w.pt[j] - w.t[j];
+    cum += bl;
+    if (c < 0 && cum >= x_pt) {
+      c = j;
+      prev = cum - bl;
+    }
+  }
+  const float h_r = (c >= 0 ? w.t[c] : 0.0f) + (x_pt - prev);
+
+  // ---- SMC' hazard inversion -------------------------------------------
+  // lam(v) = sum_{e,j} inv2ne_e * |branch_j ∩ epoch_e ∩ [h_r, v]| is
+  // piecewise linear and non-decreasing in v.  full_e is epoch e's whole
+  // contribution; the running sum over epochs is lam at each epoch start.
+  const float x_exp = -log1pf(-u_exp);
+  for (int e = lane; e < E; e += G)
+    w.full[e] = overlap_below(w, N, fmaxf(tb.est[e], h_r), tb.eend[e], BIG);
+  __syncwarp(gm);
+  int es = 0;        // last epoch whose start has lam <= x_exp
+  float base = 0.0f; // lam at that epoch's start
+  {
+    float run = 0.0f;
     for (int e = 0; e < E; ++e) {
-      const float lo_e = fmaxf(s_est[e], h_r);
-      for (int j = 0; j < N; ++j) {
-        const float lo = fmaxf(t[j], lo_e);
-        const float hi = fminf(pt[j], s_eend[e]);
-        lam_lo += fmaxf(fminf(hi, t_lo) - lo, 0.0f) * s_i2n[e];
-      }
-      if (t_lo >= s_est[e] && t_lo < s_eend[e]) inv2ne_lo += s_i2n[e];
+      if (!(run <= x_exp)) break;
+      es = e;
+      base = run;
+      run += w.full[e] * tb.i2n[e];
     }
-    float k_lo = 0.0f;
-    for (int j = 0; j < N; ++j) k_lo += (t[j] <= t_lo && t_lo < pt[j]) ? 1.0f : 0.0f;
-    const float rate_lo = k_lo * inv2ne_lo;
-    float t_c = t_lo + (rate_lo > 0.0f ? (x_exp - lam_lo) / fmaxf(rate_lo, 1e-30f)
-                                       : INF);
-    t_c = fminf(t_c, (float)(0.99 * 3e38));
-
-    // ---- coalescence target: the r-th branch crossing t_c ---------------
-    float kc = 0.0f;
-    for (int j = 0; j < N; ++j) kc += (t[j] <= t_c && t_c < pt[j]) ? 1.0f : 0.0f;
-    const int r = (int)floorf(u_tgt * fmaxf(kc, 1.0f));
-    int d = -1, seen = -1;
-    for (int j = 0; j < N; ++j) {
-      if (t[j] <= t_c && t_c < pt[j]) {
-        ++seen;
-        if (d < 0 && seen == r) d = j;
-      }
+  }
+  const float lo_s = fmaxf(tb.est[es], h_r), hi_s = tb.eend[es];
+  const float i2n_s = tb.i2n[es];
+  // node times inside epoch e* are the remaining candidates
+  float best = -BIG;
+  for (int i = lane; i < N; i += G) {
+    const float v = w.t[i];
+    if (v >= lo_s && v < hi_s) {
+      const float lam = base + overlap_below(w, N, lo_s, hi_s, v) * i2n_s;
+      if (lam <= x_exp) best = fmaxf(best, v);
     }
+  }
+  const float t_lo = fmaxf(group_max<G>(best, gm), lo_s);
+  const float lam_lo = base + overlap_below(w, N, lo_s, hi_s, t_lo) * i2n_s;
+  float k_lo = 0.0f;
+  for (int j = 0; j < N; ++j)
+    k_lo += (w.t[j] <= t_lo && t_lo < w.pt[j]) ? 1.0f : 0.0f;
+  const float rate_lo = k_lo * i2n_s;
+  float t_c = t_lo + (rate_lo > 0.0f
+                          ? (x_exp - lam_lo) / fmaxf(rate_lo, 1e-30f) : BIG);
+  t_c = fminf(t_c, (float)(0.99 * 3e38));
 
-    // ---- opportunity / count records ------------------------------------
-    // layout: [coal_opp | coal_cnt | mig_opp | mig_cnt | recomb_opp |
-    //          recomb_cnt], E columns each
-    for (int e = 0; e < E; ++e) {
-      const float lo_e = fmaxf(s_est[e], h_r);
-      float coal_opp = 0.0f;
-      for (int j = 0; j < N; ++j) {
-        const float lo = fmaxf(t[j], lo_e);
-        const float hi = fminf(pt[j], s_eend[e]);
-        coal_opp += fmaxf(fminf(hi, t_c) - lo, 0.0f);
-      }
-      const float span = fmaxf(fminf(s_eend[e], t_c) - lo_e, 0.0f);
-      const bool in_c = t_c >= s_est[e] && t_c < s_eend[e];
-      const bool in_r = h_r >= s_est[e] && h_r < s_eend[e];
-      pend[e] += coal_opp;
-      pend[E + e] += in_c ? 1.0f : 0.0f;
-      pend[2 * E + e] += span;
-      pend[4 * E + e] += delta * tle[e];
-      pend[5 * E + e] += in_r ? 1.0f : 0.0f;
+  // ---- coalescence target: the r-th branch crossing t_c -----------------
+  float kc = 0.0f;
+  for (int j = 0; j < N; ++j)
+    kc += (w.t[j] <= t_c && t_c < w.pt[j]) ? 1.0f : 0.0f;
+  const int r = (int)floorf(u_tgt * fmaxf(kc, 1.0f));
+  int d = -1, seen = -1;
+  for (int j = 0; j < N; ++j) {
+    if (w.t[j] <= t_c && t_c < w.pt[j]) {
+      ++seen;
+      if (d < 0 && seen == r) d = j;
     }
+  }
 
-    // ---- SPR: cut the branch above c, regraft onto d at t_c -------------
-    // pick(x, idx) reads 0 for idx < 0, and writes to idx < 0 are dropped,
-    // as in the reference's one-hot index algebra
+  // ---- opportunity / count records --------------------------------------
+  // layout: [coal_opp | coal_cnt | mig_opp | mig_cnt | recomb_opp |
+  //          recomb_cnt], E columns each
+  for (int e = lane; e < E; e += G) {
+    const float st_e = tb.est[e], hi_e = tb.eend[e];
+    const float lo_e = fmaxf(st_e, h_r);
+    float coal_opp;
+    if (hi_e <= t_c)
+      coal_opp = w.full[e];  // no branch of the epoch is cut at t_c
+    else if (lo_e >= t_c)
+      coal_opp = 0.0f;
+    else
+      coal_opp = overlap_below(w, N, lo_e, hi_e, t_c);
+    const float span = fmaxf(fminf(hi_e, t_c) - lo_e, 0.0f);
+    const bool in_c = t_c >= st_e && t_c < hi_e;
+    const bool in_r = h_r >= st_e && h_r < hi_e;
+    pend[e] += coal_opp;
+    pend[E + e] += in_c ? 1.0f : 0.0f;
+    pend[2 * E + e] += span;
+    pend[4 * E + e] += delta * w.tle[e];
+    pend[5 * E + e] += in_r ? 1.0f : 0.0f;
+  }
+  __syncwarp(gm);  // every lane has read the old tree
+
+  // ---- SPR: cut the branch above c, regraft onto d at t_c ---------------
+  // pick(x, idx) reads 0 for idx < 0, and writes to idx < 0 are dropped,
+  // as in the reference's one-hot index algebra
+  if (lane == 0) {
 #define PICK(arr, idx) ((idx) >= 0 ? (arr)[(idx)] : 0)
-    const int p = PICK(par, c);
-    const int sib0 = PICK(c0, p), sib1 = PICK(c1, p);
+    const int p = PICK(w.par, c);
+    const int sib0 = PICK(w.c0, p), sib1 = PICK(w.c1, p);
     const int o = sib0 == c ? sib1 : sib0;
-    const int g = PICK(par, p);
+    const int g = PICK(w.par, p);
     const bool noop = d == c;
     const int d_eff = d == p ? o : d;
-    const int gp = d_eff == o ? g : PICK(par, d_eff);
+    const int gp = d_eff == o ? g : PICK(w.par, d_eff);
 #undef PICK
     if (!noop) {
-      if (o >= 0) par[o] = g;
-      if (d_eff >= 0) par[d_eff] = p;
-      if (p >= 0) par[p] = gp;
+      if (o >= 0) w.par[o] = g;
+      if (d_eff >= 0) w.par[d_eff] = p;
+      if (p >= 0) w.par[p] = gp;
       if (g >= 0) {
-        if (c0[g] == p) c0[g] = o;
-        if (c1[g] == p) c1[g] = o;
+        if (w.c0[g] == p) w.c0[g] = o;
+        if (w.c1[g] == p) w.c1[g] = o;
       }
       if (p >= 0) {
-        c0[p] = c;
-        c1[p] = d_eff;
+        w.c0[p] = c;
+        w.c1[p] = d_eff;
       }
       if (gp >= 0) {
-        if (c0[gp] == d_eff) c0[gp] = p;
-        if (c1[gp] == d_eff) c1[gp] = p;
+        if (w.c0[gp] == d_eff) w.c0[gp] = p;
+        if (w.c1[gp] == d_eff) w.c1[gp] = p;
       }
-      if (p >= 0) t[p] = t_c;
+      if (p >= 0) w.t[p] = t_c;
     }
-
-    // ---- refreshed tree summaries ---------------------------------------
-    for (int j = 0; j < N; ++j) {
-      pt[j] = par[j] < 0 ? INF : t[par[j]];
-      bl[j] = par[j] < 0 ? 0.0f : pt[j] - t[j];
-    }
-    float tl2 = 0.0f;
-    for (int e = 0; e < E; ++e) {
-      float s = 0.0f;
-      for (int j = 0; j < N; ++j) {
-        const float ov = par[j] < 0 ? 0.0f
-            : fmaxf(fminf(pt[j], s_eend[e]) - fmaxf(t[j], s_est[e]), 0.0f);
-        s += ov;
-        tl2 += ov;
-      }
-      tle[e] = s;
-    }
-    float B2;
-    if (leaf_status == 1) {
-      B2 = tl2;
-    } else if (leaf_status == -1) {
-      B2 = 0.0f;
-    } else {
-      // informative branches: >= 1 and < all data leaves below
-      int cnt[MAX_NODES];
-      for (int j = 0; j < N; ++j) cnt[j] = 0;
-      for (int l = 0; l < n; ++l) {
-        if (!s_hd[l]) continue;
-        int cur = l;
-        for (int s = 0; s < n && cur >= 0; ++s) {
-          cnt[cur] += 1;
-          cur = par[cur];
-        }
-      }
-      B2 = 0.0f;
-      for (int j = 0; j < N; ++j)
-        if (cnt[j] >= 1 && cnt[j] < total_data) B2 += bl[j];
-    }
-    tli = tl2;
-    Bi = B2;
-
-    // ---- next recombination gap from the refreshed tree length ----------
-    const float gap = -log1pf(-u_gap) / fmaxf(rho * tli, 1e-30f);
-    up = nr;
-    nr = nr + gap;
   }
+  __syncwarp(gm);
 
-  for (int j = 0; j < N; ++j) {
-    time[(size_t)i * N + j] = t[j];
-    parent[(size_t)i * N + j] = par[j];
-    child0[(size_t)i * N + j] = c0[j];
-    child1[(size_t)i * N + j] = c1[j];
-  }
-  for (int e = 0; e < E; ++e) tl_e[(size_t)i * E + e] = tle[e];
-  next_rec[i] = nr;
-  upd[i] = up;
-  log_w[i] = lw;
-  tl[i] = tli;
-  B[i] = Bi;
+  // ---- refreshed tree summaries, then the next gap ----------------------
+  refresh<G>(tb, w, lane, gm, tl, B);
+  const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
+  up = nr;
+  nr = nr + gap;
 }
+
+__device__ __forceinline__ float4 load_uniforms(const Args& a, int k, int i) {
+  return *reinterpret_cast<const float4*>(a.uniforms
+                                          + ((size_t)k * a.P + i) * 4);
+}
+
+template <int G>
+__global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
+  extern __shared__ float smem[];
+  Tables tb;
+  Work w;
+  float* unused;
+  const int i = setup<G>(a, smem, false, tb, w, unused);
+  if (i >= a.P) return;
+  float nr = a.next_rec[i];
+  if (!(nr < a.L)) return;  // inactive: every output stays as it is
+  const int lane = threadIdx.x % G;
+  const unsigned gm = group_mask<G>();
+  const int N = tb.N, E = tb.E;
+
+  load_tree<G>(a, w, i, N, lane);
+  for (int e = lane; e < E; e += G) w.tle[e] = a.tl_e[(size_t)i * E + e];
+  __syncwarp(gm);
+  parent_times<G>(w, N, lane, gm);
+  float up = a.upd[i], lw = a.log_w[i], tl = a.tl[i], B = a.B[i];
+  float* pend = a.pending + (size_t)i * 6 * E;
+
+  for (int k = 0; k < a.trips; ++k) {
+    if (!(nr < a.L)) break;
+    one_trip<G>(tb, w, lane, gm, load_uniforms(a, k, i), pend, nr, up, lw,
+                tl, B);
+  }
+
+  store_tree<G>(a, w, i, N, lane);
+  for (int e = lane; e < E; e += G) a.tl_e[(size_t)i * E + e] = w.tle[e];
+  if (lane == 0) {
+    a.next_rec[i] = nr;
+    a.upd[i] = up;
+    a.log_w[i] = lw;
+    a.tl[i] = tl;
+    a.B[i] = B;
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
+  extern __shared__ float smem[];
+  Tables tb;
+  Work w;
+  float* pend;
+  const int i = setup<G>(a, smem, true, tb, w, pend);
+  if (i >= a.P) return;
+  const int lane = threadIdx.x % G;
+  const unsigned gm = group_mask<G>();
+  const int N = tb.N, E = tb.E, K = 6 * tb.E;
+
+  load_tree<G>(a, w, i, N, lane);
+  for (int k = lane; k < K; k += G) pend[k] = 0.0f;
+  __syncwarp(gm);
+  float tl, B;
+  refresh<G>(tb, w, lane, gm, tl, B);  // tl, tl_e, B at segment entry
+  float nr = a.next_rec[i], lw = a.log_w[i], up = 0.0f;
+
+  bool moved = false;
+  for (int k = 0; k < a.trips; ++k) {
+    if (!(nr < a.L)) break;
+    one_trip<G>(tb, w, lane, gm, load_uniforms(a, k, i), pend, nr, up, lw,
+                tl, B);
+    moved = true;
+  }
+
+  // ---- final extension to the segment end -------------------------------
+  const float delta = a.L - up;
+  lw = lw - a.mu * B * delta;
+  for (int e = lane; e < E; e += G) pend[4 * E + e] += delta * w.tle[e];
+  nr = nr - a.L;
+  __syncwarp(gm);
+
+  // ---- push the segment's statistics into FIFO slot 0 -------------------
+  float* slot = a.fifo + (size_t)i * a.fifo_stride;
+  for (int k = lane; k < K; k += G) {
+    const float v = pend[k] * a.fifo_mask[k];
+    if (v != 0.0f) slot[k] += v;
+  }
+
+  if (moved) store_tree<G>(a, w, i, N, lane);  // only rows that changed
+  if (lane == 0) {
+    a.next_rec[i] = nr;
+    a.log_w[i] = lw;
+    a.tl_out[i] = tl;
+  }
+}
+
+__global__ void noop_kernel() {}
+
+template <int G>
+int launch(const Args& a, bool segment, cudaStream_t stream) {
+  const int N = 2 * a.n - 1;
+  const int per_block = BLOCK / G;
+  const size_t bytes = sizeof(float)
+      * ((size_t)tables_words(a.E) + (size_t)per_block * work_words(N, a.E, segment));
+  const dim3 grid((unsigned)((a.P + per_block - 1) / per_block));
+  if (segment) {
+    if (bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          segment_pass_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    segment_pass_kernel<G><<<grid, BLOCK, bytes, stream>>>(a);
+  } else {
+    if (bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          trip_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    trip_kernel<G><<<grid, BLOCK, bytes, stream>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const Args& a, bool segment, int group, void* stream) {
+  if (a.n < 2 || a.n > MAX_LEAVES || a.E < 1 || a.E > MAX_EPOCHS
+      || a.trips < 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.P <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (group) {
+    case 8: return launch<8>(a, segment, s);
+    case 16: return launch<16>(a, segment, s);
+    case 32: return launch<32>(a, segment, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
 
 extern "C" int smc_trip_launch(
     const float* uniforms, int trips, int P, int n, int E, int leaf_status,
     float* time, int* parent, int* child0, int* child1, float* next_rec,
     float* upd, float* log_w, float* tl, float* B, float* tl_e,
     float* pending, float L, float mu, float rho, const float* epoch_start,
-    const float* inv2ne, const unsigned char* has_data, void* stream) {
-  if (n < 2 || n > MAX_LEAVES || E < 1 || E > MAX_EPOCHS || trips < 1)
-    return (int)cudaErrorInvalidValue;
-  if (P <= 0) return 0;
-  const dim3 grid((unsigned)((P + BLOCK - 1) / BLOCK));
-  trip_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      uniforms, trips, P, n, E, leaf_status, time, parent, child0, child1,
-      next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start,
-      inv2ne, has_data);
+    const float* inv2ne, const unsigned char* has_data, int group,
+    void* stream) {
+  if (trips < 1) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.uniforms = uniforms;
+  a.trips = trips;
+  a.P = P;
+  a.n = n;
+  a.E = E;
+  a.leaf_status = leaf_status;
+  a.time = time;
+  a.parent = parent;
+  a.child0 = child0;
+  a.child1 = child1;
+  a.next_rec = next_rec;
+  a.log_w = log_w;
+  a.L = L;
+  a.mu = mu;
+  a.rho = rho;
+  a.epoch_start = epoch_start;
+  a.inv2ne = inv2ne;
+  a.has_data = has_data;
+  a.upd = upd;
+  a.tl = tl;
+  a.B = B;
+  a.tl_e = tl_e;
+  a.pending = pending;
+  return dispatch(a, false, group, stream);
+}
+
+extern "C" int smc_segment_pass_launch(
+    const float* uniforms, int trips, int P, int n, int E, int F,
+    int leaf_status, float* time, int* parent, int* child0, int* child1,
+    float* next_rec, float* log_w, float* fifo, const float* fifo_mask,
+    float* tl_out, float L, float mu, float rho, const float* epoch_start,
+    const float* inv2ne, const unsigned char* has_data, int group,
+    void* stream) {
+  if (F < 1) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.uniforms = uniforms;
+  a.trips = trips;
+  a.P = P;
+  a.n = n;
+  a.E = E;
+  a.leaf_status = leaf_status;
+  a.time = time;
+  a.parent = parent;
+  a.child0 = child0;
+  a.child1 = child1;
+  a.next_rec = next_rec;
+  a.log_w = log_w;
+  a.L = L;
+  a.mu = mu;
+  a.rho = rho;
+  a.epoch_start = epoch_start;
+  a.inv2ne = inv2ne;
+  a.has_data = has_data;
+  a.fifo = fifo;
+  a.fifo_stride = (long long)F * 6 * E;
+  a.fifo_mask = fifo_mask;
+  a.tl_out = tl_out;
+  return dispatch(a, true, group, stream);
+}
+
+// An empty launch, for timing what any launch costs on the card.
+extern "C" int smc_noop_launch(void* stream) {
+  noop_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

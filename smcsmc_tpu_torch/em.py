@@ -3,9 +3,9 @@ statistics -> M-step (counterpart of ``smcsmc_tpu/em.py``, single chunk).
 
 The numpy-only helpers ``prior_pseudostats``, ``_leaf_status``, the host
 half of ``prepare_blocks`` and the one-population branch of ``m_step`` are
-copied from ``smcsmc_tpu/em.py`` (:189, :210, :253, :834) because that
-module imports jax; ROADMAP lists moving them into one shared jax-free
-module, which brings back the M-step options (VB, Ne cap, excluded epochs).
+copied from ``smcsmc_tpu/em.py`` (:189, :210, :253, :834): the port imports
+nothing of the JAX package.  ``m_step`` grows the options (VB, Ne cap,
+excluded epochs) when those are ported (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -20,12 +20,12 @@ import torch
 
 from .device import resolve_device
 from .kernels.tree import epochs_from_demography
-from .shared import (
+from . import outfmt
+from .demography import Demography
+from .segio import (
     SEGMENT_INVARIANT,
-    Demography,
     SegData,
     define_chunks,
-    outfmt,
     slice_seg,
     split_long_segments,
 )

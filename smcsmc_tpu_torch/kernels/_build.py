@@ -1,4 +1,4 @@
-"""Build and load the CUDA trip kernel (``csrc/trip.cu``).
+"""Build and load the CUDA trip kernels (``csrc/trip.cu``).
 
 ``nvcc`` compiles the source into a shared library with a plain C
 interface, loaded with ``ctypes``.  The library is built at first use into
@@ -23,6 +23,7 @@ SOURCE = _PKG / "csrc" / "trip.cu"
 BUILD_DIR = _PKG.parent / "build" / "smcsmc_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false",  # round each product and sum as the plain version does
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -83,9 +84,21 @@ def load_trip_library() -> ctypes.CDLL:
         vp, vp,  # tl_e, pending
         cf, cf, cf,  # L, mu, rho
         vp, vp, vp,  # epoch_start, inv2ne, has_data
-        vp,  # stream
+        ci, vp,  # lanes per particle, stream
     ]
     lib.smc_trip_launch.restype = ci
+    lib.smc_segment_pass_launch.argtypes = [
+        vp, ci, ci, ci, ci, ci, ci,  # uniforms, trips, P, n, E, F, leaf_status
+        vp, vp, vp, vp,  # time, parent, child0, child1
+        vp, vp,  # next_rec, log_w
+        vp, vp, vp,  # fifo, fifo_mask, tl_out
+        cf, cf, cf,  # L, mu, rho
+        vp, vp, vp,  # epoch_start, inv2ne, has_data
+        ci, vp,  # lanes per particle, stream
+    ]
+    lib.smc_segment_pass_launch.restype = ci
+    lib.smc_noop_launch.argtypes = [vp]
+    lib.smc_noop_launch.restype = ci
     lib.smc_cuda_error_string.argtypes = [ci]
     lib.smc_cuda_error_string.restype = ctypes.c_char_p
     return lib

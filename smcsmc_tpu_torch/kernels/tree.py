@@ -71,7 +71,7 @@ class Epochs(NamedTuple):
 
 
 def epochs_from_demography(demo, device) -> Epochs:
-    """Build device Epochs from a host ``smcsmc_tpu.demography.Demography``.
+    """Build device Epochs from a host ``demography.Demography``.
 
     Raises NotImplementedError for structured models: the port covers one
     population without migration."""
@@ -153,6 +153,22 @@ def data_branch_length(time, parent, has_data) -> torch.Tensor:
     bl = branch_lengths(time, parent)
     informative = (cnt >= 1) & (cnt < total)
     return torch.where(informative, bl, torch.zeros_like(bl)).sum(dim=1)
+
+
+def tree_summaries(trees: Trees, epochs: Epochs, leaf_status: int,
+                   has_data: torch.Tensor):
+    """tree length [P], per-epoch tree length [P, E], data branch length
+    [P] for a segment's leaf status (-1 all missing / 0 mixed / 1 complete)."""
+    tl_e = branch_length_per_epoch(trees.time, trees.parent, epochs.start,
+                                   epochs.end)
+    tl = tl_e.sum(dim=1)
+    if leaf_status <= -1:
+        B = torch.zeros_like(tl)
+    elif leaf_status >= 1:
+        B = tl
+    else:
+        B = data_branch_length(trees.time, trees.parent, has_data)
+    return tl, tl_e, B
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The recombination trip: plain torch version and the CUDA kernel's wrapper.
+"""The recombination trip and a segment's tree pass: plain torch versions
+and the wrappers of the CUDA kernels (``csrc/trip.cu``).
 
 Counterpart of the Pallas kernel ``smcsmc_tpu/kernels/pallas_trip.py``
 (``_trip_kernel`` :91, entered through ``fused_trip`` :356).  One trip, per
@@ -21,19 +22,38 @@ Randomness comes in as four pre-drawn uniforms per particle and trip
 (``uniforms[j]`` is trip j's row), so the plain version, the CUDA kernel and
 the JAX reference can be fed identical numbers.  Both versions update their
 tensor arguments IN PLACE; particles that are inactive keep every value.
+
+``segment_pass`` is what the sweep launches once per segment: the tree
+summaries at segment entry, all trips of the segment, the final extension
+to the segment end and the push of the segment's statistics into FIFO slot
+0, so that ``upd`` and ``pending`` stay inside the kernel.  ``trip`` is the
+same device code behind the interface of the Pallas kernel, which is how it
+is held against ``fused_trip``.
 """
 
 from __future__ import annotations
 
-import ctypes
+import weakref
 
 import torch
 
-from .tree import INF, _pick, branch_lengths, data_branch_length, parent_time
+from .tree import (
+    INF,
+    Epochs,
+    Trees,
+    _pick,
+    branch_lengths,
+    data_branch_length,
+    parent_time,
+    tree_summaries,
+)
 
 # compile-time caps of the CUDA kernel (csrc/trip.cu MAX_LEAVES/MAX_EPOCHS)
 MAX_LEAVES = 8
 MAX_EPOCHS = 64
+
+# lanes that share one particle in the CUDA kernels: 8, 16 or 32
+GROUP_LANES = 8
 
 # the tensors a trip updates, in argument order
 FIELDS = ("time", "parent", "child0", "child1", "next_rec", "upd", "log_w",
@@ -230,7 +250,7 @@ def float_tolerances(ref: dict, L: float, mu: float, scale: float = 1e-5
     and ``upd`` are bp (scale x L).  Counts are whole events, so half an
     event tells an equal count from one that differs."""
     N = ref["time"].shape[1]
-    E = ref["tl_e"].shape[1]
+    E = ref["pending"].shape[1] // 6
     unit = scale * float(ref["time"].max())
     tree = N * unit
     per_block = torch.tensor([tree, 0.5, unit, 0.5, L * tree, 0.5],
@@ -242,7 +262,9 @@ def float_tolerances(ref: dict, L: float, mu: float, scale: float = 1e-5
 
 def disagreement(got: dict, ref: dict, L: float, mu: float,
                  rtol: float = 1e-4):
-    """Where two trip results (dicts of :data:`FIELDS`) differ.
+    """Where two trip results (dicts of :data:`FIELDS`) differ.  Results
+    of a segment pass are compared the same way: they hold ``tl`` and, under
+    ``pending``, FIFO slot 0, and lack ``upd``, ``B`` and ``tl_e``.
 
     Returns ``(tree_differs, floats_differ, errs)``: [P] bool masks of the
     particles whose tree arrays differ, and of those whose tree arrays
@@ -256,7 +278,7 @@ def disagreement(got: dict, ref: dict, L: float, mu: float,
     atol = float_tolerances(ref, L, mu)
     floats_differ = torch.zeros_like(tree_differs)
     errs = {}
-    for k in FLOAT_FIELDS:
+    for k in (k for k in FLOAT_FIELDS if k in ref):
         a, b = got[k].double(), ref[k].double()
         err = (a - b).abs()
         ratio = torch.where(err > 0, err / (rtol * b.abs() + atol[k]), 0.0)
@@ -269,45 +291,74 @@ def disagreement(got: dict, ref: dict, L: float, mu: float,
     return tree_differs, floats_differ, errs
 
 
-def _check(uniforms, time, parent, child0, child1, next_rec, upd, log_w, tl,
-           B, tl_e, pending, epoch_start, inv2ne, has_data):
-    """Validate what the CUDA kernel takes; raise on anything else."""
-    dev = time.device
-    P, N = time.shape
-    E = epoch_start.shape[0]
+def _check_caps(N: int, E: int) -> int:
+    """Leaves for N nodes; raise outside the kernels' compile-time caps."""
     n = (N + 1) // 2
     if N != 2 * n - 1 or n < 2 or n > MAX_LEAVES:
         raise ValueError(f"trip kernel supports 2..{MAX_LEAVES} leaves, got N={N}")
     if E < 1 or E > MAX_EPOCHS:
         raise ValueError(f"trip kernel supports 1..{MAX_EPOCHS} epochs, got {E}")
+    return n
+
+
+def _check_tensor(name, x, dtype, shape, dev):
+    """Raise unless ``x`` is what the kernel takes for this argument."""
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check(uniforms, time, parent, child0, child1, next_rec, upd, log_w, tl,
+           B, tl_e, pending, epoch_start, inv2ne, has_data):
+    """Validate what the CUDA trip kernel takes; raise on anything else."""
+    dev = time.device
+    P, N = time.shape
+    E = epoch_start.shape[0]
+    n = _check_caps(N, E)
+    f32, i32 = torch.float32, torch.int32
     spec = [
-        ("uniforms", uniforms, torch.float32, (uniforms.shape[0], P, 4)),
-        ("time", time, torch.float32, (P, N)),
-        ("parent", parent, torch.int32, (P, N)),
-        ("child0", child0, torch.int32, (P, N)),
-        ("child1", child1, torch.int32, (P, N)),
-        ("next_rec", next_rec, torch.float32, (P,)),
-        ("upd", upd, torch.float32, (P,)),
-        ("log_w", log_w, torch.float32, (P,)),
-        ("tl", tl, torch.float32, (P,)),
-        ("B", B, torch.float32, (P,)),
-        ("tl_e", tl_e, torch.float32, (P, E)),
-        ("pending", pending, torch.float32, (P, 6 * E)),
-        ("epoch_start", epoch_start, torch.float32, (E,)),
-        ("inv2ne", inv2ne, torch.float32, (E,)),
+        ("uniforms", uniforms, f32, (uniforms.shape[0], P, 4)),
+        ("time", time, f32, (P, N)),
+        ("parent", parent, i32, (P, N)),
+        ("child0", child0, i32, (P, N)),
+        ("child1", child1, i32, (P, N)),
+        ("next_rec", next_rec, f32, (P,)),
+        ("upd", upd, f32, (P,)),
+        ("log_w", log_w, f32, (P,)),
+        ("tl", tl, f32, (P,)),
+        ("B", B, f32, (P,)),
+        ("tl_e", tl_e, f32, (P, E)),
+        ("pending", pending, f32, (P, 6 * E)),
+        ("epoch_start", epoch_start, f32, (E,)),
+        ("inv2ne", inv2ne, f32, (E,)),
         ("has_data", has_data, torch.bool, (n,)),
     ]
     for name, x, dtype, shape in spec:
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, expected {dev}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-        if tuple(x.shape) != tuple(shape):
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_tensor(name, x, dtype, shape, dev)
     if uniforms.shape[0] < 1:
         raise ValueError("uniforms must hold at least one trip")
+
+
+def _launch(fn, dev, *args):
+    """Call a launch function of the library on ``dev``'s current stream;
+    raise on the CUDA error it returns."""
+    from ._build import load_trip_library
+
+    lib = load_trip_library()
+    launch = getattr(lib, fn)
+    if torch.cuda.current_device() == dev.index:
+        err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {err} "
+                           f"({lib.smc_cuda_error_string(err).decode()})")
 
 
 def trip(uniforms, leaf_status, time, parent, child0, child1, next_rec, upd,
@@ -323,7 +374,8 @@ def trip(uniforms, leaf_status, time, parent, child0, child1, next_rec, upd,
 
     CPU tensors run :func:`trip_plain`.  CUDA tensors launch the kernel of
     ``csrc/trip.cu`` on the current stream (one launch for all T trips) or
-    raise; nothing falls back."""
+    raise; nothing falls back.  The sweep launches :func:`segment_pass`;
+    this entry point is the one held against the Pallas kernel."""
     dev = time.device
     if dev.type == "cpu":
         trip_plain(uniforms, leaf_status, time, parent, child0, child1,
@@ -334,29 +386,140 @@ def trip(uniforms, leaf_status, time, parent, child0, child1, next_rec, upd,
         raise ValueError(f"trip: unsupported device {dev}")
     _check(uniforms, time, parent, child0, child1, next_rec, upd, log_w, tl,
            B, tl_e, pending, epoch_start, inv2ne, has_data)
-    from ._build import load_trip_library
-
-    lib = load_trip_library()
     P, N = time.shape
-    vp = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.smc_trip_launch(
-            vp(uniforms.data_ptr()), int(uniforms.shape[0]), int(P),
-            int((N + 1) // 2), int(epoch_start.shape[0]), int(leaf_status),
-            vp(time.data_ptr()), vp(parent.data_ptr()),
-            vp(child0.data_ptr()), vp(child1.data_ptr()),
-            vp(next_rec.data_ptr()), vp(upd.data_ptr()),
-            vp(log_w.data_ptr()), vp(tl.data_ptr()), vp(B.data_ptr()),
-            vp(tl_e.data_ptr()), vp(pending.data_ptr()),
-            float(L), float(mu), float(rho),
-            vp(epoch_start.data_ptr()), vp(inv2ne.data_ptr()),
-            vp(has_data.data_ptr()), vp(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"trip kernel launch failed: CUDA error {err} "
-                           f"({lib.smc_cuda_error_string(err).decode()})")
+    _launch("smc_trip_launch", dev,
+            uniforms.data_ptr(), uniforms.shape[0], P, (N + 1) // 2,
+            epoch_start.shape[0], int(leaf_status),
+            time.data_ptr(), parent.data_ptr(), child0.data_ptr(),
+            child1.data_ptr(), next_rec.data_ptr(), upd.data_ptr(),
+            log_w.data_ptr(), tl.data_ptr(), B.data_ptr(), tl_e.data_ptr(),
+            pending.data_ptr(), float(L), float(mu), float(rho),
+            epoch_start.data_ptr(), inv2ne.data_ptr(), has_data.data_ptr(),
+            GROUP_LANES)
     trip.launches += 1
 
 
 trip.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# a segment's whole tree pass
+# ---------------------------------------------------------------------------
+
+
+def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
+                       next_rec, log_w, fifo, fifo_mask, tl_out, L, mu, rho,
+                       epoch_start, inv2ne, has_data):
+    """Plain torch version of :func:`segment_pass` on any device (same
+    arguments, same in-place contract): ``tree_summaries``, ``trip_plain``,
+    the final extension and the push into FIFO slot 0."""
+    P = time.shape[0]
+    E = epoch_start.shape[0]
+    dev = time.device
+    off_recomb_opp = 4 * E  # [coal_opp | coal_cnt | mig_opp | mig_cnt | ...]
+    trees = Trees(parent=parent, time=time, child0=child0, child1=child1)
+    epochs = Epochs(start=epoch_start, ne=(0.5 / inv2ne)[:, None])
+    tl, tl_e, B = tree_summaries(trees, epochs, leaf_status, has_data)
+    tl, tl_e, B = tl.contiguous(), tl_e.contiguous(), B.contiguous()
+    upd = torch.zeros(P, device=dev)
+    pending = torch.zeros((P, 6 * E), device=dev)
+
+    # ---- recombination trips inside [front, front + L) ---------------------
+    if uniforms.shape[0] > 0:
+        trip_plain(uniforms, leaf_status, time, parent, child0, child1,
+                   next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
+                   epoch_start, inv2ne, has_data)
+
+    # ---- final extension to the segment end --------------------------------
+    delta = L - upd
+    log_w.copy_(log_w - mu * B * delta)
+    pending[:, off_recomb_opp:off_recomb_opp + E] += delta[:, None] * tl_e
+    next_rec.copy_(next_rec - L)
+
+    # ---- push pending increments into FIFO slot 0 --------------------------
+    fifo[:, 0] += pending * fifo_mask[None, :]
+    tl_out.copy_(tl)
+
+
+class _Validated:
+    """Arguments that passed validation, remembered by identity, so that a
+    sweep checks each of its tensors once and not once per segment.  (A
+    tensor whose shape or strides are changed in place after that is not
+    noticed.)"""
+
+    def __init__(self):
+        self._seen = {}
+
+    def __call__(self, name, x, dtype, shape, dev):
+        want = (dtype, shape, dev)
+        hit = self._seen.get(name)
+        if hit is not None and hit[0]() is x and hit[1] == want:
+            return
+        _check_tensor(name, x, dtype, shape, dev)
+        self._seen[name] = (weakref.ref(x), want)
+
+
+_segment_checked = _Validated()
+
+
+def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
+                 next_rec, log_w, fifo, fifo_mask, tl_out, L, mu, rho,
+                 epoch_start, inv2ne, has_data):
+    """One segment's tree pass for every particle, IN PLACE.
+
+    From the trees alone: tree length, per-epoch tree length and data branch
+    length at segment entry; then up to ``uniforms.shape[0]`` trips per
+    particle (none when it is 0); then the final extension ``log_w -=
+    mu*B*(L - upd)`` and ``recomb_opp += (L - upd)*tl_e``, ``next_rec -= L``
+    and the push ``fifo[:, 0] += pending * fifo_mask``.  ``tl_out`` receives
+    the post-trip tree length.
+
+    uniforms [T, P, 4] f32; time [P, N] f32; parent, child0, child1 [P, N]
+    i32; next_rec, log_w, tl_out [P] f32; fifo [P, F, 6E] f32; fifo_mask
+    [6E] f32; L, mu, rho python floats; leaf_status -1/0/1; epoch_start,
+    inv2ne [E] f32; has_data [n] bool.
+
+    CPU tensors run :func:`segment_pass_plain`.  CUDA tensors launch the
+    kernel of ``csrc/trip.cu`` on the current stream (one launch) or raise;
+    nothing falls back."""
+    dev = time.device
+    if dev.type == "cpu":
+        segment_pass_plain(uniforms, leaf_status, time, parent, child0,
+                           child1, next_rec, log_w, fifo, fifo_mask, tl_out,
+                           L, mu, rho, epoch_start, inv2ne, has_data)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"segment_pass: unsupported device {dev}")
+    P, N = time.shape
+    E = epoch_start.shape[0]
+    n = _check_caps(N, E)
+    if fifo.dim() != 3:
+        raise ValueError(f"fifo has shape {tuple(fifo.shape)}, expected "
+                         f"(P, F, {6 * E})")
+    T, F = uniforms.shape[0], fifo.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    ok = _segment_checked
+    ok("uniforms", uniforms, f32, (T, P, 4), dev)
+    ok("time", time, f32, (P, N), dev)
+    ok("parent", parent, i32, (P, N), dev)
+    ok("child0", child0, i32, (P, N), dev)
+    ok("child1", child1, i32, (P, N), dev)
+    ok("next_rec", next_rec, f32, (P,), dev)
+    ok("log_w", log_w, f32, (P,), dev)
+    ok("fifo", fifo, f32, (P, F, 6 * E), dev)
+    ok("fifo_mask", fifo_mask, f32, (6 * E,), dev)
+    ok("tl_out", tl_out, f32, (P,), dev)
+    ok("epoch_start", epoch_start, f32, (E,), dev)
+    ok("inv2ne", inv2ne, f32, (E,), dev)
+    ok("has_data", has_data, torch.bool, (n,), dev)
+    _launch("smc_segment_pass_launch", dev,
+            uniforms.data_ptr(), T, P, n, E, F, int(leaf_status),
+            time.data_ptr(), parent.data_ptr(), child0.data_ptr(),
+            child1.data_ptr(), next_rec.data_ptr(), log_w.data_ptr(),
+            fifo.data_ptr(), fifo_mask.data_ptr(), tl_out.data_ptr(),
+            float(L), float(mu), float(rho), epoch_start.data_ptr(),
+            inv2ne.data_ptr(), has_data.data_ptr(), GROUP_LANES)
+    segment_pass.launches += 1
+
+
+segment_pass.launches = 0

@@ -2,11 +2,11 @@
 ``smcsmc_tpu/smc.py``, plain configuration).
 
 One call of the segment step advances every particle over one .seg record:
-the recombination trips inside the segment (one launch of the trip kernel),
-the final extension, the site likelihood at the segment end, the push of
-the segment's statistics into the lag FIFO, the Kahan-compensated
-normalisation, the lagged commit and, when the ESS drops, systematic
-resampling.  Segment descriptors (length, state, leaf status, distance to
+the segment's tree pass (tree summaries, the recombination trips inside the
+segment, the final extension and the push of the segment's statistics into
+the lag FIFO: one launch of ``kernels.trip.segment_pass``), the site
+likelihood at the segment end, the Kahan-compensated normalisation, the
+lagged commit and, when the ESS drops, systematic resampling.  Segment descriptors (length, state, leaf status, distance to
 the next site) stay on the host, so branching on them costs no device
 synchronisation; the host reads the ESS once per segment to decide on
 resampling.
@@ -24,12 +24,11 @@ from .kernels.likelihood import site_log_likelihood
 from .kernels.tree import (
     Epochs,
     Trees,
-    branch_length_per_epoch,
     branch_lengths,
-    data_branch_length,
     make_initial_trees,
+    tree_summaries,  # noqa: F401  (part of this module's interface)
 )
-from .kernels.trip import trip
+from .kernels.trip import segment_pass
 
 # recombination trips per particle and segment (the JAX sweep's
 # max_recomb_iters bound)
@@ -159,22 +158,6 @@ def init_state(generator: torch.Generator, epochs: Epochs, cfg: PFConfig,
 # ---------------------------------------------------------------------------
 
 
-def tree_summaries(trees: Trees, epochs: Epochs, leaf_status: int,
-                   has_data: torch.Tensor):
-    """tree length [P], per-epoch tree length [P, E], data branch length
-    [P] for a segment's leaf status (-1 all missing / 0 mixed / 1 complete)."""
-    tl_e = branch_length_per_epoch(trees.time, trees.parent, epochs.start,
-                                   epochs.end)
-    tl = tl_e.sum(dim=1)
-    if leaf_status <= -1:
-        B = torch.zeros_like(tl)
-    elif leaf_status >= 1:
-        B = tl
-    else:
-        B = data_branch_length(trees.time, trees.parent, has_data)
-    return tl, tl_e, B
-
-
 def systematic_resample(log_w: torch.Tensor, u) -> torch.Tensor:
     """Stratified inverse-CDF resampling (particleContainer.cpp:474-504)
     with the uniform ``u`` given; returns [P] int64 ancestor indices."""
@@ -249,44 +232,31 @@ def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
     span = (np.asarray(lags, np.float32) / np.float32(max(F - 1, 1)))
     mu = float(np.float32(mutation_rate))
     rho = float(np.float32(rho))
-    off_recomb_opp = 4 * E  # [coal_opp | coal_cnt | mig_opp | mig_cnt | ...]
     inv2ne = epochs.inv2ne.contiguous()
     epoch_start = epochs.start.contiguous()
     log_w0 = _uniform_log_weight(P)
     T = MAX_RECOMB_ITERS
-    K = stats_width(E, 1)
+    tl = torch.empty(P, device=dev)  # post-trip tree length, per segment
 
     def step(state: PFState, seg: Segment):
         L = float(seg.length)
         trees = state.trees
-        tl, tl_e, B = tree_summaries(trees, epochs, seg.leaf_status,
-                                     seg.has_data)
-        tl, tl_e, B = tl.contiguous(), tl_e.contiguous(), B.contiguous()
         log_w = state.log_w
         next_rec = state.next_rec
-        upd = torch.zeros(P, device=dev)
-        pending = torch.zeros((P, K), device=dev)
+        fifo = state.fifo
 
-        # ---- recombination trips inside [front, front + L): one launch ----
-        if L > 0:
-            uniforms = torch.rand((T, P, 4), generator=generator, device=dev)
-            trip(uniforms, seg.leaf_status, trees.time, trees.parent,
-                 trees.child0, trees.child1, next_rec, upd, log_w, tl, B,
-                 tl_e, pending, L, mu, rho, epoch_start, inv2ne, seg.has_data)
-
-        # ---- final extension to the segment end ---------------------------
-        delta = L - upd
-        log_w = log_w - mu * B * delta
-        pending[:, off_recomb_opp:off_recomb_opp + E] += delta[:, None] * tl_e
-        next_rec = next_rec - L
+        # ---- the segment's tree pass: summaries, trips inside [front,
+        # front + L), final extension, push into FIFO slot 0: one launch ----
+        uniforms = torch.rand((T if L > 0 else 0, P, 4), generator=generator,
+                              device=dev)
+        segment_pass(uniforms, seg.leaf_status, trees.time, trees.parent,
+                     trees.child0, trees.child1, next_rec, log_w, fifo,
+                     seg.fifo_mask, tl, L, mu, rho, epoch_start, inv2ne,
+                     seg.has_data)
 
         # ---- site likelihood at the segment-final position ----------------
         if seg.state == 0 and seg.leaf_status != -1:  # SEGMENT_INVARIANT
             log_w = log_w + site_log_likelihood(trees, seg.alleles, mu)
-
-        # ---- push pending increments into FIFO slot 0 ---------------------
-        fifo = state.fifo
-        fifo[:, 0] += pending * seg.fifo_mask[None, :]
 
         # ---- normalise; Kahan-compensated log-likelihood in f32 -----------
         delta_ln = torch.logsumexp(log_w, dim=0)

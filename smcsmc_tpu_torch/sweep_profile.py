@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from .em import EMConfig, start_sweep
-from .shared import Demography, simulate_seg
+from .demography import Demography
+from .simulate import simulate_seg
 
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")

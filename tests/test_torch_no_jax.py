@@ -1,5 +1,5 @@
-"""The torch port never imports jax, and its CLI refuses what it does not
-support with a message naming the flag."""
+"""The torch port never imports jax nor anything of ``smcsmc_tpu``, and its
+CLI refuses what it does not support with a message naming the flag."""
 
 import os
 import re
@@ -24,7 +24,8 @@ REPO = PKG.parent
 
 def test_port_runs_without_importing_jax(tmp_path):
     """Import every port module and run the CLI on a tiny .seg on the CPU
-    in a fresh interpreter; jax must stay out of sys.modules."""
+    in a fresh interpreter; neither jax nor smcsmc_tpu may be in
+    sys.modules afterwards."""
     modules = sorted(
         "smcsmc_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
@@ -35,7 +36,9 @@ def test_port_runs_without_importing_jax(tmp_path):
         torch.set_num_threads(1)
         for m in {modules!r}:
             importlib.import_module(m)
-        from smcsmc_tpu_torch.shared import Demography, simulate_seg, write_seg
+        from smcsmc_tpu_torch.demography import Demography
+        from smcsmc_tpu_torch.segio import write_seg
+        from smcsmc_tpu_torch.simulate import simulate_seg
         demo = Demography(change_times=np.array([0.0]),
                           pop_sizes=np.array([[10000.0]]),
                           mig_rates=np.zeros((1, 1, 1)),
@@ -50,12 +53,14 @@ def test_port_runs_without_importing_jax(tmp_path):
                           "-seed", "3", "-device", "cpu"])
         assert rc == 0
         print("JAX_LOADED", "jax" in sys.modules)
+        print("JAX_PACKAGE_LOADED", "smcsmc_tpu" in sys.modules)
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "JAX_LOADED False" in out.stdout
+    assert "JAX_PACKAGE_LOADED False" in out.stdout
     assert (tmp_path / "out" / "result.out").exists()
     assert (tmp_path / "out" / "emiter1" / "chunkfinal.out").exists()
 
@@ -72,13 +77,15 @@ _IMPORTS_JAX_PACKAGE = re.compile(
 
 
 def test_port_reaches_the_jax_package_only_through_shared():
-    """Only ``shared.py`` imports ``smcsmc_tpu`` (its jax-free modules);
-    the rest of the port and ``chip_smoke.py`` import none of it."""
-    hits = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
+    """No file of the port, and not ``chip_smoke.py``, names ``smcsmc_tpu``
+    in an import: the port keeps its own copies of the jax-free modules,
+    and the module ``shared.py`` that once re-exported them is gone."""
+    hits = [str(p.relative_to(REPO))
+            for p in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
             if _IMPORTS_JAX_PACKAGE.search(p.read_text())]
-    assert hits == [str((PKG / "shared.py").relative_to(REPO))], hits
+    assert hits == [], hits
+    assert not (PKG / "shared.py").exists()
     smoke = (REPO / "chip_smoke.py").read_text()
-    assert not _IMPORTS_JAX_PACKAGE.search(smoke)
     assert not re.search(r"^\s*(import|from)\s+jax\b", smoke, re.M)
 
 
