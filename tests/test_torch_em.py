@@ -142,6 +142,6 @@ def test_sweep_profile_reports_on_cpu():
     rep = profile_sweep(demo, seg, 32, "cpu", warm=4, timed=8, profiled=8)
     assert rep["segments"] == 8 and rep["ms_per_segment"] > 0
     assert rep["device_busy_share"] == 0 and rep["device_ms_per_segment"] == 0
-    assert rep["trip_launches"] == 0
+    assert rep["pass_launches"] == 0
     assert rep["launches_per_segment"] == 0 and rep["top_device_ops"] == []
     assert len(report_lines(rep)) == 2

@@ -1,4 +1,5 @@
-"""The torch port's recombination trip against the Pallas trip kernel.
+"""The torch port's recombination trip against the Pallas trip kernel, and
+its segment pass against the composition it replaced in the sweep.
 
 ``fused_trip(..., interpret=True)`` runs the TPU kernel's math on the CPU;
 the port's plain version must reproduce it on identical trees and
@@ -23,6 +24,8 @@ from smcsmc_tpu.demography import Demography
 from smcsmc_tpu_torch.kernels.trip import (
     disagreement,
     float_tolerances,
+    segment_pass,
+    segment_pass_plain,
     trip,
     trip_plain,
 )
@@ -229,6 +232,177 @@ def test_disagreement_holds_each_field_in_its_own_units():
     assert errs["time"] == (0.0, 0.0)
 
 
+_SEG_ORDER = ("time", "parent", "child0", "child1", "next_rec", "log_w")
+F_SLOTS = 3
+
+
+def _segment_inputs(n, E, leaf_status, seed, T, L):
+    """Torch inputs of a segment pass: trees and weights from the JAX
+    initial sampler, a random FIFO and gate, uniforms for T trips."""
+    epochs, hd, d = _inputs(n, E, leaf_status, seed=seed, L=L)
+    rng = np.random.default_rng(50 + seed + n + E)
+    K = 6 * E
+    st = {k: torch.from_numpy(np.array(d[k])) for k in _SEG_ORDER}
+    st["next_rec"] = st["next_rec"] * 0.3  # several trips per particle
+    st["fifo"] = torch.from_numpy(
+        rng.uniform(0.0, 1.0, (P, F_SLOTS, K)).astype(np.float32))
+    st["tl"] = torch.zeros(P)
+    const = dict(
+        u=torch.from_numpy(rng.uniform(size=(T, P, 4)).astype(np.float32)),
+        mask=torch.from_numpy((rng.uniform(size=K) < 0.7).astype(np.float32)),
+        start=torch.from_numpy(np.array(epochs.start)),
+        inv2ne=torch.from_numpy(np.array(1.0 / (2.0 * epochs.ne[:, 0]))),
+        hd=torch.from_numpy(hd if leaf_status != -1
+                            else np.zeros_like(hd)))
+    return st, const
+
+
+def _old_composition(st, c, leaf_status, L):
+    """The segment step's tree pass as the sweep spelled it out before
+    ``segment_pass``: tree summaries, trips, final extension, FIFO push."""
+    from smcsmc_tpu_torch.kernels.tree import Epochs, Trees, tree_summaries
+
+    E = c["start"].shape[0]
+    trees = Trees(parent=st["parent"], time=st["time"], child0=st["child0"],
+                  child1=st["child1"])
+    epochs = Epochs(start=c["start"], ne=(0.5 / c["inv2ne"])[:, None])
+    tl, tl_e, B = tree_summaries(trees, epochs, leaf_status, c["hd"])
+    tl, tl_e, B = tl.contiguous(), tl_e.contiguous(), B.contiguous()
+    log_w, next_rec = st["log_w"], st["next_rec"]
+    upd = torch.zeros(P)
+    pending = torch.zeros((P, 6 * E))
+    if L > 0:
+        trip_plain(c["u"], leaf_status, trees.time, trees.parent,
+                   trees.child0, trees.child1, next_rec, upd, log_w, tl, B,
+                   tl_e, pending, L, MU, RHO, c["start"], c["inv2ne"],
+                   c["hd"])
+    delta = L - upd
+    log_w = log_w - MU * B * delta
+    pending[:, 4 * E:5 * E] += delta[:, None] * tl_e
+    next_rec = next_rec - L
+    fifo = st["fifo"]
+    fifo[:, 0] += pending * c["mask"][None, :]
+    return dict(time=trees.time, parent=trees.parent, child0=trees.child0,
+                child1=trees.child1, next_rec=next_rec, log_w=log_w,
+                fifo=fifo, tl=tl)
+
+
+@pytest.mark.parametrize("leaf_status", [1, 0, -1])
+@pytest.mark.parametrize("n", [4, 8])
+def test_segment_pass_plain_equals_the_old_composition(n, leaf_status):
+    """Bit for bit: ``segment_pass_plain`` is the moved lines, not new math;
+    on CPU tensors ``segment_pass`` is ``segment_pass_plain``."""
+    T, L = 8, 60000.0
+    for fn in (segment_pass_plain, segment_pass):
+        st, c = _segment_inputs(n, 3, leaf_status, seed=n + leaf_status, T=T,
+                                L=L)
+        ref = _old_composition({k: v.clone() for k, v in st.items()}, c,
+                               leaf_status, L)
+        assert int((st["next_rec"] < L).sum()) > P // 2
+        launches = segment_pass.launches
+        fn(c["u"], leaf_status, *(st[k] for k in _SEG_ORDER), st["fifo"],
+           c["mask"], st["tl"], L, MU, RHO, c["start"], c["inv2ne"], c["hd"])
+        assert segment_pass.launches == launches  # no kernel on the CPU
+        for k in ref:
+            assert torch.equal(st[k], ref[k]), k
+    assert not torch.equal(ref["fifo"][:, 0], _segment_inputs(
+        n, 3, leaf_status, seed=n + leaf_status, T=T, L=L)[0]["fifo"][:, 0])
+
+
+def test_segment_pass_without_trips_only_extends():
+    """No uniforms (a segment of length 0 draws none): trees and FIFO rows
+    of closed epochs stay, the summaries are still written."""
+    st, c = _segment_inputs(4, 3, 1, seed=9, T=0, L=0.0)
+    before = {k: v.clone() for k, v in st.items()}
+    segment_pass(c["u"], 1, *(st[k] for k in _SEG_ORDER), st["fifo"],
+                 c["mask"], st["tl"], 0.0, MU, RHO, c["start"], c["inv2ne"],
+                 c["hd"])
+    for k in ("time", "parent", "child0", "child1", "next_rec", "log_w",
+              "fifo"):
+        assert torch.equal(st[k], before[k]), k
+    from smcsmc_tpu_torch.kernels.tree import branch_lengths
+
+    np.testing.assert_allclose(
+        st["tl"].numpy(),
+        branch_lengths(st["time"], st["parent"]).sum(dim=1).numpy(),
+        rtol=1e-5)
+
+
+def test_segment_pass_rejects_other_devices():
+    meta = torch.empty((2, 7), device="meta")
+    vec = torch.empty(2, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        segment_pass(torch.empty((1, 2, 4), device="meta"), 1, meta, meta,
+                     meta, meta, vec, vec,
+                     torch.empty((2, 4, 6), device="meta"),
+                     torch.empty(6, device="meta"), vec, 1.0, 1e-8, 1e-9,
+                     torch.empty(1, device="meta"),
+                     torch.empty(1, device="meta"),
+                     torch.empty(4, device="meta"))
+
+
+def _cuda_case(leaf_status, Pc=4096, n=8, E=8):
+    """Trees, epochs and data flags on the card from the port's own
+    sampler (no JAX)."""
+    from smcsmc_tpu_torch.kernels.tree import (
+        epochs_from_demography,
+        make_initial_trees,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21 + leaf_status)
+    epochs = epochs_from_demography(_demo(E, n), dev)
+    trees = make_initial_trees(gen, epochs, Pc, [0] * n)
+    hd = torch.from_numpy(_has_data(n, leaf_status)).to(dev)
+    if leaf_status == -1:
+        hd[:] = False
+    return gen, epochs, trees, hd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_status", [1, 0, -1])
+def test_cuda_segment_pass_matches_plain(leaf_status):
+    """``segment_pass`` on the card against ``segment_pass_plain``, held as
+    the trip kernel is below; FIFO slot 0 starts empty so that it ends as
+    pending x mask, and the other slots must come back untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    Pc, n, E = 4096, 8, 8
+    gen, epochs, trees, hd = _cuda_case(leaf_status, Pc, n, E)
+    dev = hd.device
+    start, inv2ne = epochs.start.contiguous(), epochs.inv2ne.contiguous()
+    fifo0 = torch.rand((Pc, F_SLOTS, 6 * E), generator=gen, device=dev)
+    fifo0[:, 0] = 0.0
+    mask = (torch.rand(6 * E, generator=gen, device=dev) < 0.7).float()
+    for T, L, nr_scale in ((1, 20000.0, 1.5), (64, 50000.0, 0.1)):
+        base = dict(time=trees.time, parent=trees.parent,
+                    child0=trees.child0, child1=trees.child1,
+                    next_rec=torch.rand(Pc, generator=gen, device=dev)
+                    * nr_scale * L,
+                    log_w=torch.zeros(Pc, device=dev))
+        u = torch.rand((T, Pc, 4), generator=gen, device=dev)
+        outs = {}
+        for name, fn in (("plain", segment_pass_plain),
+                         ("kernel", segment_pass)):
+            st = {k: v.clone().contiguous() for k, v in base.items()}
+            fifo, tl = fifo0.clone(), torch.empty(Pc, device=dev)
+            launches = segment_pass.launches
+            fn(u, leaf_status, *(st[k] for k in _SEG_ORDER), fifo, mask, tl,
+               L, MU, RHO, start, inv2ne, hd)
+            assert segment_pass.launches == launches + (name == "kernel")
+            assert torch.equal(fifo[:, 1:], fifo0[:, 1:])
+            outs[name] = dict(st, tl=tl, pending=fifo[:, 0])
+        torch.cuda.synchronize()
+        trees_d, floats_d, errs = disagreement(outs["kernel"], outs["plain"],
+                                               L, MU)
+        assert int(trees_d.sum()) <= 0.001 * Pc, (T, int(trees_d.sum()))
+        if T == 1:
+            assert not floats_d.any(), errs
+        else:
+            assert int((trees_d | floats_d).sum()) <= 0.001 * Pc, errs
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("leaf_status", [1, 0, -1])
 def test_cuda_kernel_matches_plain(leaf_status):
@@ -241,21 +415,11 @@ def test_cuda_kernel_matches_plain(leaf_status):
     of trips can amplify a last-bit difference in a node height."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from smcsmc_tpu_torch.kernels.tree import (
-        epochs_from_demography,
-        make_initial_trees,
-    )
-    from smcsmc_tpu_torch.smc import tree_summaries
+    from smcsmc_tpu_torch.kernels.tree import tree_summaries
 
     Pc, n, E = 4096, 8, 8
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(21 + leaf_status)
-    epochs = epochs_from_demography(_demo(E, n), dev)
-    trees = make_initial_trees(gen, epochs, Pc, [0] * n)
-    hd = torch.from_numpy(_has_data(n, leaf_status)).to(dev)
-    if leaf_status == -1:
-        hd[:] = False
+    gen, epochs, trees, hd = _cuda_case(leaf_status, Pc, n, E)
+    dev = hd.device
     tl, tle, B = tree_summaries(trees, epochs, leaf_status, hd)
     for T, L, nr_scale in ((1, 20000.0, 1.5), (64, 50000.0, 0.1)):
         base = dict(time=trees.time, parent=trees.parent,
