@@ -26,8 +26,8 @@ Phases, each fatal on failure:
    around 20 launches on cloned states, queued behind a matrix product so
    that the host's enqueueing is not in the interval), the same for groups
    of 8, 16 and 32 lanes per particle, an empty launch, the host's time per
-   wrapper call (perf_counter around 200 calls, no synchronise inside) and
-   the plain version (median of 3).  From the counted work of those
+   wrapper call (perf_counter around 200 calls, no synchronise inside; on
+   fresh tensors and on the same ones) and the plain version (median of 3).  From the counted work of those
    launches (active particles and trips) it prints each kernel's bound, the
    larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s, and the
    share of it the kernel reaches;
@@ -376,6 +376,7 @@ def phase_time(kernels, seg_lengths):
         if err != 0:
             raise SystemExit(f"empty launch failed: CUDA error {err}")
 
+    noop(None)  # the first launch loads the module
     empty_ms = _device_ms(noop, range(200), filler)
     _log(f"time empty launch: {empty_ms * 1e3:.2f} us of device time each "
          f"(200 back to back)")
@@ -414,7 +415,10 @@ def phase_time(kernels, seg_lengths):
                     for _ in range(3))
             trip_mod.GROUP_LANES = default_lanes
             kernel_ms = by_lanes[default_lanes]
+            # fresh tensors: every argument is validated; one state again
+            # and again: segment_pass remembers what it has validated
             host_us = _host_us(launch, [fresh() for _ in range(200)])
+            host_same_us = _host_us(launch, [fresh()] * 200)
             plain_times = []
             for _ in range(3):
                 st = fresh()
@@ -429,12 +433,14 @@ def phase_time(kernels, seg_lengths):
             b = bounds[name]
             rows[label][name] = dict(
                 kernel_ms=kernel_ms, plain_ms=_median(plain_times),
-                host_us=host_us, by_lanes=by_lanes, **b)
+                host_us=host_us, host_same_us=host_same_us,
+                by_lanes=by_lanes, **b)
             _log(f"time {name} {label}: kernel {kernel_ms * 1e3:.2f} us of "
                  f"device time per launch (best of 3 x 20 launches; "
                  + ", ".join(f"{g} lanes {t * 1e3:.2f} us"
                              for g, t in by_lanes.items())
-                 + f"); host {host_us:.2f} us per wrapper call; plain "
+                 + f"); host {host_us:.2f} us per wrapper call on fresh "
+                 f"tensors, {host_same_us:.2f} us on the same ones; plain "
                  f"{rows[label][name]['plain_ms']:.4f} ms (median of 3); "
                  f"bound {b['bound_ms'] * 1e3:.3f} us by {b['bound_by']} "
                  f"({b['bytes']} B, {b['flop']} FLOP), kernel reaches "
@@ -667,6 +673,7 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a trip
             "host_us_per_call": t["host_us"],
+            "host_us_per_call_same_tensors": t["host_same_us"],
             "longest_segment": {
                 k: timing["longest segment"][name][k]
                 for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")},

@@ -27,16 +27,21 @@
 //
 // * A group of GROUP lanes (8, 16 or 32, a launch argument) owns one
 //   particle; consecutive groups own consecutive particles, so a block's
-//   loads of the [P, N] rows are contiguous.  The tree (time, parent time,
-//   parent, children), the per-epoch tree length and, for segment_pass, the
-//   pending statistics live in the group's slice of shared memory, padded
-//   to an odd stride so that groups of one warp hit different banks.
-//   Nothing is indexed dynamically in registers, so there is no stack frame.
+//   loads of the [P, N] rows are contiguous.  What is indexed by a value
+//   (node times, parent and child pointers for the SPR), the per-epoch
+//   tree length and, for segment_pass, the pending statistics live in the
+//   group's slice of shared memory, padded to an odd stride so that groups
+//   of one warp hit different banks.
+// * Every lane keeps the particle's node and parent times in registers,
+//   padded to 7 or 15 nodes (a template argument) so that every loop over
+//   nodes is unrolled and nothing is indexed dynamically: no stack frame.
+//   They are reloaded from shared memory after each SPR.
 // * The (epoch x node) sums are split over the lanes by epoch; O(N) steps
 //   are computed redundantly by every lane, which keeps the scalars
 //   (next_rec, upd, log_w, tl, B) identical in all lanes without
-//   broadcasts; "first true in node order" is a short scan; the SPR pointer
-//   surgery is done by lane 0 on shared memory between two group syncs.
+//   broadcasts; "first true in node order" is an unrolled scan; the SPR
+//   pointer surgery is done by lane 0 on shared memory, which no other lane
+//   reads during a trip, followed by one group sync.
 // * The hazard is inverted over sorted breakpoints instead of evaluating
 //   lam(v) on the whole grid for every candidate v: epoch starts are sorted
 //   already, so one pass gives each epoch's full hazard mass
@@ -47,7 +52,8 @@
 //   every epoch that ends below t_c.  This sums in another order than the
 //   plain version, so t_c can differ in its last bits.
 // * All particles fit on the card at once (GROUP * P threads), so a launch
-//   lasts as long as its longest chain of trips.
+//   lasts as long as its longest chain of trips; the next trip's uniforms
+//   are loaded while the current trip runs.
 //
 // Semantics kept from the plain version: INF = 3e38 arithmetic, the uniform
 // clip to [1e-7, 1 - 1e-7], first-true selection in node order, the d_eff
@@ -59,6 +65,7 @@
 #include <math.h>
 
 #define MAX_LEAVES 8
+#define MAX_NODES (2 * MAX_LEAVES - 1)
 #define MAX_EPOCHS 64
 #define BLOCK 128
 #define BIG 3e38f
@@ -102,10 +109,9 @@ struct Tables {
   float L, mu, rho;
 };
 
-// one particle's slice of shared memory
+// one particle's slice of shared memory: what is indexed by a value
 struct Work {
   float* t;     // [N] node times
-  float* pt;    // [N] parent times, BIG at the root
   int* par;     // [N]
   int* c0;      // [N]
   int* c1;      // [N]
@@ -114,10 +120,20 @@ struct Work {
   float* full;  // [E] hazard mass of each epoch above h_r
 };
 
+// one particle's node and parent times in registers, padded to NP nodes
+// (7 for up to 4 leaves, 15 for up to 8); every loop over them is unrolled.
+// The root has pt == BIG; a padded node has t == pt == BIG, so that it has
+// no branch length, overlaps nothing and crosses no time.
+template <int NP>
+struct Heights {
+  float t[NP];
+  float pt[NP];
+};
+
 __host__ __device__ inline int tables_words(int E) { return 3 * E + MAX_LEAVES; }
 
 __host__ __device__ inline int work_words(int N, int E, bool with_pending) {
-  return (6 * N + 2 * E + (with_pending ? 6 * E : 0)) | 1;  // odd stride
+  return (5 * N + 2 * E + (with_pending ? 6 * E : 0)) | 1;  // odd stride
 }
 
 __device__ __forceinline__ float clip_u(float u) {
@@ -135,6 +151,15 @@ __device__ __forceinline__ float group_max(float v, unsigned gm) {
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(gm, v, off));
+  return v;
+}
+
+// every lane ends with the same bits: each step adds the same two values
+template <int G>
+__device__ __forceinline__ float group_sum(float v, unsigned gm) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v = v + __shfl_xor_sync(gm, v, off);
   return v;
 }
 
@@ -175,14 +200,13 @@ __device__ int setup(const Args& a, float* smem, bool with_pending,
   float* base = smem + tables_words(E)
       + (size_t)group * work_words(N, E, with_pending);
   w.t = base;
-  w.pt = base + N;
-  w.par = reinterpret_cast<int*>(base + 2 * N);
-  w.c0 = reinterpret_cast<int*>(base + 3 * N);
-  w.c1 = reinterpret_cast<int*>(base + 4 * N);
-  w.below = reinterpret_cast<int*>(base + 5 * N);
-  w.tle = base + 6 * N;
-  w.full = base + 6 * N + E;
-  pend = base + 6 * N + 2 * E;  // only there when with_pending
+  w.par = reinterpret_cast<int*>(base + N);
+  w.c0 = reinterpret_cast<int*>(base + 2 * N);
+  w.c1 = reinterpret_cast<int*>(base + 3 * N);
+  w.below = reinterpret_cast<int*>(base + 4 * N);
+  w.tle = base + 5 * N;
+  w.full = base + 5 * N + E;
+  pend = base + 5 * N + 2 * E;  // only there when with_pending
   return blockIdx.x * (blockDim.x / G) + group;
 }
 
@@ -208,34 +232,36 @@ __device__ void store_tree(const Args& a, const Work& w, int i, int N,
   }
 }
 
-// Parent times of the tree in w.t / w.par.  Ends with a group sync.
-template <int G>
-__device__ void parent_times(const Work& w, int N, int lane, unsigned gm) {
-  for (int j = lane; j < N; j += G) {
-    const int p = w.par[j];
-    w.pt[j] = p < 0 ? BIG : w.t[p];
-    w.below[j] = 0;
+// Node and parent times of the tree in shared memory into registers.  The
+// group must be synchronised after the last write to w.t / w.par.
+template <int NP>
+__device__ __forceinline__ void load_heights(const Work& w, int N,
+                                             Heights<NP>& h) {
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    if (j < N) {
+      const int p = w.par[j];
+      h.t[j] = w.t[j];
+      h.pt[j] = p < 0 ? BIG : w.t[p];
+    } else {
+      h.t[j] = BIG;
+      h.pt[j] = BIG;
+    }
   }
-  __syncwarp(gm);
 }
 
-// Tree summaries of the tree in w.t / w.par: parent times, tree length per
-// epoch (w.tle), tree length, data branch length.  Every lane returns the
-// same tl and B.  Starts from a synchronised group and ends with one.
-template <int G>
-__device__ void refresh(const Tables& tb, const Work& w, int lane,
-                        unsigned gm, float& tl, float& B) {
-  const int N = tb.N, E = tb.E;
-  parent_times<G>(w, N, lane, gm);
-  for (int e = lane; e < E; e += G) {
-    const float lo_e = tb.est[e], hi_e = tb.eend[e];
-    float s = 0.0f;
-    for (int j = 0; j < N; ++j)
-      if (w.par[j] >= 0)
-        s += fmaxf(fminf(w.pt[j], hi_e) - fmaxf(w.t[j], lo_e), 0.0f);
-    w.tle[e] = s;
-  }
+// Tree summaries from the heights in registers: tree length per epoch
+// (w.tle, each lane its own epochs), tree length, data branch length.
+// Every lane returns the same tl and B.  For mixed data the group must be
+// synchronised on entry (w.par is read across lanes).
+template <int G, int NP>
+__device__ void summaries(const Tables& tb, const Work& w,
+                          const Heights<NP>& h, int lane, unsigned gm,
+                          float& tl, float& B) {
+  const int E = tb.E;
   if (tb.leaf_status == 0) {
+    for (int j = lane; j < tb.N; j += G) w.below[j] = 0;
+    __syncwarp(gm);
     // each data leaf marks itself on its ancestor chain
     for (int l = lane; l < tb.n; l += G) {
       if (!tb.hd[l]) continue;
@@ -245,43 +271,58 @@ __device__ void refresh(const Tables& tb, const Work& w, int lane,
         cur = w.par[cur];
       }
     }
+    __syncwarp(gm);
   }
-  __syncwarp(gm);
-  float sum = 0.0f;
-  for (int e = 0; e < E; ++e) sum += w.tle[e];
-  tl = sum;
+  float mine = 0.0f;
+  for (int e = lane; e < E; e += G) {
+    const float lo_e = tb.est[e], hi_e = tb.eend[e];
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      if (h.pt[j] < BIG)  // not the root's lineage, not padding
+        s += fmaxf(fminf(h.pt[j], hi_e) - fmaxf(h.t[j], lo_e), 0.0f);
+    w.tle[e] = s;
+    mine += s;
+  }
+  tl = group_sum<G>(mine, gm);
   if (tb.leaf_status == 1) {
-    B = sum;
+    B = tl;
   } else if (tb.leaf_status == -1) {
     B = 0.0f;
   } else {
     // informative branches: at least one and not all data leaves below
     float b = 0.0f;
-    for (int j = 0; j < N; ++j) {
-      const int cnt = __popc(w.below[j]);
-      if (cnt >= 1 && cnt < tb.total_data && w.par[j] >= 0)
-        b += w.pt[j] - w.t[j];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      if (j < tb.N && h.pt[j] < BIG) {
+        const int cnt = __popc(w.below[j]);
+        if (cnt >= 1 && cnt < tb.total_data) b += h.pt[j] - h.t[j];
+      }
     }
     B = b;
   }
 }
 
 // sum_j |branch_j ∩ [lo, hi_e) ∩ (-inf, v]|
-__device__ __forceinline__ float overlap_below(const Work& w, int N, float lo,
+template <int NP>
+__device__ __forceinline__ float overlap_below(const Heights<NP>& h, float lo,
                                                float hi_e, float v) {
   float s = 0.0f;
-  for (int j = 0; j < N; ++j)
-    s += fmaxf(fminf(fminf(w.pt[j], hi_e), v) - fmaxf(w.t[j], lo), 0.0f);
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+    s += fmaxf(fminf(fminf(h.pt[j], hi_e), v) - fmaxf(h.t[j], lo), 0.0f);
   return s;
 }
 
-// One trip of the particle in `w`.  Called by all lanes of a synchronised
-// group with identical scalars, w.pt and w.tle up to date; returns the same
-// way.  `pend` ([6E], shared or global) takes the trip's statistics.
-template <int G>
-__device__ void one_trip(const Tables& tb, const Work& w, int lane,
-                         unsigned gm, const float4 u, float* pend, float& nr,
-                         float& up, float& lw, float& tl, float& B) {
+// One trip of the particle in `w` / `h`.  Called by all lanes of a
+// synchronised group with identical scalars and heights, w.tle up to date;
+// returns the same way.  `pend` ([6E], shared or global) takes the trip's
+// statistics.
+template <int G, int NP>
+__device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
+                         int lane, unsigned gm, const float4 u, float* pend,
+                         float& nr, float& up, float& lw, float& tl,
+                         float& B) {
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
   const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
@@ -292,20 +333,23 @@ __device__ void one_trip(const Tables& tb, const Work& w, int lane,
 
   // ---- recombination point: first node whose prefix sum >= u*total ------
   float total = 0.0f;
-  for (int j = 0; j < N; ++j)
-    total += w.par[j] < 0 ? 0.0f : w.pt[j] - w.t[j];
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+    total += h.pt[j] < BIG ? h.pt[j] - h.t[j] : 0.0f;
   const float x_pt = u_pt * total;
   int c = -1;
-  float prev = 0.0f, cum = 0.0f;
-  for (int j = 0; j < N; ++j) {
-    const float bl = w.par[j] < 0 ? 0.0f : w.pt[j] - w.t[j];
+  float prev = 0.0f, cum = 0.0f, t_cut = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const float bl = h.pt[j] < BIG ? h.pt[j] - h.t[j] : 0.0f;
     cum += bl;
-    if (c < 0 && cum >= x_pt) {
+    if (j < N && c < 0 && cum >= x_pt) {
       c = j;
       prev = cum - bl;
+      t_cut = h.t[j];
     }
   }
-  const float h_r = (c >= 0 ? w.t[c] : 0.0f) + (x_pt - prev);
+  const float h_r = t_cut + (x_pt - prev);
 
   // ---- SMC' hazard inversion -------------------------------------------
   // lam(v) = sum_{e,j} inv2ne_e * |branch_j ∩ epoch_e ∩ [h_r, v]| is
@@ -313,7 +357,7 @@ __device__ void one_trip(const Tables& tb, const Work& w, int lane,
   // contribution; the running sum over epochs is lam at each epoch start.
   const float x_exp = -log1pf(-u_exp);
   for (int e = lane; e < E; e += G)
-    w.full[e] = overlap_below(w, N, fmaxf(tb.est[e], h_r), tb.eend[e], BIG);
+    w.full[e] = overlap_below<NP>(h, fmaxf(tb.est[e], h_r), tb.eend[e], BIG);
   __syncwarp(gm);
   int es = 0;        // last epoch whose start has lam <= x_exp
   float base = 0.0f; // lam at that epoch's start
@@ -328,20 +372,25 @@ __device__ void one_trip(const Tables& tb, const Work& w, int lane,
   }
   const float lo_s = fmaxf(tb.est[es], h_r), hi_s = tb.eend[es];
   const float i2n_s = tb.i2n[es];
-  // node times inside epoch e* are the remaining candidates
+  // node times inside epoch e* are the remaining candidates; lane l takes
+  // nodes l, l + G, ...
   float best = -BIG;
-  for (int i = lane; i < N; i += G) {
-    const float v = w.t[i];
-    if (v >= lo_s && v < hi_s) {
-      const float lam = base + overlap_below(w, N, lo_s, hi_s, v) * i2n_s;
-      if (lam <= x_exp) best = fmaxf(best, v);
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    if (i % G == lane) {
+      const float v = h.t[i];
+      if (v >= lo_s && v < hi_s) {
+        const float lam = base + overlap_below<NP>(h, lo_s, hi_s, v) * i2n_s;
+        if (lam <= x_exp) best = fmaxf(best, v);
+      }
     }
   }
   const float t_lo = fmaxf(group_max<G>(best, gm), lo_s);
-  const float lam_lo = base + overlap_below(w, N, lo_s, hi_s, t_lo) * i2n_s;
+  const float lam_lo = base + overlap_below<NP>(h, lo_s, hi_s, t_lo) * i2n_s;
   float k_lo = 0.0f;
-  for (int j = 0; j < N; ++j)
-    k_lo += (w.t[j] <= t_lo && t_lo < w.pt[j]) ? 1.0f : 0.0f;
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+    k_lo += (h.t[j] <= t_lo && t_lo < h.pt[j]) ? 1.0f : 0.0f;
   const float rate_lo = k_lo * i2n_s;
   float t_c = t_lo + (rate_lo > 0.0f
                           ? (x_exp - lam_lo) / fmaxf(rate_lo, 1e-30f) : BIG);
@@ -349,12 +398,14 @@ __device__ void one_trip(const Tables& tb, const Work& w, int lane,
 
   // ---- coalescence target: the r-th branch crossing t_c -----------------
   float kc = 0.0f;
-  for (int j = 0; j < N; ++j)
-    kc += (w.t[j] <= t_c && t_c < w.pt[j]) ? 1.0f : 0.0f;
+#pragma unroll
+  for (int j = 0; j < NP; ++j)
+    kc += (h.t[j] <= t_c && t_c < h.pt[j]) ? 1.0f : 0.0f;
   const int r = (int)floorf(u_tgt * fmaxf(kc, 1.0f));
   int d = -1, seen = -1;
-  for (int j = 0; j < N; ++j) {
-    if (w.t[j] <= t_c && t_c < w.pt[j]) {
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    if (h.t[j] <= t_c && t_c < h.pt[j]) {
       ++seen;
       if (d < 0 && seen == r) d = j;
     }
@@ -372,7 +423,7 @@ __device__ void one_trip(const Tables& tb, const Work& w, int lane,
     else if (lo_e >= t_c)
       coal_opp = 0.0f;
     else
-      coal_opp = overlap_below(w, N, lo_e, hi_e, t_c);
+      coal_opp = overlap_below<NP>(h, lo_e, hi_e, t_c);
     const float span = fmaxf(fminf(hi_e, t_c) - lo_e, 0.0f);
     const bool in_c = t_c >= st_e && t_c < hi_e;
     const bool in_r = h_r >= st_e && h_r < hi_e;
@@ -382,11 +433,11 @@ __device__ void one_trip(const Tables& tb, const Work& w, int lane,
     pend[4 * E + e] += delta * w.tle[e];
     pend[5 * E + e] += in_r ? 1.0f : 0.0f;
   }
-  __syncwarp(gm);  // every lane has read the old tree
 
   // ---- SPR: cut the branch above c, regraft onto d at t_c ---------------
   // pick(x, idx) reads 0 for idx < 0, and writes to idx < 0 are dropped,
-  // as in the reference's one-hot index algebra
+  // as in the reference's one-hot index algebra.  Nothing else reads the
+  // tree in shared memory during a trip, so lane 0 edits it alone.
   if (lane == 0) {
 #define PICK(arr, idx) ((idx) >= 0 ? (arr)[(idx)] : 0)
     const int p = PICK(w.par, c);
@@ -419,7 +470,8 @@ __device__ void one_trip(const Tables& tb, const Work& w, int lane,
   __syncwarp(gm);
 
   // ---- refreshed tree summaries, then the next gap ----------------------
-  refresh<G>(tb, w, lane, gm, tl, B);
+  load_heights<NP>(w, N, h);
+  summaries<G, NP>(tb, w, h, lane, gm, tl, B);
   const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
   up = nr;
   nr = nr + gap;
@@ -430,7 +482,7 @@ __device__ __forceinline__ float4 load_uniforms(const Args& a, int k, int i) {
                                           + ((size_t)k * a.P + i) * 4);
 }
 
-template <int G>
+template <int G, int NP>
 __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   extern __shared__ float smem[];
   Tables tb;
@@ -446,15 +498,19 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
 
   load_tree<G>(a, w, i, N, lane);
   for (int e = lane; e < E; e += G) w.tle[e] = a.tl_e[(size_t)i * E + e];
-  __syncwarp(gm);
-  parent_times<G>(w, N, lane, gm);
   float up = a.upd[i], lw = a.log_w[i], tl = a.tl[i], B = a.B[i];
   float* pend = a.pending + (size_t)i * 6 * E;
+  __syncwarp(gm);
+  Heights<NP> h;
+  load_heights<NP>(w, N, h);
 
+  float4 u = load_uniforms(a, 0, i);
   for (int k = 0; k < a.trips; ++k) {
     if (!(nr < a.L)) break;
-    one_trip<G>(tb, w, lane, gm, load_uniforms(a, k, i), pend, nr, up, lw,
-                tl, B);
+    // the next trip's uniforms are under way while this trip runs
+    const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
+    one_trip<G, NP>(tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B);
+    u = u_next;
   }
 
   store_tree<G>(a, w, i, N, lane);
@@ -468,7 +524,7 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   }
 }
 
-template <int G>
+template <int G, int NP>
 __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   extern __shared__ float smem[];
   Tables tb;
@@ -482,16 +538,22 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
 
   load_tree<G>(a, w, i, N, lane);
   for (int k = lane; k < K; k += G) pend[k] = 0.0f;
-  __syncwarp(gm);
-  float tl, B;
-  refresh<G>(tb, w, lane, gm, tl, B);  // tl, tl_e, B at segment entry
   float nr = a.next_rec[i], lw = a.log_w[i], up = 0.0f;
+  __syncwarp(gm);  // the tree is loaded, and pend zeroed across lanes
+  Heights<NP> h;
+  load_heights<NP>(w, N, h);
+  float tl, B;
+  summaries<G, NP>(tb, w, h, lane, gm, tl, B);  // at segment entry
 
   bool moved = false;
+  float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (a.trips > 0 && nr < a.L) u = load_uniforms(a, 0, i);
   for (int k = 0; k < a.trips; ++k) {
     if (!(nr < a.L)) break;
-    one_trip<G>(tb, w, lane, gm, load_uniforms(a, k, i), pend, nr, up, lw,
-                tl, B);
+    // the next trip's uniforms are under way while this trip runs
+    const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
+    one_trip<G, NP>(tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B);
+    u = u_next;
     moved = true;
   }
 
@@ -519,31 +581,35 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
 
 __global__ void noop_kernel() {}
 
-template <int G>
+template <typename Kernel>
+int launch_kernel(Kernel kernel, const Args& a, dim3 grid, size_t bytes,
+                  cudaStream_t stream) {
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<grid, BLOCK, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int G, int NP>
 int launch(const Args& a, bool segment, cudaStream_t stream) {
   const int N = 2 * a.n - 1;
   const int per_block = BLOCK / G;
   const size_t bytes = sizeof(float)
-      * ((size_t)tables_words(a.E) + (size_t)per_block * work_words(N, a.E, segment));
+      * ((size_t)tables_words(a.E)
+         + (size_t)per_block * work_words(N, a.E, segment));
   const dim3 grid((unsigned)((a.P + per_block - 1) / per_block));
-  if (segment) {
-    if (bytes > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          segment_pass_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-    }
-    segment_pass_kernel<G><<<grid, BLOCK, bytes, stream>>>(a);
-  } else {
-    if (bytes > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          trip_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-    }
-    trip_kernel<G><<<grid, BLOCK, bytes, stream>>>(a);
-  }
-  return (int)cudaGetLastError();
+  if (segment)
+    return launch_kernel(segment_pass_kernel<G, NP>, a, grid, bytes, stream);
+  return launch_kernel(trip_kernel<G, NP>, a, grid, bytes, stream);
+}
+
+template <int G>
+int launch_for_leaves(const Args& a, bool segment, cudaStream_t stream) {
+  return a.n <= 4 ? launch<G, 7>(a, segment, stream)
+                  : launch<G, MAX_NODES>(a, segment, stream);
 }
 
 int dispatch(const Args& a, bool segment, int group, void* stream) {
@@ -553,9 +619,9 @@ int dispatch(const Args& a, bool segment, int group, void* stream) {
   if (a.P <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (group) {
-    case 8: return launch<8>(a, segment, s);
-    case 16: return launch<16>(a, segment, s);
-    case 32: return launch<32>(a, segment, s);
+    case 8: return launch_for_leaves<8>(a, segment, s);
+    case 16: return launch_for_leaves<16>(a, segment, s);
+    case 32: return launch_for_leaves<32>(a, segment, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -37,6 +37,7 @@ import weakref
 
 import torch
 
+from ._build import load_trip_library
 from .tree import (
     INF,
     Epochs,
@@ -347,15 +348,12 @@ def _check(uniforms, time, parent, child0, child1, next_rec, upd, log_w, tl,
 def _launch(fn, dev, *args):
     """Call a launch function of the library on ``dev``'s current stream;
     raise on the CUDA error it returns."""
-    from ._build import load_trip_library
-
     lib = load_trip_library()
-    launch = getattr(lib, fn)
-    if torch.cuda.current_device() == dev.index:
-        err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
-    else:
+    if torch.cuda.current_device() != dev.index:
         with torch.cuda.device(dev):
-            err = launch(*args, torch.cuda.current_stream(dev).cuda_stream)
+            return _launch(fn, dev, *args)
+    err = getattr(lib, fn)(*args,
+                           torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {err} "
                            f"({lib.smc_cuda_error_string(err).decode()})")
