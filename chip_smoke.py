@@ -25,7 +25,10 @@ Phases, each fatal on failure:
    the mean and on the longest segment: device time per launch (CUDA events
    around 20 launches on cloned states, queued behind a matrix product so
    that the host's enqueueing is not in the interval), the same for groups
-   of 8, 16 and 32 lanes per particle, an empty launch, the host's time per
+   of 8, 16 and 32 lanes per particle, with at most 1, 2 and 4 trips allowed
+   and with no particle recombining, an empty launch (and, for
+   ``segment_pass``, the three group sizes at P=4096, n=8, E=33), the
+   host's time per
    wrapper call (perf_counter around 200 calls, no synchronise inside; on
    fresh tensors and on the same ones) and the plain version (median of 3).  From the counted work of those
    launches (active particles and trips) it prints each kernel's bound, the
@@ -356,6 +359,57 @@ def _bounds(c, active, trips):
     return out
 
 
+def _timing_case(P, n, E, L):
+    """A case as a segment of length L finds it: next recombination drawn
+    as at a segment start, Exp(1)/(rho*tl); and uniforms for 64 trips."""
+    import torch
+
+    c = Case(P, n, E, 1, L=L, nr_scale=0.0, seed=99)
+    expo = torch.empty(P, device="cuda").exponential_(1.0, generator=c.gen)
+    c.base["next_rec"] = (expo / (RHO * c.base["tl"])).contiguous()
+    return c, c.uniforms(64)
+
+
+def _best_device_ms(launch, fresh, filler):
+    """Best of 3 runs of 20 launches, each on a fresh state."""
+    launch(fresh())  # warm-up
+    return min(_device_ms(launch, [fresh() for _ in range(20)], filler)
+               for _ in range(3))
+
+
+def _by_lanes(launch, fresh, filler):
+    """Device time per launch for 8, 16 and 32 lanes per particle."""
+    import smcsmc_tpu_torch.kernels.trip as trip_mod
+
+    default_lanes = trip_mod.GROUP_LANES
+    out = {}
+    try:
+        for lanes in (8, 16, 32):
+            trip_mod.GROUP_LANES = lanes
+            out[lanes] = _best_device_ms(launch, fresh, filler)
+    finally:
+        trip_mod.GROUP_LANES = default_lanes
+    return out
+
+
+def _plain_ms(run, plain, u, fresh):
+    """Median of 3 runs of the plain version, CUDA events."""
+    import torch
+
+    times = []
+    for _ in range(3):
+        st = fresh()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0.record()
+        run(plain, u, st)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return _median(times)
+
+
 def phase_time(kernels, seg_lengths):
     """Times of both entry points at the main path's shape (P=10000, n=4,
     E=9) for each (label, segment length); see the module docstring."""
@@ -365,7 +419,7 @@ def phase_time(kernels, seg_lengths):
     from smcsmc_tpu_torch.kernels._build import load_trip_library
 
     lib = load_trip_library()
-    default_lanes = trip_mod.GROUP_LANES
+    lanes = trip_mod.GROUP_LANES
     a = torch.rand((4096, 4096), device="cuda")
 
     def filler():
@@ -381,70 +435,67 @@ def phase_time(kernels, seg_lengths):
     _log(f"time empty launch: {empty_ms * 1e3:.2f} us of device time each "
          f"(200 back to back)")
 
-    rows = {"empty_launch_ms": empty_ms, "lanes": default_lanes}
+    rows = {"empty_launch_ms": empty_ms, "lanes": lanes}
     for label, L in seg_lengths:
-        c = Case(10000, 4, 9, 1, L=L, nr_scale=0.0, seed=99)
-        # next recombination as drawn at a segment start: Exp(1)/(rho*tl)
-        expo = torch.empty(c.P, device="cuda").exponential_(
-            1.0, generator=c.gen)
-        c.base["next_rec"] = (expo / (RHO * c.base["tl"])).contiguous()
-        u = c.uniforms(64)
+        c, u = _timing_case(10000, 4, 9, L)
         # counted work: a trip adds one recombination count to one epoch
         st = c.run(kernels["trip"][0], u, c.fresh())
+        per_particle = st["pending"][:, 5 * c.E:].sum(dim=1)
         active = int((c.base["next_rec"] < L).sum())
-        trips = int(round(float(st["pending"][:, 5 * c.E:].sum())))
+        trips = int(round(float(per_particle.sum())))
         bounds = _bounds(c, active, trips)
         _log(f"time {label} (L={L:g} bp): {active} of {c.P} particles "
-             f"recombine, {trips} trips in all")
+             f"recombine, {trips} trips in all, at most "
+             f"{int(per_particle.max())} in one particle")
         makers = {"trip": (c.fresh, c.run),
                   "segment_pass": (c.fresh_segment, c.run_segment)}
         rows[label] = {"L": L, "active": active, "trips": trips}
         for name, (kernel, plain) in kernels.items():
             fresh, run = makers[name]
 
-            def launch(st, fn=kernel, run=run):
+            def launch(st, fn=kernel, run=run, u=u):
                 run(fn, u, st)
 
-            launch(fresh())  # warm-up
-            by_lanes = {}
-            for lanes in (8, 16, 32):
-                trip_mod.GROUP_LANES = lanes
-                launch(fresh())
-                by_lanes[lanes] = min(
-                    _device_ms(launch, [fresh() for _ in range(20)], filler)
-                    for _ in range(3))
-            trip_mod.GROUP_LANES = default_lanes
-            kernel_ms = by_lanes[default_lanes]
+            def idle():
+                st = fresh()
+                st["next_rec"] += 1e9  # nobody recombines
+                return st
+
+            by_lanes = _by_lanes(launch, fresh, filler)
+            # what a launch costs before any trip, and per trip allowed
+            ladder = {"no trips": _best_device_ms(launch, idle, filler)}
+            for T in (1, 2, 4):
+                ladder[f"trips<={T}"] = _best_device_ms(
+                    lambda st, ut=u[:T].contiguous(): run(kernel, ut, st),
+                    fresh, filler)
             # fresh tensors: every argument is validated; one state again
             # and again: segment_pass remembers what it has validated
-            host_us = _host_us(launch, [fresh() for _ in range(200)])
-            host_same_us = _host_us(launch, [fresh()] * 200)
-            plain_times = []
-            for _ in range(3):
-                st = fresh()
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                t0.record()
-                run(plain, u, st)
-                t1.record()
-                torch.cuda.synchronize()
-                plain_times.append(t0.elapsed_time(t1))
-            b = bounds[name]
-            rows[label][name] = dict(
-                kernel_ms=kernel_ms, plain_ms=_median(plain_times),
-                host_us=host_us, host_same_us=host_same_us,
-                by_lanes=by_lanes, **b)
-            _log(f"time {name} {label}: kernel {kernel_ms * 1e3:.2f} us of "
-                 f"device time per launch (best of 3 x 20 launches; "
-                 + ", ".join(f"{g} lanes {t * 1e3:.2f} us"
-                             for g, t in by_lanes.items())
-                 + f"); host {host_us:.2f} us per wrapper call on fresh "
-                 f"tensors, {host_same_us:.2f} us on the same ones; plain "
-                 f"{rows[label][name]['plain_ms']:.4f} ms (median of 3); "
-                 f"bound {b['bound_ms'] * 1e3:.3f} us by {b['bound_by']} "
-                 f"({b['bytes']} B, {b['flop']} FLOP), kernel reaches "
-                 f"{b['bound_ms'] / kernel_ms:.4f} of it")
+            t = dict(kernel_ms=by_lanes[lanes], by_lanes=by_lanes,
+                     ladder=ladder, plain_ms=_plain_ms(run, plain, u, fresh),
+                     host_us=_host_us(launch, [fresh() for _ in range(200)]),
+                     host_same_us=_host_us(launch, [fresh()] * 200),
+                     **bounds[name])
+            rows[label][name] = t
+            _log(f"time {name} {label}: kernel {t['kernel_ms'] * 1e3:.2f} us "
+                 f"of device time per launch (best of 3 x 20 launches; "
+                 + ", ".join(f"{g} lanes {x * 1e3:.2f} us"
+                             for g, x in by_lanes.items())
+                 + "; " + ", ".join(f"{k} {x * 1e3:.2f} us"
+                                    for k, x in ladder.items())
+                 + f"); host {t['host_us']:.2f} us per wrapper call on fresh "
+                 f"tensors, {t['host_same_us']:.2f} us on the same ones; "
+                 f"plain {t['plain_ms']:.4f} ms (median of 3); bound "
+                 f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
+                 f"({t['bytes']} B, {t['flop']} FLOP), kernel reaches "
+                 f"{t['bound_ms'] / t['kernel_ms']:.4f} of it")
+        # the lanes per particle at the widest shape the comparison covers
+        c, u = _timing_case(4096, 8, 33, L)
+        wide = _by_lanes(lambda st: c.run_segment(kernels["segment_pass"][0],
+                                                  u, st),
+                         c.fresh_segment, filler)
+        _log(f"time segment_pass {label} at P=4096 n=8 E=33: "
+             + ", ".join(f"{g} lanes {x * 1e3:.2f} us"
+                         for g, x in wide.items()))
     return rows
 
 

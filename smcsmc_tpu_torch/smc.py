@@ -26,7 +26,6 @@ from .kernels.tree import (
     Trees,
     branch_lengths,
     make_initial_trees,
-    tree_summaries,  # noqa: F401  (part of this module's interface)
 )
 from .kernels.trip import segment_pass
 
@@ -226,7 +225,6 @@ def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
     """Build the per-segment step ``step(state, seg) -> (state, (ess,
     resampled, front))``.  The step updates the state's tensors in place."""
     P = cfg.num_particles
-    E = epochs.num_epochs
     F = cfg.fifo_slots
     dev = epochs.start.device
     span = (np.asarray(lags, np.float32) / np.float32(max(F - 1, 1)))

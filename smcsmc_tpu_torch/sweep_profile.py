@@ -88,9 +88,8 @@ def profile_sweep(demo, seg, num_particles: int, device: str = "cuda",
     ka = prof.key_averages()
     on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in on_dev)
-    # the hand-written kernels of csrc/trip.cu, by their names in the trace
-    pass_ev = [e for e in on_dev
-               if "segment_pass_kernel" in e.key or "trip_kernel" in e.key]
+    # the hand-written kernel of csrc/trip.cu, by its name in the trace
+    pass_ev = [e for e in on_dev if "segment_pass_kernel" in e.key]
     pass_n = sum(e.count for e in pass_ev)
     top = sorted(on_dev, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]

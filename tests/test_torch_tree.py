@@ -20,7 +20,6 @@ from smcsmc_tpu.kernels import tree as jtree
 from smcsmc_tpu.smc import PFConfig, _tree_summaries, init_state
 from smcsmc_tpu_torch.convert import trees_from_numpy
 from smcsmc_tpu_torch.kernels import tree as ttree
-from smcsmc_tpu_torch.smc import tree_summaries
 
 torch.set_num_threads(1)
 
@@ -63,8 +62,8 @@ def test_tree_summaries_match_jax(n, leaf_status):
     tl, tle, B = _tree_summaries(jt, epochs, jnp.int8(leaf_status),
                                  jnp.asarray(hd))
     t_epochs = ttree.epochs_from_demography(demo, CPU)
-    tl2, tle2, B2 = tree_summaries(_torch_trees(jt), t_epochs, leaf_status,
-                                   torch.from_numpy(hd))
+    tl2, tle2, B2 = ttree.tree_summaries(_torch_trees(jt), t_epochs,
+                                         leaf_status, torch.from_numpy(hd))
     np.testing.assert_allclose(tl2.numpy(), np.asarray(tl), rtol=1e-5)
     np.testing.assert_allclose(tle2.numpy(), np.asarray(tle), rtol=1e-5,
                                atol=1e-3)
