@@ -105,6 +105,7 @@ struct Tables {
   const float* eend;
   const float* i2n;
   const int* hd;
+  const float* gate;  // [6E] FIFO gate (segment_pass)
   int n, N, E, total_data, leaf_status;
   float L, mu, rho;
 };
@@ -130,7 +131,9 @@ struct Heights {
   float pt[NP];
 };
 
-__host__ __device__ inline int tables_words(int E) { return 3 * E + MAX_LEAVES; }
+__host__ __device__ inline int tables_words(int E, bool with_gate) {
+  return 3 * E + MAX_LEAVES + (with_gate ? 6 * E : 0);
+}
 
 __host__ __device__ inline int work_words(int N, int E, bool with_pending) {
   return (5 * N + 2 * E + (with_pending ? 6 * E : 0)) | 1;  // odd stride
@@ -163,12 +166,12 @@ __device__ __forceinline__ float group_sum(float v, unsigned gm) {
   return v;
 }
 
-// Block-wide: epoch tables into shared memory; then carve this group's
-// slice.  Returns the particle index of the calling thread's group.
-template <int G>
-__device__ int setup(const Args& a, float* smem, bool with_pending,
-                     Tables& tb, Work& w, float*& pend) {
-  const int E = a.E, N = 2 * a.n - 1;
+// Block-wide: the epoch tables (and, for segment_pass, the FIFO gate) on
+// their way into shared memory.  No barrier here: the caller starts its own
+// loads too, so that all of them are in flight together, and then calls
+// __syncthreads().
+__device__ void stage_tables(const Args& a, float* smem, bool with_gate) {
+  const int E = a.E;
   float* s_est = smem;
   float* s_eend = smem + E;
   float* s_i2n = smem + 2 * E;
@@ -180,25 +183,41 @@ __device__ int setup(const Args& a, float* smem, bool with_pending,
   }
   for (int l = threadIdx.x; l < MAX_LEAVES; l += blockDim.x)
     s_hd[l] = (l < a.n && a.has_data[l] != 0) ? 1 : 0;
-  __syncthreads();
-  int total_data = 0;
-  for (int l = 0; l < a.n; ++l) total_data += s_hd[l];
-  tb.est = s_est;
-  tb.eend = s_eend;
-  tb.i2n = s_i2n;
-  tb.hd = s_hd;
+  if (with_gate) {
+    float* s_gate = smem + 3 * E + MAX_LEAVES;
+    for (int k = threadIdx.x; k < 6 * E; k += blockDim.x)
+      s_gate[k] = a.fifo_mask[k];
+  }
+}
+
+// After the barrier that follows stage_tables.
+__device__ void bind_tables(const Args& a, float* smem, Tables& tb) {
+  const int E = a.E;
+  tb.est = smem;
+  tb.eend = smem + E;
+  tb.i2n = smem + 2 * E;
+  tb.hd = reinterpret_cast<const int*>(smem + 3 * E);
+  tb.gate = smem + 3 * E + MAX_LEAVES;
   tb.n = a.n;
-  tb.N = N;
+  tb.N = 2 * a.n - 1;
   tb.E = E;
-  tb.total_data = total_data;
+  tb.total_data = 0;
+  for (int l = 0; l < a.n; ++l) tb.total_data += tb.hd[l];
   tb.leaf_status = a.leaf_status;
   tb.L = a.L;
   tb.mu = a.mu;
   tb.rho = a.rho;
+}
 
+// Carve this group's slice of shared memory (`pend` is only there for
+// segment_pass).  Returns the particle index of the calling thread's group.
+template <int G>
+__device__ int carve(const Args& a, float* smem, bool segment, Work& w,
+                     float*& pend) {
+  const int E = a.E, N = 2 * a.n - 1;
   const int group = threadIdx.x / G;
-  float* base = smem + tables_words(E)
-      + (size_t)group * work_words(N, E, with_pending);
+  float* base = smem + tables_words(E, segment)
+      + (size_t)group * work_words(N, E, segment);
   w.t = base;
   w.par = reinterpret_cast<int*>(base + N);
   w.c0 = reinterpret_cast<int*>(base + 2 * N);
@@ -206,7 +225,7 @@ __device__ int setup(const Args& a, float* smem, bool with_pending,
   w.below = reinterpret_cast<int*>(base + 4 * N);
   w.tle = base + 5 * N;
   w.full = base + 5 * N + E;
-  pend = base + 5 * N + 2 * E;  // only there when with_pending
+  pend = base + 5 * N + 2 * E;
   return blockIdx.x * (blockDim.x / G) + group;
 }
 
@@ -485,22 +504,29 @@ __device__ __forceinline__ float4 load_uniforms(const Args& a, int k, int i) {
 template <int G, int NP>
 __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   extern __shared__ float smem[];
-  Tables tb;
   Work w;
   float* unused;
-  const int i = setup<G>(a, smem, false, tb, w, unused);
-  if (i >= a.P) return;
-  float nr = a.next_rec[i];
-  if (!(nr < a.L)) return;  // inactive: every output stays as it is
+  const int i = carve<G>(a, smem, false, w, unused);
   const int lane = threadIdx.x % G;
   const unsigned gm = group_mask<G>();
-  const int N = tb.N, E = tb.E;
+  const int N = 2 * a.n - 1, E = a.E;
 
-  load_tree<G>(a, w, i, N, lane);
-  for (int e = lane; e < E; e += G) w.tle[e] = a.tl_e[(size_t)i * E + e];
-  float up = a.upd[i], lw = a.log_w[i], tl = a.tl[i], B = a.B[i];
+  // the tables, next_rec and then the rows of an active particle are all
+  // under way before the one barrier
+  float nr = i < a.P ? a.next_rec[i] : BIG;
+  stage_tables(a, smem, false);
+  const bool active = nr < a.L;  // else every output stays as it is
+  float up = 0.0f, lw = 0.0f, tl = 0.0f, B = 0.0f;
+  if (active) {
+    load_tree<G>(a, w, i, N, lane);
+    for (int e = lane; e < E; e += G) w.tle[e] = a.tl_e[(size_t)i * E + e];
+    up = a.upd[i], lw = a.log_w[i], tl = a.tl[i], B = a.B[i];
+  }
+  __syncthreads();
+  if (!active) return;
+  Tables tb;
+  bind_tables(a, smem, tb);
   float* pend = a.pending + (size_t)i * 6 * E;
-  __syncwarp(gm);
   Heights<NP> h;
   load_heights<NP>(w, N, h);
 
@@ -527,19 +553,27 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
 template <int G, int NP>
 __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   extern __shared__ float smem[];
-  Tables tb;
   Work w;
   float* pend;
-  const int i = setup<G>(a, smem, true, tb, w, pend);
-  if (i >= a.P) return;
+  const int i = carve<G>(a, smem, true, w, pend);
   const int lane = threadIdx.x % G;
   const unsigned gm = group_mask<G>();
-  const int N = tb.N, E = tb.E, K = 6 * tb.E;
+  const int N = 2 * a.n - 1, E = a.E, K = 6 * a.E;
 
-  load_tree<G>(a, w, i, N, lane);
-  for (int k = lane; k < K; k += G) pend[k] = 0.0f;
-  float nr = a.next_rec[i], lw = a.log_w[i], up = 0.0f;
-  __syncwarp(gm);  // the tree is loaded, and pend zeroed across lanes
+  // the tables, the gate and the particle's rows are all under way before
+  // the one barrier, which also publishes the tree and the zeroed pend
+  const bool live = i < a.P;
+  float nr = 0.0f, lw = 0.0f, up = 0.0f;
+  stage_tables(a, smem, true);
+  if (live) {
+    load_tree<G>(a, w, i, N, lane);
+    for (int k = lane; k < K; k += G) pend[k] = 0.0f;
+    nr = a.next_rec[i], lw = a.log_w[i];
+  }
+  __syncthreads();
+  if (!live) return;
+  Tables tb;
+  bind_tables(a, smem, tb);
   Heights<NP> h;
   load_heights<NP>(w, N, h);
   float tl, B;
@@ -567,7 +601,7 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   // ---- push the segment's statistics into FIFO slot 0 -------------------
   float* slot = a.fifo + (size_t)i * a.fifo_stride;
   for (int k = lane; k < K; k += G) {
-    const float v = pend[k] * a.fifo_mask[k];
+    const float v = pend[k] * tb.gate[k];
     if (v != 0.0f) slot[k] += v;
   }
 
@@ -598,7 +632,7 @@ int launch(const Args& a, bool segment, cudaStream_t stream) {
   const int N = 2 * a.n - 1;
   const int per_block = BLOCK / G;
   const size_t bytes = sizeof(float)
-      * ((size_t)tables_words(a.E)
+      * ((size_t)tables_words(a.E, segment)
          + (size_t)per_block * work_words(N, a.E, segment));
   const dim3 grid((unsigned)((a.P + per_block - 1) / per_block));
   if (segment)

@@ -1,10 +1,10 @@
-# Copied from smcsmc_tpu/demography.py at commit dfc2fad; keep it letter for letter.
+# Copied from smcsmc_tpu/demography.py at commit dfc2fad; keep the code letter for letter (the docstrings name the reference's files by their path inside the reference tree).
 """Demographic model container: piecewise-constant structured coalescent.
 
 Feature parity target: the scrm ``Model``/``Param`` surface actually consumed
 by the reference (SURVEY.md §2.3; reference usage at
-/root/reference/src/pfparam.cpp:287-318 and
-/root/reference/smcsmc/populationmodels.py:73-182) — epochs, per-population
+src/pfparam.cpp:287-318 and
+smcsmc/populationmodels.py:73-182) — epochs, per-population
 sizes, migration matrices, population splits (``-ej``), sample configuration
 (``-I``/``-eI``), plus mutation/recombination rates.
 

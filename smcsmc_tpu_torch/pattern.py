@@ -1,8 +1,8 @@
-# Copied from smcsmc_tpu/pattern.py at commit dfc2fad; keep it letter for letter.
+# Copied from smcsmc_tpu/pattern.py at commit dfc2fad; keep the code letter for letter (the docstrings name the reference's files by their path inside the reference tree).
 """PSMC-style epoch pattern parser.
 
 Reproduces the behaviour of the reference pattern parser
-(/root/reference/src/pattern.cpp:139-163, /root/reference/src/pattern.hpp):
+(src/pattern.cpp:139-163, src/pattern.hpp):
 a pattern string like ``"3*1+2*3+4"`` describes how ``num_seg`` log-spaced
 time points on ``[0, top_t]`` are grouped into epochs.  ``a*b`` means
 "a epochs, each spanning b elementary segments"; a bare number ``b`` means
