@@ -24,16 +24,14 @@ Phases, each fatal on failure:
 4. time both entry points at the main path's shape (P=10000, n=4, E=9), on
    the mean and on the longest segment: device time per launch (CUDA events
    around 20 launches on cloned states, queued behind a matrix product so
-   that the host's enqueueing is not in the interval), the same for groups
-   of 8, 16 and 32 lanes per particle, with at most 1, 2 and 4 trips allowed
-   and with no particle recombining, an empty launch (and, for
-   ``segment_pass``, the three group sizes at P=4096, n=8, E=33), the
-   host's time per
-   wrapper call (perf_counter around 200 calls, no synchronise inside; on
-   fresh tensors and on the same ones) and the plain version (median of 3).  From the counted work of those
-   launches (active particles and trips) it prints each kernel's bound, the
-   larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s, and the
-   share of it the kernel reaches;
+   that the host's enqueueing is not in the interval), the same with at
+   most 1, 2 and 4 trips allowed and with no particle recombining, an empty
+   launch, the host's time per wrapper call (perf_counter around 200 calls,
+   no synchronise inside) and the plain version (median of 3).  From the
+   counted work of those launches (active particles, trips, and the
+   statistics that are not zero and so have to reach the FIFO) it prints
+   each kernel's bound, the larger of bytes over 3.35 TB/s and operations
+   over 67 TFLOP/s, and the share of it the kernel reaches;
 5. run the main path through smc2-torch's entry point
    (smcsmc_tpu_torch.cli.smcsmc_main) on bench.py's single-population data
    (n=4, 2 Mb) at -Np 10000 -EM 1 with 9 epochs;
@@ -324,14 +322,16 @@ def _host_us(launch, states):
     return dt / len(states) * 1e6
 
 
-def _bounds(c, active, trips):
+def _bounds(c, active, trips, pushed):
     """Least time (ms) the card could take for one launch of each entry
-    point with ``active`` recombining particles and ``trips`` trips in all:
-    bytes the function must move (each input read once, each output written
-    once) over the memory rate, and its float operations over the float32
-    rate; the larger bounds it."""
+    point with ``active`` recombining particles, ``trips`` trips in all and
+    ``pushed`` statistics that are not zero after the gate: bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate, and its float operations over the float32 rate;
+    the larger bounds it."""
     P, N, E = c.P, 2 * c.n - 1, c.E
     tree = 4 * N * 4  # time, parent, child0, child1 rows
+    tables = 4 * 2 * E + c.n  # epoch_start, inv2ne, has_data
     # a trip: (epoch x node) overlaps for the hazard mass and the refreshed
     # summaries (4 operations each), the node-time candidates (N x N x 5),
     # the O(N) scans and the per-epoch records
@@ -339,15 +339,19 @@ def _bounds(c, active, trips):
     nbytes = {
         # every particle reads next_rec; an active one reads and writes its
         # tree, tl_e, pending and five scalars, and reads 16 B per trip
-        "trip": 4 * P + active * 2 * (tree + 4 * E + 4 * 6 * E + 5 * 4)
-        + 16 * trips,
-        # every particle reads its tree, reads and writes next_rec, log_w
-        # and its FIFO slot, and writes tl; an active one writes its tree
-        "segment_pass": P * (tree + 2 * 4 + 2 * 4 + 4 + 2 * 4 * 6 * E)
-        + active * tree + 16 * trips,
+        "trip": tables + 4 * P
+        + active * 2 * (tree + 4 * E + 4 * 6 * E + 5 * 4) + 16 * trips,
+        # every particle reads its tree, reads and writes next_rec and
+        # log_w and writes tl; an active one writes its tree and reads 16 B
+        # per trip.  Of the FIFO only slot 0's entries that take a nonzero
+        # statistic are read and written: a particle that does not
+        # recombine has its recombination opportunity alone, in the epochs
+        # its tree reaches and the gate leaves open
+        "segment_pass": tables + 4 * 6 * E + P * (tree + 2 * 4 + 2 * 4 + 4)
+        + active * tree + 16 * trips + 2 * 4 * pushed,
     }
     flop = {"trip": trips * flop_trip,
-            "segment_pass": trips * flop_trip + P * (E * N * 4 + 2 * 6 * E)}
+            "segment_pass": trips * flop_trip + P * E * N * 4 + 2 * pushed}
     out = {}
     for name in nbytes:
         by_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
@@ -377,21 +381,6 @@ def _best_device_ms(launch, fresh, filler):
                for _ in range(3))
 
 
-def _by_lanes(launch, fresh, filler):
-    """Device time per launch for 8, 16 and 32 lanes per particle."""
-    import smcsmc_tpu_torch.kernels.trip as trip_mod
-
-    default_lanes = trip_mod.GROUP_LANES
-    out = {}
-    try:
-        for lanes in (8, 16, 32):
-            trip_mod.GROUP_LANES = lanes
-            out[lanes] = _best_device_ms(launch, fresh, filler)
-    finally:
-        trip_mod.GROUP_LANES = default_lanes
-    return out
-
-
 def _plain_ms(run, plain, u, fresh):
     """Median of 3 runs of the plain version, CUDA events."""
     import torch
@@ -415,11 +404,9 @@ def phase_time(kernels, seg_lengths):
     E=9) for each (label, segment length); see the module docstring."""
     import torch
 
-    import smcsmc_tpu_torch.kernels.trip as trip_mod
     from smcsmc_tpu_torch.kernels._build import load_trip_library
 
     lib = load_trip_library()
-    lanes = trip_mod.GROUP_LANES
     a = torch.rand((4096, 4096), device="cuda")
 
     def filler():
@@ -435,21 +422,27 @@ def phase_time(kernels, seg_lengths):
     _log(f"time empty launch: {empty_ms * 1e3:.2f} us of device time each "
          f"(200 back to back)")
 
-    rows = {"empty_launch_ms": empty_ms, "lanes": lanes}
+    rows = {"empty_launch_ms": empty_ms}
     for label, L in seg_lengths:
         c, u = _timing_case(10000, 4, 9, L)
-        # counted work: a trip adds one recombination count to one epoch
+        # counted work: a trip adds one recombination count to one epoch;
+        # FIFO slot 0 starts empty, so what is not zero in it afterwards is
+        # what the segment pass had to push
         st = c.run(kernels["trip"][0], u, c.fresh())
         per_particle = st["pending"][:, 5 * c.E:].sum(dim=1)
         active = int((c.base["next_rec"] < L).sum())
         trips = int(round(float(per_particle.sum())))
-        bounds = _bounds(c, active, trips)
+        st = c.run_segment(kernels["segment_pass"][0], u, c.fresh_segment())
+        pushed = int((st["fifo"][:, 0] != 0).sum())
+        bounds = _bounds(c, active, trips, pushed)
         _log(f"time {label} (L={L:g} bp): {active} of {c.P} particles "
              f"recombine, {trips} trips in all, at most "
-             f"{int(per_particle.max())} in one particle")
+             f"{int(per_particle.max())} in one particle; {pushed} of "
+             f"{c.P * 6 * c.E} statistics are not zero after the gate")
         makers = {"trip": (c.fresh, c.run),
                   "segment_pass": (c.fresh_segment, c.run_segment)}
-        rows[label] = {"L": L, "active": active, "trips": trips}
+        rows[label] = {"L": L, "active": active, "trips": trips,
+                       "pushed": pushed}
         for name, (kernel, plain) in kernels.items():
             fresh, run = makers[name]
 
@@ -461,41 +454,26 @@ def phase_time(kernels, seg_lengths):
                 st["next_rec"] += 1e9  # nobody recombines
                 return st
 
-            by_lanes = _by_lanes(launch, fresh, filler)
             # what a launch costs before any trip, and per trip allowed
             ladder = {"no trips": _best_device_ms(launch, idle, filler)}
             for T in (1, 2, 4):
                 ladder[f"trips<={T}"] = _best_device_ms(
                     lambda st, ut=u[:T].contiguous(): run(kernel, ut, st),
                     fresh, filler)
-            # fresh tensors: every argument is validated; one state again
-            # and again: segment_pass remembers what it has validated
-            t = dict(kernel_ms=by_lanes[lanes], by_lanes=by_lanes,
+            t = dict(kernel_ms=_best_device_ms(launch, fresh, filler),
                      ladder=ladder, plain_ms=_plain_ms(run, plain, u, fresh),
                      host_us=_host_us(launch, [fresh() for _ in range(200)]),
-                     host_same_us=_host_us(launch, [fresh()] * 200),
                      **bounds[name])
             rows[label][name] = t
             _log(f"time {name} {label}: kernel {t['kernel_ms'] * 1e3:.2f} us "
                  f"of device time per launch (best of 3 x 20 launches; "
-                 + ", ".join(f"{g} lanes {x * 1e3:.2f} us"
-                             for g, x in by_lanes.items())
-                 + "; " + ", ".join(f"{k} {x * 1e3:.2f} us"
-                                    for k, x in ladder.items())
-                 + f"); host {t['host_us']:.2f} us per wrapper call on fresh "
-                 f"tensors, {t['host_same_us']:.2f} us on the same ones; "
-                 f"plain {t['plain_ms']:.4f} ms (median of 3); bound "
+                 + ", ".join(f"{k} {x * 1e3:.2f} us"
+                             for k, x in ladder.items())
+                 + f"); host {t['host_us']:.2f} us per wrapper call; plain "
+                 f"{t['plain_ms']:.4f} ms (median of 3); bound "
                  f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
                  f"({t['bytes']} B, {t['flop']} FLOP), kernel reaches "
                  f"{t['bound_ms'] / t['kernel_ms']:.4f} of it")
-        # the lanes per particle at the widest shape the comparison covers
-        c, u = _timing_case(4096, 8, 33, L)
-        wide = _by_lanes(lambda st: c.run_segment(kernels["segment_pass"][0],
-                                                  u, st),
-                         c.fresh_segment, filler)
-        _log(f"time segment_pass {label} at P=4096 n=8 E=33: "
-             + ", ".join(f"{g} lanes {x * 1e3:.2f} us"
-                         for g, x in wide.items()))
     return rows
 
 
@@ -697,10 +675,10 @@ def main(argv=None) -> int:
         _log(ln)
 
     head = timing["mean bench segment"]
-    record = {"kernels": [], "lanes_per_particle": timing["lanes"],
-              "empty_launch_ms": timing["empty_launch_ms"],
+    record = {"kernels": [], "empty_launch_ms": timing["empty_launch_ms"],
               "timed_at": {"P": 10000, "n": 4, "E": 9,
-                           "active": head["active"], "trips": head["trips"]}}
+                           "active": head["active"], "trips": head["trips"],
+                           "pushed": head["pushed"]}}
     for name in kernels:
         single, chained = tallies[name]
         compare = {"trips=1": single.record(),
@@ -724,7 +702,6 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a trip
             "host_us_per_call": t["host_us"],
-            "host_us_per_call_same_tensors": t["host_same_us"],
             "longest_segment": {
                 k: timing["longest segment"][name][k]
                 for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")},

@@ -18,20 +18,22 @@
 // What bounds it on Hopper: launch and latency, neither bytes nor FLOPs.
 // At the sweep's shape (10,000 particles, 4 leaves, 9 epochs, about one
 // particle in ten recombining in a mean segment) `trip` has to move about
-// 0.85 MB and `segment_pass` about 6 MB, i.e. 0.25 us and 2 us at
-// 3.35 TB/s, with under 0.1 us of float32 arithmetic; an empty launch
-// alone takes longer.  What the kernel spends is the dependent chain of one
-// particle's trip.
+// 0.8 MB and `segment_pass` about 2 MB (every tree read once, and of the
+// FIFO row only the statistics that are not zero: one gated row of
+// recombination opportunity for a particle that does not recombine), i.e.
+// 0.25 us and 0.6 us at 3.35 TB/s, with under 0.1 us of float32
+// arithmetic; an empty launch alone takes longer.  What the kernel spends
+// is the dependent chain of one particle's trip.
 //
 // What the design does about it:
 //
-// * A group of GROUP lanes (8, 16 or 32, a launch argument) owns one
-//   particle; consecutive groups own consecutive particles, so a block's
-//   loads of the [P, N] rows are contiguous.  What is indexed by a value
-//   (node times, parent and child pointers for the SPR), the per-epoch
-//   tree length and, for segment_pass, the pending statistics live in the
-//   group's slice of shared memory, padded to an odd stride so that groups
-//   of one warp hit different banks.
+// * A group of GROUP = 8 lanes owns one particle (8 was fastest at the
+//   sweep's shape, against 16 and 32); consecutive groups own consecutive
+//   particles, so a block's loads of the [P, N] rows are contiguous.  What
+//   is indexed by a value (node times, parent and child pointers for the
+//   SPR), the per-epoch tree length and, for segment_pass, the pending
+//   statistics live in the group's slice of shared memory, padded to an
+//   odd stride so that groups of one warp hit different banks.
 // * Every lane keeps the particle's node and parent times in registers,
 //   padded to 7 or 15 nodes (a template argument) so that every loop over
 //   nodes is unrolled and nothing is indexed dynamically: no stack frame.
@@ -68,6 +70,7 @@
 #define MAX_NODES (2 * MAX_LEAVES - 1)
 #define MAX_EPOCHS 64
 #define BLOCK 128
+#define GROUP 8  // lanes that share one particle; divides 32
 #define BIG 3e38f
 
 namespace {
@@ -143,25 +146,21 @@ __device__ __forceinline__ float clip_u(float u) {
   return fminf(fmaxf(u, 1e-7f), (float)(1.0 - 1e-7));
 }
 
-template <int G>
 __device__ __forceinline__ unsigned group_mask() {
-  if (G >= 32) return 0xffffffffu;
-  return ((1u << (G & 31)) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  return ((1u << GROUP) - 1u) << ((threadIdx.x & 31) & ~(GROUP - 1));
 }
 
-template <int G>
 __device__ __forceinline__ float group_max(float v, unsigned gm) {
 #pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1)
+  for (int off = GROUP / 2; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(gm, v, off));
   return v;
 }
 
 // every lane ends with the same bits: each step adds the same two values
-template <int G>
 __device__ __forceinline__ float group_sum(float v, unsigned gm) {
 #pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1)
+  for (int off = GROUP / 2; off > 0; off >>= 1)
     v = v + __shfl_xor_sync(gm, v, off);
   return v;
 }
@@ -211,11 +210,10 @@ __device__ void bind_tables(const Args& a, float* smem, Tables& tb) {
 
 // Carve this group's slice of shared memory (`pend` is only there for
 // segment_pass).  Returns the particle index of the calling thread's group.
-template <int G>
 __device__ int carve(const Args& a, float* smem, bool segment, Work& w,
                      float*& pend) {
   const int E = a.E, N = 2 * a.n - 1;
-  const int group = threadIdx.x / G;
+  const int group = threadIdx.x / GROUP;
   float* base = smem + tables_words(E, segment)
       + (size_t)group * work_words(N, E, segment);
   w.t = base;
@@ -226,13 +224,12 @@ __device__ int carve(const Args& a, float* smem, bool segment, Work& w,
   w.tle = base + 5 * N;
   w.full = base + 5 * N + E;
   pend = base + 5 * N + 2 * E;
-  return blockIdx.x * (blockDim.x / G) + group;
+  return blockIdx.x * (blockDim.x / GROUP) + group;
 }
 
-template <int G>
 __device__ void load_tree(const Args& a, const Work& w, int i, int N,
                           int lane) {
-  for (int j = lane; j < N; j += G) {
+  for (int j = lane; j < N; j += GROUP) {
     w.t[j] = a.time[(size_t)i * N + j];
     w.par[j] = a.parent[(size_t)i * N + j];
     w.c0[j] = a.child0[(size_t)i * N + j];
@@ -240,10 +237,9 @@ __device__ void load_tree(const Args& a, const Work& w, int i, int N,
   }
 }
 
-template <int G>
 __device__ void store_tree(const Args& a, const Work& w, int i, int N,
                            int lane) {
-  for (int j = lane; j < N; j += G) {
+  for (int j = lane; j < N; j += GROUP) {
     a.time[(size_t)i * N + j] = w.t[j];
     a.parent[(size_t)i * N + j] = w.par[j];
     a.child0[(size_t)i * N + j] = w.c0[j];
@@ -273,16 +269,16 @@ __device__ __forceinline__ void load_heights(const Work& w, int N,
 // (w.tle, each lane its own epochs), tree length, data branch length.
 // Every lane returns the same tl and B.  For mixed data the group must be
 // synchronised on entry (w.par is read across lanes).
-template <int G, int NP>
+template <int NP>
 __device__ void summaries(const Tables& tb, const Work& w,
                           const Heights<NP>& h, int lane, unsigned gm,
                           float& tl, float& B) {
   const int E = tb.E;
   if (tb.leaf_status == 0) {
-    for (int j = lane; j < tb.N; j += G) w.below[j] = 0;
+    for (int j = lane; j < tb.N; j += GROUP) w.below[j] = 0;
     __syncwarp(gm);
     // each data leaf marks itself on its ancestor chain
-    for (int l = lane; l < tb.n; l += G) {
+    for (int l = lane; l < tb.n; l += GROUP) {
       if (!tb.hd[l]) continue;
       int cur = l;
       for (int s = 0; s < tb.n && cur >= 0; ++s) {
@@ -293,7 +289,7 @@ __device__ void summaries(const Tables& tb, const Work& w,
     __syncwarp(gm);
   }
   float mine = 0.0f;
-  for (int e = lane; e < E; e += G) {
+  for (int e = lane; e < E; e += GROUP) {
     const float lo_e = tb.est[e], hi_e = tb.eend[e];
     float s = 0.0f;
 #pragma unroll
@@ -303,7 +299,7 @@ __device__ void summaries(const Tables& tb, const Work& w,
     w.tle[e] = s;
     mine += s;
   }
-  tl = group_sum<G>(mine, gm);
+  tl = group_sum(mine, gm);
   if (tb.leaf_status == 1) {
     B = tl;
   } else if (tb.leaf_status == -1) {
@@ -337,7 +333,7 @@ __device__ __forceinline__ float overlap_below(const Heights<NP>& h, float lo,
 // synchronised group with identical scalars and heights, w.tle up to date;
 // returns the same way.  `pend` ([6E], shared or global) takes the trip's
 // statistics.
-template <int G, int NP>
+template <int NP>
 __device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
                          int lane, unsigned gm, const float4 u, float* pend,
                          float& nr, float& up, float& lw, float& tl,
@@ -375,7 +371,7 @@ __device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   // piecewise linear and non-decreasing in v.  full_e is epoch e's whole
   // contribution; the running sum over epochs is lam at each epoch start.
   const float x_exp = -log1pf(-u_exp);
-  for (int e = lane; e < E; e += G)
+  for (int e = lane; e < E; e += GROUP)
     w.full[e] = overlap_below<NP>(h, fmaxf(tb.est[e], h_r), tb.eend[e], BIG);
   __syncwarp(gm);
   int es = 0;        // last epoch whose start has lam <= x_exp
@@ -392,11 +388,11 @@ __device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   const float lo_s = fmaxf(tb.est[es], h_r), hi_s = tb.eend[es];
   const float i2n_s = tb.i2n[es];
   // node times inside epoch e* are the remaining candidates; lane l takes
-  // nodes l, l + G, ...
+  // nodes l, l + GROUP, ...
   float best = -BIG;
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    if (i % G == lane) {
+    if (i % GROUP == lane) {
       const float v = h.t[i];
       if (v >= lo_s && v < hi_s) {
         const float lam = base + overlap_below<NP>(h, lo_s, hi_s, v) * i2n_s;
@@ -404,7 +400,7 @@ __device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
       }
     }
   }
-  const float t_lo = fmaxf(group_max<G>(best, gm), lo_s);
+  const float t_lo = fmaxf(group_max(best, gm), lo_s);
   const float lam_lo = base + overlap_below<NP>(h, lo_s, hi_s, t_lo) * i2n_s;
   float k_lo = 0.0f;
 #pragma unroll
@@ -433,7 +429,7 @@ __device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   // ---- opportunity / count records --------------------------------------
   // layout: [coal_opp | coal_cnt | mig_opp | mig_cnt | recomb_opp |
   //          recomb_cnt], E columns each
-  for (int e = lane; e < E; e += G) {
+  for (int e = lane; e < E; e += GROUP) {
     const float st_e = tb.est[e], hi_e = tb.eend[e];
     const float lo_e = fmaxf(st_e, h_r);
     float coal_opp;
@@ -490,7 +486,7 @@ __device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
 
   // ---- refreshed tree summaries, then the next gap ----------------------
   load_heights<NP>(w, N, h);
-  summaries<G, NP>(tb, w, h, lane, gm, tl, B);
+  summaries<NP>(tb, w, h, lane, gm, tl, B);
   const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
   up = nr;
   nr = nr + gap;
@@ -501,14 +497,14 @@ __device__ __forceinline__ float4 load_uniforms(const Args& a, int k, int i) {
                                           + ((size_t)k * a.P + i) * 4);
 }
 
-template <int G, int NP>
+template <int NP>
 __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   extern __shared__ float smem[];
   Work w;
   float* unused;
-  const int i = carve<G>(a, smem, false, w, unused);
-  const int lane = threadIdx.x % G;
-  const unsigned gm = group_mask<G>();
+  const int i = carve(a, smem, false, w, unused);
+  const int lane = threadIdx.x % GROUP;
+  const unsigned gm = group_mask();
   const int N = 2 * a.n - 1, E = a.E;
 
   // the tables, next_rec and then the rows of an active particle are all
@@ -518,8 +514,9 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   const bool active = nr < a.L;  // else every output stays as it is
   float up = 0.0f, lw = 0.0f, tl = 0.0f, B = 0.0f;
   if (active) {
-    load_tree<G>(a, w, i, N, lane);
-    for (int e = lane; e < E; e += G) w.tle[e] = a.tl_e[(size_t)i * E + e];
+    load_tree(a, w, i, N, lane);
+    for (int e = lane; e < E; e += GROUP)
+      w.tle[e] = a.tl_e[(size_t)i * E + e];
     up = a.upd[i], lw = a.log_w[i], tl = a.tl[i], B = a.B[i];
   }
   __syncthreads();
@@ -535,12 +532,13 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
     if (!(nr < a.L)) break;
     // the next trip's uniforms are under way while this trip runs
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
-    one_trip<G, NP>(tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B);
+    one_trip<NP>(tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B);
     u = u_next;
   }
 
-  store_tree<G>(a, w, i, N, lane);
-  for (int e = lane; e < E; e += G) a.tl_e[(size_t)i * E + e] = w.tle[e];
+  store_tree(a, w, i, N, lane);
+  for (int e = lane; e < E; e += GROUP)
+    a.tl_e[(size_t)i * E + e] = w.tle[e];
   if (lane == 0) {
     a.next_rec[i] = nr;
     a.upd[i] = up;
@@ -550,14 +548,14 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   }
 }
 
-template <int G, int NP>
+template <int NP>
 __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   extern __shared__ float smem[];
   Work w;
   float* pend;
-  const int i = carve<G>(a, smem, true, w, pend);
-  const int lane = threadIdx.x % G;
-  const unsigned gm = group_mask<G>();
+  const int i = carve(a, smem, true, w, pend);
+  const int lane = threadIdx.x % GROUP;
+  const unsigned gm = group_mask();
   const int N = 2 * a.n - 1, E = a.E, K = 6 * a.E;
 
   // the tables, the gate and the particle's rows are all under way before
@@ -566,8 +564,8 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   float nr = 0.0f, lw = 0.0f, up = 0.0f;
   stage_tables(a, smem, true);
   if (live) {
-    load_tree<G>(a, w, i, N, lane);
-    for (int k = lane; k < K; k += G) pend[k] = 0.0f;
+    load_tree(a, w, i, N, lane);
+    for (int k = lane; k < K; k += GROUP) pend[k] = 0.0f;
     nr = a.next_rec[i], lw = a.log_w[i];
   }
   __syncthreads();
@@ -577,7 +575,7 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   Heights<NP> h;
   load_heights<NP>(w, N, h);
   float tl, B;
-  summaries<G, NP>(tb, w, h, lane, gm, tl, B);  // at segment entry
+  summaries<NP>(tb, w, h, lane, gm, tl, B);  // at segment entry
 
   bool moved = false;
   float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -586,7 +584,7 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
     if (!(nr < a.L)) break;
     // the next trip's uniforms are under way while this trip runs
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
-    one_trip<G, NP>(tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B);
+    one_trip<NP>(tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B);
     u = u_next;
     moved = true;
   }
@@ -594,18 +592,18 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   // ---- final extension to the segment end -------------------------------
   const float delta = a.L - up;
   lw = lw - a.mu * B * delta;
-  for (int e = lane; e < E; e += G) pend[4 * E + e] += delta * w.tle[e];
+  for (int e = lane; e < E; e += GROUP) pend[4 * E + e] += delta * w.tle[e];
   nr = nr - a.L;
   __syncwarp(gm);
 
   // ---- push the segment's statistics into FIFO slot 0 -------------------
   float* slot = a.fifo + (size_t)i * a.fifo_stride;
-  for (int k = lane; k < K; k += G) {
+  for (int k = lane; k < K; k += GROUP) {
     const float v = pend[k] * tb.gate[k];
     if (v != 0.0f) slot[k] += v;
   }
 
-  if (moved) store_tree<G>(a, w, i, N, lane);  // only rows that changed
+  if (moved) store_tree(a, w, i, N, lane);  // only rows that changed
   if (lane == 0) {
     a.next_rec[i] = nr;
     a.log_w[i] = lw;
@@ -627,37 +625,27 @@ int launch_kernel(Kernel kernel, const Args& a, dim3 grid, size_t bytes,
   return (int)cudaGetLastError();
 }
 
-template <int G, int NP>
+template <int NP>
 int launch(const Args& a, bool segment, cudaStream_t stream) {
   const int N = 2 * a.n - 1;
-  const int per_block = BLOCK / G;
+  const int per_block = BLOCK / GROUP;
   const size_t bytes = sizeof(float)
       * ((size_t)tables_words(a.E, segment)
          + (size_t)per_block * work_words(N, a.E, segment));
   const dim3 grid((unsigned)((a.P + per_block - 1) / per_block));
   if (segment)
-    return launch_kernel(segment_pass_kernel<G, NP>, a, grid, bytes, stream);
-  return launch_kernel(trip_kernel<G, NP>, a, grid, bytes, stream);
+    return launch_kernel(segment_pass_kernel<NP>, a, grid, bytes, stream);
+  return launch_kernel(trip_kernel<NP>, a, grid, bytes, stream);
 }
 
-template <int G>
-int launch_for_leaves(const Args& a, bool segment, cudaStream_t stream) {
-  return a.n <= 4 ? launch<G, 7>(a, segment, stream)
-                  : launch<G, MAX_NODES>(a, segment, stream);
-}
-
-int dispatch(const Args& a, bool segment, int group, void* stream) {
+int dispatch(const Args& a, bool segment, void* stream) {
   if (a.n < 2 || a.n > MAX_LEAVES || a.E < 1 || a.E > MAX_EPOCHS
       || a.trips < 0)
     return (int)cudaErrorInvalidValue;
   if (a.P <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (group) {
-    case 8: return launch_for_leaves<8>(a, segment, s);
-    case 16: return launch_for_leaves<16>(a, segment, s);
-    case 32: return launch_for_leaves<32>(a, segment, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return a.n <= 4 ? launch<7>(a, segment, s)
+                  : launch<MAX_NODES>(a, segment, s);
 }
 
 }  // namespace
@@ -667,8 +655,7 @@ extern "C" int smc_trip_launch(
     float* time, int* parent, int* child0, int* child1, float* next_rec,
     float* upd, float* log_w, float* tl, float* B, float* tl_e,
     float* pending, float L, float mu, float rho, const float* epoch_start,
-    const float* inv2ne, const unsigned char* has_data, int group,
-    void* stream) {
+    const float* inv2ne, const unsigned char* has_data, void* stream) {
   if (trips < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.uniforms = uniforms;
@@ -694,7 +681,7 @@ extern "C" int smc_trip_launch(
   a.B = B;
   a.tl_e = tl_e;
   a.pending = pending;
-  return dispatch(a, false, group, stream);
+  return dispatch(a, false, stream);
 }
 
 extern "C" int smc_segment_pass_launch(
@@ -702,8 +689,7 @@ extern "C" int smc_segment_pass_launch(
     int leaf_status, float* time, int* parent, int* child0, int* child1,
     float* next_rec, float* log_w, float* fifo, const float* fifo_mask,
     float* tl_out, float L, float mu, float rho, const float* epoch_start,
-    const float* inv2ne, const unsigned char* has_data, int group,
-    void* stream) {
+    const float* inv2ne, const unsigned char* has_data, void* stream) {
   if (F < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.uniforms = uniforms;
@@ -728,7 +714,7 @@ extern "C" int smc_segment_pass_launch(
   a.fifo_stride = (long long)F * 6 * E;
   a.fifo_mask = fifo_mask;
   a.tl_out = tl_out;
-  return dispatch(a, true, group, stream);
+  return dispatch(a, true, stream);
 }
 
 // An empty launch, for timing what any launch costs on the card.

@@ -84,7 +84,7 @@ def load_trip_library() -> ctypes.CDLL:
         vp, vp,  # tl_e, pending
         cf, cf, cf,  # L, mu, rho
         vp, vp, vp,  # epoch_start, inv2ne, has_data
-        ci, vp,  # lanes per particle, stream
+        vp,  # stream
     ]
     lib.smc_trip_launch.restype = ci
     lib.smc_segment_pass_launch.argtypes = [
@@ -94,7 +94,7 @@ def load_trip_library() -> ctypes.CDLL:
         vp, vp, vp,  # fifo, fifo_mask, tl_out
         cf, cf, cf,  # L, mu, rho
         vp, vp, vp,  # epoch_start, inv2ne, has_data
-        ci, vp,  # lanes per particle, stream
+        vp,  # stream
     ]
     lib.smc_segment_pass_launch.restype = ci
     lib.smc_noop_launch.argtypes = [vp]

@@ -33,8 +33,6 @@ is held against ``fused_trip``.
 
 from __future__ import annotations
 
-import weakref
-
 import torch
 
 from ._build import load_trip_library
@@ -52,9 +50,6 @@ from .tree import (
 # compile-time caps of the CUDA kernel (csrc/trip.cu MAX_LEAVES/MAX_EPOCHS)
 MAX_LEAVES = 8
 MAX_EPOCHS = 64
-
-# lanes that share one particle in the CUDA kernels: 8, 16 or 32
-GROUP_LANES = 8
 
 # the tensors a trip updates, in argument order
 FIELDS = ("time", "parent", "child0", "child1", "next_rec", "upd", "log_w",
@@ -392,8 +387,7 @@ def trip(uniforms, leaf_status, time, parent, child0, child1, next_rec, upd,
             child1.data_ptr(), next_rec.data_ptr(), upd.data_ptr(),
             log_w.data_ptr(), tl.data_ptr(), B.data_ptr(), tl_e.data_ptr(),
             pending.data_ptr(), float(L), float(mu), float(rho),
-            epoch_start.data_ptr(), inv2ne.data_ptr(), has_data.data_ptr(),
-            GROUP_LANES)
+            epoch_start.data_ptr(), inv2ne.data_ptr(), has_data.data_ptr())
     trip.launches += 1
 
 
@@ -439,27 +433,6 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
     tl_out.copy_(tl)
 
 
-class _Validated:
-    """Arguments that passed validation, remembered by identity, so that a
-    sweep checks each of its tensors once and not once per segment.  (A
-    tensor whose shape or strides are changed in place after that is not
-    noticed.)"""
-
-    def __init__(self):
-        self._seen = {}
-
-    def __call__(self, name, x, dtype, shape, dev):
-        want = (dtype, shape, dev)
-        hit = self._seen.get(name)
-        if hit is not None and hit[0]() is x and hit[1] == want:
-            return
-        _check_tensor(name, x, dtype, shape, dev)
-        self._seen[name] = (weakref.ref(x), want)
-
-
-_segment_checked = _Validated()
-
-
 def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
                  next_rec, log_w, fifo, fifo_mask, tl_out, L, mu, rho,
                  epoch_start, inv2ne, has_data):
@@ -479,7 +452,8 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
 
     CPU tensors run :func:`segment_pass_plain`.  CUDA tensors launch the
     kernel of ``csrc/trip.cu`` on the current stream (one launch) or raise;
-    nothing falls back."""
+    nothing falls back.  Every call checks every tensor, as :func:`trip`
+    does."""
     dev = time.device
     if dev.type == "cpu":
         segment_pass_plain(uniforms, leaf_status, time, parent, child0,
@@ -496,27 +470,30 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
                          f"(P, F, {6 * E})")
     T, F = uniforms.shape[0], fifo.shape[1]
     f32, i32 = torch.float32, torch.int32
-    ok = _segment_checked
-    ok("uniforms", uniforms, f32, (T, P, 4), dev)
-    ok("time", time, f32, (P, N), dev)
-    ok("parent", parent, i32, (P, N), dev)
-    ok("child0", child0, i32, (P, N), dev)
-    ok("child1", child1, i32, (P, N), dev)
-    ok("next_rec", next_rec, f32, (P,), dev)
-    ok("log_w", log_w, f32, (P,), dev)
-    ok("fifo", fifo, f32, (P, F, 6 * E), dev)
-    ok("fifo_mask", fifo_mask, f32, (6 * E,), dev)
-    ok("tl_out", tl_out, f32, (P,), dev)
-    ok("epoch_start", epoch_start, f32, (E,), dev)
-    ok("inv2ne", inv2ne, f32, (E,), dev)
-    ok("has_data", has_data, torch.bool, (n,), dev)
+    spec = [
+        ("uniforms", uniforms, f32, (T, P, 4)),
+        ("time", time, f32, (P, N)),
+        ("parent", parent, i32, (P, N)),
+        ("child0", child0, i32, (P, N)),
+        ("child1", child1, i32, (P, N)),
+        ("next_rec", next_rec, f32, (P,)),
+        ("log_w", log_w, f32, (P,)),
+        ("fifo", fifo, f32, (P, F, 6 * E)),
+        ("fifo_mask", fifo_mask, f32, (6 * E,)),
+        ("tl_out", tl_out, f32, (P,)),
+        ("epoch_start", epoch_start, f32, (E,)),
+        ("inv2ne", inv2ne, f32, (E,)),
+        ("has_data", has_data, torch.bool, (n,)),
+    ]
+    for name, x, dtype, shape in spec:
+        _check_tensor(name, x, dtype, shape, dev)
     _launch("smc_segment_pass_launch", dev,
             uniforms.data_ptr(), T, P, n, E, F, int(leaf_status),
             time.data_ptr(), parent.data_ptr(), child0.data_ptr(),
             child1.data_ptr(), next_rec.data_ptr(), log_w.data_ptr(),
             fifo.data_ptr(), fifo_mask.data_ptr(), tl_out.data_ptr(),
             float(L), float(mu), float(rho), epoch_start.data_ptr(),
-            inv2ne.data_ptr(), has_data.data_ptr(), GROUP_LANES)
+            inv2ne.data_ptr(), has_data.data_ptr())
     segment_pass.launches += 1
 
 

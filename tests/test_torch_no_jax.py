@@ -76,7 +76,7 @@ _IMPORTS_JAX_PACKAGE = re.compile(
     re.M)
 
 
-def test_port_reaches_the_jax_package_only_through_shared():
+def test_port_imports_nothing_of_the_jax_package():
     """No file of the port, and not ``chip_smoke.py``, names ``smcsmc_tpu``
     in an import: the port keeps its own copies of the jax-free modules,
     and the module ``shared.py`` that once re-exported them is gone."""
