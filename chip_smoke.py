@@ -9,8 +9,9 @@ Phases, each fatal on failure:
    ptxas says of them (registers, shared memory, stack frame, spills);
 3. compare both entry points of the kernel, ``trip`` and ``segment_pass``,
    with their plain torch versions on the card with identical uniforms:
-   (P=10000, n=4, E=9: the main path's shape), (P=10000, n=4, E=8) and
-   (P=4096, n=8, E=33); leaf status 1, 0 (some leaves without data) and -1;
+   (P=10000, n=4, E=9: the main path's shape), (P=10000, n=4, E=8),
+   (P=4096, n=8, E=33) and (P=10000, n=8, E=33: the whole-genome path's
+   shape); leaf status 1, 0 (some leaves without data) and -1;
    one trip, and 64 trips in one launch on the longest segment the sweep
    makes (50 kb).  Each float is held to rtol 1e-4 plus an atol in its own
    units (kernels.trip.float_tolerances: one node height is 1e-5 of the
@@ -21,8 +22,9 @@ Phases, each fatal on failure:
    last-bit difference in a node height can grow along a chain of trips
    (the next hazard integrates the moved heights).  For ``trip``, 64 trips
    in one launch equal 64 single-trip launches bit for bit;
-4. time both entry points at the main path's shape (P=10000, n=4, E=9), on
-   the mean and on the longest segment: device time per launch (CUDA events
+4. time both entry points at the main path's shape (P=10000, n=4, E=9) and
+   at the whole-genome path's (P=10000, n=8, E=33), each on the path's mean
+   and on the longest segment: device time per launch (CUDA events
    around 20 launches on cloned states, queued behind a matrix product so
    that the host's enqueueing is not in the interval), the same with at
    most 1, 2 and 4 trips allowed and with no particle recombining, an empty
@@ -40,7 +42,26 @@ Phases, each fatal on failure:
    coalescences, and at least 3 such epochs; Recomb rate within 2x of
    1e-9), that the main path launched ``segment_pass`` once per segment and
    iteration, and that it launched ``trip`` and ran no plain version at all;
-7. profile 200 steady segments of the same sweep with torch.profiler
+7. run the whole-genome path through the same entry point: two simulated
+   chromosomes of 2 Mb (n=8, every heterozygous pair unphased, a 300 kb
+   stretch with one sample missing, a 120 kb and a 250 kb stretch with all
+   missing; smcsmc_tpu_torch.sweep_profile.genome_data) as two .seg files,
+   ``-segs a.seg b.seg -chunks 4 -Np 10000 -EM 1 -P 133 133016 "31*1"
+   -record_ess -ckpt 1``; check the launch counts (``segment_pass`` once
+   per segment of every chunk and iteration, no ``trip``, no plain version),
+   that segments of every leaf status and sites with several phase
+   configurations were stepped over, result.out as in 6 (each epoch from 25
+   posterior coalescences on, the 33 epochs being narrow, and the interior
+   epochs' pooled Ne within 25% of 10000), that the chunks'
+   Clump rows sum to the aggregate LogL, that ``chunkfinal.resample`` has
+   one row per resample event and that no checkpoint is left; delete
+   iteration 1 and run the same command again: iteration 0 must launch
+   nothing and keep its rows; then sweep one chunk twice with one seed, once
+   through ``save_state``/``load_state`` at half way into a sweep set up
+   from another seed: log-likelihood and committed statistics bit for bit
+   (or, if two uninterrupted sweeps of that seed differ too, the run says
+   that the card's cumsum did not repeat);
+8. profile 200 steady segments of both sweeps with torch.profiler
    (smcsmc_tpu_torch.sweep_profile): device busy share, launches per
    segment, kernel time per launch, top device operations.
 
@@ -66,9 +87,20 @@ RTOL = 1e-4
 MATCH_MIN = 0.999  # share of particles whose kernel and plain results agree
 MAX_SEG = 2.0 / (4.0 * NE * RHO)  # the sweep's segment split length, bp
 MIN_EPOCH_EVENTS = 5.0  # posterior coalescences for an epoch to be checked
+# the same on the whole-genome path.  Its 33 epochs are narrow: over 4 Mb an
+# epoch that reaches 5-15 posterior coalescences often does so by an upward
+# fluctuation, which reads as a low Ne (seeds 7, 7, 8, 9 on an H100, python
+# -m smcsmc_tpu_torch.repeatability: 2570-16450 at 5-15 coalescences,
+# 6522-12265 from 20 on; with seed 7 the oldest epoch with data, 29, read
+# 4189-5472 at 11-18 coalescences).  So each epoch is held to 2x from 25
+# coalescences on, and all interior epochs pooled (sum of opportunity over
+# twice the sum of coalescences, 9055-9407 in those runs) to 25%.
+GENOME_MIN_EPOCH_EVENTS = 25.0
+GENOME_POOLED_WITHIN = 0.25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FIFO_SLOTS = 4  # PFConfig.fifo_slots, the sweep's lag FIFO depth
+DEVICE = "cuda"  # where the entry points are driven
 
 
 def _log(msg: str) -> None:
@@ -245,7 +277,8 @@ def phase_compare(kernels):
         torch.cuda.synchronize()
         return out
 
-    for P, n, E in ((10000, 4, 9), (10000, 4, 8), (4096, 8, 33)):
+    for P, n, E in ((10000, 4, 9), (10000, 4, 8), (4096, 8, 33),
+                    (10000, 8, 33)):
         budget = (1.0 - MATCH_MIN) * P
         for ls in (1, 0, -1):
             # one trip, most particles active: every particle whose tree
@@ -399,18 +432,21 @@ def _plain_ms(run, plain, u, fresh):
     return _median(times)
 
 
-def phase_time(kernels, seg_lengths):
-    """Times of both entry points at the main path's shape (P=10000, n=4,
-    E=9) for each (label, segment length); see the module docstring."""
+def _filler():
+    """A few ms of device work to queue timed launches behind."""
+    import torch
+
+    a = torch.rand((4096, 4096), device="cuda")
+    return lambda: torch.mm(a, a)
+
+
+def time_empty_launch():
+    """Device time (ms) of a launch that does nothing."""
     import torch
 
     from smcsmc_tpu_torch.kernels._build import load_trip_library
 
     lib = load_trip_library()
-    a = torch.rand((4096, 4096), device="cuda")
-
-    def filler():
-        torch.mm(a, a)
 
     def noop(_):
         err = lib.smc_noop_launch(torch.cuda.current_stream().cuda_stream)
@@ -418,13 +454,20 @@ def phase_time(kernels, seg_lengths):
             raise SystemExit(f"empty launch failed: CUDA error {err}")
 
     noop(None)  # the first launch loads the module
-    empty_ms = _device_ms(noop, range(200), filler)
+    empty_ms = _device_ms(noop, range(200), _filler())
     _log(f"time empty launch: {empty_ms * 1e3:.2f} us of device time each "
          f"(200 back to back)")
+    return empty_ms
 
-    rows = {"empty_launch_ms": empty_ms}
+
+def phase_time(kernels, shape, seg_lengths):
+    """Times of both entry points at ``shape`` (P, n, E) for each (label,
+    segment length); see the module docstring."""
+    P, n, E = shape
+    filler = _filler()
+    rows = {}
     for label, L in seg_lengths:
-        c, u = _timing_case(10000, 4, 9, L)
+        c, u = _timing_case(P, n, E, L)
         # counted work: a trip adds one recombination count to one epoch;
         # FIFO slot 0 starts empty, so what is not zero in it afterwards is
         # what the segment pass had to push
@@ -435,7 +478,8 @@ def phase_time(kernels, seg_lengths):
         st = c.run_segment(kernels["segment_pass"][0], u, c.fresh_segment())
         pushed = int((st["fifo"][:, 0] != 0).sum())
         bounds = _bounds(c, active, trips, pushed)
-        _log(f"time {label} (L={L:g} bp): {active} of {c.P} particles "
+        _log(f"time {label} (P={P} n={n} E={E}, L={L:g} bp): {active} of "
+             f"{c.P} particles "
              f"recombine, {trips} trips in all, at most "
              f"{int(per_particle.max())} in one particle; {pushed} of "
              f"{c.P * 6 * c.E} statistics are not zero after the gate")
@@ -516,27 +560,20 @@ def _read_out(path, it):
     return [r for r in rows if int(r["Iter"]) == it]
 
 
-def phase_main_path(card, seg):
-    import numpy as np
-
+def _run_cli(argv):
+    """``smcsmc_main(argv)`` with the kernels' launch counts set to 0 just
+    before and read just after, the calls of the plain versions counted and
+    the package's log records kept.  Returns (launches, plain calls, the
+    ``EM iteration`` records, all records, wall seconds)."""
     import smcsmc_tpu_torch.kernels.trip as trip_mod
     from smcsmc_tpu_torch import cli
-    from smcsmc_tpu_torch.segio import write_seg
 
-    P, em_iters = 10000, 1
     rec = _Records()
     lg = logging.getLogger("smcsmc_tpu_torch")
     lg.setLevel(logging.INFO)
     lg.addHandler(rec)
-    with tempfile.TemporaryDirectory() as tmp:
-        seg_path = os.path.join(tmp, "bench.seg")
-        write_seg(seg_path, seg)
-        out = os.path.join(tmp, "out")
-        argv = ["-seg", seg_path, "-o", out, "-Np", str(P), "-EM",
-                str(em_iters), "-N0", "10000", "-mu", "1e-8", "-rho", "1e-9",
-                "-P", "133", "133016", "7*1", "-seed", "7", "-device", "cuda"]
-        plain_calls = _count_calls(trip_mod, ("trip_plain",
-                                              "segment_pass_plain"))
+    plain_calls = _count_calls(trip_mod, ("trip_plain", "segment_pass_plain"))
+    try:
         trip_mod.trip.launches = 0
         trip_mod.segment_pass.launches = 0
         t0 = time.monotonic()
@@ -544,61 +581,308 @@ def phase_main_path(card, seg):
         wall = time.monotonic() - t0
         launches = {"trip": trip_mod.trip.launches,
                     "segment_pass": trip_mod.segment_pass.launches}
+    finally:
         plain_calls.restore()
-        if rc != 0:
-            raise SystemExit(f"smcsmc_main returned {rc}")
-        rows = _read_out(os.path.join(out, "result.out"), em_iters)
-    lg.removeHandler(rec)
+        lg.removeHandler(rec)
+    if rc != 0:
+        raise SystemExit(f"smcsmc_main returned {rc}")
     steps = [r for r in rec.records if r.msg.startswith("EM iteration")]
-    if len(steps) != em_iters + 1:
-        raise SystemExit("main path did not log every EM iteration")
-    _log(f"main path: smc2-torch -Np {P} -EM {em_iters} ran in {wall:.2f} s "
-         f"wall; kernel launches {launches}; calls of the plain versions "
-         f"{plain_calls.counts}")
+    return launches, plain_calls.counts, steps, rec.records, wall
+
+
+def _log_esteps(steps, P, card):
     for r in steps:
         it, secs, nseg = r.args[0], r.args[1], r.args[2]
         _log(f"  E-step {it}: {secs:.3f} s over {nseg} segments = "
              f"{P * nseg / secs:.6g} particle-site updates/s on {card}")
 
-    # ---- result checks ---------------------------------------------------
+
+def _check_estimates(rows, it, problems, min_events=MIN_EPOCH_EVENTS,
+                     pooled_within=None):
+    """The result checks on one iteration's aggregate rows: LogL finite and
+    negative, Coal Ne within 2x of the truth in the informed interior
+    epochs (``min_events`` posterior coalescences or more), the interior
+    epochs' pooled Ne within ``pooled_within`` of the truth where that is
+    given, Recomb rate within 2x of the truth."""
+    import numpy as np
+
     logl = [float(r["Count"]) for r in rows if r["Type"] == "LogL"]
     coal = [r for r in rows if r["Type"] == "Coal"]
     recomb = [r for r in rows if r["Type"] == "Recomb"]
-    problems = []
     if len(logl) != 1 or not np.isfinite(logl[0]) or logl[0] >= 0:
         problems.append(f"LogL {logl}")
-    # interior epochs that carry data: with n=4 over 2 Mb only ~130
-    # recombinations happen, and the youngest epochs see almost no
-    # coalescences, so their Ne is the prior's pseudocount ratio
+    # interior epochs that carry data: few recombinations happen over a few
+    # Mb, and the youngest epochs see almost no coalescences, so their Ne
+    # is the prior's pseudocount ratio
     informed = [r for r in coal[1:len(coal) - 1]
-                if float(r["Count"]) >= MIN_EPOCH_EVENTS]
+                if float(r["Count"]) >= min_events]
     if len(informed) < 3:
         problems.append(f"only {len(informed)} interior epochs with >= "
-                        f"{MIN_EPOCH_EVENTS} coalescences")
+                        f"{min_events} coalescences")
     for r in informed:
         ne = float(r["Ne"])
         if not 0.5 * NE <= ne <= 2.0 * NE:
             problems.append(f"Coal epoch {r['Epoch']} Ne {ne:.1f}")
+    interior = coal[1:len(coal) - 1]
+    pooled = (sum(float(r["Opp"]) for r in interior)
+              / (2.0 * sum(float(r["Count"]) for r in interior)))
+    if pooled_within is not None and abs(pooled - NE) > pooled_within * NE:
+        problems.append(f"pooled Ne of the interior epochs {pooled:.1f}")
     rate = float(recomb[0]["Rate"]) if recomb else float("nan")
     if not 0.5 * RHO <= rate <= 2.0 * RHO:
         problems.append(f"Recomb rate {rate:.4g}")
-    _log("result.out (iteration %d): LogL %s; Coal Ne by epoch %s; Recomb "
-         "rate %.4g" % (em_iters, logl,
-                        [round(float(r["Ne"]), 1) for r in coal], rate))
-    segments = sum(r.args[2] for r in steps)  # over all E-steps
+    _log("result.out (iteration %d): LogL %s; %d informed interior epochs "
+         "(>= %g coalescences), pooled interior Ne %.1f; Coal Ne "
+         "(coalescences) by epoch %s; Recomb rate %.4g"
+         % (it, logl, len(informed), min_events, pooled,
+            " ".join(f"{float(r['Ne']):.1f} ({float(r['Count']):.1f})"
+                     for r in coal), rate))
+
+
+def _check_launches(launches, plain, segments, problems, path):
     if launches["segment_pass"] != segments:
         problems.append(f"segment_pass launched {launches['segment_pass']} "
                         f"times for {segments} segments")
     if launches["trip"] != 0:
         problems.append(f"trip launched {launches['trip']} times on the "
-                        f"main path, which goes through segment_pass")
-    if any(plain_calls.counts.values()):
-        problems.append(f"the main path ran a plain version: "
-                        f"{plain_calls.counts}")
+                        f"{path}, which goes through segment_pass")
+    if any(plain.values()):
+        problems.append(f"the {path} ran a plain version: {plain}")
+
+
+def phase_main_path(card, seg):
+    from smcsmc_tpu_torch.segio import write_seg
+
+    P, em_iters = 10000, 1
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "bench.seg")
+        write_seg(seg_path, seg)
+        out = os.path.join(tmp, "out")
+        argv = ["-seg", seg_path, "-o", out, "-Np", str(P), "-EM",
+                str(em_iters), "-N0", "10000", "-mu", "1e-8", "-rho", "1e-9",
+                "-P", "133", "133016", "7*1", "-seed", "7", "-device", DEVICE]
+        launches, plain, steps, _, wall = _run_cli(argv)
+        rows = _read_out(os.path.join(out, "result.out"), em_iters)
+    if len(steps) != em_iters + 1:
+        raise SystemExit("main path did not log every EM iteration")
+    _log(f"main path: smc2-torch -Np {P} -EM {em_iters} ran in {wall:.2f} s "
+         f"wall; kernel launches {launches}; calls of the plain versions "
+         f"{plain}")
+    _log_esteps(steps, P, card)
+
+    problems = []
+    _check_estimates(rows, em_iters, problems)
+    _check_launches(launches, plain, sum(r.args[2] for r in steps), problems,
+                    "main path")
     if problems:
         raise SystemExit("result checks failed: " + "; ".join(problems))
     _log("result checks: ok")
     return launches, steps
+
+
+GENOME_P = 10000
+
+
+def _genome_argv(paths, out):
+    return ["-segs", *paths, "-chunks", "4", "-o", out, "-Np", str(GENOME_P),
+            "-EM", "1", "-N0", "10000", "-mu", "1e-8", "-rho", "1e-9", "-P",
+            "133", "133016", "31*1", "-record_ess", "-ckpt", "1", "-seed",
+            "7", "-device", DEVICE]
+
+
+def _mid_sweep_checkpoint(demo, seg, chunk, tmp):
+    """Sweep ``chunk`` twice with one seed: straight through, and with
+    ``save_state`` at half way and ``load_state`` into a sweep that was set
+    up from another seed.  Both must end bit for bit equal, unless a second
+    uninterrupted sweep shows that the sweep did not repeat in this run."""
+    import torch
+
+    from smcsmc_tpu_torch.checkpoint import load_state, save_state
+    from smcsmc_tpu_torch.em import EMConfig, start_sweep
+    from smcsmc_tpu_torch.smc import flush_pending
+
+    cfg = EMConfig(num_particles=GENOME_P, device=DEVICE)
+
+    def straight_sweep():
+        sweep = start_sweep(demo, seg, cfg, chunk, seed=31)
+        state = sweep.state
+        for s in range(len(sweep.segs)):
+            state, _ = sweep.step(state, sweep.segs[s])
+        return flush_pending(state)
+
+    def same_as(got, ref):
+        same = {k: torch.equal(getattr(got, k), getattr(ref, k))
+                for k in ("ln_norm", "stats", "stats_wt", "log_w")}
+        same["num_resamples"] = got.num_resamples == ref.num_resamples
+        return same
+
+    ref = straight_sweep()
+
+    first = start_sweep(demo, seg, cfg, chunk, seed=31)
+    half = len(first.segs) // 2
+    state = first.state
+    for s in range(half):
+        state, _ = first.step(state, first.segs[s])
+    path = os.path.join(tmp, "midsweep.ckpt")
+    save_state(path, state, first.generator, {"segments": half})
+    size = os.path.getsize(path)
+    second = start_sweep(demo, seg, cfg, chunk, seed=32)
+    state, done = load_state(path, second.generator, DEVICE)
+    for s in range(done["segments"], len(second.segs)):
+        state, _ = second.step(state, second.segs[s])
+    got = flush_pending(state)
+    same = same_as(got, ref)
+    _log(f"mid-sweep checkpoint: chunk {chunk}, {len(first.segs)} segments, "
+         f"saved after {half} ({size} bytes), loaded into a sweep started "
+         f"from another seed; ln_norm {float(got.ln_norm):.4f} vs "
+         f"{float(ref.ln_norm):.4f} uninterrupted, {got.num_resamples} vs "
+         f"{ref.num_resamples} resamples; bit for bit equal: {same}")
+    if not all(same.values()):
+        # the proviso: torch.cumsum in the resampler is a decoupled
+        # look-back scan, not run-to-run deterministic at this P (see
+        # smcsmc_tpu_torch.repeatability).  A fault of the checkpoint is:
+        # two uninterrupted sweeps agree and the resumed one does not.
+        again = same_as(straight_sweep(), ref)
+        _log(f"  a second uninterrupted sweep against the first: {again}")
+        if all(again.values()):
+            raise SystemExit("a sweep resumed from a checkpoint differs from "
+                             "the uninterrupted sweep of the same seed")
+        _log("  two uninterrupted sweeps of one seed differ as well: the "
+             "sweep was not run-to-run deterministic in this run "
+             "(torch.cumsum on the card), so the checkpoint is not at fault")
+        if abs(float(got.ln_norm) - float(ref.ln_norm)) > 1e-3 * abs(
+                float(ref.ln_norm)):
+            raise SystemExit("the resumed sweep's log-likelihood is not "
+                             "within 0.1% of the uninterrupted sweep's")
+
+
+def phase_genome_path(card):
+    """The whole-genome path through smcsmc_main; see the module docstring.
+    Returns (launches of the first run, E-step records, the model and the
+    merged data, the chunks, the mean segment length)."""
+    import numpy as np
+
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.sweep_profile import genome_data, genome_model
+
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, name) for name in ("a.seg", "b.seg")]
+        for path, chrom in zip(paths, genome_data()):
+            write_seg(path, chrom)
+        out = os.path.join(tmp, "out")
+        argv = _genome_argv(paths, out)
+        launches, plain, steps, records, wall = _run_cli(argv)
+        chunks = next(r.args[0] for r in records
+                      if r.msg.startswith("chunks:"))
+        shown = " ".join(os.path.basename(a) if a in paths else a
+                         for a in argv if a != out)
+        _log(f"genome path: smc2-torch {shown} ran in "
+             f"{wall:.2f} s wall; chunks {chunks}; kernel launches "
+             f"{launches}; calls of the plain versions {plain}")
+        _log_esteps(steps, GENOME_P, card)
+        if len(steps) != 2 or len(chunks) != 4:
+            raise SystemExit(f"genome path: {len(steps)} EM iterations "
+                             f"logged, {len(chunks)} chunks")
+        segments = sum(r.args[2] for r in steps)
+        _check_launches(launches, plain, segments, problems, "genome path")
+        for r in steps:
+            by_status, unphased = r.args[7], r.args[8]
+            _log(f"  iteration {r.args[0]}: segments by leaf status "
+                 f"{by_status}, {unphased} sites with several phase "
+                 f"configurations")
+            if min(by_status.values()) < 1 or unphased < 1:
+                problems.append(f"iteration {r.args[0]} stepped over no "
+                                f"segment of some kind: {by_status}, "
+                                f"{unphased} unphased")
+
+        first_result = open(os.path.join(out, "result.out")).read()
+        for it in (0, 1):
+            rows = _read_out(os.path.join(out, f"emiter{it}",
+                                          "chunkfinal.out"), it)
+            agg = [r for r in rows if r["Clump"] == "-1"]
+            if it == 1:
+                _check_estimates(agg, it, problems, GENOME_MIN_EPOCH_EVENTS,
+                                 GENOME_POOLED_WITHIN)
+            logl = float(next(r["Count"] for r in agg if r["Type"] == "LogL"))
+            parts = [float(r["Count"]) for r in rows
+                     if r["Type"] == "LogL" and r["Clump"] != "-1"]
+            # the .out prints 8 significant digits
+            if len(parts) != 4 or abs(sum(parts) - logl) > 1e-6 * abs(logl):
+                problems.append(f"iteration {it}: chunk LogL {parts} do not "
+                                f"sum to {logl}")
+            resamp = float(next(r["Count"] for r in agg
+                                if r["Type"] == "Resamp"))
+            with open(os.path.join(out, f"emiter{it}",
+                                   "chunkfinal.resample")) as fh:
+                n_rows = sum(1 for _ in fh)
+            if n_rows != int(resamp):
+                problems.append(f"iteration {it}: {n_rows} .resample rows "
+                                f"for {resamp} resample events")
+            _log(f"  iteration {it}: chunk LogL {parts} sum to {sum(parts)!r}"
+                 f" (aggregate {logl!r}); {n_rows} .resample rows for "
+                 f"{int(resamp)} resample events")
+        if os.path.exists(os.path.join(out, "ckpt")):
+            problems.append("a mid-sweep checkpoint was left behind")
+        if problems:
+            raise SystemExit("genome path checks failed: "
+                             + "; ".join(problems))
+        _log("genome path checks: ok")
+
+        # ---- resume: iteration 1 lost, the same command again -------------
+        import shutil
+
+        shutil.rmtree(os.path.join(out, "emiter1"))
+        os.remove(os.path.join(out, "result.out"))
+        re_launches, re_plain, re_steps, _, re_wall = _run_cli(argv)
+        _check_launches(re_launches, re_plain, steps[1].args[2], problems,
+                        "resumed genome path")
+        if [r.args[0] for r in re_steps] != [1]:
+            problems.append(f"the resumed run swept iterations "
+                            f"{[r.args[0] for r in re_steps]}, not [1]")
+        second_result = open(os.path.join(out, "result.out")).read()
+
+        def rows_of(text, it):
+            return [ln for ln in text.split("\n")[1:]
+                    if ln and int(ln.split()[0]) == it]
+
+        if rows_of(second_result, 0) != rows_of(first_result, 0):
+            problems.append("the resumed run changed iteration 0's rows")
+        a, b = rows_of(first_result, 1), rows_of(second_result, 1)
+        differ = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+        l1 = [float(ln.split()[8]) for ln in a if " LogL " in ln][0]
+        l2 = [float(ln.split()[8]) for ln in b if " LogL " in ln][0]
+        _log(f"resume: the same command again after deleting emiter1/ and "
+             f"result.out ran in {re_wall:.2f} s wall; launches "
+             f"{re_launches} (iteration 0 launched nothing); result.out "
+             f"byte for byte equal: {second_result == first_result}; "
+             f"iteration 0 rows equal, iteration 1 rows that differ: "
+             f"{differ} of {len(a)}; LogL {l2!r} vs {l1!r} in the first run")
+        if second_result != first_result:
+            _log("  why it differs: the resumed run reads iteration 0's "
+                 "statistics back from chunkfinal.out, which prints counts "
+                 "of 0.1 and more with two decimals, so its M-step starts "
+                 "iteration 1 from a model that differs from the first "
+                 "run's in the third or fourth digit (the JAX package's "
+                 "resume does the same); the mid-sweep check below says "
+                 "whether the sweep itself repeated bit for bit in this run")
+            if abs(l2 - l1) > 0.01 * abs(l1):
+                problems.append(f"resumed iteration 1 LogL {l2} is not "
+                                f"within 1% of {l1}")
+        _log_esteps(re_steps, GENOME_P, card)
+        if problems:
+            raise SystemExit("resume checks failed: " + "; ".join(problems))
+
+        demo, seg = genome_model(paths)
+        _mid_sweep_checkpoint(demo, seg, tuple(chunks[3]), tmp)
+
+        from smcsmc_tpu_torch.segio import slice_seg, split_long_segments
+
+        lengths = np.concatenate([
+            split_long_segments(slice_seg(seg, c0, c1), MAX_SEG).lengths
+            for c0, c1 in chunks])
+    return (launches, re_launches, steps, demo, seg, chunks,
+            float(lengths.mean()))
 
 
 REPLACES = "smcsmc_tpu/kernels/pallas_trip.py:91"
@@ -656,7 +940,9 @@ def main(argv=None) -> int:
         report_lines,
     )
 
-    demo, seg = bench_data()  # bench.py's headline data (n=4, E=8, 2 Mb)
+    # bench.py's headline data (n=4, 2 Mb); the main path sweeps it with
+    # the 9 epochs of -P 133 133016 "7*1"
+    demo, seg = bench_data()
     mean_len = float(split_long_segments(seg, MAX_SEG).lengths.mean())
 
     kernels = {"trip": (trip, trip_plain),
@@ -664,8 +950,10 @@ def main(argv=None) -> int:
     tallies = phase_compare(kernels)
     if args.until == "compare":
         return 0
-    timing = phase_time(kernels, [("mean bench segment", mean_len),
-                                  ("longest segment", MAX_SEG)])
+    empty_ms = time_empty_launch()
+    timing = phase_time(kernels, (10000, 4, 9),
+                        [("mean bench segment", mean_len),
+                         ("longest segment", MAX_SEG)])
     if args.until == "time":
         return 0
     launches, _ = phase_main_path(card, seg)
@@ -674,11 +962,27 @@ def main(argv=None) -> int:
     for ln in report_lines(profile_sweep(demo, seg, 10000, "cuda")):
         _log(ln)
 
+    (g_launches, g_resume_launches, g_steps, g_demo, g_seg, g_chunks,
+     g_mean_len) = phase_genome_path(card)
+    g_timing = phase_time(kernels, (GENOME_P, 8, 33),
+                          [("mean genome segment", g_mean_len),
+                           ("longest segment", MAX_SEG)])
+    _log(f"genome path sweep profile (chunk {g_chunks[0]}, E=33) on {card}:")
+    for ln in report_lines(profile_sweep(g_demo, g_seg, GENOME_P, "cuda",
+                                         chunk=tuple(g_chunks[0]))):
+        _log(ln)
+
     head = timing["mean bench segment"]
-    record = {"kernels": [], "empty_launch_ms": timing["empty_launch_ms"],
+    g_head = g_timing["mean genome segment"]
+    record = {"kernels": [], "empty_launch_ms": empty_ms,
               "timed_at": {"P": 10000, "n": 4, "E": 9,
                            "active": head["active"], "trips": head["trips"],
-                           "pushed": head["pushed"]}}
+                           "pushed": head["pushed"]},
+              "genome_path_timed_at": {
+                  "P": GENOME_P, "n": 8, "E": 33, "L": g_head["L"],
+                  "active": g_head["active"], "trips": g_head["trips"],
+                  "pushed": g_head["pushed"]}}
+    timed_keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by")
     for name in kernels:
         single, chained = tallies[name]
         compare = {"trips=1": single.record(),
@@ -703,8 +1007,18 @@ def main(argv=None) -> int:
             "library_ms": None,  # no single PyTorch call computes a trip
             "host_us_per_call": t["host_us"],
             "longest_segment": {
-                k: timing["longest segment"][name][k]
-                for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+                k: timing["longest segment"][name][k] for k in timed_keys},
+            # the whole-genome path (P=10000, n=8, E=33): its launches in
+            # the first run and in the resumed one, and the times at its
+            # mean and longest segment
+            "genome_path": {
+                "launches": g_launches[name],
+                "launches_resumed_run": g_resume_launches[name],
+                "mean_segment": {k: g_head[name][k] for k in timed_keys},
+                "longest_segment": {
+                    k: g_timing["longest segment"][name][k]
+                    for k in timed_keys},
+                "host_us_per_call": g_head[name]["host_us"]},
         })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

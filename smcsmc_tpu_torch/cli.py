@@ -1,8 +1,10 @@
 """``smc2-torch``: the ``smc2`` command line for the torch port (counterpart
 of ``smcsmc_tpu.cli.smcsmc_main``).
 
-It accepts the main-path subset of the ``smc2`` flags plus ``-device``;
-every other flag is refused with a message naming it.  The helpers that
+It accepts the ``smc2`` flags of the ported paths (one population; several
+``.seg`` files, chunks, resume and checkpoints; unphased and missing data;
+the M-step's options) plus ``-device``, each parsed as ``smcsmc_tpu.cli``
+parses it; every other flag is refused with a message naming it.  The helpers that
 turn flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
 ``_is_number``, ``resolve_n0``, ``build_demography``) are copied from
 ``smcsmc_tpu/cli.py`` at commit dfc2fad and kept letter for letter.
@@ -18,7 +20,7 @@ import numpy as np
 
 from .device import resolve_device
 from .em import EMConfig, run_em
-from .segio import read_seg
+from .segio import merge_segs, read_seg
 
 logger = logging.getLogger("smcsmc_tpu_torch")
 
@@ -189,14 +191,17 @@ def build_demography(cfg, demo_args, io, seg=None):
 
 def parse_args(argv: list[str]):
     """Returns (EMConfig, io dict) for the supported flags:
-    -seg -o -Np -EM -ESS -P -N0 -mu -rho -length -nsam -lag -seed -log
+    -seg/-segs -o -Np -EM -ESS -P -N0 -mu -rho -length -nsam -lag -seed -log
+    -chunks -maxgap -minseg -startpos -ckpt -nothreads -dephase
+    -ancestral_aware -cap -xc -xr -no_infer_recomb -no_m_step -record_ess
     -device."""
     argv = load_option_file(argv)
     cfg = EMConfig()
     io = {
         "segs": [], "out": "smcsmc_out", "pattern": None, "p_pattern": None,
-        "tmax": 2.0, "startpos": 1, "length": None, "mu": None, "rho": None,
-        "N0": None, "nsam": None, "logfile": None,
+        "tmax": 2.0, "maxgap": 200000, "minseg": 500000, "startpos": 1,
+        "length": None, "mu": None, "rho": None, "N0": None, "nsam": None,
+        "logfile": None,
     }
     i = 0
     while i < len(argv):
@@ -239,6 +244,54 @@ def parse_args(argv: list[str]):
             cfg.lag = float(take())
         elif o == "-seed":
             cfg.seed = int(take())
+        elif o == "-cap":
+            cfg.use_cap = True
+            cfg.ne_cap = float(take())
+        elif o == "-ancestral_aware":
+            cfg.ancestral_aware = True
+            i += 1
+        elif o == "-dephase":
+            cfg.dephase = True
+            i += 1
+        elif o in ("-xr", "-xc"):
+            # epoch or 0-based closed epoch range, e.g. "0-10"
+            # (pfparam.cpp:82-99 readRange + record_event_in_epoch masks)
+            spec = take()
+            lo, _, hi = spec.partition("-")
+            epochs_rng = tuple(range(int(lo), int(hi or lo) + 1))
+            if o == "-xr":
+                cfg.xr_epochs = tuple(cfg.xr_epochs) + epochs_rng
+            else:
+                cfg.xc_epochs = tuple(cfg.xc_epochs) + epochs_rng
+        elif o == "-no_infer_recomb":
+            # keep the recombination rate fixed across M-steps
+            # (model.py:403-405)
+            cfg.infer_recomb = False
+            i += 1
+        elif o == "-no_m_step":
+            # run E-steps only; parameters stay at their initial values
+            # (model.py:406-408, 1020-1022)
+            cfg.do_m_step = False
+            i += 1
+        elif o == "-chunks":
+            cfg.chunks = int(take())
+        elif o == "-ckpt":
+            # mid-sweep checkpoint interval in blocks of em.CHECK_EVERY
+            # segments (0 = off)
+            cfg.checkpoint_blocks = int(take())
+        elif o == "-nothreads":
+            # serialize chunk sweeps (model.py:1094-1100)
+            cfg.chunk_workers = 1
+            i += 1
+        elif o == "-maxgap":
+            io["maxgap"] = int(float(take()))
+        elif o == "-minseg":
+            io["minseg"] = int(float(take()))
+        elif o == "-startpos":
+            io["startpos"] = int(float(take()))
+        elif o == "-record_ess":
+            cfg.record_ess = True
+            i += 1
         elif o == "-log":
             if i + 1 < len(argv) and not argv[i + 1].startswith("-"):
                 io["logfile"] = take()
@@ -248,8 +301,6 @@ def parse_args(argv: list[str]):
             cfg.device = take()
         else:
             raise SystemExit(f"smc2-torch: option {o!r} {_NOT_PORTED}")
-    if len(io["segs"]) > 1:
-        raise SystemExit(f"smc2-torch: more than one -seg file {_NOT_PORTED}")
     return cfg, io
 
 
@@ -266,14 +317,20 @@ def smcsmc_main(argv=None) -> int:
     logging.basicConfig(filename=logfile, level=logging.INFO)
     logger.info("smc2-torch %s", " ".join(argv))
 
-    seg = read_seg(io["segs"][0])
-    if np.any(seg.alleles == 2):
-        raise SystemExit(f"smc2-torch: unphased alleles (code 2) {_NOT_PORTED}")
+    if len(io["segs"]) > 1:
+        seg, _ = merge_segs(io["segs"], gap=io["maxgap"])
+    else:
+        seg = read_seg(io["segs"][0])
     demo = build_demography(cfg, [], io, seg=seg)
     if demo.num_populations != 1 or np.any(demo.mig_rates > 0):
         raise SystemExit(f"smc2-torch: structured populations / migration "
                          f"{_NOT_PORTED}")
     cfg.outdir = io["out"]
+    # chunk-window controls (model.py:563-662; pfparam.cpp -startpos)
+    cfg.maxgap = io["maxgap"]
+    cfg.minseg = io["minseg"]
+    if io["startpos"] > 1:
+        cfg.startpos = float(io["startpos"])
     if io["length"] is not None:
         cfg.length = float(io["length"])
     result = run_em(demo, seg, cfg)

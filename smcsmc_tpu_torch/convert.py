@@ -1,9 +1,11 @@
-"""Carry particle state between numpy and the port's tensors.
+"""Carry particle state and segments between numpy and the port's tensors.
 
 The tests start both packages from the same trees, weights, FIFO and
 statistics: a JAX ``PFState`` with every leaf passed through ``np.asarray``
 goes in through :func:`state_from_numpy`, and :func:`state_to_numpy` gives
 the port's state back as numpy arrays under the same field names.
+:func:`segment_from_numpy` turns the tuple that the JAX segment step
+consumes into the port's ``Segment``, so that both take the same step.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from .kernels.tree import Trees
-from .smc import PFState
+from .smc import PFState, Segment, fifo_gate_masks
 
 
 def _get(d, name):
@@ -73,3 +75,19 @@ def state_to_numpy(state: PFState) -> dict:
         else:
             out[name] = np.asarray(v)
     return out
+
+
+def segment_from_numpy(seg, lags, device, xc_epochs=(), xr_epochs=()
+                       ) -> Segment:
+    """The port's ``Segment`` from the JAX step's segment ``(length,
+    configs [C, n], n_configs, state, leaf_status, dist_mut)`` with numpy
+    leaves: the first ``n_configs`` phase configurations, ``has_data`` from
+    the first of them, and the recording gate that the JAX step computes
+    from ``dist_mut``, ``lags`` and its ``-xc``/``-xr`` masks."""
+    length, configs, n_configs, state, leaf_status, dist_mut = (
+        np.asarray(x) for x in seg)
+    cf = torch.as_tensor(configs[:int(n_configs)].astype(np.int8),
+                         device=device)
+    gate = fifo_gate_masks(dist_mut.reshape(1), lags, xc_epochs, xr_epochs)[0]
+    return Segment(int(length), int(state), int(leaf_status), cf, cf[0] >= 0,
+                   torch.as_tensor(gate, device=device))

@@ -1,27 +1,38 @@
-"""EM orchestration for the torch port: one chunk sweep -> sufficient
-statistics -> M-step (counterpart of ``smcsmc_tpu/em.py``, single chunk).
+"""EM orchestration for the torch port: chunk sweeps -> sufficient
+statistics -> M-step (counterpart of ``smcsmc_tpu/em.py``).
 
-The numpy-only helpers ``prior_pseudostats``, ``_leaf_status``, the host
-half of ``prepare_blocks`` and the one-population branch of ``m_step`` are
-copied from ``smcsmc_tpu/em.py`` (:189, :210, :253, :834): the port imports
-nothing of the JAX package.  ``m_step`` grows the options (VB, Ne cap,
-excluded epochs) when those are ported (ROADMAP queue 1).
+The numpy-only helpers ``prior_pseudostats``, ``_leaf_status``,
+``_phase_configs``, the host half of ``prepare_blocks``, ``sum_stats``,
+``_stats_from_outdata`` and ``m_step`` (without its VB branch) are copied
+from ``smcsmc_tpu/em.py``: the port imports nothing of the JAX package.
+Not ported yet (ROADMAP queue 1): online EM, the multi-process chunk
+partition, VB, bias, guide, APF, migration sweeps and ARG recording.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from . import outfmt
+from .checkpoint import (
+    have_outfile,
+    load_iteration,
+    load_state,
+    remove_state,
+    save_state,
+)
+from .demography import Demography
 from .device import resolve_device
 from .kernels.tree import epochs_from_demography
-from . import outfmt
-from .demography import Demography
 from .segio import (
     SEGMENT_INVARIANT,
     SegData,
@@ -31,6 +42,7 @@ from .segio import (
 )
 from .smc import (
     PFConfig,
+    PFState,
     Segment,
     SuffStats,
     default_lags,
@@ -43,8 +55,9 @@ from .smc import (
 
 logger = logging.getLogger("smcsmc_tpu_torch")
 
-# segments between the host's finite checks of the log-likelihood (the JAX
-# package checks once per scan block of this many segments)
+# segments between the host's finite checks of the log-likelihood, and the
+# unit of ``checkpoint_blocks`` (the JAX package checks once per scan block
+# of this many segments)
 CHECK_EVERY = 2048
 
 
@@ -57,9 +70,37 @@ class EMConfig:
     em_iters: int = 0  # number of EM updates (0 = a single E-step pass)
     ess_threshold: float = 0.5
     lag: float = 0.0  # 0 -> per-epoch default 4/(rho*top_t)
+    ne_cap: float = 200000.0
+    use_cap: bool = False
+    ancestral_aware: bool = False
+    dephase: bool = False  # treat phased het pairs as unphased (-dephase)
+    max_phase_configs: int = 8  # cap on enumerated phase configurations
     seed: int = 1
-    length: float | None = None  # inference window from the first site, bp
+    infer_recomb: bool = True
+    infer_migration: bool = True
+    xc_epochs: tuple = ()  # epochs excluded from coalescent updates (-xc)
+    xr_epochs: tuple = ()  # epochs excluded from recombination updates (-xr)
+    chunks: int = 1
+    # chunk-window controls (model.py:563-662 define_chunks; pfparam.cpp
+    # -startpos): gaps > maxgap split chunks, pieces < minseg are dropped,
+    # inference runs over [startpos, startpos + length)
+    maxgap: int = 200000
+    minseg: int = 500000
+    startpos: float | None = None
+    length: float | None = None
     outdir: str | None = None
+    record_ess: bool = False  # write .resample ESS trace (pfparam.cpp:530)
+    # -no_m_step (model.py:240-245): run E-steps but keep parameters fixed
+    do_m_step: bool = True
+    # concurrent chunk sweeps, one thread per chunk, each on its own GPU
+    # (the reference runs chunks as concurrent subprocesses by default,
+    # -nothreads to disable, model.py:1094-1100).  0 = one worker per
+    # visible GPU; 1 = serial (-nothreads).
+    chunk_workers: int = 0
+    # mid-sweep fault tolerance: save the whole sweep state every k blocks
+    # of CHECK_EVERY segments; a re-run of the same chunk resumes from the
+    # last checkpoint.  0 = off.
+    checkpoint_blocks: int = 0
     device: str = "cuda"
 
 
@@ -93,6 +134,40 @@ def _leaf_status(alleles: np.ndarray) -> np.ndarray:
     return np.where(all_missing, -1, np.where(none_missing, 1, 0)).astype(np.int8)
 
 
+def _phase_configs(alleles: np.ndarray, max_configs: int, dephase: bool):
+    """Per-site phase-configuration enumeration (reference:
+    particleContainer.cpp:138-181).  Unphased het pairs (code 2,2 — or any
+    het pair under ``dephase``) contribute a factor 2 of configurations; the
+    site likelihood is the mean over them.  Returns configs [S, C, n] (int8,
+    repeats padded) and n_configs [S]."""
+    S, n = alleles.shape
+    configs = np.repeat(alleles[:, None, :], max_configs, axis=1).astype(np.int8)
+    n_configs = np.ones(S, dtype=np.int32)
+    for s in range(S):
+        al = alleles[s]
+        pairs = []
+        for i in range(0, n - 1, 2):
+            unphased = al[i] == 2 or (
+                dephase and al[i] >= 0 and al[i + 1] >= 0 and al[i] + al[i + 1] == 1
+            )
+            if unphased:
+                pairs.append(i)
+        if not pairs:
+            continue
+        k = min(len(pairs), int(np.log2(max_configs)))
+        n_configs[s] = 2**k
+        for cidx in range(2**k):
+            cfg = al.copy()
+            for b, i in enumerate(pairs[:k]):
+                bit = (cidx >> b) & 1
+                cfg[i], cfg[i + 1] = (0, 1) if bit == 0 else (1, 0)
+            # pairs beyond capacity keep an arbitrary (0,1) assignment
+            for i in pairs[k:]:
+                cfg[i], cfg[i + 1] = 0, 1
+            configs[s, cidx] = cfg
+    return configs, n_configs
+
+
 @dataclass
 class ChunkSegments:
     """A chunk's segments: descriptors on the host, site data on the device
@@ -102,7 +177,8 @@ class ChunkSegments:
     states: np.ndarray  # [S] int8
     leaf_status: np.ndarray  # [S] int8
     dist_mut: np.ndarray  # [S] f32 distance to the next informative site
-    alleles: torch.Tensor  # [S, n] int8
+    n_configs: np.ndarray  # [S] int32 phase configurations of the site
+    configs: torch.Tensor  # [S, C, n] int8
     has_data: torch.Tensor  # [S, n] bool
     fifo_mask: torch.Tensor  # [S, K] f32
 
@@ -110,16 +186,22 @@ class ChunkSegments:
         return len(self.lengths)
 
     def __getitem__(self, s: int) -> Segment:
+        # the host knows n_configs: a phased site is handed one
+        # configuration and costs what it cost before
         return Segment(int(self.lengths[s]), int(self.states[s]),
-                       int(self.leaf_status[s]), self.alleles[s],
+                       int(self.leaf_status[s]),
+                       self.configs[s, :int(self.n_configs[s])],
                        self.has_data[s], self.fifo_mask[s])
 
 
-def prepare_segments(seg: SegData, chunk_start: int, lags, device
-                     ) -> ChunkSegments:
-    """Host half of ``smcsmc_tpu.em.prepare_blocks`` for phased data:
-    chunk-relative lengths (first segment clipped to the chunk), leaf
-    status, distance to the next informative site and the FIFO gate."""
+def prepare_segments(seg: SegData, chunk_start: int, lags, device,
+                     max_configs: int = 1, dephase: bool = False,
+                     xc_epochs=(), xr_epochs=()) -> ChunkSegments:
+    """Host half of ``smcsmc_tpu.em.prepare_blocks`` (without its block
+    padding): chunk-relative lengths (first segment clipped to the chunk),
+    leaf status, phase configurations (``max_configs`` > 1 enables the
+    marginalisation over unphased genotypes), distance to the next
+    informative site and the recording gate."""
     lengths = seg.lengths.astype(np.int64)
     alleles = seg.alleles.astype(np.int8)
     states = seg.states.astype(np.int8)
@@ -128,6 +210,7 @@ def prepare_segments(seg: SegData, chunk_start: int, lags, device
     if first_off > 0:
         lengths = lengths.copy()
         lengths[0] = max(int(lengths[0]) - first_off, 0)
+    configs, n_configs = _phase_configs(alleles, max_configs, dephase)
     # distance from each segment's start to the next informative site
     # (reference distance_to_mutation, segdata.cpp:234-241)
     is_site = (states == SEGMENT_INVARIANT) & (leaf_status != -1)
@@ -138,18 +221,31 @@ def prepare_segments(seg: SegData, chunk_start: int, lags, device
     dist_mut = np.minimum(
         next_site - seg.positions.astype(np.float64), 1e30
     ).astype(np.float32)
-    al = torch.as_tensor(alleles).to(device)
+    gate = fifo_gate_masks(dist_mut, lags, xc_epochs, xr_epochs)
     return ChunkSegments(
         lengths=lengths, states=states, leaf_status=leaf_status,
-        dist_mut=dist_mut, alleles=al, has_data=al >= 0,
-        fifo_mask=torch.as_tensor(fifo_gate_masks(dist_mut, lags)).to(device),
+        dist_mut=dist_mut, n_configs=n_configs,
+        configs=torch.as_tensor(configs).to(device),
+        has_data=torch.as_tensor(alleles >= 0).to(device),
+        fifo_mask=torch.as_tensor(gate).to(device),
     )
 
 
+class Sweep(NamedTuple):
+    """What a sweep over one chunk starts from."""
+
+    state: PFState
+    segs: ChunkSegments
+    step: Callable  # step(state, segment) -> (state, (ess, resampled, front))
+    chunk_start: int
+    generator: torch.Generator  # the sweep's only source of randomness
+
+
 def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
-                chunk=(None, None), seed: int = 1):
-    """Set up a sweep over (a window of) the genome: returns the initial
-    state, the chunk's segments, the segment step and the chunk start."""
+                chunk=(None, None), seed: int = 1) -> Sweep:
+    """Set up a sweep over (a window of) the genome: the initial state, the
+    chunk's segments, the segment step, the chunk start and the generator
+    that the state was drawn from and the step goes on drawing from."""
     dev = resolve_device(cfg.device)
     start, end = chunk
     if start is not None:
@@ -157,10 +253,6 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
         chunk_start = start
     else:
         chunk_start = int(seg.positions[0])
-    if np.any(seg.alleles == 2):
-        raise NotImplementedError(
-            "unphased alleles (code 2) are not yet in the torch port "
-            "(ROADMAP queue 1, data variants)")
 
     # bound per-step recombination work (pfparam.cpp:364: 2/(4*N0*rho))
     max_seg_len = 2.0 / max(4.0 * demo.n0 * demo.recombination_rate, 1e-30)
@@ -171,6 +263,7 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
         num_particles=cfg.num_particles,
         num_leaves=demo.num_samples,
         ess_threshold=cfg.ess_threshold,
+        ancestral_aware=cfg.ancestral_aware,
     )
     rho = demo.recombination_rate
     if cfg.lag > 0:
@@ -178,23 +271,51 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     else:
         lags = default_lags(demo.change_times, rho)
 
+    # phase-configuration capacity: 1 unless unphased data (or -dephase)
+    has_unphased = bool(np.any(seg.alleles == 2)) or cfg.dephase
+    max_configs = cfg.max_phase_configs if has_unphased else 1
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     state = init_state(gen, epochs, pfcfg, demo.sample_pops, rho,
                        sample_time=demo.sample_times)
-    segs = prepare_segments(seg, chunk_start, lags, dev)
+    segs = prepare_segments(seg, chunk_start, lags, dev,
+                            max_configs=max_configs, dephase=cfg.dephase,
+                            xc_epochs=cfg.xc_epochs, xr_epochs=cfg.xr_epochs)
     step = make_segment_step(pfcfg, epochs, demo.mutation_rate, rho, lags, gen)
-    return state, segs, step, chunk_start
+    return Sweep(state, segs, step, chunk_start, gen)
 
 
 def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
               chunk=(None, None), seed: int = 1):
-    """One particle-filter sweep over (a window of) the genome; returns host
-    SuffStats, the w^2 stats, the log-likelihood and diagnostics."""
-    state, segs, step, chunk_start = start_sweep(demo, seg, cfg, chunk, seed)
+    """One particle-filter sweep over (a chunk of) the genome; returns host
+    SuffStats, the w^2 stats, the log-likelihood and diagnostics.
+
+    With ``cfg.checkpoint_blocks`` > 0 and an ``outdir`` the whole sweep
+    state is saved every ``checkpoint_blocks * CHECK_EVERY`` segments under
+    ``ckpt/seed{seed}_start{chunk_start}`` (unique per EM iteration and
+    chunk, because ``run_em`` derives ``seed`` from both); a re-run of the
+    same chunk continues from there, and the file goes when the chunk ends."""
+    state, segs, step, chunk_start, gen = start_sweep(demo, seg, cfg, chunk,
+                                                      seed)
     ess_trace = np.zeros(len(segs))
     resample_rows = []  # (genome position, ESS) at each resample event
-    for s in range(len(segs)):
+    first = 0
+
+    ckpt_path = None
+    if cfg.checkpoint_blocks > 0 and cfg.outdir:
+        ckpt_path = os.path.join(cfg.outdir, "ckpt",
+                                 f"seed{seed}_start{int(chunk_start)}")
+        if os.path.exists(ckpt_path):
+            state, done = load_state(ckpt_path, gen, state.log_w.device)
+            first = done["segments"]
+            ess_trace[:first] = done["ess"]
+            resample_rows = [tuple(r) for r in done["resample_rows"]]
+            logger.info("resuming chunk sweep from checkpoint after segment "
+                        "%d", first - 1)
+    every = cfg.checkpoint_blocks * CHECK_EVERY
+
+    for s in range(first, len(segs)):
         state, (ess, resampled, front) = step(state, segs[s])
         ess_trace[s] = ess
         if resampled:
@@ -208,7 +329,14 @@ def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
                     f"non-finite log-normalizer ({ln_now}) after segment {s} "
                     f"of chunk starting at {chunk_start} "
                     f"(front={float(state.front):.0f})")
+        if ckpt_path and (s + 1) % every == 0 and s + 1 < len(segs):
+            save_state(ckpt_path, state, gen, {
+                "segments": s + 1, "ess": ess_trace[:s + 1].tolist(),
+                "resample_rows": [list(r) for r in resample_rows]})
     state = flush_pending(state)
+    if ckpt_path:
+        # chunk finished: iteration-level resume takes over from here
+        remove_state(ckpt_path)
 
     pseudo = prior_pseudostats(demo)
     E_, Pp_ = demo.num_epochs, demo.num_populations
@@ -226,86 +354,300 @@ def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
         "resample_rows": resample_rows,
         "final_front": float(state.front),
         "num_segments": len(segs),
+        # segments stepped over by data class and by phase configurations,
+        # counted from the host descriptors
+        "leaf_status_counts": {
+            ls: int((segs.leaf_status == ls).sum()) for ls in (1, 0, -1)},
+        "unphased_sites": int(((segs.n_configs > 1)
+                               & (segs.states == SEGMENT_INVARIANT)
+                               & (segs.leaf_status != -1)).sum()),
     }
     return stats, stats_wt, float(state.ln_norm), diag
 
 
-def m_step(demo: Demography, stats: SuffStats) -> Demography:
+def _worker_devices(device: str) -> list[str]:
+    """The devices chunk workers run on: every visible GPU for ``cuda``,
+    else the one device named."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return [str(dev)]
+
+
+def run_chunks(demo: Demography, seg: SegData, cfg: EMConfig, chunks,
+               seeds=None):
+    """Run genome chunks concurrently, the scale-out axis the reference
+    implements as concurrent ``smcsmc`` subprocesses (model.py:1094-1100,
+    execute.py:26-105).  Each chunk runs in its own thread on its own GPU
+    with its own ``torch.Generator`` (seeded with ``seeds[ci]``; nothing
+    draws from a global generator), so on a multi-GPU host the sweeps run
+    in parallel; with one device (or one worker) the chunks run one after
+    another.  Returns the per-chunk (stats, stats_wt, logl, diag) tuples in
+    chunk order."""
+    n = len(chunks)
+    if seeds is None:
+        seeds = [cfg.seed + ci for ci in range(n)]
+    devs = _worker_devices(cfg.device)
+    workers = cfg.chunk_workers if cfg.chunk_workers > 0 else len(devs)
+    workers = min(workers, n, len(devs))
+
+    def one(ci, device=cfg.device):
+        return run_chunk(demo, seg, dataclasses.replace(cfg, device=device),
+                         chunk=chunks[ci], seed=seeds[ci])
+
+    if workers <= 1:
+        return [one(ci) for ci in range(n)]
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(lambda ci: one(ci, devs[ci % len(devs)]),
+                           range(n)))
+
+
+def sum_stats(stats_list: list[SuffStats]) -> SuffStats:
+    """Cross-chunk reduction (model.py:903-910)."""
+    return SuffStats(*(sum(xs) for xs in zip(*stats_list)))
+
+
+def _stats_from_outdata(data, demo: Demography, col_opp: str = "Opp",
+                        col_cnt: str = "Count",
+                        xr_epochs: tuple = ()) -> SuffStats:
+    """Rebuild a SuffStats from a parsed .out (for resume, model.py:1120).
+
+    With ``col_opp="Wt"`` this reconstructs the w^2-weighted statistics from
+    the ESS column instead (parse_outfile recovers Wt = Opp/ESS).
+
+    The .out records only the epoch-aggregated Recomb row (count.cpp:83-113
+    — per-epoch rows are compiled out in the reference too), so the
+    per-epoch breakdown is spread uniformly over the epochs that were
+    recording (all except ``xr_epochs``); the M-step re-aggregates the same
+    total, so the resumed -xr behavior matches the live path instead of
+    collapsing everything into epoch 0."""
+    E, Pp = demo.num_epochs, demo.num_populations
+    coal_opp = np.zeros((E, Pp))
+    coal_cnt = np.zeros((E, Pp))
+    mig_opp = np.zeros((E, Pp))
+    mig_cnt = np.zeros((E, Pp, Pp))
+    recomb_opp = np.zeros((E,))
+    recomb_cnt = np.zeros((E,))
+    for key in data:
+        (typ, epoch, frm, to, clump), col = key
+        if col != "Count" or clump != -1:
+            continue  # per-chunk (Clump >= 0) rows are diagnostics only
+        k0 = (typ, epoch, frm, to, clump)
+        if typ == "Coal" and 0 <= epoch < E and 0 <= frm < Pp:
+            coal_opp[epoch, frm] = data[(k0, col_opp)]
+            coal_cnt[epoch, frm] = data[(k0, col_cnt)]
+        elif typ == "Migr" and 0 <= epoch < E:
+            mig_opp[epoch, frm] = data[(k0, col_opp)]
+            mig_cnt[epoch, frm, to] = data[(k0, col_cnt)]
+        elif typ == "Recomb":
+            keep = np.ones(E, bool)
+            for xe in xr_epochs:
+                if 0 <= xe < E:
+                    keep[xe] = False
+            k_n = max(int(keep.sum()), 1)
+            recomb_opp[keep] += data[(k0, col_opp)] / k_n
+            recomb_cnt[keep] += data[(k0, col_cnt)] / k_n
+    return SuffStats(
+        coal_opp=coal_opp, coal_cnt=coal_cnt, mig_opp=mig_opp,
+        mig_cnt=mig_cnt, recomb_opp=recomb_opp, recomb_cnt=recomb_cnt,
+    )
+
+
+def m_step(
+    demo: Demography, stats: SuffStats, cfg: EMConfig
+) -> Demography:
     """Parameter update from sufficient statistics (count.cpp:267-352
-    reset_Ne / reset_recomb_rate): the branch of ``smcsmc_tpu.em.m_step``
-    that its default EMConfig takes for one population (no VB, no Ne cap,
-    no excluded epochs; migration rates stay as they are)."""
+    reset_Ne / reset_recomb_rate / reset_mig_rate): ``smcsmc_tpu.em.m_step``
+    without its VB branch."""
     coal_opp = np.asarray(stats.coal_opp, dtype=np.float64)
     coal_cnt = np.asarray(stats.coal_cnt, dtype=np.float64)
     rate = coal_cnt / np.maximum(coal_opp, 1e-300)
     ne = 1.0 / (2.0 * np.maximum(rate, 1e-300))
+    if cfg.use_cap:
+        ne = np.minimum(ne, cfg.ne_cap)
+    # -xc: keep prior sizes in excluded epochs (pfparam.cpp record masks)
+    for e in cfg.xc_epochs:
+        if 0 <= e < ne.shape[0]:
+            ne[e] = demo.pop_sizes[e]
+
+    new_mig = demo.mig_rates
+    if cfg.infer_migration and demo.num_populations > 1:
+        mig_opp = np.asarray(stats.mig_opp, dtype=np.float64)
+        mig_cnt = np.asarray(stats.mig_cnt, dtype=np.float64)
+        new_mig = mig_cnt / np.maximum(mig_opp[:, :, None], 1e-300)
+        for i in range(demo.num_populations):
+            new_mig[:, i, i] = 0.0
+        # -xc excludes coal AND migration epochs (RECORD_COALMIGR_EVENT,
+        # pfparam.cpp:96)
+        for e in cfg.xc_epochs:
+            if 0 <= e < new_mig.shape[0]:
+                new_mig[e] = demo.mig_rates[e]
 
     new_rho = demo.recombination_rate
-    r_opp = float(np.asarray(stats.recomb_opp, dtype=np.float64).sum())
-    r_cnt = float(np.asarray(stats.recomb_cnt, dtype=np.float64).sum())
-    if r_opp > 0:
-        new_rho = r_cnt / r_opp
+    if cfg.infer_recomb:
+        r_opp_e = np.asarray(stats.recomb_opp, dtype=np.float64).copy()
+        r_cnt_e = np.asarray(stats.recomb_cnt, dtype=np.float64).copy()
+        for e in cfg.xr_epochs:  # -xr: exclude epochs from the aggregate
+            if 0 <= e < r_opp_e.shape[0]:
+                r_opp_e[e] = 0.0
+                r_cnt_e[e] = 0.0
+        r_opp, r_cnt = float(r_opp_e.sum()), float(r_cnt_e.sum())
+        if r_opp > 0:
+            new_rho = r_cnt / r_opp
 
     return demo.with_updated_rates(
-        pop_sizes=ne, mig_rates=demo.mig_rates, recombination_rate=new_rho
+        pop_sizes=ne, mig_rates=new_mig, recombination_rate=new_rho
     )
 
 
 @dataclass
 class EMResult:
     demos: list  # per-iteration models (post-update)
-    stats: list  # per-iteration SuffStats
+    stats: list  # per-iteration summed SuffStats
     stats_wt: list
     log_likelihoods: list
     out_text: list = field(default_factory=list)
+    # per iteration: E-step wall seconds and segments stepped over (both 0
+    # for an iteration taken from a finished .out on resume)
     estep_seconds: list = field(default_factory=list)
-    num_segments: int = 0
+    num_segments: list = field(default_factory=list)
+    chunks: list = field(default_factory=list)  # (start, end) windows
 
 
 def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
-    """EM loop over one chunk (model.py:1102-1184): E-step sweep, .out
-    rows per iteration (``emiter{it}/chunkfinal.out``), M-step, and the
-    final ``result.out`` with the iterations newest first."""
+    """The EM loop (model.py:1102-1184): per iteration the chunks'
+    E-step sweeps, ``emiter{it}/chunkfinal.out`` (aggregate rows, plus one
+    Clump row group per chunk when there are several) and the M-step; then
+    ``result.out`` with the iterations' aggregate rows, newest first.  An
+    iteration whose ``chunkfinal.out`` is already complete in ``outdir`` is
+    not swept again: its statistics are read back from the file."""
     result = EMResult(demos=[], stats=[], stats_wt=[], log_likelihoods=[])
     if cfg.outdir:
         os.makedirs(cfg.outdir, exist_ok=True)
-    chunk = (None, None)
-    if cfg.length is not None:
-        c = define_chunks(seg, 1, length=cfg.length)[0]
-        chunk = (c.start, c.end)
+
+    windowed = (
+        cfg.startpos is not None
+        and cfg.startpos > float(seg.positions[0])
+    ) or cfg.length is not None
+    if cfg.chunks > 1 or windowed:
+        chunks = [
+            (c.start, c.end)
+            for c in define_chunks(
+                seg, cfg.chunks, maxgap=cfg.maxgap, minseg=cfg.minseg,
+                startpos=cfg.startpos, length=cfg.length,
+            )
+        ]
+    else:
+        chunks = [(None, None)]
+    result.chunks = chunks
+    logger.info("chunks: %s", chunks)
 
     current = demo
     for it in range(cfg.em_iters + 1):
+        # idempotent resume (model.py:1105-1115): skip finished iterations
+        if cfg.outdir and have_outfile(cfg.outdir, it):
+            data = load_iteration(cfg.outdir, it)
+            stats = _stats_from_outdata(data, current, xr_epochs=cfg.xr_epochs)
+            # the w^2 stats live in the ESS column (Wt = Opp/ESS); feeding
+            # the posterior stats here would corrupt the ESS column of
+            # result.out
+            stats_wt = _stats_from_outdata(
+                data, current, col_opp="Wt", col_cnt="Wt",
+                xr_epochs=cfg.xr_epochs,
+            )
+            with open(
+                os.path.join(cfg.outdir, f"emiter{it}", "chunkfinal.out")
+            ) as fh:
+                result.out_text.append(fh.read())
+            logl = data.get((("LogL", -1, -1, -1, -1), "Count"), 0.0)
+            if cfg.do_m_step:
+                current = m_step(current, stats, cfg)
+            result.demos.append(current)
+            result.stats.append(stats)
+            result.stats_wt.append(stats_wt)
+            result.log_likelihoods.append(logl)
+            result.estep_seconds.append(0.0)
+            result.num_segments.append(0)
+            logger.info("finished iteration %d found in %s: not swept again",
+                        it, cfg.outdir)
+            continue
+
         t0 = time.monotonic()
-        stats, stats_wt, logl, diag = run_chunk(
-            current, seg, cfg, chunk=chunk, seed=cfg.seed + 1000 * it)
+        per_chunk = run_chunks(
+            current, seg, cfg, chunks,
+            seeds=[cfg.seed + 1000 * it + ci for ci in range(len(chunks))],
+        )
         seconds = time.monotonic() - t0
+        stats = sum_stats([pc[0] for pc in per_chunk])
+        stats_wt = sum_stats([pc[1] for pc in per_chunk])
+        logl = sum(pc[2] for pc in per_chunk)
+        n_resample = sum(pc[3]["num_resamples"] for pc in per_chunk)
+        n_segments = sum(pc[3]["num_segments"] for pc in per_chunk)
+
+        if cfg.record_ess and cfg.outdir:
+            # .resample contract (pfparam.cpp:530-538): one row per resample
+            # event, "position<TAB>ESS"
+            os.makedirs(os.path.join(cfg.outdir, f"emiter{it}"), exist_ok=True)
+            with open(
+                os.path.join(cfg.outdir, f"emiter{it}", "chunkfinal.resample"), "w"
+            ) as fh:
+                for pc in per_chunk:
+                    for p_, e_ in pc[3]["resample_rows"]:
+                        fh.write(f"{int(p_)}\t{e_}\n")
+
+        clump = -1 if len(chunks) > 1 else None
         text = outfmt.stats_to_out(
             it, current.change_times, stats, stats_wt, logl,
-            cfg.num_particles, num_resamples=diag["num_resamples"],
-            sequence_len=float(seg.end),
+            cfg.num_particles, num_resamples=n_resample,
+            sequence_len=float(seg.end), clump=clump,
         )
+        if len(chunks) > 1:
+            # per-chunk Clump rows (merged-format contract, model.py:913-947:
+            # the per-iteration file carries aggregate rows at Clump -1 plus
+            # one row group per chunk; result.out keeps only the aggregates)
+            for ci, pc in enumerate(per_chunk):
+                text += outfmt.stats_to_out(
+                    it, current.change_times, pc[0], pc[1], pc[2],
+                    cfg.num_particles,
+                    num_resamples=pc[3]["num_resamples"],
+                    sequence_len=float(seg.end),
+                    clump=ci, header=False,
+                )
         result.out_text.append(text)
         if cfg.outdir:
             os.makedirs(os.path.join(cfg.outdir, f"emiter{it}"), exist_ok=True)
             with open(os.path.join(cfg.outdir, f"emiter{it}",
                                    "chunkfinal.out"), "w") as fh:
                 fh.write(text)
-        current = m_step(current, stats)
+
+        if cfg.do_m_step:
+            # -no_m_step (model.py:1020-1022): keep parameters fixed
+            current = m_step(current, stats, cfg)
         result.demos.append(current)
         result.stats.append(stats)
         result.stats_wt.append(stats_wt)
         result.log_likelihoods.append(logl)
         result.estep_seconds.append(seconds)
-        result.num_segments = diag["num_segments"]
+        result.num_segments.append(n_segments)
+        counts = {ls: sum(pc[3]["leaf_status_counts"][ls] for pc in per_chunk)
+                  for ls in (1, 0, -1)}
         logger.info(
             "EM iteration %d: E-step %.3f s over %d segments at P=%d, "
-            "logL %.2f, %d resample(s)", it, seconds, diag["num_segments"],
-            cfg.num_particles, logl, diag["num_resamples"])
+            "logL %.2f, %d resample(s), %d chunk(s); segments by leaf status "
+            "%s, %d unphased site(s)", it, seconds, n_segments,
+            cfg.num_particles, logl, n_resample, len(chunks), counts,
+            sum(pc[3]["unphased_sites"] for pc in per_chunk))
 
     if cfg.outdir:
+        # result.out passes through only aggregate rows (Clump -1, or no
+        # Clump column at all for single-chunk runs): model.py:974-987
         with open(os.path.join(cfg.outdir, "result.out"), "w") as fh:
             fh.write(result.out_text[0].split("\n")[0] + "\n")
             for it in range(len(result.out_text) - 1, -1, -1):
-                fh.write("\n".join(result.out_text[it].split("\n")[1:]))
+                body = result.out_text[it].split("\n")[1:]
+                keep = [
+                    ln for ln in body
+                    if not ln or len(chunks) == 1 or ln.split()[-1] == "-1"
+                ]
+                fh.write("\n".join(keep))
     return result

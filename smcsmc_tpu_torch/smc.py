@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .kernels.likelihood import site_log_likelihood
+from .kernels.likelihood import phase_averaged_log_likelihood
 from .kernels.tree import (
     Epochs,
     Trees,
@@ -89,6 +89,7 @@ class PFConfig:
     num_leaves: int
     ess_threshold: float = 0.5  # resample when ESS < frac * P
     fifo_slots: int = 4  # lag FIFO depth
+    ancestral_aware: bool = False  # allele 0 is ancestral (root prior 1:0)
 
 
 class PFState(NamedTuple):
@@ -116,9 +117,10 @@ class Segment(NamedTuple):
     length: int
     state: int  # SEGMENT_* code
     leaf_status: int  # -1 all missing / 0 mixed / 1 complete
-    alleles: torch.Tensor  # [n] int8 segment-final site
+    configs: torch.Tensor  # [C, n] int8: the segment-final site's phase
+    # configurations (C = 1 for a phased site; only the site's own, no padding)
     has_data: torch.Tensor  # [n] bool
-    fifo_mask: torch.Tensor  # [K] f32 max_epoch_to_update gate
+    fifo_mask: torch.Tensor  # [K] f32 recording gate (fifo_gate_masks)
 
 
 def _uniform_log_weight(P: int) -> float:
@@ -206,13 +208,26 @@ def flush_pending(state: PFState) -> PFState:
     )
 
 
-def fifo_gate_masks(dist_mut: np.ndarray, lags: np.ndarray) -> np.ndarray:
-    """[S, K] max_epoch_to_update gate (smcsmc.cpp:266-275): an epoch
-    records a segment's events only while the next informative site is
-    closer than half its lag."""
+def fifo_gate_masks(dist_mut: np.ndarray, lags: np.ndarray,
+                    xc_epochs=(), xr_epochs=()) -> np.ndarray:
+    """[S, K] recording gate of every segment, built once on the host.
+
+    max_epoch_to_update (smcsmc.cpp:266-275): an epoch records a segment's
+    events only while the next informative site is closer than half its
+    lag.  Folded in are the recording masks of ``-xc`` / ``-xr``
+    (record_event_in_epoch, pfparam.cpp:82-99): the epochs in ``xc_epochs``
+    record no coalescence or migration statistic, those in ``xr_epochs`` no
+    recombination statistic."""
     gate = (np.asarray(dist_mut, np.float32)[:, None]
             < 0.5 * np.asarray(lags, np.float32)[None, :]).astype(np.float32)
-    return np.tile(gate, (1, 6))  # the six [E] fields of the Pp=1 layout
+    E = gate.shape[1]
+    xc = np.ones(E, np.float32)
+    xr = np.ones(E, np.float32)
+    xc[[e for e in xc_epochs if 0 <= e < E]] = 0.0
+    xr[[e for e in xr_epochs if 0 <= e < E]] = 0.0
+    # the six [E] fields of the Pp=1 layout: coal_opp, coal_cnt, mig_opp,
+    # mig_cnt | recomb_opp, recomb_cnt
+    return np.concatenate([gate * xc] * 4 + [gate * xr] * 2, axis=1)
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +269,8 @@ def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
 
         # ---- site likelihood at the segment-final position ----------------
         if seg.state == 0 and seg.leaf_status != -1:  # SEGMENT_INVARIANT
-            log_w = log_w + site_log_likelihood(trees, seg.alleles, mu)
+            log_w = log_w + phase_averaged_log_likelihood(
+                trees, seg.configs, mu, cfg.ancestral_aware)
 
         # ---- normalise; Kahan-compensated log-likelihood in f32 -----------
         delta_ln = torch.logsumexp(log_w, dim=0)

@@ -1,11 +1,13 @@
 """Where the sweep's time goes, read from torch.profiler.
 
     python -m smcsmc_tpu_torch.sweep_profile [--np 10000] [--device cuda]
-        [--trace chiprun_out/sweep_trace.json]
+        [--data bench|genome] [--trace chiprun_out/sweep_trace.json]
 
 It sweeps bench.py's headline data (one population of Ne 10,000, n=4, 8
-epochs from 0 and logspace(2.5, 5), 2 Mb, ``simulate_seg(seed=11)``) with
-the port's segment step, as ``em.run_chunk`` does: the initial trees, then
+epochs from 0 and logspace(2.5, 5), 2 Mb, ``simulate_seg(seed=11)``) or,
+with ``--data genome``, the first chunk of the whole-genome data of
+:func:`genome_data` (n=8, 33 epochs, unphased, with missing stretches)
+with the port's segment step, as ``em.run_chunk`` does: the initial trees, then
 ``warm`` segments, ``timed`` segments without the profiler (milliseconds
 per segment), then ``profiled`` segments under torch.profiler.  It reports
 the device time per segment and its share of the unprofiled and of the
@@ -24,8 +26,9 @@ import time
 import numpy as np
 import torch
 
-from .em import EMConfig, start_sweep
 from .demography import Demography
+from .em import EMConfig, start_sweep
+from .segio import SegData, define_chunks, merge_segs, write_seg
 from .simulate import simulate_seg
 
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -43,11 +46,79 @@ def bench_data(n: int = 4, E: int = 8, L: float = 2e6, seed: int = 11):
     return demo, simulate_seg(demo, seed=seed)
 
 
+# the whole-genome data, per chromosome and in its bp: (all-missing
+# stretches: one of 250 kb, longer than -maxgap, where define_chunks splits,
+# and one of 120 kb that a chunk sweeps over; the stretch where one diploid
+# sample is missing; that sample)
+GENOME_GAPS = ((((1_200_000, 1_450_000), (1_600_000, 1_720_000)),
+                (300_000, 600_000), 1),
+               (((900_000, 1_150_000), (300_000, 420_000)),
+                (1_400_000, 1_700_000), 2))
+GENOME_PATTERN = ("133", "133016", "31*1")  # the standard 31-epoch grid
+
+
+def unphase_and_blank(seg: SegData, all_missing, sample_missing,
+                      sample: int) -> SegData:
+    """``seg`` as an unphased VCF with gaps would give it: every
+    heterozygous pair of leaves (2i, 2i+1) recoded to 2,2; the leaves of
+    diploid ``sample`` missing in the segments that start inside
+    ``sample_missing``; the segments that start inside each stretch of
+    ``all_missing`` replaced by one segment with every leaf missing."""
+    al = seg.alleles.astype(np.int8).copy()
+    a, b = al[:, 0::2], al[:, 1::2]  # views: the two leaves of each sample
+    het = (a >= 0) & (b >= 0) & (a != b)
+    a[het] = 2
+    b[het] = 2
+    pos = seg.positions
+    inside = (pos >= sample_missing[0]) & (pos < sample_missing[1])
+    al[inside, 2 * sample:2 * sample + 2] = -1
+    lengths = seg.lengths.copy()
+    keep = np.ones(len(pos), bool)
+    for lo, hi in all_missing:
+        gap = np.flatnonzero((pos >= lo) & (pos < hi))
+        g0, g1 = int(gap[0]), int(gap[-1]) + 1
+        lengths[g0] = lengths[g0:g1].sum()
+        al[g0] = -1
+        keep[g0 + 1:g1] = False
+    return SegData(positions=pos[keep], lengths=lengths[keep],
+                   states=seg.states[keep], alleles=al[keep],
+                   phased=np.zeros(al.shape[1], bool))
+
+
+def genome_data(n: int = 8, L: float = 2e6, seeds=(21, 22),
+                gaps=GENOME_GAPS):
+    """A small whole genome: ``len(seeds)`` chromosomes of ``L`` bp, one
+    population of Ne 10,000, ``n`` leaves (n/2 diploid samples), mu 1e-8,
+    rho 1e-9, each passed through :func:`unphase_and_blank`.  Returns the
+    list of SegData, one per chromosome."""
+    truth = Demography(
+        change_times=np.array([0.0]), pop_sizes=np.array([[10000.0]]),
+        mig_rates=np.zeros((1, 1, 1)), sample_pops=np.zeros(n, np.int32),
+        mutation_rate=1e-8, recombination_rate=1e-9, sequence_length=L,
+    )
+    return [unphase_and_blank(simulate_seg(truth, seed=seed), *gap)
+            for seed, gap in zip(seeds, gaps)]
+
+
+def genome_model(paths, maxgap: int = 200000):
+    """The merged data of the .seg files ``paths`` and the model that
+    ``smc2-torch -N0 10000 -mu 1e-8 -rho 1e-9 -P 133 133016 "31*1"`` starts
+    from on them."""
+    from .cli import build_demography
+
+    seg, _ = merge_segs(list(paths), gap=maxgap)
+    io = {"N0": 10000.0, "mu": 1e-8, "rho": 1e-9, "pattern": GENOME_PATTERN,
+          "p_pattern": None, "tmax": 2.0, "length": None, "nsam": None}
+    return build_demography(None, [], io, seg=seg), seg
+
+
 def profile_sweep(demo, seg, num_particles: int, device: str = "cuda",
                   seed: int = 7, warm: int = 100, timed: int = 300,
-                  profiled: int = 200, trace: str | None = None) -> dict:
-    """Sweep the first ``warm + timed + profiled`` segments; return the
-    report as a dict (times in ms and us, shares of the profiled wall)."""
+                  profiled: int = 200, trace: str | None = None,
+                  chunk=(None, None)) -> dict:
+    """Sweep the first ``warm + timed + profiled`` segments (of the window
+    ``chunk``); return the report as a dict (times in ms and us, shares of
+    the profiled wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -59,7 +130,7 @@ def profile_sweep(demo, seg, num_particles: int, device: str = "cuda",
             torch.cuda.synchronize()
 
     t0 = time.monotonic()
-    state, segs, step, _ = start_sweep(demo, seg, cfg, seed=seed)
+    state, segs, step, _, _ = start_sweep(demo, seg, cfg, chunk, seed)
     sync()
     init_s = time.monotonic() - t0
     if len(segs) < warm + timed + profiled:
@@ -95,6 +166,10 @@ def profile_sweep(demo, seg, num_particles: int, device: str = "cuda",
                  reverse=True)[:8]
     return {
         "segments": profiled,
+        "unphased_sites": int((segs.n_configs[:warm + timed + profiled] > 1)
+                              .sum()),
+        "mixed_segments": int((segs.leaf_status[:warm + timed + profiled]
+                               == 0).sum()),
         "init_s": init_s,
         "ms_per_segment": ms_per_segment,
         "profiled_ms_per_segment": wall_us / profiled / 1e3,
@@ -123,7 +198,9 @@ def report_lines(rep: dict) -> list[str]:
         f"sweep profile: initial trees and setup {rep['init_s']:.3f} s; "
         f"{rep['ms_per_segment']:.4f} ms/segment unprofiled, "
         f"{rep['profiled_ms_per_segment']:.4f} ms/segment under the profiler "
-        f"({rep['segments']} segments)",
+        f"({rep['segments']} segments; of all swept, "
+        f"{rep['unphased_sites']} with more than one phase configuration "
+        f"and {rep['mixed_segments']} with some leaves missing)",
         f"  device time {rep['device_ms_per_segment']:.4f} ms/segment: busy "
         f"{rep['device_busy_share']:.4f} of the unprofiled wall "
         f"({rep['device_busy_share_profiled']:.4f} of the profiled); "
@@ -145,9 +222,25 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the profiled segments here")
+    ap.add_argument("--data", choices=("bench", "genome"), default="bench")
     args = ap.parse_args(argv)
-    demo, seg = bench_data()
-    rep = profile_sweep(demo, seg, args.np, args.device, trace=args.trace)
+    chunk = (None, None)
+    if args.data == "bench":
+        demo, seg = bench_data()
+    else:
+        import os
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = [os.path.join(tmp, f"chr{i}.seg")
+                     for i, _ in enumerate(GENOME_GAPS)]
+            for path, chrom in zip(paths, genome_data()):
+                write_seg(path, chrom)
+            demo, seg = genome_model(paths)
+        c = define_chunks(seg, 4)[0]
+        chunk = (c.start, c.end)
+    rep = profile_sweep(demo, seg, args.np, args.device, trace=args.trace,
+                        chunk=chunk)
     print("\n".join(report_lines(rep)))
     return 0
 

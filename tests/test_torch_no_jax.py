@@ -8,7 +8,6 @@ import sys
 import textwrap
 from pathlib import Path
 
-import numpy as np
 import pytest
 import torch
 
@@ -112,23 +111,12 @@ def test_trip_wrapper_rejects_other_devices():
 @pytest.mark.parametrize("argv,flag", [
     (["-apf", "1"], "-apf"),
     (["-vb"], "-vb"),
-    (["-chunks", "2"], "-chunks"),
-    (["-seg", "a.seg", "b.seg"], "more than one -seg"),
+    (["-bias_heights", "0", "0.1"], "-bias_heights"),
+    (["-alpha", "0.5"], "-alpha"),
+    (["-arg"], "-arg"),
+    (["-online"], "-online"),
+    (["-c"], "-c"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, flag):
-    with pytest.raises(SystemExit, match=re.escape(flag)):
-        cli.parse_args(argv)
-
-
-def test_cli_refuses_unphased_data(tmp_path):
-    from smcsmc_tpu.segio import SegData, write_seg
-
-    seg = SegData(positions=np.array([1, 1001]), lengths=np.array([1000, 500]),
-                  states=np.zeros(2, np.int8),
-                  alleles=np.array([[2, 2, 0, 1], [0, 1, 0, 0]], np.int8),
-                  phased=np.zeros(4, bool))
-    write_seg(str(tmp_path / "u.seg"), seg)
-    with pytest.raises(SystemExit, match="unphased"):
-        cli.smcsmc_main(["-seg", str(tmp_path / "u.seg"), "-o",
-                         str(tmp_path / "o"), "-N0", "10000", "-mu", "1e-8",
-                         "-rho", "1e-9", "-device", "cpu"])
+    with pytest.raises(SystemExit, match=re.escape(repr(flag))):
+        cli.parse_args(["-seg", "a.seg", *argv])

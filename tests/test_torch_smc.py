@@ -5,7 +5,10 @@ Resampling indices must be equal; floats agree to f32 tolerance (rtol
 1e-5; the Kahan compensation term to a few ulps of the log-likelihood it
 compensates).  The whole segment step is compared with ``next_rec`` beyond
 the segment (no recombination trips, so the step is deterministic) and
-``ess_threshold=0`` (no resampling).  The mutation rate 2e-6 keeps
+``ess_threshold=0`` (no resampling), also at an unphased site (several
+phase configurations), with some and with all leaves missing, with the
+recording masks of -xc/-xr and with ``ancestral_aware``; the segment goes
+to the port through ``convert.segment_from_numpy``.  The mutation rate 2e-6 keeps
 1 - exp(-mu t) well conditioned in f32 (see test_torch_likelihood.py).
 """
 
@@ -19,7 +22,11 @@ from smcsmc_tpu import smc as jsmc
 from smcsmc_tpu.demography import Demography
 from smcsmc_tpu.kernels.tree import epochs_from_demography as j_epochs
 from smcsmc_tpu_torch import smc as tsmc
-from smcsmc_tpu_torch.convert import state_from_numpy, state_to_numpy
+from smcsmc_tpu_torch.convert import (
+    segment_from_numpy,
+    state_from_numpy,
+    state_to_numpy,
+)
 from smcsmc_tpu_torch.kernels.tree import epochs_from_demography as t_epochs
 
 torch.set_num_threads(1)
@@ -134,9 +141,14 @@ def test_segment_step_matches_jax(leaf_status, seg_state):
                                     torch.Generator().manual_seed(0))
     al = torch.from_numpy(alleles)
     tseg = tsmc.Segment(
-        L, seg_state, leaf_status, al, al >= 0,
+        L, seg_state, leaf_status, al[None], al >= 0,
         torch.from_numpy(tsmc.fifo_gate_masks(np.array([dist_mut]), lags)[0]))
     got_state, (ess, need, front) = t_step(state_from_numpy(_np(st), CPU), tseg)
+    _assert_same_step(got_state, (ess, need, front), ref, ref_ess)
+
+
+def _assert_same_step(got_state, got_out, ref, ref_ess):
+    ess, need, front = got_out
     got = state_to_numpy(got_state)
     assert not need
     assert front == float(ref.front)
@@ -152,3 +164,48 @@ def test_segment_step_matches_jax(leaf_status, seg_state):
     np.testing.assert_array_equal(got["slot_open"], ref.slot_open)
     # trees are untouched without trips
     np.testing.assert_array_equal(got["trees"]["parent"], ref.trees.parent)
+
+
+@pytest.mark.parametrize("alleles,masks,ancestral_aware", [
+    ([2, 2, 2, 2], None, False),  # leaf status 1, 4 phase configurations
+    ([2, 2, 0, 1], None, True),  # 2 configurations, allele 0 ancestral
+    ([2, 2, -1, -1], None, False),  # leaf status 0, 2 configurations
+    ([-1, 2, 2, -1], None, False),  # leaf status 0, 2 configurations
+    ([-1, -1, -1, -1], None, False),  # leaf status -1: no site
+    ([2, 2, 1, -1], ((1,), (0, 2)), False),  # with -xc 1 and -xr 0, 2
+])
+def test_segment_step_unphased_matches_jax(alleles, masks, ancestral_aware):
+    """One step at an unphased site: the JAX step loops over the padded
+    configurations and masks; the port takes the site's own in one pass."""
+    from smcsmc_tpu.em import _leaf_status, _phase_configs
+
+    L, dist_mut = 800, 3000.0
+    alleles = np.array(alleles, np.int8)
+    leaf_status = int(_leaf_status(alleles[None])[0])
+    configs, n_configs = _phase_configs(alleles[None], 8, False)
+    demo, epochs, cfg, st = _jax_state(11 + leaf_status, L=L)
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, ancestral_aware=ancestral_aware)
+    lags = np.array([3000.0, 9000.0, 40000.0], np.float32)
+    xc, xr = masks or ((), ())
+    rec_masks = None
+    if masks:
+        rec_masks = tuple(jnp.asarray(
+            [0.0 if e in x else 1.0 for e in range(E)], jnp.float32)
+            for x in (xc, xr))
+    step = jsmc.make_segment_step(cfg, epochs, MU, RHO, jnp.asarray(lags),
+                                  rec_masks=rec_masks)
+    seg = (jnp.int32(L), jnp.asarray(configs[0]), jnp.int32(n_configs[0]),
+           jnp.int8(0), jnp.int8(leaf_status), jnp.float32(dist_mut))
+    ref_state, (ref_ess, ref_need, _) = jax.jit(step)(st, seg)
+    assert not bool(ref_need)
+
+    tcfg = tsmc.PFConfig(num_particles=P, num_leaves=N_LEAVES,
+                         ess_threshold=0.0, ancestral_aware=ancestral_aware)
+    t_step = tsmc.make_segment_step(tcfg, t_epochs(demo, CPU), MU, RHO, lags,
+                                    torch.Generator().manual_seed(0))
+    tseg = segment_from_numpy(_np(seg), lags, CPU, xc, xr)
+    assert tseg.configs.shape == (int(n_configs[0]), N_LEAVES)
+    got_state, out = t_step(state_from_numpy(_np(st), CPU), tseg)
+    _assert_same_step(got_state, out, _np(ref_state), ref_ess)
