@@ -6,7 +6,10 @@ Phases, each fatal on failure:
 
 1. print the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build the kernels from csrc/trip.cu with nvcc for sm_90a and print what
-   ptxas says of them (registers, shared memory, stack frame, spills);
+   ptxas says of them (registers, shared memory, stack frame, spills); then
+   run the resampler's scan (``smc.block_scan``) 2000 times at P=10,000
+   with matrix products queued among the runs: every result must equal the
+   first bit for bit (``torch.cumsum``'s differences are printed beside);
 3. compare both entry points of the kernel, ``trip`` and ``segment_pass``,
    with their plain torch versions on the card with identical uniforms:
    (P=10000, n=4, E=9: the main path's shape), (P=10000, n=4, E=8),
@@ -33,7 +36,10 @@ Phases, each fatal on failure:
    counted work of those launches (active particles, trips, and the
    statistics that are not zero and so have to reach the FIFO) it prints
    each kernel's bound, the larger of bytes over 3.35 TB/s and operations
-   over 67 TFLOP/s, and the share of it the kernel reaches;
+   over 67 TFLOP/s, and the share of it the kernel reaches.  At the
+   whole-genome shape the biased pass is timed the same way, its bound
+   counting the section table, the pilot weight, the positions of the ring
+   and the ring slots the pass changed;
 5. run the main path through smc2-torch's entry point
    (smcsmc_tpu_torch.cli.smcsmc_main) on bench.py's single-population data
    (n=4, 2 Mb) at -Np 10000 -EM 1 with 9 epochs;
@@ -58,12 +64,20 @@ Phases, each fatal on failure:
    iteration 1 and run the same command again: iteration 0 must launch
    nothing and keep its rows; then sweep one chunk twice with one seed, once
    through ``save_state``/``load_state`` at half way into a sweep set up
-   from another seed: log-likelihood and committed statistics bit for bit
-   (or, if two uninterrupted sweeps of that seed differ too, the run says
-   that the card's cumsum did not repeat);
+   from another seed: log-likelihood and committed statistics bit for
+   bit;
 8. profile 200 steady segments of both sweeps with torch.profiler
    (smcsmc_tpu_torch.sweep_profile): device busy share, launches per
-   segment, kernel time per launch, top device operations.
+   segment, kernel time per launch, top device operations;
+9. the biased path: the whole-genome data through the same entry point
+   with the production proposal, ``-segs a.seg b.seg -chunks 4 -Np 10000
+   -EM 1 -P 133 133016 "31*1" -record_ess -seed 7 -bias_heights 0 0.05
+   -calibrate_lag 2``: the biased ``segment_pass`` once per segment of
+   each E-step, the plain one and the plain versions never, ``trip`` as
+   often as the lag calibration pre-passes report (more than 0); the
+   auto-calibrated bias strengths and the calibrated lags logged; the
+   genome path's result check; E-step updates/s, and a profile of chunk 0
+   with the same proposal (launches per segment, device busy share).
 
 The line before the last is a JSON object with each kernel's build/compare/
 time record; the last line is {"ok": true, "device": {...}}.  Without a
@@ -126,6 +140,15 @@ def _demo(n: int, E: int, L: float = 2e6):
 
 
 SEGMENT_STATE = ("time", "parent", "child0", "child1", "next_rec", "log_w")
+# the biased pass as compared and timed: two sections, [0, 2000) at strength
+# 4 and [2000, inf) at 1 (-bias_heights 0 0.05 at N0 10,000 gives the
+# boundary 2000; 4 is about what the calibration gives the genome model),
+# the JAX package's 32 ring slots, a segment starting at 10 kb
+BIAS_HEIGHTS = (0.0, 2000.0, 3e38)
+BIAS_STRENGTHS = (4.0, 1.0)
+BIAS_SLOTS = 32
+BIAS_FRONT = 10000.0
+BIASED_PASS = "segment_pass (biased)"
 
 
 class Case:
@@ -215,12 +238,59 @@ class Case:
         (FIFO slot 0 is pending x mask); the other slots must be intact."""
         import torch
 
+        from smcsmc_tpu_torch.kernels.trip import BIAS_FIELDS
+
         if not torch.equal(st["fifo"][:, 1:], self.fifo[:, 1:]):
             raise SystemExit("segment_pass wrote outside FIFO slot 0")
-        out = {k: st[k] for k in SEGMENT_STATE}
+        out = {k: st[k] for k in SEGMENT_STATE + BIAS_FIELDS if k in st}
         out["tl"] = st["tl"]
         out["pending"] = st["fifo"][:, 0]
         return out
+
+    def fresh_biased(self):
+        """State of a biased segment pass: a plain one's, a pilot weight
+        and a ring of delayed factors with 30% of the slots in use (due
+        between the segment's start and twice its length on) and every
+        slot in use for the first 16 particles (their factors go to the
+        pilot at once)."""
+        import torch
+
+        from smcsmc_tpu_torch.kernels.tree import INF
+
+        if not hasattr(self, "ring"):
+            P, D, dev = self.P, BIAS_SLOTS, "cuda"
+            used = torch.rand((P, D), generator=self.gen, device=dev) < 0.3
+            used[:16] = True
+            self.ring = dict(
+                log_pilot=torch.randn(P, generator=self.gen, device=dev),
+                df_pos=torch.where(used, BIAS_FRONT + 2 * self.L * torch.rand(
+                    (P, D), generator=self.gen, device=dev),
+                    torch.full((P, D), INF, device=dev)),
+                df_logf=torch.where(used, torch.randn(
+                    (P, D), generator=self.gen, device=dev), 0.0),
+                df_delta=torch.where(used, 3000.0 * torch.rand(
+                    (P, D), generator=self.gen, device=dev), 0.0),
+                df_k=torch.where(used, torch.randint(
+                    1, 4, (P, D), generator=self.gen, device=dev,
+                    dtype=torch.int32), 0))
+            self.bias_tables = (
+                torch.tensor(BIAS_HEIGHTS, device=dev),
+                torch.tensor(BIAS_STRENGTHS, device=dev),
+                torch.linspace(3000.0, 30000.0, self.E, device=dev))
+        st = self.fresh_segment()
+        st.update({k: v.clone() for k, v in self.ring.items()})
+        return st
+
+    def run_biased(self, fn, u, st):
+        from smcsmc_tpu_torch.kernels.bias import BiasedPass
+
+        biased = BiasedPass(st["log_pilot"], st["df_pos"], st["df_logf"],
+                            st["df_delta"], st["df_k"], *self.bias_tables,
+                            BIAS_FRONT)
+        fn(u, self.leaf_status, *(st[k] for k in SEGMENT_STATE), st["fifo"],
+           self.fifo_mask, st["tl"], self.L, MU, RHO, self.start,
+           self.inv2ne, self.has_data, biased)
+        return st
 
 
 class Tally:
@@ -314,6 +384,34 @@ def phase_compare(kernels):
                  f"vs 64x trips=1: bit for bit "
                  f"{'equal -> ok' if same else 'FAIL'}")
             ok &= same
+
+    # the biased pass at the biased path's shape: pilot weight and ring
+    # fields held too (float_tolerances names them)
+    tallies[BIASED_PASS] = (Tally(), Tally())
+    P, n, E = GENOME_P, 8, 33
+    budget = (1.0 - MATCH_MIN) * P
+    for ls in (1, 0, -1):
+        for T, L, nr_scale in ((1, 20000.0, 1.5), (64, MAX_SEG, 0.1)):
+            c = Case(P, n, E, ls, L=L, nr_scale=nr_scale,
+                     seed=11 * P + T + ls)
+            u = c.uniforms(T)
+            got = c.segment_result(c.run_biased(segment_pass, u,
+                                                c.fresh_biased()))
+            ref = c.segment_result(c.run_biased(segment_pass_plain, u,
+                                                c.fresh_biased()))
+            torch.cuda.synchronize()
+            if torch.equal(ref["df_pos"], c.ring["df_pos"]):
+                raise SystemExit("the biased comparison moved no factor")
+            trees, floats, errs = disagreement(got, ref, c.L, MU, RTOL)
+            if T == 1:
+                good = int(trees.sum()) <= budget and int(floats.sum()) == 0
+            else:
+                good = int((trees | floats).sum()) <= budget
+            tallies[BIASED_PASS][T > 1].add(trees, floats, errs)
+            _report(f"{BIASED_PASS} P={P} n={n} E={E} leaf_status={ls} "
+                    f"trips={T}" + (" vs plain" if T > 1 else ""), P, trees,
+                    floats, errs, good)
+            ok &= good
     if not ok:
         raise SystemExit("kernel and plain version disagree beyond tolerance")
     return tallies
@@ -355,14 +453,16 @@ def _host_us(launch, states):
     return dt / len(states) * 1e6
 
 
-def _bounds(c, active, trips, pushed):
+def _bounds(c, active, trips, pushed, moved=0):
     """Least time (ms) the card could take for one launch of each entry
     point with ``active`` recombining particles, ``trips`` trips in all and
     ``pushed`` statistics that are not zero after the gate: bytes the
     function must move (each input read once, each output written once)
     over the memory rate, and its float operations over the float32 rate;
-    the larger bounds it."""
+    the larger bounds it.  For the biased pass also ``moved`` ring slots
+    that changed (pushed or applied)."""
     P, N, E = c.P, 2 * c.n - 1, c.E
+    S, D = len(BIAS_STRENGTHS), BIAS_SLOTS
     tree = 4 * N * 4  # time, parent, child0, child1 rows
     tables = 4 * 2 * E + c.n  # epoch_start, inv2ne, has_data
     # a trip: (epoch x node) overlaps for the hazard mass and the refreshed
@@ -385,6 +485,15 @@ def _bounds(c, active, trips, pushed):
     }
     flop = {"trip": trips * flop_trip,
             "segment_pass": trips * flop_trip + P * E * N * 4 + 2 * pushed}
+    # the biased pass besides: the section table and the delays; every
+    # particle reads and writes its pilot weight and reads the positions of
+    # its ring (to find what is due and what is free); a slot that changed
+    # has its other three words read and all four written.  A trip weighs
+    # the N x S segments twice (about 6 operations each)
+    nbytes[BIASED_PASS] = (nbytes["segment_pass"] + 4 * (2 * S + 1 + E)
+                      + P * (2 * 4 + 4 * D) + moved * (3 + 4) * 4)
+    flop[BIASED_PASS] = (flop["segment_pass"] + trips * 2 * N * S * 6
+                         + P * D * 2)
     out = {}
     for name in nbytes:
         by_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
@@ -460,9 +569,10 @@ def time_empty_launch():
     return empty_ms
 
 
-def phase_time(kernels, shape, seg_lengths):
-    """Times of both entry points at ``shape`` (P, n, E) for each (label,
-    segment length); see the module docstring."""
+def phase_time(kernels, shape, seg_lengths, biased=False):
+    """Times of both entry points (and, with ``biased``, of the biased
+    pass) at ``shape`` (P, n, E) for each (label, segment length); see the
+    module docstring."""
     P, n, E = shape
     filler = _filler()
     rows = {}
@@ -477,23 +587,34 @@ def phase_time(kernels, shape, seg_lengths):
         trips = int(round(float(per_particle.sum())))
         st = c.run_segment(kernels["segment_pass"][0], u, c.fresh_segment())
         pushed = int((st["fifo"][:, 0] != 0).sum())
-        bounds = _bounds(c, active, trips, pushed)
+        makers = {"trip": (c.fresh, c.run),
+                  "segment_pass": (c.fresh_segment, c.run_segment)}
+        entries = [(name, kernel, plain) for name, (kernel, plain)
+                   in kernels.items()]
+        moved = 0
+        if biased:
+            makers[BIASED_PASS] = (c.fresh_biased, c.run_biased)
+            entries.append((BIASED_PASS, *kernels["segment_pass"]))
+            st = c.run_biased(kernels["segment_pass"][0], u, c.fresh_biased())
+            moved = int(sum((st[k] != c.ring[k]) for k in (
+                "df_pos", "df_logf", "df_delta", "df_k")).gt(0).sum())
+        bounds = _bounds(c, active, trips, pushed, moved)
         _log(f"time {label} (P={P} n={n} E={E}, L={L:g} bp): {active} of "
              f"{c.P} particles "
              f"recombine, {trips} trips in all, at most "
              f"{int(per_particle.max())} in one particle; {pushed} of "
-             f"{c.P * 6 * c.E} statistics are not zero after the gate")
-        makers = {"trip": (c.fresh, c.run),
-                  "segment_pass": (c.fresh_segment, c.run_segment)}
+             f"{c.P * 6 * c.E} statistics are not zero after the gate"
+             + (f"; the biased pass changes {moved} of "
+                f"{c.P * BIAS_SLOTS} ring slots" if biased else ""))
         rows[label] = {"L": L, "active": active, "trips": trips,
-                       "pushed": pushed}
-        for name, (kernel, plain) in kernels.items():
+                       "pushed": pushed, "moved": moved}
+        for name, kernel, plain in entries:
             fresh, run = makers[name]
 
             def launch(st, fn=kernel, run=run, u=u):
                 run(fn, u, st)
 
-            def idle():
+            def idle(fresh=fresh):
                 st = fresh()
                 st["next_rec"] += 1e9  # nobody recombines
                 return st
@@ -502,8 +623,8 @@ def phase_time(kernels, shape, seg_lengths):
             ladder = {"no trips": _best_device_ms(launch, idle, filler)}
             for T in (1, 2, 4):
                 ladder[f"trips<={T}"] = _best_device_ms(
-                    lambda st, ut=u[:T].contiguous(): run(kernel, ut, st),
-                    fresh, filler)
+                    lambda st, ut=u[:T].contiguous(), run=run, kernel=kernel:
+                    run(kernel, ut, st), fresh, filler)
             t = dict(kernel_ms=_best_device_ms(launch, fresh, filler),
                      ladder=ladder, plain_ms=_plain_ms(run, plain, u, fresh),
                      host_us=_host_us(launch, [fresh() for _ in range(200)]),
@@ -576,11 +697,13 @@ def _run_cli(argv):
     try:
         trip_mod.trip.launches = 0
         trip_mod.segment_pass.launches = 0
+        trip_mod.segment_pass.biased_launches = 0
         t0 = time.monotonic()
         rc = cli.smcsmc_main(argv)
         wall = time.monotonic() - t0
         launches = {"trip": trip_mod.trip.launches,
-                    "segment_pass": trip_mod.segment_pass.launches}
+                    "segment_pass": trip_mod.segment_pass.launches,
+                    BIASED_PASS: trip_mod.segment_pass.biased_launches}
     finally:
         plain_calls.restore()
         lg.removeHandler(rec)
@@ -639,11 +762,19 @@ def _check_estimates(rows, it, problems, min_events=MIN_EPOCH_EVENTS,
                      for r in coal), rate))
 
 
-def _check_launches(launches, plain, segments, problems, path):
-    if launches["segment_pass"] != segments:
-        problems.append(f"segment_pass launched {launches['segment_pass']} "
+def _check_launches(launches, plain, segments, problems, path,
+                    biased=False):
+    """One launch per segment of the pass the path takes and none of the
+    other; no plain version; ``trip`` only in a biased path's pre-pass."""
+    name, other = (BIASED_PASS, "segment_pass") if biased else ("segment_pass",
+                                                          BIASED_PASS)
+    if launches[name] != segments:
+        problems.append(f"{name} launched {launches[name]} "
                         f"times for {segments} segments")
-    if launches["trip"] != 0:
+    if launches[other] != 0:
+        problems.append(f"{other} launched {launches[other]} times on the "
+                        f"{path}")
+    if launches["trip"] != 0 and not biased:
         problems.append(f"trip launched {launches['trip']} times on the "
                         f"{path}, which goes through segment_pass")
     if any(plain.values()):
@@ -693,8 +824,9 @@ def _genome_argv(paths, out):
 def _mid_sweep_checkpoint(demo, seg, chunk, tmp):
     """Sweep ``chunk`` twice with one seed: straight through, and with
     ``save_state`` at half way and ``load_state`` into a sweep that was set
-    up from another seed.  Both must end bit for bit equal, unless a second
-    uninterrupted sweep shows that the sweep did not repeat in this run."""
+    up from another seed.  Both must end bit for bit equal: every device
+    reduction of the sweep repeats bit for bit (the resampler's scan is
+    ``smc.block_scan``, held by ``phase_scan_repeat``)."""
     import torch
 
     from smcsmc_tpu_torch.checkpoint import load_state, save_state
@@ -702,21 +834,11 @@ def _mid_sweep_checkpoint(demo, seg, chunk, tmp):
     from smcsmc_tpu_torch.smc import flush_pending
 
     cfg = EMConfig(num_particles=GENOME_P, device=DEVICE)
-
-    def straight_sweep():
-        sweep = start_sweep(demo, seg, cfg, chunk, seed=31)
-        state = sweep.state
-        for s in range(len(sweep.segs)):
-            state, _ = sweep.step(state, sweep.segs[s])
-        return flush_pending(state)
-
-    def same_as(got, ref):
-        same = {k: torch.equal(getattr(got, k), getattr(ref, k))
-                for k in ("ln_norm", "stats", "stats_wt", "log_w")}
-        same["num_resamples"] = got.num_resamples == ref.num_resamples
-        return same
-
-    ref = straight_sweep()
+    sweep = start_sweep(demo, seg, cfg, chunk, seed=31)
+    state = sweep.state
+    for s in range(len(sweep.segs)):
+        state, _ = sweep.step(state, sweep.segs[s])
+    ref = flush_pending(state)
 
     first = start_sweep(demo, seg, cfg, chunk, seed=31)
     half = len(first.segs) // 2
@@ -731,29 +853,17 @@ def _mid_sweep_checkpoint(demo, seg, chunk, tmp):
     for s in range(done["segments"], len(second.segs)):
         state, _ = second.step(state, second.segs[s])
     got = flush_pending(state)
-    same = same_as(got, ref)
+    same = {k: torch.equal(getattr(got, k), getattr(ref, k))
+            for k in ("ln_norm", "stats", "stats_wt", "log_w")}
+    same["num_resamples"] = got.num_resamples == ref.num_resamples
     _log(f"mid-sweep checkpoint: chunk {chunk}, {len(first.segs)} segments, "
          f"saved after {half} ({size} bytes), loaded into a sweep started "
          f"from another seed; ln_norm {float(got.ln_norm):.4f} vs "
          f"{float(ref.ln_norm):.4f} uninterrupted, {got.num_resamples} vs "
          f"{ref.num_resamples} resamples; bit for bit equal: {same}")
     if not all(same.values()):
-        # the proviso: torch.cumsum in the resampler is a decoupled
-        # look-back scan, not run-to-run deterministic at this P (see
-        # smcsmc_tpu_torch.repeatability).  A fault of the checkpoint is:
-        # two uninterrupted sweeps agree and the resumed one does not.
-        again = same_as(straight_sweep(), ref)
-        _log(f"  a second uninterrupted sweep against the first: {again}")
-        if all(again.values()):
-            raise SystemExit("a sweep resumed from a checkpoint differs from "
-                             "the uninterrupted sweep of the same seed")
-        _log("  two uninterrupted sweeps of one seed differ as well: the "
-             "sweep was not run-to-run deterministic in this run "
-             "(torch.cumsum on the card), so the checkpoint is not at fault")
-        if abs(float(got.ln_norm) - float(ref.ln_norm)) > 1e-3 * abs(
-                float(ref.ln_norm)):
-            raise SystemExit("the resumed sweep's log-likelihood is not "
-                             "within 0.1% of the uninterrupted sweep's")
+        raise SystemExit("a sweep resumed from a checkpoint differs from "
+                         "the uninterrupted sweep of the same seed")
 
 
 def phase_genome_path(card):
@@ -864,8 +974,7 @@ def phase_genome_path(card):
                  "of 0.1 and more with two decimals, so its M-step starts "
                  "iteration 1 from a model that differs from the first "
                  "run's in the third or fourth digit (the JAX package's "
-                 "resume does the same); the mid-sweep check below says "
-                 "whether the sweep itself repeated bit for bit in this run")
+                 "resume does the same)")
             if abs(l2 - l1) > 0.01 * abs(l1):
                 problems.append(f"resumed iteration 1 LogL {l2} is not "
                                 f"within 1% of {l1}")
@@ -883,6 +992,111 @@ def phase_genome_path(card):
             for c0, c1 in chunks])
     return (launches, re_launches, steps, demo, seg, chunks,
             float(lengths.mean()))
+
+
+def phase_scan_repeat(repeats=2000, P=10000):
+    """The resampler's scan (``smc.block_scan``) of one weight vector
+    ``repeats`` times, a matrix product queued before every seventh, each
+    result held bit for bit to the first; ``torch.cumsum``, which the
+    resampler used before, is counted alongside for contrast."""
+    import torch
+
+    from smcsmc_tpu_torch.smc import block_scan
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    w = torch.softmax(torch.randn(P, generator=gen, device="cuda") * 3, 0)
+    filler = _filler()
+    counts = {}
+    for name, scan in (("block_scan", block_scan),
+                       ("torch.cumsum", lambda x: x.cumsum(0))):
+        first, differ = scan(w), 0
+        for i in range(repeats):
+            if i % 7 == 0:
+                filler()
+            differ += int(not torch.equal(scan(w), first))
+        counts[name] = differ
+    _log(f"scan repeat P={P}: of {repeats} results, "
+         f"{counts['block_scan']} of the resampler's block_scan and "
+         f"{counts['torch.cumsum']} of torch.cumsum differ bit for bit from "
+         f"their first")
+    if counts["block_scan"]:
+        raise SystemExit("the resampler's scan did not repeat bit for bit")
+    return counts
+
+
+BIASED_FLAGS = ["-bias_heights", "0", "0.05", "-calibrate_lag", "2"]
+
+
+def phase_biased_path(card):
+    """The whole-genome data through smcsmc_main with the production
+    proposal (``BIASED_FLAGS``); see the module docstring.  Returns
+    (launches, E-step records, trip launches the pre-passes reported,
+    the profile of chunk 0)."""
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.sweep_profile import (
+        BIASED_OPTIONS,
+        genome_data,
+        genome_model,
+        profile_sweep,
+        report_lines,
+    )
+
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, name) for name in ("a.seg", "b.seg")]
+        for path, chrom in zip(paths, genome_data()):
+            write_seg(path, chrom)
+        out = os.path.join(tmp, "out")
+        # the genome path's command without -ckpt (no chunk reaches a
+        # checkpoint) and with the production proposal
+        argv = _genome_argv(paths, out)
+        i = argv.index("-ckpt")
+        argv = argv[:i] + argv[i + 2:] + BIASED_FLAGS
+        launches, plain, steps, records, wall = _run_cli(argv)
+        shown = " ".join(os.path.basename(a) if a in paths else a
+                         for a in argv if a != out)
+        _log(f"biased path: smc2-torch {shown} ran in {wall:.2f} s wall; "
+             f"kernel launches {launches}; calls of the plain versions "
+             f"{plain}")
+        _log_esteps(steps, GENOME_P, card)
+        msgs = [r.getMessage() for r in records]
+        reported = sum(r.args[0] for r in records
+                       if r.msg.startswith("survival calibration:"))
+        for m in msgs:
+            if m.startswith(("auto-calibrated bias_strengths",
+                             "calibrated lags", "Calibrated lag",
+                             "survival calibration")):
+                _log("  log: " + m)
+        if len(steps) != 2:
+            raise SystemExit(f"biased path: {len(steps)} EM iterations")
+        _check_launches(launches, plain, sum(r.args[2] for r in steps),
+                        problems, "biased path", biased=True)
+        if launches["trip"] == 0 or launches["trip"] != reported:
+            problems.append(f"trip launched {launches['trip']} times, the "
+                            f"calibration pre-passes report {reported}")
+        if not any(m.startswith("auto-calibrated bias_strengths")
+                   for m in msgs) or not any(
+                m.startswith("calibrated lags") for m in msgs):
+            problems.append("the calibrated strengths or lags were not "
+                            "logged")
+        rows = [r for r in _read_out(os.path.join(out, "emiter1",
+                                                  "chunkfinal.out"), 1)
+                if r["Clump"] == "-1"]
+        _check_estimates(rows, 1, problems, GENOME_MIN_EPOCH_EVENTS,
+                         GENOME_POOLED_WITHIN)
+        if problems:
+            raise SystemExit("biased path checks failed: "
+                             + "; ".join(problems))
+        _log("biased path checks: ok")
+        demo, seg = genome_model(paths)
+    chunk = next(r.args[0] for r in records if r.msg.startswith("chunks:"))[0]
+    rep = profile_sweep(demo, seg, GENOME_P, DEVICE, chunk=tuple(chunk),
+                        **BIASED_OPTIONS)
+    _log(f"biased path sweep profile (chunk {chunk}, E=33) on {card}:")
+    for ln in report_lines(rep):
+        _log(ln)
+    return launches, steps, reported, rep
 
 
 REPLACES = "smcsmc_tpu/kernels/pallas_trip.py:91"
@@ -932,6 +1146,7 @@ def main(argv=None) -> int:
             _log("  ptxas: " + ln.strip())
     if args.until == "build":
         return 0
+    scan_counts = phase_scan_repeat()
 
     from smcsmc_tpu_torch.segio import split_long_segments
     from smcsmc_tpu_torch.sweep_profile import (
@@ -966,60 +1181,79 @@ def main(argv=None) -> int:
      g_mean_len) = phase_genome_path(card)
     g_timing = phase_time(kernels, (GENOME_P, 8, 33),
                           [("mean genome segment", g_mean_len),
-                           ("longest segment", MAX_SEG)])
+                           ("longest segment", MAX_SEG)], biased=True)
     _log(f"genome path sweep profile (chunk {g_chunks[0]}, E=33) on {card}:")
     for ln in report_lines(profile_sweep(g_demo, g_seg, GENOME_P, "cuda",
                                          chunk=tuple(g_chunks[0]))):
         _log(ln)
 
+    b_launches, b_steps, b_reported, b_profile = phase_biased_path(card)
+
     head = timing["mean bench segment"]
     g_head = g_timing["mean genome segment"]
     record = {"kernels": [], "empty_launch_ms": empty_ms,
+              "scan_repeat": scan_counts,
               "timed_at": {"P": 10000, "n": 4, "E": 9,
                            "active": head["active"], "trips": head["trips"],
                            "pushed": head["pushed"]},
               "genome_path_timed_at": {
                   "P": GENOME_P, "n": 8, "E": 33, "L": g_head["L"],
                   "active": g_head["active"], "trips": g_head["trips"],
-                  "pushed": g_head["pushed"]}}
+                  "pushed": g_head["pushed"], "moved": g_head["moved"]},
+              "biased_path": {
+                  "segments": sum(r.args[2] for r in b_steps),
+                  "estep_seconds": [r.args[1] for r in b_steps],
+                  "trip_launches_reported": b_reported,
+                  "launches_per_segment": b_profile["launches_per_segment"],
+                  "device_busy_share": b_profile["device_busy_share"],
+                  "pass_us_per_launch": b_profile["pass_us_per_launch"]}}
     timed_keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by")
-    for name in kernels:
+    for name in (*kernels, BIASED_PASS):
         single, chained = tallies[name]
         compare = {"trips=1": single.record(),
                    "trips=64 vs plain": chained.record()}
         if name == "trip":
             compare["trips=64 vs 64x trips=1"] = "bit for bit equal"
-        t = head[name]
-        record["kernels"].append({
+        by_path = {"main": launches[name], "genome": g_launches[name],
+                   "genome resumed": g_resume_launches[name],
+                   "biased": b_launches[name]}
+        # each entry point's own path: the main path for the plain pass,
+        # the biased path for the biased pass and for trip (its
+        # calibration pre-pass)
+        own = "main" if name == "segment_pass" else "biased"
+        # device time per launch at the mean segment of the entry point's
+        # own shape: the main path's for the plain kernels, the genome
+        # data's for the biased pass
+        t = g_head[name] if name == BIASED_PASS else head[name]
+        entry = {
             "name": name,
             "route": "cuda",
             "source": SOURCE,
             "replaces": REPLACES,
-            "launches": launches[name],
+            "launches": by_path[own],
+            "launches_by_path": by_path,
             # kernel vs plain on identical inputs, one trip
             "max_abs_err": single.max_abs_err,
             "compare": compare,
-            # device time per launch at the mean segment
             "ms": t["kernel_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a trip
             "host_us_per_call": t["host_us"],
-            "longest_segment": {
-                k: timing["longest segment"][name][k] for k in timed_keys},
-            # the whole-genome path (P=10000, n=8, E=33): its launches in
-            # the first run and in the resumed one, and the times at its
+            # the whole-genome shape (P=10000, n=8, E=33): the times at its
             # mean and longest segment
-            "genome_path": {
-                "launches": g_launches[name],
-                "launches_resumed_run": g_resume_launches[name],
+            "genome_shape": {
                 "mean_segment": {k: g_head[name][k] for k in timed_keys},
                 "longest_segment": {
                     k: g_timing["longest segment"][name][k]
                     for k in timed_keys},
                 "host_us_per_call": g_head[name]["host_us"]},
-        })
+        }
+        if name != BIASED_PASS:
+            entry["longest_segment"] = {
+                k: timing["longest segment"][name][k] for k in timed_keys}
+        record["kernels"].append(entry)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,10 @@ of ``smcsmc_tpu.cli.smcsmc_main``).
 
 It accepts the ``smc2`` flags of the ported paths (one population; several
 ``.seg`` files, chunks, resume and checkpoints; unphased and missing data;
-the M-step's options) plus ``-device``, each parsed as ``smcsmc_tpu.cli``
-parses it; every other flag is refused with a message naming it.  The helpers that
+the M-step's options; height-biased proposals with delayed importance
+weights and calibrated lags) plus ``-device``, each parsed as
+``smcsmc_tpu.cli`` parses it; every other flag is refused with a message
+naming it.  The helpers that
 turn flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
 ``_is_number``, ``resolve_n0``, ``build_demography``) are copied from
 ``smcsmc_tpu/cli.py`` at commit dfc2fad and kept letter for letter.
@@ -194,14 +196,15 @@ def parse_args(argv: list[str]):
     -seg/-segs -o -Np -EM -ESS -P -N0 -mu -rho -length -nsam -lag -seed -log
     -chunks -maxgap -minseg -startpos -ckpt -nothreads -dephase
     -ancestral_aware -cap -xc -xr -no_infer_recomb -no_m_step -record_ess
-    -device."""
+    -bias_heights -bias_strengths -delay -lag_fraction -calibrate_lag
+    -delay_coal -delay_migr -device."""
     argv = load_option_file(argv)
     cfg = EMConfig()
     io = {
         "segs": [], "out": "smcsmc_out", "pattern": None, "p_pattern": None,
         "tmax": 2.0, "maxgap": 200000, "minseg": 500000, "startpos": 1,
         "length": None, "mu": None, "rho": None, "N0": None, "nsam": None,
-        "logfile": None,
+        "logfile": None, "bias_heights": None,
     }
     i = 0
     while i < len(argv):
@@ -242,6 +245,34 @@ def parse_args(argv: list[str]):
             io["nsam"] = int(take())
         elif o == "-lag":
             cfg.lag = float(take())
+        elif o == "-calibrate_lag":
+            cfg.calibrate_lag = True
+            cfg.lag_fraction = float(take())
+        elif o == "-lag_fraction":
+            cfg.lag_fraction = float(take())
+        elif o == "-delay":
+            cfg.delay = float(take())
+        elif o == "-delay_coal":
+            # delay keyed off the first coalescence height (pfparam.cpp:140)
+            cfg.delay_type = "coal"
+            i += 1
+        elif o == "-delay_migr":
+            # delay keyed off the first coal-or-migration event
+            # (pfparam.cpp:141-142 RESAMPLE_DELAY_COALMIGR)
+            cfg.delay_type = "migr"
+            i += 1
+        elif o in ("-bias_heights", "-bias_strengths"):
+            # heights in units of 4*N0 generations, the first typically 0
+            # (converted once N0 is known); one strength per section
+            i += 1
+            vals = []
+            while i < len(argv) and not argv[i].startswith("-"):
+                vals.append(float(argv[i]))
+                i += 1
+            if o == "-bias_heights":
+                io["bias_heights"] = vals
+            else:
+                cfg.bias_strengths = tuple(vals)
         elif o == "-seed":
             cfg.seed = int(take())
         elif o == "-cap":
@@ -316,6 +347,8 @@ def smcsmc_main(argv=None) -> int:
     logfile = io["logfile"] or os.path.join(io["out"], "result.log")
     logging.basicConfig(filename=logfile, level=logging.INFO)
     logger.info("smc2-torch %s", " ".join(argv))
+    if cfg.calibrate_lag:
+        logger.info("Calibrated lag = %s x survival", cfg.lag_fraction)
 
     if len(io["segs"]) > 1:
         seg, _ = merge_segs(io["segs"], gap=io["maxgap"])
@@ -325,6 +358,10 @@ def smcsmc_main(argv=None) -> int:
     if demo.num_populations != 1 or np.any(demo.mig_rates > 0):
         raise SystemExit(f"smc2-torch: structured populations / migration "
                          f"{_NOT_PORTED}")
+    if io["bias_heights"]:
+        # 4N0 units -> generations; a leading 0 is dropped
+        cfg.bias_heights = tuple(h * 4 * io["N0"] for h in io["bias_heights"]
+                                 if h > 0)
     cfg.outdir = io["out"]
     # chunk-window controls (model.py:563-662; pfparam.cpp -startpos)
     cfg.maxgap = io["maxgap"]

@@ -1,9 +1,10 @@
 """Carry particle state and segments between numpy and the port's tensors.
 
-The tests start both packages from the same trees, weights, FIFO and
-statistics: a JAX ``PFState`` with every leaf passed through ``np.asarray``
-goes in through :func:`state_from_numpy`, and :func:`state_to_numpy` gives
-the port's state back as numpy arrays under the same field names.
+The tests start both packages from the same trees, weights (posterior and
+pilot), FIFO, statistics and ring of delayed factors: a JAX ``PFState``
+with every leaf passed through ``np.asarray`` goes in through
+:func:`state_from_numpy`, and :func:`state_to_numpy` gives the port's state
+back as numpy arrays under the same field names.
 :func:`segment_from_numpy` turns the tuple that the JAX segment step
 consumes into the port's ``Segment``, so that both take the same step.
 """
@@ -52,6 +53,7 @@ def state_from_numpy(d, device) -> PFState:
     return PFState(
         trees=trees_from_numpy(_get(d, "trees"), device),
         log_w=f32(_get(d, "log_w")),
+        log_pilot=f32(_get(d, "log_pilot")),
         next_rec=f32(_get(d, "next_rec")),
         fifo=f32(_get(d, "fifo")),
         slot_open=np.array(_get(d, "slot_open"), np.float32),
@@ -61,6 +63,11 @@ def state_from_numpy(d, device) -> PFState:
         ln_norm_c=f32(_get(d, "ln_norm_c")),
         front=np.float32(_get(d, "front")),
         num_resamples=int(_get(d, "num_resamples")),
+        df_pos=f32(_get(d, "df_pos")),
+        df_logf=f32(_get(d, "df_logf")),
+        df_delta=f32(_get(d, "df_delta")),
+        df_k=torch.as_tensor(np.array(_get(d, "df_k"), np.int32),
+                             device=device),
     )
 
 

@@ -14,6 +14,19 @@
 //                 segment's statistics into FIFO slot 0.  The per-particle
 //                 `upd` and `pending` never reach device memory.  Held
 //                 against kernels/trip.py::segment_pass_plain.
+//                 A compile-time variant (BIAS) is the biased pass: the
+//                 point is drawn height-biased over the [N, S] weighted
+//                 segments (transition.py:160 of the JAX package), the
+//                 posterior weight takes log_iw, the pilot weight tracks the
+//                 extension and the immediate part, the delayed part goes
+//                 into the particle's ring of delayed factors (smc.py:488,
+//                 :968-1020), and after the final extension the factors due
+//                 at front + L are applied to the pilot (smc.py:540).  The
+//                 ring row (32 slots of 4 words) is staged in the group's
+//                 slice of shared memory, slot k handled by lane k % GROUP
+//                 alone (so no lane reads another's slots), and written
+//                 back only by lanes whose slots changed; the section table
+//                 and the delays sit beside the epoch tables.
 //
 // What bounds it on Hopper: launch and latency, neither bytes nor FLOPs.
 // At the sweep's shape (10,000 particles, 4 leaves, 9 epochs, about one
@@ -69,6 +82,8 @@
 #define MAX_LEAVES 8
 #define MAX_NODES (2 * MAX_LEAVES - 1)
 #define MAX_EPOCHS 64
+#define MAX_SECTIONS 8      // bias sections
+#define MAX_DELAY_SLOTS 32  // delayed factors per particle
 #define BLOCK 128
 #define GROUP 8  // lanes that share one particle; divides 32
 #define BIG 3e38f
@@ -100,6 +115,17 @@ struct Args {
   long long fifo_stride;    // F * 6E
   const float* fifo_mask;   // [6E]
   float* tl_out;            // [P] post-trip tree length
+  // the biased segment_pass (log_pilot == nullptr: the plain one)
+  float* log_pilot;              // [P]
+  float* df_pos;                 // [P, K] ring: next application (BIG: free)
+  float* df_logf;                // [P, K] log factor per application
+  float* df_delta;               // [P, K] spacing
+  int* df_k;                     // [P, K] applications left
+  const float* bias_heights;     // [S + 1]: 0, h_1, ..., BIG
+  const float* bias_strengths;   // [S]
+  const float* delays;           // [E] application delay by epoch
+  int K, S, delay_type, delay_k;  // delay_type 0: keyed off h_r, 1: t_c
+  float front;                   // the segment's start
 };
 
 // per-block tables in shared memory, and the launch's scalars
@@ -109,8 +135,16 @@ struct Tables {
   const float* i2n;
   const int* hd;
   const float* gate;  // [6E] FIFO gate (segment_pass)
-  int n, N, E, total_data, leaf_status;
+  const float* bh;    // [S + 1] section boundaries (biased)
+  const float* bs;    // [S] section strengths (biased)
+  const float* dl;    // [E] delays (biased)
+  int n, N, E, total_data, leaf_status, S;
   float L, mu, rho;
+};
+
+// what a trip hands back to the biased pass
+struct TripEvent {
+  float h_r, t_c, log_iw, strength;
 };
 
 // one particle's slice of shared memory: what is indexed by a value
@@ -122,6 +156,11 @@ struct Work {
   int* below;   // [N] bit l set: data leaf l hangs below the node
   float* tle;   // [E] tree length per epoch
   float* full;  // [E] hazard mass of each epoch above h_r
+  // the biased pass's ring of delayed factors, [MAX_DELAY_SLOTS] each
+  float* rpos;
+  float* rlogf;
+  float* rdelta;
+  int* rk;
 };
 
 // one particle's node and parent times in registers, padded to NP nodes
@@ -134,12 +173,16 @@ struct Heights {
   float pt[NP];
 };
 
-__host__ __device__ inline int tables_words(int E, bool with_gate) {
-  return 3 * E + MAX_LEAVES + (with_gate ? 6 * E : 0);
+__host__ __device__ inline int tables_words(int E, bool with_gate,
+                                            bool biased) {
+  return 3 * E + MAX_LEAVES + (with_gate ? 6 * E : 0)
+      + (biased ? 2 * MAX_SECTIONS + 1 + E : 0);
 }
 
-__host__ __device__ inline int work_words(int N, int E, bool with_pending) {
-  return (5 * N + 2 * E + (with_pending ? 6 * E : 0)) | 1;  // odd stride
+__host__ __device__ inline int work_words(int N, int E, bool with_pending,
+                                          bool biased) {
+  return (5 * N + 2 * E + (with_pending ? 6 * E : 0)
+          + (biased ? 4 * MAX_DELAY_SLOTS : 0)) | 1;  // odd stride
 }
 
 __device__ __forceinline__ float clip_u(float u) {
@@ -165,11 +208,19 @@ __device__ __forceinline__ float group_sum(float v, unsigned gm) {
   return v;
 }
 
-// Block-wide: the epoch tables (and, for segment_pass, the FIFO gate) on
-// their way into shared memory.  No barrier here: the caller starts its own
-// loads too, so that all of them are in flight together, and then calls
-// __syncthreads().
-__device__ void stage_tables(const Args& a, float* smem, bool with_gate) {
+__device__ __forceinline__ int group_min(int v, unsigned gm) {
+#pragma unroll
+  for (int off = GROUP / 2; off > 0; off >>= 1)
+    v = min(v, __shfl_xor_sync(gm, v, off));
+  return v;
+}
+
+// Block-wide: the epoch tables (and, for segment_pass, the FIFO gate; for
+// the biased pass the sections and delays) on their way into shared
+// memory.  No barrier here: the caller starts its own loads too, so that
+// all of them are in flight together, and then calls __syncthreads().
+__device__ void stage_tables(const Args& a, float* smem, bool with_gate,
+                             bool biased) {
   const int E = a.E;
   float* s_est = smem;
   float* s_eend = smem + E;
@@ -187,6 +238,16 @@ __device__ void stage_tables(const Args& a, float* smem, bool with_gate) {
     for (int k = threadIdx.x; k < 6 * E; k += blockDim.x)
       s_gate[k] = a.fifo_mask[k];
   }
+  if (biased) {
+    float* s_bh = smem + 3 * E + MAX_LEAVES + 6 * E;
+    float* s_bs = s_bh + MAX_SECTIONS + 1;
+    float* s_dl = s_bs + MAX_SECTIONS;
+    for (int k = threadIdx.x; k <= a.S; k += blockDim.x)
+      s_bh[k] = a.bias_heights[k];
+    for (int k = threadIdx.x; k < a.S; k += blockDim.x)
+      s_bs[k] = a.bias_strengths[k];
+    for (int e = threadIdx.x; e < E; e += blockDim.x) s_dl[e] = a.delays[e];
+  }
 }
 
 // After the barrier that follows stage_tables.
@@ -197,6 +258,10 @@ __device__ void bind_tables(const Args& a, float* smem, Tables& tb) {
   tb.i2n = smem + 2 * E;
   tb.hd = reinterpret_cast<const int*>(smem + 3 * E);
   tb.gate = smem + 3 * E + MAX_LEAVES;
+  tb.bh = tb.gate + 6 * E;
+  tb.bs = tb.bh + MAX_SECTIONS + 1;
+  tb.dl = tb.bs + MAX_SECTIONS;
+  tb.S = a.S;
   tb.n = a.n;
   tb.N = 2 * a.n - 1;
   tb.E = E;
@@ -210,12 +275,12 @@ __device__ void bind_tables(const Args& a, float* smem, Tables& tb) {
 
 // Carve this group's slice of shared memory (`pend` is only there for
 // segment_pass).  Returns the particle index of the calling thread's group.
-__device__ int carve(const Args& a, float* smem, bool segment, Work& w,
-                     float*& pend) {
+__device__ int carve(const Args& a, float* smem, bool segment, bool biased,
+                     Work& w, float*& pend) {
   const int E = a.E, N = 2 * a.n - 1;
   const int group = threadIdx.x / GROUP;
-  float* base = smem + tables_words(E, segment)
-      + (size_t)group * work_words(N, E, segment);
+  float* base = smem + tables_words(E, segment, biased)
+      + (size_t)group * work_words(N, E, segment, biased);
   w.t = base;
   w.par = reinterpret_cast<int*>(base + N);
   w.c0 = reinterpret_cast<int*>(base + 2 * N);
@@ -224,6 +289,11 @@ __device__ int carve(const Args& a, float* smem, bool segment, Work& w,
   w.tle = base + 5 * N;
   w.full = base + 5 * N + E;
   pend = base + 5 * N + 2 * E;
+  float* ring = pend + 6 * E;
+  w.rpos = ring;
+  w.rlogf = ring + MAX_DELAY_SLOTS;
+  w.rdelta = ring + 2 * MAX_DELAY_SLOTS;
+  w.rk = reinterpret_cast<int*>(ring + 3 * MAX_DELAY_SLOTS);
   return blockIdx.x * (blockDim.x / GROUP) + group;
 }
 
@@ -332,12 +402,13 @@ __device__ __forceinline__ float overlap_below(const Heights<NP>& h, float lo,
 // One trip of the particle in `w` / `h`.  Called by all lanes of a
 // synchronised group with identical scalars and heights, w.tle up to date;
 // returns the same way.  `pend` ([6E], shared or global) takes the trip's
-// statistics.
-template <int NP>
-__device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
-                         int lane, unsigned gm, const float4 u, float* pend,
-                         float& nr, float& up, float& lw, float& tl,
-                         float& B) {
+// statistics.  BIAS draws the point height-biased and returns its
+// importance weight (otherwise log_iw 0 and strength 1).
+template <int NP, bool BIAS>
+__device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
+                              int lane, unsigned gm, const float4 u,
+                              float* pend, float& nr, float& up, float& lw,
+                              float& tl, float& B) {
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
   const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
@@ -346,25 +417,80 @@ __device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   const float delta = nr - up;
   lw = lw - tb.mu * B * delta;
 
-  // ---- recombination point: first node whose prefix sum >= u*total ------
-  float total = 0.0f;
-#pragma unroll
-  for (int j = 0; j < NP; ++j)
-    total += h.pt[j] < BIG ? h.pt[j] - h.t[j] : 0.0f;
-  const float x_pt = u_pt * total;
   int c = -1;
-  float prev = 0.0f, cum = 0.0f, t_cut = 0.0f;
+  float h_r, log_iw = 0.0f, strength = 1.0f;
+  if constexpr (!BIAS) {
+    // ---- recombination point: first node whose prefix sum >= u*total ---
+    float total = 0.0f;
 #pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    const float bl = h.pt[j] < BIG ? h.pt[j] - h.t[j] : 0.0f;
-    cum += bl;
-    if (j < N && c < 0 && cum >= x_pt) {
-      c = j;
-      prev = cum - bl;
-      t_cut = h.t[j];
+    for (int j = 0; j < NP; ++j)
+      total += h.pt[j] < BIG ? h.pt[j] - h.t[j] : 0.0f;
+    const float x_pt = u_pt * total;
+    float prev = 0.0f, cum = 0.0f, t_cut = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const float bl = h.pt[j] < BIG ? h.pt[j] - h.t[j] : 0.0f;
+      cum += bl;
+      if (j < N && c < 0 && cum >= x_pt) {
+        c = j;
+        prev = cum - bl;
+        t_cut = h.t[j];
+      }
     }
+    h_r = t_cut + (x_pt - prev);
+  } else {
+    // ---- height-biased point: over the segments |branch_j ∩ section_s|
+    // weighted by strength_s, node-major, the first whose running sum
+    // reaches u * their total (the last one if rounding leaves none) ----
+    const int S = tb.S;
+    float wtot = 0.0f, ptot = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      if (h.pt[j] < BIG) {
+        for (int s = 0; s < S; ++s) {
+          const float seg = fmaxf(fminf(h.pt[j], tb.bh[s + 1])
+                                  - fmaxf(h.t[j], tb.bh[s]), 0.0f);
+          wtot += seg * tb.bs[s];
+          ptot += seg;
+        }
+      }
+    }
+    const float x = u_pt * wtot;
+    float cum = 0.0f, prev = 0.0f, lo_hit = 0.0f;
+    float prev_last = 0.0f, lo_last = 0.0f;
+    int s_hit = S - 1;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      if (j < N) {
+        for (int s = 0; s < S; ++s) {
+          const float lo = fmaxf(h.t[j], tb.bh[s]);
+          const float seg = h.pt[j] < BIG
+              ? fmaxf(fminf(h.pt[j], tb.bh[s + 1]) - lo, 0.0f) : 0.0f;
+          const float before = cum;
+          cum += seg * tb.bs[s];
+          if (c < 0 && cum >= x) {
+            c = j;
+            s_hit = s;
+            prev = before;
+            lo_hit = lo;
+          }
+          if (j == N - 1 && s == S - 1) {
+            prev_last = before;
+            lo_last = lo;
+          }
+        }
+      }
+    }
+    if (c < 0) {
+      c = N - 1;
+      prev = prev_last;
+      lo_hit = lo_last;
+    }
+    strength = tb.bs[s_hit];
+    h_r = lo_hit + (x - prev) / fmaxf(strength, 1e-30f);
+    log_iw = logf(wtot) - logf(fmaxf(ptot, 1e-30f))
+        - logf(fmaxf(strength, 1e-30f));
   }
-  const float h_r = t_cut + (x_pt - prev);
 
   // ---- SMC' hazard inversion -------------------------------------------
   // lam(v) = sum_{e,j} inv2ne_e * |branch_j ∩ epoch_e ∩ [h_r, v]| is
@@ -490,6 +616,7 @@ __device__ void one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
   up = nr;
   nr = nr + gap;
+  return TripEvent{h_r, t_c, log_iw, strength};
 }
 
 __device__ __forceinline__ float4 load_uniforms(const Args& a, int k, int i) {
@@ -502,7 +629,7 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   extern __shared__ float smem[];
   Work w;
   float* unused;
-  const int i = carve(a, smem, false, w, unused);
+  const int i = carve(a, smem, false, false, w, unused);
   const int lane = threadIdx.x % GROUP;
   const unsigned gm = group_mask();
   const int N = 2 * a.n - 1, E = a.E;
@@ -510,7 +637,7 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   // the tables, next_rec and then the rows of an active particle are all
   // under way before the one barrier
   float nr = i < a.P ? a.next_rec[i] : BIG;
-  stage_tables(a, smem, false);
+  stage_tables(a, smem, false, false);
   const bool active = nr < a.L;  // else every output stays as it is
   float up = 0.0f, lw = 0.0f, tl = 0.0f, B = 0.0f;
   if (active) {
@@ -532,7 +659,7 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
     if (!(nr < a.L)) break;
     // the next trip's uniforms are under way while this trip runs
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
-    one_trip<NP>(tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B);
+    one_trip<NP, false>(tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B);
     u = u_next;
   }
 
@@ -548,25 +675,67 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   }
 }
 
-template <int NP>
+// The biased pass's delayed factors: after a trip whose importance weight
+// is not applied at once, insert it into the first free slot of the ring
+// (k applications of log_iw / k, the first at abs_pos + delay / (2^k - 1));
+// a full ring gives it to the pilot at once.  Slot s is lane s % GROUP's.
+__device__ __forceinline__ void push_delayed(
+    const Tables& tb, const Work& w, int D, int kk, int lane, unsigned gm,
+    float d_h, float abs_pos, float late, float& lp, bool& dirty) {
+  int mine = MAX_DELAY_SLOTS;
+  for (int s = lane; s < D; s += GROUP)
+    if (w.rpos[s] >= 0.5f * BIG) {
+      mine = s;
+      break;
+    }
+  const int first = group_min(mine, gm);
+  if (first >= D) {  // no free slot
+    lp = lp + late;
+    return;
+  }
+  if (first % GROUP != lane) return;
+  int cnt = 0;  // epoch of d_h by comparison count
+  for (int e = 0; e < tb.E; ++e) cnt += d_h >= tb.est[e] ? 1 : 0;
+  const float delay = tb.dl[min(max(cnt - 1, 0), tb.E - 1)];
+  const float dd = delay / (float)((1 << kk) - 1);
+  w.rpos[first] = abs_pos + dd;
+  w.rlogf[first] = late / (float)kk;
+  w.rdelta[first] = dd;
+  w.rk[first] = kk;
+  dirty = true;
+}
+
+template <int NP, bool BIAS>
 __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   extern __shared__ float smem[];
   Work w;
   float* pend;
-  const int i = carve(a, smem, true, w, pend);
+  const int i = carve(a, smem, true, BIAS, w, pend);
   const int lane = threadIdx.x % GROUP;
   const unsigned gm = group_mask();
   const int N = 2 * a.n - 1, E = a.E, K = 6 * a.E;
+  const int D = a.K;  // ring slots (BIAS)
 
   // the tables, the gate and the particle's rows are all under way before
   // the one barrier, which also publishes the tree and the zeroed pend
   const bool live = i < a.P;
-  float nr = 0.0f, lw = 0.0f, up = 0.0f;
-  stage_tables(a, smem, true);
+  float nr = 0.0f, lw = 0.0f, up = 0.0f, lp = 0.0f;
+  bool dirty = false;  // this lane's ring slots changed
+  stage_tables(a, smem, true, BIAS);
   if (live) {
     load_tree(a, w, i, N, lane);
     for (int k = lane; k < K; k += GROUP) pend[k] = 0.0f;
     nr = a.next_rec[i], lw = a.log_w[i];
+    if constexpr (BIAS) {
+      lp = a.log_pilot[i];
+      for (int s = lane; s < D; s += GROUP) {
+        const size_t at = (size_t)i * D + s;
+        w.rpos[s] = a.df_pos[at];
+        w.rlogf[s] = a.df_logf[at];
+        w.rdelta[s] = a.df_delta[at];
+        w.rk[s] = a.df_k[at];
+      }
+    }
   }
   __syncthreads();
   if (!live) return;
@@ -584,7 +753,29 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
     if (!(nr < a.L)) break;
     // the next trip's uniforms are under way while this trip runs
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
-    one_trip<NP>(tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B);
+    const float delta = nr - up, B_pre = B;
+    const TripEvent ev = one_trip<NP, BIAS>(tb, w, h, lane, gm, u, pend, nr,
+                                            up, lw, tl, B);
+    if constexpr (BIAS) {
+      // the posterior takes the whole importance weight; the pilot the
+      // extension and, where the delay height's section is unbiased, the
+      // weight at once; the rest is delayed (smc.py:968-1020)
+      lp = lp - a.mu * B_pre * delta;
+      lw = lw + ev.log_iw;
+      const float d_h = a.delay_type == 0 ? ev.h_r : ev.t_c;
+      float strength_h = ev.strength;
+      if (a.delay_type != 0) {
+        int cnt = 0;  // section of d_h
+        for (int s = 0; s <= tb.S; ++s) cnt += tb.bh[s] <= d_h ? 1 : 0;
+        strength_h = tb.bs[min(max(cnt - 1, 0), tb.S - 1)];
+      }
+      const float imm = fabsf(strength_h - 1.0f) < 1e-6f ? ev.log_iw : 0.0f;
+      const float late = ev.log_iw - imm;
+      lp = lp + imm;
+      if (fabsf(late) > 1e-9f)
+        push_delayed(tb, w, D, a.delay_k, lane, gm, d_h, a.front + up, late,
+                     lp, dirty);
+    }
     u = u_next;
     moved = true;
   }
@@ -594,6 +785,28 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   lw = lw - a.mu * B * delta;
   for (int e = lane; e < E; e += GROUP) pend[4 * E + e] += delta * w.tle[e];
   nr = nr - a.L;
+  if constexpr (BIAS) {
+    // ---- the pilot's extension; the delayed factors due at front + L ----
+    lp = lp - a.mu * B * delta;
+    const float end = a.front + a.L;
+    float add = 0.0f;
+    for (int s = lane; s < D; s += GROUP) {
+      if (w.rpos[s] <= end) {
+        add += w.rlogf[s];
+        if (w.rk[s] > 1) {
+          w.rpos[s] = w.rpos[s] + 2.0f * w.rdelta[s];
+          w.rdelta[s] = 2.0f * w.rdelta[s];
+          w.rk[s] = w.rk[s] - 1;
+        } else {
+          w.rpos[s] = BIG;
+          w.rlogf[s] = 0.0f;
+          w.rk[s] = 0;
+        }
+        dirty = true;
+      }
+    }
+    lp = lp + group_sum(add, gm);
+  }
   __syncwarp(gm);
 
   // ---- push the segment's statistics into FIFO slot 0 -------------------
@@ -604,6 +817,18 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   }
 
   if (moved) store_tree(a, w, i, N, lane);  // only rows that changed
+  if constexpr (BIAS) {
+    if (dirty) {
+      for (int s = lane; s < D; s += GROUP) {
+        const size_t at = (size_t)i * D + s;
+        a.df_pos[at] = w.rpos[s];
+        a.df_logf[at] = w.rlogf[s];
+        a.df_delta[at] = w.rdelta[s];
+        a.df_k[at] = w.rk[s];
+      }
+    }
+    if (lane == 0) a.log_pilot[i] = lp;
+  }
   if (lane == 0) {
     a.next_rec[i] = nr;
     a.log_w[i] = lw;
@@ -629,18 +854,27 @@ template <int NP>
 int launch(const Args& a, bool segment, cudaStream_t stream) {
   const int N = 2 * a.n - 1;
   const int per_block = BLOCK / GROUP;
+  const bool biased = a.log_pilot != nullptr;
   const size_t bytes = sizeof(float)
-      * ((size_t)tables_words(a.E, segment)
-         + (size_t)per_block * work_words(N, a.E, segment));
+      * ((size_t)tables_words(a.E, segment, biased)
+         + (size_t)per_block * work_words(N, a.E, segment, biased));
   const dim3 grid((unsigned)((a.P + per_block - 1) / per_block));
+  if (segment && biased)
+    return launch_kernel(segment_pass_kernel<NP, true>, a, grid, bytes,
+                         stream);
   if (segment)
-    return launch_kernel(segment_pass_kernel<NP>, a, grid, bytes, stream);
+    return launch_kernel(segment_pass_kernel<NP, false>, a, grid, bytes,
+                         stream);
   return launch_kernel(trip_kernel<NP>, a, grid, bytes, stream);
 }
 
 int dispatch(const Args& a, bool segment, void* stream) {
   if (a.n < 2 || a.n > MAX_LEAVES || a.E < 1 || a.E > MAX_EPOCHS
       || a.trips < 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.log_pilot != nullptr
+      && (a.K < 1 || a.K > MAX_DELAY_SLOTS || a.S < 1 || a.S > MAX_SECTIONS
+          || a.delay_k < 1 || a.delay_k > 30))
     return (int)cudaErrorInvalidValue;
   if (a.P <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -689,7 +923,11 @@ extern "C" int smc_segment_pass_launch(
     int leaf_status, float* time, int* parent, int* child0, int* child1,
     float* next_rec, float* log_w, float* fifo, const float* fifo_mask,
     float* tl_out, float L, float mu, float rho, const float* epoch_start,
-    const float* inv2ne, const unsigned char* has_data, void* stream) {
+    const float* inv2ne, const unsigned char* has_data, float* log_pilot,
+    float* df_pos, float* df_logf, float* df_delta, int* df_k,
+    const float* bias_heights, const float* bias_strengths,
+    const float* delays, int K, int S, float front, int delay_type,
+    int delay_k, void* stream) {
   if (F < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.uniforms = uniforms;
@@ -714,6 +952,19 @@ extern "C" int smc_segment_pass_launch(
   a.fifo_stride = (long long)F * 6 * E;
   a.fifo_mask = fifo_mask;
   a.tl_out = tl_out;
+  a.log_pilot = log_pilot;
+  a.df_pos = df_pos;
+  a.df_logf = df_logf;
+  a.df_delta = df_delta;
+  a.df_k = df_k;
+  a.bias_heights = bias_heights;
+  a.bias_strengths = bias_strengths;
+  a.delays = delays;
+  a.K = K;
+  a.S = S;
+  a.front = front;
+  a.delay_type = delay_type;
+  a.delay_k = delay_k;
   return dispatch(a, true, stream);
 }
 

@@ -6,7 +6,7 @@ The numpy-only helpers ``prior_pseudostats``, ``_leaf_status``,
 ``_stats_from_outdata`` and ``m_step`` (without its VB branch) are copied
 from ``smcsmc_tpu/em.py``: the port imports nothing of the JAX package.
 Not ported yet (ROADMAP queue 1): online EM, the multi-process chunk
-partition, VB, bias, guide, APF, migration sweeps and ARG recording.
+partition, VB, guide, APF, migration sweeps and ARG recording.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from . import outfmt
+from .calibrate import calibrated_lags_and_delays, default_bias_strengths
 from .checkpoint import (
     have_outfile,
     load_iteration,
@@ -70,6 +71,7 @@ class EMConfig:
     em_iters: int = 0  # number of EM updates (0 = a single E-step pass)
     ess_threshold: float = 0.5
     lag: float = 0.0  # 0 -> per-epoch default 4/(rho*top_t)
+    calibrate_lag: bool = False  # Monte-Carlo survival pre-pass (smcsmc.cpp:169)
     ne_cap: float = 200000.0
     use_cap: bool = False
     ancestral_aware: bool = False
@@ -90,6 +92,16 @@ class EMConfig:
     length: float | None = None
     outdir: str | None = None
     record_ess: bool = False  # write .resample ESS trace (pfparam.cpp:530)
+    # biased sampling (-bias_heights/-bias_strengths; heights in
+    # generations, converted from 4N0 units by the CLI)
+    bias_heights: tuple = ()  # e.g. (200.0,): sections [0,200), [200,inf)
+    bias_strengths: tuple = ()  # one per section; () with bias_heights set
+    # -> auto-calibrated once per run (calibrate.default_bias_strengths)
+    delay: float = 0.5  # delay fraction of survival (pfparam.cpp:223)
+    lag_fraction: float = 2.0  # lag = fraction * survival (pfparam.cpp:222)
+    # the height that keys the delayed factors' delay: "recomb", "coal"
+    # (-delay_coal) or "migr" (-delay_migr); particle.cpp:874-876
+    delay_type: str = "recomb"
     # -no_m_step (model.py:240-245): run E-steps but keep parameters fixed
     do_m_step: bool = True
     # concurrent chunk sweeps, one thread per chunk, each on its own GPU
@@ -259,17 +271,44 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     seg = split_long_segments(seg, max_seg_len)
 
     epochs = epochs_from_demography(demo, dev)
+    bias_strengths = cfg.bias_strengths
+    if cfg.bias_heights and not bias_strengths:
+        # a sweep set up alone (run_chunks resolves them once per run)
+        bias_strengths = _resolve_bias_strengths(demo, cfg, epochs)
     pfcfg = PFConfig(
         num_particles=cfg.num_particles,
         num_leaves=demo.num_samples,
         ess_threshold=cfg.ess_threshold,
         ancestral_aware=cfg.ancestral_aware,
+        use_bias=bool(bias_strengths) and any(s != 1.0
+                                              for s in bias_strengths),
+        delay_type=cfg.delay_type,
     )
     rho = demo.recombination_rate
+    delays = None
     if cfg.lag > 0:
         lags = np.full(demo.num_epochs, cfg.lag, dtype=np.float32)
+    elif cfg.calibrate_lag:
+        cal = torch.Generator(device=dev)
+        cal.manual_seed(seed + 7919)
+        lags, delays = calibrated_lags_and_delays(
+            cal, epochs, demo.sample_pops, rho,
+            lag_fraction=cfg.lag_fraction, delay=cfg.delay)
+        lags = lags.astype(np.float32)
+        logger.info("calibrated lags (bp) by epoch: %s",
+                    " ".join(f"{x:.4g}" for x in lags))
     else:
         lags = default_lags(demo.change_times, rho)
+    bias = {}
+    if pfcfg.use_bias:
+        if delays is None:
+            # no calibration pre-pass: survival ~ lag / lag_fraction
+            delays = np.asarray(lags) * (cfg.delay / cfg.lag_fraction)
+        bias = dict(
+            bias_heights=np.concatenate([[0.0], list(cfg.bias_heights),
+                                         [3e38]]),
+            bias_strengths=np.asarray(bias_strengths, np.float32),
+            delays=np.asarray(delays, np.float32))
 
     # phase-configuration capacity: 1 unless unphased data (or -dephase)
     has_unphased = bool(np.any(seg.alleles == 2)) or cfg.dephase
@@ -282,7 +321,8 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     segs = prepare_segments(seg, chunk_start, lags, dev,
                             max_configs=max_configs, dephase=cfg.dephase,
                             xc_epochs=cfg.xc_epochs, xr_epochs=cfg.xr_epochs)
-    step = make_segment_step(pfcfg, epochs, demo.mutation_rate, rho, lags, gen)
+    step = make_segment_step(pfcfg, epochs, demo.mutation_rate, rho, lags, gen,
+                             **bias)
     return Sweep(state, segs, step, chunk_start, gen)
 
 
@@ -374,6 +414,21 @@ def _worker_devices(device: str) -> list[str]:
     return [str(dev)]
 
 
+def _resolve_bias_strengths(demo: Demography, cfg: EMConfig, epochs=None):
+    """Bias strengths from the model, from the run's seed (getBiasRatio,
+    model_summary.hpp:119-133), so that every chunk proposes alike."""
+    dev = resolve_device(cfg.device)
+    if epochs is None:
+        epochs = epochs_from_demography(demo, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed + 50021)
+    strengths = default_bias_strengths(gen, epochs, demo.sample_pops,
+                                       cfg.bias_heights)
+    logger.info("auto-calibrated bias_strengths for heights %s: %s",
+                cfg.bias_heights, " ".join(f"{s:.3g}" for s in strengths))
+    return strengths
+
+
 def run_chunks(demo: Demography, seg: SegData, cfg: EMConfig, chunks,
                seeds=None):
     """Run genome chunks concurrently, the scale-out axis the reference
@@ -387,6 +442,11 @@ def run_chunks(demo: Demography, seg: SegData, cfg: EMConfig, chunks,
     n = len(chunks)
     if seeds is None:
         seeds = [cfg.seed + ci for ci in range(n)]
+    if cfg.bias_heights and not cfg.bias_strengths:
+        # once for the whole run: every chunk proposes with the same
+        # strengths, and the 20,000-tree pre-pass runs once
+        cfg = dataclasses.replace(
+            cfg, bias_strengths=tuple(_resolve_bias_strengths(demo, cfg)))
     devs = _worker_devices(cfg.device)
     workers = cfg.chunk_workers if cfg.chunk_workers > 0 else len(devs)
     workers = min(workers, n, len(devs))

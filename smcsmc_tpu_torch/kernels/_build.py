@@ -94,6 +94,11 @@ def load_trip_library() -> ctypes.CDLL:
         vp, vp, vp,  # fifo, fifo_mask, tl_out
         cf, cf, cf,  # L, mu, rho
         vp, vp, vp,  # epoch_start, inv2ne, has_data
+        # the biased pass (all 0 for the plain one): log_pilot, the ring
+        # (df_pos, df_logf, df_delta, df_k), heights, strengths, delays;
+        # slots K, sections S, front, delay type, delay k
+        vp, vp, vp, vp, vp, vp, vp, vp,
+        ci, ci, cf, ci, ci,
         vp,  # stream
     ]
     lib.smc_segment_pass_launch.restype = ci

@@ -26,16 +26,33 @@ tensor arguments IN PLACE; particles that are inactive keep every value.
 ``segment_pass`` is what the sweep launches once per segment: the tree
 summaries at segment entry, all trips of the segment, the final extension
 to the segment end and the push of the segment's statistics into FIFO slot
-0, so that ``upd`` and ``pending`` stay inside the kernel.  ``trip`` is the
-same device code behind the interface of the Pallas kernel, which is how it
-is held against ``fused_trip``.
+0, so that ``upd`` and ``pending`` stay inside the kernel.  Given a
+``bias.BiasedPass`` it is the biased pass (a compile-time variant of the
+kernel): each trip's point is height-biased, the posterior weight takes the
+importance weight, the pilot weight tracks the immediate part and a ring of
+delayed factors the rest, drained at the segment end.  ``trip`` is the same
+device code behind the interface of the Pallas kernel, which is how it is
+held against ``fused_trip``; the lag calibration launches it one trip at a
+time.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ._build import load_trip_library
+from .bias import (
+    DELAY_TYPES,
+    MAX_DELAY_SLOTS,
+    MAX_SECTIONS,
+    BiasedPass,
+    apply_due_delayed,
+    biased_point,
+    epoch_index,
+    push_delayed,
+    section_of,
+)
 from .tree import (
     INF,
     Epochs,
@@ -55,7 +72,9 @@ MAX_EPOCHS = 64
 FIELDS = ("time", "parent", "child0", "child1", "next_rec", "upd", "log_w",
           "tl", "B", "tl_e", "pending")
 TREE_FIELDS = ("parent", "child0", "child1")
-FLOAT_FIELDS = tuple(k for k in FIELDS if k not in TREE_FIELDS)
+# what the biased segment pass updates beyond the plain one
+BIAS_FIELDS = ("log_pilot", "df_pos", "df_logf", "df_delta", "df_k")
+FLOAT_FIELDS = tuple(k for k in FIELDS if k not in TREE_FIELDS) + BIAS_FIELDS
 
 
 def _onehot(idx: torch.Tensor, N: int) -> torch.Tensor:
@@ -65,13 +84,16 @@ def _onehot(idx: torch.Tensor, N: int) -> torch.Tensor:
 
 def _trip_once(u, leaf_status, time, parent, child0, child1, next_rec, upd,
                log_w, tl, B, tl_e, pending, L, mu, rho, est, eend, i2n,
-               has_data):
-    """One trip over the population; returns the updated tensors.
+               has_data, bias=None):
+    """One trip over the population; returns the updated tensors and the
+    trip's event ``(h_r, t_c, log_iw, strength)`` of every particle.
 
     Follows ``pallas_trip._trip_kernel`` step for step, except for the
     mixed-data branch length, which is computed as ``data_branch_length``
     (the kernel's ancestor-chain walk restarts at node 0 after passing the
-    root; see ROADMAP, faults)."""
+    root; see ROADMAP, faults).  ``bias`` = (heights [S+1], strengths [S])
+    draws the point with :func:`bias.biased_point` instead (log_iw 0 and
+    strength 1 without it)."""
     P, N = time.shape
     E = est.shape[0]
     f32 = torch.float32
@@ -87,18 +109,23 @@ def _trip_once(u, leaf_status, time, parent, child0, child1, next_rec, upd,
     log_w = log_w - mu * B * delta
     recomb_opp_add = delta[:, None] * tl_e  # [P, E]
 
-    # ---- recombination point: uniform on the local tree -------------------
+    # ---- recombination point: uniform (or height-biased) on the tree ------
     pt = parent_time(time, parent)
-    bl = branch_lengths(time, parent)
-    cum = bl.cumsum(dim=1)
-    total = cum[:, N - 1]
-    x_pt = u_pt * total
-    hit = cum >= x_pt[:, None]
-    c = torch.where(hit.any(dim=1), hit.to(torch.int32).argmax(dim=1),
-                    torch.full_like(parent[:, 0], -1)).to(torch.int32)
-    cc = c[:, None]
-    prev = _pick(cum, cc)[:, 0] - _pick(bl, cc)[:, 0]
-    h_r = _pick(time, cc)[:, 0] + (x_pt - prev)
+    if bias is None:
+        bl = branch_lengths(time, parent)
+        cum = bl.cumsum(dim=1)
+        total = cum[:, N - 1]
+        x_pt = u_pt * total
+        hit = cum >= x_pt[:, None]
+        c = torch.where(hit.any(dim=1), hit.to(torch.int32).argmax(dim=1),
+                        torch.full_like(parent[:, 0], -1)).to(torch.int32)
+        cc = c[:, None]
+        prev = _pick(cum, cc)[:, 0] - _pick(bl, cc)[:, 0]
+        h_r = _pick(time, cc)[:, 0] + (x_pt - prev)
+        log_iw, strength = zero, torch.ones_like(zero)
+    else:
+        c, h_r, log_iw, strength = biased_point(u_pt, time, parent, *bias)
+        cc = c[:, None]
 
     # ---- hazard inversion over the (epoch x node) grid --------------------
     # lam(v) = sum_{e,j} inv2ne_e * |branch_j ∩ epoch_e ∩ [h_r, v]|
@@ -202,8 +229,9 @@ def _trip_once(u, leaf_status, time, parent, child0, child1, next_rec, upd,
     gap = -torch.log1p(-u_gap) / (rho * tl_out).clamp(min=1e-30)
     upd_out = torch.where(active, next_rec, upd)
     nr_out = torch.where(active, next_rec + gap, next_rec)
-    return (t2, par2, c0_2, c1_2, nr_out, upd_out, log_w, tl_out, B_out,
-            torch.where(act1, tle2, tl_e), pending)
+    return ((t2, par2, c0_2, c1_2, nr_out, upd_out, log_w, tl_out, B_out,
+             torch.where(act1, tle2, tl_e), pending),
+            (h_r, t_c, log_iw, strength))
 
 
 def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
@@ -225,9 +253,9 @@ def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
         if not bool((cur[4] < L).any()):
             break
         (t, p, c0, c1, nr, up, lw, tl_, B_, tle, pend) = cur
-        cur = _trip_once(uniforms[j], int(leaf_status), t, p, c0, c1, nr, up,
-                         lw, tl_, B_, tle, pend, L, mu, rho, est, eend,
-                         inv2ne, has_data)
+        cur, _ = _trip_once(uniforms[j], int(leaf_status), t, p, c0, c1, nr,
+                            up, lw, tl_, B_, tle, pend, L, mu, rho, est, eend,
+                            inv2ne, has_data)
     if cur is not outs:
         for dst, src in zip(outs, cur):
             dst.copy_(src)
@@ -242,9 +270,11 @@ def float_tolerances(ref: dict, L: float, mu: float, scale: float = 1e-5
     and coalescence opportunity sum N branches (N x unit); migration
     opportunity is one lineage's span (unit); the recombination
     opportunity is bp x generations (L x N x unit); the weight update
-    ``mu*B*delta`` is in nats (mu x L x N x unit); positions ``next_rec``
-    and ``upd`` are bp (scale x L).  Counts are whole events, so half an
-    event tells an equal count from one that differs."""
+    ``mu*B*delta`` is in nats (mu x L x N x unit), and so are the biased
+    pass's pilot weight and delayed log factors; positions ``next_rec``,
+    ``upd`` and the delayed factors' ``df_pos`` and ``df_delta`` are bp
+    (scale x L).  Counts (and ``df_k``, applications left) are whole
+    events, so half an event tells an equal count from one that differs."""
     N = ref["time"].shape[1]
     E = ref["pending"].shape[1] // 6
     unit = scale * float(ref["time"].max())
@@ -253,14 +283,17 @@ def float_tolerances(ref: dict, L: float, mu: float, scale: float = 1e-5
                              dtype=torch.float64, device=ref["time"].device)
     return {"time": unit, "next_rec": scale * L, "upd": scale * L,
             "log_w": mu * L * tree, "tl": tree, "B": tree, "tl_e": tree,
-            "pending": per_block.repeat_interleave(E)}
+            "pending": per_block.repeat_interleave(E),
+            "log_pilot": mu * L * tree, "df_pos": scale * L,
+            "df_logf": mu * L * tree, "df_delta": scale * L, "df_k": 0.5}
 
 
 def disagreement(got: dict, ref: dict, L: float, mu: float,
                  rtol: float = 1e-4):
     """Where two trip results (dicts of :data:`FIELDS`) differ.  Results
     of a segment pass are compared the same way: they hold ``tl`` and, under
-    ``pending``, FIFO slot 0, and lack ``upd``, ``B`` and ``tl_e``.
+    ``pending``, FIFO slot 0, and lack ``upd``, ``B`` and ``tl_e``; those
+    of the biased pass hold :data:`BIAS_FIELDS` too.
 
     Returns ``(tree_differs, floats_differ, errs)``: [P] bool masks of the
     particles whose tree arrays differ, and of those whose tree arrays
@@ -399,12 +432,67 @@ trip.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
+                  next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
+                  epoch_start, inv2ne, has_data, b: BiasedPass):
+    """The biased form of :func:`trip_plain`, IN PLACE: after each trip the
+    posterior weight takes the whole importance weight, the pilot weight
+    the no-mutation factor and the immediate part, and the delayed part
+    goes into the particle's ring at ``front + next_rec`` (smc.py:968-1020
+    of the JAX package)."""
+    f32 = torch.float32
+    dev = time.device
+    L_t = torch.tensor(L, dtype=f32, device=dev)
+    mu_t = torch.tensor(mu, dtype=f32, device=dev)
+    rho_t = torch.tensor(rho, dtype=f32, device=dev)
+    eend = torch.cat([epoch_start[1:], epoch_start.new_full((1,), INF)])
+    by_point = DELAY_TYPES[b.delay_type] == 0
+    outs = (time, parent, child0, child1, next_rec, upd, log_w, tl, B, tl_e,
+            pending)
+    cur = outs
+    lp = b.log_pilot
+    ring = (b.df_pos, b.df_logf, b.df_delta, b.df_k)
+    for j in range(uniforms.shape[0]):
+        nr, up, B_pre = cur[4], cur[5], cur[8]
+        active = nr < L_t
+        if not bool(active.any()):
+            break
+        delta = torch.where(active, nr - up, torch.zeros_like(nr))
+        cur, (h_r, t_c, log_iw, strength) = _trip_once(
+            uniforms[j], int(leaf_status), *cur, L_t, mu_t, rho_t,
+            epoch_start, eend, inv2ne, has_data, (b.heights, b.strengths))
+        zero = torch.zeros_like(log_iw)
+        lp = lp - mu_t * B_pre * delta
+        cur = cur[:6] + (cur[6] + torch.where(active, log_iw, zero),) \
+            + cur[7:]
+        d_h = h_r if by_point else t_c
+        strength_h = (strength if by_point
+                      else b.strengths[section_of(b.heights, d_h)])
+        immediate = (strength_h - 1.0).abs() < 1e-6
+        imm = torch.where(immediate, log_iw, zero)
+        late = log_iw - imm
+        lp = lp + torch.where(active, imm, zero)
+        delay = b.delays[epoch_index(epoch_start, d_h)]
+        *ring, overflow = push_delayed(
+            *ring, active & (late.abs() > 1e-9), nr + b.front, delay, late,
+            b.delay_k)
+        lp = lp + overflow
+    if cur is not outs:
+        for dst, src in zip(outs + (b.log_pilot, b.df_pos, b.df_logf,
+                                    b.df_delta, b.df_k),
+                            cur + (lp, *ring)):
+            dst.copy_(src)
+
+
 def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
                        next_rec, log_w, fifo, fifo_mask, tl_out, L, mu, rho,
-                       epoch_start, inv2ne, has_data):
+                       epoch_start, inv2ne, has_data,
+                       biased: BiasedPass | None = None):
     """Plain torch version of :func:`segment_pass` on any device (same
-    arguments, same in-place contract): ``tree_summaries``, ``trip_plain``,
-    the final extension and the push into FIFO slot 0."""
+    arguments, same in-place contract): ``tree_summaries``, the trips
+    (``trip_plain``, or :func:`_biased_trips`), the final extension, under
+    bias the drain of the delayed factors due at ``front + L``, and the
+    push into FIFO slot 0."""
     P = time.shape[0]
     E = epoch_start.shape[0]
     dev = time.device
@@ -418,15 +506,30 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
 
     # ---- recombination trips inside [front, front + L) ---------------------
     if uniforms.shape[0] > 0:
-        trip_plain(uniforms, leaf_status, time, parent, child0, child1,
-                   next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
-                   epoch_start, inv2ne, has_data)
+        args = (uniforms, leaf_status, time, parent, child0, child1, next_rec,
+                upd, log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start,
+                inv2ne, has_data)
+        if biased is None:
+            trip_plain(*args)
+        else:
+            _biased_trips(*args, biased)
 
     # ---- final extension to the segment end --------------------------------
     delta = L - upd
     log_w.copy_(log_w - mu * B * delta)
     pending[:, off_recomb_opp:off_recomb_opp + E] += delta[:, None] * tl_e
     next_rec.copy_(next_rec - L)
+
+    if biased is not None:
+        # ---- the pilot's extension and the factors due at the end ----------
+        b = biased
+        lp = b.log_pilot - mu * B * delta
+        add, *ring = apply_due_delayed(
+            b.df_pos, b.df_logf, b.df_delta, b.df_k,
+            float(np.float32(b.front) + np.float32(L)))
+        b.log_pilot.copy_(lp + add)
+        for dst, src in zip((b.df_pos, b.df_logf, b.df_delta, b.df_k), ring):
+            dst.copy_(src)
 
     # ---- push pending increments into FIFO slot 0 --------------------------
     fifo[:, 0] += pending * fifo_mask[None, :]
@@ -435,7 +538,8 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
 
 def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
                  next_rec, log_w, fifo, fifo_mask, tl_out, L, mu, rho,
-                 epoch_start, inv2ne, has_data):
+                 epoch_start, inv2ne, has_data,
+                 biased: BiasedPass | None = None):
     """One segment's tree pass for every particle, IN PLACE.
 
     From the trees alone: tree length, per-epoch tree length and data branch
@@ -450,15 +554,23 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     [6E] f32; L, mu, rho python floats; leaf_status -1/0/1; epoch_start,
     inv2ne [E] f32; has_data [n] bool.
 
+    ``biased`` (a :class:`BiasedPass`) makes it the biased pass: each trip
+    draws its point height-biased (``biased_point``, column 0 of the same
+    uniforms), adds the importance weight to ``log_w``, tracks the pilot
+    weight and pushes the delayed part into the ring; after the final
+    extension the factors due at ``front + L`` go into the pilot.  Its
+    ring holds at most 32 slots per particle and its sections at most 8.
+
     CPU tensors run :func:`segment_pass_plain`.  CUDA tensors launch the
     kernel of ``csrc/trip.cu`` on the current stream (one launch) or raise;
     nothing falls back.  Every call checks every tensor, as :func:`trip`
-    does."""
+    does.  ``segment_pass.launches`` counts the launches of the plain
+    kernel, ``segment_pass.biased_launches`` those of the biased one."""
     dev = time.device
     if dev.type == "cpu":
         segment_pass_plain(uniforms, leaf_status, time, parent, child0,
                            child1, next_rec, log_w, fifo, fifo_mask, tl_out,
-                           L, mu, rho, epoch_start, inv2ne, has_data)
+                           L, mu, rho, epoch_start, inv2ne, has_data, biased)
         return
     if dev.type != "cuda":
         raise ValueError(f"segment_pass: unsupported device {dev}")
@@ -485,6 +597,30 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
         ("inv2ne", inv2ne, f32, (E,)),
         ("has_data", has_data, torch.bool, (n,)),
     ]
+    bias_args = (None,) * 8 + (0, 0, 0.0, 0, 0)  # the plain pass
+    if biased is not None:
+        b = biased
+        K, S = b.df_pos.shape[-1], b.strengths.shape[0]
+        if not 1 <= K <= MAX_DELAY_SLOTS or not 1 <= S <= MAX_SECTIONS:
+            raise ValueError(f"biased segment_pass takes 1..{MAX_DELAY_SLOTS}"
+                             f" delay slots and 1..{MAX_SECTIONS} sections, "
+                             f"got {K} and {S}")
+        if b.delay_type not in DELAY_TYPES or b.delay_k < 1:
+            raise ValueError(f"delay type {b.delay_type!r}, k {b.delay_k}")
+        spec += [
+            ("log_pilot", b.log_pilot, f32, (P,)),
+            ("df_pos", b.df_pos, f32, (P, K)),
+            ("df_logf", b.df_logf, f32, (P, K)),
+            ("df_delta", b.df_delta, f32, (P, K)),
+            ("df_k", b.df_k, i32, (P, K)),
+            ("heights", b.heights, f32, (S + 1,)),
+            ("strengths", b.strengths, f32, (S,)),
+            ("delays", b.delays, f32, (E,)),
+        ]
+        bias_args = (*(x.data_ptr() for x in (
+            b.log_pilot, b.df_pos, b.df_logf, b.df_delta, b.df_k, b.heights,
+            b.strengths, b.delays)), K, S, float(b.front),
+            DELAY_TYPES[b.delay_type], int(b.delay_k))
     for name, x, dtype, shape in spec:
         _check_tensor(name, x, dtype, shape, dev)
     _launch("smc_segment_pass_launch", dev,
@@ -493,8 +629,13 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
             child1.data_ptr(), next_rec.data_ptr(), log_w.data_ptr(),
             fifo.data_ptr(), fifo_mask.data_ptr(), tl_out.data_ptr(),
             float(L), float(mu), float(rho), epoch_start.data_ptr(),
-            inv2ne.data_ptr(), has_data.data_ptr())
-    segment_pass.launches += 1
+            inv2ne.data_ptr(), has_data.data_ptr(), *bias_args)
+    if biased is None:
+        segment_pass.launches += 1
+    else:
+        segment_pass.biased_launches += 1
 
 
+# launches of the plain and of the biased kernel
 segment_pass.launches = 0
+segment_pass.biased_launches = 0

@@ -2,17 +2,17 @@
 path's estimates spread over seeds?
 
     python -m smcsmc_tpu_torch.repeatability [--np 10000] [--device cuda]
-        [--seeds 7 7 8 9] [--main-runs 3] [--scan two-level]
+        [--seeds 7 7 8 9] [--main-runs 3] [--scan cumsum]
     python -m smcsmc_tpu_torch.repeatability --lockstep 3
 
 Three measurements, each printed as it ends:
 
 1. the device reductions of the segment step, repeated on one input and
    held bit for bit to their first result, with a matrix product queued now
-   and then so that the card's timing varies: ``cumsum`` of the normalised
-   weights (the resampler's), ``logsumexp`` (the normaliser's) and the
-   weighted column sum of a [P, 198] block (the commit's), at P, 4096 and
-   100,000;
+   and then so that the card's timing varies: the resampler's scan of the
+   normalised weights (``smc.block_scan``) beside ``torch.cumsum``, which
+   it replaced, ``logsumexp`` (the normaliser's) and the weighted column
+   sum of a [P, 198] block (the commit's), at P, 4096 and 100,000;
 2. the log-likelihood of the smoke's main path (``sweep_profile.bench_data``,
    one E-step) in ``--main-runs`` fresh processes with one seed;
 3. the whole-genome path (``sweep_profile.genome_data``, ``-chunks 4 -EM 1
@@ -27,10 +27,10 @@ process, holds every field of the two states bit for bit after every
 segment and reports the first segment at which they part: the fields, how
 many particles, and whether that segment resampled.
 
-``--scan two-level`` repeats 2 and 3 with the resampler's ``cumsum``
-replaced by :func:`two_level_cumsum`, whose launches each scan within one
-block: if the runs repeat with it and not without, the one-launch scan is
-what keeps a run from repeating.
+``--scan cumsum`` repeats 2 and 3 with the resampler's scan replaced by
+``torch.cumsum``, the single-pass scan across blocks that the sweep used
+before ``block_scan``: if those runs part and the others do not, that scan
+is what kept a run from repeating.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ import tempfile
 
 import torch
 
+from . import smc
 from .segio import define_chunks, write_seg
 from .sweep_profile import (
     GENOME_PATTERN,
@@ -62,7 +63,8 @@ def reductions(P: int, device: str, repeats: int = 20000) -> list[str]:
     w = torch.softmax(log_w, 0)
     block = torch.rand(P, 198, generator=gen, device=device)
     filler = torch.randn(2048, 2048, device=device)
-    ops = {"cumsum": lambda: w.cumsum(0),
+    ops = {"block scan": lambda: smc.block_scan(w),
+           "cumsum": lambda: w.cumsum(0),
            "logsumexp": lambda: torch.logsumexp(log_w, 0),
            "weighted sum": lambda: (block * w[:, None]).sum(0)}
     lines = []
@@ -77,23 +79,10 @@ def reductions(P: int, device: str, repeats: int = 20000) -> list[str]:
     return lines
 
 
-def two_level_cumsum(x: torch.Tensor, width: int = 128) -> torch.Tensor:
-    """``x.cumsum(0)`` of a vector as rows of ``width`` scanned apart, plus
-    the scanned row totals: no launch scans across blocks, so the result
-    does not depend on the blocks' timing."""
-    n = x.shape[0]
-    rows = -(-n // width)
-    padded = torch.zeros(rows * width, dtype=x.dtype, device=x.device)
-    padded[:n] = x
-    within = padded.view(rows, width).cumsum(1)
-    before = within[:, -1].cumsum(0) - within[:, -1]
-    return (within + before[:, None]).reshape(-1)[:n]
-
-
-def _resample_with_two_level_scan(log_w: torch.Tensor, u) -> torch.Tensor:
-    """``smc.systematic_resample`` with :func:`two_level_cumsum`."""
+def _resample_with_cumsum(log_w: torch.Tensor, u) -> torch.Tensor:
+    """``smc.systematic_resample`` with ``torch.cumsum`` for its scan."""
     P = log_w.shape[0]
-    cum = two_level_cumsum(torch.softmax(log_w, dim=0))
+    cum = torch.softmax(log_w, dim=0).cumsum(dim=0)
     targets = (u + torch.arange(P, dtype=torch.float32,
                                 device=log_w.device)) / P
     return torch.searchsorted(cum, targets, right=False).clamp(0, P - 1)
@@ -164,13 +153,12 @@ def _logl_rows(path):
 
 
 def run_cli(data: str, seed: int, num_particles: int, device: str,
-            scan: str = "cumsum") -> None:
+            scan: str = "block") -> None:
     """One ``smc2-torch`` run in this process; prints what it found."""
-    from . import smc
     from .cli import smcsmc_main
 
-    if scan == "two-level":
-        smc.systematic_resample = _resample_with_two_level_scan
+    if scan == "cumsum":
+        smc.systematic_resample = _resample_with_cumsum
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
@@ -206,8 +194,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seeds", type=int, nargs="*", default=[7, 7, 8, 9])
     ap.add_argument("--main-runs", type=int, default=3)
-    ap.add_argument("--scan", choices=("cumsum", "two-level"),
-                    default="cumsum", help="the resampler's scan")
+    ap.add_argument("--scan", choices=("block", "cumsum"),
+                    default="block", help="the resampler's scan")
     ap.add_argument("--lockstep", type=int, default=0, metavar="N",
                     help="only this: N pairs of sweeps side by side on each "
                     "path's data")
@@ -222,7 +210,7 @@ def main(argv=None) -> int:
     if args.lockstep:
         lockstep(args.lockstep, args.np, args.device)
         return 0
-    if args.scan == "cumsum":
+    if args.scan == "block":
         for P in (args.np, 4096, 100000):
             print("\n".join(reductions(P, args.device)), flush=True)
     runs = [("main", 7)] * args.main_runs + [("genome", s) for s in args.seeds]

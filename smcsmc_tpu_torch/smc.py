@@ -1,15 +1,19 @@
 """The particle-filter sweep along the genome (counterpart of
-``smcsmc_tpu/smc.py``, plain configuration).
+``smcsmc_tpu/smc.py``: one population, with or without height-biased
+recombination).
 
 One call of the segment step advances every particle over one .seg record:
 the segment's tree pass (tree summaries, the recombination trips inside the
 segment, the final extension and the push of the segment's statistics into
 the lag FIFO: one launch of ``kernels.trip.segment_pass``), the site
 likelihood at the segment end, the Kahan-compensated normalisation, the
-lagged commit and, when the ESS drops, systematic resampling.  Segment descriptors (length, state, leaf status, distance to
-the next site) stay on the host, so branching on them costs no device
-synchronisation; the host reads the ESS once per segment to decide on
-resampling.
+lagged commit and, when the ESS drops, systematic resampling.  Under bias
+(``PFConfig.use_bias``) the same launch also tracks the pilot weights and
+the ring of delayed importance factors; the step then normalises the pilot,
+takes the ESS from it and resamples on it with the auxiliary reweight.
+Segment descriptors (length, state, leaf status, distance to the next site)
+stay on the host, so branching on them costs no device synchronisation; the
+host reads the ESS once per segment to decide on resampling.
 """
 
 from __future__ import annotations
@@ -20,8 +24,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .kernels.bias import BiasedPass
 from .kernels.likelihood import phase_averaged_log_likelihood
 from .kernels.tree import (
+    INF,
     Epochs,
     Trees,
     branch_lengths,
@@ -90,6 +96,13 @@ class PFConfig:
     ess_threshold: float = 0.5  # resample when ESS < frac * P
     fifo_slots: int = 4  # lag FIFO depth
     ancestral_aware: bool = False  # allele 0 is ancestral (root prior 1:0)
+    use_bias: bool = False  # height-biased recombination sampling
+    delay_slots: int = 32  # delayed-importance-factor ring capacity
+    delay_k: int = 3  # k-step geometric application (particle.cpp:891)
+    # which height keys the delay (particle.cpp:874-876): "recomb" (the
+    # recombination point), "coal" (-delay_coal) or "migr" (-delay_migr;
+    # the coalescence too, without migration)
+    delay_type: str = "recomb"
 
 
 class PFState(NamedTuple):
@@ -99,6 +112,8 @@ class PFState(NamedTuple):
 
     trees: Trees
     log_w: torch.Tensor  # [P] normalised log posterior weights
+    log_pilot: torch.Tensor  # [P] pilot (sampling) weights; log_w itself
+    # when there is no bias
     next_rec: torch.Tensor  # [P] next recombination pos rel. to the front
     fifo: torch.Tensor  # [P, F, K] pending lagged statistics
     slot_open: np.ndarray  # [E] f32 position where the newest slot opened
@@ -108,6 +123,12 @@ class PFState(NamedTuple):
     ln_norm_c: torch.Tensor  # [] f32 Kahan compensation
     front: np.float32  # sweep position, chunk-relative
     num_resamples: int
+    # delayed importance factors (particle.hpp:59-101 as a fixed ring; a
+    # free slot has pos == INF); capacity 1 and untouched without bias
+    df_pos: torch.Tensor  # [P, K] application position (chunk relative)
+    df_logf: torch.Tensor  # [P, K] log factor applied per activation
+    df_delta: torch.Tensor  # [P, K] spacing; doubles per activation
+    df_k: torch.Tensor  # [P, K] i32 remaining activations
 
 
 class Segment(NamedTuple):
@@ -139,9 +160,12 @@ def init_state(generator: torch.Generator, epochs: Epochs, cfg: PFConfig,
     treelen = branch_lengths(trees.time, trees.parent).sum(dim=1)
     expo = torch.empty(P, device=dev).exponential_(1.0, generator=generator)
     K = stats_width(E, Pp)
+    log_w = torch.full((P,), _uniform_log_weight(P), device=dev)
+    D = cfg.delay_slots if cfg.use_bias else 1
     return PFState(
         trees=trees,
-        log_w=torch.full((P,), _uniform_log_weight(P), device=dev),
+        log_w=log_w,
+        log_pilot=log_w.clone() if cfg.use_bias else log_w,
         next_rec=expo / (rho * treelen).clamp(min=1e-30),
         fifo=torch.zeros((P, cfg.fifo_slots, K), device=dev),
         slot_open=np.zeros(E, np.float32),
@@ -151,6 +175,10 @@ def init_state(generator: torch.Generator, epochs: Epochs, cfg: PFConfig,
         ln_norm_c=torch.zeros((), device=dev),
         front=np.float32(0.0),
         num_resamples=0,
+        df_pos=torch.full((P, D), INF, device=dev),
+        df_logf=torch.zeros((P, D), device=dev),
+        df_delta=torch.zeros((P, D), device=dev),
+        df_k=torch.zeros((P, D), dtype=torch.int32, device=dev),
     )
 
 
@@ -159,23 +187,51 @@ def init_state(generator: torch.Generator, epochs: Epochs, cfg: PFConfig,
 # ---------------------------------------------------------------------------
 
 
+def block_scan(x: torch.Tensor, width: int = 128) -> torch.Tensor:
+    """Inclusive prefix sum of a vector whose float result does not depend
+    on the device's timing.
+
+    ``x.cumsum(0)`` of a vector goes to a single-pass scan across blocks
+    (CUB's decoupled look-back): a block adds its predecessors' partial
+    sums in whatever grouping it finds ready, so the rounding changes from
+    run to run.  Here the vector is cut into rows of ``width``: each row is
+    scanned within one block, and the row totals are scanned down dim 0 of
+    a [rows, 2] tensor, which torch does with one thread per column, in
+    order.  At least two rows, so that neither scan is of a lone vector."""
+    n = x.shape[0]
+    rows = max(2, -(-n // width))
+    padded = x.new_zeros(rows * width)
+    padded[:n] = x
+    within = padded.view(rows, width).cumsum(1)
+    totals = within[:, -1:]
+    before = torch.cat([totals, torch.zeros_like(totals)], 1).cumsum(0)[:, :1]
+    return (within + (before - totals)).reshape(-1)[:n]
+
+
 def systematic_resample(log_w: torch.Tensor, u) -> torch.Tensor:
     """Stratified inverse-CDF resampling (particleContainer.cpp:474-504)
     with the uniform ``u`` given; returns [P] int64 ancestor indices."""
     P = log_w.shape[0]
-    cum = torch.softmax(log_w, dim=0).cumsum(dim=0)
+    cum = block_scan(torch.softmax(log_w, dim=0))
     targets = (u + torch.arange(P, dtype=torch.float32, device=log_w.device)) / P
     return torch.searchsorted(cum, targets, right=False).clamp(0, P - 1)
 
 
-def gather_particles(state: PFState, idx: torch.Tensor) -> PFState:
-    """Ancestry gather: trees, FIFO and next recombination follow the
-    particle (reference copy constructor, particle.cpp:113-136)."""
-    return state._replace(
+def gather_particles(state: PFState, idx: torch.Tensor,
+                     ring: bool = True) -> PFState:
+    """Ancestry gather: trees, FIFO, next recombination and (with
+    ``ring``) the delayed factors follow the particle (reference copy
+    constructor, particle.cpp:113-136)."""
+    state = state._replace(
         trees=Trees(*(x.index_select(0, idx) for x in state.trees)),
         fifo=state.fifo.index_select(0, idx),
         next_rec=state.next_rec.index_select(0, idx),
     )
+    if ring:
+        state = state._replace(**{
+            k: getattr(state, k).index_select(0, idx)
+            for k in ("df_pos", "df_logf", "df_delta", "df_k")})
+    return state
 
 
 def commit_slot(state: PFState, rotate_e: np.ndarray, slot: int) -> PFState:
@@ -236,9 +292,14 @@ def fifo_gate_masks(dist_mut: np.ndarray, lags: np.ndarray,
 
 
 def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
-                      rho: float, lags, generator: torch.Generator):
+                      rho: float, lags, generator: torch.Generator,
+                      bias_heights=None, bias_strengths=None, delays=None):
     """Build the per-segment step ``step(state, seg) -> (state, (ess,
-    resampled, front))``.  The step updates the state's tensors in place."""
+    resampled, front))``.  The step updates the state's tensors in place.
+
+    With ``cfg.use_bias``: ``bias_heights`` [S+1] (0, the section
+    boundaries in generations, INF), ``bias_strengths`` [S] and the
+    delayed factors' application ``delays`` [E] (bp) by epoch."""
     P = cfg.num_particles
     F = cfg.fifo_slots
     dev = epochs.start.device
@@ -250,27 +311,40 @@ def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
     log_w0 = _uniform_log_weight(P)
     T = MAX_RECOMB_ITERS
     tl = torch.empty(P, device=dev)  # post-trip tree length, per segment
+    if cfg.use_bias:
+        tables = tuple(
+            torch.as_tensor(np.asarray(x, np.float32), device=dev)
+            for x in (bias_heights, bias_strengths, delays))
 
     def step(state: PFState, seg: Segment):
         L = float(seg.length)
         trees = state.trees
         log_w = state.log_w
-        next_rec = state.next_rec
-        fifo = state.fifo
+        log_pilot = state.log_pilot
 
         # ---- the segment's tree pass: summaries, trips inside [front,
-        # front + L), final extension, push into FIFO slot 0: one launch ----
+        # front + L), final extension, push into FIFO slot 0 (under bias
+        # also the pilot, the ring and its drain at front + L): one launch --
         uniforms = torch.rand((T if L > 0 else 0, P, 4), generator=generator,
                               device=dev)
+        biased = None
+        if cfg.use_bias:
+            biased = BiasedPass(
+                log_pilot, state.df_pos, state.df_logf, state.df_delta,
+                state.df_k, *tables, float(state.front), cfg.delay_type,
+                cfg.delay_k)
         segment_pass(uniforms, seg.leaf_status, trees.time, trees.parent,
-                     trees.child0, trees.child1, next_rec, log_w, fifo,
-                     seg.fifo_mask, tl, L, mu, rho, epoch_start, inv2ne,
-                     seg.has_data)
+                     trees.child0, trees.child1, state.next_rec, log_w,
+                     state.fifo, seg.fifo_mask, tl, L, mu, rho, epoch_start,
+                     inv2ne, seg.has_data, biased)
 
         # ---- site likelihood at the segment-final position ----------------
         if seg.state == 0 and seg.leaf_status != -1:  # SEGMENT_INVARIANT
-            log_w = log_w + phase_averaged_log_likelihood(
+            ll = phase_averaged_log_likelihood(
                 trees, seg.configs, mu, cfg.ancestral_aware)
+            log_w = log_w + ll
+            if cfg.use_bias:
+                log_pilot = log_pilot + ll
 
         # ---- normalise; Kahan-compensated log-likelihood in f32 -----------
         delta_ln = torch.logsumexp(log_w, dim=0)
@@ -279,9 +353,13 @@ def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
         t = state.ln_norm + y
         ln_norm_c = (t - state.ln_norm) - y
         ln_norm = t
+        if cfg.use_bias:
+            log_pilot = log_pilot - torch.logsumexp(log_pilot, dim=0)
+        else:
+            log_pilot = log_w
 
         front = np.float32(state.front + np.float32(L))
-        state = state._replace(log_w=log_w, next_rec=next_rec, fifo=fifo,
+        state = state._replace(log_w=log_w, log_pilot=log_pilot,
                                ln_norm=ln_norm, ln_norm_c=ln_norm_c,
                                front=front)
 
@@ -293,21 +371,28 @@ def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
             slot_open=np.where(rotate_e, front, state.slot_open).astype(
                 np.float32))
 
-        # ---- ESS and resampling (one host read per segment) ---------------
-        wp = torch.softmax(log_w, dim=0)
+        # ---- ESS and resampling on the pilot weights (the posterior ones
+        # without bias); one host read per segment --------------------------
+        wp = torch.softmax(log_pilot, dim=0)
         ess = float(1.0 / (wp * wp).sum())
         need = ess < cfg.ess_threshold * P and seg.length > 0
         if need:
             u = torch.rand((), generator=generator, device=dev)
-            idx = systematic_resample(log_w, u)
-            state = gather_particles(state, idx)
+            idx = systematic_resample(log_pilot, u)
+            state = gather_particles(state, idx, ring=cfg.use_bias)
             # clones re-draw their next recombination (memorylessness,
             # particle.cpp:393-436) from the post-trip tree length
             tl_r = tl.index_select(0, idx)
             expo = torch.empty(P, device=dev).exponential_(
                 1.0, generator=generator)
+            if cfg.use_bias:
+                # auxiliary reweight: w' = (w / pilot)[ancestor] / P
+                log_w = (log_w - log_pilot).index_select(0, idx) + log_w0
+                log_pilot = torch.full_like(log_w, log_w0)
+            else:
+                log_w = log_pilot = torch.full_like(log_w, log_w0)
             state = state._replace(
-                log_w=torch.full_like(log_w, log_w0),
+                log_w=log_w, log_pilot=log_pilot,
                 next_rec=expo / (rho * tl_r).clamp(min=1e-30),
                 num_resamples=state.num_resamples + 1,
             )

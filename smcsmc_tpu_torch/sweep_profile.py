@@ -1,13 +1,16 @@
 """Where the sweep's time goes, read from torch.profiler.
 
     python -m smcsmc_tpu_torch.sweep_profile [--np 10000] [--device cuda]
-        [--data bench|genome] [--trace chiprun_out/sweep_trace.json]
+        [--data bench|genome] [--biased] [--trace out/sweep_trace.json]
 
 It sweeps bench.py's headline data (one population of Ne 10,000, n=4, 8
 epochs from 0 and logspace(2.5, 5), 2 Mb, ``simulate_seg(seed=11)``) or,
 with ``--data genome``, the first chunk of the whole-genome data of
 :func:`genome_data` (n=8, 33 epochs, unphased, with missing stretches)
-with the port's segment step, as ``em.run_chunk`` does: the initial trees, then
+with the port's segment step, as ``em.run_chunk`` does (``--biased``: with
+the production proposal of ``-bias_heights 0 0.05 -calibrate_lag 2`` at N0
+10,000, bias strengths and lags calibrated from the model, as
+:data:`BIASED_OPTIONS` says): the initial trees, then
 ``warm`` segments, ``timed`` segments without the profiler (milliseconds
 per segment), then ``profiled`` segments under torch.profiler.  It reports
 the device time per segment and its share of the unprofiled and of the
@@ -55,6 +58,10 @@ GENOME_GAPS = ((((1_200_000, 1_450_000), (1_600_000, 1_720_000)),
                (((900_000, 1_150_000), (300_000, 420_000)),
                 (1_400_000, 1_700_000), 2))
 GENOME_PATTERN = ("133", "133016", "31*1")  # the standard 31-epoch grid
+# the EMConfig fields of ``-bias_heights 0 0.05 -calibrate_lag 2`` at N0
+# 10,000 (0.05 x 4 N0 generations), the flags a production run adds
+BIASED_OPTIONS = {"bias_heights": (2000.0,), "calibrate_lag": True,
+          "lag_fraction": 2.0}
 
 
 def unphase_and_blank(seg: SegData, all_missing, sample_missing,
@@ -115,14 +122,15 @@ def genome_model(paths, maxgap: int = 200000):
 def profile_sweep(demo, seg, num_particles: int, device: str = "cuda",
                   seed: int = 7, warm: int = 100, timed: int = 300,
                   profiled: int = 200, trace: str | None = None,
-                  chunk=(None, None)) -> dict:
+                  chunk=(None, None), **options) -> dict:
     """Sweep the first ``warm + timed + profiled`` segments (of the window
-    ``chunk``); return the report as a dict (times in ms and us, shares of
-    the profiled wall)."""
+    ``chunk``) with the ``EMConfig`` ``options`` (for example
+    :data:`BIASED_OPTIONS`); return the report as a dict (times in ms and
+    us, shares of the profiled wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = EMConfig(num_particles=num_particles, device=device)
+    cfg = EMConfig(num_particles=num_particles, device=device, **options)
     on_cuda = torch.device(device).type == "cuda"
 
     def sync():
@@ -223,6 +231,8 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the profiled segments here")
     ap.add_argument("--data", choices=("bench", "genome"), default="bench")
+    ap.add_argument("--biased", action="store_true",
+                    help="the production proposal (BIASED_OPTIONS)")
     args = ap.parse_args(argv)
     chunk = (None, None)
     if args.data == "bench":
@@ -239,8 +249,9 @@ def main(argv=None) -> int:
             demo, seg = genome_model(paths)
         c = define_chunks(seg, 4)[0]
         chunk = (c.start, c.end)
+    options = BIASED_OPTIONS if args.biased else {}
     rep = profile_sweep(demo, seg, args.np, args.device, trace=args.trace,
-                        chunk=chunk)
+                        chunk=chunk, **options)
     print("\n".join(report_lines(rep)))
     return 0
 

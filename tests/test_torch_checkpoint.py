@@ -140,6 +140,40 @@ def test_interrupted_sweep_resumes_bit_for_bit(tmp_path, monkeypatch):
     assert other[2] != ref[2]
 
 
+def test_biased_sweep_resumes_bit_for_bit(tmp_path):
+    """Under bias the pilot weights and the ring of delayed factors ride in
+    the checkpoint: a biased sweep saved half way and loaded into a sweep
+    set up from another seed ends bit for bit where the uninterrupted sweep
+    of the saved seed ends."""
+    from smcsmc_tpu_torch.kernels.tree import INF
+    from smcsmc_tpu_torch.smc import flush_pending
+
+    demo, seg = _demo(), _data()
+    cfg = _cfg(bias_heights=(1000.0,), bias_strengths=(3.0, 1.0))
+
+    def sweep_from(sweep, state, first):
+        for s in range(first, len(sweep.segs)):
+            state, _ = sweep.step(state, sweep.segs[s])
+        return state
+
+    straight = tem.start_sweep(demo, seg, cfg, seed=11)
+    ref = flush_pending(sweep_from(straight, straight.state, 0))
+
+    first = tem.start_sweep(demo, seg, cfg, seed=11)
+    half = len(first.segs) // 2
+    state = first.state
+    for s in range(half):
+        state, _ = first.step(state, first.segs[s])
+    assert (state.df_pos < INF).any()  # delayed factors pending
+    assert not torch.equal(state.log_pilot, state.log_w)
+    path = str(tmp_path / "biased")
+    save_state(path, state, first.generator, {"segments": half})
+    second = tem.start_sweep(demo, seg, cfg, seed=12)
+    state, done = load_state(path, second.generator, "cpu")
+    got = flush_pending(sweep_from(second, state, done["segments"]))
+    _assert_states_equal(got, ref)
+
+
 def test_checkpoint_of_another_generator_kind_is_refused(tmp_path):
     sweep = tem.start_sweep(_demo(), _data(), _cfg(), seed=3)
     path = str(tmp_path / "state")

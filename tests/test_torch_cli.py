@@ -1,8 +1,9 @@
-"""``smc2-torch`` takes the flags of the whole-genome path as ``smc2`` does:
-every flag parses to the same ``EMConfig`` fields and io values as
-``smcsmc_tpu.cli.parse_smc2_args`` gives, and the command runs end to end on
-unphased data with missing stretches in several files and chunks, twice
-(the second run sweeps nothing).
+"""``smc2-torch`` takes the flags of the whole-genome path and of the
+biased proposal as ``smc2`` does: every flag parses to the same ``EMConfig``
+fields and io values as ``smcsmc_tpu.cli.parse_smc2_args`` gives, and the
+command runs end to end on unphased data with missing stretches in several
+files and chunks, twice (the second run sweeps nothing), and with
+``-bias_heights 0 0.05 -calibrate_lag 2`` on the CPU.
 """
 
 import dataclasses
@@ -26,7 +27,7 @@ torch.set_num_threads(1)
 PORT_FIELDS = [f.name for f in dataclasses.fields(tem.EMConfig)
                if f.name != "device"]
 IO_KEYS = ("segs", "out", "pattern", "maxgap", "minseg", "startpos", "length",
-           "mu", "rho", "N0", "nsam", "logfile")
+           "mu", "rho", "N0", "nsam", "logfile", "bias_heights")
 
 
 @pytest.mark.parametrize("argv", [
@@ -49,6 +50,15 @@ IO_KEYS = ("segs", "out", "pattern", "maxgap", "minseg", "startpos", "length",
     ["-segs", "a.seg", "b.seg", "-chunks", "4", "-Np", "10000", "-EM", "1",
      "-N0", "10000", "-mu", "1e-8", "-rho", "1e-9", "-P", "133", "133016",
      "31*1", "-record_ess", "-ckpt", "1", "-seed", "7"],
+    ["-bias_heights", "0", "0.05"],
+    ["-bias_heights", "0.01", "0.1", "-bias_strengths", "4", "2", "1"],
+    ["-delay", "0.3"],
+    ["-lag_fraction", "1.5"],
+    ["-calibrate_lag", "2"],
+    ["-delay_coal"],
+    ["-delay_migr", "-delay", "0.7", "-calibrate_lag", "3"],
+    ["-seg", "a.seg", "-bias_heights", "0", "0.05", "-calibrate_lag", "2",
+     "-Np", "200"],
 ], ids=lambda argv: " ".join(argv)[:40])
 def test_flags_parse_as_in_the_jax_cli(argv):
     tcfg, tio = tcli.parse_args(argv)
@@ -60,6 +70,39 @@ def test_flags_parse_as_in_the_jax_cli(argv):
     for key in IO_KEYS:
         assert tio[key] == jio[key], key
     assert tcfg.device == "cuda"  # the entry point runs on the card
+
+
+def test_biased_command_runs_on_the_cpu(tmp_path, caplog, monkeypatch):
+    """``-bias_heights 0 0.05 -calibrate_lag 2`` on the CPU: the heights
+    reach the sweep in generations (0.05 x 4 N0), the strengths are
+    calibrated from the model, the lags from the survival pre-pass."""
+    caplog.set_level(logging.INFO, logger="smcsmc_tpu_torch")
+    seg = str(tmp_path / "t.seg")
+    write_seg(seg, simulate_seg(Demography(
+        change_times=np.array([0.0]), pop_sizes=np.array([[10000.0]]),
+        mig_rates=np.zeros((1, 1, 1)), sample_pops=np.zeros(4, np.int32),
+        mutation_rate=1e-8, recombination_rate=1e-9, sequence_length=1e5),
+        seed=3))
+    out = str(tmp_path / "out")
+    seen = []
+
+    def spy(demo, data, cfg):
+        seen.append(cfg)
+        return tem.run_em(demo, data, cfg)
+
+    monkeypatch.setattr(tcli, "run_em", spy)
+    assert tcli.smcsmc_main([
+        "-seg", seg, "-o", out, "-Np", "24", "-EM", "0", "-N0", "10000",
+        "-mu", "1e-8", "-rho", "1e-9", "-P", "133", "133016", "3*1",
+        "-bias_heights", "0", "0.05", "-calibrate_lag", "2", "-seed", "7",
+        "-device", "cpu"]) == 0
+    assert seen[0].bias_heights == (2000.0,) and seen[0].calibrate_lag
+    assert os.path.exists(os.path.join(out, "result.out"))
+    msgs = [r.getMessage() for r in caplog.records]
+    assert any(m.startswith("Calibrated lag = 2.0 x survival") for m in msgs)
+    assert any(m.startswith("auto-calibrated bias_strengths for heights "
+                            "(2000.0,): ") for m in msgs)
+    assert any(m.startswith("calibrated lags (bp) by epoch: ") for m in msgs)
 
 
 def test_every_config_field_of_the_port_exists_in_the_jax_package():

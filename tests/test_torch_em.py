@@ -406,21 +406,26 @@ def test_sweep_profile_reports_on_cpu():
 def test_repeatability_reports_on_cpu(capsys, monkeypatch):
     """The repeatability measurement runs end to end on the CPU at a tiny
     size: the reductions repeat bit for bit there, and a run prints its
-    log-likelihood."""
-    from smcsmc_tpu_torch import repeatability, sweep_profile
+    log-likelihood, with the resampler's scan and with torch.cumsum."""
+    from smcsmc_tpu_torch import repeatability, smc, sweep_profile
 
     lines = repeatability.reductions(64, "cpu", repeats=5)
     assert [ln.split(":")[0] for ln in lines] == [
-        "repeat cumsum P=64", "repeat logsumexp P=64",
-        "repeat weighted sum P=64"]
+        "repeat block scan P=64", "repeat cumsum P=64",
+        "repeat logsumexp P=64", "repeat weighted sum P=64"]
     assert all(" 0 of 5 results differ" in ln for ln in lines)
     short = sweep_profile.bench_data(L=1e5)
     monkeypatch.setattr(repeatability, "bench_data", lambda: short)
     repeatability.run_cli("main", 7, 16, "cpu")
     shown = capsys.readouterr().out
-    assert "main path seed 7 (cumsum): LogL by iteration ['-" in shown
+    assert "main path seed 7 (block): LogL by iteration ['-" in shown
+    monkeypatch.setattr(smc, "systematic_resample", smc.systematic_resample)
+    repeatability.run_cli("main", 7, 16, "cpu", scan="cumsum")
+    assert "(cumsum): LogL by iteration ['-" in capsys.readouterr().out
     assert repeatability.first_divergence(
         *short, 16, "cpu").startswith("equal bit for bit after every one of")
-    x = torch.rand(1000, generator=torch.Generator().manual_seed(1))
-    torch.testing.assert_close(repeatability.two_level_cumsum(x),
-                               x.cumsum(0), rtol=1e-6, atol=1e-6)
+    gen = torch.Generator().manual_seed(1)
+    for n in (1000, 256, 5):
+        x = torch.rand(n, generator=gen)
+        torch.testing.assert_close(smc.block_scan(x), x.cumsum(0), rtol=1e-6,
+                                   atol=1e-6)

@@ -111,7 +111,7 @@ def test_trip_wrapper_rejects_other_devices():
 @pytest.mark.parametrize("argv,flag", [
     (["-apf", "1"], "-apf"),
     (["-vb"], "-vb"),
-    (["-bias_heights", "0", "0.1"], "-bias_heights"),
+    (["-guide", "g.recomb.gz"], "-guide"),
     (["-alpha", "0.5"], "-alpha"),
     (["-arg"], "-arg"),
     (["-online"], "-online"),

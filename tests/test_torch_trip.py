@@ -444,3 +444,72 @@ def test_cuda_kernel_matches_plain(leaf_status):
             assert not floats_d.any(), errs
         else:
             assert int((trees_d | floats_d).sum()) <= 0.001 * Pc, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_status", [1, 0, -1])
+@pytest.mark.parametrize("delay_type", ["recomb", "coal"])
+def test_cuda_biased_segment_pass_matches_plain(leaf_status, delay_type):
+    """The biased ``segment_pass`` on the card against its plain version,
+    held as the plain pass is above, with the pilot weight and the ring of
+    delayed factors (some slots free, some due at the segment end, some
+    rings full) compared too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from smcsmc_tpu_torch.kernels.bias import BiasedPass
+    from smcsmc_tpu_torch.kernels.tree import INF
+
+    Pc, n, E, D = 4096, 8, 8, 32
+    gen, epochs, trees, hd = _cuda_case(leaf_status, Pc, n, E)
+    dev = hd.device
+    start, inv2ne = epochs.start.contiguous(), epochs.inv2ne.contiguous()
+    fifo0 = torch.rand((Pc, F_SLOTS, 6 * E), generator=gen, device=dev)
+    fifo0[:, 0] = 0.0
+    mask = (torch.rand(6 * E, generator=gen, device=dev) < 0.7).float()
+    heights = torch.tensor([0.0, 2000.0, 20000.0, INF], device=dev)
+    strengths = torch.tensor([4.0, 2.0, 1.0], device=dev)
+    delays = torch.linspace(3000.0, 9000.0, E, device=dev)
+    front = 10000.0
+    for T, L, nr_scale in ((1, 20000.0, 1.5), (64, 50000.0, 0.1)):
+        used = torch.rand((Pc, D), generator=gen, device=dev) < 0.3
+        used[:16] = True  # full rings: the factor goes to the pilot at once
+        ring0 = (torch.where(used, front + torch.rand(
+                     (Pc, D), generator=gen, device=dev) * 2 * L,
+                     torch.full((Pc, D), INF, device=dev)),
+                 torch.randn((Pc, D), generator=gen, device=dev),
+                 torch.rand((Pc, D), generator=gen, device=dev) * 3000.0,
+                 torch.randint(1, 4, (Pc, D), generator=gen, device=dev,
+                               dtype=torch.int32))
+        base = dict(time=trees.time, parent=trees.parent,
+                    child0=trees.child0, child1=trees.child1,
+                    next_rec=torch.rand(Pc, generator=gen, device=dev)
+                    * nr_scale * L,
+                    log_w=torch.randn(Pc, generator=gen, device=dev))
+        lp0 = torch.randn(Pc, generator=gen, device=dev)
+        u = torch.rand((T, Pc, 4), generator=gen, device=dev)
+        outs = {}
+        for name, fn in (("plain", segment_pass_plain),
+                         ("kernel", segment_pass)):
+            st = {k: v.clone().contiguous() for k, v in base.items()}
+            fifo, tl = fifo0.clone(), torch.empty(Pc, device=dev)
+            b = BiasedPass(lp0.clone(), *(x.clone() for x in ring0), heights,
+                           strengths, delays, front, delay_type)
+            launches = segment_pass.biased_launches
+            fn(u, leaf_status, *(st[k] for k in _SEG_ORDER), fifo, mask, tl,
+               L, MU, RHO, start, inv2ne, hd, b)
+            assert segment_pass.biased_launches == launches + (
+                name == "kernel")
+            assert torch.equal(fifo[:, 1:], fifo0[:, 1:])
+            outs[name] = dict(st, tl=tl, pending=fifo[:, 0],
+                              log_pilot=b.log_pilot, df_pos=b.df_pos,
+                              df_logf=b.df_logf, df_delta=b.df_delta,
+                              df_k=b.df_k)
+        torch.cuda.synchronize()
+        assert not torch.equal(outs["plain"]["df_pos"], ring0[0])
+        trees_d, floats_d, errs = disagreement(outs["kernel"], outs["plain"],
+                                               L, MU)
+        assert int(trees_d.sum()) <= 0.001 * Pc, (T, int(trees_d.sum()))
+        if T == 1:
+            assert not floats_d.any(), errs
+        else:
+            assert int((trees_d | floats_d).sum()) <= 0.001 * Pc, errs
