@@ -10,7 +10,8 @@ Phases, each fatal on failure:
    run the resampler's scan (``smc.block_scan``) 2000 times at P=10,000
    with matrix products queued among the runs: every result must equal the
    first bit for bit (``torch.cumsum``'s differences are printed beside);
-3. compare both entry points of the kernel, ``trip`` and ``segment_pass``,
+3. compare both entry points of the kernel, ``trip`` and ``segment_pass``
+   (and the biased and the migration pass, see 9 and 10),
    with their plain torch versions on the card with identical uniforms:
    (P=10000, n=4, E=9: the main path's shape), (P=10000, n=4, E=8),
    (P=4096, n=8, E=33) and (P=10000, n=8, E=33: the whole-genome path's
@@ -78,6 +79,37 @@ Phases, each fatal on failure:
    auto-calibrated bias strengths and the calibrated lags logged; the
    genome path's result check; E-step updates/s, and a profile of chunk 0
    with the same proposal (launches per segment, device busy share).
+
+10. the migration pass (the compile-time migration variant of
+   ``segment_pass``): compared with its plain version in phase 3 at
+   the twopop path's shape (P=10000, n=4, E=8, Pp=2, Mw=56) on trees of
+   bench.py's two-population model with filled buffers (plain
+   ``make_initial_trees``), leaf status 1, 0 and -1, one trip and 64
+   trips, plus buffers that overflow (-migbuf 16 at m=2e-4; they must drop
+   events), a lone sample in population 0 (samples [0, 1, 1, 1]; some
+   walks must coalesce above the old root) and walks bounded at 3 events
+   (some must be capped and coalesce onto the root lineage): tree arrays,
+   populations, the buffers' destinations and slots in use exactly in >=
+   99.9% of particles, the walk diagnostics equal, floats within
+   ``float_tolerances``; then the twopop path: bench.py's
+   ``twopop_em_iter`` configuration (2 populations, samples [0, 0, 1, 1],
+   8 epochs, m=5e-5, 2 Mb, ``simulate_seg(seed=13)``) through the same
+   entry point with ``-Np 10000 -EM 2`` and the flags of
+   ``sweep_profile.twopop_flags``: the migration pass once per segment of
+   each E-step, every other pass and every plain version never; in the
+   E-step at the truth (iteration 0) per population Coal Ne within 2x in
+   every interior epoch with >= 5 posterior coalescences (>= 3 such); in
+   iterations 0 and 2 every interior epoch with >= 5 coalescences in both
+   populations together within 2x, each population's pooled interior Ne
+   within 25%, the pooled migration rate within [0.5x, 2x] of 5e-5 and
+   Recomb within 2x (``TWOPOP_POOLED_WITHIN`` says why); walks capped and
+   events dropped printed; the same command again must give the same LogL
+   bit for bit; a
+   profile of the twopop sweep; the migration pass timed at the twopop
+   data's mean segment and at 50 kb (device us per launch, host us, plain
+   ms, bound from counted work with the buffer events read and the rows
+   changed, events per walk), the timed launch held to the plain version's
+   run on the same inputs as in phase 3.
 
 The line before the last is a JSON object with each kernel's build/compare/
 time record; the last line is {"ok": true, "device": {...}}.  Without a
@@ -149,6 +181,110 @@ BIAS_STRENGTHS = (4.0, 1.0)
 BIAS_SLOTS = 32
 BIAS_FRONT = 10000.0
 BIASED_PASS = "segment_pass (biased)"
+
+
+# the migration pass as compared, timed and driven: bench.py's twopop
+# model (two populations of Ne 10,000, samples [0, 0, 1, 1], 8 epochs,
+# symmetric m = 5e-5) with em._auto_mig_buffer's 56 events per branch
+MIGRATION_PASS = "segment_pass (migration)"
+TWOPOP_P = 10000
+TWOPOP_M = 5e-5
+TWOPOP_MW = 56
+
+
+class MigCase:
+    """Two-population trees with filled migration buffers (the plain
+    ``make_initial_trees``) and the inputs of a migration segment pass on
+    the card, made from a seed."""
+
+    def __init__(self, P, leaf_status, L, nr_scale, seed, m=TWOPOP_M,
+                 Mw=TWOPOP_MW, sample_pops=(0, 0, 1, 1),
+                 max_walk_events=None):
+        import numpy as np
+        import torch
+
+        from smcsmc_tpu_torch.kernels.migration import (
+            migration_tables,
+            stats_offsets,
+        )
+        from smcsmc_tpu_torch.kernels.tree import (
+            epochs_from_demography,
+            make_initial_trees,
+        )
+        from smcsmc_tpu_torch.sweep_profile import twopop_demo
+
+        dev = torch.device("cuda")
+        demo = twopop_demo(m=m, sample_pops=sample_pops)
+        self.P, self.n, self.E, self.L, self.Mw = P, 4, 8, L, Mw
+        self.max_walk_events = max_walk_events
+        self.leaf_status = leaf_status
+        self.gen = torch.Generator(device=dev)
+        self.gen.manual_seed(seed)
+        self.epochs = epochs_from_demography(demo, dev)
+        trees = make_initial_trees(self.gen, self.epochs, P,
+                                   np.asarray(sample_pops), max_mig=Mw)
+        hd = torch.ones(4, dtype=torch.bool, device=dev)
+        if leaf_status == 0:
+            hd[0] = hd[2] = False
+        elif leaf_status == -1:
+            hd[:] = False
+        self.has_data = hd
+        nr = torch.rand(P, generator=self.gen, device=dev) * nr_scale * L
+        self.base = {k: v.contiguous() for k, v in dict(
+            time=trees.time, parent=trees.parent, child0=trees.child0,
+            child1=trees.child1, next_rec=nr,
+            log_w=torch.full((P,), -float(np.log(P)), device=dev),
+            pop=trees.pop, mig_time=trees.mig_time,
+            mig_dest=trees.mig_dest).items()}
+        self.start = self.epochs.start.contiguous()
+        self.inv2ne = self.epochs.inv2ne.contiguous()
+        self.K = stats_offsets(self.E, 2)["width"]
+        self.fifo = torch.rand((P, FIFO_SLOTS, self.K), generator=self.gen,
+                               device=dev)
+        self.fifo[:, 0] = 0.0
+        self.fifo_mask = (torch.rand(self.K, generator=self.gen, device=dev)
+                          < 0.75).float()
+        self.tables = migration_tables(self.epochs)
+        self.key = torch.randint(0, 2 ** 31 - 1, (2,), generator=self.gen,
+                                 device=dev, dtype=torch.int32)
+
+    def uniforms(self, T):
+        import torch
+
+        return torch.rand((T, self.P, 4), generator=self.gen, device="cuda")
+
+    def fresh(self):
+        import torch
+
+        st = {k: v.clone() for k, v in self.base.items()}
+        st["fifo"] = self.fifo.clone()
+        st["tl"] = torch.empty(self.P, device="cuda")
+        st["diag"] = torch.zeros(2, dtype=torch.float64, device="cuda")
+        return st
+
+    def run(self, fn, u, st):
+        from smcsmc_tpu_torch.kernels.migration import MigrationPass
+
+        mp = MigrationPass(st["pop"], st["mig_time"], st["mig_dest"],
+                           st["diag"], self.key, *self.tables)
+        if self.max_walk_events is not None:
+            mp = mp._replace(max_walk_events=self.max_walk_events)
+        fn(u, self.leaf_status, *(st[k] for k in SEGMENT_STATE), st["fifo"],
+           self.fifo_mask, st["tl"], self.L, MU, RHO, self.start,
+           self.inv2ne, self.has_data, None, mp)
+        return st
+
+    def result(self, st):
+        """The pass's outputs under the names ``disagreement`` knows."""
+        import torch
+
+        if not torch.equal(st["fifo"][:, 1:], self.fifo[:, 1:]):
+            raise SystemExit("the migration pass wrote outside FIFO slot 0")
+        out = {k: st[k] for k in SEGMENT_STATE + ("pop", "mig_time",
+                                                  "mig_dest")}
+        out["tl"] = st["tl"]
+        out["pending"] = st["fifo"][:, 0]
+        return out
 
 
 class Case:
@@ -412,9 +548,74 @@ def phase_compare(kernels):
                     f"trips={T}" + (" vs plain" if T > 1 else ""), P, trees,
                     floats, errs, good)
             ok &= good
+    ok &= compare_migration(segment_pass, segment_pass_plain, tallies)
     if not ok:
         raise SystemExit("kernel and plain version disagree beyond tolerance")
     return tallies
+
+
+# the cases of the migration pass: bench.py's twopop model at each leaf
+# status; buffers that overflow (-migbuf 16 at m = 2e-4); a lone sample in
+# population 0 (samples [0, 1, 1, 1]), whose cut lineage has no partner of
+# its population below the root but its own branch; walks bounded at 3
+# events (about 5 on average at this model), so that many are capped and
+# force-coalesce onto the root lineage
+MIG_CASES = ([("twopop", {}, ls) for ls in (1, 0, -1)]
+             + [("overflow", {"m": 2e-4, "Mw": 16}, 1),
+                ("above the root", {"sample_pops": (0, 1, 1, 1)}, 1),
+                ("capped", {"max_walk_events": 3}, 1)])
+
+
+def compare_migration(segment_pass, segment_pass_plain, tallies,
+                      P=TWOPOP_P):
+    """The migration pass against its plain version at the twopop path's
+    shape (P, n=4, E=8, Pp=2) for each of :data:`MIG_CASES`, one trip and
+    64 trips: tree arrays, populations and the buffers' destinations and
+    slots in use exactly, the walk diagnostics equal where every tree
+    agrees, floats within ``float_tolerances``; the overflow case must
+    drop events, the above-the-root case must coalesce above the old root
+    and the capped case must cap walks."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.trip import disagreement
+
+    tallies[MIGRATION_PASS] = (Tally(), Tally())
+    budget = (1.0 - MATCH_MIN) * P
+    ok = True
+    for label, kw, ls in MIG_CASES:
+        for T, L, nr_scale in ((1, 20000.0, 1.5), (64, MAX_SEG, 0.1)):
+            c = MigCase(P, ls, L, nr_scale, seed=13 * P + T + ls, **kw)
+            u = c.uniforms(T)
+            got_st = c.run(segment_pass, u, c.fresh())
+            ref_st = c.run(segment_pass_plain, u, c.fresh())
+            torch.cuda.synchronize()
+            got, ref = c.result(got_st), c.result(ref_st)
+            trees, floats, errs = disagreement(got, ref, c.L, MU, RTOL, Pp=2)
+            if T == 1:
+                good = int(trees.sum()) <= budget and int(floats.sum()) == 0
+            else:
+                good = int((trees | floats).sum()) <= budget
+            same_diag = torch.equal(got_st["diag"], ref_st["diag"])
+            good &= same_diag or bool(trees.any())
+            above = int((ref["time"].max(dim=1).values
+                         > c.base["time"].max(dim=1).values).sum())
+            capped, dropped = (float(x) for x in ref_st["diag"])
+            if label == "overflow" and T == 64:
+                good &= dropped > 0
+            if label == "above the root":
+                good &= above > 0
+            if label == "capped":
+                good &= capped > 0
+            tallies[MIGRATION_PASS][T > 1].add(trees, floats, errs)
+            _report(f"{MIGRATION_PASS} {label} P={P} n=4 E=8 Pp=2 "
+                    f"Mw={c.Mw} leaf_status={ls} trips={T}"
+                    + (" vs plain" if T > 1 else "")
+                    + f" (walks capped {capped:g}, events dropped "
+                    f"{dropped:g}, kernel {got_st['diag'].tolist()}; "
+                    f"{above} coalesced above the old root)",
+                    P, trees, floats, errs, good)
+            ok &= good
+    return ok
 
 
 def _median(xs):
@@ -642,6 +843,124 @@ def phase_time(kernels, shape, seg_lengths, biased=False):
     return rows
 
 
+def _mig_bounds(c, active, trips, events, valid, rows, pushed):
+    """Least time (ms) of one migration pass: bytes over the memory rate,
+    operations over the float32 rate, the larger.  Bytes: the tables; every
+    particle reads its tree with populations (5 rows of N words), reads
+    and writes next_rec and log_w and writes tl; an active particle writes
+    its tree back, reads 16 B of uniforms per trip and the ``valid`` buffer
+    events it walks through (time and destination, 8 B each: every event
+    of the branches it reads, once); ``rows`` buffer rows that changed are
+    written whole (Mw events of 8 B); of the FIFO only slot 0's entries
+    that take a nonzero statistic are read and written.  Operations: per
+    walk event the Philox draw (about 100 integer operations), the scan
+    over N branches (cursor, population, crossing, breakpoint: about 12
+    each) and the epoch's tables (2 E); per trip the point and the SPR's
+    routing (about 40 Mw), the refreshed summaries (8 E N); at entry the
+    summaries of every tree (4 E N)."""
+    P, N, E, Pp, Mw = c.P, 2 * c.n - 1, c.E, 2, c.Mw
+    tables = 4 * (E + E * Pp * (3 + Pp) + c.K) + c.n
+    nbytes = (tables + P * (5 * N * 4 + 2 * 2 * 4 + 4)
+              + active * 5 * N * 4 + 16 * trips + 8 * valid
+              + rows * Mw * 8 + 2 * 4 * pushed)
+    flop = (events * (100 + 12 * N + 2 * E) + trips * (40 * Mw + 8 * E * N)
+            + P * 4 * E * N + 2 * pushed)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flop / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=nbytes, flop=flop)
+
+
+def phase_time_migration(kernel, plain, seg_lengths, P=TWOPOP_P):
+    """The migration pass at the two-population path's shape (P, n=4, E=8,
+    Pp=2, Mw=56) for each (label, segment length): device time per launch
+    (best of 3 x 20 launches), host time per wrapper call, the plain
+    version (median of 3), the bound from the counted work and the walks'
+    length in events (counted on the plain version's run, which draws the
+    kernel's numbers); the kernel's outputs held to the plain version's
+    as in :func:`compare_migration`."""
+    import torch
+
+    import smcsmc_tpu_torch.kernels.migration as mig_mod
+    from smcsmc_tpu_torch.kernels.migration import stats_offsets
+    from smcsmc_tpu_torch.kernels.tree import INF, Trees, tree_summaries
+    from smcsmc_tpu_torch.kernels.trip import disagreement
+
+    filler = _filler()
+    rows_out = {}
+    for label, L in seg_lengths:
+        c = MigCase(P, 1, L, 0.0, seed=99)
+        b = c.base
+        tl, _, _ = tree_summaries(
+            Trees(b["parent"], b["time"], b["child0"], b["child1"]),
+            c.epochs, 1, c.has_data)
+        expo = torch.empty(P, device="cuda").exponential_(1.0,
+                                                          generator=c.gen)
+        b["next_rec"] = (expo / (RHO * tl)).contiguous()
+        u = c.uniforms(64)
+        seen, walk = [], mig_mod.walk_mig
+
+        def counting(*a, **k):
+            out = walk(*a, **k)
+            seen.append(out[8][a[6]])
+            return out
+
+        mig_mod.walk_mig = counting
+        try:
+            ref = c.run(plain, u, c.fresh())
+        finally:
+            mig_mod.walk_mig = walk
+        per_walk = torch.cat(seen) if seen else torch.zeros(0)
+        st = c.run(kernel, u, c.fresh())
+        torch.cuda.synchronize()
+        trees_d, floats_d, errs = disagreement(c.result(st), c.result(ref),
+                                               L, MU, RTOL, Pp=2)
+        good = int((trees_d | floats_d).sum()) <= (1.0 - MATCH_MIN) * P
+        _report(f"{MIGRATION_PASS} timed launch P={P} L={L:g} trips=64 vs "
+                f"plain", P, trees_d, floats_d, errs, good)
+        if not good:
+            raise SystemExit("the timed migration pass disagrees with its "
+                             "plain version")
+        act = b["next_rec"] < L
+        active = int(act.sum())
+        off = stats_offsets(c.E, 2)["recomb_cnt"]
+        trips = int(round(float(st["fifo"][:, 0, off:].sum())))
+        valid = int((b["mig_time"][act] < INF).sum())
+        changed = int(((st["mig_time"] != b["mig_time"])
+                       | (st["mig_dest"] != b["mig_dest"])).any(dim=2).sum())
+        pushed = int((st["fifo"][:, 0] != 0).sum())
+        events = int(per_walk.sum())
+        bound = _mig_bounds(c, active, trips, events, valid, changed, pushed)
+
+        def launch(st, u=u, c=c):
+            c.run(kernel, u, st)
+
+        t = dict(kernel_ms=_best_device_ms(launch, c.fresh, filler),
+                 plain_ms=_plain_ms(c.run, plain, u, c.fresh),
+                 host_us=_host_us(launch, [c.fresh() for _ in range(100)]),
+                 active=active, trips=trips, walks=int(per_walk.numel()),
+                 events_per_walk_mean=(events / max(per_walk.numel(), 1)),
+                 events_per_walk_max=int(per_walk.max()) if per_walk.numel()
+                 else 0, valid_events_read=valid, rows_changed=changed,
+                 pushed=pushed, L=L, **bound)
+        rows_out[label] = t
+        _log(f"time {MIGRATION_PASS} {label} (P={P} n=4 E=8 Pp=2 "
+             f"Mw={c.Mw}, L={L:g} bp): {active} of {P} particles recombine, "
+             f"{trips} trips, {t['walks']} walks of "
+             f"{t['events_per_walk_mean']:.2f} events on average and "
+             f"{t['events_per_walk_max']} at "
+             f"most; {valid} buffer events read, {changed} buffer rows "
+             f"changed, {pushed} statistics pushed; kernel "
+             f"{t['kernel_ms'] * 1e3:.2f} us of device time per launch (best "
+             f"of 3 x 20 launches); host {t['host_us']:.2f} us per wrapper "
+             f"call; plain {t['plain_ms']:.4f} ms (median of 3); bound "
+             f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
+             f"({t['bytes']} B, {t['flop']} operations), kernel reaches "
+             f"{t['bound_ms'] / t['kernel_ms']:.4f} of it")
+    return rows_out
+
+
 class _Records(logging.Handler):
     def __init__(self):
         super().__init__(logging.INFO)
@@ -693,17 +1012,20 @@ def _run_cli(argv):
     lg = logging.getLogger("smcsmc_tpu_torch")
     lg.setLevel(logging.INFO)
     lg.addHandler(rec)
-    plain_calls = _count_calls(trip_mod, ("trip_plain", "segment_pass_plain"))
+    plain_calls = _count_calls(trip_mod, ("trip_plain", "segment_pass_plain",
+                                          "migration_trips"))
     try:
         trip_mod.trip.launches = 0
         trip_mod.segment_pass.launches = 0
         trip_mod.segment_pass.biased_launches = 0
+        trip_mod.segment_pass.migration_launches = 0
         t0 = time.monotonic()
         rc = cli.smcsmc_main(argv)
         wall = time.monotonic() - t0
         launches = {"trip": trip_mod.trip.launches,
                     "segment_pass": trip_mod.segment_pass.launches,
-                    BIASED_PASS: trip_mod.segment_pass.biased_launches}
+                    BIASED_PASS: trip_mod.segment_pass.biased_launches,
+                    MIGRATION_PASS: trip_mod.segment_pass.migration_launches}
     finally:
         plain_calls.restore()
         lg.removeHandler(rec)
@@ -763,18 +1085,18 @@ def _check_estimates(rows, it, problems, min_events=MIN_EPOCH_EVENTS,
 
 
 def _check_launches(launches, plain, segments, problems, path,
-                    biased=False):
-    """One launch per segment of the pass the path takes and none of the
-    other; no plain version; ``trip`` only in a biased path's pre-pass."""
-    name, other = (BIASED_PASS, "segment_pass") if biased else ("segment_pass",
-                                                          BIASED_PASS)
+                    name="segment_pass"):
+    """One launch per segment of the pass ``name`` that the path takes and
+    none of the other passes; no plain version; ``trip`` only in the biased
+    path's pre-pass."""
     if launches[name] != segments:
         problems.append(f"{name} launched {launches[name]} "
                         f"times for {segments} segments")
-    if launches[other] != 0:
-        problems.append(f"{other} launched {launches[other]} times on the "
-                        f"{path}")
-    if launches["trip"] != 0 and not biased:
+    for other in ("segment_pass", BIASED_PASS, MIGRATION_PASS):
+        if other != name and launches[other] != 0:
+            problems.append(f"{other} launched {launches[other]} times on "
+                            f"the {path}")
+    if launches["trip"] != 0 and name != BIASED_PASS:
         problems.append(f"trip launched {launches['trip']} times on the "
                         f"{path}, which goes through segment_pass")
     if any(plain.values()):
@@ -1071,7 +1393,7 @@ def phase_biased_path(card):
         if len(steps) != 2:
             raise SystemExit(f"biased path: {len(steps)} EM iterations")
         _check_launches(launches, plain, sum(r.args[2] for r in steps),
-                        problems, "biased path", biased=True)
+                        problems, "biased path", BIASED_PASS)
         if launches["trip"] == 0 or launches["trip"] != reported:
             problems.append(f"trip launched {launches['trip']} times, the "
                             f"calibration pre-passes report {reported}")
@@ -1097,6 +1419,156 @@ def phase_biased_path(card):
     for ln in report_lines(rep):
         _log(ln)
     return launches, steps, reported, rep
+
+
+TWOPOP_MIN_EVENTS = 5.0  # posterior coalescences for an epoch to be checked
+# Each interior epoch with >= 5 posterior coalescences, both populations
+# together (sum of opportunity over twice the sum of coalescences), is held
+# to 2x at every iteration, and each population's pooled interior Ne to
+# 25%.  Each (epoch, population) is held to 2x in the E-step at the truth
+# (iteration 0) only: the genealogy that simulate_seg drew for these 2 Mb
+# reads epoch 4 of population 1 at 2993 and epoch 3 of population 1 at
+# 24285 from its own trees, while every epoch pooled over the populations
+# reads 8184-13809 (python -m smcsmc_tpu_torch.repeatability --genealogy).
+# With 4 Nm = 2 the data say little about which population a coalescence
+# fell in, and the M-steps move the model: epoch 4 drifts to 0.46-0.50 of
+# the truth in population 0 in iterations 1-2 of seeds 7 and 8 (NVIDIA
+# H100, repeatability --twopop-seeds 7 8 9), while iteration 0 of seeds 7,
+# 8 and 9 holds every checked (epoch, population) to 0.56-1.11 of it.
+TWOPOP_POOLED_WITHIN = 0.25
+
+
+def _check_twopop(rows, it, problems, per_epoch):
+    """The two-population result checks on one iteration's rows: LogL
+    finite and negative; the Ne of every interior epoch with >= 5
+    posterior coalescences in both populations together within 2x of
+    10,000; with ``per_epoch``, per population Coal Ne within 2x of 10,000
+    in every interior epoch with >= 5 posterior coalescences, at least 3
+    such (epoch, population) over both populations; each
+    population's pooled interior Ne (sum of opportunity over twice the sum
+    of coalescences) within 25% of 10,000; the pooled migration rate (sum
+    of counts over sum of opportunity, both directions, all epochs) within
+    [0.5x, 2x] of 5e-5; Recomb rate within 2x of 1e-9."""
+    import numpy as np
+
+    logl = [float(r["Count"]) for r in rows if r["Type"] == "LogL"]
+    if len(logl) != 1 or not np.isfinite(logl[0]) or logl[0] >= 0:
+        problems.append(f"LogL {logl}")
+    coal = [r for r in rows if r["Type"] == "Coal"]
+    epochs = sorted({int(r["Epoch"]) for r in coal})
+    interior = [r for r in coal if int(r["Epoch"]) in epochs[1:-1]]
+    informed = [r for r in interior
+                if float(r["Count"]) >= TWOPOP_MIN_EVENTS]
+    pooled_epoch = {}
+    for e in epochs[1:-1]:
+        mine = [r for r in interior if int(r["Epoch"]) == e]
+        count = sum(float(r["Count"]) for r in mine)
+        if count >= TWOPOP_MIN_EVENTS:
+            pooled_epoch[e] = sum(float(r["Opp"]) for r in mine) / (2 * count)
+            if not 0.5 * NE <= pooled_epoch[e] <= 2.0 * NE:
+                problems.append(f"iteration {it}: epoch {e} Ne over both "
+                                f"populations {pooled_epoch[e]:.1f}")
+    if per_epoch:
+        if len(informed) < 3:
+            problems.append(f"only {len(informed)} interior (epoch, "
+                            f"population) with >= {TWOPOP_MIN_EVENTS} "
+                            f"coalescences")
+        for r in informed:
+            ne = float(r["Ne"])
+            if not 0.5 * NE <= ne <= 2.0 * NE:
+                problems.append(f"iteration {it}: Coal epoch {r['Epoch']} "
+                                f"population {r['From']} Ne {ne:.1f}")
+    pooled_ne = {}
+    for q in sorted({r["From"] for r in interior}):
+        mine = [r for r in interior if r["From"] == q]
+        pooled_ne[q] = (sum(float(r["Opp"]) for r in mine)
+                        / (2.0 * sum(float(r["Count"]) for r in mine)))
+        if abs(pooled_ne[q] - NE) > TWOPOP_POOLED_WITHIN * NE:
+            problems.append(f"iteration {it}: pooled interior Ne of "
+                            f"population {q} {pooled_ne[q]:.1f}")
+    migr = [r for r in rows if r["Type"] == "Migr"]
+    pooled = (sum(float(r["Count"]) for r in migr)
+              / max(sum(float(r["Opp"]) for r in migr), 1e-300))
+    if not 0.5 * TWOPOP_M <= pooled <= 2.0 * TWOPOP_M:
+        problems.append(f"iteration {it}: pooled migration rate "
+                        f"{pooled:.4g}")
+    recomb = [r for r in rows if r["Type"] == "Recomb"]
+    rate = float(recomb[0]["Rate"]) if recomb else float("nan")
+    if not 0.5 * RHO <= rate <= 2.0 * RHO:
+        problems.append(f"iteration {it}: Recomb rate {rate:.4g}")
+    _log("result.out (iteration %d): LogL %s; %d interior (epoch, "
+         "population) with >= %g coalescences; Ne by informed epoch over "
+         "both populations %s; pooled interior Ne by population %s; Coal Ne "
+         "(coalescences) by epoch/population %s; pooled migration rate "
+         "%.5g over %d Migr rows; Recomb rate %.4g"
+         % (it, logl, len(informed), TWOPOP_MIN_EVENTS,
+            {e: round(v, 1) for e, v in pooled_epoch.items()},
+            {q: round(v, 1) for q, v in pooled_ne.items()},
+            " ".join(f"{r['Epoch']}/{r['From']}:{float(r['Ne']):.1f}"
+                     f"({float(r['Count']):.1f})" for r in coal),
+            pooled, len(migr), rate))
+    return pooled
+
+
+def phase_twopop_path(card):
+    """bench.py's twopop_em_iter configuration through smcsmc_main:
+    ``smc2-torch -Np 10000 -EM 2`` with the flags of
+    ``sweep_profile.twopop_flags`` on ``simulate_seg(twopop_demo, seed=13)``
+    (2 Mb), started at the truth; the same command a second time, which
+    must give the same LogL bit for bit.  Returns (launches, E-step
+    records, the model and data, the profile)."""
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.sweep_profile import (
+        profile_sweep,
+        report_lines,
+        twopop_data,
+        twopop_flags,
+    )
+
+    demo, seg = twopop_data()
+    problems, logls = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "twopop.seg")
+        write_seg(seg_path, seg)
+        for run in (0, 1):
+            out = os.path.join(tmp, f"out{run}")
+            argv = ["-seg", seg_path, "-o", out, "-Np", str(TWOPOP_P), "-EM",
+                    "2", *twopop_flags(), "-seed", "7", "-device", DEVICE]
+            # the first run is checked and reported; the second gives only
+            # its LogL
+            launches_r, plain, steps_r, records, wall = _run_cli(argv)
+            logls.append([r.args[4] for r in steps_r])
+            if run:
+                continue
+            launches, steps = launches_r, steps_r
+            shown = " ".join(a for a in argv if a not in (seg_path, out))
+            _log(f"twopop path: smc2-torch {shown} ran in {wall:.2f} s "
+                 f"wall; kernel launches {launches}; calls of the plain "
+                 f"versions {plain}")
+            _log_esteps(steps, TWOPOP_P, card)
+            if len(steps) != 3:
+                raise SystemExit(f"twopop path: {len(steps)} EM iterations")
+            _check_launches(launches, plain, sum(r.args[2] for r in steps),
+                            problems, "twopop path", MIGRATION_PASS)
+            pressure = [r.args[:2] for r in records
+                        if r.msg.startswith("approximation pressure")]
+            _log(f"  migration walks capped and events dropped, per E-step "
+                 f"with any: {pressure or 'none'}")
+            result = os.path.join(out, "result.out")
+            _check_twopop(_read_out(result, 0), 0, problems, True)
+            pooled = _check_twopop(_read_out(result, 2), 2, problems, False)
+    _log(f"twopop path: LogL by iteration {logls[0]} and, the same seed "
+         f"again, {logls[1]}: bit for bit equal {logls[0] == logls[1]}")
+    if logls[0] != logls[1]:
+        problems.append("the same seed gave another LogL")
+    if problems:
+        raise SystemExit("twopop path checks failed: " + "; ".join(problems))
+    _log("twopop path checks: ok")
+    rep = profile_sweep(demo, seg, TWOPOP_P, DEVICE)
+    _log(f"twopop path sweep profile on {card}:")
+    for ln in report_lines(rep):
+        _log(ln)
+    return launches, steps, demo, seg, rep, pooled, pressure
 
 
 REPLACES = "smcsmc_tpu/kernels/pallas_trip.py:91"
@@ -1189,6 +1661,13 @@ def main(argv=None) -> int:
 
     b_launches, b_steps, b_reported, b_profile = phase_biased_path(card)
 
+    (m_launches, m_steps, m_demo, m_seg, m_profile, m_pooled,
+     m_pressure) = phase_twopop_path(card)
+    m_mean_len = float(split_long_segments(m_seg, MAX_SEG).lengths.mean())
+    m_timing = phase_time_migration(
+        segment_pass, segment_pass_plain,
+        [("mean twopop segment", m_mean_len), ("longest segment", MAX_SEG)])
+
     head = timing["mean bench segment"]
     g_head = g_timing["mean genome segment"]
     record = {"kernels": [], "empty_launch_ms": empty_ms,
@@ -1206,9 +1685,20 @@ def main(argv=None) -> int:
                   "trip_launches_reported": b_reported,
                   "launches_per_segment": b_profile["launches_per_segment"],
                   "device_busy_share": b_profile["device_busy_share"],
-                  "pass_us_per_launch": b_profile["pass_us_per_launch"]}}
+                  "pass_us_per_launch": b_profile["pass_us_per_launch"]},
+              "twopop_path": {
+                  "segments": sum(r.args[2] for r in m_steps),
+                  "estep_seconds": [r.args[1] for r in m_steps],
+                  "logl": [r.args[4] for r in m_steps],
+                  "pooled_migration_rate": m_pooled,
+                  "walks_capped_events_dropped": m_pressure,
+                  "launches_per_segment": m_profile["launches_per_segment"],
+                  "device_ms_per_segment":
+                      m_profile["device_ms_per_segment"],
+                  "device_busy_share": m_profile["device_busy_share"],
+                  "pass_us_per_launch": m_profile["pass_us_per_launch"]}}
     timed_keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by")
-    for name in (*kernels, BIASED_PASS):
+    for name in (*kernels, BIASED_PASS, MIGRATION_PASS):
         single, chained = tallies[name]
         compare = {"trips=1": single.record(),
                    "trips=64 vs plain": chained.record()}
@@ -1216,15 +1706,19 @@ def main(argv=None) -> int:
             compare["trips=64 vs 64x trips=1"] = "bit for bit equal"
         by_path = {"main": launches[name], "genome": g_launches[name],
                    "genome resumed": g_resume_launches[name],
-                   "biased": b_launches[name]}
+                   "biased": b_launches[name], "twopop": m_launches[name]}
         # each entry point's own path: the main path for the plain pass,
         # the biased path for the biased pass and for trip (its
-        # calibration pre-pass)
-        own = "main" if name == "segment_pass" else "biased"
+        # calibration pre-pass), the twopop path for the migration pass
+        own = {"segment_pass": "main", MIGRATION_PASS: "twopop"}.get(
+            name, "biased")
         # device time per launch at the mean segment of the entry point's
         # own shape: the main path's for the plain kernels, the genome
-        # data's for the biased pass
-        t = g_head[name] if name == BIASED_PASS else head[name]
+        # data's for the biased pass, the twopop data's for the migration
+        # pass
+        t = {BIASED_PASS: g_head.get(name),
+             MIGRATION_PASS: m_timing["mean twopop segment"]}.get(
+                 name, head.get(name))
         entry = {
             "name": name,
             "route": "cuda",
@@ -1241,15 +1735,22 @@ def main(argv=None) -> int:
             "bound_by": t["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a trip
             "host_us_per_call": t["host_us"],
-            # the whole-genome shape (P=10000, n=8, E=33): the times at its
-            # mean and longest segment
-            "genome_shape": {
-                "mean_segment": {k: g_head[name][k] for k in timed_keys},
-                "longest_segment": {
-                    k: g_timing["longest segment"][name][k]
-                    for k in timed_keys},
-                "host_us_per_call": g_head[name]["host_us"]},
         }
+        if name == MIGRATION_PASS:
+            # the twopop shape (P=10000, n=4, E=8, Pp=2, Mw=56)
+            entry["twopop_shape"] = {
+                label: {k: v for k, v in row.items()}
+                for label, row in m_timing.items()}
+            record["kernels"].append(entry)
+            continue
+        # the whole-genome shape (P=10000, n=8, E=33): the times at its
+        # mean and longest segment
+        entry["genome_shape"] = {
+            "mean_segment": {k: g_head[name][k] for k in timed_keys},
+            "longest_segment": {
+                k: g_timing["longest segment"][name][k]
+                for k in timed_keys},
+            "host_us_per_call": g_head[name]["host_us"]}
         if name != BIASED_PASS:
             entry["longest_segment"] = {
                 k: timing["longest segment"][name][k] for k in timed_keys}

@@ -7,7 +7,8 @@ Two layers:
   and is skipped on re-run.  ``have_outfile`` and ``load_iteration`` are
   copied from ``smcsmc_tpu/checkpoint.py``;
 - mid-sweep state checkpointing with ``torch.save``: every tensor of the
-  ``PFState``, its host fields, the state of the sweep's
+  ``PFState`` (the trees' populations and migration buffers and the
+  migration diagnostics among them), its host fields, the state of the sweep's
   ``torch.Generator`` and the caller's progress record, in one file, so
   that a resumed sweep continues exactly where the saved one stood.
 """
@@ -83,7 +84,9 @@ def load_state(path: str, generator: torch.Generator, device
             f"generator than {generator.device}: {exc}") from exc
     fields = {}
     for name in PFState._fields:
-        v = saved[name]
+        v = saved.get(name)
+        if name == "diag" and v is None:  # saved before the field existed
+            v = torch.zeros(2, dtype=torch.float64, device=device)
         if name == "trees":
             fields[name] = Trees(**v)
         elif name == "slot_open":

@@ -1,12 +1,14 @@
 """``smc2-torch``: the ``smc2`` command line for the torch port (counterpart
 of ``smcsmc_tpu.cli.smcsmc_main``).
 
-It accepts the ``smc2`` flags of the ported paths (one population; several
-``.seg`` files, chunks, resume and checkpoints; unphased and missing data;
-the M-step's options; height-biased proposals with delayed importance
-weights and calibrated lags) plus ``-device``, each parsed as
-``smcsmc_tpu.cli`` parses it; every other flag is refused with a message
-naming it.  The helpers that
+It accepts the ``smc2`` flags of the ported paths (one population, or
+structured populations with migration through ``-I -eN -en -em -eM -ema
+-ej -migbuf``; several ``.seg`` files, chunks, resume and checkpoints;
+unphased and missing data; the M-step's options; height-biased proposals
+with delayed importance weights and calibrated lags, for one population)
+plus ``-device``, each parsed as ``smcsmc_tpu.cli`` parses it; every other
+flag, and bias or calibrated lags with several populations, is refused
+with a message naming it.  The helpers that
 turn flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
 ``_is_number``, ``resolve_n0``, ``build_demography``) are copied from
 ``smcsmc_tpu/cli.py`` at commit dfc2fad and kept letter for letter.
@@ -191,20 +193,26 @@ def build_demography(cfg, demo_args, io, seg=None):
 # ---------------------------------------------------------------------------
 
 
+# the ms/scrm demography flags the port takes (-eI, sample times, is not)
+DEMOGRAPHY_FLAGS = ("-I", "-ej", "-eM", "-ema", "-em", "-eN", "-en")
+
+
 def parse_args(argv: list[str]):
     """Returns (EMConfig, io dict) for the supported flags:
     -seg/-segs -o -Np -EM -ESS -P -N0 -mu -rho -length -nsam -lag -seed -log
     -chunks -maxgap -minseg -startpos -ckpt -nothreads -dephase
     -ancestral_aware -cap -xc -xr -no_infer_recomb -no_m_step -record_ess
     -bias_heights -bias_strengths -delay -lag_fraction -calibrate_lag
-    -delay_coal -delay_migr -device."""
+    -delay_coal -delay_migr -device, the demography flags -I -eN -en -em
+    -eM -ema -ej (kept with their values in ``io["demo_args"]``) and
+    -migbuf."""
     argv = load_option_file(argv)
     cfg = EMConfig()
     io = {
         "segs": [], "out": "smcsmc_out", "pattern": None, "p_pattern": None,
         "tmax": 2.0, "maxgap": 200000, "minseg": 500000, "startpos": 1,
         "length": None, "mu": None, "rho": None, "N0": None, "nsam": None,
-        "logfile": None, "bias_heights": None,
+        "logfile": None, "bias_heights": None, "demo_args": [],
     }
     i = 0
     while i < len(argv):
@@ -330,6 +338,17 @@ def parse_args(argv: list[str]):
                 i += 1
         elif o == "-device":
             cfg.device = take()
+        elif o == "-migbuf":
+            # per-branch migration-event buffer capacity (0 = auto-sized
+            # from the demography)
+            cfg.mig_buffer = int(take())
+        elif o in DEMOGRAPHY_FLAGS:
+            # demography flags pass through with their arguments
+            io["demo_args"].append(o)
+            i += 1
+            while i < len(argv) and not argv[i].startswith("-"):
+                io["demo_args"].append(argv[i])
+                i += 1
         else:
             raise SystemExit(f"smc2-torch: option {o!r} {_NOT_PORTED}")
     return cfg, io
@@ -354,10 +373,14 @@ def smcsmc_main(argv=None) -> int:
         seg, _ = merge_segs(io["segs"], gap=io["maxgap"])
     else:
         seg = read_seg(io["segs"][0])
-    demo = build_demography(cfg, [], io, seg=seg)
-    if demo.num_populations != 1 or np.any(demo.mig_rates > 0):
-        raise SystemExit(f"smc2-torch: structured populations / migration "
-                         f"{_NOT_PORTED}")
+    demo = build_demography(cfg, io["demo_args"], io, seg=seg)
+    if demo.num_populations > 1 or np.any(demo.mig_rates > 0):
+        for flag, used in (("-bias_heights", io["bias_heights"]),
+                           ("-calibrate_lag", cfg.calibrate_lag)):
+            if used:
+                raise SystemExit(
+                    f"smc2-torch: option {flag!r} with several populations "
+                    f"or migration {_NOT_PORTED}")
     if io["bias_heights"]:
         # 4N0 units -> generations; a leading 0 is dropped
         cfg.bias_heights = tuple(h * 4 * io["N0"] for h in io["bias_heights"]

@@ -1,7 +1,8 @@
 """Carry particle state and segments between numpy and the port's tensors.
 
-The tests start both packages from the same trees, weights (posterior and
-pilot), FIFO, statistics and ring of delayed factors: a JAX ``PFState``
+The tests start both packages from the same trees (with their populations
+and migration buffers), weights (posterior and pilot), FIFO, statistics,
+ring of delayed factors and diagnostics: a JAX ``PFState``
 with every leaf passed through ``np.asarray`` goes in through
 :func:`state_from_numpy`, and :func:`state_to_numpy` gives the port's state
 back as numpy arrays under the same field names.
@@ -24,8 +25,30 @@ def _get(d, name):
     return d[name] if isinstance(d, Mapping) else getattr(d, name)
 
 
-def trees_from_numpy(d, device) -> Trees:
-    """Trees from any object (or mapping) with parent/time/child0/child1."""
+def _opt(d, name):
+    """``_get``, or None where ``d`` lacks the field."""
+    return d.get(name) if isinstance(d, Mapping) else getattr(d, name, None)
+
+
+def trees_from_numpy(d, device, max_mig: int = 0) -> Trees:
+    """Trees from any object (or mapping) with parent/time/child0/child1.
+    Where it has migration buffers (``mig_time`` not None) they come too,
+    with ``pop``; ``max_mig`` > 0 gives a tree without buffers empty ones
+    of that capacity (a JAX tree of a -ej split without migration, for the
+    port's migration pass)."""
+    mt = _opt(d, "mig_time")
+    extra = {}
+    if mt is not None or max_mig:
+        pop = np.array(_get(d, "pop"), np.int32)
+        if mt is None:
+            mt = np.full(pop.shape + (max_mig,), 3e38, np.float32)
+            md = np.zeros(pop.shape + (max_mig,), np.int32)
+        else:
+            md = _get(d, "mig_dest")
+        extra = dict(
+            pop=torch.as_tensor(pop, device=device),
+            mig_time=torch.as_tensor(np.array(mt, np.float32), device=device),
+            mig_dest=torch.as_tensor(np.array(md, np.int32), device=device))
     return Trees(
         parent=torch.as_tensor(np.array(_get(d, "parent"), np.int32),
                                device=device),
@@ -35,23 +58,28 @@ def trees_from_numpy(d, device) -> Trees:
                                device=device),
         child1=torch.as_tensor(np.array(_get(d, "child1"), np.int32),
                                device=device),
+        **extra,
     )
 
 
 def trees_to_numpy(trees: Trees) -> dict:
-    """parent/time/child0/child1 as numpy, plus ``pop`` (all population 0)
-    so the dict fills the JAX ``Trees`` fields."""
-    out = {k: v.detach().cpu().numpy() for k, v in trees._asdict().items()}
-    out["pop"] = np.zeros_like(out["parent"])
+    """The tree arrays as numpy under the JAX ``Trees`` field names; a tree
+    of one population gets ``pop`` all 0 and no buffers."""
+    out = {k: (None if v is None else v.detach().cpu().numpy())
+           for k, v in trees._asdict().items()}
+    if out["pop"] is None:
+        out["pop"] = np.zeros_like(out["parent"])
     return out
 
 
-def state_from_numpy(d, device) -> PFState:
-    """PFState from a JAX ``PFState`` (or mapping) with numpy leaves."""
+def state_from_numpy(d, device, max_mig: int = 0) -> PFState:
+    """PFState from a JAX ``PFState`` (or mapping) with numpy leaves
+    (``max_mig`` as in :func:`trees_from_numpy`)."""
     f32 = lambda x: torch.as_tensor(np.array(x, np.float32),  # noqa: E731
                                     device=device)
+    diag = _opt(d, "diag")
     return PFState(
-        trees=trees_from_numpy(_get(d, "trees"), device),
+        trees=trees_from_numpy(_get(d, "trees"), device, max_mig),
         log_w=f32(_get(d, "log_w")),
         log_pilot=f32(_get(d, "log_pilot")),
         next_rec=f32(_get(d, "next_rec")),
@@ -68,6 +96,8 @@ def state_from_numpy(d, device) -> PFState:
         df_delta=f32(_get(d, "df_delta")),
         df_k=torch.as_tensor(np.array(_get(d, "df_k"), np.int32),
                              device=device),
+        diag=torch.as_tensor(np.zeros(2) if diag is None
+                             else np.array(diag, np.float64), device=device),
     )
 
 
@@ -84,8 +114,8 @@ def state_to_numpy(state: PFState) -> dict:
     return out
 
 
-def segment_from_numpy(seg, lags, device, xc_epochs=(), xr_epochs=()
-                       ) -> Segment:
+def segment_from_numpy(seg, lags, device, xc_epochs=(), xr_epochs=(),
+                       Pp: int = 1) -> Segment:
     """The port's ``Segment`` from the JAX step's segment ``(length,
     configs [C, n], n_configs, state, leaf_status, dist_mut)`` with numpy
     leaves: the first ``n_configs`` phase configurations, ``has_data`` from
@@ -95,6 +125,7 @@ def segment_from_numpy(seg, lags, device, xc_epochs=(), xr_epochs=()
         np.asarray(x) for x in seg)
     cf = torch.as_tensor(configs[:int(n_configs)].astype(np.int8),
                          device=device)
-    gate = fifo_gate_masks(dist_mut.reshape(1), lags, xc_epochs, xr_epochs)[0]
+    gate = fifo_gate_masks(dist_mut.reshape(1), lags, xc_epochs, xr_epochs,
+                           Pp)[0]
     return Segment(int(length), int(state), int(leaf_status), cf, cf[0] >= 0,
                    torch.as_tensor(gate, device=device))

@@ -27,6 +27,15 @@
 //                 alone (so no lane reads another's slots), and written
 //                 back only by lanes whose slots changed; the section table
 //                 and the delays sit beside the epoch tables.
+//                 A third variant is the migration pass (several
+//                 populations; the Pallas kernel refuses migration, and the
+//                 JAX package runs it through XLA, transition.py:1348):
+//                 each trip's re-coalescence is the lock-step loop walk with
+//                 migration (transition.py:339) on a Philox stream, and the
+//                 SPR routes the branches' migration-event buffers
+//                 (transition.py:1170); one thread per particle, see the
+//                 section "The migration pass" below.  Held against
+//                 kernels/migration.py through segment_pass_plain.
 //
 // What bounds it on Hopper: launch and latency, neither bytes nor FLOPs.
 // At the sweep's shape (10,000 particles, 4 leaves, 9 epochs, about one
@@ -84,7 +93,10 @@
 #define MAX_EPOCHS 64
 #define MAX_SECTIONS 8      // bias sections
 #define MAX_DELAY_SLOTS 32  // delayed factors per particle
+#define MAX_POPS 4          // populations of the migration pass
+#define MAX_MIG 96          // events per branch buffer (migration pass)
 #define BLOCK 128
+#define MIG_BLOCK 64        // threads (= particles) per migration block
 #define GROUP 8  // lanes that share one particle; divides 32
 #define BIG 3e38f
 
@@ -126,6 +138,18 @@ struct Args {
   const float* delays;           // [E] application delay by epoch
   int K, S, delay_type, delay_k;  // delay_type 0: keyed off h_r, 1: t_c
   float front;                   // the segment's start
+  // the migration segment_pass (pop == nullptr: another pass)
+  int* pop;               // [P, N] population at each node's time
+  float* mig_time;        // [P, N, Mw] branch events, ascending, BIG-padded
+  int* mig_dest;          // [P, N, Mw] their destinations, 0-padded
+  double* diag;           // [2] walks capped, events dropped
+  const int* key;         // [2] the segment's Philox key
+  const float* ne;        // [E, Pp]
+  const float* mig;       // [E, Pp, Pp]
+  const float* tot_mig;   // [E, Pp]
+  const int* pop_map;     // [E, Pp]
+  float* scratch;         // [P, K] each particle's statistics row
+  int Pp, Mw, max_events;
 };
 
 // per-block tables in shared memory, and the launch's scalars
@@ -836,6 +860,487 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   }
 }
 
+// ===========================================================================
+// The migration pass: one thread per particle.
+//
+// What bounds it: the chain of a walk, neither bytes nor operations.  At the
+// two-population path's shape (10,000 particles, 4 leaves, 8 epochs, 56
+// events per buffer) a launch has to move a few MB (trees, the buffer
+// events the walks read, the rows they change) and compute a few million
+// operations, well under 10 us of either; a launch lasts as long as its
+// longest chain of trips times events.
+//
+// A walk is a serial chain of events whose length differs from particle to
+// particle, so the variant gives each particle one thread and no group.
+// The tree (at most 15 nodes) and the walk's two event lists live in the
+// thread's local arrays; the branch buffers stay in device memory and are
+// read through per-branch cursors (the walk only moves up, so each event
+// advances them instead of counting N x Mw times); the statistics row
+// (3 E Pp + E Pp^2 + 2 E floats) is the particle's row of `scratch`.
+// Uniforms of the walk: Philox-4x32-10 under the segment's key, counter
+// (particle, trip, event, 0), 24 bits each; kernels/migration.py computes
+// the same numbers.  Follows kernels/migration.py step for step; summaries
+// are summed in node order per epoch.
+// ===========================================================================
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
+                                               unsigned k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ float u24(unsigned x) {
+  return (float)(x >> 8) * 0x1.0p-24f;
+}
+
+__device__ __forceinline__ int epoch_of(const float* est, int E, float t) {
+  int cnt = 0;
+  for (int e = 0; e < E; ++e) cnt += t >= est[e] ? 1 : 0;
+  return min(max(cnt - 1, 0), E - 1);
+}
+
+__device__ __forceinline__ int n_valid(const float* t, int len) {
+  int k = 0;
+  while (k < len && t[k] < BIG) ++k;
+  return k;
+}
+
+// The events of (t, d)[0, len) with lo <= t < hi, in order, into
+// (ot, od)[0, len), BIG/0-padded (transition.py:1107).
+__device__ void filter_events(const float* t, const int* d, int len, float lo,
+                              float hi, float* ot, int* od) {
+  int k = 0;
+  for (int j = 0; j < len; ++j) {
+    const float v = t[j];
+    if (v >= lo && v < hi && v < BIG) {
+      ot[k] = v;
+      od[k] = d[j];
+      ++k;
+    }
+  }
+  for (; k < len; ++k) {
+    ot[k] = BIG;
+    od[k] = 0;
+  }
+}
+
+// Merge two ascending BIG-padded lists into (ot, od)[0, M): by time, ties
+// to the first list; if more than M are valid, keep the M with the longest
+// hold (time to the next merged event, BIG for the last), of equal holds
+// the earlier (transition.py:1125).  (tt, td) hold the merged list.
+// Returns the number dropped.
+__device__ int merge_hold(const float* at, const int* ad, int la,
+                          const float* bt, const int* bd, int lb, int M,
+                          float* ot, int* od, float* tt, int* td) {
+  const int na = n_valid(at, la), nb = n_valid(bt, lb), nv = na + nb;
+  int ia = 0, ib = 0;
+  for (int k = 0; k < nv; ++k) {
+    if (ib >= nb || (ia < na && at[ia] <= bt[ib])) {
+      tt[k] = at[ia];
+      td[k] = ad[ia];
+      ++ia;
+    } else {
+      tt[k] = bt[ib];
+      td[k] = bd[ib];
+      ++ib;
+    }
+  }
+  int out = 0;
+  if (nv <= M) {
+    for (; out < nv; ++out) {
+      ot[out] = tt[out];
+      od[out] = td[out];
+    }
+  } else {
+    for (int i = 0; i < nv; ++i) {
+      const float h_i = (i + 1 < nv ? tt[i + 1] : BIG) - tt[i];
+      int before = 0;
+      for (int j = 0; j < nv && before < M; ++j) {
+        const float h_j = (j + 1 < nv ? tt[j + 1] : BIG) - tt[j];
+        if (h_j > h_i || (h_j == h_i && j < i)) ++before;
+      }
+      if (before < M) {
+        ot[out] = tt[i];
+        od[out] = td[i];
+        ++out;
+      }
+    }
+  }
+  for (; out < M; ++out) {
+    ot[out] = BIG;
+    od[out] = 0;
+  }
+  return nv > M ? nv - M : 0;
+}
+
+// tl, tle[E] and B of the tree in (tm, par) for the segment's leaf status
+__device__ void mig_summaries(const Args& a, const float* tm, const int* par,
+                              float* tle, float& tl, float& B) {
+  const int n = a.n, N = 2 * n - 1, E = a.E;
+  tl = 0.0f;
+  for (int e = 0; e < E; ++e) {
+    const float lo = a.epoch_start[e];
+    const float hi = e + 1 < E ? a.epoch_start[e + 1] : BIG;
+    float s = 0.0f;
+    for (int j = 0; j < N; ++j)
+      if (par[j] >= 0)
+        s += fmaxf(fminf(tm[par[j]], hi) - fmaxf(tm[j], lo), 0.0f);
+    tle[e] = s;
+    tl += s;
+  }
+  if (a.leaf_status == 1) {
+    B = tl;
+  } else if (a.leaf_status == -1) {
+    B = 0.0f;
+  } else {
+    int below[MAX_NODES];
+    for (int j = 0; j < N; ++j) below[j] = 0;
+    int total = 0;
+    for (int l = 0; l < n; ++l) {
+      if (!a.has_data[l]) continue;
+      ++total;
+      int cur = l;
+      for (int s = 0; s < n && cur >= 0; ++s) {
+        below[cur] |= 1 << l;
+        cur = par[cur];
+      }
+    }
+    float b = 0.0f;
+    for (int j = 0; j < N; ++j) {
+      if (par[j] < 0) continue;
+      const int cnt = __popc(below[j]);
+      if (cnt >= 1 && cnt < total) b += tm[par[j]] - tm[j];
+    }
+    B = b;
+  }
+}
+
+__global__ void __launch_bounds__(MIG_BLOCK)
+segment_pass_mig_kernel(const Args a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.P) return;
+  const int n = a.n, N = 2 * n - 1, E = a.E, Pp = a.Pp, Mw = a.Mw;
+  const int EP = E * Pp;
+  const int o_mig_opp = 2 * EP, o_coal_cnt = EP, o_mig_cnt = 3 * EP;
+  const int o_ropp = 3 * EP + EP * Pp, o_rcnt = o_ropp + E, K = o_rcnt + E;
+  const float* est = a.epoch_start;
+  const unsigned k0 = (unsigned)a.key[0], k1 = (unsigned)a.key[1];
+
+  float tm[MAX_NODES];
+  int par[MAX_NODES], ch0[MAX_NODES], ch1[MAX_NODES], pp[MAX_NODES];
+  for (int j = 0; j < N; ++j) {
+    const size_t at = (size_t)i * N + j;
+    tm[j] = a.time[at];
+    par[j] = a.parent[at];
+    ch0[j] = a.child0[at];
+    ch1[j] = a.child1[at];
+    pp[j] = a.pop[at];
+  }
+  float* MT = a.mig_time + (size_t)i * N * Mw;
+  int* MD = a.mig_dest + (size_t)i * N * Mw;
+  float* pend = a.scratch + (size_t)i * K;
+  for (int k = 0; k < K; ++k) pend[k] = 0.0f;
+  float nr = a.next_rec[i], lw = a.log_w[i], up = 0.0f;
+  float tle[MAX_EPOCHS];
+  float tl, B;
+  mig_summaries(a, tm, par, tle, tl, B);
+
+  // the walk's two lists, and three rows' worth of routing temporaries
+  float ev_t[2 * MAX_MIG], rev_t[2 * MAX_MIG];
+  int ev_d[2 * MAX_MIG], rev_d[2 * MAX_MIG];
+  float r1_t[MAX_MIG], r2_t[MAX_MIG], r3_t[MAX_MIG], mg_t[3 * MAX_MIG];
+  int r1_d[MAX_MIG], r2_d[MAX_MIG], r3_d[MAX_MIG], mg_d[3 * MAX_MIG];
+  int cursor[MAX_NODES];
+  bool moved = false;
+  float capped = 0.0f, dropped = 0.0f;
+
+  for (int k = 0; k < a.trips; ++k) {
+    if (!(nr < a.L)) break;
+    const float4 u = load_uniforms(a, k, i);
+    const float u_pt = clip_u(u.x), u_gap = clip_u(u.w);
+
+    // ---- extension ------------------------------------------------------
+    const float delta = nr - up;
+    lw = lw - a.mu * B * delta;
+    for (int e = 0; e < E; ++e) pend[o_ropp + e] += delta * tle[e];
+
+    // ---- uniform point: running sum of branch lengths in node order -----
+    float total = 0.0f;
+    for (int j = 0; j < N; ++j)
+      total += par[j] >= 0 ? tm[par[j]] - tm[j] : 0.0f;
+    const float x_pt = u_pt * total;
+    int c = -1;
+    float cum = 0.0f, prev = 0.0f;
+    for (int j = 0; j < N; ++j) {
+      const float bl = par[j] >= 0 ? tm[par[j]] - tm[j] : 0.0f;
+      const float before = cum;
+      cum += bl;
+      if (c < 0 && cum >= x_pt) {
+        c = j;
+        prev = before;
+      }
+    }
+    if (c < 0) {
+      c = N - 1;
+      prev = cum - (par[N - 1] >= 0 ? tm[par[N - 1]] - tm[N - 1] : 0.0f);
+    }
+    const float h_r = tm[c] + (x_pt - prev);
+
+    // ---- the loop walk from (c, h_r) --------------------------------------
+    int root = 0;
+    for (int j = N - 1; j >= 0; --j)
+      if (par[j] < 0) root = j;
+    const float root_h = tm[root];
+    for (int j = 0; j < N; ++j) {
+      int q = 0;
+      while (q < Mw && MT[j * Mw + q] <= h_r) ++q;
+      cursor[j] = q;
+    }
+    int p_raw = cursor[c] > 0 ? MD[c * Mw + cursor[c] - 1] : pp[c];
+    int r_raw = pp[root];
+    float tt = h_r, t_c = 0.0f;
+    int d = -1, fpop = 0, n_ev = 0, n_rev = 0;
+    bool done = false;
+    for (int ev = 0; ev < a.max_events && !done; ++ev) {
+      const uint4 w = philox4x32_10(
+          make_uint4((unsigned)i, (unsigned)k, (unsigned)ev, 0u), k0, k1);
+      const int e = epoch_of(est, E, tt);
+      const int* pm = a.pop_map + e * Pp;
+      const int p_cur = pm[p_raw], r_cur = pm[r_raw];
+      const bool above = tt >= root_h;
+      int kc = 0;
+      float t_bk = BIG;
+      for (int j = 0; j < N; ++j) {
+        int q = cursor[j];
+        while (q < Mw && MT[j * Mw + q] <= tt) ++q;
+        cursor[j] = q;
+        const float ptj = par[j] < 0 ? BIG : tm[par[j]];
+        const int bp = j == root ? r_cur : pm[q > 0 ? MD[j * Mw + q - 1]
+                                                    : pp[j]];
+        if (tm[j] <= tt && tt < ptj && bp == p_cur) ++kc;
+        if (tm[j] > tt) t_bk = fminf(t_bk, tm[j]);
+        if (q < Mw) t_bk = fminf(t_bk, MT[j * Mw + q]);
+      }
+      for (int e2 = 0; e2 < E; ++e2)
+        if (est[e2] > tt) t_bk = fminf(t_bk, est[e2]);
+      const float k_same = (float)kc;
+      const float coal_rate = k_same / (2.0f * a.ne[e * Pp + p_cur]);
+      const float mig_rate = a.tot_mig[e * Pp + p_cur];
+      const float root_rate = above ? a.tot_mig[e * Pp + r_cur] : 0.0f;
+      const float rate = coal_rate + mig_rate + root_rate;
+      const float u_dt = clip_u(u24(w.x));
+      const float dt = rate > 0.0f ? -log1pf(-u_dt) / fmaxf(rate, 1e-30f)
+                                   : BIG;
+      const bool hit_bk = tt + dt >= t_bk;
+      const float t_next = fminf(tt + dt, t_bk);
+      float span = fmaxf(t_next - tt, 0.0f);
+      if (!isfinite(span)) span = 0.0f;
+      pend[e * Pp + p_cur] += k_same * span;
+      pend[o_mig_opp + e * Pp + p_cur] += span;
+      if (above) pend[o_mig_opp + e * Pp + r_cur] += span;
+
+      const float x = u24(w.y) * rate;
+      const bool is_coal = !hit_bk && x < coal_rate;
+      const bool is_fm = !hit_bk && !is_coal && x < coal_rate + mig_rate;
+      const bool is_rm = !hit_bk && !is_coal && !is_fm;
+      if (is_coal) {
+        const int r = (int)floorf(u24(w.z) * (float)max(kc, 1));
+        int seen = -1, dn = 0;
+        bool found = false;
+        for (int j = 0; j < N; ++j) {
+          const int q = cursor[j];
+          const float ptj = par[j] < 0 ? BIG : tm[par[j]];
+          const int bp = j == root ? r_cur : pm[q > 0 ? MD[j * Mw + q - 1]
+                                                      : pp[j]];
+          if (tm[j] <= tt && tt < ptj && bp == p_cur) {
+            ++seen;
+            if (!found && seen == r) {
+              dn = j;
+              found = true;
+            }
+          }
+        }
+        pend[o_coal_cnt + e * Pp + p_cur] += 1.0f;
+        done = true;
+        t_c = t_next;
+        d = dn;
+        fpop = p_cur;
+      } else if (is_fm || is_rm) {
+        const int mover = is_rm ? r_cur : p_cur;
+        const float* wr = a.mig + ((size_t)e * Pp + mover) * Pp;
+        float wtot = 0.0f;
+        for (int q = 0; q < Pp; ++q) wtot += wr[q];
+        const float xd = u24(w.w) * wtot;
+        float cw = 0.0f;
+        int dest = -1, last = 0;
+        for (int q = 0; q < Pp; ++q) {
+          cw += wr[q];
+          if (wr[q] > 0.0f) last = q;
+          if (dest < 0 && cw > xd) dest = q;
+        }
+        if (dest < 0) dest = last;
+        pend[o_mig_cnt + (e * Pp + mover) * Pp + dest] += 1.0f;
+        if (is_fm) {
+          const int slot = min(n_ev, 2 * Mw - 1);
+          ev_t[slot] = t_next;
+          ev_d[slot] = dest;
+          ++n_ev;
+          p_raw = dest;
+        } else {
+          const int slot = min(n_rev, 2 * Mw - 1);
+          rev_t[slot] = t_next;
+          rev_d[slot] = dest;
+          ++n_rev;
+          r_raw = dest;
+        }
+      }
+      tt = t_next;
+    }
+    if (!done) {  // capped: coalesce onto the root lineage
+      float hmax = tm[0];
+      for (int j = 1; j < N; ++j) hmax = fmaxf(hmax, tm[j]);
+      d = root;
+      t_c = fmaxf(tt, hmax);
+      fpop = r_raw;
+      capped += 1.0f;
+    }
+    for (int q = min(n_ev, 2 * Mw); q < 2 * Mw; ++q) {
+      ev_t[q] = BIG;
+      ev_d[q] = 0;
+    }
+    for (int q = min(n_rev, 2 * Mw); q < 2 * Mw; ++q) {
+      rev_t[q] = BIG;
+      rev_d[q] = 0;
+    }
+    pend[o_rcnt + epoch_of(est, E, h_r)] += 1.0f;
+
+    // ---- the SPR with buffer routing --------------------------------------
+#define PICK(arr, idx) ((idx) >= 0 ? (arr)[(idx)] : 0)
+    const int p = PICK(par, c);
+    const int sib0 = PICK(ch0, p), sib1 = PICK(ch1, p);
+    const int o = sib0 == c ? sib1 : sib0;
+    const int g = PICK(par, p);
+    const int d_eff = d == p ? o : d;
+    const int gp = d_eff == o ? g : PICK(par, d_eff);
+#undef PICK
+    // c's events below h_r, then the walk's
+    filter_events(MT + c * Mw, MD + c * Mw, Mw, -BIG, h_r, r2_t, r2_d);
+    int drop = merge_hold(r2_t, r2_d, Mw, ev_t, ev_d, 2 * Mw, Mw, r1_t, r1_d,
+                          mg_t, mg_d);
+    if (d == c) {
+      // self-coalescence: c's events in [h_r, t_c) become the walk's
+      filter_events(MT + c * Mw, MD + c * Mw, Mw, t_c, BIG, r2_t, r2_d);
+      drop += merge_hold(r1_t, r1_d, Mw, r2_t, r2_d, Mw, Mw, r3_t, r3_d, mg_t,
+                         mg_d);
+      for (int q = 0; q < Mw; ++q) {
+        MT[c * Mw + q] = r3_t[q];
+        MD[c * Mw + q] = r3_d[q];
+      }
+    } else {
+      // o's merged branch: o's events and p's
+      drop += merge_hold(MT + o * Mw, MD + o * Mw, Mw, MT + p * Mw,
+                         MD + p * Mw, Mw, Mw, r2_t, r2_d, mg_t, mg_d);
+      // the target's branch (the merged one if d_eff == o), with the root
+      // lineage's events when the target is the old root; split at t_c
+      const float* src_t = d_eff == o ? r2_t : MT + d_eff * Mw;
+      const int* src_d = d_eff == o ? r2_d : MD + d_eff * Mw;
+      if (d == root || d_eff == root) {
+        drop += merge_hold(src_t, src_d, Mw, rev_t, rev_d, 2 * Mw, Mw, r3_t,
+                           r3_d, mg_t, mg_d);
+      } else {
+        for (int q = 0; q < Mw; ++q) {
+          r3_t[q] = src_t[q];
+          r3_d[q] = src_d[q];
+        }
+      }
+      if (o != d_eff) {
+        for (int q = 0; q < Mw; ++q) {
+          MT[o * Mw + q] = r2_t[q];
+          MD[o * Mw + q] = r2_d[q];
+        }
+      }
+      filter_events(r3_t, r3_d, Mw, -BIG, t_c, MT + d_eff * Mw,
+                    MD + d_eff * Mw);
+      filter_events(r3_t, r3_d, Mw, t_c, BIG, MT + p * Mw, MD + p * Mw);
+      for (int q = 0; q < Mw; ++q) {
+        MT[c * Mw + q] = r1_t[q];
+        MD[c * Mw + q] = r1_d[q];
+      }
+      // the topology, as the plain pass edits it
+      if (o >= 0) par[o] = g;
+      if (d_eff >= 0) par[d_eff] = p;
+      if (p >= 0) par[p] = gp;
+      if (g >= 0) {
+        if (ch0[g] == p) ch0[g] = o;
+        if (ch1[g] == p) ch1[g] = o;
+      }
+      if (p >= 0) {
+        ch0[p] = c;
+        ch1[p] = d_eff;
+      }
+      if (gp >= 0) {
+        if (ch0[gp] == d_eff) ch0[gp] = p;
+        if (ch1[gp] == d_eff) ch1[gp] = p;
+      }
+      if (p >= 0) {
+        tm[p] = t_c;
+        pp[p] = fpop;
+      }
+    }
+    dropped += (float)drop;
+    // the new root's row holds nothing: the path above it is drawn afresh
+    int root_f = 0;
+    for (int j = N - 1; j >= 0; --j)
+      if (par[j] < 0) root_f = j;
+    for (int q = 0; q < Mw; ++q) {
+      MT[root_f * Mw + q] = BIG;
+      MD[root_f * Mw + q] = 0;
+    }
+
+    // ---- refreshed summaries, then the next gap ---------------------------
+    mig_summaries(a, tm, par, tle, tl, B);
+    const float gap = -log1pf(-u_gap) / fmaxf(a.rho * tl, 1e-30f);
+    up = nr;
+    nr = nr + gap;
+    moved = true;
+  }
+
+  // ---- final extension to the segment end, push into FIFO slot 0 --------
+  const float delta = a.L - up;
+  lw = lw - a.mu * B * delta;
+  for (int e = 0; e < E; ++e) pend[o_ropp + e] += delta * tle[e];
+  nr = nr - a.L;
+  float* slot = a.fifo + (size_t)i * a.fifo_stride;
+  for (int k = 0; k < K; ++k) {
+    const float v = pend[k] * a.fifo_mask[k];
+    if (v != 0.0f) slot[k] += v;
+  }
+  if (moved) {
+    for (int j = 0; j < N; ++j) {
+      const size_t at = (size_t)i * N + j;
+      a.time[at] = tm[j];
+      a.parent[at] = par[j];
+      a.child0[at] = ch0[j];
+      a.child1[at] = ch1[j];
+      a.pop[at] = pp[j];
+    }
+  }
+  if (capped > 0.0f) atomicAdd(&a.diag[0], (double)capped);
+  if (dropped > 0.0f) atomicAdd(&a.diag[1], (double)dropped);
+  a.next_rec[i] = nr;
+  a.log_w[i] = lw;
+  a.tl_out[i] = tl;
+}
+
 __global__ void noop_kernel() {}
 
 template <typename Kernel>
@@ -872,6 +1377,15 @@ int dispatch(const Args& a, bool segment, void* stream) {
   if (a.n < 2 || a.n > MAX_LEAVES || a.E < 1 || a.E > MAX_EPOCHS
       || a.trips < 0)
     return (int)cudaErrorInvalidValue;
+  if (a.pop != nullptr) {  // the migration pass
+    if (!segment || a.log_pilot != nullptr || a.Pp < 1 || a.Pp > MAX_POPS
+        || a.Mw < 1 || a.Mw > MAX_MIG || a.max_events < 1)
+      return (int)cudaErrorInvalidValue;
+    if (a.P <= 0) return 0;
+    const dim3 grid((unsigned)((a.P + MIG_BLOCK - 1) / MIG_BLOCK));
+    segment_pass_mig_kernel<<<grid, MIG_BLOCK, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+  }
   if (a.log_pilot != nullptr
       && (a.K < 1 || a.K > MAX_DELAY_SLOTS || a.S < 1 || a.S > MAX_SECTIONS
           || a.delay_k < 1 || a.delay_k > 30))
@@ -927,7 +1441,10 @@ extern "C" int smc_segment_pass_launch(
     float* df_pos, float* df_logf, float* df_delta, int* df_k,
     const float* bias_heights, const float* bias_strengths,
     const float* delays, int K, int S, float front, int delay_type,
-    int delay_k, void* stream) {
+    int delay_k, int* pop, float* mig_time, int* mig_dest, double* diag,
+    const int* key, const float* ne, const float* mig, const float* tot_mig,
+    const int* pop_map, float* scratch, int Pp, int Mw, int max_events,
+    void* stream) {
   if (F < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.uniforms = uniforms;
@@ -949,7 +1466,9 @@ extern "C" int smc_segment_pass_launch(
   a.inv2ne = inv2ne;
   a.has_data = has_data;
   a.fifo = fifo;
-  a.fifo_stride = (long long)F * 6 * E;
+  a.fifo_stride = (long long)F * (pop != nullptr
+                                    ? 3 * E * Pp + E * Pp * Pp + 2 * E
+                                    : 6 * E);
   a.fifo_mask = fifo_mask;
   a.tl_out = tl_out;
   a.log_pilot = log_pilot;
@@ -965,6 +1484,19 @@ extern "C" int smc_segment_pass_launch(
   a.front = front;
   a.delay_type = delay_type;
   a.delay_k = delay_k;
+  a.pop = pop;
+  a.mig_time = mig_time;
+  a.mig_dest = mig_dest;
+  a.diag = diag;
+  a.key = key;
+  a.ne = ne;
+  a.mig = mig;
+  a.tot_mig = tot_mig;
+  a.pop_map = pop_map;
+  a.scratch = scratch;
+  a.Pp = Pp;
+  a.Mw = Mw;
+  a.max_events = max_events;
   return dispatch(a, true, stream);
 }
 

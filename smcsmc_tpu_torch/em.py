@@ -5,8 +5,9 @@ The numpy-only helpers ``prior_pseudostats``, ``_leaf_status``,
 ``_phase_configs``, the host half of ``prepare_blocks``, ``sum_stats``,
 ``_stats_from_outdata`` and ``m_step`` (without its VB branch) are copied
 from ``smcsmc_tpu/em.py``: the port imports nothing of the JAX package.
-Not ported yet (ROADMAP queue 1): online EM, the multi-process chunk
-partition, VB, guide, APF, migration sweeps and ARG recording.
+``_auto_mig_buffer`` is copied too.  Not ported yet (ROADMAP queue 1):
+online EM, the multi-process chunk partition, VB, guide, APF and ARG
+recording.
 """
 
 from __future__ import annotations
@@ -113,7 +114,38 @@ class EMConfig:
     # of CHECK_EVERY segments; a re-run of the same chunk resumes from the
     # last checkpoint.  0 = off.
     checkpoint_blocks: int = 0
+    # per-branch migration-event capacity (-migbuf; 0 = sized from the
+    # demography by _auto_mig_buffer)
+    mig_buffer: int = 0
     device: str = "cuda"
+
+
+def _auto_mig_buffer(demo: Demography) -> int:
+    """Size the per-branch migration-event buffers so they rarely saturate
+    (saturation triggers hold-based event dropping — an approximation that
+    is counted in the chunk diagnostics).  Expected events per branch ~
+    (total out-migration rate) x (tree-height scale); generous multiple for
+    the tail and for the pairwise above-root excursions."""
+    m_out = float(np.max(np.sum(demo.mig_rates, axis=2)))
+    ne_max = float(np.max(demo.pop_sizes))
+    t_scale = float(np.max(demo.change_times)) + 4.0 * ne_max
+    expect = m_out * t_scale
+    return int(np.clip(8 * np.ceil((6.0 * expect + 8.0) / 8.0), 16, 96))
+
+
+def refuse_unported(demo: Demography, cfg: EMConfig) -> None:
+    """Raise NotImplementedError for the combinations with several
+    populations that the port does not run (ROADMAP queue 1, item 15):
+    height bias or calibrated lags with structure or migration."""
+    structured = demo.num_populations > 1 or bool(np.any(demo.mig_rates > 0))
+    if structured and cfg.bias_heights:
+        raise NotImplementedError(
+            "-bias_heights with several populations or migration is not in "
+            "the torch port (ROADMAP queue 1, item 15)")
+    if structured and cfg.calibrate_lag:
+        raise NotImplementedError(
+            "-calibrate_lag with several populations is not in the torch "
+            "port (ROADMAP queue 1, item 15)")
 
 
 def prior_pseudostats(demo: Demography):
@@ -208,12 +240,14 @@ class ChunkSegments:
 
 def prepare_segments(seg: SegData, chunk_start: int, lags, device,
                      max_configs: int = 1, dephase: bool = False,
-                     xc_epochs=(), xr_epochs=()) -> ChunkSegments:
+                     xc_epochs=(), xr_epochs=(), Pp: int = 1
+                     ) -> ChunkSegments:
     """Host half of ``smcsmc_tpu.em.prepare_blocks`` (without its block
     padding): chunk-relative lengths (first segment clipped to the chunk),
     leaf status, phase configurations (``max_configs`` > 1 enables the
     marginalisation over unphased genotypes), distance to the next
-    informative site and the recording gate."""
+    informative site and the recording gate (in the statistics layout of
+    ``Pp`` populations)."""
     lengths = seg.lengths.astype(np.int64)
     alleles = seg.alleles.astype(np.int8)
     states = seg.states.astype(np.int8)
@@ -233,7 +267,7 @@ def prepare_segments(seg: SegData, chunk_start: int, lags, device,
     dist_mut = np.minimum(
         next_site - seg.positions.astype(np.float64), 1e30
     ).astype(np.float32)
-    gate = fifo_gate_masks(dist_mut, lags, xc_epochs, xr_epochs)
+    gate = fifo_gate_masks(dist_mut, lags, xc_epochs, xr_epochs, Pp)
     return ChunkSegments(
         lengths=lengths, states=states, leaf_status=leaf_status,
         dist_mut=dist_mut, n_configs=n_configs,
@@ -270,6 +304,7 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     max_seg_len = 2.0 / max(4.0 * demo.n0 * demo.recombination_rate, 1e-30)
     seg = split_long_segments(seg, max_seg_len)
 
+    refuse_unported(demo, cfg)
     epochs = epochs_from_demography(demo, dev)
     bias_strengths = cfg.bias_strengths
     if cfg.bias_heights and not bias_strengths:
@@ -283,6 +318,8 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
         use_bias=bool(bias_strengths) and any(s != 1.0
                                               for s in bias_strengths),
         delay_type=cfg.delay_type,
+        has_migration=epochs.structured,
+        max_mig=cfg.mig_buffer or _auto_mig_buffer(demo),
     )
     rho = demo.recombination_rate
     delays = None
@@ -320,7 +357,8 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
                        sample_time=demo.sample_times)
     segs = prepare_segments(seg, chunk_start, lags, dev,
                             max_configs=max_configs, dephase=cfg.dephase,
-                            xc_epochs=cfg.xc_epochs, xr_epochs=cfg.xr_epochs)
+                            xc_epochs=cfg.xc_epochs, xr_epochs=cfg.xr_epochs,
+                            Pp=demo.num_populations)
     step = make_segment_step(pfcfg, epochs, demo.mutation_rate, rho, lags, gen,
                              **bias)
     return Sweep(state, segs, step, chunk_start, gen)
@@ -388,7 +426,16 @@ def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
 
     stats = host(state.stats, pseudo)
     stats_wt = host(state.stats_wt, SuffStats(*(np.ones_like(p) for p in pseudo)))
+    capped, dropped = (float(x) for x in state.diag.cpu())
+    if capped or dropped:
+        logger.warning(
+            "approximation pressure in chunk: %d migration walks hit "
+            "max_walk_events, %d migration events dropped on buffer overflow "
+            "(max_mig=%d) — consider raising -migbuf", int(capped),
+            int(dropped), cfg.mig_buffer or _auto_mig_buffer(demo))
     diag = {
+        "walks_capped": capped,
+        "mig_events_dropped": dropped,
         "num_resamples": state.num_resamples,
         "ess": ess_trace,
         "resample_rows": resample_rows,

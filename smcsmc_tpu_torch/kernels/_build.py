@@ -99,6 +99,11 @@ def load_trip_library() -> ctypes.CDLL:
         # slots K, sections S, front, delay type, delay k
         vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, cf, ci, ci,
+        # the migration pass (all 0 otherwise): pop, mig_time, mig_dest,
+        # diag, key, ne, mig, tot_mig, pop_map, scratch; populations Pp,
+        # buffer capacity Mw, walk event bound
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        ci, ci, ci,
         vp,  # stream
     ]
     lib.smc_segment_pass_launch.restype = ci

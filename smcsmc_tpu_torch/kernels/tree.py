@@ -21,16 +21,27 @@ _MAX_EVENTS = 256  # event bound of the initial-tree walk (JAX max_iters)
 
 
 class Trees(NamedTuple):
-    """Batched genealogy state (single population, no migration buffers).
+    """Batched genealogy state.
 
     parent, child0, child1 : [P, N] int32 (-1 at the root / for leaves)
     time                   : [P, N] float32 node heights (generations)
+    pop                    : [P, N] int32 population of the lineage at the
+                             node's own time (None: one population)
+    mig_time               : [P, N, Mw] float32 migration events on the
+                             branch above each node, ascending, INF-padded
+    mig_dest               : [P, N, Mw] int32 destination population of
+                             each event (backwards in time), 0 as padding
+    The last three are None for a model of one population, as the JAX
+    package's ``max_mig=0`` omits them.
     """
 
     parent: torch.Tensor
     time: torch.Tensor
     child0: torch.Tensor
     child1: torch.Tensor
+    pop: torch.Tensor | None = None
+    mig_time: torch.Tensor | None = None
+    mig_dest: torch.Tensor | None = None
 
     @property
     def num_nodes(self) -> int:
@@ -42,14 +53,18 @@ class Trees(NamedTuple):
 
 
 class Epochs(NamedTuple):
-    """Device-side piecewise-constant demography of one population.
+    """Device-side piecewise-constant demography.
 
-    start : [E] float32 epoch start times, start[0] == 0
-    ne    : [E, 1] float32 diploid population sizes
+    start   : [E] float32 epoch start times, start[0] == 0
+    ne      : [E, Pp] float32 diploid population sizes
+    mig     : [E, Pp, Pp] float32 backwards migration rates per generation
+    pop_map : [E, Pp] int32 population relabelling per epoch (-ej splits)
     """
 
     start: torch.Tensor
     ne: torch.Tensor
+    mig: torch.Tensor | None = None
+    pop_map: torch.Tensor | None = None
 
     @property
     def num_epochs(self) -> int:
@@ -66,25 +81,44 @@ class Epochs(NamedTuple):
 
     @property
     def inv2ne(self) -> torch.Tensor:
-        """[E] coalescence rate per lineage pair, 1 / (2 Ne)."""
+        """[E] coalescence rate per lineage pair of population 0,
+        1 / (2 Ne)."""
         return 1.0 / (2.0 * self.ne[:, 0])
+
+    @property
+    def structured(self) -> bool:
+        """More than one population: the sweep runs the migration walk."""
+        return self.num_pops > 1
 
 
 def epochs_from_demography(demo, device) -> Epochs:
-    """Build device Epochs from a host ``demography.Demography``.
+    """Build device Epochs from a host ``demography.Demography``
+    (tree.py:117 of the JAX package)."""
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=device)
 
-    Raises NotImplementedError for structured models: the port covers one
-    population without migration."""
-    if demo.num_populations != 1 or np.any(demo.mig_rates > 0):
-        raise NotImplementedError(
-            "the torch port supports one population without migration "
-            "(ROADMAP queue 1, migration)"
-        )
     return Epochs(
-        start=torch.as_tensor(demo.change_times, dtype=torch.float32,
-                              device=device),
-        ne=torch.as_tensor(demo.pop_sizes, dtype=torch.float32, device=device),
+        start=f32(demo.change_times),
+        ne=f32(demo.pop_sizes),
+        mig=f32(demo.mig_rates),
+        pop_map=torch.as_tensor(np.asarray(demo.pop_map_at_epoch()),
+                                dtype=torch.int32, device=device),
     )
+
+
+def branch_pop_at(pop: torch.Tensor, mig_time: torch.Tensor,
+                  mig_dest: torch.Tensor, pop_map_e: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+    """[P, N] population of each branch at times ``t`` [P]: the branch's
+    own population after its migration events at or below t, relabelled by
+    the epoch's ``pop_map_e`` [P, Pp] (tree.py:67)."""
+    if mig_time is None:
+        return pop_map_e.gather(1, pop.long())
+    k = (mig_time <= t[:, None, None]).sum(dim=2)  # [P, N] events applied
+    last = mig_dest.gather(2, (k - 1).clamp(min=0)[:, :, None].long())[..., 0]
+    last = torch.where(k > 0, last, pop)
+    return pop_map_e.gather(1, last.long())
 
 
 def _pick(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -183,16 +217,19 @@ def make_initial_trees(
     num_particles: int,
     sample_pop,
     sample_time=None,
+    max_mig: int = 0,
 ) -> Trees:
     """Draw the initial genealogies at sequence position 0 by an
     event-driven coalescent walk over {epoch boundary, sample activation,
     coalescence}, all particles advancing together; the loop ends when no
-    particle has more than one lineage left (one host read per event)."""
-    if epochs.num_pops != 1:
-        raise NotImplementedError(
-            "make_initial_trees supports one population (ROADMAP queue 1, "
-            "migration)"
-        )
+    particle has more than one lineage left (one host read per event).
+
+    A structured model (several populations) takes
+    :func:`_make_structured_trees` instead, which also walks migrations and
+    records them in per-branch buffers of ``max_mig`` events."""
+    if epochs.num_pops != 1 or max_mig:
+        return _make_structured_trees(generator, epochs, num_particles,
+                                      sample_pop, sample_time, max_mig)
     dev = epochs.start.device
     sample_pop = np.asarray(sample_pop)
     n = int(sample_pop.shape[0])
@@ -272,3 +309,151 @@ def make_initial_trees(
         alive = alive | act
         t = torch.where(go, t_new, t)
     return Trees(parent=parent, time=time, child0=child0, child1=child1)
+
+
+def _categorical(weights: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """[P] index drawn with probability proportional to ``weights`` [P, K]
+    by inverting their running sum at ``u * total`` (the first index whose
+    running sum exceeds it; the last one of positive weight if rounding
+    leaves none)."""
+    cum = weights.cumsum(dim=1)
+    x = u * cum[:, -1]
+    hit = cum > x[:, None]
+    K = weights.shape[1]
+    cols = torch.arange(K, device=weights.device)
+    last_pos = torch.where(weights > 0, cols, -1).max(dim=1).values
+    first = torch.where(hit, cols, K).min(dim=1).values
+    return torch.where(first < K, first, last_pos.clamp(min=0))
+
+
+def _make_structured_trees(generator, epochs: Epochs, P: int, sample_pop,
+                           sample_time, max_mig: int) -> Trees:
+    """``make_initial_trees`` of a structured model (tree.py:355-548 of the
+    JAX package): an event-driven walk over {epoch boundary, sample
+    activation, migration, coalescence within a population}, population
+    labels folded by the epoch's ``pop_map``; each lineage's migrations go
+    into the buffer of the branch it is on (the last slot is overwritten
+    once ``max_mig`` are full).  The event and the destination of a
+    migration are drawn by inverting running sums of their rates."""
+    dev = epochs.start.device
+    sample_pop = torch.as_tensor(np.asarray(sample_pop), dtype=torch.int32,
+                                 device=dev)
+    n = int(sample_pop.shape[0])
+    if sample_time is None:
+        sample_time = np.zeros(n)
+    st = torch.as_tensor(np.asarray(sample_time), dtype=torch.float32,
+                         device=dev)
+    N, E, Pp = 2 * n - 1, epochs.num_epochs, epochs.num_pops
+    f32, i32 = torch.float32, torch.int32
+    Mw = max(int(max_mig), 1)
+    mig, pop_map = epochs.mig, epochs.pop_map
+    tot_mig = mig.sum(dim=2)  # [E, Pp] total out-rate
+
+    parent = torch.full((P, N), NO_NODE, dtype=i32, device=dev)
+    child0 = torch.full((P, N), NO_NODE, dtype=i32, device=dev)
+    child1 = torch.full((P, N), NO_NODE, dtype=i32, device=dev)
+    time = torch.cat([st, torch.zeros(n - 1, device=dev)]).expand(P, N).clone()
+    pop = torch.cat([sample_pop, torch.zeros(n - 1, dtype=i32, device=dev)]
+                    ).expand(P, N).clone()
+    node_id = torch.arange(n, dtype=i32, device=dev).expand(P, n).clone()
+    alive = (st <= 0.0).expand(P, n).clone()
+    cur_pop = sample_pop.expand(P, n).clone()
+    mig_time = torch.full((P, N, Mw), INF, dtype=f32, device=dev)
+    mig_dest = torch.zeros((P, N, Mw), dtype=i32, device=dev)
+    t = torch.zeros(P, dtype=f32, device=dev)
+    next_id = torch.full((P,), n, dtype=i32, device=dev)
+    rows = torch.arange(P, device=dev)
+    cols_N = torch.arange(N, device=dev)
+    cols_n = torch.arange(n, device=dev)
+    cols_M = torch.arange(Mw, device=dev)
+    pops = torch.arange(Pp, device=dev)
+    inf = torch.tensor(INF, dtype=f32, device=dev)
+
+    def live():
+        pending = (st[None, :] > t[:, None]).sum(dim=1)
+        return (alive.sum(dim=1) + pending) > 1
+
+    def uniform(lo=0.0, hi=1.0):
+        return torch.rand(P, generator=generator, device=dev) * (hi - lo) + lo
+
+    for _ in range(_MAX_EVENTS):
+        go = live()
+        if not bool(go.any()):
+            break
+        e = (torch.searchsorted(epochs.start, t, right=True) - 1).clamp(0, E - 1)
+        pm = pop_map[e]  # [P, Pp]
+        mapped = torch.where(alive, pm.gather(1, cur_pop.long()),
+                             torch.full_like(cur_pop, -1))  # [P, n]
+        counts = (mapped[:, None, :] == pops[None, :, None]).sum(dim=2).to(f32)
+        coal_rates = counts * (counts - 1.0) / 2.0 / (2.0 * epochs.ne[e])
+        lin_mig = torch.where(
+            alive, tot_mig[e].gather(1, mapped.clamp(min=0).long()),
+            torch.zeros((), device=dev))  # [P, n]
+        total = coal_rates.sum(dim=1) + lin_mig.sum(dim=1)
+        e_end = torch.where(e + 1 < E, epochs.start[(e + 1).clamp(max=E - 1)],
+                            inf)
+        future = torch.where(st[None, :] > t[:, None], st[None, :], inf)
+        t_bk = torch.minimum(e_end, future.min(dim=1).values)
+        u = uniform(1e-7, 1.0 - 1e-7)
+        dt = torch.where(total > 0,
+                         -torch.log1p(-u) / total.clamp(min=1e-30), inf)
+        hit_bk = t + dt >= t_bk
+        t_new = torch.where(hit_bk, t_bk, t + dt)
+
+        # ---- event: coalescence in a population or one lineage migrating
+        idx = _categorical(torch.cat([coal_rates, lin_mig], dim=1), uniform())
+        is_coal = idx < Pp
+
+        # ---- coalescence of two lineages of population cpop ---------------
+        cpop = idx.clamp(0, Pp - 1).to(i32)
+        in_pop = (mapped == cpop[:, None]) & alive
+        m = in_pop.sum(dim=1)
+        r1 = torch.floor(uniform() * m.clamp(min=1)).to(i32)
+        r2 = torch.floor(uniform() * (m - 1).clamp(min=1)).to(i32)
+        r2 = torch.where(r2 >= r1, r2 + 1, r2)
+        csum = in_pop.to(i32).cumsum(dim=1) - 1
+        slot1 = ((csum == r1[:, None]) & in_pop).to(i32).argmax(dim=1)
+        slot2 = ((csum == r2[:, None]) & in_pop).to(i32).argmax(dim=1)
+        a = node_id.gather(1, slot1[:, None])[:, 0]
+        b = node_id.gather(1, slot2[:, None])[:, 0]
+        do = go & ~hit_bk & is_coal & (m >= 2)
+
+        # ---- migration of one lineage (drawn before any update) -----------
+        do_mig = go & ~hit_bk & ~is_coal
+        slot = (idx - Pp).clamp(0, n - 1)
+        src = pm.gather(1, cur_pop.gather(1, slot[:, None]).long())[:, 0]
+        dest = _categorical(mig[e, src], uniform()).to(i32)
+        moving = node_id.gather(1, slot[:, None])[:, 0].long()
+        row = mig_time[rows, moving]  # [P, Mw]
+        cnt = (row < INF).sum(dim=1).clamp(max=Mw - 1)
+        at = ((cols_N[None, :, None] == moving[:, None, None])
+              & (cols_M[None, None, :] == cnt[:, None, None])
+              & do_mig[:, None, None])
+        mig_time = torch.where(at, t_new[:, None, None], mig_time)
+        mig_dest = torch.where(at, dest[:, None, None], mig_dest)
+        cur_pop = torch.where((cols_n[None, :] == slot[:, None])
+                              & do_mig[:, None], dest[:, None], cur_pop)
+
+        hit_a = (cols_N[None, :] == a[:, None]) & do[:, None]
+        hit_b = (cols_N[None, :] == b[:, None]) & do[:, None]
+        hit_m = (cols_N[None, :] == next_id[:, None]) & do[:, None]
+        parent = torch.where(hit_a | hit_b, next_id[:, None], parent)
+        child0 = torch.where(hit_m, a[:, None], child0)
+        child1 = torch.where(hit_m, b[:, None], child1)
+        time = torch.where(hit_m, t_new[:, None], time)
+        pop = torch.where(hit_m, cpop[:, None], pop)
+        at1 = (cols_n[None, :] == slot1[:, None]) & do[:, None]
+        node_id = torch.where(at1, next_id[:, None], node_id)
+        cur_pop = torch.where(at1, cpop[:, None], cur_pop)
+        alive = alive & ~((cols_n[None, :] == slot2[:, None]) & do[:, None])
+        next_id = torch.where(do, next_id + 1, next_id)
+
+        # sample activation at breakpoints
+        act = go[:, None] & hit_bk[:, None] & torch.isclose(
+            st[None, :].expand(P, n), t_bk[:, None].expand(P, n))
+        alive = alive | act
+        t = torch.where(go, t_new, t)
+    if not max_mig:
+        mig_time = mig_dest = None
+    return Trees(parent=parent, time=time, child0=child0, child1=child1,
+                 pop=pop, mig_time=mig_time, mig_dest=mig_dest)

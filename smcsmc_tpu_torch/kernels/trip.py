@@ -33,10 +33,16 @@ importance weight, the pilot weight tracks the immediate part and a ring of
 delayed factors the rest, drained at the segment end.  ``trip`` is the same
 device code behind the interface of the Pallas kernel, which is how it is
 held against ``fused_trip``; the lag calibration launches it one trip at a
-time.
+time.  Given a ``migration.MigrationPass`` it is the migration pass (a
+further compile-time variant, one thread per particle): each trip's
+re-coalescence is the loop walk of a structured population with migration
+and the SPR routes the branches' migration buffers; the statistics row is
+the structured layout of ``migration.stats_offsets``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -52,6 +58,15 @@ from .bias import (
     epoch_index,
     push_delayed,
     section_of,
+)
+from .migration import (
+    MAX_MIG,
+    MAX_POPS,
+    MAX_WALK_EVENTS,
+    MigrationPass,
+    migration_trips,
+    stats_field_shapes,
+    stats_offsets,
 )
 from .tree import (
     INF,
@@ -261,54 +276,70 @@ def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
             dst.copy_(src)
 
 
-def float_tolerances(ref: dict, L: float, mu: float, scale: float = 1e-5
-                     ) -> dict:
+def float_tolerances(ref: dict, L: float, mu: float, scale: float = 1e-5,
+                     Pp: int = 1) -> dict:
     """Absolute tolerance of each float output of a trip, in its own units.
 
     The unit is one node height: ``scale`` times the tallest node h_max
     (generations).  Tree length, data branch length, per-epoch tree length
     and coalescence opportunity sum N branches (N x unit); migration
-    opportunity is one lineage's span (unit); the recombination
+    opportunity is one lineage's span (unit), and so is a migration
+    event's time; the recombination
     opportunity is bp x generations (L x N x unit); the weight update
     ``mu*B*delta`` is in nats (mu x L x N x unit), and so are the biased
     pass's pilot weight and delayed log factors; positions ``next_rec``,
     ``upd`` and the delayed factors' ``df_pos`` and ``df_delta`` are bp
     (scale x L).  Counts (and ``df_k``, applications left) are whole
-    events, so half an event tells an equal count from one that differs."""
+    events, so half an event tells an equal count from one that differs.
+    ``Pp`` populations give the statistics row the structured layout."""
     N = ref["time"].shape[1]
-    E = ref["pending"].shape[1] // 6
+    E = ref["pending"].shape[1] // stats_offsets(1, Pp)["width"]
     unit = scale * float(ref["time"].max())
     tree = N * unit
+    sizes = torch.tensor([math.prod(s) for s in stats_field_shapes(E, Pp)],
+                         device=ref["time"].device)
     per_block = torch.tensor([tree, 0.5, unit, 0.5, L * tree, 0.5],
                              dtype=torch.float64, device=ref["time"].device)
     return {"time": unit, "next_rec": scale * L, "upd": scale * L,
             "log_w": mu * L * tree, "tl": tree, "B": tree, "tl_e": tree,
-            "pending": per_block.repeat_interleave(E),
+            "pending": per_block.repeat_interleave(sizes),
+            "mig_time": unit,
             "log_pilot": mu * L * tree, "df_pos": scale * L,
             "df_logf": mu * L * tree, "df_delta": scale * L, "df_k": 0.5}
 
 
 def disagreement(got: dict, ref: dict, L: float, mu: float,
-                 rtol: float = 1e-4):
+                 rtol: float = 1e-4, Pp: int = 1):
     """Where two trip results (dicts of :data:`FIELDS`) differ.  Results
     of a segment pass are compared the same way: they hold ``tl`` and, under
     ``pending``, FIFO slot 0, and lack ``upd``, ``B`` and ``tl_e``; those
-    of the biased pass hold :data:`BIAS_FIELDS` too.
+    of the biased pass hold :data:`BIAS_FIELDS` too, those of the migration
+    pass (``Pp`` populations) ``pop``, ``mig_time`` and ``mig_dest``.
 
     Returns ``(tree_differs, floats_differ, errs)``: [P] bool masks of the
-    particles whose tree arrays differ, and of those whose tree arrays
-    agree but a float lies beyond ``rtol * |ref| + atol`` (atol from
-    :func:`float_tolerances`); ``errs[field] = (max abs error, max
-    error / tolerance)`` over the particles whose tree arrays agree."""
+    particles whose tree arrays differ (for the migration pass also their
+    populations, the buffers' destinations or which buffer slots are in
+    use), and of those whose tree arrays agree but a float lies beyond
+    ``rtol * |ref| + atol`` (atol from :func:`float_tolerances`);
+    ``errs[field] = (max abs error, max error / tolerance)`` over the
+    particles whose tree arrays agree."""
     tree_differs = torch.zeros(ref["parent"].shape[0], dtype=torch.bool,
                                device=ref["parent"].device)
-    for k in TREE_FIELDS:
-        tree_differs |= (got[k] != ref[k]).any(dim=1)
-    atol = float_tolerances(ref, L, mu)
+    for k in TREE_FIELDS + ("pop", "mig_dest"):
+        if k in ref:
+            tree_differs |= (got[k] != ref[k]).flatten(1).any(dim=1)
+    if "mig_time" in ref:
+        tree_differs |= ((got["mig_time"] < INF) != (ref["mig_time"] < INF)
+                         ).flatten(1).any(dim=1)
+    atol = float_tolerances(ref, L, mu, Pp=Pp)
     floats_differ = torch.zeros_like(tree_differs)
     errs = {}
-    for k in (k for k in FLOAT_FIELDS if k in ref):
+    for k in (k for k in FLOAT_FIELDS + ("mig_time",) if k in ref):
         a, b = got[k].double(), ref[k].double()
+        if k == "mig_time":  # padding compares as equal
+            pad = b >= INF
+            a, b = torch.where(pad, 0.0, a), torch.where(pad, 0.0, b)
+            a, b = a.flatten(1), b.flatten(1)
         err = (a - b).abs()
         ratio = torch.where(err > 0, err / (rtol * b.abs() + atol[k]), 0.0)
         if err.dim() > 1:
@@ -320,13 +351,20 @@ def disagreement(got: dict, ref: dict, L: float, mu: float,
     return tree_differs, floats_differ, errs
 
 
-def _check_caps(N: int, E: int) -> int:
-    """Leaves for N nodes; raise outside the kernels' compile-time caps."""
+def _check_caps(N: int, E: int, Pp: int = 1, Mw: int = 0) -> int:
+    """Leaves for N nodes; raise outside the kernels' compile-time caps
+    (for the migration pass also populations and buffer capacity)."""
     n = (N + 1) // 2
     if N != 2 * n - 1 or n < 2 or n > MAX_LEAVES:
         raise ValueError(f"trip kernel supports 2..{MAX_LEAVES} leaves, got N={N}")
     if E < 1 or E > MAX_EPOCHS:
         raise ValueError(f"trip kernel supports 1..{MAX_EPOCHS} epochs, got {E}")
+    if Pp < 1 or Pp > MAX_POPS:
+        raise ValueError(f"migration pass supports 1..{MAX_POPS} populations,"
+                         f" got {Pp}")
+    if Mw < 0 or Mw > MAX_MIG:
+        raise ValueError(f"migration pass supports buffers of 1..{MAX_MIG} "
+                         f"events, got {Mw}")
     return n
 
 
@@ -487,29 +525,34 @@ def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
 def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
                        next_rec, log_w, fifo, fifo_mask, tl_out, L, mu, rho,
                        epoch_start, inv2ne, has_data,
-                       biased: BiasedPass | None = None):
+                       biased: BiasedPass | None = None,
+                       migration: MigrationPass | None = None):
     """Plain torch version of :func:`segment_pass` on any device (same
     arguments, same in-place contract): ``tree_summaries``, the trips
-    (``trip_plain``, or :func:`_biased_trips`), the final extension, under
-    bias the drain of the delayed factors due at ``front + L``, and the
-    push into FIFO slot 0."""
+    (``trip_plain``, :func:`_biased_trips` or
+    ``migration.migration_trips``), the final extension, under bias the
+    drain of the delayed factors due at ``front + L``, and the push into
+    FIFO slot 0."""
     P = time.shape[0]
     E = epoch_start.shape[0]
     dev = time.device
-    off_recomb_opp = 4 * E  # [coal_opp | coal_cnt | mig_opp | mig_cnt | ...]
+    Pp = 1 if migration is None else migration.ne.shape[1]
+    off = stats_offsets(E, Pp)
     trees = Trees(parent=parent, time=time, child0=child0, child1=child1)
     epochs = Epochs(start=epoch_start, ne=(0.5 / inv2ne)[:, None])
     tl, tl_e, B = tree_summaries(trees, epochs, leaf_status, has_data)
     tl, tl_e, B = tl.contiguous(), tl_e.contiguous(), B.contiguous()
     upd = torch.zeros(P, device=dev)
-    pending = torch.zeros((P, 6 * E), device=dev)
+    pending = torch.zeros((P, off["width"]), device=dev)
 
     # ---- recombination trips inside [front, front + L) ---------------------
     if uniforms.shape[0] > 0:
         args = (uniforms, leaf_status, time, parent, child0, child1, next_rec,
                 upd, log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start,
                 inv2ne, has_data)
-        if biased is None:
+        if migration is not None:
+            migration_trips(*args[:-2], has_data, migration)
+        elif biased is None:
             trip_plain(*args)
         else:
             _biased_trips(*args, biased)
@@ -517,7 +560,8 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
     # ---- final extension to the segment end --------------------------------
     delta = L - upd
     log_w.copy_(log_w - mu * B * delta)
-    pending[:, off_recomb_opp:off_recomb_opp + E] += delta[:, None] * tl_e
+    ro = off["recomb_opp"]
+    pending[:, ro:ro + E] += delta[:, None] * tl_e
     next_rec.copy_(next_rec - L)
 
     if biased is not None:
@@ -539,7 +583,8 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
 def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
                  next_rec, log_w, fifo, fifo_mask, tl_out, L, mu, rho,
                  epoch_start, inv2ne, has_data,
-                 biased: BiasedPass | None = None):
+                 biased: BiasedPass | None = None,
+                 migration: MigrationPass | None = None):
     """One segment's tree pass for every particle, IN PLACE.
 
     From the trees alone: tree length, per-epoch tree length and data branch
@@ -561,25 +606,40 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     extension the factors due at ``front + L`` go into the pilot.  Its
     ring holds at most 32 slots per particle and its sections at most 8.
 
+    ``migration`` (a :class:`MigrationPass`, not together with ``biased``)
+    makes it the migration pass of Pp populations: the point from column 0
+    and the gap from column 3 of the uniforms, the re-coalescence by the
+    loop walk on the pass's Philox stream, the SPR with buffer routing;
+    ``fifo`` and ``fifo_mask`` are ``stats_offsets(E, Pp)["width"]`` wide,
+    ``inv2ne`` is not read.  At most 4 populations and 96 events per
+    buffer.
+
     CPU tensors run :func:`segment_pass_plain`.  CUDA tensors launch the
     kernel of ``csrc/trip.cu`` on the current stream (one launch) or raise;
     nothing falls back.  Every call checks every tensor, as :func:`trip`
     does.  ``segment_pass.launches`` counts the launches of the plain
-    kernel, ``segment_pass.biased_launches`` those of the biased one."""
+    kernel, ``segment_pass.biased_launches`` those of the biased one and
+    ``segment_pass.migration_launches`` those of the migration one."""
     dev = time.device
     if dev.type == "cpu":
         segment_pass_plain(uniforms, leaf_status, time, parent, child0,
                            child1, next_rec, log_w, fifo, fifo_mask, tl_out,
-                           L, mu, rho, epoch_start, inv2ne, has_data, biased)
+                           L, mu, rho, epoch_start, inv2ne, has_data, biased,
+                           migration)
         return
     if dev.type != "cuda":
         raise ValueError(f"segment_pass: unsupported device {dev}")
+    if biased is not None and migration is not None:
+        raise ValueError("segment_pass has no biased migration variant")
     P, N = time.shape
     E = epoch_start.shape[0]
-    n = _check_caps(N, E)
+    Pp = 1 if migration is None else migration.ne.shape[1]
+    Mw = 0 if migration is None else migration.mig_time.shape[2]
+    n = _check_caps(N, E, Pp, Mw)
+    K = stats_offsets(E, Pp)["width"]
     if fifo.dim() != 3:
         raise ValueError(f"fifo has shape {tuple(fifo.shape)}, expected "
-                         f"(P, F, {6 * E})")
+                         f"(P, F, {K})")
     T, F = uniforms.shape[0], fifo.shape[1]
     f32, i32 = torch.float32, torch.int32
     spec = [
@@ -590,37 +650,61 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
         ("child1", child1, i32, (P, N)),
         ("next_rec", next_rec, f32, (P,)),
         ("log_w", log_w, f32, (P,)),
-        ("fifo", fifo, f32, (P, F, 6 * E)),
-        ("fifo_mask", fifo_mask, f32, (6 * E,)),
+        ("fifo", fifo, f32, (P, F, K)),
+        ("fifo_mask", fifo_mask, f32, (K,)),
         ("tl_out", tl_out, f32, (P,)),
         ("epoch_start", epoch_start, f32, (E,)),
         ("inv2ne", inv2ne, f32, (E,)),
         ("has_data", has_data, torch.bool, (n,)),
     ]
     bias_args = (None,) * 8 + (0, 0, 0.0, 0, 0)  # the plain pass
+    mig_args = (None,) * 10 + (0, 0, 0)
     if biased is not None:
         b = biased
-        K, S = b.df_pos.shape[-1], b.strengths.shape[0]
-        if not 1 <= K <= MAX_DELAY_SLOTS or not 1 <= S <= MAX_SECTIONS:
+        D, S = b.df_pos.shape[-1], b.strengths.shape[0]
+        if not 1 <= D <= MAX_DELAY_SLOTS or not 1 <= S <= MAX_SECTIONS:
             raise ValueError(f"biased segment_pass takes 1..{MAX_DELAY_SLOTS}"
                              f" delay slots and 1..{MAX_SECTIONS} sections, "
-                             f"got {K} and {S}")
+                             f"got {D} and {S}")
         if b.delay_type not in DELAY_TYPES or b.delay_k < 1:
             raise ValueError(f"delay type {b.delay_type!r}, k {b.delay_k}")
         spec += [
             ("log_pilot", b.log_pilot, f32, (P,)),
-            ("df_pos", b.df_pos, f32, (P, K)),
-            ("df_logf", b.df_logf, f32, (P, K)),
-            ("df_delta", b.df_delta, f32, (P, K)),
-            ("df_k", b.df_k, i32, (P, K)),
+            ("df_pos", b.df_pos, f32, (P, D)),
+            ("df_logf", b.df_logf, f32, (P, D)),
+            ("df_delta", b.df_delta, f32, (P, D)),
+            ("df_k", b.df_k, i32, (P, D)),
             ("heights", b.heights, f32, (S + 1,)),
             ("strengths", b.strengths, f32, (S,)),
             ("delays", b.delays, f32, (E,)),
         ]
         bias_args = (*(x.data_ptr() for x in (
             b.log_pilot, b.df_pos, b.df_logf, b.df_delta, b.df_k, b.heights,
-            b.strengths, b.delays)), K, S, float(b.front),
+            b.strengths, b.delays)), D, S, float(b.front),
             DELAY_TYPES[b.delay_type], int(b.delay_k))
+    if migration is not None:
+        m = migration
+        if Mw < 1 or not 1 <= m.max_walk_events <= MAX_WALK_EVENTS:
+            raise ValueError(f"migration segment_pass takes buffers of 1.."
+                             f"{MAX_MIG} events and walks of 1.."
+                             f"{MAX_WALK_EVENTS} events, got {Mw} and "
+                             f"{m.max_walk_events}")
+        # the statistics row of each particle, zeroed by the kernel itself
+        scratch = torch.empty((P, K), dtype=f32, device=dev)
+        spec += [
+            ("pop", m.pop, i32, (P, N)),
+            ("mig_time", m.mig_time, f32, (P, N, Mw)),
+            ("mig_dest", m.mig_dest, i32, (P, N, Mw)),
+            ("diag", m.diag, torch.float64, (2,)),
+            ("key", m.key, i32, (2,)),
+            ("ne", m.ne, f32, (E, Pp)),
+            ("mig", m.mig, f32, (E, Pp, Pp)),
+            ("tot_mig", m.tot_mig, f32, (E, Pp)),
+            ("pop_map", m.pop_map, i32, (E, Pp)),
+        ]
+        mig_args = (*(x.data_ptr() for x in (
+            m.pop, m.mig_time, m.mig_dest, m.diag, m.key, m.ne, m.mig,
+            m.tot_mig, m.pop_map, scratch)), Pp, Mw, int(m.max_walk_events))
     for name, x, dtype, shape in spec:
         _check_tensor(name, x, dtype, shape, dev)
     _launch("smc_segment_pass_launch", dev,
@@ -629,13 +713,16 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
             child1.data_ptr(), next_rec.data_ptr(), log_w.data_ptr(),
             fifo.data_ptr(), fifo_mask.data_ptr(), tl_out.data_ptr(),
             float(L), float(mu), float(rho), epoch_start.data_ptr(),
-            inv2ne.data_ptr(), has_data.data_ptr(), *bias_args)
-    if biased is None:
+            inv2ne.data_ptr(), has_data.data_ptr(), *bias_args, *mig_args)
+    if migration is not None:
+        segment_pass.migration_launches += 1
+    elif biased is None:
         segment_pass.launches += 1
     else:
         segment_pass.biased_launches += 1
 
 
-# launches of the plain and of the biased kernel
+# launches of the plain, the biased and the migration kernel
 segment_pass.launches = 0
 segment_pass.biased_launches = 0
+segment_pass.migration_launches = 0

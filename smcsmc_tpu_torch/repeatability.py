@@ -1,11 +1,14 @@
 """Does the sweep repeat from run to run, and how far do the whole-genome
-path's estimates spread over seeds?
+and the two-population paths' estimates spread over seeds?
 
     python -m smcsmc_tpu_torch.repeatability [--np 10000] [--device cuda]
-        [--seeds 7 7 8 9] [--main-runs 3] [--scan cumsum]
+        [--seeds 7 7 8 9] [--main-runs 3] [--twopop-seeds 7 8 9]
+        [--scan cumsum]
     python -m smcsmc_tpu_torch.repeatability --lockstep 3
+    python -m smcsmc_tpu_torch.repeatability --summary twopop result.out
+    python -m smcsmc_tpu_torch.repeatability --genealogy 13 1 2 3
 
-Three measurements, each printed as it ends:
+Four measurements, each printed as it ends:
 
 1. the device reductions of the segment step, repeated on one input and
    held bit for bit to their first result, with a matrix product queued now
@@ -19,13 +22,27 @@ Three measurements, each printed as it ends:
    -P 133 133016 "31*1"``) once per entry of ``--seeds``, each in a fresh
    process: LogL per iteration, and per epoch of the last iteration the
    posterior coalescences and the Ne estimate.  A seed given twice shows
-   whether a whole run repeats.
+   whether a whole run repeats;
+4. the two-population path (``sweep_profile.twopop_data`` with
+   ``twopop_flags``, ``-EM 2``, as ``chip_smoke.py`` runs it) once per entry
+   of ``--twopop-seeds``, each in a fresh process: LogL per iteration and,
+   per iteration, each population's posterior coalescences and Ne estimate
+   by epoch, its pooled interior Ne and the pooled migration rate.
 
 ``--lockstep N`` instead sweeps the main path's data and the genome path's
 first chunk N times each as two sweeps of one seed side by side in one
 process, holds every field of the two states bit for bit after every
 segment and reports the first segment at which they part: the fields, how
 many particles, and whether that segment resampled.
+
+``--genealogy [SEED ...]`` replays the genealogy that ``simulate_seg`` drew
+for the twopop data (seed 13, its sites held to the data's) or for other
+seeds of the same model, and prints the Ne that its own trees read per
+(epoch, population) and per epoch: what a posterior could at best recover.
+
+``--summary twopop RESULT_OUT`` prints what 4 prints for each iteration of
+a ``result.out`` that another run wrote (the JAX package's ``smc2`` on the
+same data, for example).
 
 ``--scan cumsum`` repeats 2 and 3 with the resampler's scan replaced by
 ``torch.cumsum``, the single-pass scan across blocks that the sweep used
@@ -41,15 +58,19 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
 import torch
 
 from . import smc
 from .segio import define_chunks, write_seg
+from .simulate import _Sim
 from .sweep_profile import (
     GENOME_PATTERN,
     bench_data,
     genome_data,
     genome_model,
+    twopop_data,
+    twopop_flags,
 )
 
 MODEL = ["-N0", "10000", "-mu", "1e-8", "-rho", "1e-9"]
@@ -99,7 +120,8 @@ def first_divergence(demo, seg, num_particles: int, device: str,
     b = start_sweep(demo, seg, cfg, chunk, seed)
 
     def fields(state):
-        out = dict(state.trees._asdict())
+        out = {k: v for k, v in state.trees._asdict().items()
+               if v is not None}
         out.update({k: getattr(state, k) for k in (
             "log_w", "next_rec", "fifo", "stats", "stats_wt", "ln_norm")})
         return out
@@ -162,13 +184,18 @@ def run_cli(data: str, seed: int, num_particles: int, device: str,
 
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "out")
-        common = ["-o", out, "-Np", str(num_particles), *MODEL, "-seed",
-                  str(seed), "-device", device]
+        run = ["-o", out, "-Np", str(num_particles), "-seed", str(seed),
+               "-device", device]
+        common = [*run, *MODEL]
         if data == "main":
             seg = os.path.join(tmp, "bench.seg")
             write_seg(seg, bench_data()[1])
             smcsmc_main(["-seg", seg, "-EM", "0", "-P", "133", "133016",
                          "7*1", *common])
+        elif data == "twopop":
+            seg = os.path.join(tmp, "twopop.seg")
+            write_seg(seg, twopop_data()[1])
+            smcsmc_main(["-seg", seg, "-EM", "2", *twopop_flags(), *run])
         else:
             paths = [os.path.join(tmp, n) for n in ("a.seg", "b.seg")]
             for path, chrom in zip(paths, genome_data()):
@@ -176,9 +203,16 @@ def run_cli(data: str, seed: int, num_particles: int, device: str,
             smcsmc_main(["-segs", *paths, "-chunks", "4", "-EM", "1", "-P",
                          *GENOME_PATTERN, *common])
         rows = _logl_rows(os.path.join(out, "result.out"))
+    report(rows, data, f"{data} path seed {seed} ({scan})")
+
+
+def report(rows, data: str, label: str) -> None:
+    """Print LogL per iteration of a ``result.out``'s rows and, for the
+    genome path, the last iteration's epochs, for the twopop path each
+    iteration's :func:`_twopop_summary`."""
     last = max(int(r["Iter"]) for r in rows)
     logl = {int(r["Iter"]): r["Count"] for r in rows if r["Type"] == "LogL"}
-    print(f"{data} path seed {seed} ({scan}): LogL by iteration "
+    print(f"{label}: LogL by iteration "
           f"{[logl[i] for i in sorted(logl)]}", flush=True)
     if data == "genome":
         coal = [r for r in rows if r["Type"] == "Coal"
@@ -186,6 +220,110 @@ def run_cli(data: str, seed: int, num_particles: int, device: str,
         print("  epoch:coalescences/Ne "
               + " ".join(f"{r['Epoch']}:{float(r['Count']):.1f}/"
                          f"{float(r['Ne']):.0f}" for r in coal), flush=True)
+    if data == "twopop":
+        for it in sorted(logl):
+            print(f"  iteration {it}: " + _twopop_summary(
+                [r for r in rows if int(r["Iter"]) == it]), flush=True)
+
+
+def _twopop_summary(rows) -> str:
+    """Per population the epochs' coalescences/Ne and the pooled interior
+    Ne (sum of opportunity over twice the sum of coalescences), and the
+    pooled migration rate, of one iteration's rows."""
+    coal = [r for r in rows if r["Type"] == "Coal"]
+    last_epoch = max(int(r["Epoch"]) for r in coal)
+    parts = []
+    for q in sorted({r["From"] for r in coal}):
+        mine = [r for r in coal if r["From"] == q]
+        inner = [r for r in mine if 0 < int(r["Epoch"]) < last_epoch]
+        pooled = (sum(float(r["Opp"]) for r in inner)
+                  / (2.0 * sum(float(r["Count"]) for r in inner)))
+        parts.append(f"population {q} epoch:coalescences/Ne "
+                     + " ".join(f"{r['Epoch']}:{float(r['Count']):.1f}/"
+                                f"{float(r['Ne']):.0f}" for r in mine)
+                     + f", pooled interior Ne {pooled:.0f}")
+    migr = [r for r in rows if r["Type"] == "Migr"]
+    rate = (sum(float(r["Count"]) for r in migr)
+            / sum(float(r["Opp"]) for r in migr))
+    return "; ".join(parts) + f"; pooled migration rate {rate:.4g}"
+
+
+def _tree_coalescence(sim, E: int, Pp: int):
+    """Pairwise coalescence opportunity (generations x pairs of lineages in
+    one population) and coalescences of a simulated tree, per (epoch,
+    population)."""
+    opp, cnt = np.zeros((E, Pp)), np.zeros((E, Pp))
+    pt = sim.parent_time()
+    root_h = float(sim.time[sim.root()])
+    cuts = set(sim.time.tolist()) | set(sim.demo.change_times.tolist())
+    for events in sim.mig_events:
+        cuts |= {float(t) for t, _ in events}
+    cuts = sorted(t for t in cuts if t < root_h) + [root_h]
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        k = np.zeros(Pp)
+        for i in np.flatnonzero((sim.time <= a) & (a < pt)):
+            k[sim.branch_pop(int(i), a)] += 1
+        opp[sim._epoch(a)] += k * (k - 1) / 2.0 * (b - a)
+    for m in range(sim.n, len(sim.time)):
+        t = float(sim.time[m])
+        cnt[sim._epoch(t), sim._map(int(sim.pop[m]), t)] += 1
+    return opp, cnt
+
+
+def genealogy(demo, seed: int, seg=None):
+    """The genealogy that ``simulate_seg(demo, seed)`` drew, replayed with
+    the same random stream: per (epoch, population) the pairwise
+    coalescence opportunity and the coalescences of every local tree, each
+    weighted by the bp it spans.  Their ratio over two is the Ne that the
+    data's own trees read.  With ``seg`` (what ``simulate_seg`` returned)
+    the replayed sites are held to its sites.  Returns (opportunity,
+    coalescences, trees)."""
+    rng = np.random.default_rng(seed)
+    sim = _Sim(demo, rng)
+    L, mu, rho = (int(demo.sequence_length), demo.mutation_rate,
+                  demo.recombination_rate)
+    E, Pp = demo.pop_sizes.shape
+    opp, cnt = np.zeros((E, Pp)), np.zeros((E, Pp))
+    sites, trees, x = set(), 0, 0.0
+    while x < L:  # simulate_seg's loop, drawing what it draws
+        tl = sim.total_length()
+        end = min(x + rng.exponential(1.0 / max(rho * tl, 1e-300)), L)
+        o, c = _tree_coalescence(sim, E, Pp)
+        opp += (end - x) * o
+        cnt += (end - x) * c
+        trees += 1
+        n_mut = rng.poisson(mu * tl * (end - x))
+        if n_mut:
+            for pos in np.sort(rng.uniform(x, end, size=n_mut)):
+                rng.uniform()  # the mutation's branch
+                sites.add(int(pos) + 1)
+        x = end
+        if x < L:
+            sim.recombine()
+    if seg is not None and sorted(sites) != seg.positions[1:].tolist():
+        raise RuntimeError("the replayed genealogy is not the data's")
+    return opp, cnt, trees
+
+
+def genealogy_report(demo, seed: int, seg=None) -> str:
+    """:func:`genealogy` as one line: per population the epochs'
+    coalescences per local tree (bp-weighted mean) and Ne, then each
+    epoch's Ne pooled over the populations."""
+    opp, cnt, trees = genealogy(demo, seed, seg)
+
+    def ne(o, c):
+        return f"{o / (2.0 * c):.0f}" if c > 0 else "-"
+
+    per_tree = cnt / demo.sequence_length
+    parts = [f"population {q} epoch:coalescences per tree/Ne " + " ".join(
+        f"{e}:{per_tree[e, q]:.3f}/{ne(opp[e, q], cnt[e, q])}"
+        for e in range(opp.shape[0])) for q in range(opp.shape[1])]
+    pooled = " ".join(f"{e}:{ne(opp[e].sum(), cnt[e].sum())}"
+                      for e in range(opp.shape[0]))
+    return (f"genealogy of simulate_seg seed {seed} ({trees} trees over "
+            f"{demo.sequence_length / 1e6:g} Mb"
+            f"{', its sites equal to the data' if seg else ''}): "
+            + "; ".join(parts) + f"; pooled over populations {pooled}")
 
 
 def main(argv=None) -> int:
@@ -194,6 +332,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seeds", type=int, nargs="*", default=[7, 7, 8, 9])
     ap.add_argument("--main-runs", type=int, default=3)
+    ap.add_argument("--twopop-seeds", type=int, nargs="*", default=[7, 8, 9])
     ap.add_argument("--scan", choices=("block", "cumsum"),
                     default="block", help="the resampler's scan")
     ap.add_argument("--lockstep", type=int, default=0, metavar="N",
@@ -202,7 +341,23 @@ def main(argv=None) -> int:
     ap.add_argument("--run", nargs=2, metavar=("DATA", "SEED"),
                     help="one run in this process (what the fresh processes "
                     "are started with)")
+    ap.add_argument("--summary", nargs=2, metavar=("DATA", "RESULT_OUT"),
+                    help="only this: what a run prints, from a result.out "
+                    "that either package wrote")
+    ap.add_argument("--genealogy", type=int, nargs="*", metavar="SEED",
+                    help="only this: the Ne that the twopop data's own "
+                    "trees read (seed 13: the data itself), on the CPU")
     args = ap.parse_args(argv)
+    if args.summary:
+        path = args.summary[1]
+        report(_logl_rows(path), args.summary[0], path)
+        return 0
+    if args.genealogy is not None:
+        demo, seg = twopop_data()
+        for seed in args.genealogy or [13]:
+            print(genealogy_report(demo, seed, seg if seed == 13 else None),
+                  flush=True)
+        return 0
     if args.run:
         run_cli(args.run[0], int(args.run[1]), args.np, args.device,
                 args.scan)
@@ -213,7 +368,9 @@ def main(argv=None) -> int:
     if args.scan == "block":
         for P in (args.np, 4096, 100000):
             print("\n".join(reductions(P, args.device)), flush=True)
-    runs = [("main", 7)] * args.main_runs + [("genome", s) for s in args.seeds]
+    runs = ([("main", 7)] * args.main_runs
+            + [("genome", s) for s in args.seeds]
+            + [("twopop", s) for s in args.twopop_seeds])
     for data, seed in runs:
         subprocess.run(
             [sys.executable, "-m", "smcsmc_tpu_torch.repeatability", "--np",

@@ -1,12 +1,15 @@
 """Where the sweep's time goes, read from torch.profiler.
 
     python -m smcsmc_tpu_torch.sweep_profile [--np 10000] [--device cuda]
-        [--data bench|genome] [--biased] [--trace out/sweep_trace.json]
+        [--data bench|genome|twopop] [--biased]
+        [--trace out/sweep_trace.json]
 
 It sweeps bench.py's headline data (one population of Ne 10,000, n=4, 8
 epochs from 0 and logspace(2.5, 5), 2 Mb, ``simulate_seg(seed=11)``) or,
 with ``--data genome``, the first chunk of the whole-genome data of
 :func:`genome_data` (n=8, 33 epochs, unphased, with missing stretches)
+or, with ``--data twopop``, bench.py's two-population data
+(:func:`twopop_data`: the migration pass)
 with the port's segment step, as ``em.run_chunk`` does (``--biased``: with
 the production proposal of ``-bias_heights 0 0.05 -calibrate_lag 2`` at N0
 10,000, bias strengths and lags calibrated from the model, as
@@ -47,6 +50,42 @@ def bench_data(n: int = 4, E: int = 8, L: float = 2e6, seed: int = 11):
         mutation_rate=1e-8, recombination_rate=1e-9, sequence_length=L,
     )
     return demo, simulate_seg(demo, seed=seed)
+
+
+def twopop_demo(L: float = 2e6, E: int = 8, m: float = 5e-5,
+                sample_pops=(0, 0, 1, 1)) -> Demography:
+    """bench.py's ``twopop_demo``: two populations of Ne 10,000, samples
+    [0, 0, 1, 1], 8 epochs from 0 and logspace(2.5, 5), symmetric
+    migration m per generation in every epoch."""
+    change = np.concatenate([[0.0], np.logspace(2.5, 5.0, E - 1)])
+    mig = np.zeros((E, 2, 2))
+    mig[:, 0, 1] = mig[:, 1, 0] = m
+    return Demography(
+        change_times=change, pop_sizes=np.full((E, 2), 10000.0),
+        mig_rates=mig, sample_pops=np.array(sample_pops, np.int32),
+        mutation_rate=1e-8, recombination_rate=1e-9, sequence_length=L,
+    )
+
+
+def twopop_data(L: float = 2e6, E: int = 8, m: float = 5e-5,
+                seed: int = 13):
+    """:func:`twopop_demo` and its data, simulated as bench.py's
+    ``run_twopop_em`` does."""
+    demo = twopop_demo(L, E, m)
+    return demo, simulate_seg(demo, seed=seed)
+
+
+def twopop_flags(E: int = 8, m: float = 5e-5, n0: float = 10000.0):
+    """The ``smc2`` flags of :func:`twopop_data`'s model, times in 4 N0
+    units: ``-I 2 2 2``, ``-eN t 1`` at the E - 1 change times and ``-em 0
+    i j M`` both ways with M = 4 N0 m."""
+    times = np.logspace(2.5, 5.0, E - 1) / (4.0 * n0)
+    M = f"{4.0 * n0 * m:g}"
+    flags = ["-N0", f"{n0:g}", "-mu", "1e-8", "-rho", "1e-9", "-I", "2", "2",
+             "2"]
+    for t in times:
+        flags += ["-eN", repr(float(t)), "1"]
+    return flags + ["-em", "0", "1", "2", M, "-em", "0", "2", "1", M]
 
 
 # the whole-genome data, per chromosome and in its bp: (all-missing
@@ -168,7 +207,7 @@ def profile_sweep(demo, seg, num_particles: int, device: str = "cuda",
     on_dev = [e for e in ka if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in on_dev)
     # the hand-written kernel of csrc/trip.cu, by its name in the trace
-    pass_ev = [e for e in on_dev if "segment_pass_kernel" in e.key]
+    pass_ev = [e for e in on_dev if "segment_pass" in e.key]
     pass_n = sum(e.count for e in pass_ev)
     top = sorted(on_dev, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
@@ -230,13 +269,16 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the profiled segments here")
-    ap.add_argument("--data", choices=("bench", "genome"), default="bench")
+    ap.add_argument("--data", choices=("bench", "genome", "twopop"),
+                    default="bench")
     ap.add_argument("--biased", action="store_true",
                     help="the production proposal (BIASED_OPTIONS)")
     args = ap.parse_args(argv)
     chunk = (None, None)
     if args.data == "bench":
         demo, seg = bench_data()
+    elif args.data == "twopop":
+        demo, seg = twopop_data()
     else:
         import os
         import tempfile

@@ -44,6 +44,9 @@ def _assert_states_equal(a, b):
         x, y = getattr(a, name), getattr(b, name)
         if name == "trees":
             for f in x._fields:
+                if getattr(x, f) is None:  # one population: no buffers
+                    assert getattr(y, f) is None, f
+                    continue
                 assert torch.equal(getattr(x, f), getattr(y, f)), f
                 assert getattr(x, f).dtype == getattr(y, f).dtype, f
         elif isinstance(x, torch.Tensor):

@@ -9,6 +9,7 @@ files and chunks, twice (the second run sweeps nothing), and with
 import dataclasses
 import logging
 import os
+import re
 
 import numpy as np
 import pytest
@@ -20,7 +21,11 @@ from smcsmc_tpu.simulate import simulate_seg
 from smcsmc_tpu_torch import cli as tcli
 from smcsmc_tpu_torch import em as tem
 from smcsmc_tpu_torch.segio import write_seg
-from smcsmc_tpu_torch.sweep_profile import unphase_and_blank
+from smcsmc_tpu_torch.sweep_profile import (
+    twopop_data,
+    twopop_flags,
+    unphase_and_blank,
+)
 
 torch.set_num_threads(1)
 
@@ -70,6 +75,79 @@ def test_flags_parse_as_in_the_jax_cli(argv):
     for key in IO_KEYS:
         assert tio[key] == jio[key], key
     assert tcfg.device == "cuda"  # the entry point runs on the card
+
+
+TWOPOP = twopop_flags()
+
+
+@pytest.mark.parametrize("argv", [
+    ["-seg", "a.seg", "-length", "2e6", *TWOPOP],
+    ["-seg", "a.seg", "-length", "2e6", *TWOPOP, "-migbuf", "24"],
+    ["-seg", "a.seg", "-length", "1e6", "-N0", "10000", "-I", "2", "2", "2",
+     "-eM", "0", "1.5", "-en", "0.1", "2", "0.5", "-ej", "0.5", "2", "1"],
+    ["-seg", "a.seg", "-length", "1e6", "-N0", "20000", "-I", "3", "2", "1",
+     "1", "-em", "0", "1", "2", "1", "-em", "0", "3", "1", "0.5", "-ema",
+     "0.2", "0", "1", "0", "2", "0", "1", "0", "1", "0", "-P", "133",
+     "133016", "7*1"],
+], ids=lambda argv: " ".join(argv[4:])[:40])
+def test_structured_flags_give_the_jax_demography(argv):
+    """-I -eN -en -em -eM -ema -ej -migbuf: the same EMConfig, demography
+    flags, Demography and migration buffer capacity as smcsmc_tpu.cli."""
+    from smcsmc_tpu import em as jem
+
+    tcfg, tio = tcli.parse_args(argv)
+    jcfg, demo_args, jio = jcli.parse_smc2_args(argv)
+    assert tio["demo_args"] == demo_args
+    for name in PORT_FIELDS:
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+    td = tcli.build_demography(tcfg, tio["demo_args"], tio)
+    jd = jcli.build_demography(jcfg, demo_args, jio)
+    assert td.num_populations > 1
+    for k in ("change_times", "pop_sizes", "mig_rates", "sample_pops",
+              "sample_times", "mutation_rate", "recombination_rate",
+              "sequence_length"):
+        assert np.array_equal(getattr(td, k), getattr(jd, k)), k
+    assert np.array_equal(td.pop_map_at_epoch(), jd.pop_map_at_epoch())
+    t_mig = tcfg.mig_buffer or tem._auto_mig_buffer(td)
+    assert t_mig == (jcfg.mig_buffer or jem._auto_mig_buffer(jd))
+    if argv[4:] == TWOPOP:
+        # bench.py's twopop model, with 56 events per branch buffer
+        ref, _ = twopop_data(L=1e4)
+        assert t_mig == 56
+        assert np.allclose(td.change_times, ref.change_times, rtol=1e-12)
+        assert np.array_equal(td.mig_rates, ref.mig_rates)
+        assert np.array_equal(td.pop_sizes, ref.pop_sizes)
+
+
+@pytest.mark.parametrize("extra,flag", [
+    (["-bias_heights", "0", "0.05"], "-bias_heights"),
+    (["-calibrate_lag", "2"], "-calibrate_lag"),
+    (["-eI", "0.1", "1"], "-eI"),
+    (["-arg"], "-arg"),
+])
+def test_out_of_scope_with_migration_is_refused_by_name(tmp_path, extra,
+                                                        flag):
+    seg = str(tmp_path / "t.seg")
+    demo, data = twopop_data(L=2e4)
+    write_seg(seg, data)
+    with pytest.raises(SystemExit, match=re.escape(repr(flag))):
+        tcli.smcsmc_main(["-seg", seg, "-o", str(tmp_path / "out"), "-Np",
+                          "8", *TWOPOP, *extra, "-device", "cpu"])
+
+
+def test_twopop_command_runs_on_the_cpu(tmp_path):
+    seg = str(tmp_path / "t.seg")
+    write_seg(seg, twopop_data(L=5e4)[1])
+    out = str(tmp_path / "out")
+    assert tcli.smcsmc_main(["-seg", seg, "-o", out, "-Np", "16", "-EM",
+                             "1", *TWOPOP, "-seed", "3",
+                             "-device", "cpu"]) == 0
+    with open(os.path.join(out, "result.out")) as fh:
+        rows = [ln.split() for ln in fh.read().strip().split("\n")[1:]]
+    kinds = {r[4] for r in rows}  # Iter Epoch Start End Type ...
+    assert {"Coal", "Migr", "Recomb", "LogL"} <= kinds
+    logl = [float(r[8]) for r in rows if r[4] == "LogL"]
+    assert all(np.isfinite(x) and x < 0 for x in logl)
 
 
 def test_biased_command_runs_on_the_cpu(tmp_path, caplog, monkeypatch):

@@ -177,6 +177,54 @@ def test_run_em_writes_the_same_out_rows_as_jax(tmp_path):
         assert _rows(tdir / name) == _rows(jdir / name), name
 
 
+def test_twopop_run_em_writes_the_same_out_rows_as_jax(tmp_path,
+                                                      monkeypatch, capsys):
+    """Two populations with migration: the same rows (Coal per population,
+    Migr both ways per epoch, Recomb, LogL, ...) and columns as JAX's; the
+    repeatability summary reads JAX's ``result.out`` as the port's."""
+    from smcsmc_tpu_torch import repeatability
+    from smcsmc_tpu_torch.demography import Demography as TDemography
+    from smcsmc_tpu_torch.sweep_profile import twopop_data
+
+    monkeypatch.setenv("SMCSMC_MIG_WALK", "loop")
+    demo_t, _ = twopop_data(L=5e4, E=3)
+    fields = dict(change_times=demo_t.change_times,
+                  pop_sizes=demo_t.pop_sizes, mig_rates=demo_t.mig_rates,
+                  sample_pops=demo_t.sample_pops, mutation_rate=1e-8,
+                  recombination_rate=1e-9, sequence_length=5e4)
+    demo = Demography(**fields)
+    seg = simulate_seg(demo, seed=4)
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    jem.run_em(demo, seg, jem.EMConfig(num_particles=16, block_size=512,
+                                       em_iters=1, outdir=str(jdir)))
+    tem.run_em(TDemography(**fields), seg, _tcfg(num_particles=16,
+                                                  em_iters=1,
+                                                  outdir=str(tdir)))
+    for name in ("result.out", os.path.join("emiter1", "chunkfinal.out")):
+        header, keys = _rows(tdir / name)
+        assert (header, keys) == _rows(jdir / name), name
+        # keys are (Iter, Epoch, Type, From, To)
+        kinds = {k[2] for k in keys}
+        assert {"Coal", "Migr", "Recomb", "LogL"} <= kinds
+        assert {k[3] for k in keys if k[2] == "Coal"} == {"0", "1"}
+        assert {(k[3], k[4]) for k in keys if k[2] == "Migr"} >= {
+            ("0", "1"), ("1", "0")}
+    shown = []
+    for d in (jdir, tdir):
+        repeatability.main(["--summary", "twopop", str(d / "result.out")])
+        shown.append(capsys.readouterr().out.splitlines())
+        assert len(shown[-1]) == 3  # LogL, then iterations 0 and 1
+        assert shown[-1][2].startswith("  iteration 1: population 0 epoch:")
+        assert "pooled migration rate" in shown[-1][2]
+    assert [ln.split(":")[0] for ln in shown[0][1:]] == [
+        ln.split(":")[0] for ln in shown[1][1:]]
+    # an iteration's own file holds that iteration only
+    repeatability.main(["--summary", "twopop",
+                        str(jdir / "emiter1" / "chunkfinal.out")])
+    assert capsys.readouterr().out.splitlines()[1].startswith(
+        "  iteration 1: population 0 epoch:")
+
+
 def _gapped(L=6e5, n=4, seed=9):
     """Data with an all-missing stretch longer than the test's -maxgap."""
     from smcsmc_tpu_torch.sweep_profile import unphase_and_blank
@@ -406,7 +454,8 @@ def test_sweep_profile_reports_on_cpu():
 def test_repeatability_reports_on_cpu(capsys, monkeypatch):
     """The repeatability measurement runs end to end on the CPU at a tiny
     size: the reductions repeat bit for bit there, and a run prints its
-    log-likelihood, with the resampler's scan and with torch.cumsum."""
+    log-likelihood, with the resampler's scan and with torch.cumsum, and
+    a two-population run its estimates per iteration."""
     from smcsmc_tpu_torch import repeatability, smc, sweep_profile
 
     lines = repeatability.reductions(64, "cpu", repeats=5)
@@ -424,6 +473,24 @@ def test_repeatability_reports_on_cpu(capsys, monkeypatch):
     assert "(cumsum): LogL by iteration ['-" in capsys.readouterr().out
     assert repeatability.first_divergence(
         *short, 16, "cpu").startswith("equal bit for bit after every one of")
+    twopop = sweep_profile.twopop_data(L=4e4)
+    monkeypatch.setattr(repeatability, "twopop_data", lambda: twopop)
+    repeatability.run_cli("twopop", 7, 16, "cpu")
+    shown = capsys.readouterr().out
+    assert "twopop path seed 7 (block): LogL by iteration ['-" in shown
+    assert shown.count("pooled migration rate") == 3  # iterations 0-2
+    # the data's own genealogy, replayed: its sites are the data's, every
+    # local tree's three coalescences are counted once, and the pooled
+    # epochs cover each (epoch, population) reading
+    demo = sweep_profile.twopop_demo(L=4e4)
+    opp, cnt, trees = repeatability.genealogy(demo, 13, twopop[1])
+    assert trees >= 1 and cnt.sum() == pytest.approx(3 * 4e4)
+    assert (opp >= 0).all() and (opp[cnt > 0] > 0).all()
+    line = repeatability.genealogy_report(demo, 13, twopop[1])
+    assert "its sites equal to the data" in line
+    assert "pooled over populations" in line
+    with pytest.raises(RuntimeError, match="not the data's"):
+        repeatability.genealogy(demo, 14, twopop[1])
     gen = torch.Generator().manual_seed(1)
     for n in (1000, 256, 5):
         x = torch.rand(n, generator=gen)

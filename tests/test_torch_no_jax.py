@@ -28,6 +28,7 @@ def test_port_runs_without_importing_jax(tmp_path):
     modules = sorted(
         "smcsmc_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
         for p in PKG.rglob("*.py") if p.name != "__init__.py")
+    assert "smcsmc_tpu_torch.kernels.migration" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
         import numpy as np

@@ -93,7 +93,7 @@ def test_commit_slot_matches_jax(rot):
     rot = np.array(rot)
     ref = _np(jsmc._commit_slot(st, jnp.asarray(rot), cfg.fifo_slots - 1))
     got = state_to_numpy(tsmc.commit_slot(state_from_numpy(_np(st), CPU), rot,
-                                          cfg.fifo_slots - 1))
+                                          cfg.fifo_slots - 1, 1))
     for k in ("stats", "stats_wt", "fifo"):
         np.testing.assert_allclose(got[k], getattr(ref, k), rtol=1e-5,
                                    err_msg=k)

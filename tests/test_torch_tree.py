@@ -156,9 +156,18 @@ def test_initial_tree_moments_match_jax(piecewise):
 
 
 def test_multi_population_is_refused():
+    """Several populations have device epochs now (the migration pass);
+    what the port still refuses with them is height bias and calibrated
+    lags."""
+    from smcsmc_tpu_torch import em as tem
+
     demo = Demography(
         change_times=np.array([0.0]), pop_sizes=np.array([[1e4, 1e4]]),
         mig_rates=np.zeros((1, 2, 2)), sample_pops=np.array([0, 1]),
     )
-    with pytest.raises(NotImplementedError):
-        ttree.epochs_from_demography(demo, CPU)
+    ep = ttree.epochs_from_demography(demo, CPU)
+    assert ep.structured and tuple(ep.mig.shape) == (1, 2, 2)
+    for cfg in (tem.EMConfig(bias_heights=(100.0,)),
+                tem.EMConfig(calibrate_lag=True)):
+        with pytest.raises(NotImplementedError):
+            tem.refuse_unported(demo, cfg)

@@ -513,3 +513,87 @@ def test_cuda_biased_segment_pass_matches_plain(leaf_status, delay_type):
             assert not floats_d.any(), errs
         else:
             assert int((trees_d | floats_d).sum()) <= 0.001 * Pc, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["twopop", "overflow", "capped"])
+@pytest.mark.parametrize("leaf_status", [1, 0, -1])
+def test_cuda_migration_segment_pass_matches_plain(leaf_status, case):
+    """The migration ``segment_pass`` on the card against its plain version
+    on trees of bench.py's two-population model with filled buffers (for
+    ``overflow``, m = 2e-4 into 16-event buffers, so that events are
+    dropped; for ``capped``, walks bounded at 3 events, so that some
+    force-coalesce onto the root lineage): one trip and 64 trips.  Tree arrays, populations and the
+    buffers' destinations and slots in use, and the walk diagnostics, are
+    held exactly in all but 0.1% of the particles; floats within
+    ``float_tolerances``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from smcsmc_tpu_torch.kernels.migration import (
+        MAX_WALK_EVENTS,
+        MigrationPass,
+        migration_tables,
+        stats_offsets,
+    )
+    from smcsmc_tpu_torch.kernels.tree import (
+        epochs_from_demography,
+        make_initial_trees,
+    )
+    from smcsmc_tpu_torch.sweep_profile import twopop_data
+
+    Pc, n, E = 4096, 4, 8
+    m, Mw = (2e-4, 16) if case == "overflow" else (5e-5, 56)
+    demo, _ = twopop_data(L=1e4, m=m)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31 + leaf_status)
+    epochs = epochs_from_demography(demo, dev)
+    trees = make_initial_trees(gen, epochs, Pc, demo.sample_pops, max_mig=Mw)
+    hd = torch.from_numpy(_has_data(n, leaf_status)).to(dev)
+    if leaf_status == -1:
+        hd[:] = False
+    K = stats_offsets(E, 2)["width"]
+    start, inv2ne = epochs.start.contiguous(), epochs.inv2ne.contiguous()
+    fifo0 = torch.rand((Pc, F_SLOTS, K), generator=gen, device=dev)
+    fifo0[:, 0] = 0.0
+    mask = (torch.rand(K, generator=gen, device=dev) < 0.7).float()
+    tables = migration_tables(epochs)
+    for T, L, nr_scale in ((1, 20000.0, 1.5), (64, 50000.0, 0.1)):
+        base = dict(time=trees.time, parent=trees.parent,
+                    child0=trees.child0, child1=trees.child1,
+                    next_rec=torch.rand(Pc, generator=gen, device=dev)
+                    * nr_scale * L,
+                    log_w=torch.randn(Pc, generator=gen, device=dev))
+        u = torch.rand((T, Pc, 4), generator=gen, device=dev)
+        key = torch.randint(0, 2 ** 31 - 1, (2,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        outs = {}
+        for name, fn in (("plain", segment_pass_plain),
+                         ("kernel", segment_pass)):
+            st = {k: v.clone().contiguous() for k, v in base.items()}
+            fifo, tl = fifo0.clone(), torch.empty(Pc, device=dev)
+            mp = MigrationPass(trees.pop.clone(), trees.mig_time.clone(),
+                               trees.mig_dest.clone(),
+                               torch.zeros(2, dtype=torch.float64,
+                                           device=dev), key, *tables,
+                               3 if case == "capped" else MAX_WALK_EVENTS)
+            launches = segment_pass.migration_launches
+            fn(u, leaf_status, *(st[k] for k in _SEG_ORDER), fifo, mask, tl,
+               L, MU, RHO, start, inv2ne, hd, None, mp)
+            assert segment_pass.migration_launches == launches + (
+                name == "kernel")
+            assert torch.equal(fifo[:, 1:], fifo0[:, 1:])
+            outs[name] = dict(st, tl=tl, pending=fifo[:, 0], pop=mp.pop,
+                              mig_time=mp.mig_time, mig_dest=mp.mig_dest,
+                              diag=mp.diag)
+        torch.cuda.synchronize()
+        trees_d, floats_d, errs = disagreement(outs["kernel"], outs["plain"],
+                                               L, MU, Pp=2)
+        assert int(trees_d.sum()) <= 0.001 * Pc, (T, int(trees_d.sum()))
+        assert int((trees_d | floats_d).sum()) <= 0.001 * Pc, errs
+        if int(trees_d.sum()) == 0:
+            assert torch.equal(outs["kernel"]["diag"], outs["plain"]["diag"])
+        if case == "overflow" and T == 64:
+            assert float(outs["plain"]["diag"][1]) > 0
+        if case == "capped":
+            assert float(outs["plain"]["diag"][0]) > 0
