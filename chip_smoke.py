@@ -87,11 +87,16 @@ Phases, each fatal on failure:
    ``make_initial_trees``), leaf status 1, 0 and -1, one trip and 64
    trips, plus buffers that overflow (-migbuf 16 at m=2e-4; they must drop
    events), a lone sample in population 0 (samples [0, 1, 1, 1]; some
-   walks must coalesce above the old root) and walks bounded at 3 events
-   (some must be capped and coalesce onto the root lineage): tree arrays,
-   populations, the buffers' destinations and slots in use exactly in >=
-   99.9% of particles, the walk diagnostics equal, floats within
-   ``float_tolerances``; then the twopop path: bench.py's
+   walks must coalesce above the old root), walks bounded at 3 events
+   (some must be capped and coalesce onto the root lineage) and the
+   kernel's caps (``sweep_profile.caps_demo``: n=8, E=64, Pp=4, Mw=96, at
+   P=10,001 so that the last block is ragged): no tree mismatch, node
+   times, populations and the buffers' times and destinations bit for
+   bit, the walk diagnostics equal, floats within ``float_tolerances``;
+   the kernel's resources (``cudaFuncGetAttributes``: registers, local and
+   static shared bytes; the dynamic shared bytes and particles per block
+   it is launched with) at the twopop shape and at the caps are printed
+   after the build; then the twopop path: bench.py's
    ``twopop_em_iter`` configuration (2 populations, samples [0, 0, 1, 1],
    8 epochs, m=5e-5, 2 Mb, ``simulate_seg(seed=13)``) through the same
    entry point with ``-Np 10000 -EM 2`` and the flags of
@@ -109,7 +114,7 @@ Phases, each fatal on failure:
    data's mean segment and at 50 kb (device us per launch, host us, plain
    ms, bound from counted work with the buffer events read and the rows
    changed, events per walk), the timed launch held to the plain version's
-   run on the same inputs as in phase 3.
+   run on the same inputs, bit for bit as in phase 3.
 
 The line before the last is a JSON object with each kernel's build/compare/
 time record; the last line is {"ok": true, "device": {...}}.  Without a
@@ -193,13 +198,14 @@ TWOPOP_MW = 56
 
 
 class MigCase:
-    """Two-population trees with filled migration buffers (the plain
-    ``make_initial_trees``) and the inputs of a migration segment pass on
-    the card, made from a seed."""
+    """Two-population trees (or, with ``caps``, those of
+    ``sweep_profile.caps_demo``: 8 samples, 64 epochs, 4 populations) with
+    filled migration buffers (the plain ``make_initial_trees``) and the
+    inputs of a migration segment pass on the card, made from a seed."""
 
     def __init__(self, P, leaf_status, L, nr_scale, seed, m=TWOPOP_M,
                  Mw=TWOPOP_MW, sample_pops=(0, 0, 1, 1),
-                 max_walk_events=None):
+                 max_walk_events=None, caps=False):
         import numpy as np
         import torch
 
@@ -211,19 +217,22 @@ class MigCase:
             epochs_from_demography,
             make_initial_trees,
         )
-        from smcsmc_tpu_torch.sweep_profile import twopop_demo
+        from smcsmc_tpu_torch.sweep_profile import caps_demo, twopop_demo
 
         dev = torch.device("cuda")
-        demo = twopop_demo(m=m, sample_pops=sample_pops)
-        self.P, self.n, self.E, self.L, self.Mw = P, 4, 8, L, Mw
+        demo = (caps_demo(m) if caps
+                else twopop_demo(m=m, sample_pops=sample_pops))
+        self.P, self.L, self.Mw = P, L, Mw
+        self.n, self.E = demo.num_samples, demo.num_epochs
+        self.Pp = demo.num_populations
         self.max_walk_events = max_walk_events
         self.leaf_status = leaf_status
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(seed)
         self.epochs = epochs_from_demography(demo, dev)
         trees = make_initial_trees(self.gen, self.epochs, P,
-                                   np.asarray(sample_pops), max_mig=Mw)
-        hd = torch.ones(4, dtype=torch.bool, device=dev)
+                                   demo.sample_pops, max_mig=Mw)
+        hd = torch.ones(self.n, dtype=torch.bool, device=dev)
         if leaf_status == 0:
             hd[0] = hd[2] = False
         elif leaf_status == -1:
@@ -238,7 +247,7 @@ class MigCase:
             mig_dest=trees.mig_dest).items()}
         self.start = self.epochs.start.contiguous()
         self.inv2ne = self.epochs.inv2ne.contiguous()
-        self.K = stats_offsets(self.E, 2)["width"]
+        self.K = stats_offsets(self.E, self.Pp)["width"]
         self.fifo = torch.rand((P, FIFO_SLOTS, self.K), generator=self.gen,
                                device=dev)
         self.fifo[:, 0] = 0.0
@@ -559,61 +568,76 @@ def phase_compare(kernels):
 # population 0 (samples [0, 1, 1, 1]), whose cut lineage has no partner of
 # its population below the root but its own branch; walks bounded at 3
 # events (about 5 on average at this model), so that many are capped and
-# force-coalesce onto the root lineage
+# force-coalesce onto the root lineage; the kernel's caps (8 samples, 64
+# epochs, 4 populations, 96 events per buffer: the most shared memory per
+# particle) with a particle count that leaves the last block ragged
+CAPS_P = 10001
 MIG_CASES = ([("twopop", {}, ls) for ls in (1, 0, -1)]
              + [("overflow", {"m": 2e-4, "Mw": 16}, 1),
                 ("above the root", {"sample_pops": (0, 1, 1, 1)}, 1),
-                ("capped", {"max_walk_events": 3}, 1)])
+                ("capped", {"max_walk_events": 3}, 1),
+                ("caps corner", {"caps": True, "m": 1e-4, "Mw": 96,
+                                 "P": CAPS_P}, 1)])
+# what the migration pass must give exactly as its plain version does
+MIG_EXACT = ("time", "parent", "child0", "child1", "pop", "mig_time",
+             "mig_dest")
 
 
 def compare_migration(segment_pass, segment_pass_plain, tallies,
                       P=TWOPOP_P):
-    """The migration pass against its plain version at the twopop path's
-    shape (P, n=4, E=8, Pp=2) for each of :data:`MIG_CASES`, one trip and
-    64 trips: tree arrays, populations and the buffers' destinations and
-    slots in use exactly, the walk diagnostics equal where every tree
-    agrees, floats within ``float_tolerances``; the overflow case must
-    drop events, the above-the-root case must coalesce above the old root
-    and the capped case must cap walks."""
+    """The migration pass against its plain version for each of
+    :data:`MIG_CASES` (at the twopop path's shape, P, n=4, E=8, Pp=2,
+    unless the case says otherwise), one trip and 64 trips: no tree
+    mismatch, node times, populations and the buffers' times and
+    destinations bit for bit, the walk diagnostics equal, floats within
+    ``float_tolerances``; the overflow case must drop events, the
+    above-the-root case must coalesce above the old root, the capped case
+    must cap walks and the caps corner must leave its last block ragged."""
     import torch
 
-    from smcsmc_tpu_torch.kernels.trip import disagreement
+    from smcsmc_tpu_torch.kernels.trip import disagreement, migration_resources
 
     tallies[MIGRATION_PASS] = (Tally(), Tally())
-    budget = (1.0 - MATCH_MIN) * P
     ok = True
     for label, kw, ls in MIG_CASES:
+        kw = dict(kw)
+        Pc = kw.pop("P", P)
         for T, L, nr_scale in ((1, 20000.0, 1.5), (64, MAX_SEG, 0.1)):
-            c = MigCase(P, ls, L, nr_scale, seed=13 * P + T + ls, **kw)
+            c = MigCase(Pc, ls, L, nr_scale, seed=13 * Pc + T + ls, **kw)
             u = c.uniforms(T)
             got_st = c.run(segment_pass, u, c.fresh())
             ref_st = c.run(segment_pass_plain, u, c.fresh())
             torch.cuda.synchronize()
             got, ref = c.result(got_st), c.result(ref_st)
-            trees, floats, errs = disagreement(got, ref, c.L, MU, RTOL, Pp=2)
-            if T == 1:
-                good = int(trees.sum()) <= budget and int(floats.sum()) == 0
-            else:
-                good = int((trees | floats).sum()) <= budget
+            trees, floats, errs = disagreement(got, ref, c.L, MU, RTOL,
+                                               Pp=c.Pp)
+            exact = all(torch.equal(got[k], ref[k]) for k in MIG_EXACT)
             same_diag = torch.equal(got_st["diag"], ref_st["diag"])
-            good &= same_diag or bool(trees.any())
+            good = (int(trees.sum()) == 0 and int(floats.sum()) == 0
+                    and exact and same_diag)
             above = int((ref["time"].max(dim=1).values
                          > c.base["time"].max(dim=1).values).sum())
             capped, dropped = (float(x) for x in ref_st["diag"])
+            ppb = migration_resources(c.n, c.E, c.Pp, c.Mw)[
+                "particles_per_block"]
             if label == "overflow" and T == 64:
                 good &= dropped > 0
             if label == "above the root":
                 good &= above > 0
             if label == "capped":
                 good &= capped > 0
+            if label == "caps corner":
+                good &= Pc % ppb != 0
             tallies[MIGRATION_PASS][T > 1].add(trees, floats, errs)
-            _report(f"{MIGRATION_PASS} {label} P={P} n=4 E=8 Pp=2 "
-                    f"Mw={c.Mw} leaf_status={ls} trips={T}"
+            _report(f"{MIGRATION_PASS} {label} P={Pc} n={c.n} E={c.E} "
+                    f"Pp={c.Pp} Mw={c.Mw} ({ppb} particles per block) "
+                    f"leaf_status={ls} trips={T}"
                     + (" vs plain" if T > 1 else "")
                     + f" (walks capped {capped:g}, events dropped "
                     f"{dropped:g}, kernel {got_st['diag'].tolist()}; "
-                    f"{above} coalesced above the old root)",
-                    P, trees, floats, errs, good)
+                    f"{above} coalesced above the old root; trees and "
+                    f"buffers bit for bit {exact})",
+                    Pc, trees, floats, errs, good)
             ok &= good
     return ok
 
@@ -914,11 +938,15 @@ def phase_time_migration(kernel, plain, seg_lengths, P=TWOPOP_P):
         per_walk = torch.cat(seen) if seen else torch.zeros(0)
         st = c.run(kernel, u, c.fresh())
         torch.cuda.synchronize()
-        trees_d, floats_d, errs = disagreement(c.result(st), c.result(ref),
-                                               L, MU, RTOL, Pp=2)
-        good = int((trees_d | floats_d).sum()) <= (1.0 - MATCH_MIN) * P
+        got_r, ref_r = c.result(st), c.result(ref)
+        trees_d, floats_d, errs = disagreement(got_r, ref_r, L, MU, RTOL,
+                                               Pp=2)
+        exact = all(torch.equal(got_r[k], ref_r[k]) for k in MIG_EXACT)
+        good = (int((trees_d | floats_d).sum()) == 0 and exact
+                and torch.equal(st["diag"], ref["diag"]))
         _report(f"{MIGRATION_PASS} timed launch P={P} L={L:g} trips=64 vs "
-                f"plain", P, trees_d, floats_d, errs, good)
+                f"plain (trees and buffers bit for bit {exact})", P,
+                trees_d, floats_d, errs, good)
         if not good:
             raise SystemExit("the timed migration pass disagrees with its "
                              "plain version")
@@ -1591,6 +1619,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from smcsmc_tpu_torch.kernels import _build
     from smcsmc_tpu_torch.kernels.trip import (
+        migration_resources,
         segment_pass,
         segment_pass_plain,
         trip,
@@ -1616,6 +1645,15 @@ def main(argv=None) -> int:
         if ("registers" in ln or "spill" in ln or "stack frame" in ln
                 or "Compiling entry function" in ln):
             _log("  ptxas: " + ln.strip())
+    # what the card grants the migration kernel at the twopop path's shape
+    # and at the caps
+    mig_resources = {
+        shape: migration_resources(*dims) for shape, dims in (
+            ("twopop (n=4, E=8, Pp=2, Mw=56)", (4, 8, 2, TWOPOP_MW)),
+            ("caps (n=8, E=64, Pp=4, Mw=96)", (8, 64, 4, 96)))}
+    for shape, res in mig_resources.items():
+        _log(f"{MIGRATION_PASS} resources at {shape}: "
+             + ", ".join(f"{k} {v}" for k, v in res.items()))
     if args.until == "build":
         return 0
     scan_counts = phase_scan_repeat()
@@ -1741,6 +1779,9 @@ def main(argv=None) -> int:
             entry["twopop_shape"] = {
                 label: {k: v for k, v in row.items()}
                 for label, row in m_timing.items()}
+            # registers, local and static shared bytes (cudaFuncGetAttributes),
+            # dynamic shared bytes and particles per block as launched
+            entry["resources"] = mig_resources
             record["kernels"].append(entry)
             continue
         # the whole-genome shape (P=10000, n=8, E=33): the times at its

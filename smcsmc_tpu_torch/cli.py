@@ -23,7 +23,7 @@ import sys
 import numpy as np
 
 from .device import resolve_device
-from .em import EMConfig, run_em
+from .em import EMConfig, refuse_caps, run_em
 from .segio import merge_segs, read_seg
 
 logger = logging.getLogger("smcsmc_tpu_torch")
@@ -374,6 +374,10 @@ def smcsmc_main(argv=None) -> int:
     else:
         seg = read_seg(io["segs"][0])
     demo = build_demography(cfg, io["demo_args"], io, seg=seg)
+    try:
+        refuse_caps(demo, cfg)
+    except NotImplementedError as err:
+        raise SystemExit(f"smc2-torch: {err}") from None
     if demo.num_populations > 1 or np.any(demo.mig_rates > 0):
         for flag, used in (("-bias_heights", io["bias_heights"]),
                            ("-calibrate_lag", cfg.calibrate_lag)):

@@ -33,7 +33,7 @@
 //                 each trip's re-coalescence is the lock-step loop walk with
 //                 migration (transition.py:339) on a Philox stream, and the
 //                 SPR routes the branches' migration-event buffers
-//                 (transition.py:1170); one thread per particle, see the
+//                 (transition.py:1170); a warp per particle, see the
 //                 section "The migration pass" below.  Held against
 //                 kernels/migration.py through segment_pass_plain.
 //
@@ -96,8 +96,9 @@
 #define MAX_POPS 4          // populations of the migration pass
 #define MAX_MIG 96          // events per branch buffer (migration pass)
 #define BLOCK 128
-#define MIG_BLOCK 64        // threads (= particles) per migration block
 #define GROUP 8  // lanes that share one particle; divides 32
+#define MIG_PPB 2  // particles (warps) per migration block
+#define MIG_MIN_BLOCKS 10  // resident migration blocks per SM: <= 96 registers
 #define BIG 3e38f
 
 namespace {
@@ -148,7 +149,6 @@ struct Args {
   const float* mig;       // [E, Pp, Pp]
   const float* tot_mig;   // [E, Pp]
   const int* pop_map;     // [E, Pp]
-  float* scratch;         // [P, K] each particle's statistics row
   int Pp, Mw, max_events;
 };
 
@@ -861,26 +861,66 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
 }
 
 // ===========================================================================
-// The migration pass: one thread per particle.
+// The migration pass: a warp per particle, the particle's tree, buffers,
+// walk lists, routing rows and statistics row in shared memory.
 //
-// What bounds it: the chain of a walk, neither bytes nor operations.  At the
+// What bounds it: latency, neither bytes nor operations.  At the
 // two-population path's shape (10,000 particles, 4 leaves, 8 epochs, 56
 // events per buffer) a launch has to move a few MB (trees, the buffer
 // events the walks read, the rows they change) and compute a few million
-// operations, well under 10 us of either; a launch lasts as long as its
-// longest chain of trips times events.
+// operations, a few us of either.  What it spends is chains of dependent
+// steps: each walk event depends on the last, and every particle, walking
+// or not, has its round trips to device memory (tree, statistics push).  A
+// launch lasts as long as the longest chains among the particles an SM
+// holds at once, times the waves in which the SMs take the particles; the
+// SM's issue slots are mostly idle, waiting on those chains.
 //
-// A walk is a serial chain of events whose length differs from particle to
-// particle, so the variant gives each particle one thread and no group.
-// The tree (at most 15 nodes) and the walk's two event lists live in the
-// thread's local arrays; the branch buffers stay in device memory and are
-// read through per-branch cursors (the walk only moves up, so each event
-// advances them instead of counting N x Mw times); the statistics row
-// (3 E Pp + E Pp^2 + 2 E floats) is the particle's row of `scratch`.
-// Uniforms of the walk: Philox-4x32-10 under the segment's key, counter
-// (particle, trip, event, 0), 24 bits each; kernels/migration.py computes
-// the same numbers.  Follows kernels/migration.py step for step; summaries
-// are summed in node order per epoch.
+// What the design does about it:
+//
+// * A warp owns a particle and lane l its branch l (N is 7 at 4 leaves, 15
+//   at 8), so that particles never share a warp: their walks diverge
+//   freely, and every loop over a particle's rows is split 32 ways, which
+//   keeps its chain of memory round trips short.
+// * A walk event is a short chain.  A lane keeps its branch's node and
+//   parent time, its cursor into the branch's buffer, the next buffer event
+//   and the population the branch is in (all in registers, advanced only
+//   when the walk passes an event); the warp combines the branches with
+//   one ballot (k_same is its popcount, the coalescence target the r-th set
+//   bit in node order) and one min-reduction of the breakpoints (their
+//   bits: all are positive floats, so the integer order is the float
+//   order).  The epoch is advanced, not searched.  The next event's Philox
+//   draw is computed a step ahead, in the shadow of the current event.  The
+//   event's scalar logic runs in every lane on identical values, so
+//   nothing is broadcast; lane 0 alone adds into the statistics row and
+//   appends to the walk's lists, in event order.
+// * Everything indexed by a value lives in the particle's slice of shared
+//   memory: the tree with each branch's parent time and length (so that
+//   the node-order sums load independently), the buffers of a particle that
+//   recombines in this segment (N x Mw times and destinations, staged with
+//   vector loads at entry and written back only for the rows the routing
+//   changed; a particle that does not recombine never reads them), the
+//   walk's two lists, three routing rows and a merge's whole list (used on
+//   overflow only), and the statistics row, pushed into FIFO slot 0 once at
+//   the end with its reads in flight together.  Destinations are bytes
+//   there (a population is below MAX_POPS), which takes a particle's slice
+//   from 8.2 KB to 5.3 KB at the twopop shape and lets an SM hold more
+//   particles at once.  Nothing is indexed in local memory.
+// * Routing by lanes: a filter compacts with one ballot per 32 events; a
+//   merge writes each event to its own index plus its rank in the other
+//   list (a binary search, ties to the first list); on overflow each lane
+//   ranks the holds of its own events.
+// * A block is MIG_PPB warps (fewer only if they would not fit in shared
+//   memory), so that an SM is refilled a few particles at a time as walks
+//   end.
+//
+// Bit for bit: every float operation that feeds a tree or a buffer is the
+// plain version's, in its order.  The tree length sums each epoch's
+// branches in node order and the epochs in epoch order (so that the next
+// gap is the plain version's), the point and the data branch length sum in
+// node order, each statistic takes its addends in event order; only exact
+// operations (min, max, counts) are spread over lanes.  Uniforms of the
+// walk: Philox-4x32-10 under the segment's key, counter (particle, trip,
+// event, 0), 24 bits each; kernels/migration.py computes the same numbers.
 // ===========================================================================
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0,
@@ -908,278 +948,516 @@ __device__ __forceinline__ int epoch_of(const float* est, int E, float t) {
   return min(max(cnt - 1, 0), E - 1);
 }
 
-__device__ __forceinline__ int n_valid(const float* t, int len) {
-  int k = 0;
-  while (k < len && t[k] < BIG) ++k;
-  return k;
+#define WARP_ALL 0xffffffffu
+
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
+
+// a population index, held as a byte in shared memory
+typedef unsigned char pop_t;
+
+// one particle's slice of shared memory
+struct MigWork {
+  float* tm;  // [N] node times
+  float* pt;  // [N] parent times (BIG at the root)
+  float* bl;  // [N] branch lengths (0 at the root)
+  int* par;   // [N]
+  int* c0;    // [N]
+  int* c1;    // [N]
+  int* pp;    // [N] population at each node's time
+  float* tle;   // [E] tree length per epoch
+  float* pend;  // [K] the segment's statistics
+  float* mt;    // [N * Mw] the buffers: event times
+  float* ev_t;  // [2 Mw] the floating lineage's events
+  float* rev_t;  // [2 Mw] the root lineage's events
+  float* r1_t;  // [Mw] routing rows
+  float* r2_t;
+  float* r3_t;
+  float* tt_t;  // [3 Mw] a merge's whole list
+  pop_t* md;    // destinations of the lists above, in the same order
+  pop_t* ev_d;
+  pop_t* rev_d;
+  pop_t* r1_d;
+  pop_t* r2_d;
+  pop_t* r3_d;
+  pop_t* tt_d;
+};
+
+__host__ __device__ inline int mig_stats_width(int E, int Pp) {
+  return 3 * E * Pp + E * Pp * Pp + 2 * E;
+}
+
+// est [E]; ne, tot_mig, pop_map [E Pp]; mig [E Pp Pp]; has_data; the FIFO
+// gate [K]
+__host__ __device__ inline int mig_table_words(int E, int Pp) {
+  return E + 3 * E * Pp + E * Pp * Pp + MAX_LEAVES + mig_stats_width(E, Pp);
+}
+
+// the words of MigWork: its floats and ints, then its destination bytes
+__host__ __device__ inline int mig_work_words(int N, int E, int Pp, int Mw) {
+  const int events = N * Mw + 10 * Mw;
+  return 7 * N + E + mig_stats_width(E, Pp) + events + (events + 3) / 4;
+}
+
+__device__ MigWork carve_mig(float* f, int N, int E, int K, int Mw) {
+  MigWork w;
+  w.tm = f;
+  w.pt = (f += N);
+  w.bl = (f += N);
+  w.par = reinterpret_cast<int*>(f += N);
+  w.c0 = reinterpret_cast<int*>(f += N);
+  w.c1 = reinterpret_cast<int*>(f += N);
+  w.pp = reinterpret_cast<int*>(f += N);
+  w.tle = (f += N);
+  w.pend = (f += E);
+  w.mt = (f += K);
+  w.ev_t = (f += N * Mw);
+  w.rev_t = (f += 2 * Mw);
+  w.r1_t = (f += 2 * Mw);
+  w.r2_t = (f += Mw);
+  w.r3_t = (f += Mw);
+  w.tt_t = (f += Mw);
+  pop_t* b = reinterpret_cast<pop_t*>(f + 3 * Mw);
+  w.md = b;
+  w.ev_d = (b += N * Mw);
+  w.rev_d = (b += 2 * Mw);
+  w.r1_d = (b += 2 * Mw);
+  w.r2_d = (b += Mw);
+  w.r3_d = (b += Mw);
+  w.tt_d = (b += Mw);
+  return w;
+}
+
+// Global rows (gt, gd)[0, len) into shared memory by the warp's lanes,
+// four words a load where the rows' alignment allows.
+__device__ void stage_events(const float* gt, const int* gd, float* st,
+                             pop_t* sd, int len, int lane) {
+  if ((len & 3) == 0 && ((reinterpret_cast<size_t>(gt)
+                          | reinterpret_cast<size_t>(gd)) & 15) == 0) {
+    const float4* vt = reinterpret_cast<const float4*>(gt);
+    const int4* vd = reinterpret_cast<const int4*>(gd);
+    for (int k = lane; k < len / 4; k += 32) {
+      const float4 t = vt[k];
+      const int4 d = vd[k];
+      st[4 * k] = t.x;
+      st[4 * k + 1] = t.y;
+      st[4 * k + 2] = t.z;
+      st[4 * k + 3] = t.w;
+      sd[4 * k] = (pop_t)d.x;
+      sd[4 * k + 1] = (pop_t)d.y;
+      sd[4 * k + 2] = (pop_t)d.z;
+      sd[4 * k + 3] = (pop_t)d.w;
+    }
+  } else {
+    for (int k = lane; k < len; k += 32) {
+      st[k] = gt[k];
+      sd[k] = (pop_t)gd[k];
+    }
+  }
+}
+
+// (ot, od)[0, len) = (t, d)[0, len); lane l moves entries l, l + 32, ...
+template <typename D, typename OD>
+__device__ __forceinline__ void g_copy(const float* t, const D* d, int len,
+                                       float* ot, OD* od, int lane) {
+  for (int k = lane; k < len; k += 32) {
+    ot[k] = t[k];
+    od[k] = (OD)d[k];
+  }
+}
+
+// The first index of t[0, len) that is not below BIG (len if none).
+__device__ int g_nvalid(const float* t, int len, int lane) {
+  for (int base = 0; base < len; base += 32) {
+    const int k = base + lane;
+    const unsigned bad = __ballot_sync(WARP_ALL, k < len && !(t[k] < BIG));
+    if (bad != 0u) return base + __ffs(bad) - 1;
+  }
+  return len;
 }
 
 // The events of (t, d)[0, len) with lo <= t < hi, in order, into
-// (ot, od)[0, len), BIG/0-padded (transition.py:1107).
-__device__ void filter_events(const float* t, const int* d, int len, float lo,
-                              float hi, float* ot, int* od) {
-  int k = 0;
-  for (int j = 0; j < len; ++j) {
-    const float v = t[j];
-    if (v >= lo && v < hi && v < BIG) {
-      ot[k] = v;
-      od[k] = d[j];
-      ++k;
+// (ot, od)[0, len), BIG/0-padded (transition.py:1107): one ballot per 32
+// events gives each kept event its place.
+__device__ void g_filter(const float* t, const pop_t* d, int len, float lo,
+                         float hi, float* ot, pop_t* od, int lane) {
+  int kept = 0;
+  for (int base = 0; base < len; base += 32) {
+    const int j = base + lane;
+    float v = BIG;
+    pop_t dv = 0;
+    if (j < len) {
+      v = t[j];
+      dv = d[j];
     }
+    const bool keep = j < len && v >= lo && v < hi && v < BIG;
+    const unsigned bits = __ballot_sync(WARP_ALL, keep);
+    if (keep) {
+      const int at = kept + __popc(bits & lanes_below(lane));
+      ot[at] = v;
+      od[at] = dv;
+    }
+    kept += __popc(bits);
   }
-  for (; k < len; ++k) {
+  for (int k = kept + lane; k < len; k += 32) {
     ot[k] = BIG;
     od[k] = 0;
   }
 }
 
+// How many of a[0, n) (ascending) come before v in a merge: those below v,
+// or not above it when a is the first list (ties go to the first list).
+__device__ __forceinline__ int merge_rank(const float* a, int n, float v,
+                                          bool a_first) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const bool before = a_first ? a[mid] <= v : a[mid] < v;
+    if (before)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
 // Merge two ascending BIG-padded lists into (ot, od)[0, M): by time, ties
 // to the first list; if more than M are valid, keep the M with the longest
 // hold (time to the next merged event, BIG for the last), of equal holds
-// the earlier (transition.py:1125).  (tt, td) hold the merged list.
-// Returns the number dropped.
-__device__ int merge_hold(const float* at, const int* ad, int la,
-                          const float* bt, const int* bd, int lb, int M,
-                          float* ot, int* od, float* tt, int* td) {
-  const int na = n_valid(at, la), nb = n_valid(bt, lb), nv = na + nb;
-  int ia = 0, ib = 0;
-  for (int k = 0; k < nv; ++k) {
-    if (ib >= nb || (ia < na && at[ia] <= bt[ib])) {
-      tt[k] = at[ia];
-      td[k] = ad[ia];
-      ++ia;
-    } else {
-      tt[k] = bt[ib];
-      td[k] = bd[ib];
-      ++ib;
-    }
+// the earlier (transition.py:1125).  Each event goes to its own index plus
+// its rank in the other list: into the output directly, or on overflow
+// into (tt, td), whose holds each lane then ranks for its own events.  No
+// output may alias an input; the inputs must be visible to the whole
+// warp.  Returns the number dropped.
+__device__ int g_merge_hold(const float* at, const pop_t* ad, int la,
+                            const float* bt, const pop_t* bd, int lb, int M,
+                            float* ot, pop_t* od, float* tt, pop_t* td,
+                            int lane) {
+  const int na = g_nvalid(at, la, lane), nb = g_nvalid(bt, lb, lane);
+  const int nv = na + nb;
+  float* mt = nv <= M ? ot : tt;
+  pop_t* md = nv <= M ? od : td;
+  for (int k = lane; k < na; k += 32) {
+    const float v = at[k];
+    const int to = k + merge_rank(bt, nb, v, false);
+    mt[to] = v;
+    md[to] = ad[k];
   }
-  int out = 0;
+  for (int k = lane; k < nb; k += 32) {
+    const float v = bt[k];
+    const int to = k + merge_rank(at, na, v, true);
+    mt[to] = v;
+    md[to] = bd[k];
+  }
   if (nv <= M) {
-    for (; out < nv; ++out) {
-      ot[out] = tt[out];
-      od[out] = td[out];
+    for (int k = nv + lane; k < M; k += 32) {
+      ot[k] = BIG;
+      od[k] = 0;
     }
-  } else {
-    for (int i = 0; i < nv; ++i) {
-      const float h_i = (i + 1 < nv ? tt[i + 1] : BIG) - tt[i];
+    return 0;
+  }
+  __syncwarp();
+  int kept = 0;  // ends at M: the ranks are a permutation of 0..nv-1
+  for (int base = 0; base < nv; base += 32) {
+    const int k = base + lane;
+    bool keep = false;
+    float v = 0.0f;
+    pop_t dv = 0;
+    if (k < nv) {
+      v = tt[k];
+      dv = td[k];
+      const float h_k = (k + 1 < nv ? tt[k + 1] : BIG) - v;
       int before = 0;
       for (int j = 0; j < nv && before < M; ++j) {
         const float h_j = (j + 1 < nv ? tt[j + 1] : BIG) - tt[j];
-        if (h_j > h_i || (h_j == h_i && j < i)) ++before;
+        if (h_j > h_k || (h_j == h_k && j < k)) ++before;
       }
-      if (before < M) {
-        ot[out] = tt[i];
-        od[out] = td[i];
-        ++out;
-      }
+      keep = before < M;
     }
+    const unsigned bits = __ballot_sync(WARP_ALL, keep);
+    if (keep) {
+      const int to = kept + __popc(bits & lanes_below(lane));
+      ot[to] = v;
+      od[to] = dv;
+    }
+    kept += __popc(bits);
   }
-  for (; out < M; ++out) {
-    ot[out] = BIG;
-    od[out] = 0;
-  }
-  return nv > M ? nv - M : 0;
+  return nv - M;
 }
 
-// tl, tle[E] and B of the tree in (tm, par) for the segment's leaf status
-__device__ void mig_summaries(const Args& a, const float* tm, const int* par,
-                              float* tle, float& tl, float& B) {
-  const int n = a.n, N = 2 * n - 1, E = a.E;
-  tl = 0.0f;
-  for (int e = 0; e < E; ++e) {
-    const float lo = a.epoch_start[e];
-    const float hi = e + 1 < E ? a.epoch_start[e + 1] : BIG;
+// Each branch's parent time and length from the tree (lane j, branch j).
+// The tree must be visible to the whole warp; the caller syncs after.
+__device__ __forceinline__ void mig_branches(const MigWork& w, int N,
+                                             int lane) {
+  if (lane < N) {
+    const int p = w.par[lane];
+    const float t = w.tm[lane];
+    const float pt = p >= 0 ? w.tm[p] : BIG;
+    w.pt[lane] = pt;
+    w.bl[lane] = p >= 0 ? pt - t : 0.0f;
+  }
+}
+
+// tl, tle[E] (in w.tle) and B of the tree in w for the segment's leaf
+// status: each epoch's branches summed in node order (lanes over epochs),
+// the epochs in epoch order, the informative branches in node order.  Every
+// lane returns the same tl and B.  The tree and its branches (mig_branches)
+// must be visible to the whole warp on entry.
+__device__ void mig_summaries(const float* est, const int* hd,
+                              const MigWork& w, int n, int E,
+                              int leaf_status, int lane, float& tl,
+                              float& B) {
+  const int N = 2 * n - 1;
+  for (int e = lane; e < E; e += 32) {
+    const float lo = est[e];
+    const float hi = e + 1 < E ? est[e + 1] : BIG;
     float s = 0.0f;
-    for (int j = 0; j < N; ++j)
-      if (par[j] >= 0)
-        s += fmaxf(fminf(tm[par[j]], hi) - fmaxf(tm[j], lo), 0.0f);
-    tle[e] = s;
-    tl += s;
+#pragma unroll
+    for (int j = 0; j < MAX_NODES; ++j)
+      if (j < N && w.par[j] >= 0)
+        s += fmaxf(fminf(w.pt[j], hi) - fmaxf(w.tm[j], lo), 0.0f);
+    w.tle[e] = s;
   }
-  if (a.leaf_status == 1) {
+  __syncwarp();
+  tl = 0.0f;
+  for (int e = 0; e < E; ++e) tl += w.tle[e];
+  if (leaf_status == 1) {
     B = tl;
-  } else if (a.leaf_status == -1) {
-    B = 0.0f;
-  } else {
-    int below[MAX_NODES];
-    for (int j = 0; j < N; ++j) below[j] = 0;
-    int total = 0;
-    for (int l = 0; l < n; ++l) {
-      if (!a.has_data[l]) continue;
-      ++total;
-      int cur = l;
-      for (int s = 0; s < n && cur >= 0; ++s) {
-        below[cur] |= 1 << l;
-        cur = par[cur];
-      }
-    }
-    float b = 0.0f;
-    for (int j = 0; j < N; ++j) {
-      if (par[j] < 0) continue;
-      const int cnt = __popc(below[j]);
-      if (cnt >= 1 && cnt < total) b += tm[par[j]] - tm[j];
-    }
-    B = b;
+    return;
   }
+  if (leaf_status == -1) {
+    B = 0.0f;
+    return;
+  }
+  // the data leaves below the lane's branch, from the leaves' ancestor
+  // chains
+  unsigned below = 0u;
+  int total = 0;
+  for (int l = 0; l < n; ++l) {
+    if (!hd[l]) continue;
+    ++total;
+    int cur = l;
+    for (int step = 0; step < n && cur >= 0; ++step) {
+      if (cur == lane) below |= 1u << l;
+      cur = w.par[cur];
+    }
+  }
+  // informative branches (at least one and not all data leaves below)
+  float b = 0.0f;
+  for (int j = 0; j < N; ++j) {
+    const int cnt = __popc(__shfl_sync(WARP_ALL, below, j));
+    if (w.par[j] >= 0 && cnt >= 1 && cnt < total) b += w.bl[j];
+  }
+  B = b;
 }
 
-__global__ void __launch_bounds__(MIG_BLOCK)
+__global__ void __launch_bounds__(MIG_PPB * 32, MIG_MIN_BLOCKS)
 segment_pass_mig_kernel(const Args a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.P) return;
+  extern __shared__ float smem[];
   const int n = a.n, N = 2 * n - 1, E = a.E, Pp = a.Pp, Mw = a.Mw;
-  const int EP = E * Pp;
-  const int o_mig_opp = 2 * EP, o_coal_cnt = EP, o_mig_cnt = 3 * EP;
-  const int o_ropp = 3 * EP + EP * Pp, o_rcnt = o_ropp + E, K = o_rcnt + E;
-  const float* est = a.epoch_start;
-  const unsigned k0 = (unsigned)a.key[0], k1 = (unsigned)a.key[1];
+  const int EP = E * Pp, K = mig_stats_width(E, Pp);
+  const int o_coal_cnt = EP, o_mig_opp = 2 * EP, o_mig_cnt = 3 * EP;
+  const int o_ropp = 3 * EP + EP * Pp, o_rcnt = o_ropp + E;
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const bool live = i < a.P;
 
-  float tm[MAX_NODES];
-  int par[MAX_NODES], ch0[MAX_NODES], ch1[MAX_NODES], pp[MAX_NODES];
-  for (int j = 0; j < N; ++j) {
-    const size_t at = (size_t)i * N + j;
-    tm[j] = a.time[at];
-    par[j] = a.parent[at];
-    ch0[j] = a.child0[at];
-    ch1[j] = a.child1[at];
-    pp[j] = a.pop[at];
+  // ---- the block's tables -----------------------------------------------
+  float* est = smem;
+  float* ne = est + E;
+  float* tot = ne + EP;
+  float* mig = tot + EP;
+  int* pmap = reinterpret_cast<int*>(mig + EP * Pp);
+  int* hd = pmap + EP;
+  float* gate = reinterpret_cast<float*>(hd + MAX_LEAVES);
+  for (int k = threadIdx.x; k < E; k += blockDim.x) est[k] = a.epoch_start[k];
+  for (int k = threadIdx.x; k < EP; k += blockDim.x) {
+    ne[k] = a.ne[k];
+    tot[k] = a.tot_mig[k];
+    pmap[k] = a.pop_map[k];
   }
-  float* MT = a.mig_time + (size_t)i * N * Mw;
-  int* MD = a.mig_dest + (size_t)i * N * Mw;
-  float* pend = a.scratch + (size_t)i * K;
-  for (int k = 0; k < K; ++k) pend[k] = 0.0f;
-  float nr = a.next_rec[i], lw = a.log_w[i], up = 0.0f;
-  float tle[MAX_EPOCHS];
-  float tl, B;
-  mig_summaries(a, tm, par, tle, tl, B);
+  for (int k = threadIdx.x; k < EP * Pp; k += blockDim.x) mig[k] = a.mig[k];
+  for (int l = threadIdx.x; l < MAX_LEAVES; l += blockDim.x)
+    hd[l] = (l < n && a.has_data[l] != 0) ? 1 : 0;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) gate[k] = a.fifo_mask[k];
+  const MigWork w = carve_mig(
+      smem + mig_table_words(E, Pp)
+          + (size_t)(threadIdx.x / 32) * mig_work_words(N, E, Pp, Mw),
+      N, E, K, Mw);
 
-  // the walk's two lists, and three rows' worth of routing temporaries
-  float ev_t[2 * MAX_MIG], rev_t[2 * MAX_MIG];
-  int ev_d[2 * MAX_MIG], rev_d[2 * MAX_MIG];
-  float r1_t[MAX_MIG], r2_t[MAX_MIG], r3_t[MAX_MIG], mg_t[3 * MAX_MIG];
-  int r1_d[MAX_MIG], r2_d[MAX_MIG], r3_d[MAX_MIG], mg_d[3 * MAX_MIG];
-  int cursor[MAX_NODES];
+  // ---- the particle's tree, a zeroed statistics row and, if it
+  // recombines in this segment, its buffers: all under way before the one
+  // barrier
+  float nr = 0.0f, lw = 0.0f;
+  if (live) {
+    nr = a.next_rec[i];
+    lw = a.log_w[i];
+    if (lane < N) {
+      const size_t at = (size_t)i * N + lane;
+      w.tm[lane] = a.time[at];
+      w.par[lane] = a.parent[at];
+      w.c0[lane] = a.child0[at];
+      w.c1[lane] = a.child1[at];
+      w.pp[lane] = a.pop[at];
+    }
+    for (int k = lane; k < K; k += 32) w.pend[k] = 0.0f;
+    if (a.trips > 0 && nr < a.L)
+      stage_events(a.mig_time + (size_t)i * N * Mw,
+                   a.mig_dest + (size_t)i * N * Mw, w.mt, w.md, N * Mw, lane);
+  }
+  __syncthreads();
+  if (!live) return;
+
+  mig_branches(w, N, lane);
+  __syncwarp();
+  float tl, B;
+  mig_summaries(est, hd, w, n, E, a.leaf_status, lane, tl, B);
+  const unsigned k0 = (unsigned)a.key[0], k1 = (unsigned)a.key[1];
+  float up = 0.0f, capped = 0.0f, dropped = 0.0f;
   bool moved = false;
-  float capped = 0.0f, dropped = 0.0f;
+  unsigned dirty = 0u;  // buffer rows to write back
 
   for (int k = 0; k < a.trips; ++k) {
     if (!(nr < a.L)) break;
     const float4 u = load_uniforms(a, k, i);
     const float u_pt = clip_u(u.x), u_gap = clip_u(u.w);
+    // the walk's first draw is under way while the point is found
+    uint4 r4_next = philox4x32_10(
+        make_uint4((unsigned)i, (unsigned)k, 0u, 0u), k0, k1);
 
     // ---- extension ------------------------------------------------------
     const float delta = nr - up;
     lw = lw - a.mu * B * delta;
-    for (int e = 0; e < E; ++e) pend[o_ropp + e] += delta * tle[e];
+    for (int e = lane; e < E; e += 32) w.pend[o_ropp + e] += delta * w.tle[e];
 
     // ---- uniform point: running sum of branch lengths in node order -----
     float total = 0.0f;
-    for (int j = 0; j < N; ++j)
-      total += par[j] >= 0 ? tm[par[j]] - tm[j] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < MAX_NODES; ++j)
+      if (j < N) total += w.bl[j];
     const float x_pt = u_pt * total;
     int c = -1;
     float cum = 0.0f, prev = 0.0f;
-    for (int j = 0; j < N; ++j) {
-      const float bl = par[j] >= 0 ? tm[par[j]] - tm[j] : 0.0f;
-      const float before = cum;
-      cum += bl;
-      if (c < 0 && cum >= x_pt) {
-        c = j;
-        prev = before;
+#pragma unroll
+    for (int j = 0; j < MAX_NODES; ++j) {
+      if (j < N) {
+        const float before = cum;
+        cum += w.bl[j];
+        if (c < 0 && cum >= x_pt) {
+          c = j;
+          prev = before;
+        }
       }
     }
     if (c < 0) {
       c = N - 1;
-      prev = cum - (par[N - 1] >= 0 ? tm[par[N - 1]] - tm[N - 1] : 0.0f);
+      prev = cum - w.bl[N - 1];
     }
-    const float h_r = tm[c] + (x_pt - prev);
+    const float h_r = w.tm[c] + (x_pt - prev);
 
     // ---- the loop walk from (c, h_r) --------------------------------------
-    int root = 0;
-    for (int j = N - 1; j >= 0; --j)
-      if (par[j] < 0) root = j;
-    const float root_h = tm[root];
-    for (int j = 0; j < N; ++j) {
-      int q = 0;
-      while (q < Mw && MT[j * Mw + q] <= h_r) ++q;
-      cursor[j] = q;
+    const unsigned roots = __ballot_sync(WARP_ALL,
+                                         lane < N && w.par[lane] < 0);
+    const int root = roots != 0u ? __ffs(roots) - 1 : 0;
+    const float root_h = w.tm[root];
+    // the lane's branch: node and parent time, and a cursor past its
+    // buffer events so far (the walk only moves up, so it only advances)
+    // with the next event's time and the population the branch is in
+    const bool mine = lane < N;
+    const float* row = w.mt + (mine ? lane : 0) * Mw;
+    const pop_t* drow = w.md + (mine ? lane : 0) * Mw;
+    const float bt = mine ? w.tm[lane] : BIG;
+    const float bpt = mine ? w.pt[lane] : BIG;
+    int bq = 0, bpop = mine ? w.pp[lane] : 0;
+    float bnext = mine ? row[0] : BIG;
+    if (mine) {
+      while (bq < Mw && bnext <= h_r) {
+        bpop = drow[bq];
+        ++bq;
+        bnext = bq < Mw ? row[bq] : BIG;
+      }
     }
-    int p_raw = cursor[c] > 0 ? MD[c * Mw + cursor[c] - 1] : pp[c];
-    int r_raw = pp[root];
+    // the floating lineage starts in c's population after c's own events
+    // below h_r
+    int p_raw = __shfl_sync(WARP_ALL, bpop, c);
+    int r_raw = w.pp[root];
+    int e = epoch_of(est, E, h_r);
     float tt = h_r, t_c = 0.0f;
     int d = -1, fpop = 0, n_ev = 0, n_rev = 0;
     bool done = false;
     for (int ev = 0; ev < a.max_events && !done; ++ev) {
-      const uint4 w = philox4x32_10(
-          make_uint4((unsigned)i, (unsigned)k, (unsigned)ev, 0u), k0, k1);
-      const int e = epoch_of(est, E, tt);
-      const int* pm = a.pop_map + e * Pp;
+      const uint4 r4 = r4_next;
+      r4_next = philox4x32_10(
+          make_uint4((unsigned)i, (unsigned)k, (unsigned)(ev + 1), 0u), k0,
+          k1);
+      // the epoch of tt (epoch starts ascend) and the next epoch start
+      while (e + 1 < E && tt >= est[e + 1]) ++e;
+      const float next_epoch = e + 1 < E ? est[e + 1] : BIG;
+      const int* pm = pmap + e * Pp;
       const int p_cur = pm[p_raw], r_cur = pm[r_raw];
       const bool above = tt >= root_h;
-      int kc = 0;
-      float t_bk = BIG;
-      for (int j = 0; j < N; ++j) {
-        int q = cursor[j];
-        while (q < Mw && MT[j * Mw + q] <= tt) ++q;
-        cursor[j] = q;
-        const float ptj = par[j] < 0 ? BIG : tm[par[j]];
-        const int bp = j == root ? r_cur : pm[q > 0 ? MD[j * Mw + q - 1]
-                                                    : pp[j]];
-        if (tm[j] <= tt && tt < ptj && bp == p_cur) ++kc;
-        if (tm[j] > tt) t_bk = fminf(t_bk, tm[j]);
-        if (q < Mw) t_bk = fminf(t_bk, MT[j * Mw + q]);
+      // the lane's branch: cursor, population, membership, breakpoints
+      float tbk = BIG;
+      bool member = false;
+      if (mine) {
+        while (bq < Mw && bnext <= tt) {
+          bpop = drow[bq];
+          ++bq;
+          bnext = bq < Mw ? row[bq] : BIG;
+        }
+        const int bp = lane == root ? r_cur : pm[bpop];
+        member = bt <= tt && tt < bpt && bp == p_cur;
+        if (bt > tt) tbk = bt;
+        tbk = fminf(tbk, bnext);
       }
-      for (int e2 = 0; e2 < E; ++e2)
-        if (est[e2] > tt) t_bk = fminf(t_bk, est[e2]);
+      const unsigned members = __ballot_sync(WARP_ALL, member);
+      const int kc = __popc(members);
+      // every candidate is above tt >= 0 (or BIG): positive floats order
+      // as their bits do
+      const float t_bk = fminf(
+          __uint_as_float(__reduce_min_sync(WARP_ALL, __float_as_uint(tbk))),
+          next_epoch);
+
+      // ---- the event: the same scalars in every lane ----------------------
       const float k_same = (float)kc;
-      const float coal_rate = k_same / (2.0f * a.ne[e * Pp + p_cur]);
-      const float mig_rate = a.tot_mig[e * Pp + p_cur];
-      const float root_rate = above ? a.tot_mig[e * Pp + r_cur] : 0.0f;
+      const float coal_rate = k_same / (2.0f * ne[e * Pp + p_cur]);
+      const float mig_rate = tot[e * Pp + p_cur];
+      const float root_rate = above ? tot[e * Pp + r_cur] : 0.0f;
       const float rate = coal_rate + mig_rate + root_rate;
-      const float u_dt = clip_u(u24(w.x));
+      const float u_dt = clip_u(u24(r4.x));
       const float dt = rate > 0.0f ? -log1pf(-u_dt) / fmaxf(rate, 1e-30f)
                                    : BIG;
       const bool hit_bk = tt + dt >= t_bk;
       const float t_next = fminf(tt + dt, t_bk);
       float span = fmaxf(t_next - tt, 0.0f);
       if (!isfinite(span)) span = 0.0f;
-      pend[e * Pp + p_cur] += k_same * span;
-      pend[o_mig_opp + e * Pp + p_cur] += span;
-      if (above) pend[o_mig_opp + e * Pp + r_cur] += span;
+      if (lane == 0) {
+        w.pend[e * Pp + p_cur] += k_same * span;
+        w.pend[o_mig_opp + e * Pp + p_cur] += span;
+        if (above) w.pend[o_mig_opp + e * Pp + r_cur] += span;
+      }
 
-      const float x = u24(w.y) * rate;
+      const float x = u24(r4.y) * rate;
       const bool is_coal = !hit_bk && x < coal_rate;
       const bool is_fm = !hit_bk && !is_coal && x < coal_rate + mig_rate;
       const bool is_rm = !hit_bk && !is_coal && !is_fm;
       if (is_coal) {
-        const int r = (int)floorf(u24(w.z) * (float)max(kc, 1));
-        int seen = -1, dn = 0;
-        bool found = false;
-        for (int j = 0; j < N; ++j) {
-          const int q = cursor[j];
-          const float ptj = par[j] < 0 ? BIG : tm[par[j]];
-          const int bp = j == root ? r_cur : pm[q > 0 ? MD[j * Mw + q - 1]
-                                                      : pp[j]];
-          if (tm[j] <= tt && tt < ptj && bp == p_cur) {
-            ++seen;
-            if (!found && seen == r) {
-              dn = j;
-              found = true;
-            }
-          }
-        }
-        pend[o_coal_cnt + e * Pp + p_cur] += 1.0f;
+        // the r-th member in node order (none: node 0)
+        const int r = (int)floorf(u24(r4.z) * (float)max(kc, 1));
+        unsigned m = members;
+        for (int s = 0; s < r && m != 0u; ++s) m &= m - 1u;
+        if (lane == 0) w.pend[o_coal_cnt + e * Pp + p_cur] += 1.0f;
         done = true;
         t_c = t_next;
-        d = dn;
+        d = m != 0u ? __ffs(m) - 1 : 0;
         fpop = p_cur;
       } else if (is_fm || is_rm) {
         const int mover = is_rm ? r_cur : p_cur;
-        const float* wr = a.mig + ((size_t)e * Pp + mover) * Pp;
+        const float* wr = mig + (e * Pp + mover) * Pp;
         float wtot = 0.0f;
         for (int q = 0; q < Pp; ++q) wtot += wr[q];
-        const float xd = u24(w.w) * wtot;
+        const float xd = u24(r4.w) * wtot;
         float cw = 0.0f;
         int dest = -1, last = 0;
         for (int q = 0; q < Pp; ++q) {
@@ -1188,17 +1466,16 @@ segment_pass_mig_kernel(const Args a) {
           if (dest < 0 && cw > xd) dest = q;
         }
         if (dest < 0) dest = last;
-        pend[o_mig_cnt + (e * Pp + mover) * Pp + dest] += 1.0f;
+        if (lane == 0) {
+          w.pend[o_mig_cnt + (e * Pp + mover) * Pp + dest] += 1.0f;
+          const int slot = min(is_fm ? n_ev : n_rev, 2 * Mw - 1);
+          (is_fm ? w.ev_t : w.rev_t)[slot] = t_next;
+          (is_fm ? w.ev_d : w.rev_d)[slot] = (pop_t)dest;
+        }
         if (is_fm) {
-          const int slot = min(n_ev, 2 * Mw - 1);
-          ev_t[slot] = t_next;
-          ev_d[slot] = dest;
           ++n_ev;
           p_raw = dest;
         } else {
-          const int slot = min(n_rev, 2 * Mw - 1);
-          rev_t[slot] = t_next;
-          rev_d[slot] = dest;
           ++n_rev;
           r_raw = dest;
         }
@@ -1206,108 +1483,133 @@ segment_pass_mig_kernel(const Args a) {
       tt = t_next;
     }
     if (!done) {  // capped: coalesce onto the root lineage
-      float hmax = tm[0];
-      for (int j = 1; j < N; ++j) hmax = fmaxf(hmax, tm[j]);
+      float hmax = w.tm[0];
+      for (int j = 1; j < N; ++j) hmax = fmaxf(hmax, w.tm[j]);
       d = root;
       t_c = fmaxf(tt, hmax);
       fpop = r_raw;
       capped += 1.0f;
     }
-    for (int q = min(n_ev, 2 * Mw); q < 2 * Mw; ++q) {
-      ev_t[q] = BIG;
-      ev_d[q] = 0;
+    // the lists end at their first BIG: a merge reads no further
+    if (lane == 0) {
+      if (n_ev < 2 * Mw) {
+        w.ev_t[n_ev] = BIG;
+        w.ev_d[n_ev] = 0;
+      }
+      if (n_rev < 2 * Mw) {
+        w.rev_t[n_rev] = BIG;
+        w.rev_d[n_rev] = 0;
+      }
+      w.pend[o_rcnt + epoch_of(est, E, h_r)] += 1.0f;
     }
-    for (int q = min(n_rev, 2 * Mw); q < 2 * Mw; ++q) {
-      rev_t[q] = BIG;
-      rev_d[q] = 0;
-    }
-    pend[o_rcnt + epoch_of(est, E, h_r)] += 1.0f;
+    __syncwarp();
 
     // ---- the SPR with buffer routing --------------------------------------
+    // rows of a negative node read as row 0 and are not written, as in the
+    // plain version's one-hot algebra
 #define PICK(arr, idx) ((idx) >= 0 ? (arr)[(idx)] : 0)
-    const int p = PICK(par, c);
-    const int sib0 = PICK(ch0, p), sib1 = PICK(ch1, p);
+    const int p = PICK(w.par, c);
+    const int sib0 = PICK(w.c0, p), sib1 = PICK(w.c1, p);
     const int o = sib0 == c ? sib1 : sib0;
-    const int g = PICK(par, p);
+    const int g = PICK(w.par, p);
     const int d_eff = d == p ? o : d;
-    const int gp = d_eff == o ? g : PICK(par, d_eff);
+    const int gp = d_eff == o ? g : PICK(w.par, d_eff);
 #undef PICK
+#define ROW_T(x) (w.mt + max((x), 0) * Mw)
+#define ROW_D(x) (w.md + max((x), 0) * Mw)
     // c's events below h_r, then the walk's
-    filter_events(MT + c * Mw, MD + c * Mw, Mw, -BIG, h_r, r2_t, r2_d);
-    int drop = merge_hold(r2_t, r2_d, Mw, ev_t, ev_d, 2 * Mw, Mw, r1_t, r1_d,
-                          mg_t, mg_d);
+    g_filter(ROW_T(c), ROW_D(c), Mw, -BIG, h_r, w.r2_t, w.r2_d, lane);
+    __syncwarp();
+    int drop = g_merge_hold(w.r2_t, w.r2_d, Mw, w.ev_t, w.ev_d, 2 * Mw, Mw,
+                            w.r1_t, w.r1_d, w.tt_t, w.tt_d, lane);
+    __syncwarp();
     if (d == c) {
       // self-coalescence: c's events in [h_r, t_c) become the walk's
-      filter_events(MT + c * Mw, MD + c * Mw, Mw, t_c, BIG, r2_t, r2_d);
-      drop += merge_hold(r1_t, r1_d, Mw, r2_t, r2_d, Mw, Mw, r3_t, r3_d, mg_t,
-                         mg_d);
-      for (int q = 0; q < Mw; ++q) {
-        MT[c * Mw + q] = r3_t[q];
-        MD[c * Mw + q] = r3_d[q];
+      g_filter(ROW_T(c), ROW_D(c), Mw, t_c, BIG, w.r2_t, w.r2_d, lane);
+      __syncwarp();
+      drop += g_merge_hold(w.r1_t, w.r1_d, Mw, w.r2_t, w.r2_d, Mw, Mw,
+                           w.r3_t, w.r3_d, w.tt_t, w.tt_d, lane);
+      __syncwarp();
+      if (c >= 0) {
+        g_copy(w.r3_t, w.r3_d, Mw, ROW_T(c), ROW_D(c), lane);
+        dirty |= 1u << c;
       }
     } else {
       // o's merged branch: o's events and p's
-      drop += merge_hold(MT + o * Mw, MD + o * Mw, Mw, MT + p * Mw,
-                         MD + p * Mw, Mw, Mw, r2_t, r2_d, mg_t, mg_d);
+      drop += g_merge_hold(ROW_T(o), ROW_D(o), Mw, ROW_T(p), ROW_D(p), Mw, Mw,
+                           w.r2_t, w.r2_d, w.tt_t, w.tt_d, lane);
+      __syncwarp();
       // the target's branch (the merged one if d_eff == o), with the root
       // lineage's events when the target is the old root; split at t_c
-      const float* src_t = d_eff == o ? r2_t : MT + d_eff * Mw;
-      const int* src_d = d_eff == o ? r2_d : MD + d_eff * Mw;
-      if (d == root || d_eff == root) {
-        drop += merge_hold(src_t, src_d, Mw, rev_t, rev_d, 2 * Mw, Mw, r3_t,
-                           r3_d, mg_t, mg_d);
-      } else {
-        for (int q = 0; q < Mw; ++q) {
-          r3_t[q] = src_t[q];
-          r3_d[q] = src_d[q];
-        }
+      const float* src_t = d_eff == o ? w.r2_t : ROW_T(d_eff);
+      const pop_t* src_d = d_eff == o ? w.r2_d : ROW_D(d_eff);
+      if (d == root || d_eff == root)
+        drop += g_merge_hold(src_t, src_d, Mw, w.rev_t, w.rev_d, 2 * Mw, Mw,
+                             w.r3_t, w.r3_d, w.tt_t, w.tt_d, lane);
+      else
+        g_copy(src_t, src_d, Mw, w.r3_t, w.r3_d, lane);
+      __syncwarp();
+      // the new rows, each from the routing rows alone
+      if (o != d_eff && o >= 0) {
+        g_copy(w.r2_t, w.r2_d, Mw, ROW_T(o), ROW_D(o), lane);
+        dirty |= 1u << o;
       }
-      if (o != d_eff) {
-        for (int q = 0; q < Mw; ++q) {
-          MT[o * Mw + q] = r2_t[q];
-          MD[o * Mw + q] = r2_d[q];
-        }
-      }
-      filter_events(r3_t, r3_d, Mw, -BIG, t_c, MT + d_eff * Mw,
-                    MD + d_eff * Mw);
-      filter_events(r3_t, r3_d, Mw, t_c, BIG, MT + p * Mw, MD + p * Mw);
-      for (int q = 0; q < Mw; ++q) {
-        MT[c * Mw + q] = r1_t[q];
-        MD[c * Mw + q] = r1_d[q];
-      }
-      // the topology, as the plain pass edits it
-      if (o >= 0) par[o] = g;
-      if (d_eff >= 0) par[d_eff] = p;
-      if (p >= 0) par[p] = gp;
-      if (g >= 0) {
-        if (ch0[g] == p) ch0[g] = o;
-        if (ch1[g] == p) ch1[g] = o;
+      if (d_eff >= 0) {
+        g_filter(w.r3_t, w.r3_d, Mw, -BIG, t_c, ROW_T(d_eff), ROW_D(d_eff),
+                 lane);
+        dirty |= 1u << d_eff;
       }
       if (p >= 0) {
-        ch0[p] = c;
-        ch1[p] = d_eff;
+        g_filter(w.r3_t, w.r3_d, Mw, t_c, BIG, ROW_T(p), ROW_D(p), lane);
+        dirty |= 1u << p;
       }
-      if (gp >= 0) {
-        if (ch0[gp] == d_eff) ch0[gp] = p;
-        if (ch1[gp] == d_eff) ch1[gp] = p;
+      if (c >= 0) {
+        g_copy(w.r1_t, w.r1_d, Mw, ROW_T(c), ROW_D(c), lane);
+        dirty |= 1u << c;
       }
-      if (p >= 0) {
-        tm[p] = t_c;
-        pp[p] = fpop;
+      __syncwarp();
+      // the topology, as the plain pass edits it; no other lane reads the
+      // tree until the next warp sync
+      if (lane == 0) {
+        if (o >= 0) w.par[o] = g;
+        if (d_eff >= 0) w.par[d_eff] = p;
+        if (p >= 0) w.par[p] = gp;
+        if (g >= 0) {
+          if (w.c0[g] == p) w.c0[g] = o;
+          if (w.c1[g] == p) w.c1[g] = o;
+        }
+        if (p >= 0) {
+          w.c0[p] = c;
+          w.c1[p] = d_eff;
+        }
+        if (gp >= 0) {
+          if (w.c0[gp] == d_eff) w.c0[gp] = p;
+          if (w.c1[gp] == d_eff) w.c1[gp] = p;
+        }
+        if (p >= 0) {
+          w.tm[p] = t_c;
+          w.pp[p] = fpop;
+        }
       }
+      __syncwarp();
     }
+#undef ROW_T
+#undef ROW_D
     dropped += (float)drop;
     // the new root's row holds nothing: the path above it is drawn afresh
-    int root_f = 0;
-    for (int j = N - 1; j >= 0; --j)
-      if (par[j] < 0) root_f = j;
-    for (int q = 0; q < Mw; ++q) {
-      MT[root_f * Mw + q] = BIG;
-      MD[root_f * Mw + q] = 0;
+    const unsigned roots_f = __ballot_sync(WARP_ALL,
+                                           lane < N && w.par[lane] < 0);
+    const int root_f = roots_f != 0u ? __ffs(roots_f) - 1 : 0;
+    for (int q = lane; q < Mw; q += 32) {
+      w.mt[root_f * Mw + q] = BIG;
+      w.md[root_f * Mw + q] = 0;
     }
+    dirty |= 1u << root_f;
 
     // ---- refreshed summaries, then the next gap ---------------------------
-    mig_summaries(a, tm, par, tle, tl, B);
+    mig_branches(w, N, lane);
+    __syncwarp();
+    mig_summaries(est, hd, w, n, E, a.leaf_status, lane, tl, B);
     const float gap = -log1pf(-u_gap) / fmaxf(a.rho * tl, 1e-30f);
     up = nr;
     nr = nr + gap;
@@ -1317,42 +1619,77 @@ segment_pass_mig_kernel(const Args a) {
   // ---- final extension to the segment end, push into FIFO slot 0 --------
   const float delta = a.L - up;
   lw = lw - a.mu * B * delta;
-  for (int e = 0; e < E; ++e) pend[o_ropp + e] += delta * tle[e];
+  for (int e = lane; e < E; e += 32) w.pend[o_ropp + e] += delta * w.tle[e];
   nr = nr - a.L;
+  __syncwarp();
   float* slot = a.fifo + (size_t)i * a.fifo_stride;
-  for (int k = 0; k < K; ++k) {
-    const float v = pend[k] * a.fifo_mask[k];
-    if (v != 0.0f) slot[k] += v;
+  for (int k = lane; k < K; k += 4 * 32) {
+    float v[4], cur[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int at = k + q * 32;
+      v[q] = at < K ? w.pend[at] * gate[at] : 0.0f;
+      cur[q] = v[q] != 0.0f ? slot[at] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (v[q] != 0.0f) slot[k + q * 32] = cur[q] + v[q];
   }
   if (moved) {
+    if (lane < N) {
+      const size_t at = (size_t)i * N + lane;
+      a.time[at] = w.tm[lane];
+      a.parent[at] = w.par[lane];
+      a.child0[at] = w.c0[lane];
+      a.child1[at] = w.c1[lane];
+      a.pop[at] = w.pp[lane];
+    }
     for (int j = 0; j < N; ++j) {
-      const size_t at = (size_t)i * N + j;
-      a.time[at] = tm[j];
-      a.parent[at] = par[j];
-      a.child0[at] = ch0[j];
-      a.child1[at] = ch1[j];
-      a.pop[at] = pp[j];
+      if (!((dirty >> j) & 1u)) continue;
+      const size_t row = ((size_t)i * N + j) * Mw;
+      g_copy(w.mt + j * Mw, w.md + j * Mw, Mw, a.mig_time + row,
+             a.mig_dest + row, lane);
     }
   }
-  if (capped > 0.0f) atomicAdd(&a.diag[0], (double)capped);
-  if (dropped > 0.0f) atomicAdd(&a.diag[1], (double)dropped);
-  a.next_rec[i] = nr;
-  a.log_w[i] = lw;
-  a.tl_out[i] = tl;
+  if (lane == 0) {
+    if (capped > 0.0f) atomicAdd(&a.diag[0], (double)capped);
+    if (dropped > 0.0f) atomicAdd(&a.diag[1], (double)dropped);
+    a.next_rec[i] = nr;
+    a.log_w[i] = lw;
+    a.tl_out[i] = tl;
+  }
 }
 
 __global__ void noop_kernel() {}
 
 template <typename Kernel>
 int launch_kernel(Kernel kernel, const Args& a, dim3 grid, size_t bytes,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, int threads = BLOCK) {
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<grid, BLOCK, bytes, stream>>>(a);
+  kernel<<<grid, threads, bytes, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// Particles per block of the migration pass and its dynamic shared bytes:
+// MIG_PPB, halved until the block fits in what the card grants one block.
+int mig_shape(int n, int E, int Pp, int Mw, int& ppb, size_t& bytes) {
+  int dev = 0, most = 48 * 1024;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  for (ppb = MIG_PPB; ppb >= 1; ppb /= 2) {
+    bytes = sizeof(float)
+        * ((size_t)mig_table_words(E, Pp)
+           + (size_t)ppb * mig_work_words(2 * n - 1, E, Pp, Mw));
+    if (bytes <= (size_t)most) return 0;
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int NP>
@@ -1382,9 +1719,13 @@ int dispatch(const Args& a, bool segment, void* stream) {
         || a.Mw < 1 || a.Mw > MAX_MIG || a.max_events < 1)
       return (int)cudaErrorInvalidValue;
     if (a.P <= 0) return 0;
-    const dim3 grid((unsigned)((a.P + MIG_BLOCK - 1) / MIG_BLOCK));
-    segment_pass_mig_kernel<<<grid, MIG_BLOCK, 0, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    int ppb;
+    size_t bytes;
+    const int err = mig_shape(a.n, a.E, a.Pp, a.Mw, ppb, bytes);
+    if (err != 0) return err;
+    const dim3 grid((unsigned)((a.P + ppb - 1) / ppb));
+    return launch_kernel(segment_pass_mig_kernel, a, grid, bytes,
+                         (cudaStream_t)stream, ppb * 32);
   }
   if (a.log_pilot != nullptr
       && (a.K < 1 || a.K > MAX_DELAY_SLOTS || a.S < 1 || a.S > MAX_SECTIONS
@@ -1443,7 +1784,7 @@ extern "C" int smc_segment_pass_launch(
     const float* delays, int K, int S, float front, int delay_type,
     int delay_k, int* pop, float* mig_time, int* mig_dest, double* diag,
     const int* key, const float* ne, const float* mig, const float* tot_mig,
-    const int* pop_map, float* scratch, int Pp, int Mw, int max_events,
+    const int* pop_map, int Pp, int Mw, int max_events,
     void* stream) {
   if (F < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
@@ -1493,11 +1834,41 @@ extern "C" int smc_segment_pass_launch(
   a.mig = mig;
   a.tot_mig = tot_mig;
   a.pop_map = pop_map;
-  a.scratch = scratch;
   a.Pp = Pp;
   a.Mw = Mw;
   a.max_events = max_events;
   return dispatch(a, true, stream);
+}
+
+// What the migration kernel takes at (n, E, Pp, Mw), as the card reports
+// it: out[0] registers per thread, out[1] local (stack) bytes per thread,
+// out[2] static shared bytes, out[3] dynamic shared bytes per block,
+// out[4] particles per block, out[5] blocks an SM holds at once.
+extern "C" int smc_mig_resources(int n, int E, int Pp, int Mw, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, segment_pass_mig_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int ppb;
+  size_t bytes;
+  const int shape = mig_shape(n, E, Pp, Mw, ppb, bytes);
+  if (shape != 0) return shape;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(segment_pass_mig_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, segment_pass_mig_kernel, ppb * 32, bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = (int)bytes;
+  out[4] = ppb;
+  out[5] = blocks;
+  return 0;
 }
 
 // An empty launch, for timing what any launch costs on the card.

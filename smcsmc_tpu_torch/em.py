@@ -34,7 +34,9 @@ from .checkpoint import (
 )
 from .demography import Demography
 from .device import resolve_device
+from .kernels.migration import MAX_MIG, MAX_POPS
 from .kernels.tree import epochs_from_demography
+from .kernels.trip import MAX_EPOCHS, MAX_LEAVES
 from .segio import (
     SEGMENT_INVARIANT,
     SegData,
@@ -146,6 +148,27 @@ def refuse_unported(demo: Demography, cfg: EMConfig) -> None:
         raise NotImplementedError(
             "-calibrate_lag with several populations is not in the torch "
             "port (ROADMAP queue 1, item 15)")
+
+
+def refuse_caps(demo: Demography, cfg: EMConfig) -> None:
+    """Raise NotImplementedError for a run on the card that the CUDA
+    kernels' compile-time caps do not hold (ROADMAP queue 1, item 19):
+    more haplotypes, epochs or populations, or longer migration buffers.
+    The CPU runs every size.  Callers check before any tree is built."""
+    if torch.device(cfg.device).type != "cuda":
+        return
+    buffer = cfg.mig_buffer or _auto_mig_buffer(demo)
+    for what, value, cap, name in (
+            ("haplotypes", demo.num_samples, MAX_LEAVES, "MAX_LEAVES"),
+            ("epochs", demo.num_epochs, MAX_EPOCHS, "MAX_EPOCHS"),
+            ("populations", demo.num_populations, MAX_POPS, "MAX_POPS"),
+            ("-migbuf events per migration buffer", buffer, MAX_MIG,
+             "MAX_MIG")):
+        if value > cap:
+            raise NotImplementedError(
+                f"{value} {what} on the card: the CUDA kernels hold at most "
+                f"{cap} ({name}); run with -device cpu (ROADMAP queue 1, "
+                "item 19)")
 
 
 def prior_pseudostats(demo: Demography):
@@ -305,6 +328,7 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     seg = split_long_segments(seg, max_seg_len)
 
     refuse_unported(demo, cfg)
+    refuse_caps(demo, cfg)
     epochs = epochs_from_demography(demo, dev)
     bias_strengths = cfg.bias_strengths
     if cfg.bias_heights and not bias_strengths:
@@ -628,6 +652,7 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
     ``result.out`` with the iterations' aggregate rows, newest first.  An
     iteration whose ``chunkfinal.out`` is already complete in ``outdir`` is
     not swept again: its statistics are read back from the file."""
+    refuse_caps(demo, cfg)
     result = EMResult(demos=[], stats=[], stats_wt=[], log_likelihoods=[])
     if cfg.outdir:
         os.makedirs(cfg.outdir, exist_ok=True)

@@ -100,13 +100,15 @@ def load_trip_library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, cf, ci, ci,
         # the migration pass (all 0 otherwise): pop, mig_time, mig_dest,
-        # diag, key, ne, mig, tot_mig, pop_map, scratch; populations Pp,
-        # buffer capacity Mw, walk event bound
-        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        # diag, key, ne, mig, tot_mig, pop_map; populations Pp, buffer
+        # capacity Mw, walk event bound
+        vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, ci,
         vp,  # stream
     ]
     lib.smc_segment_pass_launch.restype = ci
+    lib.smc_mig_resources.argtypes = [ci, ci, ci, ci, vp]  # n, E, Pp, Mw, out
+    lib.smc_mig_resources.restype = ci
     lib.smc_noop_launch.argtypes = [vp]
     lib.smc_noop_launch.restype = ci
     lib.smc_cuda_error_string.argtypes = [ci]

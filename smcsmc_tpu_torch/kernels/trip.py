@@ -34,7 +34,7 @@ delayed factors the rest, drained at the segment end.  ``trip`` is the same
 device code behind the interface of the Pallas kernel, which is how it is
 held against ``fused_trip``; the lag calibration launches it one trip at a
 time.  Given a ``migration.MigrationPass`` it is the migration pass (a
-further compile-time variant, one thread per particle): each trip's
+further variant, a warp per particle): each trip's
 re-coalescence is the loop walk of a structured population with migration
 and the SPR routes the branches' migration buffers; the statistics row is
 the structured layout of ``migration.stats_offsets``.
@@ -42,6 +42,7 @@ the structured layout of ``migration.stats_offsets``.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -658,7 +659,7 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
         ("has_data", has_data, torch.bool, (n,)),
     ]
     bias_args = (None,) * 8 + (0, 0, 0.0, 0, 0)  # the plain pass
-    mig_args = (None,) * 10 + (0, 0, 0)
+    mig_args = (None,) * 9 + (0, 0, 0)
     if biased is not None:
         b = biased
         D, S = b.df_pos.shape[-1], b.strengths.shape[0]
@@ -689,8 +690,6 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
                              f"{MAX_MIG} events and walks of 1.."
                              f"{MAX_WALK_EVENTS} events, got {Mw} and "
                              f"{m.max_walk_events}")
-        # the statistics row of each particle, zeroed by the kernel itself
-        scratch = torch.empty((P, K), dtype=f32, device=dev)
         spec += [
             ("pop", m.pop, i32, (P, N)),
             ("mig_time", m.mig_time, f32, (P, N, Mw)),
@@ -704,7 +703,7 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
         ]
         mig_args = (*(x.data_ptr() for x in (
             m.pop, m.mig_time, m.mig_dest, m.diag, m.key, m.ne, m.mig,
-            m.tot_mig, m.pop_map, scratch)), Pp, Mw, int(m.max_walk_events))
+            m.tot_mig, m.pop_map)), Pp, Mw, int(m.max_walk_events))
     for name, x, dtype, shape in spec:
         _check_tensor(name, x, dtype, shape, dev)
     _launch("smc_segment_pass_launch", dev,
@@ -726,3 +725,25 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
 segment_pass.launches = 0
 segment_pass.biased_launches = 0
 segment_pass.migration_launches = 0
+
+
+MIG_RESOURCES = ("registers", "local_bytes", "static_shared_bytes",
+                 "dynamic_shared_bytes", "particles_per_block",
+                 "blocks_per_sm")
+
+
+def migration_resources(n: int, E: int, Pp: int, Mw: int) -> dict:
+    """What the migration kernel takes on the current CUDA device at
+    (n leaves, E epochs, Pp populations, Mw events per buffer): registers
+    and local (stack) bytes per thread and static shared bytes as
+    ``cudaFuncGetAttributes`` reports them, the dynamic shared bytes and
+    particles per block its launcher picks, and the blocks an SM holds at
+    once (:data:`MIG_RESOURCES`)."""
+    _check_caps(2 * n - 1, E, Pp, Mw)
+    out = (ctypes.c_int * len(MIG_RESOURCES))()
+    lib = load_trip_library()
+    err = lib.smc_mig_resources(n, E, Pp, Mw, out)
+    if err != 0:
+        raise RuntimeError(f"smc_mig_resources failed: CUDA error {err} "
+                           f"({lib.smc_cuda_error_string(err).decode()})")
+    return dict(zip(MIG_RESOURCES, out))

@@ -67,6 +67,21 @@ def twopop_demo(L: float = 2e6, E: int = 8, m: float = 5e-5,
     )
 
 
+def caps_demo(m: float = 1e-4) -> Demography:
+    """The migration kernel's caps (``MAX_LEAVES``, ``MAX_EPOCHS``,
+    ``MAX_POPS``): four populations of Ne 10,000 with two samples each, 64
+    epochs from 0 and logspace(2.5, 5), symmetric migration m per
+    generation between every pair."""
+    E, Pp = 64, 4
+    mig = np.full((E, Pp, Pp), m)
+    return Demography(
+        change_times=np.concatenate([[0.0], np.logspace(2.5, 5.0, E - 1)]),
+        pop_sizes=np.full((E, Pp), 10000.0), mig_rates=mig,
+        sample_pops=np.repeat(np.arange(Pp, dtype=np.int32), 2),
+        mutation_rate=1e-8, recombination_rate=1e-9, sequence_length=2e6,
+    )
+
+
 def twopop_data(L: float = 2e6, E: int = 8, m: float = 5e-5,
                 seed: int = 13):
     """:func:`twopop_demo` and its data, simulated as bench.py's

@@ -135,6 +135,22 @@ def test_out_of_scope_with_migration_is_refused_by_name(tmp_path, extra,
                           "8", *TWOPOP, *extra, "-device", "cpu"])
 
 
+def test_card_caps_are_refused_before_the_sweep(tmp_path, monkeypatch):
+    """``smc2-torch -device cuda`` with a buffer above the migration
+    kernel's cap exits naming it, right after the demography is built and
+    before anything is swept (the device is taken as given here)."""
+    def reached(*args, **kwargs):
+        raise AssertionError("the run started")
+
+    monkeypatch.setattr(tcli, "resolve_device", torch.device)
+    monkeypatch.setattr(tcli, "run_em", reached)
+    seg = str(tmp_path / "t.seg")
+    write_seg(seg, twopop_data(L=2e4)[1])
+    with pytest.raises(SystemExit, match=r"smc2-torch: 97 -migbuf.*MAX_MIG"):
+        tcli.smcsmc_main(["-seg", seg, "-o", str(tmp_path / "out"), "-Np",
+                          "8", *TWOPOP, "-migbuf", "97", "-device", "cuda"])
+
+
 def test_twopop_command_runs_on_the_cpu(tmp_path):
     seg = str(tmp_path / "t.seg")
     write_seg(seg, twopop_data(L=5e4)[1])

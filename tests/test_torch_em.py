@@ -27,6 +27,7 @@ from smcsmc_tpu.demography import Demography
 from smcsmc_tpu.segio import SegData
 from smcsmc_tpu.simulate import simulate_seg
 from smcsmc_tpu_torch import em as tem
+from smcsmc_tpu_torch.demography import Demography as PortDemography
 
 torch.set_num_threads(1)
 
@@ -431,6 +432,53 @@ def test_chunk_workers_get_their_own_device(monkeypatch):
     assert seen == [("cuda", c, s) for c, s in zip(chunks, (7, 8, 9))]
     monkeypatch.undo()
     assert tem._worker_devices("cpu") == ["cpu"]
+
+
+def _structured_demo(n=8, E=64, Pp=4):
+    """n haplotypes spread over Pp populations, E epochs, migration between
+    every pair: the CUDA kernels' caps by default."""
+    change = np.concatenate([[0.0], np.logspace(2.5, 5.0, E - 1)])
+    return PortDemography(
+        change_times=change, pop_sizes=np.full((E, Pp), 10000.0),
+        mig_rates=np.full((E, Pp, Pp), 1e-5),
+        sample_pops=(np.arange(n) % Pp).astype(np.int32),
+        mutation_rate=1e-8, recombination_rate=1e-9, sequence_length=1e5)
+
+
+@pytest.mark.parametrize("device,over,cap", [
+    ("cuda", {"n": 9}, r"9 haplotypes.*at most 8 \(MAX_LEAVES\)"),
+    ("cuda", {"E": 65}, r"65 epochs.*at most 64 \(MAX_EPOCHS\)"),
+    ("cuda", {"Pp": 5}, r"5 populations.*at most 4 \(MAX_POPS\)"),
+    ("cuda", {"mig_buffer": 97}, r"97 -migbuf.*at most 96 \(MAX_MIG\)"),
+    ("cuda", {}, None),  # exactly at the caps
+    ("cpu", {"n": 9, "E": 65, "Pp": 5, "mig_buffer": 97}, None),
+])
+def test_kernel_caps_are_refused_on_the_card(device, over, cap):
+    """``em.refuse_caps`` refuses, by quantity and cap, what the CUDA
+    kernels do not hold when the run is on the card (it does not resolve
+    the device, so no GPU is needed here); at the caps, and on the CPU at
+    any size, it passes."""
+    over = dict(over)
+    cfg = tem.EMConfig(device=device, mig_buffer=over.pop("mig_buffer", 96))
+    demo = _structured_demo(**over)
+    if cap is None:
+        tem.refuse_caps(demo, cfg)
+    else:
+        with pytest.raises(NotImplementedError, match=cap):
+            tem.refuse_caps(demo, cfg)
+
+
+def test_run_em_refuses_the_caps_before_any_tree(monkeypatch):
+    """``run_em`` on the card refuses 9 haplotypes before it sets up a
+    sweep: nothing is built or swept."""
+    def reached(*args, **kwargs):
+        raise AssertionError("the sweep was set up")
+
+    monkeypatch.setattr(tem, "run_chunks", reached)
+    monkeypatch.setattr(tem, "epochs_from_demography", reached)
+    seg = simulate_seg(_demo(L=2e4), seed=1)
+    with pytest.raises(NotImplementedError, match="MAX_LEAVES"):
+        tem.run_em(_structured_demo(n=9), seg, tem.EMConfig(device="cuda"))
 
 
 def test_sweep_profile_reports_on_cpu():

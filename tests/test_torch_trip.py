@@ -516,16 +516,18 @@ def test_cuda_biased_segment_pass_matches_plain(leaf_status, delay_type):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["twopop", "overflow", "capped"])
+@pytest.mark.parametrize("case", ["twopop", "overflow", "capped", "caps"])
 @pytest.mark.parametrize("leaf_status", [1, 0, -1])
 def test_cuda_migration_segment_pass_matches_plain(leaf_status, case):
     """The migration ``segment_pass`` on the card against its plain version
     on trees of bench.py's two-population model with filled buffers (for
     ``overflow``, m = 2e-4 into 16-event buffers, so that events are
     dropped; for ``capped``, walks bounded at 3 events, so that some
-    force-coalesce onto the root lineage): one trip and 64 trips.  Tree arrays, populations and the
-    buffers' destinations and slots in use, and the walk diagnostics, are
-    held exactly in all but 0.1% of the particles; floats within
+    force-coalesce onto the root lineage; for ``caps``, the kernel's caps,
+    ``sweep_profile.caps_demo`` with 96-event buffers, at a particle count
+    that leaves the last block ragged): one trip and 64 trips.  No tree
+    mismatch; node times, populations and the buffers' times and
+    destinations bit for bit; the walk diagnostics equal; floats within
     ``float_tolerances``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -539,11 +541,18 @@ def test_cuda_migration_segment_pass_matches_plain(leaf_status, case):
         epochs_from_demography,
         make_initial_trees,
     )
-    from smcsmc_tpu_torch.sweep_profile import twopop_data
+    from smcsmc_tpu_torch.kernels.trip import migration_resources
+    from smcsmc_tpu_torch.sweep_profile import caps_demo, twopop_demo
 
-    Pc, n, E = 4096, 4, 8
-    m, Mw = (2e-4, 16) if case == "overflow" else (5e-5, 56)
-    demo, _ = twopop_data(L=1e4, m=m)
+    if case == "caps":
+        demo, Pc, Mw = caps_demo(), 4097, 96
+    else:
+        m, Mw = (2e-4, 16) if case == "overflow" else (5e-5, 56)
+        demo, Pc = twopop_demo(L=1e4, m=m), 4096
+    n, E, Pp = demo.num_samples, demo.num_epochs, demo.num_populations
+    if case == "caps":
+        assert Pc % migration_resources(n, E, Pp, Mw)[
+            "particles_per_block"] != 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(31 + leaf_status)
@@ -552,7 +561,7 @@ def test_cuda_migration_segment_pass_matches_plain(leaf_status, case):
     hd = torch.from_numpy(_has_data(n, leaf_status)).to(dev)
     if leaf_status == -1:
         hd[:] = False
-    K = stats_offsets(E, 2)["width"]
+    K = stats_offsets(E, Pp)["width"]
     start, inv2ne = epochs.start.contiguous(), epochs.inv2ne.contiguous()
     fifo0 = torch.rand((Pc, F_SLOTS, K), generator=gen, device=dev)
     fifo0[:, 0] = 0.0
@@ -588,11 +597,12 @@ def test_cuda_migration_segment_pass_matches_plain(leaf_status, case):
                               diag=mp.diag)
         torch.cuda.synchronize()
         trees_d, floats_d, errs = disagreement(outs["kernel"], outs["plain"],
-                                               L, MU, Pp=2)
-        assert int(trees_d.sum()) <= 0.001 * Pc, (T, int(trees_d.sum()))
-        assert int((trees_d | floats_d).sum()) <= 0.001 * Pc, errs
-        if int(trees_d.sum()) == 0:
-            assert torch.equal(outs["kernel"]["diag"], outs["plain"]["diag"])
+                                               L, MU, Pp=Pp)
+        assert int(trees_d.sum()) == 0, (T, int(trees_d.sum()))
+        assert not floats_d.any(), errs
+        for k in ("time", "parent", "child0", "child1", "pop", "mig_time",
+                  "mig_dest", "diag"):
+            assert torch.equal(outs["kernel"][k], outs["plain"][k]), (T, k)
         if case == "overflow" and T == 64:
             assert float(outs["plain"]["diag"][1]) > 0
         if case == "capped":
