@@ -6,7 +6,10 @@ Phases, each fatal on failure:
 
 1. print the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. build the kernels from csrc/trip.cu with nvcc for sm_90a and print what
-   ptxas says of them (registers, shared memory, stack frame, spills); then
+   ptxas says of them (registers, shared memory, stack frame, spills) and
+   what the card grants each kernel at the paths' shapes and at the caps
+   (``kernel_resources``: registers, stack, shared bytes, particles per
+   block and per SM, waves at P=10,000); then
    run the resampler's scan (``smc.block_scan``) 2000 times at P=10,000
    with matrix products queued among the runs: every result must equal the
    first bit for bit (``torch.cumsum``'s differences are printed beside);
@@ -77,8 +80,14 @@ Phases, each fatal on failure:
    each E-step, the plain one and the plain versions never, ``trip`` as
    often as the lag calibration pre-passes report (more than 0); the
    auto-calibrated bias strengths and the calibrated lags logged; the
-   genome path's result check; E-step updates/s, and a profile of chunk 0
-   with the same proposal (launches per segment, device busy share).
+   genome path's result check; E-step updates/s and the LogL of each
+   iteration in full; a profile of chunk 0 with the same proposal
+   (launches per segment, device busy share) and what its rings hold
+   (``ring_census``: slots in use per particle, the shares of particles
+   that recombine or have a factor due).  The biased pass is compared in
+   phase 3 at (P=10000, n=8, E=33) at each leaf status, with every ring
+   full, and at its caps corner (P=10001, n=8, E=64, 8 sections, 32
+   slots); the last two with no tree mismatch at one trip.
 
 10. the migration pass (the compile-time migration variant of
    ``segment_pass``): compared with its plain version in phase 3 at
@@ -186,6 +195,12 @@ BIAS_STRENGTHS = (4.0, 1.0)
 BIAS_SLOTS = 32
 BIAS_FRONT = 10000.0
 BIASED_PASS = "segment_pass (biased)"
+# the biased pass's caps corner: 8 leaves, 64 epochs, 8 sections (one of
+# them unbiased, so that some factors go to the pilot at once), 32 slots, at
+# a particle count that leaves the last block ragged
+BIAS_CAPS_HEIGHTS = (0.0, 300.0, 1000.0, 2000.0, 4000.0, 8000.0, 16000.0,
+                     32000.0, 3e38)
+BIAS_CAPS_STRENGTHS = (6.0, 5.0, 4.0, 3.0, 1.0, 2.0, 1.5, 1.25)
 
 
 # the migration pass as compared, timed and driven: bench.py's twopop
@@ -392,12 +407,15 @@ class Case:
         out["pending"] = st["fifo"][:, 0]
         return out
 
-    def fresh_biased(self):
+    def fresh_biased(self, full=False, heights=BIAS_HEIGHTS,
+                     strengths=BIAS_STRENGTHS):
         """State of a biased segment pass: a plain one's, a pilot weight
         and a ring of delayed factors with 30% of the slots in use (due
         between the segment's start and twice its length on) and every
         slot in use for the first 16 particles (their factors go to the
-        pilot at once)."""
+        pilot at once); with ``full`` every slot of every particle.  The
+        ring and the section table (``heights``, ``strengths``) are drawn
+        at the first call."""
         import torch
 
         from smcsmc_tpu_torch.kernels.tree import INF
@@ -406,6 +424,8 @@ class Case:
             P, D, dev = self.P, BIAS_SLOTS, "cuda"
             used = torch.rand((P, D), generator=self.gen, device=dev) < 0.3
             used[:16] = True
+            if full:
+                used[:] = True
             self.ring = dict(
                 log_pilot=torch.randn(P, generator=self.gen, device=dev),
                 df_pos=torch.where(used, BIAS_FRONT + 2 * self.L * torch.rand(
@@ -419,8 +439,8 @@ class Case:
                     1, 4, (P, D), generator=self.gen, device=dev,
                     dtype=torch.int32), 0))
             self.bias_tables = (
-                torch.tensor(BIAS_HEIGHTS, device=dev),
-                torch.tensor(BIAS_STRENGTHS, device=dev),
+                torch.tensor(heights, device=dev),
+                torch.tensor(strengths, device=dev),
                 torch.linspace(3000.0, 30000.0, self.E, device=dev))
         st = self.fresh_segment()
         st.update({k: v.clone() for k, v in self.ring.items()})
@@ -530,18 +550,23 @@ def phase_compare(kernels):
                  f"{'equal -> ok' if same else 'FAIL'}")
             ok &= same
 
-    # the biased pass at the biased path's shape: pilot weight and ring
-    # fields held too (float_tolerances names them)
+    # the biased pass at the biased path's shape (pilot weight and ring
+    # fields held too: float_tolerances names them), then with every ring
+    # full and at the caps corner, where one trip must leave no tree
+    # mismatch at all
     tallies[BIASED_PASS] = (Tally(), Tally())
-    P, n, E = GENOME_P, 8, 33
-    budget = (1.0 - MATCH_MIN) * P
-    for ls in (1, 0, -1):
+    cases = [(GENOME_P, 8, 33, ls, "", {}) for ls in (1, 0, -1)] + [
+        (GENOME_P, 8, 33, 1, " every ring full", dict(full=True)),
+        (CAPS_P, 8, 64, 1, " caps corner (8 sections)",
+         dict(heights=BIAS_CAPS_HEIGHTS, strengths=BIAS_CAPS_STRENGTHS))]
+    for P, n, E, ls, label, ring in cases:
+        budget = 0 if label else (1.0 - MATCH_MIN) * P
         for T, L, nr_scale in ((1, 20000.0, 1.5), (64, MAX_SEG, 0.1)):
             c = Case(P, n, E, ls, L=L, nr_scale=nr_scale,
-                     seed=11 * P + T + ls)
+                     seed=11 * P + T + ls + len(label))
             u = c.uniforms(T)
             got = c.segment_result(c.run_biased(segment_pass, u,
-                                                c.fresh_biased()))
+                                                c.fresh_biased(**ring)))
             ref = c.segment_result(c.run_biased(segment_pass_plain, u,
                                                 c.fresh_biased()))
             torch.cuda.synchronize()
@@ -551,11 +576,11 @@ def phase_compare(kernels):
             if T == 1:
                 good = int(trees.sum()) <= budget and int(floats.sum()) == 0
             else:
-                good = int((trees | floats).sum()) <= budget
+                good = int((trees | floats).sum()) <= (1.0 - MATCH_MIN) * P
             tallies[BIASED_PASS][T > 1].add(trees, floats, errs)
-            _report(f"{BIASED_PASS} P={P} n={n} E={E} leaf_status={ls} "
-                    f"trips={T}" + (" vs plain" if T > 1 else ""), P, trees,
-                    floats, errs, good)
+            _report(f"{BIASED_PASS}{label} P={P} n={n} E={E} leaf_status="
+                    f"{ls} trips={T}" + (" vs plain" if T > 1 else ""), P,
+                    trees, floats, errs, good)
             ok &= good
     ok &= compare_migration(segment_pass, segment_pass_plain, tallies)
     if not ok:
@@ -595,7 +620,7 @@ def compare_migration(segment_pass, segment_pass_plain, tallies,
     must cap walks and the caps corner must leave its last block ragged."""
     import torch
 
-    from smcsmc_tpu_torch.kernels.trip import disagreement, migration_resources
+    from smcsmc_tpu_torch.kernels.trip import disagreement, kernel_resources
 
     tallies[MIGRATION_PASS] = (Tally(), Tally())
     ok = True
@@ -618,7 +643,7 @@ def compare_migration(segment_pass, segment_pass_plain, tallies,
             above = int((ref["time"].max(dim=1).values
                          > c.base["time"].max(dim=1).values).sum())
             capped, dropped = (float(x) for x in ref_st["diag"])
-            ppb = migration_resources(c.n, c.E, c.Pp, c.Mw)[
+            ppb = kernel_resources("migration", c.n, c.E, c.Pp, c.Mw)[
                 "particles_per_block"]
             if label == "overflow" and T == 64:
                 good &= dropped > 0
@@ -1410,6 +1435,8 @@ def phase_biased_path(card):
              f"kernel launches {launches}; calls of the plain versions "
              f"{plain}")
         _log_esteps(steps, GENOME_P, card)
+        _log(f"biased path: LogL by iteration "
+             f"{[r.args[4] for r in steps]!r} (in full)")
         msgs = [r.getMessage() for r in records]
         reported = sum(r.args[0] for r in records
                        if r.msg.startswith("survival calibration:"))
@@ -1446,7 +1473,60 @@ def phase_biased_path(card):
     _log(f"biased path sweep profile (chunk {chunk}, E=33) on {card}:")
     for ln in report_lines(rep):
         _log(ln)
+    census = ring_census(demo, seg, tuple(chunk))
+    _log(f"biased path rings (first {census['segments']} segments of chunk "
+         f"{chunk}, counted before each pass): "
+         + ", ".join(f"{k} {v:.4f}" for k, v in census.items()
+                     if k != "segments"))
+    rep["ring_census"] = census
     return launches, steps, reported, rep
+
+
+def ring_census(demo, seg, chunk, segments=600, P=GENOME_P, device=DEVICE):
+    """What the biased pass finds on the real path: the first ``segments``
+    segments of ``chunk`` swept with the production proposal
+    (``sweep_profile.BIASED_OPTIONS``), counted before each pass: ring
+    slots in use per particle, and the shares of particles that recombine
+    in the segment, that have a factor due at its end, and either.
+    Returns the means over the segments (sums kept on the device)."""
+    import torch
+
+    import smcsmc_tpu_torch.smc as smc_mod
+    from smcsmc_tpu_torch.em import EMConfig, start_sweep
+    from smcsmc_tpu_torch.kernels.tree import INF
+    from smcsmc_tpu_torch.sweep_profile import BIASED_OPTIONS
+
+    cfg = EMConfig(num_particles=P, device=device, **BIASED_OPTIONS)
+    state, segs, step, _, _ = start_sweep(demo, seg, cfg, chunk, seed=7)
+    sums = torch.zeros(4, dtype=torch.float64, device=device)
+    passes = 0
+    real = smc_mod.segment_pass
+
+    def counted(*args):
+        nonlocal passes
+        next_rec, L, b = args[6], args[11], args[17]
+        if b is not None:
+            used = b.df_pos < 0.5 * INF
+            end = float(torch.tensor(b.front, dtype=torch.float32)
+                        + torch.tensor(L, dtype=torch.float32))
+            rec = next_rec < L
+            due = (b.df_pos <= end).any(dim=1)
+            sums.add_(torch.stack([used.sum(dim=1).double().mean(),
+                                   rec.double().mean(), due.double().mean(),
+                                   (rec | due).double().mean()]))
+            passes += 1
+        return real(*args)
+
+    smc_mod.segment_pass = counted
+    try:
+        for s in range(min(segments, len(segs))):
+            state, _ = step(state, segs[s])
+    finally:
+        smc_mod.segment_pass = real
+    means = (sums / max(passes, 1)).tolist()
+    return dict(zip(("slots_in_use_per_particle", "share_recombining",
+                     "share_with_factor_due", "share_recombining_or_due"),
+                    means), segments=passes)
 
 
 TWOPOP_MIN_EVENTS = 5.0  # posterior coalescences for an epoch to be checked
@@ -1600,6 +1680,19 @@ def phase_twopop_path(card):
 
 
 REPLACES = "smcsmc_tpu/kernels/pallas_trip.py:91"
+# (entry name, kernel_resources variant, (shape label, its arguments))
+RESOURCE_SHAPES = (
+    ("trip", "trip", (("main (n=4, E=9)", (4, 9)),
+                      ("genome (n=8, E=33)", (8, 33)))),
+    ("segment_pass", "segment_pass", (("main (n=4, E=9)", (4, 9)),
+                                      ("genome (n=8, E=33)", (8, 33)))),
+    (BIASED_PASS, "biased", (
+        ("main (n=4, E=9, S=2)", (4, 9)), ("genome (n=8, E=33, S=2)", (8, 33)),
+        ("caps (n=8, E=64, S=8)", (8, 64, 1, 0, 8)))),
+    (MIGRATION_PASS, "migration", (
+        ("twopop (n=4, E=8, Pp=2, Mw=56)", (4, 8, 2, TWOPOP_MW)),
+        ("caps (n=8, E=64, Pp=4, Mw=96)", (8, 64, 4, 96)))),
+)
 SOURCE = "smcsmc_tpu_torch/csrc/trip.cu"
 
 
@@ -1619,7 +1712,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from smcsmc_tpu_torch.kernels import _build
     from smcsmc_tpu_torch.kernels.trip import (
-        migration_resources,
+        kernel_resources,
         segment_pass,
         segment_pass_plain,
         trip,
@@ -1645,15 +1738,16 @@ def main(argv=None) -> int:
         if ("registers" in ln or "spill" in ln or "stack frame" in ln
                 or "Compiling entry function" in ln):
             _log("  ptxas: " + ln.strip())
-    # what the card grants the migration kernel at the twopop path's shape
-    # and at the caps
-    mig_resources = {
-        shape: migration_resources(*dims) for shape, dims in (
-            ("twopop (n=4, E=8, Pp=2, Mw=56)", (4, 8, 2, TWOPOP_MW)),
-            ("caps (n=8, E=64, Pp=4, Mw=96)", (8, 64, 4, 96)))}
-    for shape, res in mig_resources.items():
-        _log(f"{MIGRATION_PASS} resources at {shape}: "
-             + ", ".join(f"{k} {v}" for k, v in res.items()))
+    # what the card grants each kernel at the shapes of the paths and at
+    # the caps: registers, stack, shared memory, particles per block and
+    # SM, waves at P=10,000
+    resources = {name: {shape: kernel_resources(variant, *dims) for shape,
+                        dims in shapes}
+                 for name, variant, shapes in RESOURCE_SHAPES}
+    for name, by_shape in resources.items():
+        for shape, res in by_shape.items():
+            _log(f"{name} resources at {shape}: "
+                 + ", ".join(f"{k} {v}" for k, v in res.items()))
     if args.until == "build":
         return 0
     scan_counts = phase_scan_repeat()
@@ -1723,7 +1817,11 @@ def main(argv=None) -> int:
                   "trip_launches_reported": b_reported,
                   "launches_per_segment": b_profile["launches_per_segment"],
                   "device_busy_share": b_profile["device_busy_share"],
-                  "pass_us_per_launch": b_profile["pass_us_per_launch"]},
+                  "device_ms_per_segment":
+                      b_profile["device_ms_per_segment"],
+                  "pass_us_per_launch": b_profile["pass_us_per_launch"],
+                  "logl": [r.args[4] for r in b_steps],
+                  "ring_census": b_profile["ring_census"]},
               "twopop_path": {
                   "segments": sum(r.args[2] for r in m_steps),
                   "estep_seconds": [r.args[1] for r in m_steps],
@@ -1774,14 +1872,15 @@ def main(argv=None) -> int:
             "library_ms": None,  # no single PyTorch call computes a trip
             "host_us_per_call": t["host_us"],
         }
+        # registers, local and static shared bytes (cudaFuncGetAttributes),
+        # dynamic shared bytes and particles per block as launched, blocks
+        # and particles per SM, waves at P=10,000
+        entry["resources"] = resources[name]
         if name == MIGRATION_PASS:
             # the twopop shape (P=10000, n=4, E=8, Pp=2, Mw=56)
             entry["twopop_shape"] = {
                 label: {k: v for k, v in row.items()}
                 for label, row in m_timing.items()}
-            # registers, local and static shared bytes (cudaFuncGetAttributes),
-            # dynamic shared bytes and particles per block as launched
-            entry["resources"] = mig_resources
             record["kernels"].append(entry)
             continue
         # the whole-genome shape (P=10000, n=8, E=33): the times at its

@@ -22,11 +22,20 @@
 //                 into the particle's ring of delayed factors (smc.py:488,
 //                 :968-1020), and after the final extension the factors due
 //                 at front + L are applied to the pilot (smc.py:540).  The
-//                 ring row (32 slots of 4 words) is staged in the group's
-//                 slice of shared memory, slot k handled by lane k % GROUP
-//                 alone (so no lane reads another's slots), and written
-//                 back only by lanes whose slots changed; the section table
-//                 and the delays sit beside the epoch tables.
+//                 ring (32 slots of 4 words) lives in the group's slice of
+//                 shared memory, slot k handled by lane k % GROUP alone (so
+//                 no lane reads another's slots): every particle reads the
+//                 slots' positions (what is due, what is free), a slot's
+//                 other words are read only where the drain applies it, and
+//                 only slots pushed or applied are written back.  The point
+//                 is weighed by lanes (each its nodes' segments) into the
+//                 slice, summed in node-major order as one chain, and
+//                 searched by lanes; the delay's epoch comes from the
+//                 trip's per-epoch records.  The section table and the
+//                 delays sit beside the epoch tables.  On an H100 at the
+//                 genome path's shape: 96 registers, 5 resident blocks per
+//                 SM (BIAS_MIN_BLOCKS holds them at n <= 4 too), so 10,000
+//                 particles run in one wave.
 //                 A third variant is the migration pass (several
 //                 populations; the Pallas kernel refuses migration, and the
 //                 JAX package runs it through XLA, transition.py:1348):
@@ -99,6 +108,7 @@
 #define GROUP 8  // lanes that share one particle; divides 32
 #define MIG_PPB 2  // particles (warps) per migration block
 #define MIG_MIN_BLOCKS 10  // resident migration blocks per SM: <= 96 registers
+#define BIAS_MIN_BLOCKS 5  // resident biased blocks per SM: 80 particles
 #define BIG 3e38f
 
 namespace {
@@ -162,13 +172,16 @@ struct Tables {
   const float* bh;    // [S + 1] section boundaries (biased)
   const float* bs;    // [S] section strengths (biased)
   const float* dl;    // [E] delays (biased)
-  int n, N, E, total_data, leaf_status, S;
+  int n, N, E, total_data, leaf_status, S, delay_type;
   float L, mu, rho;
 };
 
-// what a trip hands back to the biased pass
+// what a trip hands back to the biased pass; key_epoch is the calling
+// lane's epoch of the delay's height if that epoch is one of its own (E
+// otherwise), so that the group's minimum is the epoch
 struct TripEvent {
   float h_r, t_c, log_iw, strength;
+  int key_epoch;
 };
 
 // one particle's slice of shared memory: what is indexed by a value
@@ -185,6 +198,11 @@ struct Work {
   float* rlogf;
   float* rdelta;
   int* rk;
+  // the biased point's scratch, [N S] each in node-major order: each
+  // (node, section) segment's length and weighted length, the running sum
+  float* seg;
+  float* wseg;
+  float* cum;
 };
 
 // one particle's node and parent times in registers, padded to NP nodes
@@ -203,10 +221,11 @@ __host__ __device__ inline int tables_words(int E, bool with_gate,
       + (biased ? 2 * MAX_SECTIONS + 1 + E : 0);
 }
 
+// S: the biased pass's sections (its point's scratch is 3 N S words)
 __host__ __device__ inline int work_words(int N, int E, bool with_pending,
-                                          bool biased) {
+                                          bool biased, int S) {
   return (5 * N + 2 * E + (with_pending ? 6 * E : 0)
-          + (biased ? 4 * MAX_DELAY_SLOTS : 0)) | 1;  // odd stride
+          + (biased ? 4 * MAX_DELAY_SLOTS + 3 * N * S : 0)) | 1;  // odd
 }
 
 __device__ __forceinline__ float clip_u(float u) {
@@ -237,6 +256,24 @@ __device__ __forceinline__ int group_min(int v, unsigned gm) {
   for (int off = GROUP / 2; off > 0; off >>= 1)
     v = min(v, __shfl_xor_sync(gm, v, off));
   return v;
+}
+
+// A 4-byte copy from device memory into shared memory, under way until
+// the calling thread's wait_copies(); nothing may touch dst meanwhile.
+__device__ __forceinline__ void copy_word_async(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  *static_cast<unsigned*>(dst) = *static_cast<const unsigned*>(src);
+#endif
+}
+
+__device__ __forceinline__ void wait_copies() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
 }
 
 // Block-wide: the epoch tables (and, for segment_pass, the FIFO gate; for
@@ -286,6 +323,7 @@ __device__ void bind_tables(const Args& a, float* smem, Tables& tb) {
   tb.bs = tb.bh + MAX_SECTIONS + 1;
   tb.dl = tb.bs + MAX_SECTIONS;
   tb.S = a.S;
+  tb.delay_type = a.delay_type;
   tb.n = a.n;
   tb.N = 2 * a.n - 1;
   tb.E = E;
@@ -304,7 +342,7 @@ __device__ int carve(const Args& a, float* smem, bool segment, bool biased,
   const int E = a.E, N = 2 * a.n - 1;
   const int group = threadIdx.x / GROUP;
   float* base = smem + tables_words(E, segment, biased)
-      + (size_t)group * work_words(N, E, segment, biased);
+      + (size_t)group * work_words(N, E, segment, biased, a.S);
   w.t = base;
   w.par = reinterpret_cast<int*>(base + N);
   w.c0 = reinterpret_cast<int*>(base + 2 * N);
@@ -318,6 +356,9 @@ __device__ int carve(const Args& a, float* smem, bool segment, bool biased,
   w.rlogf = ring + MAX_DELAY_SLOTS;
   w.rdelta = ring + 2 * MAX_DELAY_SLOTS;
   w.rk = reinterpret_cast<int*>(ring + 3 * MAX_DELAY_SLOTS);
+  w.seg = ring + 4 * MAX_DELAY_SLOTS;
+  w.wseg = w.seg + N * a.S;
+  w.cum = w.wseg + N * a.S;
   return blockIdx.x * (blockDim.x / GROUP) + group;
 }
 
@@ -465,51 +506,50 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   } else {
     // ---- height-biased point: over the segments |branch_j ∩ section_s|
     // weighted by strength_s, node-major, the first whose running sum
-    // reaches u * their total (the last one if rounding leaves none) ----
-    const int S = tb.S;
+    // reaches u * their total (the last one if rounding leaves none).
+    // Each lane weighs its nodes' segments (nodes lane, lane + GROUP,
+    // read from shared memory, so that the lanes run one instruction
+    // stream); the running sums then take them in node-major order, as
+    // one chain; each lane searches its own pairs (q = j S + s, q % GROUP
+    // its lane) and the group's least hit is the first ----
+    const int S = tb.S, Q = N * S;
+    for (int j = lane; j < N; j += GROUP) {
+      const int p = w.par[j];
+      const float t_j = w.t[j], pt_j = p < 0 ? BIG : w.t[p];
+#pragma unroll
+      for (int s = 0; s < MAX_SECTIONS; ++s) {
+        if (s < S) {
+          const float seg = pt_j < BIG
+              ? fmaxf(fminf(pt_j, tb.bh[s + 1]) - fmaxf(t_j, tb.bh[s]), 0.0f)
+              : 0.0f;
+          w.seg[j * S + s] = seg;
+          w.wseg[j * S + s] = seg * tb.bs[s];
+        }
+      }
+    }
+    __syncwarp(gm);
     float wtot = 0.0f, ptot = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      if (h.pt[j] < BIG) {
-        for (int s = 0; s < S; ++s) {
-          const float seg = fmaxf(fminf(h.pt[j], tb.bh[s + 1])
-                                  - fmaxf(h.t[j], tb.bh[s]), 0.0f);
-          wtot += seg * tb.bs[s];
-          ptot += seg;
-        }
-      }
+#pragma unroll 4
+    for (int q = 0; q < Q; ++q) {
+      wtot += w.wseg[q];
+      ptot += w.seg[q];
+      if (q % GROUP == lane) w.cum[q] = wtot;
     }
+    __syncwarp(gm);
     const float x = u_pt * wtot;
-    float cum = 0.0f, prev = 0.0f, lo_hit = 0.0f;
-    float prev_last = 0.0f, lo_last = 0.0f;
-    int s_hit = S - 1;
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      if (j < N) {
-        for (int s = 0; s < S; ++s) {
-          const float lo = fmaxf(h.t[j], tb.bh[s]);
-          const float seg = h.pt[j] < BIG
-              ? fmaxf(fminf(h.pt[j], tb.bh[s + 1]) - lo, 0.0f) : 0.0f;
-          const float before = cum;
-          cum += seg * tb.bs[s];
-          if (c < 0 && cum >= x) {
-            c = j;
-            s_hit = s;
-            prev = before;
-            lo_hit = lo;
-          }
-          if (j == N - 1 && s == S - 1) {
-            prev_last = before;
-            lo_last = lo;
-          }
-        }
+    int mine = Q;
+    for (int q = lane; q < Q; q += GROUP)
+      if (w.cum[q] >= x) {
+        mine = q;
+        break;
       }
-    }
-    if (c < 0) {
-      c = N - 1;
-      prev = prev_last;
-      lo_hit = lo_last;
-    }
+    const int hit = group_min(mine, gm);
+    // the hit pair, or the last one; `prev` is the running sum before it
+    const int q_hit = hit < Q ? hit : Q - 1;
+    c = hit < Q ? q_hit / S : N - 1;
+    const int s_hit = q_hit - (q_hit / S) * S;
+    const float prev = q_hit > 0 ? w.cum[q_hit - 1] : 0.0f;
+    const float lo_hit = fmaxf(w.t[q_hit / S], tb.bh[s_hit]);
     strength = tb.bs[s_hit];
     h_r = lo_hit + (x - prev) / fmaxf(strength, 1e-30f);
     log_iw = logf(wtot) - logf(fmaxf(ptot, 1e-30f))
@@ -538,15 +578,27 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   const float lo_s = fmaxf(tb.est[es], h_r), hi_s = tb.eend[es];
   const float i2n_s = tb.i2n[es];
   // node times inside epoch e* are the remaining candidates; lane l takes
-  // nodes l, l + GROUP, ...
+  // nodes l, l + GROUP, ... (the biased pass reads them from shared memory,
+  // so that the lanes' candidates run side by side)
   float best = -BIG;
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    if (i % GROUP == lane) {
-      const float v = h.t[i];
+  if constexpr (BIAS) {
+    for (int i = lane; i < N; i += GROUP) {
+      const float v = w.t[i];
       if (v >= lo_s && v < hi_s) {
         const float lam = base + overlap_below<NP>(h, lo_s, hi_s, v) * i2n_s;
         if (lam <= x_exp) best = fmaxf(best, v);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      if (i % GROUP == lane) {
+        const float v = h.t[i];
+        if (v >= lo_s && v < hi_s) {
+          const float lam = base
+              + overlap_below<NP>(h, lo_s, hi_s, v) * i2n_s;
+          if (lam <= x_exp) best = fmaxf(best, v);
+        }
       }
     }
   }
@@ -579,6 +631,7 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   // ---- opportunity / count records --------------------------------------
   // layout: [coal_opp | coal_cnt | mig_opp | mig_cnt | recomb_opp |
   //          recomb_cnt], E columns each
+  int key_epoch = E;
   for (int e = lane; e < E; e += GROUP) {
     const float st_e = tb.est[e], hi_e = tb.eend[e];
     const float lo_e = fmaxf(st_e, h_r);
@@ -592,6 +645,9 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
     const float span = fmaxf(fminf(hi_e, t_c) - lo_e, 0.0f);
     const bool in_c = t_c >= st_e && t_c < hi_e;
     const bool in_r = h_r >= st_e && h_r < hi_e;
+    if constexpr (BIAS) {
+      if (tb.delay_type == 0 ? in_r : in_c) key_epoch = e;
+    }
     pend[e] += coal_opp;
     pend[E + e] += in_c ? 1.0f : 0.0f;
     pend[2 * E + e] += span;
@@ -640,7 +696,7 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
   up = nr;
   nr = nr + gap;
-  return TripEvent{h_r, t_c, log_iw, strength};
+  return TripEvent{h_r, t_c, log_iw, strength, key_epoch};
 }
 
 __device__ __forceinline__ float4 load_uniforms(const Args& a, int k, int i) {
@@ -702,10 +758,15 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
 // The biased pass's delayed factors: after a trip whose importance weight
 // is not applied at once, insert it into the first free slot of the ring
 // (k applications of log_iw / k, the first at abs_pos + delay / (2^k - 1));
-// a full ring gives it to the pilot at once.  Slot s is lane s % GROUP's.
+// a full ring gives it to the pilot at once.  Slot s is lane s % GROUP's,
+// bit s / GROUP of its mask `changed` (to be written back).  The delay's
+// epoch is the group's least `key_epoch` (the epoch whose [start, end)
+// holds d_h; none below the first start or from the last end on, where
+// counting the starts at or below d_h gives the first and the last epoch).
 __device__ __forceinline__ void push_delayed(
     const Tables& tb, const Work& w, int D, int kk, int lane, unsigned gm,
-    float d_h, float abs_pos, float late, float& lp, bool& dirty) {
+    float d_h, int key_epoch, float abs_pos, float late, float& lp,
+    unsigned& changed) {
   int mine = MAX_DELAY_SLOTS;
   for (int s = lane; s < D; s += GROUP)
     if (w.rpos[s] >= 0.5f * BIG) {
@@ -717,20 +778,20 @@ __device__ __forceinline__ void push_delayed(
     lp = lp + late;
     return;
   }
+  int e = group_min(key_epoch, gm);
   if (first % GROUP != lane) return;
-  int cnt = 0;  // epoch of d_h by comparison count
-  for (int e = 0; e < tb.E; ++e) cnt += d_h >= tb.est[e] ? 1 : 0;
-  const float delay = tb.dl[min(max(cnt - 1, 0), tb.E - 1)];
-  const float dd = delay / (float)((1 << kk) - 1);
+  if (e >= tb.E) e = d_h >= tb.est[0] ? tb.E - 1 : 0;
+  const float dd = tb.dl[e] / (float)((1 << kk) - 1);
   w.rpos[first] = abs_pos + dd;
   w.rlogf[first] = late / (float)kk;
   w.rdelta[first] = dd;
   w.rk[first] = kk;
-  dirty = true;
+  changed |= 1u << (first / GROUP);
 }
 
+// The segment pass; a kernel of its own for each variant below.
 template <int NP, bool BIAS>
-__global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
+__device__ __forceinline__ void segment_pass_body(const Args& a) {
   extern __shared__ float smem[];
   Work w;
   float* pend;
@@ -744,25 +805,38 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
   // the one barrier, which also publishes the tree and the zeroed pend
   const bool live = i < a.P;
   float nr = 0.0f, lw = 0.0f, up = 0.0f, lp = 0.0f;
-  bool dirty = false;  // this lane's ring slots changed
+  // this lane's ring slots (bit k: slot lane + k GROUP) to write back
+  unsigned changed = 0u;
   stage_tables(a, smem, true, BIAS);
   if (live) {
     load_tree(a, w, i, N, lane);
     for (int k = lane; k < K; k += GROUP) pend[k] = 0.0f;
     nr = a.next_rec[i], lw = a.log_w[i];
     if constexpr (BIAS) {
+      // what is due and what is free: the positions alone
       lp = a.log_pilot[i];
-      for (int s = lane; s < D; s += GROUP) {
-        const size_t at = (size_t)i * D + s;
-        w.rpos[s] = a.df_pos[at];
-        w.rlogf[s] = a.df_logf[at];
-        w.rdelta[s] = a.df_delta[at];
-        w.rk[s] = a.df_k[at];
-      }
+      for (int s = lane; s < D; s += GROUP)
+        w.rpos[s] = a.df_pos[(size_t)i * D + s];
     }
   }
   __syncthreads();
   if (!live) return;
+  if constexpr (BIAS) {
+    // the other words of the slots due at the segment end, under way
+    // while the trips run (a push takes only free slots, so these stay
+    // due and nothing else writes them)
+    const float end = a.front + a.L;
+#pragma unroll
+    for (int k = 0; k < MAX_DELAY_SLOTS / GROUP; ++k) {
+      const int s = lane + k * GROUP;
+      if (s < D && w.rpos[s] <= end) {
+        const size_t at = (size_t)i * D + s;
+        copy_word_async(&w.rlogf[s], &a.df_logf[at]);
+        copy_word_async(&w.rdelta[s], &a.df_delta[at]);
+        copy_word_async(&w.rk[s], &a.df_k[at]);
+      }
+    }
+  }
   Tables tb;
   bind_tables(a, smem, tb);
   Heights<NP> h;
@@ -797,8 +871,8 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
       const float late = ev.log_iw - imm;
       lp = lp + imm;
       if (fabsf(late) > 1e-9f)
-        push_delayed(tb, w, D, a.delay_k, lane, gm, d_h, a.front + up, late,
-                     lp, dirty);
+        push_delayed(tb, w, D, a.delay_k, lane, gm, d_h, ev.key_epoch,
+                     a.front + up, late, lp, changed);
     }
     u = u_next;
     moved = true;
@@ -813,9 +887,19 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
     // ---- the pilot's extension; the delayed factors due at front + L ----
     lp = lp - a.mu * B * delta;
     const float end = a.front + a.L;
+    unsigned due = 0u;
+#pragma unroll
+    for (int k = 0; k < MAX_DELAY_SLOTS / GROUP; ++k) {
+      const int s = lane + k * GROUP;
+      if (s < D && w.rpos[s] <= end) due |= 1u << k;
+    }
+    // a due slot was due at entry (its words copied since) or pushed here
+    wait_copies();
     float add = 0.0f;
-    for (int s = lane; s < D; s += GROUP) {
-      if (w.rpos[s] <= end) {
+#pragma unroll
+    for (int k = 0; k < MAX_DELAY_SLOTS / GROUP; ++k) {
+      if (due >> k & 1u) {
+        const int s = lane + k * GROUP;
         add += w.rlogf[s];
         if (w.rk[s] > 1) {
           w.rpos[s] = w.rpos[s] + 2.0f * w.rdelta[s];
@@ -826,10 +910,11 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
           w.rlogf[s] = 0.0f;
           w.rk[s] = 0;
         }
-        dirty = true;
       }
     }
-    lp = lp + group_sum(add, gm);
+    changed |= due;
+    // a group with nothing due adds the +0 that the sum of its zeros is
+    lp = lp + (__any_sync(gm, due != 0u) ? group_sum(add, gm) : 0.0f);
   }
   __syncwarp(gm);
 
@@ -842,8 +927,11 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
 
   if (moved) store_tree(a, w, i, N, lane);  // only rows that changed
   if constexpr (BIAS) {
-    if (dirty) {
-      for (int s = lane; s < D; s += GROUP) {
+    // only the slots that were pushed or applied
+#pragma unroll
+    for (int k = 0; k < MAX_DELAY_SLOTS / GROUP; ++k) {
+      if (changed >> k & 1u) {
+        const int s = lane + k * GROUP;
         const size_t at = (size_t)i * D + s;
         a.df_pos[at] = w.rpos[s];
         a.df_logf[at] = w.rlogf[s];
@@ -858,6 +946,18 @@ __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
     a.log_w[i] = lw;
     a.tl_out[i] = tl;
   }
+}
+
+template <int NP, bool BIAS>
+__global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
+  segment_pass_body<NP, BIAS>(a);
+}
+
+// the biased pass, held at BIAS_MIN_BLOCKS resident blocks per SM
+template <int NP>
+__global__ void __launch_bounds__(BLOCK, BIAS_MIN_BLOCKS)
+    segment_pass_biased_kernel(const Args a) {
+  segment_pass_body<NP, true>(a);
 }
 
 // ===========================================================================
@@ -1699,10 +1799,10 @@ int launch(const Args& a, bool segment, cudaStream_t stream) {
   const bool biased = a.log_pilot != nullptr;
   const size_t bytes = sizeof(float)
       * ((size_t)tables_words(a.E, segment, biased)
-         + (size_t)per_block * work_words(N, a.E, segment, biased));
+         + (size_t)per_block * work_words(N, a.E, segment, biased, a.S));
   const dim3 grid((unsigned)((a.P + per_block - 1) / per_block));
   if (segment && biased)
-    return launch_kernel(segment_pass_kernel<NP, true>, a, grid, bytes,
+    return launch_kernel(segment_pass_biased_kernel<NP>, a, grid, bytes,
                          stream);
   if (segment)
     return launch_kernel(segment_pass_kernel<NP, false>, a, grid, bytes,
@@ -1840,27 +1940,28 @@ extern "C" int smc_segment_pass_launch(
   return dispatch(a, true, stream);
 }
 
-// What the migration kernel takes at (n, E, Pp, Mw), as the card reports
-// it: out[0] registers per thread, out[1] local (stack) bytes per thread,
-// out[2] static shared bytes, out[3] dynamic shared bytes per block,
-// out[4] particles per block, out[5] blocks an SM holds at once.
-extern "C" int smc_mig_resources(int n, int E, int Pp, int Mw, int* out) {
+// What a kernel takes on the card, as the card reports it: out[0]
+// registers per thread, out[1] local (stack) bytes per thread, out[2]
+// static shared bytes, out[3] dynamic shared bytes per block as launched,
+// out[4] particles per block, out[5] blocks an SM holds at once, out[6]
+// the card's SMs.
+template <typename Kernel>
+int resources_of(Kernel kernel, int threads, size_t bytes, int ppb,
+                 int* out) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, segment_pass_mig_kernel);
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return (int)err;
-  int ppb;
-  size_t bytes;
-  const int shape = mig_shape(n, E, Pp, Mw, ppb, bytes);
-  if (shape != 0) return shape;
   if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(segment_pass_mig_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, segment_pass_mig_kernel, ppb * 32, bytes);
+  int blocks = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
@@ -1868,7 +1969,44 @@ extern "C" int smc_mig_resources(int n, int E, int Pp, int Mw, int* out) {
   out[3] = (int)bytes;
   out[4] = ppb;
   out[5] = blocks;
+  out[6] = sms;
   return 0;
+}
+
+template <int NP>
+int resources_np(int kind, int n, int E, int S, int* out) {
+  const bool segment = kind != 0, biased = kind == 2;
+  const int per_block = BLOCK / GROUP;
+  const size_t bytes = sizeof(float)
+      * ((size_t)tables_words(E, segment, biased)
+         + (size_t)per_block * work_words(2 * n - 1, E, segment, biased, S));
+  if (kind == 0)
+    return resources_of(trip_kernel<NP>, BLOCK, bytes, per_block, out);
+  if (biased)
+    return resources_of(segment_pass_biased_kernel<NP>, BLOCK, bytes,
+                        per_block, out);
+  return resources_of(segment_pass_kernel<NP, false>, BLOCK, bytes,
+                      per_block, out);
+}
+
+// kind 0: trip, 1: segment_pass, 2: its biased variant (S sections), 3:
+// its migration variant (Pp populations, buffers of Mw events); at n
+// leaves, E epochs.
+extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
+                                    int Mw, int* out) {
+  if (kind < 0 || kind > 3 || n < 2 || n > MAX_LEAVES || E < 1
+      || E > MAX_EPOCHS || (kind == 2 && (S < 1 || S > MAX_SECTIONS)))
+    return (int)cudaErrorInvalidValue;
+  if (kind != 3)
+    return n <= 4 ? resources_np<7>(kind, n, E, S, out)
+                  : resources_np<MAX_NODES>(kind, n, E, S, out);
+  if (Pp < 1 || Pp > MAX_POPS || Mw < 1 || Mw > MAX_MIG)
+    return (int)cudaErrorInvalidValue;
+  int ppb;
+  size_t bytes;
+  const int shape = mig_shape(n, E, Pp, Mw, ppb, bytes);
+  if (shape != 0) return shape;
+  return resources_of(segment_pass_mig_kernel, ppb * 32, bytes, ppb, out);
 }
 
 // An empty launch, for timing what any launch costs on the card.

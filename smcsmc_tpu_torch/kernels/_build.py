@@ -107,8 +107,9 @@ def load_trip_library() -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.smc_segment_pass_launch.restype = ci
-    lib.smc_mig_resources.argtypes = [ci, ci, ci, ci, vp]  # n, E, Pp, Mw, out
-    lib.smc_mig_resources.restype = ci
+    # kind, n, E, S, Pp, Mw, out
+    lib.smc_kernel_resources.argtypes = [ci, ci, ci, ci, ci, ci, vp]
+    lib.smc_kernel_resources.restype = ci
     lib.smc_noop_launch.argtypes = [vp]
     lib.smc_noop_launch.restype = ci
     lib.smc_cuda_error_string.argtypes = [ci]

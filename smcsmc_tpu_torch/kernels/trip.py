@@ -727,23 +727,48 @@ segment_pass.biased_launches = 0
 segment_pass.migration_launches = 0
 
 
-MIG_RESOURCES = ("registers", "local_bytes", "static_shared_bytes",
-                 "dynamic_shared_bytes", "particles_per_block",
-                 "blocks_per_sm")
+RESOURCES = ("registers", "local_bytes", "static_shared_bytes",
+             "dynamic_shared_bytes", "particles_per_block", "blocks_per_sm",
+             "sms")
+# the kernels of csrc/trip.cu by the kind smc_kernel_resources takes
+RESOURCE_VARIANTS = {"trip": 0, "segment_pass": 1, "biased": 2,
+                     "migration": 3}
+WAVES_AT = 10000  # the particle count of the paths chip_smoke drives
 
 
-def migration_resources(n: int, E: int, Pp: int, Mw: int) -> dict:
-    """What the migration kernel takes on the current CUDA device at
-    (n leaves, E epochs, Pp populations, Mw events per buffer): registers
+def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
+                     Mw: int = 0, S: int = 2) -> dict:
+    """What a kernel of ``csrc/trip.cu`` takes on the current CUDA device
+    at (n leaves, E epochs; for the biased pass also S bias sections, for
+    the migration pass Pp populations and Mw events per buffer): registers
     and local (stack) bytes per thread and static shared bytes as
     ``cudaFuncGetAttributes`` reports them, the dynamic shared bytes and
-    particles per block its launcher picks, and the blocks an SM holds at
-    once (:data:`MIG_RESOURCES`)."""
-    _check_caps(2 * n - 1, E, Pp, Mw)
-    out = (ctypes.c_int * len(MIG_RESOURCES))()
+    particles per block it is launched with, the blocks an SM holds at once
+    and the card's SMs (:data:`RESOURCES`), and from those the particles an
+    SM holds and the waves a launch of :data:`WAVES_AT` particles takes.  ``variant`` is a key of :data:`RESOURCE_VARIANTS`
+    (n picks the instantiation: 7 padded nodes up to 4 leaves, 15 above).
+    Raises on an unknown variant or a shape beyond the caps before any
+    CUDA call."""
+    if variant not in RESOURCE_VARIANTS:
+        raise ValueError(f"unknown kernel variant {variant!r}; one of "
+                         f"{tuple(RESOURCE_VARIANTS)}")
+    migration = variant == "migration"
+    if migration and (Pp < 1 or Mw < 1):
+        raise ValueError(f"the migration pass needs populations and buffers,"
+                         f" got Pp={Pp}, Mw={Mw}")
+    _check_caps(2 * n - 1, E, Pp if migration else 1, Mw if migration else 0)
+    if variant == "biased" and not 1 <= S <= MAX_SECTIONS:
+        raise ValueError(f"the biased pass takes 1..{MAX_SECTIONS} sections,"
+                         f" got {S}")
+    out = (ctypes.c_int * len(RESOURCES))()
     lib = load_trip_library()
-    err = lib.smc_mig_resources(n, E, Pp, Mw, out)
+    err = lib.smc_kernel_resources(RESOURCE_VARIANTS[variant], n, E, S, Pp,
+                                   Mw, out)
     if err != 0:
-        raise RuntimeError(f"smc_mig_resources failed: CUDA error {err} "
+        raise RuntimeError(f"smc_kernel_resources failed: CUDA error {err} "
                            f"({lib.smc_cuda_error_string(err).decode()})")
-    return dict(zip(MIG_RESOURCES, out))
+    res = dict(zip(RESOURCES, out))
+    per_sm = res["blocks_per_sm"] * res["particles_per_block"]
+    res["particles_per_sm"] = per_sm
+    res["waves_at_10000"] = math.ceil(WAVES_AT / max(per_sm * res["sms"], 1))
+    return res

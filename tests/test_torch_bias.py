@@ -108,24 +108,44 @@ def test_biased_point_matches_jax(heights, strengths):
     assert len(np.unique(np.asarray(s))) == len(set(strengths))
 
 
-def _ring(P, K, front, rng):
+def _ring(P, K, front, rng, case="mixed"):
     """A ring with free slots, factors due before ``front`` with one and
-    with several applications left, and factors not yet due."""
+    with several applications left, and factors not yet due; ``case``
+    shapes it: ``full`` every slot in use, ``last_free`` one free slot
+    (the last), ``due_at_end`` factors due exactly at ``front``, ``rearm``
+    every factor due with 2 or 3 applications left."""
     used = rng.uniform(size=(P, K)) < 0.5
     used[:3] = True  # full rings
-    pos = np.where(used, rng.uniform(front - 3000.0, front + 3000.0, (P, K)),
-                   INF).astype(np.float32)
+    if case == "full":
+        used[:] = True
+    elif case == "last_free":
+        used[:] = True
+        used[:, -1] = False
+    pos = rng.uniform(front - 3000.0, front + 3000.0, (P, K))
+    if case == "due_at_end":
+        pos[:, ::3] = front
+    elif case == "rearm":
+        pos = rng.uniform(front - 3000.0, front, (P, K))
+    pos = np.where(used, pos, INF).astype(np.float32)
     logf = np.where(used, rng.integers(-64, 64, (P, K)) / 64.0, 0.0)
     delta = np.where(used, rng.uniform(100.0, 900.0, (P, K)), 0.0)
-    k = np.where(used, rng.integers(1, 4, (P, K)), 0)
+    lo = 2 if case == "rearm" else 1
+    k = np.where(used, rng.integers(lo, 4, (P, K)), 0)
     return (pos, logf.astype(np.float32), delta.astype(np.float32),
             k.astype(np.int32))
 
 
-def test_ring_push_and_drain_match_jax():
+@pytest.mark.parametrize("case", ["mixed", "full", "last_free",
+                                  "due_at_end", "rearm"])
+def test_ring_push_and_drain_match_jax(case):
+    """Push and drain against ``_push_delayed`` / ``_apply_due_delayed``:
+    a ring with free slots, due and pending factors; every ring full (the
+    factor goes to the pilot at once); one free slot, the last (the push
+    takes it); factors due exactly at the drain's position; every factor
+    due with applications left (re-armed at twice its spacing)."""
     P, K, front = 64, 32, 40000.0
     rng = np.random.default_rng(5)
-    ring = _ring(P, K, front, rng)
+    ring = _ring(P, K, front, rng, case)
     mask = rng.uniform(size=P) < 0.7
     pos = rng.uniform(front, front + 800.0, P).astype(np.float32)
     delay = rng.uniform(1000.0, 30000.0, P).astype(np.float32)
@@ -138,15 +158,75 @@ def test_ring_push_and_drain_match_jax():
                        torch.from_numpy(delay), torch.from_numpy(log_iw), 3)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert got[4][:3].abs().sum() > 0  # full rings took the factor at once
+    if case in ("mixed", "full"):  # full rings took the factor at once
+        assert got[4][:3].abs().sum() > 0
+    if case == "full":
+        assert (got[4].numpy() == np.where(mask, log_iw, 0.0)).all()
+    if case == "last_free":  # every push went into the last slot
+        assert (got[0][:, -1].numpy() < INF).sum() == mask.sum()
+        assert not got[4].any()
 
     ref = jsmc._apply_due_delayed(*(jnp.asarray(x) for x in ring),
                                   jnp.float32(front))
     got = apply_due_delayed(*(torch.from_numpy(x) for x in ring), front)
     for a, b in zip(got, ref):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    due = ring[0] <= front
     assert (got[4].numpy() < ring[3]).any()  # applications taken
-    assert (got[1].numpy() > ring[0]).any()  # and moved on
+    if case != "full":
+        assert (got[1].numpy() > ring[0]).any()  # and moved on
+    if case == "due_at_end":
+        assert (ring[0] == front).any() and due[ring[0] == front].all()
+    if case == "rearm":  # every factor re-armed at twice its spacing
+        used = ring[0] < INF
+        np.testing.assert_array_equal(got[3].numpy()[used],
+                                      2.0 * ring[2][used])
+        assert (got[4].numpy()[used] == ring[3][used] - 1).all()
+
+
+@pytest.mark.parametrize("S", [2, 8])
+def test_coal_delay_section_and_epoch_match_jax(S):
+    """The ``coal`` delay type keys the immediate-or-delayed choice and the
+    delay off t_c: its section (``section_of``) and epoch (``epoch_index``)
+    against the JAX package's step (``searchsorted`` on the boundaries,
+    ``_epoch_index``) for t_c inside each section and exactly on each
+    boundary, with 2 and 8 sections; then the push of those delays."""
+    from smcsmc_tpu_torch.kernels.bias import epoch_index, section_of
+
+    rng = np.random.default_rng(S)
+    inner = np.sort(rng.uniform(100.0, 60000.0, S - 1)).astype(np.float32)
+    bh, bs = _tables(inner, rng.uniform(1.0, 6.0, S))
+    bs[S // 2] = 1.0  # one unbiased section
+    mids = [rng.uniform(bh[s], min(bh[s + 1], 1e5), 4) for s in range(S)]
+    t_c = np.concatenate(mids + [bh[:-1], bh[:-1] + 0.5]).astype(np.float32)
+    starts = np.concatenate([[0.0], np.logspace(2.0, 4.9, 11)]).astype(
+        np.float32)
+    got_s = section_of(torch.from_numpy(bh), torch.from_numpy(t_c))
+    ref_s = np.clip(np.asarray(jnp.searchsorted(jnp.asarray(bh),
+                                                jnp.asarray(t_c),
+                                                side="right")) - 1, 0, S - 1)
+    np.testing.assert_array_equal(got_s.numpy(), ref_s)
+    assert set(got_s.tolist()) == set(range(S))  # every section reached
+    got_e = epoch_index(torch.from_numpy(starts), torch.from_numpy(t_c))
+    ref_e = jtr._epoch_index(jnp.asarray(starts), jnp.asarray(t_c))
+    np.testing.assert_array_equal(got_e.numpy(), np.asarray(ref_e))
+
+    P = t_c.shape[0]
+    delays = np.linspace(500.0, 20000.0, starts.shape[0]).astype(np.float32)
+    delay = delays[got_e.numpy()]
+    late = np.where(np.abs(bs[got_s.numpy()] - 1.0) < 1e-6, 0.0,
+                    rng.integers(-300, 300, P) / 64.0).astype(np.float32)
+    ring = _ring(P, 32, 40000.0, rng)
+    mask = np.abs(late) > 1e-9
+    pos = np.full(P, 40000.0, np.float32)
+    ref = jsmc._push_delayed(*(jnp.asarray(x) for x in ring),
+                             jnp.asarray(mask), jnp.asarray(pos),
+                             jnp.asarray(delay), jnp.asarray(late), 3)
+    got = push_delayed(*(torch.from_numpy(x) for x in ring),
+                       torch.from_numpy(mask), torch.from_numpy(pos),
+                       torch.from_numpy(delay), torch.from_numpy(late), 3)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def _biased_jax_state(seed, L, P=64, n=4, E=3):

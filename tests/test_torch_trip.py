@@ -447,27 +447,38 @@ def test_cuda_kernel_matches_plain(leaf_status):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["n8E8", "caps"])
 @pytest.mark.parametrize("leaf_status", [1, 0, -1])
 @pytest.mark.parametrize("delay_type", ["recomb", "coal"])
-def test_cuda_biased_segment_pass_matches_plain(leaf_status, delay_type):
+def test_cuda_biased_segment_pass_matches_plain(leaf_status, delay_type,
+                                                shape):
     """The biased ``segment_pass`` on the card against its plain version,
     held as the plain pass is above, with the pilot weight and the ring of
     delayed factors (some slots free, some due at the segment end, some
-    rings full) compared too."""
+    rings full) compared too; at n=8, E=8 with 3 sections, and at the
+    kernel's caps (n=8, E=64, 8 sections, 32 slots, a particle count that
+    leaves the last block ragged)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from smcsmc_tpu_torch.kernels.bias import BiasedPass
     from smcsmc_tpu_torch.kernels.tree import INF
 
-    Pc, n, E, D = 4096, 8, 8, 32
+    if shape == "caps":
+        Pc, n, E, D = 4097, 8, 64, 32
+        bounds = [0.0, 300.0, 1000.0, 2000.0, 4000.0, 8000.0, 16000.0,
+                  32000.0, INF]
+        strengths = [6.0, 5.0, 4.0, 3.0, 1.0, 2.0, 1.5, 1.25]
+    else:
+        Pc, n, E, D = 4096, 8, 8, 32
+        bounds, strengths = [0.0, 2000.0, 20000.0, INF], [4.0, 2.0, 1.0]
     gen, epochs, trees, hd = _cuda_case(leaf_status, Pc, n, E)
     dev = hd.device
     start, inv2ne = epochs.start.contiguous(), epochs.inv2ne.contiguous()
     fifo0 = torch.rand((Pc, F_SLOTS, 6 * E), generator=gen, device=dev)
     fifo0[:, 0] = 0.0
     mask = (torch.rand(6 * E, generator=gen, device=dev) < 0.7).float()
-    heights = torch.tensor([0.0, 2000.0, 20000.0, INF], device=dev)
-    strengths = torch.tensor([4.0, 2.0, 1.0], device=dev)
+    heights = torch.tensor(bounds, device=dev)
+    strengths = torch.tensor(strengths, device=dev)
     delays = torch.linspace(3000.0, 9000.0, E, device=dev)
     front = 10000.0
     for T, L, nr_scale in ((1, 20000.0, 1.5), (64, 50000.0, 0.1)):
@@ -516,6 +527,56 @@ def test_cuda_biased_segment_pass_matches_plain(leaf_status, delay_type):
 
 
 @pytest.mark.cuda
+def test_cuda_kernel_resources_of_every_variant():
+    """``kernel_resources`` reports every field for every kernel variant,
+    at the main path's and the genome path's shape: registers, a stack,
+    shared bytes and what fits on an SM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from smcsmc_tpu_torch.kernels.trip import (
+        RESOURCE_VARIANTS,
+        RESOURCES,
+        kernel_resources,
+    )
+
+    for n, E in ((4, 9), (8, 33)):
+        for variant in RESOURCE_VARIANTS:
+            kw = dict(Pp=2, Mw=56) if variant == "migration" else {}
+            res = kernel_resources(variant, n, E, **kw)
+            assert set(RESOURCES) | {"particles_per_sm",
+                                     "waves_at_10000"} == set(res), variant
+            assert res["registers"] > 0 and res["local_bytes"] >= 0
+            assert res["dynamic_shared_bytes"] > 0
+            assert res["blocks_per_sm"] >= 1 and res["sms"] >= 1
+            assert res["particles_per_sm"] == (res["blocks_per_sm"]
+                                               * res["particles_per_block"])
+            assert res["waves_at_10000"] >= 1
+
+
+@pytest.mark.parametrize("args,match", [
+    (("bogus", 4, 9), "unknown kernel variant"),
+    (("segment_pass", 9, 9), "leaves"),
+    (("trip", 8, 65), "epochs"),
+    (("biased", 8, 33, 1, 0, 9), "sections"),
+    (("migration", 4, 8, 5, 56), "populations"),
+    (("migration", 4, 8, 2, 97), "buffers"),
+    (("migration", 4, 8, 2, 0), "buffers"),
+])
+def test_kernel_resources_refuses_before_any_cuda_call(monkeypatch, args,
+                                                       match):
+    """An unknown variant or a shape beyond the kernels' caps is refused
+    by name before the library is loaded or the card asked."""
+    import smcsmc_tpu_torch.kernels.trip as trip_mod
+
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(trip_mod, "load_trip_library", no_library)
+    with pytest.raises(ValueError, match=match):
+        trip_mod.kernel_resources(*args)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["twopop", "overflow", "capped", "caps"])
 @pytest.mark.parametrize("leaf_status", [1, 0, -1])
 def test_cuda_migration_segment_pass_matches_plain(leaf_status, case):
@@ -541,7 +602,7 @@ def test_cuda_migration_segment_pass_matches_plain(leaf_status, case):
         epochs_from_demography,
         make_initial_trees,
     )
-    from smcsmc_tpu_torch.kernels.trip import migration_resources
+    from smcsmc_tpu_torch.kernels.trip import kernel_resources
     from smcsmc_tpu_torch.sweep_profile import caps_demo, twopop_demo
 
     if case == "caps":
@@ -551,7 +612,7 @@ def test_cuda_migration_segment_pass_matches_plain(leaf_status, case):
         demo, Pc = twopop_demo(L=1e4, m=m), 4096
     n, E, Pp = demo.num_samples, demo.num_epochs, demo.num_populations
     if case == "caps":
-        assert Pc % migration_resources(n, E, Pp, Mw)[
+        assert Pc % kernel_resources("migration", n, E, Pp, Mw)[
             "particles_per_block"] != 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)

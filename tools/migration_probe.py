@@ -39,7 +39,7 @@ import torch  # noqa: E402
 from smcsmc_tpu_torch.kernels import _build  # noqa: E402
 from smcsmc_tpu_torch.kernels.tree import Trees, tree_summaries  # noqa: E402
 from smcsmc_tpu_torch.kernels.trip import (  # noqa: E402
-    migration_resources,
+    kernel_resources,
     segment_pass,
 )
 from smcsmc_tpu_torch.segio import split_long_segments  # noqa: E402
@@ -87,7 +87,7 @@ def _time(c, u, filler):
 
 
 def work(filler):
-    res = migration_resources(4, 8, 2, cs.TWOPOP_MW)
+    res = kernel_resources("migration", 4, 8, 2, cs.TWOPOP_MW)
     print(f"resources: {res}", flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     wave = sms * res["blocks_per_sm"] * res["particles_per_block"]
@@ -116,7 +116,7 @@ def caps(filler, mean_len):
             if info.built:
                 print(f"caps MIG_MIN_BLOCKS {mb}: ptxas {_ptxas_of_mig(info)}",
                       flush=True)
-            res = migration_resources(4, 8, 2, cs.TWOPOP_MW)
+            res = kernel_resources("migration", 4, 8, 2, cs.TWOPOP_MW)
             times = [_time(*_segment_case(cs.TWOPOP_P, L), filler)
                      for L in (mean_len, cs.MAX_SEG)]
             print(f"caps round {rnd} MIG_MIN_BLOCKS {mb}: registers "

@@ -1,0 +1,205 @@
+"""Hold the segment pass of ``csrc/trip.cu`` to another commit's, bit for bit,
+on the CPU: no chip, no nvcc.
+
+    python3 tools/rehearse/rehearse.py [--against COMMIT] [--quick]
+
+Builds the working tree's ``smcsmc_tpu_torch/csrc/trip.cu`` and COMMIT's
+(``git show``, default HEAD) as host C++ with g++ against the stand-in
+``cuda_runtime.h`` beside this file (every lane a thread, so that the
+kernels' shuffles, ballots and warp syncs run as written), into
+``build/rehearse/``, and runs ``smc_segment_pass_launch`` of both on
+identical CPU tensors.  Every output must be equal bit for bit: the trees,
+``next_rec``, ``log_w``, ``log_pilot``, the ring's four rows, the FIFO and
+``tl_out``.  Cases of the biased pass (P of 150-203, so that the last block
+is ragged): (n=8, E=33, 2 sections), (n=4, E=9, 2) and the caps (n=8,
+E=64, 8) x leaf status 1, 0, -1 x (one trip at 20 kb, 64 trips at 50 kb)
+x delay type 0 and 1; then at (8, 33, 2) 64 trips with every ring full,
+every ring empty, factors due exactly at the segment end, and delay k 1
+and 5, each with both delay types.  The ring is ``chip_smoke``'s (30% of
+the slots in use, the first 16 rings full, positions in [front, front +
+2L)).  The plain pass runs on every sixth case's inputs too.  ``--quick``
+runs every fifth case.  Exits 1 if any case differs.  The arithmetic is the
+host's (its ``logf`` is not the card's), so hold a change to a commit, not
+to the plain version."""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent.parent
+HERE = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from smcsmc_tpu_torch.kernels.tree import (  # noqa: E402
+    INF,
+    epochs_from_demography,
+    make_initial_trees,
+)
+
+SOURCE = "smcsmc_tpu_torch/csrc/trip.cu"
+OUT = ROOT / "build" / "rehearse"
+# the source's device launches, as host loops
+LAUNCHES = (
+    ("kernel<<<grid, threads, bytes, stream>>>(a);",
+     "host_launch(kernel, grid, threads, bytes, a);"),
+    ("noop_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();", ""),
+    ("extern __shared__ float smem[];", "float* smem = g_smem;"),
+)
+
+
+def build(text: str, name: str) -> ctypes.CDLL:
+    """``text`` (a trip.cu) as a host library ``build/rehearse/<name>.so``."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    for old, new in LAUNCHES:
+        text = text.replace(old, new)
+    src = OUT / f"{name}.cpp"
+    src.write_text(text)
+    lib = OUT / f"{name}.so"
+    subprocess.run(
+        ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-pthread",
+         "-shared", "-fPIC", f"-I{HERE}", "-include", "cuda_runtime.h",
+         "-o", str(lib), str(src), str(HERE / "host_glue.cpp")], check=True)
+    out = ctypes.CDLL(str(lib))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    out.smc_segment_pass_launch.argtypes = [
+        vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        cf, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        ci, ci, cf, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        ci, ci, ci, vp]
+    out.smc_segment_pass_launch.restype = ci
+    return out
+
+
+def case(P, n, E, S, ls, T, L, nr_scale, seed, full=False, empty=False,
+         due_at_end=False, delay_type=0, delay_k=3, D=32):
+    """A biased segment pass's state and inputs on the CPU from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    ep = epochs_from_demography(cs._demo(n, E), "cpu")
+    trees = make_initial_trees(g, ep, P, [0] * n)
+    hd = torch.ones(n, dtype=torch.bool)
+    if ls == 0:
+        hd[0] = hd[n // 2] = False
+    elif ls == -1:
+        hd[:] = False
+    front = cs.BIAS_FRONT
+    used = torch.rand((P, D), generator=g) < 0.3
+    used[:16] = True
+    if full:
+        used[:] = True
+    if empty:
+        used[:] = False
+    pos = front + 2 * L * torch.rand((P, D), generator=g)
+    if due_at_end:
+        pos[::3, ::2] = float(np.float32(front) + np.float32(L))
+    st = dict(
+        time=trees.time.clone(), parent=trees.parent.clone(),
+        child0=trees.child0.clone(), child1=trees.child1.clone(),
+        next_rec=torch.rand(P, generator=g) * nr_scale * L,
+        log_w=torch.randn(P, generator=g),
+        fifo=torch.rand((P, cs.FIFO_SLOTS, 6 * E), generator=g),
+        tl=torch.zeros(P), log_pilot=torch.randn(P, generator=g),
+        df_pos=torch.where(used, pos, torch.full((P, D), INF)),
+        df_logf=torch.where(used, torch.randn((P, D), generator=g), 0.0),
+        df_delta=torch.where(used, 3000.0 * torch.rand((P, D), generator=g),
+                             0.0),
+        df_k=torch.where(used, torch.randint(1, 4, (P, D), generator=g,
+                                             dtype=torch.int32), 0))
+    st["fifo"][:, 0] = 0.0
+    heights, strengths = ((cs.BIAS_HEIGHTS, cs.BIAS_STRENGTHS) if S == 2
+                          else (cs.BIAS_CAPS_HEIGHTS, cs.BIAS_CAPS_STRENGTHS))
+    fix = dict(u=torch.rand((T, P, 4), generator=g),
+               mask=(torch.rand(6 * E, generator=g) < 0.75).float(),
+               start=ep.start.contiguous(), inv2ne=ep.inv2ne.contiguous(),
+               hd=hd, heights=torch.tensor(heights),
+               strengths=torch.tensor(strengths),
+               delays=torch.linspace(3000.0, 30000.0, E), P=P, n=n, E=E,
+               S=S, D=D, ls=ls, T=T, L=L, front=front,
+               delay_type=delay_type, delay_k=delay_k)
+    return st, fix
+
+
+def run(lib, st, f, biased=True):
+    """One segment pass of ``lib`` on a copy of ``st``."""
+    st = {k: v.clone() for k, v in st.items()}
+    p = (lambda x: ctypes.c_void_p(x.data_ptr()))
+    bias = ((p(st["log_pilot"]), p(st["df_pos"]), p(st["df_logf"]),
+             p(st["df_delta"]), p(st["df_k"]), p(f["heights"]),
+             p(f["strengths"]), p(f["delays"]), f["D"], f["S"], f["front"],
+             f["delay_type"], f["delay_k"]) if biased
+            else (None,) * 8 + (0, 0, 0.0, 0, 0))
+    err = lib.smc_segment_pass_launch(
+        p(f["u"]), f["T"], f["P"], f["n"], f["E"], cs.FIFO_SLOTS, f["ls"],
+        p(st["time"]), p(st["parent"]), p(st["child0"]), p(st["child1"]),
+        p(st["next_rec"]), p(st["log_w"]), p(st["fifo"]), p(f["mask"]),
+        p(st["tl"]), f["L"], cs.MU, cs.RHO, p(f["start"]), p(f["inv2ne"]),
+        p(f["hd"]), *bias, *((None,) * 9), 0, 0, 0, None)
+    if err != 0:
+        raise SystemExit(f"smc_segment_pass_launch returned {err}")
+    return st
+
+
+def differing(a, b):
+    """The fields of two outputs that are not equal bit for bit."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    return [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+
+
+def cases():
+    out = []
+    for n, E, S, P in ((8, 33, 2, 203), (4, 9, 2, 150), (8, 64, 8, 161)):
+        for ls in (1, 0, -1):
+            for T, L, nr_scale in ((1, 20000.0, 1.5), (64, cs.MAX_SEG, 0.1)):
+                for dt in (0, 1):
+                    out.append(dict(P=P, n=n, E=E, S=S, ls=ls, T=T, L=L,
+                                    nr_scale=nr_scale, delay_type=dt))
+    for extra in (dict(full=True), dict(empty=True), dict(due_at_end=True),
+                  dict(delay_k=1), dict(delay_k=5)):
+        for dt in (0, 1):
+            out.append(dict(P=203, n=8, E=33, S=2, ls=1, T=64, L=cs.MAX_SEG,
+                            nr_scale=0.1, delay_type=dt, **extra))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", default="HEAD")
+    ap.add_argument("--quick", action="store_true")
+    args = ap.parse_args(argv)
+    torch.set_num_threads(1)
+    old = subprocess.run(["git", "show", f"{args.against}:{SOURCE}"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         check=True).stdout
+    ref = build(old, "against")
+    new = build((ROOT / SOURCE).read_text(), "tree")
+    todo = cases()[::5] if args.quick else cases()
+    failed = 0
+    for j, c in enumerate(todo):
+        st, f = case(seed=100 + j, **c)
+        bad = differing(run(ref, st, f), run(new, st, f))
+        moved = int((run(ref, st, f)["df_pos"] != st["df_pos"]).sum()) \
+            if not bad else -1
+        print(f"biased {c}: ring slots moved {moved} -> "
+              + ("bit for bit" if not bad else f"DIFFER in {bad}"),
+              flush=True)
+        failed += bool(bad)
+        if j % 6 == 0 and not args.quick:
+            bad = differing(run(ref, st, f, False), run(new, st, f, False))
+            print("  plain pass, same inputs -> "
+                  + ("bit for bit" if not bad else f"DIFFER in {bad}"),
+                  flush=True)
+            failed += bool(bad)
+    print(f"{failed} of the cases differ from {args.against}'s kernel")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
