@@ -46,7 +46,7 @@ Phases, each fatal on failure:
    and the ring slots the pass changed;
 5. run the main path through smc2-torch's entry point
    (smcsmc_tpu_torch.cli.smcsmc_main) on bench.py's single-population data
-   (n=4, 2 Mb) at -Np 10000 -EM 1 with 9 epochs;
+   (n=4, 2 Mb) at -Np 10000 -EM 1 with 9 epochs and -record_ess;
 6. check result.out of the last iteration (LogL finite and negative; Coal
    Ne within 2x of 10000 in every interior epoch with >= 5 posterior
    coalescences, and at least 3 such epochs; Recomb rate within 2x of
@@ -117,16 +117,49 @@ Phases, each fatal on failure:
    populations together within 2x, each population's pooled interior Ne
    within 25%, the pooled migration rate within [0.5x, 2x] of 5e-5 and
    Recomb within 2x (``TWOPOP_POOLED_WITHIN`` says why); walks capped and
-   events dropped printed; the same command again must give the same LogL
-   bit for bit; a
+   events dropped printed; the same command again with -EM 0 must give
+   iteration 0's LogL bit for bit; a
    profile of the twopop sweep; the migration pass timed at the twopop
    data's mean segment and at 50 kb (device us per launch, host us, plain
    ms, bound from counted work with the buffer events read and the rows
    changed, events per walk), the timed launch held to the plain version's
    run on the same inputs, bit for bit as in phase 3.
 
+11. VB (-vb): the VB variant of each pass (``segment_pass(..., vb=...)``,
+   each trip's term added to the weights inside the kernel) compared in
+   phase 3 with its plain version on VB tables from small counts drawn in
+   [0.05, 5] with one -xc epoch (``vb_tables``): the plain pass at the main
+   path's shape at each leaf status, at the genome shape and at (P=10,001,
+   n=8, E=64), the biased pass at the genome shape at each leaf status and
+   at its caps corner, the migration pass at the twopop shape at each leaf
+   status and at its caps corner; one trip with no tree mismatch and every
+   float (log_w, log_pilot) within tolerance, 64 trips as in 3, the
+   migration pass's trees and buffers bit for bit, and the VB terms
+   moving log_w.  Each VB variant timed beside its pass in 4 and 10
+   (without the trip ladder).  Then bench.py's feature_vb: the main path's
+   command with ``-vb -EM 2``: the VB plain pass once per segment of each
+   E-step, nothing else; iteration 2's estimates checked as in 6;
+   iteration 0's LogL within 1e-4 relative of the main path's, iteration
+   1's different; a sweep profile.  The biased and the twopop path's
+   profiles run once more with ``vb=True``, so that their VB variants run
+   in the sweep (launched more than 0 times, their passes without VB 0).
+12. The APF (-apf): bench.py's feature_apf, the main path's command with
+   ``-apf 2 -EM 0``: the plain pass once per segment, estimates checked as
+   in 6, the .resample trace (the ESS of the effective pilot at each
+   resampling) different from the main path's; a sweep profile (the
+   launches and device time the lookahead adds per segment against the
+   main path's); ``lookahead_loglik`` alone at P=10,000 (launches and
+   device time per call under torch.profiler, bound).
+13. bench.py's feature_apf8 through ``em.run_em`` with ``EMConfig(apf=2,
+   apf_trees=50_000)`` on ``sweep_profile.apf8_data`` (n=8, a 100 kb
+   window of four missing, leaves 0/1 unphased): the plain pass once per
+   segment, estimates as in 6; profiles with and without the APF;
+   ``lookahead_loglik`` alone at n=8.
+
 The line before the last is a JSON object with each kernel's build/compare/
-time record; the last line is {"ok": true, "device": {...}}.  Without a
+time record (the VB variants as kernels of their own) and the new paths'
+updates/s, launches and device ms per segment (``feature_paths``); the
+last line is {"ok": true, "device": {...}}.  Without a
 CUDA device the script exits non-zero and prints no result.
 """
 
@@ -211,6 +244,18 @@ TWOPOP_P = 10000
 TWOPOP_M = 5e-5
 TWOPOP_MW = 56
 
+# the VB variants of the three passes (-vb: each trip's VB term added to
+# the weights inside the pass), as counted, compared, timed and driven
+VB_PASS = "segment_pass (vb)"
+BIASED_VB_PASS = "segment_pass (biased, vb)"
+MIGRATION_VB_PASS = "segment_pass (migration, vb)"
+# each pass by name: the count of segment_pass that its wrapper adds to
+LAUNCH_COUNTS = {"segment_pass": "launches", BIASED_PASS: "biased_launches",
+                 MIGRATION_PASS: "migration_launches",
+                 VB_PASS: "vb_launches", BIASED_VB_PASS: "biased_vb_launches",
+                 MIGRATION_VB_PASS: "migration_vb_launches"}
+XC_EPOCH = 1  # the -xc epoch of the VB tables compared and timed
+
 
 class MigCase:
     """Two-population trees (or, with ``caps``, those of
@@ -237,6 +282,7 @@ class MigCase:
         dev = torch.device("cuda")
         demo = (caps_demo(m) if caps
                 else twopop_demo(m=m, sample_pops=sample_pops))
+        self.demo = demo
         self.P, self.L, self.Mw = P, L, Mw
         self.n, self.E = demo.num_samples, demo.num_epochs
         self.Pp = demo.num_populations
@@ -286,7 +332,7 @@ class MigCase:
         st["diag"] = torch.zeros(2, dtype=torch.float64, device="cuda")
         return st
 
-    def run(self, fn, u, st):
+    def run(self, fn, u, st, vb=None):
         from smcsmc_tpu_torch.kernels.migration import MigrationPass
 
         mp = MigrationPass(st["pop"], st["mig_time"], st["mig_dest"],
@@ -295,7 +341,7 @@ class MigCase:
             mp = mp._replace(max_walk_events=self.max_walk_events)
         fn(u, self.leaf_status, *(st[k] for k in SEGMENT_STATE), st["fifo"],
            self.fifo_mask, st["tl"], self.L, MU, RHO, self.start,
-           self.inv2ne, self.has_data, None, mp)
+           self.inv2ne, self.has_data, None, mp, vb=vb)
         return st
 
     def result(self, st):
@@ -328,7 +374,8 @@ class Case:
         self.leaf_status = leaf_status
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(seed)
-        self.epochs = epochs_from_demography(_demo(n, E), dev)
+        self.demo = _demo(n, E)
+        self.epochs = epochs_from_demography(self.demo, dev)
         trees = make_initial_trees(self.gen, self.epochs, P,
                                    [0] * n)
         hd = torch.ones(n, dtype=torch.bool, device=dev)
@@ -387,10 +434,10 @@ class Case:
         st["tl"] = torch.empty(self.P, device="cuda")
         return st
 
-    def run_segment(self, fn, u, st):
+    def run_segment(self, fn, u, st, vb=None):
         fn(u, self.leaf_status, *(st[k] for k in SEGMENT_STATE), st["fifo"],
            self.fifo_mask, st["tl"], self.L, MU, RHO, self.start,
-           self.inv2ne, self.has_data)
+           self.inv2ne, self.has_data, vb=vb)
         return st
 
     def segment_result(self, st):
@@ -446,7 +493,7 @@ class Case:
         st.update({k: v.clone() for k, v in self.ring.items()})
         return st
 
-    def run_biased(self, fn, u, st):
+    def run_biased(self, fn, u, st, vb=None):
         from smcsmc_tpu_torch.kernels.bias import BiasedPass
 
         biased = BiasedPass(st["log_pilot"], st["df_pos"], st["df_logf"],
@@ -454,7 +501,7 @@ class Case:
                             BIAS_FRONT)
         fn(u, self.leaf_status, *(st[k] for k in SEGMENT_STATE), st["fifo"],
            self.fifo_mask, st["tl"], self.L, MU, RHO, self.start,
-           self.inv2ne, self.has_data, biased)
+           self.inv2ne, self.has_data, biased, vb=vb)
         return st
 
 
@@ -583,6 +630,7 @@ def phase_compare(kernels):
                     trees, floats, errs, good)
             ok &= good
     ok &= compare_migration(segment_pass, segment_pass_plain, tallies)
+    ok &= compare_vb(segment_pass, segment_pass_plain, tallies)
     if not ok:
         raise SystemExit("kernel and plain version disagree beyond tolerance")
     return tallies
@@ -663,6 +711,97 @@ def compare_migration(segment_pass, segment_pass_plain, tallies,
                     f"{above} coalesced above the old root; trees and "
                     f"buffers bit for bit {exact})",
                     Pc, trees, floats, errs, good)
+            ok &= good
+    return ok
+
+
+def vb_cases():
+    """The VB variants' cases: (pass, label, shape or MigCase arguments,
+    leaf status): the main path's shape and the genome path's for the plain
+    pass, the genome path's for the biased pass and the twopop path's for
+    the migration pass, each at its kernel's caps too."""
+    return ([(VB_PASS, "", (10000, 4, 9), ls) for ls in (1, 0, -1)]
+            + [(VB_PASS, "", (GENOME_P, 8, 33), 1),
+               (VB_PASS, " caps", (CAPS_P, 8, 64), 1)]
+            + [(BIASED_VB_PASS, "", (GENOME_P, 8, 33), ls)
+               for ls in (1, 0, -1)]
+            + [(BIASED_VB_PASS, " caps corner (8 sections)", (CAPS_P, 8, 64),
+                1)]
+            + [(MIGRATION_VB_PASS, " twopop", {}, ls) for ls in (1, 0, -1)]
+            + [(MIGRATION_VB_PASS, " caps corner",
+                {"caps": True, "m": 1e-4, "Mw": 96, "P": CAPS_P}, 1)])
+
+
+def compare_vb(segment_pass, segment_pass_plain, tallies):
+    """The VB variant of each pass against its plain version with VB on
+    identical inputs, VB tables from small counts (:func:`vb_tables`): one
+    trip in every case, with no tree mismatch and every float within
+    tolerance (``log_w`` and ``log_pilot`` by ``float_tolerances``); 64
+    trips at the paths' shapes (not at the caps) with, as for the passes
+    without VB, at most 0.1% of the particles apart; the migration pass's
+    trees and buffers bit for bit.  At one trip the VB terms must move
+    ``log_w`` away from the plain version without VB."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.trip import disagreement
+
+    for name in (VB_PASS, BIASED_VB_PASS, MIGRATION_VB_PASS):
+        tallies[name] = (Tally(), Tally())
+    ok = True
+    for name, label, shape, ls in vb_cases():
+        trip_counts = ((1, 20000.0, 1.5),) + (
+            ((64, MAX_SEG, 0.1),) if "caps" not in label else ())
+        for T, L, nr_scale in trip_counts:
+            # the plain version without VB, at one trip: the terms moved
+            # log_w
+            runs = ((segment_pass, True), (segment_pass_plain, True)) + (
+                ((segment_pass_plain, False),) if T == 1 else ())
+            if name == MIGRATION_VB_PASS:
+                kw = dict(shape)
+                P = kw.pop("P", TWOPOP_P)
+                c = MigCase(P, ls, L, nr_scale, seed=17 * P + T + ls, **kw)
+                vb = vb_tables(c.demo, T + ls)
+                u = c.uniforms(T)
+                got, ref, *off = (c.result(c.run(fn, u, c.fresh(),
+                                                 vb if on else None))
+                                  for fn, on in runs)
+                extra = dict(Pp=c.Pp)
+                exact = all(torch.equal(got[k], ref[k]) for k in MIG_EXACT)
+            else:
+                P, n, E = shape
+                c = Case(P, n, E, ls, L=L, nr_scale=nr_scale,
+                         seed=19 * P + T + ls + len(label))
+                vb = vb_tables(c.demo, T + ls)
+                u = c.uniforms(T)
+                if name == VB_PASS:
+                    fresh, run = c.fresh_segment, c.run_segment
+                else:
+                    ring = ({} if not label else dict(
+                        heights=BIAS_CAPS_HEIGHTS,
+                        strengths=BIAS_CAPS_STRENGTHS))
+                    fresh = (lambda ring=ring: c.fresh_biased(**ring))
+                    run = c.run_biased
+                got, ref, *off = (c.segment_result(run(
+                    fn, u, fresh(), vb if on else None)) for fn, on in runs)
+                extra, exact = {}, True
+            torch.cuda.synchronize()
+            trees, floats, errs = disagreement(got, ref, c.L, MU, RTOL,
+                                               **extra)
+            if T == 1:
+                moved = float((ref["log_w"] - off[0]["log_w"]).abs().max())
+                good = (int(trees.sum()) == 0 and int(floats.sum()) == 0
+                        and moved > 1e-3)
+                shown = f"the VB terms move log_w by up to {moved:.4g}"
+            else:
+                good = int((trees | floats).sum()) <= (1.0 - MATCH_MIN) * P
+                shown = "vs plain"
+            good &= exact
+            tallies[name][T > 1].add(trees, floats, errs)
+            _report(f"{name}{label} P={P} n={c.n} E={c.E} leaf_status={ls} "
+                    f"trips={T} ({shown}"
+                    + (f"; trees and buffers bit for bit {exact}"
+                       if name == MIGRATION_VB_PASS else "") + ")",
+                    P, trees, floats, errs, good)
             ok &= good
     return ok
 
@@ -819,10 +958,28 @@ def time_empty_launch():
     return empty_ms
 
 
-def phase_time(kernels, shape, seg_lengths, biased=False):
+def _bound_of(nbytes, flop):
+    """The bound of work that moves ``nbytes`` and does ``flop``."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flop / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=nbytes, flop=flop)
+
+
+def _with_vb(bound, E, Pp, trips):
+    """A pass's bound with VB besides: its tables read (E Pp + E Pp Pp
+    words) and one addition per trip."""
+    return _bound_of(bound["bytes"] + 4 * (E * Pp + E * Pp * Pp),
+                     bound["flop"] + trips)
+
+
+def phase_time(kernels, shape, seg_lengths, biased=False, vb=False):
     """Times of both entry points (and, with ``biased``, of the biased
-    pass) at ``shape`` (P, n, E) for each (label, segment length); see the
-    module docstring."""
+    pass; with ``vb``, of the VB variant of the segment pass and, with
+    ``biased`` too, of the biased one, without the trip ladder, on the
+    first segment length alone) at ``shape`` (P, n, E) for each (label,
+    segment length); see the module docstring."""
     P, n, E = shape
     filler = _filler()
     rows = {}
@@ -849,6 +1006,16 @@ def phase_time(kernels, shape, seg_lengths, biased=False):
             moved = int(sum((st[k] != c.ring[k]) for k in (
                 "df_pos", "df_logf", "df_delta", "df_k")).gt(0).sum())
         bounds = _bounds(c, active, trips, pushed, moved)
+        if vb and label == seg_lengths[0][0]:  # the mean segment only
+            tables = vb_tables(c.demo, 5)
+            vb_entries = [(VB_PASS, "segment_pass")] + (
+                [(BIASED_VB_PASS, BIASED_PASS)] if biased else [])
+            for name, base in vb_entries:
+                fresh, run = makers[base]
+                makers[name] = (fresh, lambda fn, u, st, run=run:
+                                run(fn, u, st, vb=tables))
+                entries.append((name, *kernels["segment_pass"]))
+                bounds[name] = _with_vb(bounds[base], E, 1, trips)
         _log(f"time {label} (P={P} n={n} E={E}, L={L:g} bp): {active} of "
              f"{c.P} particles "
              f"recombine, {trips} trips in all, at most "
@@ -870,11 +1037,13 @@ def phase_time(kernels, shape, seg_lengths, biased=False):
                 return st
 
             # what a launch costs before any trip, and per trip allowed
-            ladder = {"no trips": _best_device_ms(launch, idle, filler)}
-            for T in (1, 2, 4):
-                ladder[f"trips<={T}"] = _best_device_ms(
-                    lambda st, ut=u[:T].contiguous(), run=run, kernel=kernel:
-                    run(kernel, ut, st), fresh, filler)
+            ladder = {}
+            if name not in (VB_PASS, BIASED_VB_PASS):
+                ladder["no trips"] = _best_device_ms(launch, idle, filler)
+                for T in (1, 2, 4):
+                    ladder[f"trips<={T}"] = _best_device_ms(
+                        lambda st, ut=u[:T].contiguous(), run=run,
+                        kernel=kernel: run(kernel, ut, st), fresh, filler)
             t = dict(kernel_ms=_best_device_ms(launch, fresh, filler),
                      ladder=ladder, plain_ms=_plain_ms(run, plain, u, fresh),
                      host_us=_host_us(launch, [fresh() for _ in range(200)]),
@@ -921,14 +1090,16 @@ def _mig_bounds(c, active, trips, events, valid, rows, pushed):
                 bytes=nbytes, flop=flop)
 
 
-def phase_time_migration(kernel, plain, seg_lengths, P=TWOPOP_P):
+def phase_time_migration(kernel, plain, seg_lengths, P=TWOPOP_P, vb=False):
     """The migration pass at the two-population path's shape (P, n=4, E=8,
     Pp=2, Mw=56) for each (label, segment length): device time per launch
     (best of 3 x 20 launches), host time per wrapper call, the plain
     version (median of 3), the bound from the counted work and the walks'
     length in events (counted on the plain version's run, which draws the
     kernel's numbers); the kernel's outputs held to the plain version's
-    as in :func:`compare_migration`."""
+    as in :func:`compare_migration`.  With ``vb`` the VB variant too, on
+    the first segment length (under the key ``"vb"`` of its row), its
+    outputs held to the plain version's with VB within tolerance."""
     import torch
 
     import smcsmc_tpu_torch.kernels.migration as mig_mod
@@ -998,6 +1169,37 @@ def phase_time_migration(kernel, plain, seg_lengths, P=TWOPOP_P):
                  else 0, valid_events_read=valid, rows_changed=changed,
                  pushed=pushed, L=L, **bound)
         rows_out[label] = t
+        if vb and label == seg_lengths[0][0]:  # the mean segment only
+            tables = vb_tables(c.demo, 5)
+            got_r = c.result(c.run(kernel, u, c.fresh(), tables))
+            ref_r = c.result(c.run(plain, u, c.fresh(), tables))
+            trees_d, floats_d, errs = disagreement(got_r, ref_r, L, MU, RTOL,
+                                                   Pp=2)
+            good = int((trees_d | floats_d).sum()) <= (1.0 - MATCH_MIN) * P
+            _report(f"{MIGRATION_VB_PASS} timed launch P={P} L={L:g} "
+                    f"trips=64 vs plain", P, trees_d, floats_d, errs, good)
+            if not good:
+                raise SystemExit("the timed migration pass with VB "
+                                 "disagrees with its plain version")
+
+            def launch_vb(st, u=u, c=c, tables=tables):
+                c.run(kernel, u, st, tables)
+
+            t["vb"] = dict(
+                kernel_ms=_best_device_ms(launch_vb, c.fresh, filler),
+                plain_ms=_plain_ms(lambda fn, u, st: c.run(fn, u, st,
+                                                           tables),
+                                   plain, u, c.fresh),
+                host_us=_host_us(launch_vb, [c.fresh() for _ in range(100)]),
+                **_with_vb(bound, c.E, 2, trips))
+            _log(f"time {MIGRATION_VB_PASS} {label}: kernel "
+                 f"{t['vb']['kernel_ms'] * 1e3:.2f} us of device time per "
+                 f"launch (best of 3 x 20 launches; without VB "
+                 f"{t['kernel_ms'] * 1e3:.2f} us); host "
+                 f"{t['vb']['host_us']:.2f} us per wrapper call; plain "
+                 f"{t['vb']['plain_ms']:.4f} ms; bound "
+                 f"{t['vb']['bound_ms'] * 1e3:.3f} us by "
+                 f"{t['vb']['bound_by']}")
         _log(f"time {MIGRATION_PASS} {label} (P={P} n=4 E=8 Pp=2 "
              f"Mw={c.Mw}, L={L:g} bp): {active} of {P} particles recombine, "
              f"{trips} trips, {t['walks']} walks of "
@@ -1053,6 +1255,24 @@ def _read_out(path, it):
     return [r for r in rows if int(r["Iter"]) == it]
 
 
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    import smcsmc_tpu_torch.kernels.trip as trip_mod
+
+    trip_mod.trip.launches = 0
+    for count in LAUNCH_COUNTS.values():
+        setattr(trip_mod.segment_pass, count, 0)
+
+
+def read_counts():
+    """{kernel: launches} since :func:`reset_counts`."""
+    import smcsmc_tpu_torch.kernels.trip as trip_mod
+
+    return {"trip": trip_mod.trip.launches,
+            **{name: getattr(trip_mod.segment_pass, count)
+               for name, count in LAUNCH_COUNTS.items()}}
+
+
 def _run_cli(argv):
     """``smcsmc_main(argv)`` with the kernels' launch counts set to 0 just
     before and read just after, the calls of the plain versions counted and
@@ -1068,17 +1288,11 @@ def _run_cli(argv):
     plain_calls = _count_calls(trip_mod, ("trip_plain", "segment_pass_plain",
                                           "migration_trips"))
     try:
-        trip_mod.trip.launches = 0
-        trip_mod.segment_pass.launches = 0
-        trip_mod.segment_pass.biased_launches = 0
-        trip_mod.segment_pass.migration_launches = 0
+        reset_counts()
         t0 = time.monotonic()
         rc = cli.smcsmc_main(argv)
         wall = time.monotonic() - t0
-        launches = {"trip": trip_mod.trip.launches,
-                    "segment_pass": trip_mod.segment_pass.launches,
-                    BIASED_PASS: trip_mod.segment_pass.biased_launches,
-                    MIGRATION_PASS: trip_mod.segment_pass.migration_launches}
+        launches = read_counts()
     finally:
         plain_calls.restore()
         lg.removeHandler(rec)
@@ -1145,18 +1359,34 @@ def _check_launches(launches, plain, segments, problems, path,
     if launches[name] != segments:
         problems.append(f"{name} launched {launches[name]} "
                         f"times for {segments} segments")
-    for other in ("segment_pass", BIASED_PASS, MIGRATION_PASS):
+    for other in LAUNCH_COUNTS:
         if other != name and launches[other] != 0:
             problems.append(f"{other} launched {launches[other]} times on "
                             f"the {path}")
-    if launches["trip"] != 0 and name != BIASED_PASS:
+    if launches["trip"] != 0 and name not in (BIASED_PASS, BIASED_VB_PASS):
         problems.append(f"trip launched {launches['trip']} times on the "
                         f"{path}, which goes through segment_pass")
     if any(plain.values()):
         problems.append(f"the {path} ran a plain version: {plain}")
 
 
+def _main_argv(seg_path, out, em_iters=1):
+    """The main path's command (bench.py's data at -Np 10000, 9 epochs,
+    seed 7, the ESS trace of each resampling recorded)."""
+    return ["-seg", seg_path, "-o", out, "-Np", "10000", "-EM",
+            str(em_iters), "-N0", "10000", "-mu", "1e-8", "-rho", "1e-9",
+            "-P", "133", "133016", "7*1", "-record_ess", "-seed", "7",
+            "-device", DEVICE]
+
+
+def _resample_rows(out, it):
+    with open(os.path.join(out, f"emiter{it}", "chunkfinal.resample")) as fh:
+        return fh.read().split()
+
+
 def phase_main_path(card, seg):
+    """The main path; returns (launches, E-step records, iteration 0's
+    .resample rows)."""
     from smcsmc_tpu_torch.segio import write_seg
 
     P, em_iters = 10000, 1
@@ -1164,11 +1394,10 @@ def phase_main_path(card, seg):
         seg_path = os.path.join(tmp, "bench.seg")
         write_seg(seg_path, seg)
         out = os.path.join(tmp, "out")
-        argv = ["-seg", seg_path, "-o", out, "-Np", str(P), "-EM",
-                str(em_iters), "-N0", "10000", "-mu", "1e-8", "-rho", "1e-9",
-                "-P", "133", "133016", "7*1", "-seed", "7", "-device", DEVICE]
+        argv = _main_argv(seg_path, out, em_iters)
         launches, plain, steps, _, wall = _run_cli(argv)
         rows = _read_out(os.path.join(out, "result.out"), em_iters)
+        resample = _resample_rows(out, 0)
     if len(steps) != em_iters + 1:
         raise SystemExit("main path did not log every EM iteration")
     _log(f"main path: smc2-torch -Np {P} -EM {em_iters} ran in {wall:.2f} s "
@@ -1183,7 +1412,220 @@ def phase_main_path(card, seg):
     if problems:
         raise SystemExit("result checks failed: " + "; ".join(problems))
     _log("result checks: ok")
-    return launches, steps
+    return launches, steps, resample
+
+
+def _profile(card, label, demo, seg, P, **options):
+    """A sweep profile (sweep_profile.profile_sweep) with the launch counts
+    set to 0 before and read after; printed under ``label``.  Returns
+    (report, launches)."""
+    from smcsmc_tpu_torch.sweep_profile import profile_sweep, report_lines
+
+    reset_counts()
+    rep = profile_sweep(demo, seg, P, DEVICE, **options)
+    launches = read_counts()
+    _log(f"{label} sweep profile on {card}: launches {launches}")
+    for ln in report_lines(rep):
+        _log(ln)
+    return rep, launches
+
+
+def phase_vb_path(card, seg, main_steps):
+    """bench.py's feature_vb through smcsmc_main: the main path's command
+    with ``-vb -EM 2``, so that iterations 1 and 2 use the tables of the
+    counts before them.  The VB variant of the plain pass once per segment
+    of each E-step, no other pass and no plain version; the estimates of
+    iteration 2 checked as the main path's; iteration 0's LogL within 1e-4
+    relative of the main path's (its tables, from counts of 1e10, add about
+    -5e-11 per event), iteration 1's different from the main path's.
+    Returns (launches, E-step records, profile, profile launches)."""
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.sweep_profile import bench_data
+
+    P, em_iters = 10000, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "bench.seg")
+        write_seg(seg_path, seg)
+        out = os.path.join(tmp, "out")
+        argv = _main_argv(seg_path, out, em_iters) + ["-vb"]
+        launches, plain, steps, _, wall = _run_cli(argv)
+        rows = _read_out(os.path.join(out, "result.out"), em_iters)
+    if len(steps) != em_iters + 1:
+        raise SystemExit("VB path did not log every EM iteration")
+    logl = [r.args[4] for r in steps]
+    main_logl = [r.args[4] for r in main_steps]
+    _log(f"VB path: smc2-torch -Np {P} -EM {em_iters} -vb ran in {wall:.2f} s"
+         f" wall; kernel launches {launches}; calls of the plain versions "
+         f"{plain}; LogL by iteration {logl!r} (main path {main_logl!r})")
+    _log_esteps(steps, P, card)
+    problems = []
+    _check_estimates(rows, em_iters, problems)
+    _check_launches(launches, plain, sum(r.args[2] for r in steps), problems,
+                    "VB path", VB_PASS)
+    if abs(logl[0] - main_logl[0]) > 1e-4 * abs(main_logl[0]):
+        problems.append(f"iteration 0's LogL {logl[0]} is not the main "
+                        f"path's {main_logl[0]}")
+    if logl[1] == main_logl[1]:
+        problems.append("iteration 1's LogL equals the main path's")
+    if problems:
+        raise SystemExit("VB path checks failed: " + "; ".join(problems))
+    _log("VB path checks: ok")
+    demo, seg = bench_data()
+    rep, p_launches = _profile(card, "VB path", demo, seg, P, vb=True)
+    return launches, steps, rep, p_launches
+
+
+def phase_apf_path(card, seg, main_resample):
+    """bench.py's feature_apf through smcsmc_main: the main path's command
+    with ``-apf 2 -EM 0``.  The plain pass once per segment, no other pass
+    and no plain version; the estimates checked as the main path's; the
+    .resample trace (the ESS of the effective pilot at each resampling)
+    different from the main path's iteration 0.  Returns (launches, E-step
+    records, profile)."""
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.sweep_profile import bench_data
+
+    P = 10000
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "bench.seg")
+        write_seg(seg_path, seg)
+        out = os.path.join(tmp, "out")
+        argv = _main_argv(seg_path, out, 0) + ["-apf", "2"]
+        launches, plain, steps, _, wall = _run_cli(argv)
+        rows = _read_out(os.path.join(out, "result.out"), 0)
+        resample = _resample_rows(out, 0)
+    _log(f"APF path: smc2-torch -Np {P} -EM 0 -apf 2 ran in {wall:.2f} s "
+         f"wall; kernel launches {launches}; calls of the plain versions "
+         f"{plain}; {len(resample) // 2} resamplings (main path "
+         f"{len(main_resample) // 2})")
+    _log_esteps(steps, P, card)
+    problems = []
+    _check_estimates(rows, 0, problems)
+    _check_launches(launches, plain, sum(r.args[2] for r in steps), problems,
+                    "APF path")
+    if resample == main_resample:
+        problems.append("the ESS trace equals the main path's")
+    if problems:
+        raise SystemExit("APF path checks failed: " + "; ".join(problems))
+    _log("APF path checks: ok")
+    demo, seg = bench_data()
+    rep, _ = _profile(card, "APF path", demo, seg, P, apf=2)
+    return launches, steps, rep
+
+
+def phase_apf8_path(card):
+    """bench.py's feature_apf8 through ``em.run_em`` with ``EMConfig(apf=2,
+    apf_trees=50_000)`` as bench.py passes it: n=8, missing windows, an
+    unphased pair (sweep_profile.apf8_data), P=10,000, one E-step at the
+    truth.  The plain pass once per segment, nothing else; the estimates
+    checked as the main path's.  Returns (launches, E-step seconds and
+    segments, profile, profile without the APF)."""
+    from smcsmc_tpu_torch import em
+    import smcsmc_tpu_torch.kernels.trip as trip_mod
+    from smcsmc_tpu_torch.sweep_profile import apf8_data
+
+    P = 10000
+    demo, seg = apf8_data()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = em.EMConfig(num_particles=P, apf=2, apf_trees=50_000,
+                          outdir=tmp, seed=7, device=DEVICE)
+        plain = _count_calls(trip_mod, ("trip_plain", "segment_pass_plain",
+                                        "migration_trips"))
+        try:
+            reset_counts()
+            t0 = time.monotonic()
+            res = em.run_em(demo, seg, cfg)
+            wall = time.monotonic() - t0
+            launches = read_counts()
+        finally:
+            plain.restore()
+        rows = _read_out(os.path.join(tmp, "result.out"), 0)
+    secs, nseg = res.estep_seconds[0], res.num_segments[0]
+    _log(f"APF8 path: em.run_em(EMConfig(num_particles={P}, apf=2, "
+         f"apf_trees=50000)) ran in {wall:.2f} s wall; kernel launches "
+         f"{launches}; calls of the plain versions {plain.counts}; LogL "
+         f"{res.log_likelihoods!r}")
+    _log(f"  E-step 0: {secs:.3f} s over {nseg} segments = "
+         f"{P * nseg / secs:.6g} particle-site updates/s on {card}")
+    problems = []
+    _check_estimates(rows, 0, problems)
+    _check_launches(launches, plain.counts, nseg, problems, "APF8 path")
+    if problems:
+        raise SystemExit("APF8 path checks failed: " + "; ".join(problems))
+    _log("APF8 path checks: ok")
+    rep, _ = _profile(card, "APF8 path", demo, seg, P, apf=2,
+                      apf_trees=50_000)
+    base, _ = _profile(card, "APF8 data without the APF", demo, seg, P)
+    return launches, (secs, nseg), rep, base
+
+
+def lookahead_cost(card, demo, seg, P=10000, calls=50):
+    """The APF lookahead alone (``kernels.lookahead.lookahead_loglik`` at
+    level 2, plain torch operations) at P particles on trees drawn from
+    ``demo``, on the columns of a segment of ``seg`` with doubletons: its
+    kernel launches and device time per call (torch.profiler over
+    ``calls`` calls) and its bound: the bytes it must move (node times and
+    parents, tree lengths, the segment's columns and the quantiles read
+    once, the result written once) over the memory rate, its operations
+    (two rate regimes per leaf and quantile, about 16 each; per doubleton
+    four phasings and two regimes, about 40) over the float32 rate."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smcsmc_tpu_torch.calibrate import terminal_branch_quantiles
+    from smcsmc_tpu_torch.em import compute_lookahead, lookahead_columns
+    from smcsmc_tpu_torch.kernels.lookahead import lookahead_loglik
+    from smcsmc_tpu_torch.kernels.tree import (
+        branch_lengths,
+        epochs_from_demography,
+        make_initial_trees,
+    )
+    from smcsmc_tpu_torch.segio import split_long_segments
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    epochs = epochs_from_demography(demo, "cuda")
+    trees = make_initial_trees(gen, epochs, P, demo.sample_pops)
+    tl = branch_lengths(trees.time, trees.parent).sum(dim=1)
+    la = compute_lookahead(split_long_segments(seg, MAX_SEG))
+    s = int(np.flatnonzero(la.dbl_s1[:, 0] >= 0)[0])
+    cols = tuple(c[s] for c in lookahead_columns(la, "cuda"))
+    quant = terminal_branch_quantiles(gen, epochs, demo.sample_pops,
+                                      num_trees=25_000)
+
+    def call():
+        return lookahead_loglik(trees, tl, cols, quant, MU, RHO, 2)
+
+    out = call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA) / calls
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx")
+    launches = sum(e.count for e in ka if e.key in launch_calls) / calls
+    n, N = demo.num_samples, trees.time.shape[1]
+    D, Q = la.dbl_s1.shape[1], quant.lengths.shape[1]
+    nbytes = (P * (2 * N * 4 + 4 + 4) + n * (3 * 4 + 4) + D * 6 * 4
+              + (n + 1) * Q * 4)
+    flop = P * (2 * n * Q * 16 + D * 40)
+    bound = _bound_of(nbytes, flop)
+    _log(f"lookahead_loglik (apf 2) at P={P} n={n} on {card}: "
+         f"{launches:.1f} kernel launches and {dev_us:.2f} us of device time "
+         f"per call ({calls} calls under torch.profiler); bound "
+         f"{bound['bound_ms'] * 1e3:.3f} us by {bound['bound_by']} "
+         f"({nbytes} B, {flop} FLOP); finite {bool(torch.isfinite(out).all())}")
+    if not bool(torch.isfinite(out).all()):
+        raise SystemExit("the lookahead log-likelihood is not finite")
+    return dict(P=P, n=n, launches_per_call=launches,
+                device_us_per_call=dev_us, **bound)
 
 
 GENOME_P = 10000
@@ -1479,6 +1921,13 @@ def phase_biased_path(card):
          + ", ".join(f"{k} {v:.4f}" for k, v in census.items()
                      if k != "segments"))
     rep["ring_census"] = census
+    # the same profile with -vb: the biased pass's VB variant in the sweep
+    rep["vb"], vb_launches = _profile(
+        card, f"biased path with -vb (chunk {chunk})", demo, seg, GENOME_P,
+        chunk=tuple(chunk), vb=True, **BIASED_OPTIONS)
+    launches[BIASED_VB_PASS] = vb_launches[BIASED_VB_PASS]
+    if vb_launches[BIASED_VB_PASS] == 0 or vb_launches[BIASED_PASS] != 0:
+        raise SystemExit(f"the biased sweep with -vb launched {vb_launches}")
     return launches, steps, reported, rep
 
 
@@ -1623,8 +2072,8 @@ def phase_twopop_path(card):
     ``smc2-torch -Np 10000 -EM 2`` with the flags of
     ``sweep_profile.twopop_flags`` on ``simulate_seg(twopop_demo, seed=13)``
     (2 Mb), started at the truth; the same command a second time, which
-    must give the same LogL bit for bit.  Returns (launches, E-step
-    records, the model and data, the profile)."""
+    with ``-EM 0`` must give iteration 0's LogL bit for bit.  Returns
+    (launches, E-step records, the model and data, the profile)."""
     from smcsmc_tpu_torch.segio import write_seg
     from smcsmc_tpu_torch.sweep_profile import (
         profile_sweep,
@@ -1641,9 +2090,10 @@ def phase_twopop_path(card):
         for run in (0, 1):
             out = os.path.join(tmp, f"out{run}")
             argv = ["-seg", seg_path, "-o", out, "-Np", str(TWOPOP_P), "-EM",
-                    "2", *twopop_flags(), "-seed", "7", "-device", DEVICE]
-            # the first run is checked and reported; the second gives only
-            # its LogL
+                    "0" if run else "2", *twopop_flags(), "-seed", "7",
+                    "-device", DEVICE]
+            # the first run is checked and reported; the second, one E-step
+            # only (to keep the script inside its time), gives only its LogL
             launches_r, plain, steps_r, records, wall = _run_cli(argv)
             logls.append([r.args[4] for r in steps_r])
             if run:
@@ -1666,8 +2116,9 @@ def phase_twopop_path(card):
             _check_twopop(_read_out(result, 0), 0, problems, True)
             pooled = _check_twopop(_read_out(result, 2), 2, problems, False)
     _log(f"twopop path: LogL by iteration {logls[0]} and, the same seed "
-         f"again, {logls[1]}: bit for bit equal {logls[0] == logls[1]}")
-    if logls[0] != logls[1]:
+         f"again for one E-step, {logls[1]}: bit for bit equal "
+         f"{logls[0][:1] == logls[1]}")
+    if logls[0][:1] != logls[1]:
         problems.append("the same seed gave another LogL")
     if problems:
         raise SystemExit("twopop path checks failed: " + "; ".join(problems))
@@ -1676,7 +2127,37 @@ def phase_twopop_path(card):
     _log(f"twopop path sweep profile on {card}:")
     for ln in report_lines(rep):
         _log(ln)
+    # the same profile with -vb: the migration pass's VB variant in the sweep
+    rep["vb"], vb_launches = _profile(card, "twopop path with -vb", demo, seg,
+                                      TWOPOP_P, vb=True)
+    launches[MIGRATION_VB_PASS] = vb_launches[MIGRATION_VB_PASS]
+    if (vb_launches[MIGRATION_VB_PASS] == 0
+            or vb_launches[MIGRATION_PASS] != 0):
+        raise SystemExit(f"the twopop sweep with -vb launched {vb_launches}")
     return launches, steps, demo, seg, rep, pooled, pressure
+
+
+
+
+def vb_tables(demo, seed):
+    """VB tables on the card as the sweep passes them (em.vb_pass_tables):
+    from event counts drawn in [0.05, 5] with epoch ``XC_EPOCH`` excluded,
+    so that each coalescence and migration adds a term of order 0.1-1 (the
+    tables of iteration 0, from counts of 1e10, add about -5e-11, which
+    vanishes in f32 and would compare zeros)."""
+    import numpy as np
+    import torch
+
+    from smcsmc_tpu_torch.em import EMConfig, vb_pass_tables
+
+    rng = np.random.default_rng(seed)
+    E, Pp = demo.num_epochs, demo.num_populations
+    counts = (rng.uniform(0.05, 5.0, (E, Pp)),
+              rng.uniform(0.05, 5.0, (E, Pp, Pp)))
+    coal, mig = vb_pass_tables(demo, counts, EMConfig(vb=True,
+                                                      xc_epochs=(XC_EPOCH,)))
+    return tuple(torch.as_tensor(x, device="cuda").contiguous()
+                 for x in (coal, mig))
 
 
 REPLACES = "smcsmc_tpu/kernels/pallas_trip.py:91"
@@ -1692,6 +2173,16 @@ RESOURCE_SHAPES = (
     (MIGRATION_PASS, "migration", (
         ("twopop (n=4, E=8, Pp=2, Mw=56)", (4, 8, 2, TWOPOP_MW)),
         ("caps (n=8, E=64, Pp=4, Mw=96)", (8, 64, 4, 96)))),
+    # the VB variants (kernel_resources(..., vb=True))
+    (VB_PASS, "segment_pass", (
+        ("main (n=4, E=9)", (4, 9, 1, 0, 2, True)),
+        ("genome (n=8, E=33)", (8, 33, 1, 0, 2, True)))),
+    (BIASED_VB_PASS, "biased", (
+        ("genome (n=8, E=33, S=2)", (8, 33, 1, 0, 2, True)),
+        ("caps (n=8, E=64, S=8)", (8, 64, 1, 0, 8, True)))),
+    (MIGRATION_VB_PASS, "migration", (
+        ("twopop (n=4, E=8, Pp=2, Mw=56)", (4, 8, 2, TWOPOP_MW, 2, True)),
+        ("caps (n=8, E=64, Pp=4, Mw=96)", (8, 64, 4, 96, 2, True)))),
 )
 SOURCE = "smcsmc_tpu_torch/csrc/trip.cu"
 
@@ -1709,6 +2200,10 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; no GPU, "
               "nothing measured", file=sys.stderr)
         return 1
+    t_start = time.monotonic()
+
+    def elapsed(phase):
+        _log(f"elapsed {time.monotonic() - t_start:.1f} s after {phase}")
     sys.path.insert(0, HERE)
     from smcsmc_tpu_torch.kernels import _build
     from smcsmc_tpu_torch.kernels.trip import (
@@ -1767,38 +2262,63 @@ def main(argv=None) -> int:
     kernels = {"trip": (trip, trip_plain),
                "segment_pass": (segment_pass, segment_pass_plain)}
     tallies = phase_compare(kernels)
+    elapsed("compare")
     if args.until == "compare":
         return 0
     empty_ms = time_empty_launch()
     timing = phase_time(kernels, (10000, 4, 9),
                         [("mean bench segment", mean_len),
-                         ("longest segment", MAX_SEG)])
+                         ("longest segment", MAX_SEG)], vb=True)
+    elapsed("the main shape's timing")
     if args.until == "time":
         return 0
-    launches, _ = phase_main_path(card, seg)
+    launches, steps, main_resample = phase_main_path(card, seg)
+    elapsed("the main path")
 
     # where the sweep's time goes (after the main path's launch count)
-    for ln in report_lines(profile_sweep(demo, seg, 10000, "cuda")):
+    main_rep = profile_sweep(demo, seg, 10000, "cuda")
+    for ln in report_lines(main_rep):
         _log(ln)
+
+    # bench.py's feature_vb and feature_apf on the main path's data, and
+    # the lookahead alone at its shape
+    v_launches, v_steps, v_rep, _ = phase_vb_path(card, seg, steps)
+    a_launches, a_steps, a_rep = phase_apf_path(card, seg, main_resample)
+    la_cost = {"n=4": lookahead_cost(card, demo, seg)}
+    elapsed("the VB and APF paths")
 
     (g_launches, g_resume_launches, g_steps, g_demo, g_seg, g_chunks,
      g_mean_len) = phase_genome_path(card)
+    elapsed("the genome path")
     g_timing = phase_time(kernels, (GENOME_P, 8, 33),
                           [("mean genome segment", g_mean_len),
-                           ("longest segment", MAX_SEG)], biased=True)
+                           ("longest segment", MAX_SEG)], biased=True,
+                          vb=True)
+    elapsed("the genome shape's timing")
     _log(f"genome path sweep profile (chunk {g_chunks[0]}, E=33) on {card}:")
     for ln in report_lines(profile_sweep(g_demo, g_seg, GENOME_P, "cuda",
                                          chunk=tuple(g_chunks[0]))):
         _log(ln)
 
     b_launches, b_steps, b_reported, b_profile = phase_biased_path(card)
+    elapsed("the biased path")
+
+    # bench.py's feature_apf8 (n=8, missing windows, an unphased pair)
+    a8_launches, a8_step, a8_rep, a8_base = phase_apf8_path(card)
+    from smcsmc_tpu_torch.sweep_profile import apf8_data
+
+    la_cost["n=8"] = lookahead_cost(card, *apf8_data())
+    elapsed("the APF8 path")
 
     (m_launches, m_steps, m_demo, m_seg, m_profile, m_pooled,
      m_pressure) = phase_twopop_path(card)
+    elapsed("the twopop path")
     m_mean_len = float(split_long_segments(m_seg, MAX_SEG).lengths.mean())
     m_timing = phase_time_migration(
         segment_pass, segment_pass_plain,
-        [("mean twopop segment", m_mean_len), ("longest segment", MAX_SEG)])
+        [("mean twopop segment", m_mean_len), ("longest segment", MAX_SEG)],
+        vb=True)
+    elapsed("the migration pass's timing")
 
     head = timing["mean bench segment"]
     g_head = g_timing["mean genome segment"]
@@ -1833,8 +2353,42 @@ def main(argv=None) -> int:
                       m_profile["device_ms_per_segment"],
                   "device_busy_share": m_profile["device_busy_share"],
                   "pass_us_per_launch": m_profile["pass_us_per_launch"]}}
+
+    def feature(steps_, P, rep, base, nseg=None):
+        if nseg is None:
+            rows = [(r.args[1], r.args[2]) for r in steps_]
+        else:
+            rows = [nseg]
+        return {"updates_per_s": [P * n / s for s, n in rows],
+                "estep_seconds": [s for s, _ in rows],
+                "segments": sum(n for _, n in rows),
+                "launches_per_segment": rep["launches_per_segment"],
+                "device_ms_per_segment": rep["device_ms_per_segment"],
+                "device_busy_share": rep["device_busy_share"],
+                "pass_us_per_launch": rep["pass_us_per_launch"],
+                "added_launches_per_segment":
+                    rep["launches_per_segment"] - base["launches_per_segment"],
+                "added_device_ms_per_segment":
+                    rep["device_ms_per_segment"]
+                    - base["device_ms_per_segment"]}
+
+    record["feature_paths"] = {
+        "card": card,
+        "vb": dict(feature(v_steps, 10000, v_rep, main_rep),
+                   logl=[r.args[4] for r in v_steps]),
+        "apf": dict(feature(a_steps, 10000, a_rep, main_rep),
+                    logl=[r.args[4] for r in a_steps]),
+        "apf8": feature(None, 10000, a8_rep, a8_base, nseg=a8_step),
+        "biased_vb_profile": {k: b_profile["vb"][k] for k in (
+            "launches_per_segment", "device_ms_per_segment",
+            "pass_us_per_launch")},
+        "twopop_vb_profile": {k: m_profile["vb"][k] for k in (
+            "launches_per_segment", "device_ms_per_segment",
+            "pass_us_per_launch")},
+        "lookahead_loglik": la_cost}
     timed_keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by")
-    for name in (*kernels, BIASED_PASS, MIGRATION_PASS):
+    for name in (*kernels, BIASED_PASS, MIGRATION_PASS, VB_PASS,
+                 BIASED_VB_PASS, MIGRATION_VB_PASS):
         single, chained = tallies[name]
         compare = {"trips=1": single.record(),
                    "trips=64 vs plain": chained.record()}
@@ -1842,18 +2396,25 @@ def main(argv=None) -> int:
             compare["trips=64 vs 64x trips=1"] = "bit for bit equal"
         by_path = {"main": launches[name], "genome": g_launches[name],
                    "genome resumed": g_resume_launches[name],
-                   "biased": b_launches[name], "twopop": m_launches[name]}
+                   "biased": b_launches[name], "twopop": m_launches[name],
+                   "vb": v_launches[name], "apf": a_launches[name],
+                   "apf8": a8_launches[name]}
         # each entry point's own path: the main path for the plain pass,
         # the biased path for the biased pass and for trip (its
-        # calibration pre-pass), the twopop path for the migration pass
-        own = {"segment_pass": "main", MIGRATION_PASS: "twopop"}.get(
+        # calibration pre-pass), the twopop path for the migration pass,
+        # the VB path for the plain pass's VB variant; the biased and the
+        # twopop path's sweep with -vb for theirs
+        own = {"segment_pass": "main", MIGRATION_PASS: "twopop",
+               VB_PASS: "vb", MIGRATION_VB_PASS: "twopop"}.get(
             name, "biased")
         # device time per launch at the mean segment of the entry point's
         # own shape: the main path's for the plain kernels, the genome
         # data's for the biased pass, the twopop data's for the migration
         # pass
         t = {BIASED_PASS: g_head.get(name),
-             MIGRATION_PASS: m_timing["mean twopop segment"]}.get(
+             BIASED_VB_PASS: g_head.get(name),
+             MIGRATION_PASS: m_timing["mean twopop segment"],
+             MIGRATION_VB_PASS: m_timing["mean twopop segment"]["vb"]}.get(
                  name, head.get(name))
         entry = {
             "name": name,
@@ -1876,22 +2437,25 @@ def main(argv=None) -> int:
         # dynamic shared bytes and particles per block as launched, blocks
         # and particles per SM, waves at P=10,000
         entry["resources"] = resources[name]
-        if name == MIGRATION_PASS:
+        if name in (MIGRATION_PASS, MIGRATION_VB_PASS):
             # the twopop shape (P=10000, n=4, E=8, Pp=2, Mw=56)
             entry["twopop_shape"] = {
-                label: {k: v for k, v in row.items()}
-                for label, row in m_timing.items()}
+                label: {k: v for k, v in (
+                    row if name == MIGRATION_PASS else row["vb"]).items()
+                    if k != "vb"}
+                for label, row in m_timing.items()
+                if name == MIGRATION_PASS or "vb" in row}
             record["kernels"].append(entry)
             continue
         # the whole-genome shape (P=10000, n=8, E=33): the times at its
-        # mean and longest segment
+        # mean and (but for the VB variants) longest segment
         entry["genome_shape"] = {
             "mean_segment": {k: g_head[name][k] for k in timed_keys},
-            "longest_segment": {
-                k: g_timing["longest segment"][name][k]
-                for k in timed_keys},
             "host_us_per_call": g_head[name]["host_us"]}
-        if name != BIASED_PASS:
+        if name in g_timing["longest segment"]:
+            entry["genome_shape"]["longest_segment"] = {
+                k: g_timing["longest segment"][name][k] for k in timed_keys}
+        if name in timing["longest segment"]:
             entry["longest_segment"] = {
                 k: timing["longest segment"][name][k] for k in timed_keys}
         record["kernels"].append(entry)

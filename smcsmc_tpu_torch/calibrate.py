@@ -13,6 +13,10 @@
   process with the ``trip`` kernel, one trip per launch; births, the
   per-epoch histogram of survival distances and its medians stay on the
   device.
+- :func:`terminal_branch_quantiles`: the APF lookahead's quantiles of each
+  leaf's terminal branch and the mean tree length, from trees drawn from
+  the model on the device (:func:`simulate_terminal_branches`) and reduced
+  on the host (:func:`reduce_terminal_branches`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from .kernels.tree import (
     make_initial_trees,
     tree_summaries,
 )
+from .kernels.lookahead import TBLQ_PROBS, Quantiles, tblq_bin_widths
 from .kernels.trip import trip
 
 logger = logging.getLogger("smcsmc_tpu_torch")
@@ -153,3 +158,53 @@ def calibrated_lags_and_delays(generator: torch.Generator, epochs: Epochs,
     surv = calibrate_survival(generator, epochs, sample_pop, rho, **kw)
     surv = np.nan_to_num(surv, nan=20000.0)
     return lag_fraction * surv, delay * surv
+
+
+def simulate_terminal_branches(generator: torch.Generator, epochs: Epochs,
+                               sample_pop, num_trees: int = 100_000,
+                               batch: int = 25_000):
+    """(leaf parent heights [T, n], tree lengths [T]) as host float32 arrays
+    of trees drawn from the model on the device, ``batch`` trees a draw
+    (T = num_trees rounded up to whole batches, as the JAX package
+    draws).  Trees without migration nodes, so a leaf's parent is the
+    height the reference reads (parent_height_ignoring_migrations,
+    smcsmc.cpp:116-125)."""
+    n = len(sample_pop)
+    pts, tls = [], []
+    for _ in range((num_trees + batch - 1) // batch):
+        trees = make_initial_trees(generator, epochs, batch, sample_pop)
+        pts.append(trees.time.gather(
+            1, trees.parent[:, :n].clamp(min=0).long()).cpu().numpy())
+        tls.append(branch_lengths(trees.time, trees.parent).sum(
+            dim=1).cpu().numpy())
+    return np.concatenate(pts), np.concatenate(tls)
+
+
+def reduce_terminal_branches(pt: np.ndarray, tl: np.ndarray, probs=None):
+    """(lengths [n, Q], bin widths [Q], mean tree length) from the leaf
+    parent heights ``pt`` [T, n] and tree lengths ``tl`` [T] of trees
+    drawn from the model: the quantiles ``probs`` (``TBLQ_PROBS``) of each
+    leaf's column, as ``smcsmc_tpu.calibrate.terminal_branch_quantiles``
+    reduces them."""
+    probs = tuple(probs) if probs is not None else TBLQ_PROBS
+    lengths = np.quantile(pt, np.asarray(probs), axis=0).T  # [n, Q]
+    return (lengths.astype(np.float32),
+            tblq_bin_widths(probs).astype(np.float32), float(np.mean(tl)))
+
+
+def terminal_branch_quantiles(generator: torch.Generator, epochs: Epochs,
+                              sample_pop, num_trees: int = 100_000,
+                              batch: int = 25_000) -> Quantiles:
+    """The APF lookahead's terminal branch lengths
+    (calculate_terminal_branch_length_quantiles, smcsmc.cpp:128-166, which
+    simulates 1e6 trees): the quantiles of each leaf's parent height, their
+    bin widths and the mean tree length of ``num_trees`` trees, and the
+    mean of the top quantiles (particle.cpp:529-530); the tables on the
+    epochs' device."""
+    lengths, widths, etbl = reduce_terminal_branches(
+        *simulate_terminal_branches(generator, epochs, sample_pop, num_trees,
+                                    batch))
+    dev = epochs.start.device
+    return Quantiles(torch.as_tensor(lengths, device=dev),
+                     torch.as_tensor(widths, device=dev), etbl,
+                     float(np.mean(lengths[:, -1])))

@@ -4,12 +4,12 @@ of ``smcsmc_tpu.cli.smcsmc_main``).
 It accepts the ``smc2`` flags of the ported paths (one population, or
 structured populations with migration through ``-I -eN -en -em -eM -ema
 -ej -migbuf``; several ``.seg`` files, chunks, resume and checkpoints;
-unphased and missing data; the M-step's options; height-biased proposals
-with delayed importance weights and calibrated lags, for one population)
-plus ``-device``, each parsed as ``smcsmc_tpu.cli`` parses it; every other
-flag, and bias or calibrated lags with several populations, is refused
-with a message naming it.  The helpers that
-turn flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
+unphased and missing data; the M-step's options and ``-vb``; height-biased
+proposals with delayed importance weights and calibrated lags, for one
+population; the auxiliary particle filter ``-apf``) plus ``-device``,
+each parsed as ``smcsmc_tpu.cli`` parses it; every other flag, and bias or
+calibrated lags with several populations, is refused with a message naming
+it.  The helpers that turn flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
 ``_is_number``, ``resolve_n0``, ``build_demography``) are copied from
 ``smcsmc_tpu/cli.py`` at commit dfc2fad and kept letter for letter.
 """
@@ -302,6 +302,12 @@ def parse_args(argv: list[str]):
                 cfg.xr_epochs = tuple(cfg.xr_epochs) + epochs_rng
             else:
                 cfg.xc_epochs = tuple(cfg.xc_epochs) + epochs_rng
+        elif o == "-apf":
+            # auxiliary particle filter level 0-4 (pfparam.cpp:147-151)
+            cfg.apf = int(take())
+        elif o == "-vb":
+            cfg.vb = True
+            i += 1
         elif o == "-no_infer_recomb":
             # keep the recombination rate fixed across M-steps
             # (model.py:403-405)

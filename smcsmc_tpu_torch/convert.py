@@ -120,12 +120,21 @@ def segment_from_numpy(seg, lags, device, xc_epochs=(), xr_epochs=(),
     configs [C, n], n_configs, state, leaf_status, dist_mut)`` with numpy
     leaves: the first ``n_configs`` phase configurations, ``has_data`` from
     the first of them, and the recording gate that the JAX step computes
-    from ``dist_mut``, ``lags`` and its ``-xc``/``-xr`` masks."""
-    length, configs, n_configs, state, leaf_status, dist_mut = (
-        np.asarray(x) for x in seg)
+    from ``dist_mut``, ``lags`` and its ``-xc``/``-xr`` masks.  A segment
+    of the APF step carries the twelve lookahead columns after those six
+    (``em.lookahead_columns``' order); they become ``Segment.lookahead``,
+    the split's distance and count as host numbers."""
+    (length, configs, n_configs, state, leaf_status, dist_mut,
+     *la) = (np.asarray(x) for x in seg)
     cf = torch.as_tensor(configs[:int(n_configs)].astype(np.int8),
                          device=device)
     gate = fifo_gate_masks(dist_mut.reshape(1), lags, xc_epochs, xr_epochs,
                            Pp)[0]
+    lookahead = None
+    if la:
+        lookahead = tuple(
+            x[()] if k in (9, 11)
+            else torch.as_tensor(np.array(x), device=device)
+            for k, x in enumerate(la))
     return Segment(int(length), int(state), int(leaf_status), cf, cf[0] >= 0,
-                   torch.as_tensor(gate, device=device))
+                   torch.as_tensor(gate, device=device), lookahead)

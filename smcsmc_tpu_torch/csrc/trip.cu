@@ -111,6 +111,9 @@
 #define BIAS_MIN_BLOCKS 5  // resident biased blocks per SM: 80 particles
 #define BIG 3e38f
 
+// VB on or off: each pass has a compile-time variant with VB and one
+// without, so that the pass without VB is the code it was before VB.
+
 namespace {
 
 struct Args {
@@ -160,6 +163,11 @@ struct Args {
   const float* tot_mig;   // [E, Pp]
   const int* pop_map;     // [E, Pp]
   int Pp, Mw, max_events;
+  // VB (nullptr: off): each trip adds to log_w (and to the biased pass's
+  // pilot) the table entry of every coalescence and migration it records,
+  // psi(C) - log(C) of the previous iteration's counts, 0 in -xc epochs
+  const float* vb_coal;  // [E, Pp]
+  const float* vb_mig;   // [E, Pp, Pp] (the migration pass)
 };
 
 // per-block tables in shared memory, and the launch's scalars
@@ -172,6 +180,7 @@ struct Tables {
   const float* bh;    // [S + 1] section boundaries (biased)
   const float* bs;    // [S] section strengths (biased)
   const float* dl;    // [E] delays (biased)
+  const float* vb;    // [E] VB term of a coalescence by epoch (VB)
   int n, N, E, total_data, leaf_status, S, delay_type;
   float L, mu, rho;
 };
@@ -182,6 +191,7 @@ struct Tables {
 struct TripEvent {
   float h_r, t_c, log_iw, strength;
   int key_epoch;
+  float vb;  // the VB table entry of t_c's epoch (VB), else 0
 };
 
 // one particle's slice of shared memory: what is indexed by a value
@@ -216,9 +226,9 @@ struct Heights {
 };
 
 __host__ __device__ inline int tables_words(int E, bool with_gate,
-                                            bool biased) {
+                                            bool biased, bool vb = false) {
   return 3 * E + MAX_LEAVES + (with_gate ? 6 * E : 0)
-      + (biased ? 2 * MAX_SECTIONS + 1 + E : 0);
+      + (biased ? 2 * MAX_SECTIONS + 1 + E : 0) + (vb ? E : 0);
 }
 
 // S: the biased pass's sections (its point's scratch is 3 N S words)
@@ -281,7 +291,7 @@ __device__ __forceinline__ void wait_copies() {
 // memory.  No barrier here: the caller starts its own loads too, so that
 // all of them are in flight together, and then calls __syncthreads().
 __device__ void stage_tables(const Args& a, float* smem, bool with_gate,
-                             bool biased) {
+                             bool biased, bool vb = false) {
   const int E = a.E;
   float* s_est = smem;
   float* s_eend = smem + E;
@@ -309,10 +319,16 @@ __device__ void stage_tables(const Args& a, float* smem, bool with_gate,
       s_bs[k] = a.bias_strengths[k];
     for (int e = threadIdx.x; e < E; e += blockDim.x) s_dl[e] = a.delays[e];
   }
+  if (vb) {
+    float* s_vb = smem + tables_words(E, with_gate, biased);
+    for (int e = threadIdx.x; e < E; e += blockDim.x) s_vb[e] = a.vb_coal[e];
+  }
 }
 
-// After the barrier that follows stage_tables.
-__device__ void bind_tables(const Args& a, float* smem, Tables& tb) {
+// After the barrier that follows stage_tables (vb: the VB table was
+// staged behind the segment pass's tables).
+__device__ void bind_tables(const Args& a, float* smem, Tables& tb,
+                            bool biased = false, bool vb = false) {
   const int E = a.E;
   tb.est = smem;
   tb.eend = smem + E;
@@ -322,6 +338,7 @@ __device__ void bind_tables(const Args& a, float* smem, Tables& tb) {
   tb.bh = tb.gate + 6 * E;
   tb.bs = tb.bh + MAX_SECTIONS + 1;
   tb.dl = tb.bs + MAX_SECTIONS;
+  tb.vb = vb ? smem + tables_words(E, true, biased) : nullptr;
   tb.S = a.S;
   tb.delay_type = a.delay_type;
   tb.n = a.n;
@@ -338,10 +355,10 @@ __device__ void bind_tables(const Args& a, float* smem, Tables& tb) {
 // Carve this group's slice of shared memory (`pend` is only there for
 // segment_pass).  Returns the particle index of the calling thread's group.
 __device__ int carve(const Args& a, float* smem, bool segment, bool biased,
-                     Work& w, float*& pend) {
+                     bool vb, Work& w, float*& pend) {
   const int E = a.E, N = 2 * a.n - 1;
   const int group = threadIdx.x / GROUP;
-  float* base = smem + tables_words(E, segment, biased)
+  float* base = smem + tables_words(E, segment, biased, vb)
       + (size_t)group * work_words(N, E, segment, biased, a.S);
   w.t = base;
   w.par = reinterpret_cast<int*>(base + N);
@@ -468,8 +485,10 @@ __device__ __forceinline__ float overlap_below(const Heights<NP>& h, float lo,
 // synchronised group with identical scalars and heights, w.tle up to date;
 // returns the same way.  `pend` ([6E], shared or global) takes the trip's
 // statistics.  BIAS draws the point height-biased and returns its
-// importance weight (otherwise log_iw 0 and strength 1).
-template <int NP, bool BIAS>
+// importance weight (otherwise log_iw 0 and strength 1); VB returns the VB
+// table entry of the coalescence's epoch (the one lane whose epoch holds
+// t_c reads it, the group sums it with zeros: exact).
+template <int NP, bool BIAS, bool VB = false>
 __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
                               int lane, unsigned gm, const float4 u,
                               float* pend, float& nr, float& up, float& lw,
@@ -632,6 +651,7 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   // layout: [coal_opp | coal_cnt | mig_opp | mig_cnt | recomb_opp |
   //          recomb_cnt], E columns each
   int key_epoch = E;
+  float vbv = 0.0f;
   for (int e = lane; e < E; e += GROUP) {
     const float st_e = tb.est[e], hi_e = tb.eend[e];
     const float lo_e = fmaxf(st_e, h_r);
@@ -648,12 +668,14 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
     if constexpr (BIAS) {
       if (tb.delay_type == 0 ? in_r : in_c) key_epoch = e;
     }
+    if (VB && in_c) vbv = tb.vb[e];
     pend[e] += coal_opp;
     pend[E + e] += in_c ? 1.0f : 0.0f;
     pend[2 * E + e] += span;
     pend[4 * E + e] += delta * w.tle[e];
     pend[5 * E + e] += in_r ? 1.0f : 0.0f;
   }
+  const float vb = VB ? group_sum(vbv, gm) : 0.0f;
 
   // ---- SPR: cut the branch above c, regraft onto d at t_c ---------------
   // pick(x, idx) reads 0 for idx < 0, and writes to idx < 0 are dropped,
@@ -696,7 +718,7 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
   up = nr;
   nr = nr + gap;
-  return TripEvent{h_r, t_c, log_iw, strength, key_epoch};
+  return TripEvent{h_r, t_c, log_iw, strength, key_epoch, vb};
 }
 
 __device__ __forceinline__ float4 load_uniforms(const Args& a, int k, int i) {
@@ -709,7 +731,7 @@ __global__ void __launch_bounds__(BLOCK) trip_kernel(const Args a) {
   extern __shared__ float smem[];
   Work w;
   float* unused;
-  const int i = carve(a, smem, false, false, w, unused);
+  const int i = carve(a, smem, false, false, false, w, unused);
   const int lane = threadIdx.x % GROUP;
   const unsigned gm = group_mask();
   const int N = 2 * a.n - 1, E = a.E;
@@ -790,12 +812,13 @@ __device__ __forceinline__ void push_delayed(
 }
 
 // The segment pass; a kernel of its own for each variant below.
-template <int NP, bool BIAS>
+template <int NP, bool BIAS, bool VB>
 __device__ __forceinline__ void segment_pass_body(const Args& a) {
   extern __shared__ float smem[];
   Work w;
   float* pend;
-  const int i = carve(a, smem, true, BIAS, w, pend);
+  const bool vb = VB;
+  const int i = carve(a, smem, true, BIAS, vb, w, pend);
   const int lane = threadIdx.x % GROUP;
   const unsigned gm = group_mask();
   const int N = 2 * a.n - 1, E = a.E, K = 6 * a.E;
@@ -807,7 +830,7 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   float nr = 0.0f, lw = 0.0f, up = 0.0f, lp = 0.0f;
   // this lane's ring slots (bit k: slot lane + k GROUP) to write back
   unsigned changed = 0u;
-  stage_tables(a, smem, true, BIAS);
+  stage_tables(a, smem, true, BIAS, vb);
   if (live) {
     load_tree(a, w, i, N, lane);
     for (int k = lane; k < K; k += GROUP) pend[k] = 0.0f;
@@ -838,7 +861,7 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     }
   }
   Tables tb;
-  bind_tables(a, smem, tb);
+  bind_tables(a, smem, tb, BIAS, vb);
   Heights<NP> h;
   load_heights<NP>(w, N, h);
   float tl, B;
@@ -852,13 +875,17 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     // the next trip's uniforms are under way while this trip runs
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
     const float delta = nr - up, B_pre = B;
-    const TripEvent ev = one_trip<NP, BIAS>(tb, w, h, lane, gm, u, pend, nr,
-                                            up, lw, tl, B);
+    const TripEvent ev = one_trip<NP, BIAS, VB>(tb, w, h, lane, gm, u, pend,
+                                                nr, up, lw, tl, B);
+    // the VB term follows the extension and comes before the importance
+    // weight, in both weights (smc.py:951-967)
+    if (vb) lw = lw + ev.vb;
     if constexpr (BIAS) {
       // the posterior takes the whole importance weight; the pilot the
       // extension and, where the delay height's section is unbiased, the
       // weight at once; the rest is delayed (smc.py:968-1020)
       lp = lp - a.mu * B_pre * delta;
+      if (vb) lp = lp + ev.vb;
       lw = lw + ev.log_iw;
       const float d_h = a.delay_type == 0 ? ev.h_r : ev.t_c;
       float strength_h = ev.strength;
@@ -948,16 +975,16 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   }
 }
 
-template <int NP, bool BIAS>
+template <int NP, bool VB>
 __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
-  segment_pass_body<NP, BIAS>(a);
+  segment_pass_body<NP, false, VB>(a);
 }
 
 // the biased pass, held at BIAS_MIN_BLOCKS resident blocks per SM
-template <int NP>
+template <int NP, bool VB>
 __global__ void __launch_bounds__(BLOCK, BIAS_MIN_BLOCKS)
     segment_pass_biased_kernel(const Args a) {
-  segment_pass_body<NP, true>(a);
+  segment_pass_body<NP, true, VB>(a);
 }
 
 // ===========================================================================
@@ -1089,9 +1116,11 @@ __host__ __device__ inline int mig_stats_width(int E, int Pp) {
 }
 
 // est [E]; ne, tot_mig, pop_map [E Pp]; mig [E Pp Pp]; has_data; the FIFO
-// gate [K]
-__host__ __device__ inline int mig_table_words(int E, int Pp) {
-  return E + 3 * E * Pp + E * Pp * Pp + MAX_LEAVES + mig_stats_width(E, Pp);
+// gate [K]; with vb the VB tables [E Pp] and [E Pp Pp]
+__host__ __device__ inline int mig_table_words(int E, int Pp,
+                                               bool vb = false) {
+  return E + 3 * E * Pp + E * Pp * Pp + MAX_LEAVES + mig_stats_width(E, Pp)
+      + (vb ? E * Pp + E * Pp * Pp : 0);
 }
 
 // the words of MigWork: its floats and ints, then its destination bytes
@@ -1352,9 +1381,11 @@ __device__ void mig_summaries(const float* est, const int* hd,
   B = b;
 }
 
+template <bool VB>
 __global__ void __launch_bounds__(MIG_PPB * 32, MIG_MIN_BLOCKS)
 segment_pass_mig_kernel(const Args a) {
   extern __shared__ float smem[];
+  const bool vb = VB;
   const int n = a.n, N = 2 * n - 1, E = a.E, Pp = a.Pp, Mw = a.Mw;
   const int EP = E * Pp, K = mig_stats_width(E, Pp);
   const int o_coal_cnt = EP, o_mig_opp = 2 * EP, o_mig_cnt = 3 * EP;
@@ -1381,8 +1412,15 @@ segment_pass_mig_kernel(const Args a) {
   for (int l = threadIdx.x; l < MAX_LEAVES; l += blockDim.x)
     hd[l] = (l < n && a.has_data[l] != 0) ? 1 : 0;
   for (int k = threadIdx.x; k < K; k += blockDim.x) gate[k] = a.fifo_mask[k];
+  float* vbc = gate + K;  // the VB tables, if vb
+  float* vbm = vbc + EP;
+  if (vb) {
+    for (int k = threadIdx.x; k < EP; k += blockDim.x) vbc[k] = a.vb_coal[k];
+    for (int k = threadIdx.x; k < EP * Pp; k += blockDim.x)
+      vbm[k] = a.vb_mig[k];
+  }
   const MigWork w = carve_mig(
-      smem + mig_table_words(E, Pp)
+      smem + mig_table_words(E, Pp, vb)
           + (size_t)(threadIdx.x / 32) * mig_work_words(N, E, Pp, Mw),
       N, E, K, Mw);
 
@@ -1486,6 +1524,9 @@ segment_pass_mig_kernel(const Args a) {
     float tt = h_r, t_c = 0.0f;
     int d = -1, fpop = 0, n_ev = 0, n_rev = 0;
     bool done = false;
+    // the trip's VB term: its coalescence's entry, its migrations' in
+    // event order (every lane holds the same)
+    float vb_c = 0.0f, vb_m = 0.0f;
     for (int ev = 0; ev < a.max_events && !done; ++ev) {
       const uint4 r4 = r4_next;
       r4_next = philox4x32_10(
@@ -1548,6 +1589,7 @@ segment_pass_mig_kernel(const Args a) {
         unsigned m = members;
         for (int s = 0; s < r && m != 0u; ++s) m &= m - 1u;
         if (lane == 0) w.pend[o_coal_cnt + e * Pp + p_cur] += 1.0f;
+        if (vb) vb_c = vbc[e * Pp + p_cur];
         done = true;
         t_c = t_next;
         d = m != 0u ? __ffs(m) - 1 : 0;
@@ -1566,6 +1608,7 @@ segment_pass_mig_kernel(const Args a) {
           if (dest < 0 && cw > xd) dest = q;
         }
         if (dest < 0) dest = last;
+        if (vb) vb_m = vb_m + vbm[(e * Pp + mover) * Pp + dest];
         if (lane == 0) {
           w.pend[o_mig_cnt + (e * Pp + mover) * Pp + dest] += 1.0f;
           const int slot = min(is_fm ? n_ev : n_rev, 2 * Mw - 1);
@@ -1590,6 +1633,8 @@ segment_pass_mig_kernel(const Args a) {
       fpop = r_raw;
       capped += 1.0f;
     }
+    // the whole term after the walk, after the extension (smc.py:951-967)
+    if (vb) lw = lw + (vb_c + vb_m);
     // the lists end at their first BIG: a merge reads no further
     if (lane == 0) {
       if (n_ev < 2 * Mw) {
@@ -1776,7 +1821,8 @@ int launch_kernel(Kernel kernel, const Args& a, dim3 grid, size_t bytes,
 
 // Particles per block of the migration pass and its dynamic shared bytes:
 // MIG_PPB, halved until the block fits in what the card grants one block.
-int mig_shape(int n, int E, int Pp, int Mw, int& ppb, size_t& bytes) {
+int mig_shape(int n, int E, int Pp, int Mw, bool vb, int& ppb,
+              size_t& bytes) {
   int dev = 0, most = 48 * 1024;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1785,7 +1831,7 @@ int mig_shape(int n, int E, int Pp, int Mw, int& ppb, size_t& bytes) {
   if (err != cudaSuccess) return (int)err;
   for (ppb = MIG_PPB; ppb >= 1; ppb /= 2) {
     bytes = sizeof(float)
-        * ((size_t)mig_table_words(E, Pp)
+        * ((size_t)mig_table_words(E, Pp, vb)
            + (size_t)ppb * mig_work_words(2 * n - 1, E, Pp, Mw));
     if (bytes <= (size_t)most) return 0;
   }
@@ -1797,16 +1843,23 @@ int launch(const Args& a, bool segment, cudaStream_t stream) {
   const int N = 2 * a.n - 1;
   const int per_block = BLOCK / GROUP;
   const bool biased = a.log_pilot != nullptr;
+  const bool vb = segment && a.vb_coal != nullptr;
   const size_t bytes = sizeof(float)
-      * ((size_t)tables_words(a.E, segment, biased)
+      * ((size_t)tables_words(a.E, segment, biased, vb)
          + (size_t)per_block * work_words(N, a.E, segment, biased, a.S));
   const dim3 grid((unsigned)((a.P + per_block - 1) / per_block));
   if (segment && biased)
-    return launch_kernel(segment_pass_biased_kernel<NP>, a, grid, bytes,
-                         stream);
+    return vb
+        ? launch_kernel(segment_pass_biased_kernel<NP, true>, a, grid,
+                        bytes, stream)
+        : launch_kernel(segment_pass_biased_kernel<NP, false>, a, grid,
+                        bytes, stream);
   if (segment)
-    return launch_kernel(segment_pass_kernel<NP, false>, a, grid, bytes,
-                         stream);
+    return vb
+        ? launch_kernel(segment_pass_kernel<NP, true>, a, grid, bytes,
+                        stream)
+        : launch_kernel(segment_pass_kernel<NP, false>, a, grid, bytes,
+                        stream);
   return launch_kernel(trip_kernel<NP>, a, grid, bytes, stream);
 }
 
@@ -1821,11 +1874,16 @@ int dispatch(const Args& a, bool segment, void* stream) {
     if (a.P <= 0) return 0;
     int ppb;
     size_t bytes;
-    const int err = mig_shape(a.n, a.E, a.Pp, a.Mw, ppb, bytes);
+    const bool vb = a.vb_coal != nullptr;
+    if (vb && a.vb_mig == nullptr) return (int)cudaErrorInvalidValue;
+    const int err = mig_shape(a.n, a.E, a.Pp, a.Mw, vb, ppb, bytes);
     if (err != 0) return err;
     const dim3 grid((unsigned)((a.P + ppb - 1) / ppb));
-    return launch_kernel(segment_pass_mig_kernel, a, grid, bytes,
-                         (cudaStream_t)stream, ppb * 32);
+    return vb
+        ? launch_kernel(segment_pass_mig_kernel<true>, a, grid, bytes,
+                        (cudaStream_t)stream, ppb * 32)
+        : launch_kernel(segment_pass_mig_kernel<false>, a, grid, bytes,
+                        (cudaStream_t)stream, ppb * 32);
   }
   if (a.log_pilot != nullptr
       && (a.K < 1 || a.K > MAX_DELAY_SLOTS || a.S < 1 || a.S > MAX_SECTIONS
@@ -1885,7 +1943,7 @@ extern "C" int smc_segment_pass_launch(
     int delay_k, int* pop, float* mig_time, int* mig_dest, double* diag,
     const int* key, const float* ne, const float* mig, const float* tot_mig,
     const int* pop_map, int Pp, int Mw, int max_events,
-    void* stream) {
+    const float* vb_coal, const float* vb_mig, void* stream) {
   if (F < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.uniforms = uniforms;
@@ -1937,6 +1995,8 @@ extern "C" int smc_segment_pass_launch(
   a.Pp = Pp;
   a.Mw = Mw;
   a.max_events = max_events;
+  a.vb_coal = vb_coal;
+  a.vb_mig = vb_mig;
   return dispatch(a, true, stream);
 }
 
@@ -1974,39 +2034,50 @@ int resources_of(Kernel kernel, int threads, size_t bytes, int ppb,
 }
 
 template <int NP>
-int resources_np(int kind, int n, int E, int S, int* out) {
+int resources_np(int kind, int n, int E, int S, bool vb, int* out) {
   const bool segment = kind != 0, biased = kind == 2;
   const int per_block = BLOCK / GROUP;
   const size_t bytes = sizeof(float)
-      * ((size_t)tables_words(E, segment, biased)
+      * ((size_t)tables_words(E, segment, biased, vb)
          + (size_t)per_block * work_words(2 * n - 1, E, segment, biased, S));
   if (kind == 0)
     return resources_of(trip_kernel<NP>, BLOCK, bytes, per_block, out);
   if (biased)
-    return resources_of(segment_pass_biased_kernel<NP>, BLOCK, bytes,
-                        per_block, out);
-  return resources_of(segment_pass_kernel<NP, false>, BLOCK, bytes,
-                      per_block, out);
+    return vb
+        ? resources_of(segment_pass_biased_kernel<NP, true>, BLOCK, bytes,
+                       per_block, out)
+        : resources_of(segment_pass_biased_kernel<NP, false>, BLOCK, bytes,
+                       per_block, out);
+  return vb
+      ? resources_of(segment_pass_kernel<NP, true>, BLOCK, bytes, per_block,
+                     out)
+      : resources_of(segment_pass_kernel<NP, false>, BLOCK, bytes,
+                     per_block, out);
 }
 
 // kind 0: trip, 1: segment_pass, 2: its biased variant (S sections), 3:
 // its migration variant (Pp populations, buffers of Mw events); at n
-// leaves, E epochs.
+// leaves, E epochs; vb: the pass's VB variant (not for trip).
 extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
-                                    int Mw, int* out) {
+                                    int Mw, int vb, int* out) {
   if (kind < 0 || kind > 3 || n < 2 || n > MAX_LEAVES || E < 1
-      || E > MAX_EPOCHS || (kind == 2 && (S < 1 || S > MAX_SECTIONS)))
+      || E > MAX_EPOCHS || (kind == 2 && (S < 1 || S > MAX_SECTIONS))
+      || (kind == 0 && vb))
     return (int)cudaErrorInvalidValue;
   if (kind != 3)
-    return n <= 4 ? resources_np<7>(kind, n, E, S, out)
-                  : resources_np<MAX_NODES>(kind, n, E, S, out);
+    return n <= 4 ? resources_np<7>(kind, n, E, S, vb != 0, out)
+                  : resources_np<MAX_NODES>(kind, n, E, S, vb != 0, out);
   if (Pp < 1 || Pp > MAX_POPS || Mw < 1 || Mw > MAX_MIG)
     return (int)cudaErrorInvalidValue;
   int ppb;
   size_t bytes;
-  const int shape = mig_shape(n, E, Pp, Mw, ppb, bytes);
+  const int shape = mig_shape(n, E, Pp, Mw, vb != 0, ppb, bytes);
   if (shape != 0) return shape;
-  return resources_of(segment_pass_mig_kernel, ppb * 32, bytes, ppb, out);
+  return vb
+      ? resources_of(segment_pass_mig_kernel<true>, ppb * 32, bytes, ppb,
+                     out)
+      : resources_of(segment_pass_mig_kernel<false>, ppb * 32, bytes, ppb,
+                     out);
 }
 
 // An empty launch, for timing what any launch costs on the card.

@@ -3,11 +3,13 @@ statistics -> M-step (counterpart of ``smcsmc_tpu/em.py``).
 
 The numpy-only helpers ``prior_pseudostats``, ``_leaf_status``,
 ``_phase_configs``, the host half of ``prepare_blocks``, ``sum_stats``,
-``_stats_from_outdata`` and ``m_step`` (without its VB branch) are copied
-from ``smcsmc_tpu/em.py``: the port imports nothing of the JAX package.
-``_auto_mig_buffer`` is copied too.  Not ported yet (ROADMAP queue 1):
-online EM, the multi-process chunk partition, VB, guide, APF and ARG
-recording.
+``_stats_from_outdata``, ``m_step``, ``_digamma64`` and ``vb_log_tables``
+are copied from ``smcsmc_tpu/em.py``: the port imports nothing of the JAX
+package.  ``_auto_mig_buffer`` is copied too.  With ``-apf`` each chunk's
+lookahead columns come from the C scan of ``csrc/lookahead.c`` (built with
+gcc at first use) and its terminal-branch quantiles from trees drawn on the
+device.  Not ported yet (ROADMAP queue 1): online EM, the multi-process
+chunk partition, guide and ARG recording.
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ import numpy as np
 import torch
 
 from . import outfmt
-from .calibrate import calibrated_lags_and_delays, default_bias_strengths
+from .calibrate import (
+    calibrated_lags_and_delays,
+    default_bias_strengths,
+    terminal_branch_quantiles,
+)
 from .checkpoint import (
     have_outfile,
     load_iteration,
@@ -34,9 +40,11 @@ from .checkpoint import (
 )
 from .demography import Demography
 from .device import resolve_device
+from .kernels._build import load_lookahead_library
 from .kernels.migration import MAX_MIG, MAX_POPS
 from .kernels.tree import epochs_from_demography
 from .kernels.trip import MAX_EPOCHS, MAX_LEAVES
+from .lookahead import LookaheadData, _compute_lookahead_native
 from .segio import (
     SEGMENT_INVARIANT,
     SegData,
@@ -78,11 +86,15 @@ class EMConfig:
     ne_cap: float = 200000.0
     use_cap: bool = False
     ancestral_aware: bool = False
+    apf: int = 0  # auxiliary particle filter level 0-4 (-apf)
+    apf_trees: int = 100_000  # trees for the terminal-branch-quantile pre-pass
     dephase: bool = False  # treat phased het pairs as unphased (-dephase)
     max_phase_configs: int = 8  # cap on enumerated phase configurations
     seed: int = 1
     infer_recomb: bool = True
     infer_migration: bool = True
+    vb: bool = False  # Dirichlet/VB pseudocount smoothing (model.py:997-1001)
+    vb_pseudocount: float = 1.0
     xc_epochs: tuple = ()  # epochs excluded from coalescent updates (-xc)
     xr_epochs: tuple = ()  # epochs excluded from recombination updates (-xr)
     chunks: int = 1
@@ -235,6 +247,58 @@ def _phase_configs(alleles: np.ndarray, max_configs: int, dephase: bool):
     return configs, n_configs
 
 
+def _digamma64(x: np.ndarray) -> np.ndarray:
+    """Float64 digamma via the recurrence + asymptotic series the reference
+    uses (particle.cpp:65-74 exp_digamma)."""
+    x = np.asarray(x, np.float64).copy()
+    f = np.zeros_like(x)
+    for _ in range(8):  # shift x above 6 (counts are >= ~1e-6 after flooring)
+        small = x < 6.0
+        if not np.any(small):
+            break
+        f = np.where(small, f + 1.0 / np.maximum(x, 1e-12), f)
+        x = np.where(small, x + 1.0, x)
+    return np.log(x) - 1.0 / (2.0 * x) - 1.0 / (12.0 * x * x) - f
+
+
+def vb_log_tables(demo: Demography, counts=None, pseudocount: float = 1.0):
+    """Per-rate VB log-correction tables psi(C) - log(C) for the in-proposal
+    correction (particle.cpp:266-272).  ``counts`` = (coal [E,Pp],
+    mig [E,Pp,Pp]) event counts from the previous EM iteration; defaults to
+    1e10 (factor ~= 1, populationmodels.py:260-267) before the first M-step."""
+    E, Pp = demo.num_epochs, demo.num_populations
+    if counts is None:
+        coal_c = np.full((E, Pp), 1e10)
+        mig_c = np.full((E, Pp, Pp), 1e10)
+    else:
+        coal_c = np.maximum(np.asarray(counts[0], np.float64) + pseudocount,
+                            1e-3)
+        mig_c = np.maximum(np.asarray(counts[1], np.float64) + pseudocount,
+                           1e-3)
+    tbl = lambda c: (_digamma64(c) - np.log(c)).astype(np.float32)
+    return tbl(coal_c), tbl(mig_c)
+
+
+def vb_pass_tables(demo: Demography, counts, cfg: EMConfig):
+    """The VB tables as the segment pass takes them: ``vb_log_tables``
+    with the ``-xc`` epochs' entries 0, since those epochs record no
+    events (the JAX step multiplies by the same 0/1 mask in its loop; a
+    product with 1 or 0 is exact)."""
+    vb_coal, vb_mig = vb_log_tables(demo, counts, cfg.vb_pseudocount)
+    xc = np.ones(demo.num_epochs, np.float32)
+    for e in cfg.xc_epochs:
+        if 0 <= e < demo.num_epochs:
+            xc[e] = 0.0
+    return vb_coal * xc[:, None], vb_mig * xc[:, None, None]
+
+
+def compute_lookahead(seg: SegData) -> LookaheadData:
+    """The APF lookahead columns of every segment (segdata.cpp:225-410)
+    from the C scan of ``csrc/lookahead.c``, built at first use; a failed
+    build raises.  ``lookahead.compute_lookahead_py`` is the oracle."""
+    return _compute_lookahead_native(load_lookahead_library(), seg, None)
+
+
 @dataclass
 class ChunkSegments:
     """A chunk's segments: descriptors on the host, site data on the device
@@ -248,6 +312,8 @@ class ChunkSegments:
     configs: torch.Tensor  # [S, C, n] int8
     has_data: torch.Tensor  # [S, n] bool
     fifo_mask: torch.Tensor  # [S, K] f32
+    # with the APF: the lookahead columns (lookahead_columns), else None
+    lookahead: tuple | None = None
 
     def __len__(self) -> int:
         return len(self.lengths)
@@ -255,22 +321,42 @@ class ChunkSegments:
     def __getitem__(self, s: int) -> Segment:
         # the host knows n_configs: a phased site is handed one
         # configuration and costs what it cost before
+        la = None
+        if self.lookahead is not None:
+            la = tuple(x[s] for x in self.lookahead)
         return Segment(int(self.lengths[s]), int(self.states[s]),
                        int(self.leaf_status[s]),
                        self.configs[s, :int(self.n_configs[s])],
-                       self.has_data[s], self.fifo_mask[s])
+                       self.has_data[s], self.fifo_mask[s], la)
+
+
+def lookahead_columns(la: LookaheadData, device) -> tuple:
+    """The per-segment columns that ``kernels.lookahead.lookahead_loglik``
+    reads, in its order: fsd, rel_mu, unphased [S, n]; the doubleton slots
+    s1, s2, first, last, unph1, unph2 [S, D] on ``device`` (uploaded once
+    per chunk); split_dist [S] (host f32, the step branches on it), the
+    split's alleles [S, n] on the device and split_k [S] (host i32)."""
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x)).to(device)
+
+    return (dev(la.fsd), dev(la.rel_mu), dev(la.unphased), dev(la.dbl_s1),
+            dev(la.dbl_s2), dev(la.dbl_first), dev(la.dbl_last),
+            dev(la.dbl_unph1), dev(la.dbl_unph2),
+            np.asarray(la.split_dist, np.float32), dev(la.split_alleles),
+            np.asarray(la.split_k, np.int32))
 
 
 def prepare_segments(seg: SegData, chunk_start: int, lags, device,
                      max_configs: int = 1, dephase: bool = False,
-                     xc_epochs=(), xr_epochs=(), Pp: int = 1
+                     xc_epochs=(), xr_epochs=(), Pp: int = 1,
+                     lookahead: LookaheadData | None = None
                      ) -> ChunkSegments:
     """Host half of ``smcsmc_tpu.em.prepare_blocks`` (without its block
     padding): chunk-relative lengths (first segment clipped to the chunk),
     leaf status, phase configurations (``max_configs`` > 1 enables the
     marginalisation over unphased genotypes), distance to the next
     informative site and the recording gate (in the statistics layout of
-    ``Pp`` populations)."""
+    ``Pp`` populations); with ``lookahead`` also the APF columns."""
     lengths = seg.lengths.astype(np.int64)
     alleles = seg.alleles.astype(np.int8)
     states = seg.states.astype(np.int8)
@@ -297,6 +383,8 @@ def prepare_segments(seg: SegData, chunk_start: int, lags, device,
         configs=torch.as_tensor(configs).to(device),
         has_data=torch.as_tensor(alleles >= 0).to(device),
         fifo_mask=torch.as_tensor(gate).to(device),
+        lookahead=(None if lookahead is None
+                   else lookahead_columns(lookahead, device)),
     )
 
 
@@ -311,10 +399,13 @@ class Sweep(NamedTuple):
 
 
 def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
-                chunk=(None, None), seed: int = 1) -> Sweep:
+                chunk=(None, None), seed: int = 1, vb_counts=None) -> Sweep:
     """Set up a sweep over (a window of) the genome: the initial state, the
     chunk's segments, the segment step, the chunk start and the generator
-    that the state was drawn from and the step goes on drawing from."""
+    that the state was drawn from and the step goes on drawing from.
+    ``vb_counts`` = (coal [E, Pp], mig [E, Pp, Pp]), the previous
+    iteration's event counts, sets the VB tables of ``cfg.vb`` (None: the
+    tables of counts 1e10, before the first M-step)."""
     dev = resolve_device(cfg.device)
     start, end = chunk
     if start is not None:
@@ -344,6 +435,7 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
         delay_type=cfg.delay_type,
         has_migration=epochs.structured,
         max_mig=cfg.mig_buffer or _auto_mig_buffer(demo),
+        apf=cfg.apf,
     )
     rho = demo.recombination_rate
     delays = None
@@ -360,7 +452,7 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
                     " ".join(f"{x:.4g}" for x in lags))
     else:
         lags = default_lags(demo.change_times, rho)
-    bias = {}
+    bias = {}  # the step's optional inputs
     if pfcfg.use_bias:
         if delays is None:
             # no calibration pre-pass: survival ~ lag / lag_fraction
@@ -375,6 +467,19 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     has_unphased = bool(np.any(seg.alleles == 2)) or cfg.dephase
     max_configs = cfg.max_phase_configs if has_unphased else 1
 
+    # APF pre-passes (em.py:493-505 of the JAX package): the lookahead
+    # scan of the chunk on the host, the terminal branch quantiles from
+    # trees drawn on the device with a generator of their own
+    la = None
+    if cfg.apf > 0:
+        la = compute_lookahead(seg)
+        qgen = torch.Generator(device=dev)
+        qgen.manual_seed(seed + 104729)
+        bias["quantiles"] = terminal_branch_quantiles(
+            qgen, epochs, demo.sample_pops, num_trees=cfg.apf_trees)
+    if cfg.vb:
+        bias["vb_tables"] = vb_pass_tables(demo, vb_counts, cfg)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     state = init_state(gen, epochs, pfcfg, demo.sample_pops, rho,
@@ -382,14 +487,14 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     segs = prepare_segments(seg, chunk_start, lags, dev,
                             max_configs=max_configs, dephase=cfg.dephase,
                             xc_epochs=cfg.xc_epochs, xr_epochs=cfg.xr_epochs,
-                            Pp=demo.num_populations)
+                            Pp=demo.num_populations, lookahead=la)
     step = make_segment_step(pfcfg, epochs, demo.mutation_rate, rho, lags, gen,
                              **bias)
     return Sweep(state, segs, step, chunk_start, gen)
 
 
 def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
-              chunk=(None, None), seed: int = 1):
+              chunk=(None, None), seed: int = 1, vb_counts=None):
     """One particle-filter sweep over (a chunk of) the genome; returns host
     SuffStats, the w^2 stats, the log-likelihood and diagnostics.
 
@@ -399,7 +504,7 @@ def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
     chunk, because ``run_em`` derives ``seed`` from both); a re-run of the
     same chunk continues from there, and the file goes when the chunk ends."""
     state, segs, step, chunk_start, gen = start_sweep(demo, seg, cfg, chunk,
-                                                      seed)
+                                                      seed, vb_counts)
     ess_trace = np.zeros(len(segs))
     resample_rows = []  # (genome position, ESS) at each resample event
     first = 0
@@ -501,15 +606,16 @@ def _resolve_bias_strengths(demo: Demography, cfg: EMConfig, epochs=None):
 
 
 def run_chunks(demo: Demography, seg: SegData, cfg: EMConfig, chunks,
-               seeds=None):
+               seeds=None, vb_counts=None):
     """Run genome chunks concurrently, the scale-out axis the reference
     implements as concurrent ``smcsmc`` subprocesses (model.py:1094-1100,
     execute.py:26-105).  Each chunk runs in its own thread on its own GPU
     with its own ``torch.Generator`` (seeded with ``seeds[ci]``; nothing
     draws from a global generator), so on a multi-GPU host the sweeps run
     in parallel; with one device (or one worker) the chunks run one after
-    another.  Returns the per-chunk (stats, stats_wt, logl, diag) tuples in
-    chunk order."""
+    another.  ``vb_counts``: the previous iteration's event counts for
+    ``cfg.vb``.  Returns the per-chunk (stats, stats_wt, logl, diag) tuples
+    in chunk order."""
     n = len(chunks)
     if seeds is None:
         seeds = [cfg.seed + ci for ci in range(n)]
@@ -524,7 +630,8 @@ def run_chunks(demo: Demography, seg: SegData, cfg: EMConfig, chunks,
 
     def one(ci, device=cfg.device):
         return run_chunk(demo, seg, dataclasses.replace(cfg, device=device),
-                         chunk=chunks[ci], seed=seeds[ci])
+                         chunk=chunks[ci], seed=seeds[ci],
+                         vb_counts=vb_counts)
 
     if workers <= 1:
         return [one(ci) for ci in range(n)]
@@ -588,10 +695,15 @@ def m_step(
     demo: Demography, stats: SuffStats, cfg: EMConfig
 ) -> Demography:
     """Parameter update from sufficient statistics (count.cpp:267-352
-    reset_Ne / reset_recomb_rate / reset_mig_rate): ``smcsmc_tpu.em.m_step``
-    without its VB branch."""
+    reset_Ne / reset_recomb_rate / reset_mig_rate; VB pseudocounts
+    model.py:997-1001)."""
     coal_opp = np.asarray(stats.coal_opp, dtype=np.float64)
     coal_cnt = np.asarray(stats.coal_cnt, dtype=np.float64)
+    if cfg.vb:
+        # Dirichlet pseudocounts: add prior-rate-matching mass
+        prior_rate = 1.0 / (2.0 * demo.pop_sizes)
+        coal_cnt = coal_cnt + cfg.vb_pseudocount
+        coal_opp = coal_opp + cfg.vb_pseudocount / np.maximum(prior_rate, 1e-300)
     rate = coal_cnt / np.maximum(coal_opp, 1e-300)
     ne = 1.0 / (2.0 * np.maximum(rate, 1e-300))
     if cfg.use_cap:
@@ -675,6 +787,7 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
     logger.info("chunks: %s", chunks)
 
     current = demo
+    vb_counts = None  # the previous iteration's event counts (VB)
     for it in range(cfg.em_iters + 1):
         # idempotent resume (model.py:1105-1115): skip finished iterations
         if cfg.outdir and have_outfile(cfg.outdir, it):
@@ -694,6 +807,8 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
             logl = data.get((("LogL", -1, -1, -1, -1), "Count"), 0.0)
             if cfg.do_m_step:
                 current = m_step(current, stats, cfg)
+            if cfg.vb:
+                vb_counts = (stats.coal_cnt, stats.mig_cnt)
             result.demos.append(current)
             result.stats.append(stats)
             result.stats_wt.append(stats_wt)
@@ -708,6 +823,7 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
         per_chunk = run_chunks(
             current, seg, cfg, chunks,
             seeds=[cfg.seed + 1000 * it + ci for ci in range(len(chunks))],
+            vb_counts=vb_counts,
         )
         seconds = time.monotonic() - t0
         stats = sum_stats([pc[0] for pc in per_chunk])
@@ -755,6 +871,8 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
         if cfg.do_m_step:
             # -no_m_step (model.py:1020-1022): keep parameters fixed
             current = m_step(current, stats, cfg)
+        if cfg.vb:
+            vb_counts = (stats.coal_cnt, stats.mig_cnt)
         result.demos.append(current)
         result.stats.append(stats)
         result.stats_wt.append(stats_wt)

@@ -1,9 +1,10 @@
-"""Build and load the CUDA trip kernels (``csrc/trip.cu``).
+"""Build and load the CUDA trip kernels (``csrc/trip.cu``) and the host
+scan of the APF lookahead (``csrc/lookahead.c``).
 
-``nvcc`` compiles the source into a shared library with a plain C
-interface, loaded with ``ctypes``.  The library is built at first use into
-``build/smcsmc_tpu_torch/`` beside the package and rebuilt whenever a hash
-of the source and the flags changes.
+``nvcc`` compiles the kernels, and ``gcc`` the scan, into shared libraries
+with a plain C interface, loaded with ``ctypes``.  Each library is built at
+first use into ``build/smcsmc_tpu_torch/`` beside the package and rebuilt
+whenever a hash of its source and flags changes; a failed build raises.
 """
 
 from __future__ import annotations
@@ -18,9 +19,13 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "trip.cu"
+LOOKAHEAD_SOURCE = _PKG / "csrc" / "lookahead.c"
 BUILD_DIR = _PKG.parent / "build" / "smcsmc_tpu_torch"
+GCC_FLAGS = ("-O3", "-shared", "-fPIC")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false",  # round each product and sum as the plain version does
@@ -49,27 +54,35 @@ def _nvcc() -> str:
                        "the trip kernel")
 
 
-def build_trip_library(force: bool = False) -> BuildInfo:
-    """Compile ``csrc/trip.cu`` unless a library for the same source and
-    flags exists; raise with the compiler's output on failure."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"libsmctrip_{digest[:16]}.so"
+def _build(compiler: str, flags, source: Path, stem: str,
+           force: bool) -> BuildInfo:
+    """Compile ``source`` with ``compiler`` and ``flags`` into
+    ``BUILD_DIR/<stem>_<hash>.so`` unless that library exists; raise with
+    the compiler's output on failure."""
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()
+    out = BUILD_DIR / f"{stem}_{digest[:16]}.so"
     if out.exists() and not force:
         return BuildInfo(out, False, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [compiler, *flags, "-o", str(tmp), str(source)]
     t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.monotonic() - t0
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
+            f"{os.path.basename(compiler)} failed (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
     return BuildInfo(out, True, seconds, proc.stdout + proc.stderr)
+
+
+def build_trip_library(force: bool = False) -> BuildInfo:
+    """Compile ``csrc/trip.cu`` unless a library for the same source and
+    flags exists; raise with the compiler's output on failure."""
+    return _build(_nvcc(), NVCC_FLAGS, SOURCE, "libsmctrip", force)
 
 
 @functools.cache
@@ -104,14 +117,42 @@ def load_trip_library() -> ctypes.CDLL:
         # capacity Mw, walk event bound
         vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, ci,
+        vp, vp,  # the VB tables vb_coal, vb_mig (0: VB off)
         vp,  # stream
     ]
     lib.smc_segment_pass_launch.restype = ci
-    # kind, n, E, S, Pp, Mw, out
-    lib.smc_kernel_resources.argtypes = [ci, ci, ci, ci, ci, ci, vp]
+    # kind, n, E, S, Pp, Mw, vb, out
+    lib.smc_kernel_resources.argtypes = [ci, ci, ci, ci, ci, ci, ci, vp]
     lib.smc_kernel_resources.restype = ci
     lib.smc_noop_launch.argtypes = [vp]
     lib.smc_noop_launch.restype = ci
     lib.smc_cuda_error_string.argtypes = [ci]
     lib.smc_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_lookahead_library(force: bool = False) -> BuildInfo:
+    """Compile ``csrc/lookahead.c`` with gcc unless a library for the same
+    source and flags exists; raise with the compiler's output on failure."""
+    return _build(shutil.which("gcc") or "gcc", GCC_FLAGS, LOOKAHEAD_SOURCE,
+                  "liblookahead", force)
+
+
+@functools.cache
+def load_lookahead_library() -> ctypes.CDLL:
+    """Build (if needed) and load the lookahead scan, with the argument
+    types of ``lookahead._native_lookahead``."""
+    lib = ctypes.CDLL(str(build_lookahead_library().path))
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    i8p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    lib.lookahead_scan.restype = None
+    lib.lookahead_scan.argtypes = [
+        ctypes.c_long, ctypes.c_int, ctypes.c_int,
+        f64p, f64p, i8p, u8p,
+        f32p, f32p, u8p, i32p, i32p, f32p, f32p, u8p, u8p,
+        f32p, i8p, i32p,
+    ]
     return lib

@@ -15,24 +15,18 @@ import numpy as np
 import torch
 
 
-def site_log_likelihood(trees, alleles: torch.Tensor, mutation_rate: float,
-                        ancestral_aware: bool = False) -> torch.Tensor:
-    """Per-particle log-likelihood of one site.
-
-    ``alleles`` is an integer tensor with values 0/1/-1 on the trees'
-    device: ``[n]`` gives ``[P]``; ``[C, n]`` (C allele configurations of
-    the same site) gives ``[C, P]`` from one pass over the trees, at the
-    launches of a single configuration."""
+def _prune(trees, al: torch.Tensor, mutation_rate: float, prior):
+    """Pruning of allele configurations ``al`` [C, n] on every tree: the
+    rescaled root likelihood under the root ``prior`` (p0, p1) and its log
+    scale, each [C, P]."""
     time, parent, c0, c1 = trees.time, trees.parent, trees.child0, trees.child1
     P, N = time.shape
     n = (N + 1) // 2
     dev = time.device
-    single = alleles.dim() == 1
-    al = (alleles[None] if single else alleles).to(torch.int32)
+    al = al.to(torch.int32)
     C = al.shape[0]
     mu = torch.tensor(mutation_rate, dtype=torch.float32, device=dev)
-    prior = (torch.tensor([1.0, 0.0], device=dev) if ancestral_aware
-             else torch.tensor([0.5, 0.5], device=dev))
+    prior = torch.tensor(prior, dtype=torch.float32, device=dev)
 
     l0 = torch.where(al == 1, 0.0, 1.0)
     l1 = torch.where(al == 0, 0.0, 1.0)
@@ -84,9 +78,34 @@ def site_log_likelihood(trees, alleles: torch.Tensor, mutation_rate: float,
             partial, acc, ready = combine_pass(partial, acc, ready)
     root = (parent < 0)[:, :, None]
     root_part = torch.where(root, partial, torch.zeros_like(partial)).sum(2)
-    lik = root_part[..., 0] * prior[0] + root_part[..., 1] * prior[1]
+    return root_part[..., 0] * prior[0] + root_part[..., 1] * prior[1], acc
+
+
+def site_log_likelihood(trees, alleles: torch.Tensor, mutation_rate: float,
+                        ancestral_aware: bool = False) -> torch.Tensor:
+    """Per-particle log-likelihood of one site.
+
+    ``alleles`` is an integer tensor with values 0/1/-1 on the trees'
+    device: ``[n]`` gives ``[P]``; ``[C, n]`` (C allele configurations of
+    the same site) gives ``[C, P]`` from one pass over the trees, at the
+    launches of a single configuration."""
+    single = alleles.dim() == 1
+    lik, acc = _prune(trees, alleles[None] if single else alleles,
+                      mutation_rate,
+                      (1.0, 0.0) if ancestral_aware else (0.5, 0.5))
     ll = torch.log(lik.clamp(min=1e-30)) + acc
     return ll[0] if single else ll
+
+
+def site_likelihood_scaled(trees, alleles: torch.Tensor,
+                           mutation_rate: float, prior=(0.5, 0.5)):
+    """Single-tree pruning with an ancestral prior, for every tree
+    (``_site_likelihood_one`` of the JAX package's kernels/likelihood.py:27,
+    batched): alleles [n] 0/1/-1 (any other code reads as missing) ->
+    (rescaled root likelihood [P], its log scale [P]); the likelihood is
+    their product ``lik * exp(acc)``."""
+    lik, acc = _prune(trees, alleles[None], mutation_rate, prior)
+    return lik[0], acc[0]
 
 
 def phase_averaged_log_likelihood(trees, configs: torch.Tensor,

@@ -511,16 +511,22 @@ def uniform_point(u_pt, time, parent):
 
 def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
                     next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
-                    epoch_start, has_data, mp: MigrationPass):
+                    epoch_start, has_data, mp: MigrationPass, vb=None):
     """The trips of a migration segment pass, IN PLACE (the migration
     branch of ``recombination_transition`` and the sweep's trip loop,
     smc.py:876-1080 of the JAX package): per trip and active particle the
     extension, the uniform point (uniform column 0), the loop walk, the
     recombination count, the SPR with buffer routing, the refreshed
     summaries and the next gap (column 3); walks capped and events dropped
-    go into ``mp.diag``."""
+    go into ``mp.diag``.  With ``vb`` = (vb_coal [E, Pp], vb_mig [E, Pp,
+    Pp]) each trip adds to ``log_w`` the table entries of the coalescence
+    and the migrations its walk records (smc.py:951-967): the trip's count
+    rows (the change of ``pending``'s counts over the walk) times the
+    tables, the coalescence's sum and then the migrations'."""
     E, Pp = epoch_start.shape[0], mp.ne.shape[1]
     off = stats_offsets(E, Pp)
+    counts = slice(off["coal_cnt"], off["coal_cnt"] + E * Pp)
+    mig_counts = slice(off["mig_cnt"], off["mig_cnt"] + E * Pp * Pp)
     epochs = Epochs(start=epoch_start, ne=mp.ne)
     f32 = torch.float32
     cur = dict(time=time, parent=parent, child0=child0, child1=child1,
@@ -542,9 +548,17 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
         c, h_r = uniform_point(u[:, 0], cur["time"], cur["parent"])
         walk_mp = mp._replace(pop=cur["pop"], mig_time=cur["mig_time"],
                               mig_dest=cur["mig_dest"])
+        if vb is not None:
+            before = (pending[:, counts].clone(), pending[:, mig_counts].clone())
         (t_c, d, fpop, ev_t, ev_d, rev_t, rev_d, capped, _) = walk_mig(
             walk_mp, j, cur["time"], cur["parent"], c, h_r, active,
             epoch_start, pending, E, Pp)
+        if vb is not None:
+            term_c = ((pending[:, counts] - before[0])
+                      * vb[0].reshape(-1)).sum(dim=1)
+            term_m = ((pending[:, mig_counts] - before[1])
+                      * vb[1].reshape(-1)).sum(dim=1)
+            cur["log_w"] = cur["log_w"] + (term_c + term_m)
         e_r = epoch_index(epoch_start, h_r)
         pending[:, off["recomb_cnt"]:off["recomb_cnt"] + E] += (
             (torch.arange(E, device=time.device)[None, :] == e_r[:, None])

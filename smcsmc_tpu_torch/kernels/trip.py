@@ -250,11 +250,21 @@ def _trip_once(u, leaf_status, time, parent, child0, child1, next_rec, upd,
             (h_r, t_c, log_iw, strength))
 
 
+def vb_coal_term(vb_coal: torch.Tensor, epoch_start: torch.Tensor,
+                 t_c: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """[P] one trip's VB term with one population: the table entry
+    ``vb_coal`` [E] of the epoch of the trip's coalescence ``t_c`` for an
+    active particle (its trip records one coalescence), 0 otherwise."""
+    return torch.where(active, vb_coal[epoch_index(epoch_start, t_c)], 0.0)
+
+
 def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
                upd, log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start,
-               inv2ne, has_data):
+               inv2ne, has_data, vb_coal=None):
     """Plain torch version of :func:`trip` on any device (same arguments,
-    same in-place contract).  Stops early once no particle is active."""
+    same in-place contract).  Stops early once no particle is active.
+    ``vb_coal`` [E] (the plain segment pass's VB; ``trip`` takes none)
+    adds each trip's :func:`vb_coal_term` to ``log_w`` after it."""
     f32 = torch.float32
     dev = time.device
     L = torch.tensor(L, dtype=f32, device=dev)
@@ -269,9 +279,12 @@ def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
         if not bool((cur[4] < L).any()):
             break
         (t, p, c0, c1, nr, up, lw, tl_, B_, tle, pend) = cur
-        cur, _ = _trip_once(uniforms[j], int(leaf_status), t, p, c0, c1, nr,
-                            up, lw, tl_, B_, tle, pend, L, mu, rho, est, eend,
-                            inv2ne, has_data)
+        cur, ev = _trip_once(uniforms[j], int(leaf_status), t, p, c0, c1, nr,
+                             up, lw, tl_, B_, tle, pend, L, mu, rho, est,
+                             eend, inv2ne, has_data)
+        if vb_coal is not None:
+            cur = cur[:6] + (cur[6] + vb_coal_term(vb_coal, est, ev[1],
+                                                   nr < L),) + cur[7:]
     if cur is not outs:
         for dst, src in zip(outs, cur):
             dst.copy_(src)
@@ -473,12 +486,14 @@ trip.launches = 0
 
 def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
                   next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
-                  epoch_start, inv2ne, has_data, b: BiasedPass):
+                  epoch_start, inv2ne, has_data, b: BiasedPass,
+                  vb_coal=None):
     """The biased form of :func:`trip_plain`, IN PLACE: after each trip the
     posterior weight takes the whole importance weight, the pilot weight
     the no-mutation factor and the immediate part, and the delayed part
     goes into the particle's ring at ``front + next_rec`` (smc.py:968-1020
-    of the JAX package)."""
+    of the JAX package).  With ``vb_coal`` [E] both weights take the
+    trip's VB term first (smc.py:951-967)."""
     f32 = torch.float32
     dev = time.device
     L_t = torch.tensor(L, dtype=f32, device=dev)
@@ -502,8 +517,11 @@ def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
             epoch_start, eend, inv2ne, has_data, (b.heights, b.strengths))
         zero = torch.zeros_like(log_iw)
         lp = lp - mu_t * B_pre * delta
-        cur = cur[:6] + (cur[6] + torch.where(active, log_iw, zero),) \
-            + cur[7:]
+        lw = cur[6]
+        if vb_coal is not None:
+            term = vb_coal_term(vb_coal, epoch_start, t_c, active)
+            lw, lp = lw + term, lp + term
+        cur = cur[:6] + (lw + torch.where(active, log_iw, zero),) + cur[7:]
         d_h = h_r if by_point else t_c
         strength_h = (strength if by_point
                       else b.strengths[section_of(b.heights, d_h)])
@@ -527,13 +545,15 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
                        next_rec, log_w, fifo, fifo_mask, tl_out, L, mu, rho,
                        epoch_start, inv2ne, has_data,
                        biased: BiasedPass | None = None,
-                       migration: MigrationPass | None = None):
+                       migration: MigrationPass | None = None,
+                       vb: tuple | None = None):
     """Plain torch version of :func:`segment_pass` on any device (same
     arguments, same in-place contract): ``tree_summaries``, the trips
     (``trip_plain``, :func:`_biased_trips` or
-    ``migration.migration_trips``), the final extension, under bias the
-    drain of the delayed factors due at ``front + L``, and the push into
-    FIFO slot 0."""
+    ``migration.migration_trips``, each with the VB term after every trip
+    when ``vb`` is given), the final extension, under bias the drain of
+    the delayed factors due at ``front + L``, and the push into FIFO slot
+    0."""
     P = time.shape[0]
     E = epoch_start.shape[0]
     dev = time.device
@@ -552,11 +572,11 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
                 upd, log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start,
                 inv2ne, has_data)
         if migration is not None:
-            migration_trips(*args[:-2], has_data, migration)
+            migration_trips(*args[:-2], has_data, migration, vb)
         elif biased is None:
-            trip_plain(*args)
+            trip_plain(*args, None if vb is None else vb[0][:, 0])
         else:
-            _biased_trips(*args, biased)
+            _biased_trips(*args, biased, None if vb is None else vb[0][:, 0])
 
     # ---- final extension to the segment end --------------------------------
     delta = L - upd
@@ -585,7 +605,8 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
                  next_rec, log_w, fifo, fifo_mask, tl_out, L, mu, rho,
                  epoch_start, inv2ne, has_data,
                  biased: BiasedPass | None = None,
-                 migration: MigrationPass | None = None):
+                 migration: MigrationPass | None = None,
+                 vb: tuple | None = None):
     """One segment's tree pass for every particle, IN PLACE.
 
     From the trees alone: tree length, per-epoch tree length and data branch
@@ -615,18 +636,27 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     ``inv2ne`` is not read.  At most 4 populations and 96 events per
     buffer.
 
+    ``vb`` = (vb_coal [E, Pp], vb_mig [E, Pp, Pp]) f32, the VB tables with
+    the ``-xc`` epochs' entries 0, makes it the VB variant of the pass (a
+    compile-time variant of each kernel): after each trip's extension, and
+    before its importance weight, the posterior weight (and the biased
+    pass's pilot) takes the table entry of every coalescence and migration
+    the trip records, whatever the recording gate says.
+
     CPU tensors run :func:`segment_pass_plain`.  CUDA tensors launch the
     kernel of ``csrc/trip.cu`` on the current stream (one launch) or raise;
     nothing falls back.  Every call checks every tensor, as :func:`trip`
     does.  ``segment_pass.launches`` counts the launches of the plain
     kernel, ``segment_pass.biased_launches`` those of the biased one and
-    ``segment_pass.migration_launches`` those of the migration one."""
+    ``segment_pass.migration_launches`` those of the migration one; the
+    ``vb_`` counts (``vb_launches``, ``biased_vb_launches``,
+    ``migration_vb_launches``) those of their VB variants."""
     dev = time.device
     if dev.type == "cpu":
         segment_pass_plain(uniforms, leaf_status, time, parent, child0,
                            child1, next_rec, log_w, fifo, fifo_mask, tl_out,
                            L, mu, rho, epoch_start, inv2ne, has_data, biased,
-                           migration)
+                           migration, vb)
         return
     if dev.type != "cuda":
         raise ValueError(f"segment_pass: unsupported device {dev}")
@@ -704,6 +734,11 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
         mig_args = (*(x.data_ptr() for x in (
             m.pop, m.mig_time, m.mig_dest, m.diag, m.key, m.ne, m.mig,
             m.tot_mig, m.pop_map)), Pp, Mw, int(m.max_walk_events))
+    vb_args = (None, None)
+    if vb is not None:
+        spec += [("vb_coal", vb[0], f32, (E, Pp)),
+                 ("vb_mig", vb[1], f32, (E, Pp, Pp))]
+        vb_args = (vb[0].data_ptr(), vb[1].data_ptr())
     for name, x, dtype, shape in spec:
         _check_tensor(name, x, dtype, shape, dev)
     _launch("smc_segment_pass_launch", dev,
@@ -712,19 +747,20 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
             child1.data_ptr(), next_rec.data_ptr(), log_w.data_ptr(),
             fifo.data_ptr(), fifo_mask.data_ptr(), tl_out.data_ptr(),
             float(L), float(mu), float(rho), epoch_start.data_ptr(),
-            inv2ne.data_ptr(), has_data.data_ptr(), *bias_args, *mig_args)
-    if migration is not None:
-        segment_pass.migration_launches += 1
-    elif biased is None:
-        segment_pass.launches += 1
-    else:
-        segment_pass.biased_launches += 1
+            inv2ne.data_ptr(), has_data.data_ptr(), *bias_args, *mig_args,
+            *vb_args)
+    kind = ("migration_" if migration is not None
+            else "" if biased is None else "biased_")
+    name = kind + ("vb_launches" if vb is not None else "launches")
+    setattr(segment_pass, name, getattr(segment_pass, name) + 1)
 
 
-# launches of the plain, the biased and the migration kernel
-segment_pass.launches = 0
-segment_pass.biased_launches = 0
-segment_pass.migration_launches = 0
+# launches of the plain, the biased and the migration kernel, and of their
+# VB variants
+LAUNCH_COUNTS = ("launches", "biased_launches", "migration_launches",
+                 "vb_launches", "biased_vb_launches", "migration_vb_launches")
+for _count in LAUNCH_COUNTS:
+    setattr(segment_pass, _count, 0)
 
 
 RESOURCES = ("registers", "local_bytes", "static_shared_bytes",
@@ -737,7 +773,7 @@ WAVES_AT = 10000  # the particle count of the paths chip_smoke drives
 
 
 def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
-                     Mw: int = 0, S: int = 2) -> dict:
+                     Mw: int = 0, S: int = 2, vb: bool = False) -> dict:
     """What a kernel of ``csrc/trip.cu`` takes on the current CUDA device
     at (n leaves, E epochs; for the biased pass also S bias sections, for
     the migration pass Pp populations and Mw events per buffer): registers
@@ -746,9 +782,9 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     particles per block it is launched with, the blocks an SM holds at once
     and the card's SMs (:data:`RESOURCES`), and from those the particles an
     SM holds and the waves a launch of :data:`WAVES_AT` particles takes.  ``variant`` is a key of :data:`RESOURCE_VARIANTS`
-    (n picks the instantiation: 7 padded nodes up to 4 leaves, 15 above).
-    Raises on an unknown variant or a shape beyond the caps before any
-    CUDA call."""
+    (n picks the instantiation: 7 padded nodes up to 4 leaves, 15 above;
+    ``vb`` a pass's VB variant).  Raises on an unknown variant or a shape
+    beyond the caps before any CUDA call."""
     if variant not in RESOURCE_VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}; one of "
                          f"{tuple(RESOURCE_VARIANTS)}")
@@ -757,13 +793,15 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
         raise ValueError(f"the migration pass needs populations and buffers,"
                          f" got Pp={Pp}, Mw={Mw}")
     _check_caps(2 * n - 1, E, Pp if migration else 1, Mw if migration else 0)
+    if vb and variant == "trip":
+        raise ValueError("trip has no VB variant")
     if variant == "biased" and not 1 <= S <= MAX_SECTIONS:
         raise ValueError(f"the biased pass takes 1..{MAX_SECTIONS} sections,"
                          f" got {S}")
     out = (ctypes.c_int * len(RESOURCES))()
     lib = load_trip_library()
     err = lib.smc_kernel_resources(RESOURCE_VARIANTS[variant], n, E, S, Pp,
-                                   Mw, out)
+                                   Mw, int(vb), out)
     if err != 0:
         raise RuntimeError(f"smc_kernel_resources failed: CUDA error {err} "
                            f"({lib.smc_cuda_error_string(err).decode()})")

@@ -3,12 +3,12 @@ and the two-population paths' estimates spread over seeds?
 
     python -m smcsmc_tpu_torch.repeatability [--np 10000] [--device cuda]
         [--seeds 7 7 8 9] [--main-runs 3] [--twopop-seeds 7 8 9]
-        [--scan cumsum]
+        [--feature-runs 2] [--scan cumsum]
     python -m smcsmc_tpu_torch.repeatability --lockstep 3
     python -m smcsmc_tpu_torch.repeatability --summary twopop result.out
     python -m smcsmc_tpu_torch.repeatability --genealogy 13 1 2 3
 
-Four measurements, each printed as it ends:
+Five measurements, each printed as it ends:
 
 1. the device reductions of the segment step, repeated on one input and
    held bit for bit to their first result, with a matrix product queued now
@@ -27,7 +27,11 @@ Four measurements, each printed as it ends:
    ``twopop_flags``, ``-EM 2``, as ``chip_smoke.py`` runs it) once per entry
    of ``--twopop-seeds``, each in a fresh process: LogL per iteration and,
    per iteration, each population's posterior coalescences and Ne estimate
-   by epoch, its pooled interior Ne and the pooled migration rate.
+   by epoch, its pooled interior Ne and the pooled migration rate;
+5. VB and the APF: the main path's data with ``-vb -EM 2`` (``vb``), with
+   ``-apf 2`` (``apf``) and ``sweep_profile.apf8_data`` with ``-apf 2``
+   (``apf8``), each ``--feature-runs`` times with one seed, each run in a
+   fresh process: LogL per iteration, which must repeat bit for bit.
 
 ``--lockstep N`` instead sweeps the main path's data and the genome path's
 first chunk N times each as two sweeps of one seed side by side in one
@@ -66,6 +70,7 @@ from .segio import define_chunks, write_seg
 from .simulate import _Sim
 from .sweep_profile import (
     GENOME_PATTERN,
+    apf8_data,
     bench_data,
     genome_data,
     genome_model,
@@ -187,10 +192,14 @@ def run_cli(data: str, seed: int, num_particles: int, device: str,
         run = ["-o", out, "-Np", str(num_particles), "-seed", str(seed),
                "-device", device]
         common = [*run, *MODEL]
-        if data == "main":
+        if data in ("main", "vb", "apf", "apf8"):
             seg = os.path.join(tmp, "bench.seg")
-            write_seg(seg, bench_data()[1])
-            smcsmc_main(["-seg", seg, "-EM", "0", "-P", "133", "133016",
+            write_seg(seg, (apf8_data() if data == "apf8"
+                            else bench_data())[1])
+            flags = {"main": ["-EM", "0"], "vb": ["-EM", "2", "-vb"],
+                     "apf": ["-EM", "0", "-apf", "2"],
+                     "apf8": ["-EM", "0", "-apf", "2"]}[data]
+            smcsmc_main(["-seg", seg, *flags, "-P", "133", "133016",
                          "7*1", *common])
         elif data == "twopop":
             seg = os.path.join(tmp, "twopop.seg")
@@ -333,6 +342,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="*", default=[7, 7, 8, 9])
     ap.add_argument("--main-runs", type=int, default=3)
     ap.add_argument("--twopop-seeds", type=int, nargs="*", default=[7, 8, 9])
+    ap.add_argument("--feature-runs", type=int, default=2,
+                    help="runs of each of the vb, apf and apf8 paths")
     ap.add_argument("--scan", choices=("block", "cumsum"),
                     default="block", help="the resampler's scan")
     ap.add_argument("--lockstep", type=int, default=0, metavar="N",
@@ -370,7 +381,9 @@ def main(argv=None) -> int:
             print("\n".join(reductions(P, args.device)), flush=True)
     runs = ([("main", 7)] * args.main_runs
             + [("genome", s) for s in args.seeds]
-            + [("twopop", s) for s in args.twopop_seeds])
+            + [("twopop", s) for s in args.twopop_seeds]
+            + [(data, 7) for data in ("vb", "apf", "apf8")
+               for _ in range(args.feature_runs)])
     for data, seed in runs:
         subprocess.run(
             [sys.executable, "-m", "smcsmc_tpu_torch.repeatability", "--np",

@@ -15,6 +15,11 @@ With several populations (``PFConfig.has_migration``) the launch is the
 migration pass: the loop walk with migration, the SPR routing the branches'
 migration buffers, walks capped and events dropped counted into
 ``PFState.diag``; resampling gathers the populations and buffers too.
+With VB tables the launch is the pass's VB variant, which adds each trip's
+VB term to the weights.  With the APF (``PFConfig.apf``) the step adds the
+segment's lookahead log-likelihood to the pilot weights (normalised: the
+effective pilot), takes the ESS from it and resamples on it with the
+auxiliary reweight; the pilot itself never keeps the lookahead.
 Segment descriptors (length, state, leaf status, distance to the next site)
 stay on the host, so branching on them costs no device synchronisation; the
 host reads the ESS once per segment to decide on resampling.
@@ -31,6 +36,7 @@ import torch
 
 from .kernels.bias import BiasedPass
 from .kernels.likelihood import phase_averaged_log_likelihood
+from .kernels.lookahead import Quantiles, lookahead_loglik
 from .kernels.migration import (
     MAX_WALK_EVENTS,
     MigrationPass,
@@ -109,6 +115,7 @@ class PFConfig:
     has_migration: bool = False
     max_walk_events: int = MAX_WALK_EVENTS  # bound of a migration walk
     max_mig: int = 16  # events per branch buffer (with has_migration)
+    apf: int = 0  # auxiliary-particle-filter level 0-4 (-apf, particle.cpp:439)
 
 
 class PFState(NamedTuple):
@@ -153,6 +160,9 @@ class Segment(NamedTuple):
     # configurations (C = 1 for a phased site; only the site's own, no padding)
     has_data: torch.Tensor  # [n] bool
     fifo_mask: torch.Tensor  # [K] f32 recording gate (fifo_gate_masks)
+    # the APF lookahead's columns of the segment (kernels.lookahead.
+    # lookahead_loglik's la_seg), or None without the APF
+    lookahead: tuple | None = None
 
 
 def _uniform_log_weight(P: int) -> float:
@@ -309,13 +319,18 @@ def fifo_gate_masks(dist_mut: np.ndarray, lags: np.ndarray,
 
 def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
                       rho: float, lags, generator: torch.Generator,
-                      bias_heights=None, bias_strengths=None, delays=None):
+                      bias_heights=None, bias_strengths=None, delays=None,
+                      vb_tables=None, quantiles: Quantiles | None = None):
     """Build the per-segment step ``step(state, seg) -> (state, (ess,
     resampled, front))``.  The step updates the state's tensors in place.
 
     With ``cfg.use_bias``: ``bias_heights`` [S+1] (0, the section
     boundaries in generations, INF), ``bias_strengths`` [S] and the
-    delayed factors' application ``delays`` [E] (bp) by epoch."""
+    delayed factors' application ``delays`` [E] (bp) by epoch.
+    ``vb_tables`` = (vb_coal [E, Pp], vb_mig [E, Pp, Pp]) with the ``-xc``
+    epochs' entries 0 turns VB on.  With ``cfg.apf`` > 0: the model's
+    terminal branch ``quantiles``, and every segment carries its lookahead
+    columns."""
     P = cfg.num_particles
     F, Pp = cfg.fifo_slots, epochs.num_pops
     dev = epochs.start.device
@@ -333,6 +348,10 @@ def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
             for x in (bias_heights, bias_strengths, delays))
     if cfg.has_migration:
         mig_tables = migration_tables(epochs)
+    vb = None
+    if vb_tables is not None:
+        vb = tuple(torch.as_tensor(np.asarray(x, np.float32), device=dev)
+                   .contiguous() for x in vb_tables)
 
     def step(state: PFState, seg: Segment):
         L = float(seg.length)
@@ -361,7 +380,7 @@ def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
         segment_pass(uniforms, seg.leaf_status, trees.time, trees.parent,
                      trees.child0, trees.child1, state.next_rec, log_w,
                      state.fifo, seg.fifo_mask, tl, L, mu, rho, epoch_start,
-                     inv2ne, seg.has_data, biased, migration)
+                     inv2ne, seg.has_data, biased, migration, vb)
 
         # ---- site likelihood at the segment-final position ----------------
         if seg.state == 0 and seg.leaf_status != -1:  # SEGMENT_INVARIANT
@@ -397,22 +416,30 @@ def make_segment_step(cfg: PFConfig, epochs: Epochs, mutation_rate: float,
                 np.float32))
 
         # ---- ESS and resampling on the pilot weights (the posterior ones
-        # without bias); one host read per segment --------------------------
-        wp = torch.softmax(log_pilot, dim=0)
+        # without bias); under the APF on the pilot plus the segment's
+        # lookahead log-likelihood, renormalised (particleContainer.cpp:
+        # 228-243); one host read per segment -----------------------------
+        pilot_eff = log_pilot
+        if cfg.apf > 0:
+            la = lookahead_loglik(state.trees, tl, seg.lookahead, quantiles,
+                                  mu, rho, cfg.apf)
+            pilot_eff = log_pilot + la
+            pilot_eff = pilot_eff - torch.logsumexp(pilot_eff, dim=0)
+        wp = torch.softmax(pilot_eff, dim=0)
         ess = float(1.0 / (wp * wp).sum())
         need = ess < cfg.ess_threshold * P and seg.length > 0
         if need:
             u = torch.rand((), generator=generator, device=dev)
-            idx = systematic_resample(log_pilot, u)
+            idx = systematic_resample(pilot_eff, u)
             state = gather_particles(state, idx, ring=cfg.use_bias)
             # clones re-draw their next recombination (memorylessness,
             # particle.cpp:393-436) from the post-trip tree length
             tl_r = tl.index_select(0, idx)
             expo = torch.empty(P, device=dev).exponential_(
                 1.0, generator=generator)
-            if cfg.use_bias:
+            if cfg.use_bias or cfg.apf > 0:
                 # auxiliary reweight: w' = (w / pilot)[ancestor] / P
-                log_w = (log_w - log_pilot).index_select(0, idx) + log_w0
+                log_w = (log_w - pilot_eff).index_select(0, idx) + log_w0
                 log_pilot = torch.full_like(log_w, log_w0)
             else:
                 log_w = log_pilot = torch.full_like(log_w, log_w0)

@@ -1,7 +1,7 @@
 """Where the sweep's time goes, read from torch.profiler.
 
     python -m smcsmc_tpu_torch.sweep_profile [--np 10000] [--device cuda]
-        [--data bench|genome|twopop] [--biased]
+        [--data bench|genome|twopop|apf8] [--biased] [--vb] [--apf LEVEL]
         [--trace out/sweep_trace.json]
 
 It sweeps bench.py's headline data (one population of Ne 10,000, n=4, 8
@@ -9,11 +9,15 @@ epochs from 0 and logspace(2.5, 5), 2 Mb, ``simulate_seg(seed=11)``) or,
 with ``--data genome``, the first chunk of the whole-genome data of
 :func:`genome_data` (n=8, 33 epochs, unphased, with missing stretches)
 or, with ``--data twopop``, bench.py's two-population data
-(:func:`twopop_data`: the migration pass)
+(:func:`twopop_data`: the migration pass) or, with ``--data apf8``,
+bench.py's feature_apf8 data (:func:`apf8_data`: n=8, missing windows, an
+unphased pair)
 with the port's segment step, as ``em.run_chunk`` does (``--biased``: with
 the production proposal of ``-bias_heights 0 0.05 -calibrate_lag 2`` at N0
 10,000, bias strengths and lags calibrated from the model, as
-:data:`BIASED_OPTIONS` says): the initial trees, then
+:data:`BIASED_OPTIONS` says; ``--vb``: the VB variant of the pass, with
+the tables of iteration 0; ``--apf LEVEL``: the auxiliary particle filter,
+its lookahead after every pass): the initial trees, then
 ``warm`` segments, ``timed`` segments without the profiler (milliseconds
 per segment), then ``profiled`` segments under torch.profiler.  It reports
 the device time per segment and its share of the unprofiled and of the
@@ -50,6 +54,21 @@ def bench_data(n: int = 4, E: int = 8, L: float = 2e6, seed: int = 11):
         mutation_rate=1e-8, recombination_rate=1e-9, sequence_length=L,
     )
     return demo, simulate_seg(demo, seed=seed)
+
+
+def apf8_data(L: float = 2e6):
+    """bench.py's feature_apf8 data: :func:`bench_data` at n=8 with every
+    leaf missing in one window of 100 kb out of four and the heterozygous
+    sites of leaves 0 and 1 unphased."""
+    demo, seg = bench_data(n=8, L=L)
+    al = seg.alleles.copy()
+    al[(seg.positions // 100_000) % 4 == 1] = -1
+    het = (al[:, 0] + al[:, 1] == 1) & (al[:, 0] >= 0)
+    al[het, 0] = 2
+    al[het, 1] = 2
+    return demo, SegData(positions=seg.positions, lengths=seg.lengths,
+                         states=seg.states, alleles=al,
+                         phased=np.array([False, False] + [True] * 6))
 
 
 def twopop_demo(L: float = 2e6, E: int = 8, m: float = 5e-5,
@@ -284,14 +303,18 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the profiled segments here")
-    ap.add_argument("--data", choices=("bench", "genome", "twopop"),
+    ap.add_argument("--data", choices=("bench", "genome", "twopop", "apf8"),
                     default="bench")
     ap.add_argument("--biased", action="store_true",
                     help="the production proposal (BIASED_OPTIONS)")
+    ap.add_argument("--vb", action="store_true", help="-vb")
+    ap.add_argument("--apf", type=int, default=0, help="-apf LEVEL")
     args = ap.parse_args(argv)
     chunk = (None, None)
     if args.data == "bench":
         demo, seg = bench_data()
+    elif args.data == "apf8":
+        demo, seg = apf8_data()
     elif args.data == "twopop":
         demo, seg = twopop_data()
     else:
@@ -306,7 +329,8 @@ def main(argv=None) -> int:
             demo, seg = genome_model(paths)
         c = define_chunks(seg, 4)[0]
         chunk = (c.start, c.end)
-    options = BIASED_OPTIONS if args.biased else {}
+    options = dict(BIASED_OPTIONS if args.biased else {}, vb=args.vb,
+                   apf=args.apf)
     rep = profile_sweep(demo, seg, args.np, args.device, trace=args.trace,
                         chunk=chunk, **options)
     print("\n".join(report_lines(rep)))

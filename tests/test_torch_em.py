@@ -413,7 +413,9 @@ def test_chunk_workers_get_their_own_device(monkeypatch):
     one device or -nothreads runs the chunks one after another."""
     seen = []
 
-    def fake_run_chunk(demo, seg, cfg, chunk=(None, None), seed=1):
+    def fake_run_chunk(demo, seg, cfg, chunk=(None, None), seed=1,
+                       vb_counts=None):
+        assert vb_counts is None
         seen.append((cfg.device, chunk, seed))
         return seed
 

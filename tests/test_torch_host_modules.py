@@ -1,6 +1,6 @@
 """The port's host-side modules are copies of the JAX package's numpy-only
-modules (demography, pattern, segio, simulate, outfmt, and the demography
-helpers of cli).  Each copy must behave exactly like its original: the same
+modules (demography, pattern, segio, simulate, outfmt, lookahead, and the
+demography helpers of cli; the C scan of the lookahead too).  Each copy must behave exactly like its original: the same
 inputs go through both, and the results are compared for exact equality.
 """
 
@@ -182,9 +182,20 @@ def test_copies_are_the_originals_letter_for_letter():
     """Each copied module is its original plus one first line naming it;
     only the prefix of the reference tree's location is dropped from the
     paths that two docstrings cite."""
-    for name in ("demography", "pattern", "segio", "simulate", "outfmt"):
+    for name in ("demography", "pattern", "segio", "simulate", "outfmt",
+                 "lookahead"):
         ref = (REPO / "smcsmc_tpu" / f"{name}.py").read_text()
         got = (REPO / "smcsmc_tpu_torch" / f"{name}.py").read_text()
         first, rest = got.split("\n", 1)
         assert first.startswith(f"# Copied from smcsmc_tpu/{name}.py"), name
         assert rest == ref.replace("/" + "root/reference/", ""), name
+
+
+def test_lookahead_scan_source_is_the_original_letter_for_letter():
+    """csrc/lookahead.c is native/lookahead.c plus one first line naming
+    it."""
+    ref = (REPO / "native" / "lookahead.c").read_text()
+    got = (REPO / "smcsmc_tpu_torch" / "csrc" / "lookahead.c").read_text()
+    first, rest = got.split("\n", 1)
+    assert first.startswith("/* Copied from native/lookahead.c")
+    assert rest == ref

@@ -110,8 +110,8 @@ def test_trip_wrapper_rejects_other_devices():
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["-apf", "1"], "-apf"),
-    (["-vb"], "-vb"),
+    (["-tmax", "3"], "-tmax"),
+    (["-p", "1*3+4*2"], "-p"),
     (["-guide", "g.recomb.gz"], "-guide"),
     (["-alpha", "0.5"], "-alpha"),
     (["-arg"], "-arg"),

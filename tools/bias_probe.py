@@ -78,11 +78,12 @@ def _restore():
 
 
 def _ptxas_of_biased(info: _build.BuildInfo) -> str:
-    """ptxas's lines of the biased instantiation at 15 nodes."""
+    """ptxas's lines of the biased instantiation at 15 nodes, without
+    VB."""
     lines = info.log.splitlines()
     for j, ln in enumerate(lines):
         if "Compiling entry function" in ln \
-                and "segment_pass_biased_kernelILi15E" in ln:
+                and "segment_pass_biased_kernelILi15ELb0E" in ln:
             return " | ".join(x.strip() for x in lines[j + 1:j + 4]
                               if "Function properties" not in x)
     return "(no ptxas output)"
@@ -276,7 +277,7 @@ def _instrumented(src: str) -> str:
     # one_trip takes the kernel's counters; trip_kernel passes its own
     text = re.sub(r"(TripEvent one_trip\([^{]*?)\) \{",
                   r"\1, long long* P_) {", text, count=1)
-    text = re.sub(r"(one_trip<NP, (?:false|BIAS)>\([^;]*?)\);",
+    text = re.sub(r"(one_trip<NP, (?:false|BIAS)(?:, VB)?>\([^;]*?)\);",
                   r"\1, P_);", text)
     text = text.replace(
         "  extern __shared__ float smem[];",

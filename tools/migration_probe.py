@@ -62,7 +62,7 @@ def _use_source(text: str, name: str) -> _build.BuildInfo:
 def _ptxas_of_mig(info: _build.BuildInfo) -> str:
     lines = info.log.splitlines()
     for j, ln in enumerate(lines):
-        if "segment_pass_mig_kernel" in ln and j + 2 < len(lines):
+        if "segment_pass_mig_kernelILb0E" in ln and j + 2 < len(lines):
             return f"{lines[j + 1].strip()} | {lines[j + 2].strip()}"
     return "(no ptxas output)"
 

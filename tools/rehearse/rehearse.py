@@ -1,7 +1,7 @@
 """Hold the segment pass of ``csrc/trip.cu`` to another commit's, bit for bit,
 on the CPU: no chip, no nvcc.
 
-    python3 tools/rehearse/rehearse.py [--against COMMIT] [--quick]
+    python3 tools/rehearse/rehearse.py [--against COMMIT] [--quick] [--vb]
 
 Builds the working tree's ``smcsmc_tpu_torch/csrc/trip.cu`` and COMMIT's
 (``git show``, default HEAD) as host C++ with g++ against the stand-in
@@ -20,7 +20,13 @@ the slots in use, the first 16 rings full, positions in [front, front +
 2L)).  The plain pass runs on every sixth case's inputs too.  ``--quick``
 runs every fifth case.  Exits 1 if any case differs.  The arithmetic is the
 host's (its ``logf`` is not the card's), so hold a change to a commit, not
-to the plain version."""
+to the plain version.
+
+``--vb`` holds the working tree's VB variants instead (every fifth case,
+biased and plain pass): with VB tables of zeros bit for bit the pass
+without VB; with ``chip_smoke.vb_tables``'s small-count tables against the
+plain version with the same tables, trees equal and floats within
+``float_tolerances`` (rtol 1e-4), as ``chip_smoke.py`` holds them."""
 
 from __future__ import annotations
 
@@ -69,11 +75,13 @@ def build(text: str, name: str) -> ctypes.CDLL:
          "-o", str(lib), str(src), str(HERE / "host_glue.cpp")], check=True)
     out = ctypes.CDLL(str(lib))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # a source with VB takes its two tables before the stream
+    out.vb = "vb_coal" in text
     out.smc_segment_pass_launch.argtypes = [
         vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         cf, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, cf, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-        ci, ci, ci, vp]
+        ci, ci, ci] + [vp, vp] * out.vb + [vp]
     out.smc_segment_pass_launch.restype = ci
     return out
 
@@ -126,10 +134,12 @@ def case(P, n, E, S, ls, T, L, nr_scale, seed, full=False, empty=False,
     return st, fix
 
 
-def run(lib, st, f, biased=True):
-    """One segment pass of ``lib`` on a copy of ``st``."""
+def run(lib, st, f, biased=True, vb=None):
+    """One segment pass of ``lib`` on a copy of ``st``; ``vb`` = its VB
+    table [E] (a library with VB only)."""
     st = {k: v.clone() for k, v in st.items()}
     p = (lambda x: ctypes.c_void_p(x.data_ptr()))
+    tables = ((p(vb), p(vb)) if vb is not None else (None, None)) * lib.vb
     bias = ((p(st["log_pilot"]), p(st["df_pos"]), p(st["df_logf"]),
              p(st["df_delta"]), p(st["df_k"]), p(f["heights"]),
              p(f["strengths"]), p(f["delays"]), f["D"], f["S"], f["front"],
@@ -140,7 +150,7 @@ def run(lib, st, f, biased=True):
         p(st["time"]), p(st["parent"]), p(st["child0"]), p(st["child1"]),
         p(st["next_rec"]), p(st["log_w"]), p(st["fifo"]), p(f["mask"]),
         p(st["tl"]), f["L"], cs.MU, cs.RHO, p(f["start"]), p(f["inv2ne"]),
-        p(f["hd"]), *bias, *((None,) * 9), 0, 0, 0, None)
+        p(f["hd"]), *bias, *((None,) * 9), 0, 0, 0, *tables, None)
     if err != 0:
         raise SystemExit(f"smc_segment_pass_launch returned {err}")
     return st
@@ -169,12 +179,69 @@ def cases():
     return out
 
 
+def vb_table(E, seed):
+    """[E] a VB table from counts in [0.05, 5], epoch 1 excluded."""
+    from smcsmc_tpu_torch.em import EMConfig, vb_pass_tables
+
+    counts = np.random.default_rng(seed).uniform(0.05, 5.0, (E, 1))
+    demo = cs._demo(4, E)
+    return torch.from_numpy(vb_pass_tables(
+        demo, (counts, counts[:, :, None]),
+        EMConfig(vb=True, xc_epochs=(1,)))[0][:, 0].copy())
+
+
+def rehearse_vb() -> int:
+    """The ``--vb`` check of the module docstring."""
+    from smcsmc_tpu_torch.kernels.bias import BiasedPass
+    from smcsmc_tpu_torch.kernels.trip import disagreement, segment_pass_plain
+
+    new = build((ROOT / SOURCE).read_text(), "tree")
+    failed = 0
+    for j, c in enumerate(cases()[::5]):
+        st, f = case(seed=300 + j, **c)
+        vb = vb_table(f["E"], j)
+        for biased in (True, False):
+            zero = run(new, st, f, biased, torch.zeros_like(vb))
+            bad = differing(zero, run(new, st, f, biased))
+            got = run(new, st, f, biased, vb)
+            ref = {k: v.clone() for k, v in st.items()}
+            b = (BiasedPass(ref["log_pilot"], ref["df_pos"], ref["df_logf"],
+                            ref["df_delta"], ref["df_k"], f["heights"],
+                            f["strengths"], f["delays"], f["front"],
+                            ("recomb", "coal")[f["delay_type"]], f["delay_k"])
+                 if biased else None)
+            segment_pass_plain(
+                f["u"], f["ls"], *(ref[k] for k in cs.SEGMENT_STATE),
+                ref["fifo"], f["mask"], ref["tl"], f["L"], cs.MU, cs.RHO,
+                f["start"], f["inv2ne"], f["hd"], b,
+                vb=(vb[:, None], torch.zeros((f["E"], 1, 1))))
+            keys = cs.SEGMENT_STATE + (("log_pilot", "df_pos", "df_logf",
+                                        "df_delta", "df_k") if biased else ())
+            res = [{**{k: x[k] for k in keys}, "tl": x["tl"],
+                    "pending": x["fifo"][:, 0]} for x in (got, ref)]
+            trees, floats, errs = disagreement(*res, f["L"], cs.MU, 1e-4)
+            moved = float((got["log_w"] - zero["log_w"]).abs().max())
+            good = (not bad and not trees.any() and not floats.any()
+                    and moved > 1e-3)
+            print(f"vb {'biased' if biased else 'plain'} {c}: zero tables "
+                  f"{'bit for bit' if not bad else f'DIFFER in {bad}'}; vs "
+                  f"plain version {int(trees.sum())} trees, "
+                  f"{int(floats.sum())} floats apart (log_w moved by "
+                  f"{moved:.3g}) -> {'ok' if good else 'FAIL'}", flush=True)
+            failed += not good
+    print(f"{failed} of the VB cases fail")
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", default="HEAD")
     ap.add_argument("--quick", action="store_true")
+    ap.add_argument("--vb", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
+    if args.vb:
+        return rehearse_vb()
     old = subprocess.run(["git", "show", f"{args.against}:{SOURCE}"],
                          cwd=ROOT, capture_output=True, text=True,
                          check=True).stdout
