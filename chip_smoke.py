@@ -70,14 +70,14 @@ Phases, each fatal on failure:
    through ``save_state``/``load_state`` at half way into a sweep set up
    from another seed: log-likelihood and committed statistics bit for
    bit;
-8. profile 200 steady segments of both sweeps with torch.profiler
+8. profile 100 steady segments of both sweeps with torch.profiler
    (smcsmc_tpu_torch.sweep_profile): device busy share, launches per
    segment, kernel time per launch, top device operations;
 9. the biased path: the whole-genome data through the same entry point
    with the production proposal, ``-segs a.seg b.seg -chunks 4 -Np 10000
-   -EM 1 -P 133 133016 "31*1" -record_ess -seed 7 -bias_heights 0 0.05
-   -calibrate_lag 2``: the biased ``segment_pass`` once per segment of
-   each E-step, the plain one and the plain versions never, ``trip`` as
+   -EM 0 -P 133 133016 "31*1" -record_ess -seed 7 -bias_heights 0 0.05
+   -calibrate_lag 2``: the biased ``segment_pass``
+   once per segment, the plain one and the plain versions never, ``trip`` as
    often as the lag calibration pre-passes report (more than 0); the
    auto-calibrated bias strengths and the calibrated lags logged; the
    genome path's result check; E-step updates/s and the LogL of each
@@ -137,8 +137,9 @@ Phases, each fatal on failure:
    migration pass's trees and buffers bit for bit, and the VB terms
    moving log_w.  Each VB variant timed beside its pass in 4 and 10
    (without the trip ladder).  Then bench.py's feature_vb: the main path's
-   command with ``-vb -EM 2``: the VB plain pass once per segment of each
-   E-step, nothing else; iteration 2's estimates checked as in 6;
+   command with ``-vb -EM 1``: the VB plain pass
+   once per segment of each E-step, nothing else; iteration 1's estimates
+   checked as in 6;
    iteration 0's LogL within 1e-4 relative of the main path's, iteration
    1's different; a sweep profile.  The biased and the twopop path's
    profiles run once more with ``vb=True``, so that their VB variants run
@@ -156,10 +157,35 @@ Phases, each fatal on failure:
    segment, estimates as in 6; profiles with and without the APF;
    ``lookahead_loglik`` alone at n=8.
 
+14. The recombination guide and local recording: the guided biased pass
+   (``segment_pass(..., guide=...)``), the local plain and biased passes
+   (``local=...``), the guided local pass and the VB variant of each,
+   compared in phase 3 with their plain versions on a guide that is not
+   constant and a ring of pending events 30% in use (``compare_guide``:
+   each at the main path's shape at leaf status 1 and 0, one trip and 64;
+   the local biased passes with every ring full at the genome shape; the
+   guided local pass at the biased pass's caps corner; the VB variants at
+   one trip), rings held too (bitmasks and drops exactly); each timed in
+   phase 4 at the main path's shape beside the pass it is a variant of
+   (the biased pass is timed there too), its bound counted from its own
+   trips.  Then bench.py's feature_bias_guide, the main path's command
+   with ``-bias_heights 0 0.01 -bias_strengths 2 1 -guide`` (a constant
+   guide as bench.py writes it) ``-EM 0``: the guided pass once per
+   segment, nothing else, estimates as in 6, a profile; and the guide
+   loop, the main path's command with ``-alpha 0.5 -EM 1``: the local
+   plain pass once per segment of iteration 0, the guided local pass
+   (iteration 1 on the smoothed guide) once per segment of iteration 1,
+   estimates as in 6, each ``.recomb.gz`` of 20,000 windows with its
+   summed opportunity and leaf counts within ``RECOMB_OPP_VS_OUT`` and
+   ``RECOMB_CNT_VS_OUT`` of the ``.out``'s, profiles of both iterations;
+   the local biased pass and the four VB variants in short sweeps of
+   their own without the profiler (``variant_sweeps``); the local
+   recording's torch ops alone (``local_ops_cost``).
+
 The line before the last is a JSON object with each kernel's build/compare/
-time record (the VB variants as kernels of their own) and the new paths'
-updates/s, launches and device ms per segment (``feature_paths``); the
-last line is {"ok": true, "device": {...}}.  Without a
+time record (the VB, guided and local variants as kernels of their own)
+and the new paths' updates/s, launches and device ms per segment
+(``feature_paths``); the last line is {"ok": true, "device": {...}}.  Without a
 CUDA device the script exits non-zero and prints no result.
 """
 
@@ -193,6 +219,10 @@ GENOME_POOLED_WITHIN = 0.25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FIFO_SLOTS = 4  # PFConfig.fifo_slots, the sweep's lag FIFO depth
+# the segments of every sweep profile: warmed, timed without the profiler,
+# profiled (sweep_profile's defaults are 100, 300 and 200; half of them
+# keeps the whole script well inside its time limit on a slow host)
+PROFILE_WINDOW = dict(warm=50, timed=150, profiled=100)
 DEVICE = "cuda"  # where the entry points are driven
 
 
@@ -255,6 +285,38 @@ LAUNCH_COUNTS = {"segment_pass": "launches", BIASED_PASS: "biased_launches",
                  VB_PASS: "vb_launches", BIASED_VB_PASS: "biased_vb_launches",
                  MIGRATION_VB_PASS: "migration_vb_launches"}
 XC_EPOCH = 1  # the -xc epoch of the VB tables compared and timed
+
+# the recombination guide and local recording: the guided biased pass, the
+# local plain and biased passes, each with its VB variant; by name its
+# flags (biased, guide, local) and the pass whose variant it is
+GUIDE_PASS = "segment_pass (biased, guide)"
+GUIDE_LOCAL_PASS = "segment_pass (biased, guide, local)"
+BIASED_LOCAL_PASS = "segment_pass (biased, local)"
+LOCAL_PASS = "segment_pass (local)"
+GUIDE_PASSES = {GUIDE_PASS: ((True, True, False), BIASED_PASS),
+                GUIDE_LOCAL_PASS: ((True, True, True), BIASED_PASS),
+                BIASED_LOCAL_PASS: ((True, False, True), BIASED_PASS),
+                LOCAL_PASS: ((False, False, True), "segment_pass")}
+
+
+def vb_name(name: str) -> str:
+    """The name of a pass's VB variant."""
+    return name[:-1] + ", vb)"
+
+
+GUIDE_PASSES.update({vb_name(k): (flags, vb_name(parent) if parent !=
+                                  "segment_pass" else VB_PASS)
+                     for k, (flags, parent) in GUIDE_PASSES.items()})
+for _name, ((_b, _g, _l), _) in GUIDE_PASSES.items():
+    LAUNCH_COUNTS[_name] = ("biased_" if _b else "") + ("guide_" if _g else "") \
+        + ("local_" if _l else "") + ("vb_" if "vb" in _name else "") \
+        + "launches"
+GUIDE_WINDOW = 100.0  # EMConfig.guide_interval, bp
+LOCAL_SLOTS = 32  # PFConfig.local_ring
+# bench.py's feature_bias_guide: -bias_heights 0 0.01 (400 generations)
+# -bias_strengths 2 1, with a constant guide
+BIAS_GUIDE_FLAGS = ["-bias_heights", "0", "0.01", "-bias_strengths", "2",
+                    "1"]
 
 
 class MigCase:
@@ -505,6 +567,211 @@ class Case:
         return st
 
 
+# A guide's rates change from one window of 100 bp to the next only at its
+# change points.  One that changes in every window (the one-trip cases'
+# guide) makes every event within rounding of a window's edge take the next
+# window's leaf rates; on a chain of trips the kernel and its plain
+# version, whose positions differ in their last bits (the tree length is
+# summed in another order), then part at such edges: 11 of 10,000
+# particles over about 9 trips each at the genome shape (a probe on the
+# card, NVIDIA H100 80GB HBM3, 700 W), against the 0.1% that chains of
+# trips are allowed.  A smoothed guide changes at a few points per Mb, so
+# the 64-trip cases take rates constant over rows of this many windows.
+GUIDE_CHAIN_ROWS = 50
+
+
+def _guide_of(c, rows=1):
+    """A guide that is not constant over case ``c``'s windows: random rates
+    around rho and random leaf rates, drawn per row of ``rows`` windows of
+    100 bp over [0, front + 2L); on the card, drawn once per case."""
+    import numpy as np
+
+    from smcsmc_tpu_torch.kernels.guide import guide_tables
+
+    if getattr(c, "_guide_rows", None) != rows:
+        rng = np.random.default_rng(c.P + c.E)
+        W = int(np.ceil((BIAS_FRONT + 2 * c.L) / GUIDE_WINDOW))
+        nrow = -(-W // rows)
+        rate = np.repeat(RHO * rng.uniform(0.2, 3.0, nrow), rows)[:W]
+        leaf = np.repeat(rng.uniform(0.3, 2.0, (nrow, c.n)), rows,
+                         axis=0)[:W]
+        c._guide = guide_tables(rate, leaf, RHO, GUIDE_WINDOW, "cuda")
+        c._guide_rows = rows
+    return c._guide
+
+
+def _fresh_new(c, name, full=False, heights=BIAS_HEIGHTS,
+               strengths=BIAS_STRENGTHS):
+    """State of case ``c`` for the guided or local pass ``name``: the
+    plain or biased pass's, with a ring of pending local events (30% of the
+    slots in use, the first 16 rings full, or every ring with ``full``;
+    positions before the front, due from the front to two segments on)
+    drawn at the first call, and the output of the segment's
+    opportunity."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.tree import INF
+
+    (biased, _, local), _ = GUIDE_PASSES[name]
+    st = (c.fresh_biased(full, heights, strengths) if biased
+          else c.fresh_segment())
+    if local:
+        if not hasattr(c, "lring"):
+            P, R, dev = c.P, LOCAL_SLOTS, "cuda"
+            used = torch.rand((P, R), generator=c.gen, device=dev) < 0.3
+            used[:16] = True
+            if full:
+                used[:] = True
+            pos = BIAS_FRONT - 2e4 * torch.rand((P, R), generator=c.gen,
+                                                device=dev)
+            c.lring = dict(
+                lr_pos=torch.where(used, pos, INF),
+                lr_due=torch.where(used, pos + 2e4 + 2 * c.L * torch.rand(
+                    (P, R), generator=c.gen, device=dev), INF),
+                lr_time=torch.where(used, 5e4 * torch.rand(
+                    (P, R), generator=c.gen, device=dev), 0.0),
+                lr_desc=torch.where(used, torch.randint(
+                    1, 1 << c.n, (P, R), generator=c.gen, device=dev), 0),
+                lr_dropped=torch.zeros((), dtype=torch.int32, device=dev))
+            c.lags = torch.linspace(2000.0, 40000.0, c.E, device=dev)
+        st.update({k: v.clone() for k, v in c.lring.items()})
+        st["ropp"] = torch.zeros(c.P, device="cuda")
+    return st
+
+
+def _run_new(c, fn, u, st, name, vb=None, rows=1):
+    """The guided or local pass ``name`` (``fn``: the wrapper or its plain
+    version) on case ``c``'s state ``st``, a guide's rates constant over
+    ``rows`` windows."""
+    from smcsmc_tpu_torch.kernels.bias import BiasedPass
+    from smcsmc_tpu_torch.kernels.local import LocalPass
+
+    (biased, guide, local), _ = GUIDE_PASSES[name]
+    b = (BiasedPass(st["log_pilot"], st["df_pos"], st["df_logf"],
+                    st["df_delta"], st["df_k"], *c.bias_tables, BIAS_FRONT)
+         if biased else None)
+    lp = (LocalPass(st["lr_pos"], st["lr_due"], st["lr_time"],
+                    st["lr_desc"], st["lr_dropped"], c.lags, st["ropp"],
+                    BIAS_FRONT) if local else None)
+    fn(u, c.leaf_status, *(st[k] for k in SEGMENT_STATE), st["fifo"],
+       c.fifo_mask, st["tl"], c.L, MU, RHO, c.start, c.inv2ne, c.has_data,
+       b, vb=vb, guide=_guide_of(c, rows) if guide else None, local=lp)
+    return st
+
+
+LOCAL_FIELDS = ("lr_pos", "lr_due", "lr_time", "lr_desc", "ropp")
+
+
+def _ring_apart(got, ref, agree, L, tol):
+    """The local ring's fields of two runs that differ on the particles in
+    ``agree``: slots in use, positions and due positions (to the positions'
+    tolerance), heights (a node height's), bitmasks exactly, the segment's
+    opportunity (the FIFO's recombination opportunity's)."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.tree import INF
+
+    apart = []
+    if not torch.equal((got["lr_pos"] < INF)[agree],
+                       (ref["lr_pos"] < INF)[agree]):
+        apart.append("slots in use")
+    for k, atol in (("lr_pos", tol["next_rec"]), ("lr_due", tol["next_rec"]),
+                    ("lr_time", tol["time"]), ("ropp", tol["ropp"])):
+        a, b = got[k][agree].double(), ref[k][agree].double()
+        if not bool(((a - b).abs() <= RTOL * b.abs() + atol).all()):
+            apart.append(k)
+    if not torch.equal(got["lr_desc"][agree], ref["lr_desc"][agree]):
+        apart.append("lr_desc")
+    return apart
+
+
+def guide_cases():
+    """The guided and local passes' cases: (pass, label, (P, n, E), leaf
+    status, ring and section options, trips): each pass at the main
+    path's shape at leaf status 1 and 0, one trip and 64 on the longest
+    segment; the local biased passes with every ring full at the genome
+    shape; the guided local pass at the biased pass's caps corner; each
+    VB variant at one trip."""
+    out = []
+    for name in (GUIDE_PASS, GUIDE_LOCAL_PASS, BIASED_LOCAL_PASS,
+                 LOCAL_PASS):
+        for ls in (1, 0):
+            out += [(name, "", (10000, 4, 9), ls, {}, T) for T in (1, 64)]
+        out.append((vb_name(name), "", (10000, 4, 9), 1, {}, 1))
+    for name in (GUIDE_LOCAL_PASS, BIASED_LOCAL_PASS, LOCAL_PASS):
+        out += [(name, " every ring full", (GENOME_P, 8, 33), 1,
+                 dict(full=True), T) for T in (1, 64)]
+    out.append((GUIDE_LOCAL_PASS, " caps corner (8 sections)",
+                (CAPS_P, 8, 64), 1, dict(heights=BIAS_CAPS_HEIGHTS,
+                                         strengths=BIAS_CAPS_STRENGTHS), 1))
+    return out
+
+
+def compare_guide(segment_pass, segment_pass_plain, tallies):
+    """Each guided and local pass against its plain version on identical
+    inputs (a guide that is not constant, a ring 30% in use or full): one
+    trip with no tree mismatch, every float within tolerance and the
+    rings' contents equal (bitmasks and drops exactly, positions,
+    heights and the segment's opportunity within their tolerances), on a
+    guide that changes in every window; 64 trips with at most 0.1% of the
+    particles apart and the rings equal on the others, on a guide that
+    changes every ``GUIDE_CHAIN_ROWS`` windows.  The comparisons must push events, and with full rings
+    drop them."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.trip import disagreement, float_tolerances
+
+    for name in GUIDE_PASSES:
+        tallies[name] = (Tally(), Tally())
+    ok = True
+    for name, label, (P, n, E), ls, ring, T in guide_cases():
+        L, nr_scale = ((20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1))
+        c = Case(P, n, E, ls, L=L, nr_scale=nr_scale,
+                 seed=23 * P + T + ls + len(label) + len(name))
+        vb = vb_tables(c.demo, T + ls) if "vb" in name else None
+        u = c.uniforms(T)
+        rows = 1 if T == 1 else GUIDE_CHAIN_ROWS
+        sts = [_run_new(c, fn, u, _fresh_new(c, name, **ring), name, vb,
+                        rows) for fn in (segment_pass, segment_pass_plain)]
+        torch.cuda.synchronize()
+        got, ref = (c.segment_result({k: v for k, v in st.items()
+                                      if k not in LOCAL_FIELDS
+                                      and k != "lr_dropped"})
+                    for st in sts)
+        trees, floats, errs = disagreement(got, ref, c.L, MU, RTOL)
+        agree = ~(trees | floats)
+        local = GUIDE_PASSES[name][0][2]
+        ring_note = ""
+        if local:
+            tol = float_tolerances(ref, c.L, MU)
+            tol["ropp"] = float(tol["pending"][4 * E])
+            apart = _ring_apart(sts[0], sts[1], agree, c.L, tol)
+            drops = [int(st["lr_dropped"]) for st in sts]
+            pushed = int((sts[1]["lr_pos"] != c.lring["lr_pos"]).sum())
+            if T == 1 and drops[0] != drops[1]:
+                apart.append("drops")
+            if pushed == 0 and not ring.get("full"):
+                apart.append("no event pushed")
+            if ring.get("full") and drops[1] == 0:
+                apart.append("no event dropped on full rings")
+            ring_note = (f"; ring {'equal' if not apart else apart} "
+                         f"({pushed} slots pushed, dropped {drops[0]} / "
+                         f"{drops[1]})")
+        else:
+            apart = []
+        if T == 1:
+            good = int(trees.sum()) == 0 and int(floats.sum()) == 0
+        else:
+            good = int((trees | floats).sum()) <= (1.0 - MATCH_MIN) * P
+        good &= not apart
+        tallies[name][T > 1].add(trees, floats, errs)
+        _report(f"{name}{label} P={P} n={n} E={E} leaf_status={ls} "
+                f"trips={T}" + (" vs plain" if T > 1 else "") + ring_note,
+                P, trees, floats, errs, good)
+        ok &= good
+    return ok
+
+
 class Tally:
     """Worst errors over one kind of comparison, for the kernels line."""
 
@@ -631,6 +898,7 @@ def phase_compare(kernels):
             ok &= good
     ok &= compare_migration(segment_pass, segment_pass_plain, tallies)
     ok &= compare_vb(segment_pass, segment_pass_plain, tallies)
+    ok &= compare_guide(segment_pass, segment_pass_plain, tallies)
     if not ok:
         raise SystemExit("kernel and plain version disagree beyond tolerance")
     return tallies
@@ -974,12 +1242,36 @@ def _with_vb(bound, E, Pp, trips):
                      bound["flop"] + trips)
 
 
-def phase_time(kernels, shape, seg_lengths, biased=False, vb=False):
+def _guide_bound(bound, c, active, trips, name):
+    """A guided or local pass's bound: its parent's (at this variant's
+    trips) plus, under the guide, per trip the mass table's search (15
+    entries), four mass lookups (two words each) and the n leaf rates read,
+    the branch rates merged and ranked and the segments weighed once more;
+    with local recording the lags, per recombining particle its ring's
+    positions read, per trip an event written (20 B) and the cut branch's
+    leaves found, and every particle's opportunity written."""
+    (_, guide, local), _ = GUIDE_PASSES[name]
+    N, E, n, S = 2 * c.n - 1, c.E, c.n, len(BIAS_STRENGTHS)
+    nbytes, flop = bound["bytes"], bound["flop"]
+    if guide:
+        nbytes += trips * 4 * (15 + 8 + n)
+        flop += trips * (3 * n + n * n + 2 * N * S + 40)
+    if local:
+        nbytes += 4 * E + active * 4 * LOCAL_SLOTS + trips * 20 + 4 * c.P
+        flop += trips * (N + 10) + c.P * E
+    return _bound_of(nbytes, flop)
+
+
+def phase_time(kernels, shape, seg_lengths, biased=False, vb=False,
+               guide=False):
     """Times of both entry points (and, with ``biased``, of the biased
     pass; with ``vb``, of the VB variant of the segment pass and, with
     ``biased`` too, of the biased one, without the trip ladder, on the
-    first segment length alone) at ``shape`` (P, n, E) for each (label,
-    segment length); see the module docstring."""
+    first segment length alone; with ``guide`` (and ``biased``), of the
+    guided and local passes without the ladder, their VB variants on the
+    first segment length alone, on a guide that is not constant and a ring
+    30% in use) at ``shape`` (P, n, E) for each (label, segment length);
+    see the module docstring."""
     P, n, E = shape
     filler = _filler()
     rows = {}
@@ -1006,6 +1298,42 @@ def phase_time(kernels, shape, seg_lengths, biased=False, vb=False):
             moved = int(sum((st[k] != c.ring[k]) for k in (
                 "df_pos", "df_logf", "df_delta", "df_k")).gt(0).sum())
         bounds = _bounds(c, active, trips, pushed, moved)
+        if guide:
+            # counted work of each guided and local pass on this run's
+            # inputs: its trips (a local pass pushes or drops one event per
+            # trip; the guided pass takes the guided local pass's trips),
+            # the statistics it pushes and the ring slots it changes
+            counted = {}
+            for name in (GUIDE_LOCAL_PASS, GUIDE_PASS, BIASED_LOCAL_PASS,
+                         LOCAL_PASS):
+                (b_, _, local), parent = GUIDE_PASSES[name]
+                st = _run_new(c, kernels["segment_pass"][0], u,
+                              _fresh_new(c, name), name)
+                n_trips = (int((st["lr_pos"] != c.lring["lr_pos"]).sum())
+                           + int(st["lr_dropped"]) if local
+                           else counted[GUIDE_LOCAL_PASS])
+                counted[name] = n_trips
+                mv = (int(sum((st[k] != c.ring[k]) for k in (
+                    "df_pos", "df_logf", "df_delta", "df_k")).gt(0).sum())
+                    if b_ else 0)
+                base = _bounds(c, active, n_trips,
+                               int((st["fifo"][:, 0] != 0).sum()),
+                               mv)[BIASED_PASS if b_ else "segment_pass"]
+                bounds[name] = _guide_bound(base, c, active, n_trips, name)
+                makers[name] = (lambda name=name: _fresh_new(c, name),
+                                lambda fn, u, st, name=name:
+                                _run_new(c, fn, u, st, name))
+                entries.append((name, *kernels["segment_pass"]))
+                if vb and label == seg_lengths[0][0]:
+                    tables = vb_tables(c.demo, 5)
+                    vname = vb_name(name)
+                    makers[vname] = (makers[name][0],
+                                     lambda fn, u, st, name=name, t=tables:
+                                     _run_new(c, fn, u, st, name, t))
+                    entries.append((vname, *kernels["segment_pass"]))
+                    bounds[vname] = _with_vb(bounds[name], E, 1, n_trips)
+            _log(f"time {label}: trips of the guided and local passes "
+                 f"{counted}")
         if vb and label == seg_lengths[0][0]:  # the mean segment only
             tables = vb_tables(c.demo, 5)
             vb_entries = [(VB_PASS, "segment_pass")] + (
@@ -1038,7 +1366,8 @@ def phase_time(kernels, shape, seg_lengths, biased=False, vb=False):
 
             # what a launch costs before any trip, and per trip allowed
             ladder = {}
-            if name not in (VB_PASS, BIASED_VB_PASS):
+            if name not in (VB_PASS, BIASED_VB_PASS) \
+                    and name not in GUIDE_PASSES:
                 ladder["no trips"] = _best_device_ms(launch, idle, filler)
                 for T in (1, 2, 4):
                     ladder[f"trips<={T}"] = _best_device_ms(
@@ -1422,7 +1751,7 @@ def _profile(card, label, demo, seg, P, **options):
     from smcsmc_tpu_torch.sweep_profile import profile_sweep, report_lines
 
     reset_counts()
-    rep = profile_sweep(demo, seg, P, DEVICE, **options)
+    rep = profile_sweep(demo, seg, P, DEVICE, **PROFILE_WINDOW, **options)
     launches = read_counts()
     _log(f"{label} sweep profile on {card}: launches {launches}")
     for ln in report_lines(rep):
@@ -1432,17 +1761,18 @@ def _profile(card, label, demo, seg, P, **options):
 
 def phase_vb_path(card, seg, main_steps):
     """bench.py's feature_vb through smcsmc_main: the main path's command
-    with ``-vb -EM 2``, so that iterations 1 and 2 use the tables of the
-    counts before them.  The VB variant of the plain pass once per segment
-    of each E-step, no other pass and no plain version; the estimates of
-    iteration 2 checked as the main path's; iteration 0's LogL within 1e-4
+    with ``-vb -EM 1``, so that iteration 1 uses the tables of the counts
+    before it.
+    The VB variant of the plain pass once per segment of each E-step, no
+    other pass and no plain version; the estimates of iteration 1 checked
+    as the main path's; iteration 0's LogL within 1e-4
     relative of the main path's (its tables, from counts of 1e10, add about
     -5e-11 per event), iteration 1's different from the main path's.
     Returns (launches, E-step records, profile, profile launches)."""
     from smcsmc_tpu_torch.segio import write_seg
     from smcsmc_tpu_torch.sweep_profile import bench_data
 
-    P, em_iters = 10000, 2
+    P, em_iters = 10000, 1
     with tempfile.TemporaryDirectory() as tmp:
         seg_path = os.path.join(tmp, "bench.seg")
         write_seg(seg_path, seg)
@@ -1511,6 +1841,287 @@ def phase_apf_path(card, seg, main_resample):
     demo, seg = bench_data()
     rep, _ = _profile(card, "APF path", demo, seg, P, apf=2)
     return launches, steps, rep
+
+
+# The alpha path's .recomb.gz against its .out: the windows' summed
+# opportunity is the segments' ungated opportunity weighted at each
+# segment's end, the summed leaf counts are the events weighted a lag later
+# (less the events dropped on full rings of 32 slots, a fifth of them on
+# this data); the .out's Recomb Opp and Count come through the lagged FIFO
+# behind the recording gate.  So they agree only roughly.  The JAX
+# package's own runs of this command on the CPU (smcsmc_tpu.cli -Np 500
+# -EM 1 -alpha 0.5, seeds 7-10) gave .recomb.gz / .out - 1 of -0.1% to
+# +4.6% for the opportunity and -25.1% to -3.1% for the leaf counts
+# (iterations 0 and 1); the tolerances are twice the largest, rounded up.
+RECOMB_OPP_VS_OUT = 0.10
+RECOMB_CNT_VS_OUT = 0.55
+
+
+def recomb_totals(path):
+    """(windows, summed opportunity, summed leaf counts) of a .recomb.gz:
+    each window's opportunity and leaf counts per nt times its size."""
+    import gzip
+
+    with gzip.open(path, "rt") as fh:
+        header = fh.readline().rstrip("\n").split("\t")
+        n = sum(1 for col in header if col.isdigit())
+        rows, opp, cnt = 0, 0.0, 0.0
+        for ln in fh:
+            e = ln.rstrip("\n").split("\t")
+            size = float(e[2])
+            opp += float(e[3]) * size
+            cnt += sum(float(x) for x in e[4:4 + n]) * size
+            rows += 1
+    return rows, opp, cnt
+
+
+def write_constant_guide(path, demo):
+    """bench.py's synthetic constant guide (sweep_profile's)."""
+    from smcsmc_tpu_torch.sweep_profile import write_constant_guide as w
+
+    return w(path, demo)
+
+
+def phase_bias_guide_path(card, seg):
+    """bench.py's feature_bias_guide through smcsmc_main: the main path's
+    command with ``-bias_heights 0 0.01 -bias_strengths 2 1 -guide
+    g.recomb_guide.gz -EM 0`` (a constant guide written as bench.py writes
+    it).  The guided biased pass once per segment, no other pass, no
+    ``trip`` and no plain version; estimates checked as the main path's; a
+    sweep profile.  Returns (launches, E-step records, profile)."""
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.sweep_profile import BIAS_GUIDE_OPTIONS, bench_data
+
+    P = 10000
+    demo, _ = bench_data()
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "bench.seg")
+        write_seg(seg_path, seg)
+        out = os.path.join(tmp, "out")
+        guide = write_constant_guide(os.path.join(tmp, "g.recomb_guide.gz"),
+                                     demo)
+        argv = (_main_argv(seg_path, out, 0) + BIAS_GUIDE_FLAGS
+                + ["-guide", guide])
+        launches, plain, steps, _, wall = _run_cli(argv)
+        rows = _read_out(os.path.join(out, "result.out"), 0)
+        _log(f"bias-guide path: smc2-torch -Np {P} -EM 0 "
+             f"{' '.join(BIAS_GUIDE_FLAGS)} -guide (constant) ran in "
+             f"{wall:.2f} s wall; kernel launches {launches}; calls of the "
+             f"plain versions {plain}; LogL {[r.args[4] for r in steps]!r}")
+        _log_esteps(steps, P, card)
+        problems = []
+        _check_estimates(rows, 0, problems)
+        _check_launches(launches, plain, sum(r.args[2] for r in steps),
+                        problems, "bias-guide path", GUIDE_PASS)
+        if problems:
+            raise SystemExit("bias-guide path checks failed: "
+                             + "; ".join(problems))
+        _log("bias-guide path checks: ok")
+        rep, _ = _profile(card, "bias-guide path", demo, seg, P,
+                          guide_file=guide, **BIAS_GUIDE_OPTIONS)
+    return launches, steps, rep
+
+
+def phase_alpha_path(card, seg):
+    """The guide loop through smcsmc_main: the main path's command with
+    ``-alpha 0.5 -EM 1``.  Iteration 0 records its windows with the local
+    plain pass, once per segment; iteration 1 smooths them into
+    ``emiter1/chunk0.recomb_guide.gz`` and sweeps on it with the guided
+    local pass (one section of strength 1: no height bias), once per
+    segment; nothing else, no ``trip``, no plain version.  Each
+    iteration's estimates checked as the main path's; each ``.recomb.gz``
+    of 20,000 windows, its summed opportunity and leaf counts within
+    ``RECOMB_OPP_VS_OUT`` and ``RECOMB_CNT_VS_OUT`` of the ``.out``'s
+    Recomb Opp and Count; the log
+    names iteration 1's guide.  Then sweep profiles of iteration 0's setup
+    and of iteration 1's (on the smoothed guide).  Returns (launches,
+    E-step records, profiles, the windows' totals)."""
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.sweep_profile import bench_data
+
+    P, em_iters = 10000, 1
+    demo, _ = bench_data()
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "bench.seg")
+        write_seg(seg_path, seg)
+        out = os.path.join(tmp, "out")
+        argv = _main_argv(seg_path, out, em_iters) + ["-alpha", "0.5"]
+        launches, plain, steps, records, wall = _run_cli(argv)
+        guide = os.path.join(out, "emiter1", "chunk0.recomb_guide.gz")
+        totals = {}
+        for it in range(em_iters + 1):
+            rows = _read_out(os.path.join(out, "result.out"), it)
+            _check_estimates(rows, it, problems)
+            recomb = [r for r in rows if r["Type"] == "Recomb"][0]
+            windows, opp, cnt = recomb_totals(os.path.join(
+                out, f"emiter{it}", "chunk0.recomb.gz"))
+            ratio = (opp / float(recomb["Opp"]), cnt / float(recomb["Count"]))
+            totals[it] = {"windows": windows, "opp": opp, "count": cnt,
+                          "out_opp": float(recomb["Opp"]),
+                          "out_count": float(recomb["Count"]),
+                          "ratio": ratio}
+            _log(f"alpha path iteration {it}: .recomb.gz {windows} windows, "
+                 f"opportunity {opp:.6g} and leaf counts {cnt:.6g} against "
+                 f"the .out's Recomb Opp {recomb['Opp']} and Count "
+                 f"{recomb['Count']}: ratios {ratio[0]:.4f} {ratio[1]:.4f}")
+            if windows != 20000:
+                problems.append(f"iteration {it}'s .recomb.gz has {windows} "
+                                "windows")
+            if (abs(ratio[0] - 1.0) > RECOMB_OPP_VS_OUT
+                    or abs(ratio[1] - 1.0) > RECOMB_CNT_VS_OUT):
+                problems.append(f"iteration {it}'s .recomb.gz totals are "
+                                f"{ratio} of the .out's")
+        read = [r for r in records if "guide" in r.getMessage()
+                and r.getMessage().startswith("iteration 1")]
+        if not os.path.exists(guide) or not read:
+            problems.append("iteration 1 did not read a smoothed guide")
+        segs = [r.args[2] for r in steps]
+        _log(f"alpha path: smc2-torch -Np {P} -EM {em_iters} -alpha 0.5 ran "
+             f"in {wall:.2f} s wall; kernel launches {launches}; calls of "
+             f"the plain versions {plain}; LogL {[r.args[4] for r in steps]!r}"
+             f"; {read[0].getMessage() if read else 'no guide read'}")
+        _log_esteps(steps, P, card)
+        want = {LOCAL_PASS: segs[0], GUIDE_LOCAL_PASS: segs[1]}
+        for name, n in launches.items():
+            if n != want.get(name, 0):
+                problems.append(f"{name} launched {n} times on the alpha "
+                                f"path (want {want.get(name, 0)})")
+        if any(plain.values()):
+            problems.append(f"the alpha path ran a plain version: {plain}")
+        if problems:
+            raise SystemExit("alpha path checks failed: "
+                             + "; ".join(problems))
+        _log("alpha path checks: ok")
+        rep0, _ = _profile(card, "alpha path (iteration 0: recording)", demo,
+                           seg, P, alpha=0.5)
+        rep1, _ = _profile(card, "alpha path (iteration 1: guided, "
+                           "recording)", demo, seg, P, alpha=0.5,
+                           guide_file=guide)
+    return launches, steps, (rep0, rep1), totals
+
+
+def variant_sweeps(card, segments=60):
+    """Each guided or local pass that neither path of the slice runs,
+    driven over the first ``segments`` segments of the main path's data
+    at P=10,000, without the profiler (their counts set to 0 before and
+    read after; each must launch once per segment, and no other pass):
+    the local biased pass (-alpha with feature_bias_guide's bias), and the
+    VB variants of the four.  Returns {pass: launches}."""
+    import tempfile as _tf
+
+    import torch
+
+    from smcsmc_tpu_torch.em import EMConfig, start_sweep
+    from smcsmc_tpu_torch.sweep_profile import BIAS_GUIDE_OPTIONS, bench_data
+
+    demo, seg = bench_data()
+    out = {}
+    with _tf.TemporaryDirectory() as tmp:
+        guide = write_constant_guide(os.path.join(tmp, "g.recomb_guide.gz"),
+                                     demo)
+        runs = {BIASED_LOCAL_PASS: dict(alpha=0.5, **BIAS_GUIDE_OPTIONS)}
+        for name, opts in ((GUIDE_PASS, dict(guide_file=guide,
+                                             **BIAS_GUIDE_OPTIONS)),
+                           (GUIDE_LOCAL_PASS, dict(guide_file=guide,
+                                                   alpha=0.5)),
+                           (BIASED_LOCAL_PASS, runs[BIASED_LOCAL_PASS]),
+                           (LOCAL_PASS, dict(alpha=0.5))):
+            runs[vb_name(name)] = dict(opts, vb=True)
+        for name, opts in runs.items():
+            opts = dict(opts)
+            gfile = opts.pop("guide_file", None)
+            reset_counts()
+            state, segs, step, _, _ = start_sweep(
+                demo, seg, EMConfig(num_particles=10000, device=DEVICE,
+                                    **opts), seed=7, guide_file=gfile)
+            for k in range(segments):
+                state, _ = step(state, segs[k])
+            torch.cuda.synchronize()
+            n = read_counts()
+            out[name] = n[name]
+            others = {k: v for k, v in n.items() if v and k != name}
+            _log(f"variant sweep {name} on {card}: {n[name]} launches over "
+                 f"{segments} segments"
+                 + (f"; others launched {others}" if others else ""))
+            if n[name] != segments or others:
+                raise SystemExit(f"the sweep of {name} launched {n}")
+    return out
+
+
+def local_ops_cost(card, P=10000, calls=50, W=20000, R=LOCAL_SLOTS, n=4):
+    """The torch ops of local recording alone at the alpha path's shape
+    (P=10,000, a ring of 32 slots about 15% in use, a tenth of the events
+    due, 20,000 windows, n=4): ``add_window_opportunity`` over a segment of
+    1,491 bp (the main path's mean) and ``commit_due_local``, each
+    ``calls`` times under torch.profiler on fresh rings: launches and device
+    us per call, and each one's bound (ring, weights and opportunities read
+    once, the windows touched written once)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smcsmc_tpu_torch.kernels.local import (
+        add_window_opportunity,
+        commit_due_local,
+    )
+    from smcsmc_tpu_torch.kernels.tree import INF
+    from smcsmc_tpu_torch.sweep_profile import _LAUNCH_CALLS
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    dev = "cuda"
+    front = 1e6
+    used = torch.rand((P, R), generator=g, device=dev) < 0.15
+    pos = front - 3e4 * torch.rand((P, R), generator=g, device=dev)
+    due = torch.where(torch.rand((P, R), generator=g, device=dev) < 0.1,
+                      front - 1.0, front + 1e4)
+    ring = [torch.where(used, pos, INF), torch.where(used, due, INF),
+            torch.where(used, 1e4 * torch.rand((P, R), generator=g,
+                                               device=dev), 0.0),
+            torch.where(used, torch.randint(1, 16, (P, R), generator=g,
+                                            device=dev), 0)]
+    n_due = int((used & (due <= front)).sum())
+    w = torch.softmax(torch.randn(P, generator=g, device=dev), 0)
+    ropp = 1e4 * torch.rand(P, generator=g, device=dev)
+    win_opp = torch.zeros(W + 1, device=dev)
+    win_cnt = torch.zeros((W + 1, n + 2), device=dev)
+    rings = [[x.clone() for x in ring] for _ in range(calls + 1)]
+    ops = {
+        "add_window_opportunity": lambda k: add_window_opportunity(
+            win_opp, np.float32(front - 1491.0), np.float32(front),
+            (w * ropp).sum(), GUIDE_WINDOW),
+        "commit_due_local": lambda k: commit_due_local(
+            win_cnt, *rings[k], w, front, GUIDE_WINDOW)}
+    out = {}
+    for name, op in ops.items():
+        op(calls)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for k in range(calls):
+                op(k)
+            torch.cuda.synchronize()
+        ka = prof.key_averages()
+        dev_us = sum(e.self_device_time_total for e in ka
+                     if e.device_type == DeviceType.CUDA)
+        launches = sum(e.count for e in ka if e.key in _LAUNCH_CALLS)
+        if name == "commit_due_local":
+            nbytes = P * R * (4 + 4 + 4 + 8) + 4 * P + n_due * (
+                8 + 4 * (n + 2) * 2)
+            flop = P * R * (n * 3 + 10)
+        else:
+            nbytes, flop = 8 * P + 4 * 4 * 2, 2 * P + 16
+        out[name] = dict(launches_per_call=launches / calls,
+                         device_us_per_call=dev_us / calls,
+                         **_bound_of(nbytes, flop))
+        _log(f"{name} alone on {card} (P={P}, R={R}, W={W}, {n_due} events "
+             f"due): {launches / calls:.2f} launches and "
+             f"{dev_us / calls:.2f} us of device time per call; bound "
+             f"{out[name]['bound_ms'] * 1e3:.3f} us by "
+             f"{out[name]['bound_by']} ({nbytes} B)")
+    return out
 
 
 def phase_apf8_path(card):
@@ -1867,9 +2478,11 @@ def phase_biased_path(card):
         out = os.path.join(tmp, "out")
         # the genome path's command without -ckpt (no chunk reaches a
         # checkpoint) and with the production proposal
+        # one E-step
         argv = _genome_argv(paths, out)
         i = argv.index("-ckpt")
         argv = argv[:i] + argv[i + 2:] + BIASED_FLAGS
+        argv[argv.index("-EM") + 1] = "0"
         launches, plain, steps, records, wall = _run_cli(argv)
         shown = " ".join(os.path.basename(a) if a in paths else a
                          for a in argv if a != out)
@@ -1887,7 +2500,7 @@ def phase_biased_path(card):
                              "calibrated lags", "Calibrated lag",
                              "survival calibration")):
                 _log("  log: " + m)
-        if len(steps) != 2:
+        if len(steps) != 1:
             raise SystemExit(f"biased path: {len(steps)} EM iterations")
         _check_launches(launches, plain, sum(r.args[2] for r in steps),
                         problems, "biased path", BIASED_PASS)
@@ -1899,10 +2512,10 @@ def phase_biased_path(card):
                 m.startswith("calibrated lags") for m in msgs):
             problems.append("the calibrated strengths or lags were not "
                             "logged")
-        rows = [r for r in _read_out(os.path.join(out, "emiter1",
-                                                  "chunkfinal.out"), 1)
+        rows = [r for r in _read_out(os.path.join(out, "emiter0",
+                                                  "chunkfinal.out"), 0)
                 if r["Clump"] == "-1"]
-        _check_estimates(rows, 1, problems, GENOME_MIN_EPOCH_EVENTS,
+        _check_estimates(rows, 0, problems, GENOME_MIN_EPOCH_EVENTS,
                          GENOME_POOLED_WITHIN)
         if problems:
             raise SystemExit("biased path checks failed: "
@@ -1910,7 +2523,8 @@ def phase_biased_path(card):
         _log("biased path checks: ok")
         demo, seg = genome_model(paths)
     chunk = next(r.args[0] for r in records if r.msg.startswith("chunks:"))[0]
-    rep = profile_sweep(demo, seg, GENOME_P, DEVICE, chunk=tuple(chunk),
+    rep = profile_sweep(demo, seg, GENOME_P, DEVICE, **PROFILE_WINDOW,
+                        chunk=tuple(chunk),
                         **BIASED_OPTIONS)
     _log(f"biased path sweep profile (chunk {chunk}, E=33) on {card}:")
     for ln in report_lines(rep):
@@ -1931,7 +2545,7 @@ def phase_biased_path(card):
     return launches, steps, reported, rep
 
 
-def ring_census(demo, seg, chunk, segments=600, P=GENOME_P, device=DEVICE):
+def ring_census(demo, seg, chunk, segments=300, P=GENOME_P, device=DEVICE):
     """What the biased pass finds on the real path: the first ``segments``
     segments of ``chunk`` swept with the production proposal
     (``sweep_profile.BIASED_OPTIONS``), counted before each pass: ring
@@ -2123,7 +2737,7 @@ def phase_twopop_path(card):
     if problems:
         raise SystemExit("twopop path checks failed: " + "; ".join(problems))
     _log("twopop path checks: ok")
-    rep = profile_sweep(demo, seg, TWOPOP_P, DEVICE)
+    rep = profile_sweep(demo, seg, TWOPOP_P, DEVICE, **PROFILE_WINDOW)
     _log(f"twopop path sweep profile on {card}:")
     for ln in report_lines(rep):
         _log(ln)
@@ -2183,7 +2797,14 @@ RESOURCE_SHAPES = (
     (MIGRATION_VB_PASS, "migration", (
         ("twopop (n=4, E=8, Pp=2, Mw=56)", (4, 8, 2, TWOPOP_MW, 2, True)),
         ("caps (n=8, E=64, Pp=4, Mw=96)", (8, 64, 4, 96, 2, True)))),
-)
+) + tuple(
+    # the guided and local passes (kernel_resources(..., guide=, local=))
+    (name, "biased" if flags[0] else "segment_pass", (
+        ("main (n=4, E=9)", (4, 9, 1, 0, 2, "vb" in name, *flags[1:])),
+        ("genome (n=8, E=33)", (8, 33, 1, 0, 2, "vb" in name, *flags[1:])))
+     + ((("caps (n=8, E=64, S=8)", (8, 64, 1, 0, 8, "vb" in name,
+                                      *flags[1:])),) if flags[0] else ()))
+    for name, (flags, _) in GUIDE_PASSES.items())
 SOURCE = "smcsmc_tpu_torch/csrc/trip.cu"
 
 
@@ -2268,7 +2889,8 @@ def main(argv=None) -> int:
     empty_ms = time_empty_launch()
     timing = phase_time(kernels, (10000, 4, 9),
                         [("mean bench segment", mean_len),
-                         ("longest segment", MAX_SEG)], vb=True)
+                         ("longest segment", MAX_SEG)], biased=True,
+                        vb=True, guide=True)
     elapsed("the main shape's timing")
     if args.until == "time":
         return 0
@@ -2276,12 +2898,20 @@ def main(argv=None) -> int:
     elapsed("the main path")
 
     # where the sweep's time goes (after the main path's launch count)
-    main_rep = profile_sweep(demo, seg, 10000, "cuda")
+    main_rep = profile_sweep(demo, seg, 10000, "cuda", **PROFILE_WINDOW)
     for ln in report_lines(main_rep):
         _log(ln)
 
     # bench.py's feature_vb and feature_apf on the main path's data, and
     # the lookahead alone at its shape
+    # bench.py's feature_bias_guide and the guide loop (-alpha), the
+    # passes that no path of the slice runs, the local ops alone
+    bg_launches, bg_steps, bg_rep = phase_bias_guide_path(card, seg)
+    al_launches, al_steps, al_reps, al_totals = phase_alpha_path(card, seg)
+    sweeps = variant_sweeps(card)
+    local_cost = local_ops_cost(card)
+    elapsed("the bias-guide and alpha paths")
+
     v_launches, v_steps, v_rep, _ = phase_vb_path(card, seg, steps)
     a_launches, a_steps, a_rep = phase_apf_path(card, seg, main_resample)
     la_cost = {"n=4": lookahead_cost(card, demo, seg)}
@@ -2297,6 +2927,7 @@ def main(argv=None) -> int:
     elapsed("the genome shape's timing")
     _log(f"genome path sweep profile (chunk {g_chunks[0]}, E=33) on {card}:")
     for ln in report_lines(profile_sweep(g_demo, g_seg, GENOME_P, "cuda",
+                                         **PROFILE_WINDOW,
                                          chunk=tuple(g_chunks[0]))):
         _log(ln)
 
@@ -2385,8 +3016,52 @@ def main(argv=None) -> int:
         "twopop_vb_profile": {k: m_profile["vb"][k] for k in (
             "launches_per_segment", "device_ms_per_segment",
             "pass_us_per_launch")},
-        "lookahead_loglik": la_cost}
+        "lookahead_loglik": la_cost,
+        "bias_guide": dict(feature(bg_steps, 10000, bg_rep, main_rep),
+                           logl=[r.args[4] for r in bg_steps]),
+        "alpha": dict(feature(al_steps, 10000, al_reps[0], main_rep),
+                      logl=[r.args[4] for r in al_steps],
+                      recomb_vs_out=al_totals,
+                      guided_profile={k: al_reps[1][k] for k in (
+                          "launches_per_segment", "device_ms_per_segment",
+                          "device_busy_share", "ms_per_segment",
+                          "pass_us_per_launch")},
+                      guided_added_launches_per_segment=(
+                          al_reps[1]["launches_per_segment"]
+                          - main_rep["launches_per_segment"])),
+        "local_ops": local_cost}
     timed_keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by")
+    for name in GUIDE_PASSES:
+        # the guided and local passes: launches on the path of the slice
+        # that runs each, or in its own short sweep; times at the main
+        # path's shape beside the pass they are a variant of
+        single, chained = tallies[name]
+        own = {GUIDE_PASS: ("bias_guide", bg_launches),
+               LOCAL_PASS: ("alpha", al_launches),
+               GUIDE_LOCAL_PASS: ("alpha", al_launches)}.get(name)
+        t = head[name]
+        parent = GUIDE_PASSES[name][1]
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES,
+            "launches": own[1][name] if own else sweeps[name],
+            "launches_on": own[0] if own else "its own sweep",
+            "launches_by_path": {"bias_guide": bg_launches[name],
+                                 "alpha": al_launches[name]},
+            "max_abs_err": single.max_abs_err,
+            "compare": {"trips=1": single.record(),
+                        "trips=64 vs plain": chained.record()},
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "host_us_per_call": t["host_us"],
+            "parent": parent, "parent_ms": head[parent]["kernel_ms"],
+            "resources": resources[name]}
+        if name in timing["longest segment"]:
+            entry["longest_segment"] = {
+                k: timing["longest segment"][name][k] for k in timed_keys}
+            entry["longest_segment"]["parent_ms"] = \
+                timing["longest segment"][parent]["kernel_ms"]
+        record["kernels"].append(entry)
     for name in (*kernels, BIASED_PASS, MIGRATION_PASS, VB_PASS,
                  BIASED_VB_PASS, MIGRATION_VB_PASS):
         single, chained = tallies[name]
@@ -2398,7 +3073,9 @@ def main(argv=None) -> int:
                    "genome resumed": g_resume_launches[name],
                    "biased": b_launches[name], "twopop": m_launches[name],
                    "vb": v_launches[name], "apf": a_launches[name],
-                   "apf8": a8_launches[name]}
+                   "apf8": a8_launches[name],
+                   "bias_guide": bg_launches[name],
+                   "alpha": al_launches[name]}
         # each entry point's own path: the main path for the plain pass,
         # the biased path for the biased pass and for trip (its
         # calibration pre-pass), the twopop path for the migration pass,

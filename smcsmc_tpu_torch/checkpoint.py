@@ -7,8 +7,9 @@ Two layers:
   and is skipped on re-run.  ``have_outfile`` and ``load_iteration`` are
   copied from ``smcsmc_tpu/checkpoint.py``;
 - mid-sweep state checkpointing with ``torch.save``: every tensor of the
-  ``PFState`` (the trees' populations and migration buffers and the
-  migration diagnostics among them), its host fields, the state of the sweep's
+  ``PFState`` (the trees' populations and migration buffers, the
+  migration diagnostics, and the window accumulators and ring of pending
+  local events among them), its host fields, the state of the sweep's
   ``torch.Generator`` and the caller's progress record, in one file, so
   that a resumed sweep continues exactly where the saved one stood.
 """
@@ -51,6 +52,8 @@ def save_state(path: str, state: PFState, generator: torch.Generator,
     complete (written beside it, then renamed)."""
     payload = {}
     for name, v in state._asdict().items():
+        if v is None:  # a feature the sweep does not run
+            continue
         if name == "trees":
             payload[name] = dict(v._asdict())
         elif isinstance(v, torch.Tensor):

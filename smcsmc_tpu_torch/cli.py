@@ -6,10 +6,12 @@ structured populations with migration through ``-I -eN -en -em -eM -ema
 -ej -migbuf``; several ``.seg`` files, chunks, resume and checkpoints;
 unphased and missing data; the M-step's options and ``-vb``; height-biased
 proposals with delayed importance weights and calibrated lags, for one
-population; the auxiliary particle filter ``-apf``) plus ``-device``,
-each parsed as ``smcsmc_tpu.cli`` parses it; every other flag, and bias or
-calibrated lags with several populations, is refused with a message naming
-it.  The helpers that turn flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
+population; the auxiliary particle filter ``-apf``; the recombination
+guide ``-guide`` and the guide loop ``-alpha``, for one population) plus
+``-device``, each parsed as ``smcsmc_tpu.cli`` parses it; every other
+flag, and bias, calibrated lags, a guide or ``-alpha`` with several
+populations, is refused with a message naming it.  The helpers that turn
+flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
 ``_is_number``, ``resolve_n0``, ``build_demography``) are copied from
 ``smcsmc_tpu/cli.py`` at commit dfc2fad and kept letter for letter.
 """
@@ -203,16 +205,16 @@ def parse_args(argv: list[str]):
     -chunks -maxgap -minseg -startpos -ckpt -nothreads -dephase
     -ancestral_aware -cap -xc -xr -no_infer_recomb -no_m_step -record_ess
     -bias_heights -bias_strengths -delay -lag_fraction -calibrate_lag
-    -delay_coal -delay_migr -device, the demography flags -I -eN -en -em
-    -eM -ema -ej (kept with their values in ``io["demo_args"]``) and
-    -migbuf."""
+    -delay_coal -delay_migr -vb -apf -alpha -guide -device, the demography
+    flags -I -eN -en -em -eM -ema -ej (kept with their values in
+    ``io["demo_args"]``) and -migbuf."""
     argv = load_option_file(argv)
     cfg = EMConfig()
     io = {
         "segs": [], "out": "smcsmc_out", "pattern": None, "p_pattern": None,
         "tmax": 2.0, "maxgap": 200000, "minseg": 500000, "startpos": 1,
         "length": None, "mu": None, "rho": None, "N0": None, "nsam": None,
-        "logfile": None, "bias_heights": None, "demo_args": [],
+        "logfile": None, "bias_heights": None, "demo_args": [], "alpha": 0.0,
     }
     i = 0
     while i < len(argv):
@@ -348,6 +350,15 @@ def parse_args(argv: list[str]):
             # per-branch migration-event buffer capacity (0 = auto-sized
             # from the demography)
             cfg.mig_buffer = int(take())
+        elif o == "-alpha":
+            # fraction of posterior recombination mixed into the guide
+            # (model.py:246-249); > 0 activates the record->smooth->guide
+            # loop, < 0 disables recording
+            io["alpha"] = float(take())
+            cfg.alpha = io["alpha"]
+        elif o == "-guide":
+            # explicit recombination guide file (model.py:1060-1061)
+            cfg.guide_file = take()
         elif o in DEMOGRAPHY_FLAGS:
             # demography flags pass through with their arguments
             io["demo_args"].append(o)
@@ -386,7 +397,9 @@ def smcsmc_main(argv=None) -> int:
         raise SystemExit(f"smc2-torch: {err}") from None
     if demo.num_populations > 1 or np.any(demo.mig_rates > 0):
         for flag, used in (("-bias_heights", io["bias_heights"]),
-                           ("-calibrate_lag", cfg.calibrate_lag)):
+                           ("-calibrate_lag", cfg.calibrate_lag),
+                           ("-guide", cfg.guide_file is not None),
+                           ("-alpha", cfg.alpha > 0)):
             if used:
                 raise SystemExit(
                     f"smc2-torch: option {flag!r} with several populations "

@@ -2,10 +2,13 @@
 
 The tests start both packages from the same trees (with their populations
 and migration buffers), weights (posterior and pilot), FIFO, statistics,
-ring of delayed factors and diagnostics: a JAX ``PFState``
+ring of delayed factors, diagnostics and, with local recording, the window
+accumulators and the ring of pending local events: a JAX ``PFState``
 with every leaf passed through ``np.asarray`` goes in through
 :func:`state_from_numpy`, and :func:`state_to_numpy` gives the port's state
-back as numpy arrays under the same field names.
+back as numpy arrays under the same field names (the port's one window
+tensor ``win_cnt`` as JAX's ``win_leaf_cnt``, ``win_time_cnt`` and
+``win_logtime_cnt``; descendant bitmasks, JAX's u32 words, as one int64).
 :func:`segment_from_numpy` turns the tuple that the JAX segment step
 consumes into the port's ``Segment``, so that both take the same step.
 """
@@ -17,6 +20,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .kernels.local import split_windows
 from .kernels.tree import Trees
 from .smc import PFState, Segment, fifo_gate_masks
 
@@ -72,6 +76,40 @@ def trees_to_numpy(trees: Trees) -> dict:
     return out
 
 
+def desc_words_to_int64(words) -> np.ndarray:
+    """[..., dw] u32 bitmask words (JAX's ``lr_desc`` / ``arg_desc``) ->
+    [...] int64, word k holding bits 32k..32k+31."""
+    words = np.asarray(words, np.uint64)
+    out = np.zeros(words.shape[:-1], np.uint64)
+    for k in range(words.shape[-1]):
+        out |= words[..., k] << np.uint64(32 * k)
+    return out.view(np.int64)
+
+
+def _local_from_numpy(d, device) -> dict:
+    """The port's window accumulators and ring of pending local events
+    from a JAX state's ``win_*`` and ``lr_*`` (none where it has none)."""
+    if _opt(d, "lr_pos") is None:
+        return {}
+    leaf = np.asarray(_get(d, "win_leaf_cnt"), np.float32)
+    W, n = leaf.shape
+    cnt = np.zeros((W, n + 2), np.float32)
+    cnt[:, :n] = leaf
+    cnt[:, n] = _get(d, "win_time_cnt")
+    cnt[:, n + 1] = _get(d, "win_logtime_cnt")
+    f32 = lambda x: torch.as_tensor(np.array(x, np.float32),  # noqa: E731
+                                    device=device)
+    return dict(
+        win_opp_diff=f32(_get(d, "win_opp_diff")),
+        win_cnt=torch.as_tensor(cnt, device=device),
+        lr_pos=f32(_get(d, "lr_pos")), lr_due=f32(_get(d, "lr_due")),
+        lr_time=f32(_get(d, "lr_time")),
+        lr_desc=torch.as_tensor(desc_words_to_int64(_get(d, "lr_desc")),
+                                device=device),
+        lr_dropped=torch.as_tensor(np.array(_get(d, "lr_dropped"),
+                                            np.int32), device=device))
+
+
 def state_from_numpy(d, device, max_mig: int = 0) -> PFState:
     """PFState from a JAX ``PFState`` (or mapping) with numpy leaves
     (``max_mig`` as in :func:`trees_from_numpy`)."""
@@ -98,6 +136,7 @@ def state_from_numpy(d, device, max_mig: int = 0) -> PFState:
                              device=device),
         diag=torch.as_tensor(np.zeros(2) if diag is None
                              else np.array(diag, np.float64), device=device),
+        **_local_from_numpy(d, device),
     )
 
 
@@ -107,6 +146,10 @@ def state_to_numpy(state: PFState) -> dict:
     for name, v in state._asdict().items():
         if name == "trees":
             out[name] = trees_to_numpy(v)
+        elif name == "win_cnt" and v is not None:
+            for k, x in zip(("win_leaf_cnt", "win_time_cnt",
+                             "win_logtime_cnt"), split_windows(v)):
+                out[k] = x.detach().cpu().numpy()
         elif isinstance(v, torch.Tensor):
             out[name] = v.detach().cpu().numpy()
         else:

@@ -36,6 +36,24 @@
 //                 genome path's shape: 96 registers, 5 resident blocks per
 //                 SM (BIAS_MIN_BLOCKS holds them at n <= 4 too), so 10,000
 //                 particles run in one wave.
+//                 Two more compile-time variants ride on these.  GUIDE (the
+//                 biased pass only: a guide without height bias is one
+//                 section of strength 1) follows a recombination guide
+//                 (smc.py:783-812, transition.py:124-221 of the JAX
+//                 package): each extension takes the guide's survival
+//                 weight in both weights, the point's segments are weighed
+//                 by each branch's guide rate (the leaves' rates at the
+//                 event's window, merged bottom up by lane 0 over the tree
+//                 in shared memory), and the gap is drawn in guide mass
+//                 through a search of the chunk's mass table in device
+//                 memory.  LOCAL (plain or biased) pushes each trip's local
+//                 recombination event (position, due position, height, the
+//                 cut branch's leaves from a ballot over the tree before
+//                 the SPR) into the particle's ring in device memory, the
+//                 first free slot of a mask read once per segment, a full
+//                 ring counted by one integer atomic per particle; and it
+//                 writes the segment's ungated recombination opportunity.
+//                 Without GUIDE and LOCAL each pass is the code it was.
 //                 A third variant is the migration pass (several
 //                 populations; the Pallas kernel refuses migration, and the
 //                 JAX package runs it through XLA, transition.py:1348):
@@ -102,6 +120,7 @@
 #define MAX_EPOCHS 64
 #define MAX_SECTIONS 8      // bias sections
 #define MAX_DELAY_SLOTS 32  // delayed factors per particle
+#define MAX_LOCAL_SLOTS 32  // pending local events per particle (LOCAL)
 #define MAX_POPS 4          // populations of the migration pass
 #define MAX_MIG 96          // events per branch buffer (migration pass)
 #define BLOCK 128
@@ -168,6 +187,21 @@ struct Args {
   // psi(C) - log(C) of the previous iteration's counts, 0 in -xc epochs
   const float* vb_coal;  // [E, Pp]
   const float* vb_mig;   // [E, Pp, Pp] (the migration pass)
+  // the recombination guide (g_rel == nullptr: off), the biased pass only
+  const float* g_rel;     // [Wg] rate relative to rho by window
+  const float* cum_mass;  // [Wg + 1] guide mass (bp) at window boundaries
+  const float* g_leaf;    // [Wg, n] relative rate of each leaf
+  int Wg;
+  float ws;               // window size (bp)
+  // local recording (lr_pos == nullptr: off); the ring [P, R]
+  float* lr_pos;          // event position (BIG: free slot)
+  float* lr_due;          // commit position
+  float* lr_time;         // recombination height
+  long long* lr_desc;     // leaves below the cut branch
+  int* lr_dropped;        // [] events dropped on a full ring
+  const float* lags;      // [E] lag (bp) by epoch
+  float* ropp;            // [P] out: the segment's ungated opportunity
+  int R;
 };
 
 // per-block tables in shared memory, and the launch's scalars
@@ -181,8 +215,12 @@ struct Tables {
   const float* bs;    // [S] section strengths (biased)
   const float* dl;    // [E] delays (biased)
   const float* vb;    // [E] VB term of a coalescence by epoch (VB)
-  int n, N, E, total_data, leaf_status, S, delay_type;
-  float L, mu, rho;
+  const float* lag;   // [E] lags (LOCAL)
+  const float* g_rel;     // the guide's tables, in device memory (GUIDE)
+  const float* cum_mass;
+  const float* g_leaf;
+  int n, N, E, total_data, leaf_status, S, delay_type, Wg;
+  float L, mu, rho, front, ws;
 };
 
 // what a trip hands back to the biased pass; key_epoch is the calling
@@ -192,6 +230,15 @@ struct TripEvent {
   float h_r, t_c, log_iw, strength;
   int key_epoch;
   float vb;  // the VB table entry of t_c's epoch (VB), else 0
+  float liw;          // the extension's survival weight (GUIDE), else 0
+  float log_iw_bias;  // the height-bias part of log_iw (GUIDE), else log_iw
+};
+
+// LOCAL: the particle's free slots (bit s: slot s), identical in all lanes,
+// and its events dropped on a full ring
+struct LocalRing {
+  unsigned free;
+  int dropped;
 };
 
 // one particle's slice of shared memory: what is indexed by a value
@@ -213,6 +260,11 @@ struct Work {
   float* seg;
   float* wseg;
   float* cum;
+  // GUIDE: the branches' guide rates [N], the internal nodes in time order
+  // [MAX_LEAVES], the segments weighted by the strengths alone [N S]
+  float* rate;
+  int* order;
+  float* wsegb;
 };
 
 // one particle's node and parent times in registers, padded to NP nodes
@@ -226,16 +278,21 @@ struct Heights {
 };
 
 __host__ __device__ inline int tables_words(int E, bool with_gate,
-                                            bool biased, bool vb = false) {
+                                            bool biased, bool vb = false,
+                                            bool local = false) {
   return 3 * E + MAX_LEAVES + (with_gate ? 6 * E : 0)
-      + (biased ? 2 * MAX_SECTIONS + 1 + E : 0) + (vb ? E : 0);
+      + (biased ? 2 * MAX_SECTIONS + 1 + E : 0) + (vb ? E : 0)
+      + (local ? E : 0);
 }
 
-// S: the biased pass's sections (its point's scratch is 3 N S words)
+// S: the biased pass's sections (its point's scratch is 3 N S words; the
+// guided one's 4 N S, its rates N and order MAX_LEAVES more)
 __host__ __device__ inline int work_words(int N, int E, bool with_pending,
-                                          bool biased, int S) {
+                                          bool biased, int S,
+                                          bool guide = false) {
   return (5 * N + 2 * E + (with_pending ? 6 * E : 0)
-          + (biased ? 4 * MAX_DELAY_SLOTS + 3 * N * S : 0)) | 1;  // odd
+          + (biased ? 4 * MAX_DELAY_SLOTS + 3 * N * S : 0)
+          + (guide ? N + MAX_LEAVES + N * S : 0)) | 1;  // odd
 }
 
 __device__ __forceinline__ float clip_u(float u) {
@@ -268,6 +325,13 @@ __device__ __forceinline__ int group_min(int v, unsigned gm) {
   return v;
 }
 
+__device__ __forceinline__ unsigned group_or(unsigned v, unsigned gm) {
+#pragma unroll
+  for (int off = GROUP / 2; off > 0; off >>= 1)
+    v = v | __shfl_xor_sync(gm, v, off);
+  return v;
+}
+
 // A 4-byte copy from device memory into shared memory, under way until
 // the calling thread's wait_copies(); nothing may touch dst meanwhile.
 __device__ __forceinline__ void copy_word_async(void* dst, const void* src) {
@@ -291,7 +355,8 @@ __device__ __forceinline__ void wait_copies() {
 // memory.  No barrier here: the caller starts its own loads too, so that
 // all of them are in flight together, and then calls __syncthreads().
 __device__ void stage_tables(const Args& a, float* smem, bool with_gate,
-                             bool biased, bool vb = false) {
+                             bool biased, bool vb = false,
+                             bool local = false) {
   const int E = a.E;
   float* s_est = smem;
   float* s_eend = smem + E;
@@ -323,12 +388,17 @@ __device__ void stage_tables(const Args& a, float* smem, bool with_gate,
     float* s_vb = smem + tables_words(E, with_gate, biased);
     for (int e = threadIdx.x; e < E; e += blockDim.x) s_vb[e] = a.vb_coal[e];
   }
+  if (local) {
+    float* s_lag = smem + tables_words(E, with_gate, biased, vb);
+    for (int e = threadIdx.x; e < E; e += blockDim.x) s_lag[e] = a.lags[e];
+  }
 }
 
 // After the barrier that follows stage_tables (vb: the VB table was
 // staged behind the segment pass's tables).
 __device__ void bind_tables(const Args& a, float* smem, Tables& tb,
-                            bool biased = false, bool vb = false) {
+                            bool biased = false, bool vb = false,
+                            bool local = false, bool guide = false) {
   const int E = a.E;
   tb.est = smem;
   tb.eend = smem + E;
@@ -339,6 +409,15 @@ __device__ void bind_tables(const Args& a, float* smem, Tables& tb,
   tb.bs = tb.bh + MAX_SECTIONS + 1;
   tb.dl = tb.bs + MAX_SECTIONS;
   tb.vb = vb ? smem + tables_words(E, true, biased) : nullptr;
+  tb.lag = local ? smem + tables_words(E, true, biased, vb) : nullptr;
+  if (guide) {
+    tb.g_rel = a.g_rel;
+    tb.cum_mass = a.cum_mass;
+    tb.g_leaf = a.g_leaf;
+    tb.Wg = a.Wg;
+    tb.ws = a.ws;
+  }
+  tb.front = a.front;
   tb.S = a.S;
   tb.delay_type = a.delay_type;
   tb.n = a.n;
@@ -355,11 +434,12 @@ __device__ void bind_tables(const Args& a, float* smem, Tables& tb,
 // Carve this group's slice of shared memory (`pend` is only there for
 // segment_pass).  Returns the particle index of the calling thread's group.
 __device__ int carve(const Args& a, float* smem, bool segment, bool biased,
-                     bool vb, Work& w, float*& pend) {
+                     bool vb, Work& w, float*& pend, bool local = false,
+                     bool guide = false) {
   const int E = a.E, N = 2 * a.n - 1;
   const int group = threadIdx.x / GROUP;
-  float* base = smem + tables_words(E, segment, biased, vb)
-      + (size_t)group * work_words(N, E, segment, biased, a.S);
+  float* base = smem + tables_words(E, segment, biased, vb, local)
+      + (size_t)group * work_words(N, E, segment, biased, a.S, guide);
   w.t = base;
   w.par = reinterpret_cast<int*>(base + N);
   w.c0 = reinterpret_cast<int*>(base + 2 * N);
@@ -376,6 +456,9 @@ __device__ int carve(const Args& a, float* smem, bool segment, bool biased,
   w.seg = ring + 4 * MAX_DELAY_SLOTS;
   w.wseg = w.seg + N * a.S;
   w.cum = w.wseg + N * a.S;
+  w.rate = w.cum + N * a.S;
+  w.order = reinterpret_cast<int*>(w.rate + N);
+  w.wsegb = w.rate + N + MAX_LEAVES;
   return blockIdx.x * (blockDim.x / GROUP) + group;
 }
 
@@ -481,18 +564,58 @@ __device__ __forceinline__ float overlap_below(const Heights<NP>& h, float lo,
   return s;
 }
 
+// GUIDE: the guide mass (bp) at position x, from its window's boundary
+// mass and rate (mass() of smc.py:792; the first or last window beyond the
+// table's ends)
+__device__ __forceinline__ float guide_mass(const Tables& tb, float x) {
+  const float q = fminf(fmaxf(floorf(x / tb.ws), 0.0f), (float)(tb.Wg - 1));
+  const int i = (int)q;
+  return tb.cum_mass[i] + (x - (float)i * tb.ws) * tb.g_rel[i];
+}
+
+// GUIDE: the position of guide mass m (inv_mass() of smc.py:796): the last
+// window boundary at or below m, by binary search of the table in device
+// memory (every lane the same addresses), plus the rest at its rate
+__device__ __forceinline__ float guide_inv_mass(const Tables& tb, float m) {
+  int lo = 0, hi = tb.Wg + 1;  // the first boundary above m is in [lo, hi]
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (tb.cum_mass[mid] <= m)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int j = min(max(lo - 1, 0), tb.Wg - 1);
+  return (float)j * tb.ws
+      + (m - tb.cum_mass[j]) / fmaxf(tb.g_rel[j], 1e-30f);
+}
+
+// GUIDE: the survival weight over [x0, x1), rho tl (m(x1) - m(x0) - (x1 -
+// x0)) (span_log_iw() of smc.py:809)
+__device__ __forceinline__ float guide_span(const Tables& tb, float tl,
+                                            float x0, float x1) {
+  const float dm = guide_mass(tb, x1) - guide_mass(tb, x0);
+  return tb.rho * tl * (dm - (x1 - x0));
+}
+
 // One trip of the particle in `w` / `h`.  Called by all lanes of a
 // synchronised group with identical scalars and heights, w.tle up to date;
 // returns the same way.  `pend` ([6E], shared or global) takes the trip's
 // statistics.  BIAS draws the point height-biased and returns its
 // importance weight (otherwise log_iw 0 and strength 1); VB returns the VB
 // table entry of the coalescence's epoch (the one lane whose epoch holds
-// t_c reads it, the group sums it with zeros: exact).
-template <int NP, bool BIAS, bool VB = false>
+// t_c reads it, the group sums it with zeros: exact).  GUIDE (with BIAS)
+// adds the extension's survival weight to lw and returns it, weighs the
+// point by the branches' guide rates and draws the gap in guide mass;
+// LOCAL pushes the trip's event into particle i's ring of `a`.
+template <int NP, bool BIAS, bool VB = false, bool GUIDE = false,
+          bool LOCAL = false>
 __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
                               int lane, unsigned gm, const float4 u,
                               float* pend, float& nr, float& up, float& lw,
-                              float& tl, float& B) {
+                              float& tl, float& B,
+                              const Args* a = nullptr, int i = 0,
+                              LocalRing* ring = nullptr) {
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
   const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
@@ -500,9 +623,15 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   // ---- extension: no-mutation likelihood + recombination opportunity ----
   const float delta = nr - up;
   lw = lw - tb.mu * B * delta;
+  float liw = 0.0f;
+  if constexpr (GUIDE) {
+    // the guide's survival weight over the extension (smc.py:903-914)
+    liw = guide_span(tb, tl, tb.front + up, tb.front + nr);
+    lw = lw + liw;
+  }
 
   int c = -1;
-  float h_r, log_iw = 0.0f, strength = 1.0f;
+  float h_r, log_iw = 0.0f, strength = 1.0f, log_iw_bias = 0.0f;
   if constexpr (!BIAS) {
     // ---- recombination point: first node whose prefix sum >= u*total ---
     float total = 0.0f;
@@ -532,9 +661,46 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
     // one chain; each lane searches its own pairs (q = j S + s, q % GROUP
     // its lane) and the group's least hit is the first ----
     const int S = tb.S, Q = N * S;
+    if constexpr (GUIDE) {
+      // the branches' guide rates (transition.py:124): the leaves' rates
+      // at the event's window; each lane ranks one internal node in the
+      // stable order of the times; lane 0 merges them in that order (the
+      // mean of the children's rates) and gives both children of the last
+      // the larger of their two rates
+      const float q = (tb.front + nr) / tb.ws;
+      const int win = q >= (float)(tb.Wg - 1) ? tb.Wg - 1
+                                              : (q > 0.0f ? (int)q : 0);
+      const int n = tb.n;
+      for (int j = lane; j < N; j += GROUP)
+        w.rate[j] = j < n ? tb.g_leaf[(size_t)win * n + j] : 0.0f;
+      if (lane < n - 1) {
+        const int v = n + lane;
+        const float tv = w.t[v];
+        int rank = 0;
+        for (int k = n; k < N; ++k) {
+          const float tk = w.t[k];
+          rank += (tk < tv || (tk == tv && k < v)) ? 1 : 0;
+        }
+        w.order[rank] = v;
+      }
+      __syncwarp(gm);
+      if (lane == 0) {
+        for (int k = 0; k < n - 1; ++k) {
+          const int v = w.order[k];
+          w.rate[v] = 0.5f * (w.rate[w.c0[v]] + w.rate[w.c1[v]]);
+        }
+        const int root = w.order[n - 2];
+        const int rc0 = w.c0[root], rc1 = w.c1[root];
+        const float mx = fmaxf(w.rate[rc0], w.rate[rc1]);
+        w.rate[rc0] = mx;
+        w.rate[rc1] = mx;
+      }
+      __syncwarp(gm);
+    }
     for (int j = lane; j < N; j += GROUP) {
       const int p = w.par[j];
       const float t_j = w.t[j], pt_j = p < 0 ? BIG : w.t[p];
+      const float r_j = GUIDE ? w.rate[j] : 1.0f;
 #pragma unroll
       for (int s = 0; s < MAX_SECTIONS; ++s) {
         if (s < S) {
@@ -542,16 +708,23 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
               ? fmaxf(fminf(pt_j, tb.bh[s + 1]) - fmaxf(t_j, tb.bh[s]), 0.0f)
               : 0.0f;
           w.seg[j * S + s] = seg;
-          w.wseg[j * S + s] = seg * tb.bs[s];
+          if constexpr (GUIDE) {
+            const float wb = seg * tb.bs[s];
+            w.wsegb[j * S + s] = wb;
+            w.wseg[j * S + s] = wb * r_j;
+          } else {
+            w.wseg[j * S + s] = seg * tb.bs[s];
+          }
         }
       }
     }
     __syncwarp(gm);
-    float wtot = 0.0f, ptot = 0.0f;
+    float wtot = 0.0f, ptot = 0.0f, btot = 0.0f;
 #pragma unroll 4
     for (int q = 0; q < Q; ++q) {
       wtot += w.wseg[q];
       ptot += w.seg[q];
+      if constexpr (GUIDE) btot += w.wsegb[q];
       if (q % GROUP == lane) w.cum[q] = wtot;
     }
     __syncwarp(gm);
@@ -570,9 +743,17 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
     const float prev = q_hit > 0 ? w.cum[q_hit - 1] : 0.0f;
     const float lo_hit = fmaxf(w.t[q_hit / S], tb.bh[s_hit]);
     strength = tb.bs[s_hit];
-    h_r = lo_hit + (x - prev) / fmaxf(strength, 1e-30f);
+    // the point's weight per unit length: its strength (times its
+    // branch's guide rate)
+    const float local_w = GUIDE ? strength * w.rate[q_hit / S] : strength;
+    h_r = lo_hit + (x - prev) / fmaxf(local_w, 1e-30f);
     log_iw = logf(wtot) - logf(fmaxf(ptot, 1e-30f))
-        - logf(fmaxf(strength, 1e-30f));
+        - logf(fmaxf(local_w, 1e-30f));
+    if constexpr (GUIDE)
+      log_iw_bias = logf(btot) - logf(fmaxf(ptot, 1e-30f))
+          - logf(fmaxf(strength, 1e-30f));
+    else
+      log_iw_bias = log_iw;
   }
 
   // ---- SMC' hazard inversion -------------------------------------------
@@ -650,7 +831,7 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   // ---- opportunity / count records --------------------------------------
   // layout: [coal_opp | coal_cnt | mig_opp | mig_cnt | recomb_opp |
   //          recomb_cnt], E columns each
-  int key_epoch = E;
+  int key_epoch = E, lag_epoch = E;
   float vbv = 0.0f;
   for (int e = lane; e < E; e += GROUP) {
     const float st_e = tb.est[e], hi_e = tb.eend[e];
@@ -669,6 +850,7 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
       if (tb.delay_type == 0 ? in_r : in_c) key_epoch = e;
     }
     if (VB && in_c) vbv = tb.vb[e];
+    if (LOCAL && in_r) lag_epoch = e;
     pend[e] += coal_opp;
     pend[E + e] += in_c ? 1.0f : 0.0f;
     pend[2 * E + e] += span;
@@ -676,6 +858,42 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
     pend[5 * E + e] += in_r ? 1.0f : 0.0f;
   }
   const float vb = VB ? group_sum(vbv, gm) : 0.0f;
+
+  if constexpr (LOCAL) {
+    // ---- the trip's local event (smc.py:1054-1069): due a lag of h_r's
+    // epoch after its position; the leaves below c in the tree before the
+    // SPR, each leaf's lane walking up to c; into the first free slot ----
+    int e = group_min(lag_epoch, gm);
+    if (e >= E) e = h_r >= tb.est[0] ? E - 1 : 0;
+    bool below = false;
+    if (lane < tb.n) {
+      int cur = lane;
+      for (int s = 0; s < N && cur >= 0; ++s) {
+        if (cur == c) {
+          below = true;
+          break;
+        }
+        cur = w.par[cur];
+      }
+    }
+    const unsigned desc = (__ballot_sync(gm, below)
+                           >> ((threadIdx.x & 31) & ~(GROUP - 1)))
+        & ((1u << GROUP) - 1u);
+    if (ring->free != 0u) {
+      const int slot = __ffs(ring->free) - 1;
+      ring->free &= ring->free - 1u;
+      if (lane == 0) {
+        const size_t at = (size_t)i * a->R + slot;
+        const float pos = tb.front + nr;
+        a->lr_pos[at] = pos;
+        a->lr_due[at] = pos + tb.lag[e];
+        a->lr_time[at] = h_r;
+        a->lr_desc[at] = (long long)desc;
+      }
+    } else {
+      ring->dropped += 1;
+    }
+  }
 
   // ---- SPR: cut the branch above c, regraft onto d at t_c ---------------
   // pick(x, idx) reads 0 for idx < 0, and writes to idx < 0 are dropped,
@@ -715,10 +933,20 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   // ---- refreshed tree summaries, then the next gap ----------------------
   load_heights<NP>(w, N, h);
   summaries<NP>(tb, w, h, lane, gm, tl, B);
-  const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
-  up = nr;
-  nr = nr + gap;
-  return TripEvent{h_r, t_c, log_iw, strength, key_epoch, vb};
+  if constexpr (GUIDE) {
+    // the gap in guide mass from the event's position (smc.py:802-808)
+    const float gap_m = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
+    const float at = tb.front + nr;
+    const float nxt = guide_inv_mass(tb, guide_mass(tb, at) + gap_m);
+    up = nr;
+    nr = nr + fmaxf(nxt - at, 1e-3f);
+  } else {
+    const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
+    up = nr;
+    nr = nr + gap;
+  }
+  return TripEvent{h_r, t_c, log_iw, strength, key_epoch, vb, liw,
+                   log_iw_bias};
 }
 
 __device__ __forceinline__ float4 load_uniforms(const Args& a, int k, int i) {
@@ -812,13 +1040,13 @@ __device__ __forceinline__ void push_delayed(
 }
 
 // The segment pass; a kernel of its own for each variant below.
-template <int NP, bool BIAS, bool VB>
+template <int NP, bool BIAS, bool VB, bool GUIDE = false, bool LOCAL = false>
 __device__ __forceinline__ void segment_pass_body(const Args& a) {
   extern __shared__ float smem[];
   Work w;
   float* pend;
   const bool vb = VB;
-  const int i = carve(a, smem, true, BIAS, vb, w, pend);
+  const int i = carve(a, smem, true, BIAS, vb, w, pend, LOCAL, GUIDE);
   const int lane = threadIdx.x % GROUP;
   const unsigned gm = group_mask();
   const int N = 2 * a.n - 1, E = a.E, K = 6 * a.E;
@@ -830,7 +1058,8 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   float nr = 0.0f, lw = 0.0f, up = 0.0f, lp = 0.0f;
   // this lane's ring slots (bit k: slot lane + k GROUP) to write back
   unsigned changed = 0u;
-  stage_tables(a, smem, true, BIAS, vb);
+  LocalRing ring{0u, 0};  // LOCAL: this lane's free slots, until combined
+  stage_tables(a, smem, true, BIAS, vb, LOCAL);
   if (live) {
     load_tree(a, w, i, N, lane);
     for (int k = lane; k < K; k += GROUP) pend[k] = 0.0f;
@@ -841,9 +1070,17 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
       for (int s = lane; s < D; s += GROUP)
         w.rpos[s] = a.df_pos[(size_t)i * D + s];
     }
+    if constexpr (LOCAL) {
+      // the local ring's free slots, read only by a particle that
+      // recombines in this segment
+      if (nr < a.L)
+        for (int s = lane; s < a.R; s += GROUP)
+          if (a.lr_pos[(size_t)i * a.R + s] >= 0.5f * BIG) ring.free |= 1u << s;
+    }
   }
   __syncthreads();
   if (!live) return;
+  if constexpr (LOCAL) ring.free = group_or(ring.free, gm);
   if constexpr (BIAS) {
     // the other words of the slots due at the segment end, under way
     // while the trips run (a push takes only free slots, so these stay
@@ -861,7 +1098,7 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     }
   }
   Tables tb;
-  bind_tables(a, smem, tb, BIAS, vb);
+  bind_tables(a, smem, tb, BIAS, vb, LOCAL, GUIDE);
   Heights<NP> h;
   load_heights<NP>(w, N, h);
   float tl, B;
@@ -875,8 +1112,8 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     // the next trip's uniforms are under way while this trip runs
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
     const float delta = nr - up, B_pre = B;
-    const TripEvent ev = one_trip<NP, BIAS, VB>(tb, w, h, lane, gm, u, pend,
-                                                nr, up, lw, tl, B);
+    const TripEvent ev = one_trip<NP, BIAS, VB, GUIDE, LOCAL>(
+        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &ring);
     // the VB term follows the extension and comes before the importance
     // weight, in both weights (smc.py:951-967)
     if (vb) lw = lw + ev.vb;
@@ -885,6 +1122,7 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
       // extension and, where the delay height's section is unbiased, the
       // weight at once; the rest is delayed (smc.py:968-1020)
       lp = lp - a.mu * B_pre * delta;
+      if constexpr (GUIDE) lp = lp + ev.liw;
       if (vb) lp = lp + ev.vb;
       lw = lw + ev.log_iw;
       const float d_h = a.delay_type == 0 ? ev.h_r : ev.t_c;
@@ -894,7 +1132,9 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
         for (int s = 0; s <= tb.S; ++s) cnt += tb.bh[s] <= d_h ? 1 : 0;
         strength_h = tb.bs[min(max(cnt - 1, 0), tb.S - 1)];
       }
-      const float imm = fabsf(strength_h - 1.0f) < 1e-6f ? ev.log_iw : 0.0f;
+      // the immediate part is the height-bias part (all of log_iw unguided)
+      const float imm =
+          fabsf(strength_h - 1.0f) < 1e-6f ? ev.log_iw_bias : 0.0f;
       const float late = ev.log_iw - imm;
       lp = lp + imm;
       if (fabsf(late) > 1e-9f)
@@ -908,11 +1148,28 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   // ---- final extension to the segment end -------------------------------
   const float delta = a.L - up;
   lw = lw - a.mu * B * delta;
+  float liwf = 0.0f;
+  if constexpr (GUIDE) {
+    // the guide's survival weight of the final extension (smc.py:1123-1131)
+    if (delta > 0.0f) liwf = guide_span(tb, tl, tb.front + up, tb.front + a.L);
+    lw = lw + liwf;
+  }
   for (int e = lane; e < E; e += GROUP) pend[4 * E + e] += delta * w.tle[e];
   nr = nr - a.L;
+  if constexpr (LOCAL) {
+    // the segment's ungated recombination opportunity; the dropped events
+    float mine = 0.0f;
+    for (int e = lane; e < E; e += GROUP) mine += pend[4 * E + e];
+    const float ropp = group_sum(mine, gm);
+    if (lane == 0) {
+      a.ropp[i] = ropp;
+      if (ring.dropped > 0) atomicAdd(a.lr_dropped, ring.dropped);
+    }
+  }
   if constexpr (BIAS) {
     // ---- the pilot's extension; the delayed factors due at front + L ----
     lp = lp - a.mu * B * delta;
+    if constexpr (GUIDE) lp = lp + liwf;
     const float end = a.front + a.L;
     unsigned due = 0u;
 #pragma unroll
@@ -975,16 +1232,16 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   }
 }
 
-template <int NP, bool VB>
+template <int NP, bool VB, bool LOCAL>
 __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
-  segment_pass_body<NP, false, VB>(a);
+  segment_pass_body<NP, false, VB, false, LOCAL>(a);
 }
 
 // the biased pass, held at BIAS_MIN_BLOCKS resident blocks per SM
-template <int NP, bool VB>
+template <int NP, bool VB, bool GUIDE, bool LOCAL>
 __global__ void __launch_bounds__(BLOCK, BIAS_MIN_BLOCKS)
     segment_pass_biased_kernel(const Args a) {
-  segment_pass_body<NP, true, VB>(a);
+  segment_pass_body<NP, true, VB, GUIDE, LOCAL>(a);
 }
 
 // ===========================================================================
@@ -1838,28 +2095,96 @@ int mig_shape(int n, int E, int Pp, int Mw, bool vb, int& ppb,
   return (int)cudaErrorInvalidValue;
 }
 
+// What a kernel takes on the card, as the card reports it: out[0]
+// registers per thread, out[1] local (stack) bytes per thread, out[2]
+// static shared bytes, out[3] dynamic shared bytes per block as launched,
+// out[4] particles per block, out[5] blocks an SM holds at once, out[6]
+// the card's SMs.
+template <typename Kernel>
+int resources_of(Kernel kernel, int threads, size_t bytes, int ppb,
+                 int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return (int)err;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int blocks = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)fa.sharedSizeBytes;
+  out[3] = (int)bytes;
+  out[4] = ppb;
+  out[5] = blocks;
+  out[6] = sms;
+  return 0;
+}
+
+// The segment pass's variant for the run-time flags: its kernel, launched
+// (run) or asked for its resources (shape: out[7]).
+template <int NP, bool VB, bool LOCAL>
+int plain_variant(const Args& a, dim3 grid, size_t bytes, cudaStream_t s,
+                  int* res) {
+  return res ? resources_of(segment_pass_kernel<NP, VB, LOCAL>, BLOCK, bytes,
+                            BLOCK / GROUP, res)
+             : launch_kernel(segment_pass_kernel<NP, VB, LOCAL>, a, grid,
+                             bytes, s);
+}
+
+template <int NP, bool VB, bool GUIDE, bool LOCAL>
+int biased_variant(const Args& a, dim3 grid, size_t bytes, cudaStream_t s,
+                   int* res) {
+  return res ? resources_of(segment_pass_biased_kernel<NP, VB, GUIDE, LOCAL>,
+                            BLOCK, bytes, BLOCK / GROUP, res)
+             : launch_kernel(segment_pass_biased_kernel<NP, VB, GUIDE, LOCAL>,
+                             a, grid, bytes, s);
+}
+
+template <int NP, bool VB>
+int segment_variant(const Args& a, bool biased, bool guide, bool local,
+                    dim3 grid, size_t bytes, cudaStream_t s, int* res) {
+  if (!biased)
+    return local ? plain_variant<NP, VB, true>(a, grid, bytes, s, res)
+                 : plain_variant<NP, VB, false>(a, grid, bytes, s, res);
+  if (guide)
+    return local ? biased_variant<NP, VB, true, true>(a, grid, bytes, s, res)
+                 : biased_variant<NP, VB, true, false>(a, grid, bytes, s, res);
+  return local ? biased_variant<NP, VB, false, true>(a, grid, bytes, s, res)
+               : biased_variant<NP, VB, false, false>(a, grid, bytes, s, res);
+}
+
+// dynamic shared bytes of a block of the trip or segment pass
+size_t pass_bytes(int n, int E, bool segment, bool biased, bool vb,
+                  bool guide, bool local, int S) {
+  return sizeof(float)
+      * ((size_t)tables_words(E, segment, biased, vb, local)
+         + (size_t)(BLOCK / GROUP)
+             * work_words(2 * n - 1, E, segment, biased, S, guide));
+}
+
 template <int NP>
 int launch(const Args& a, bool segment, cudaStream_t stream) {
-  const int N = 2 * a.n - 1;
   const int per_block = BLOCK / GROUP;
   const bool biased = a.log_pilot != nullptr;
   const bool vb = segment && a.vb_coal != nullptr;
-  const size_t bytes = sizeof(float)
-      * ((size_t)tables_words(a.E, segment, biased, vb)
-         + (size_t)per_block * work_words(N, a.E, segment, biased, a.S));
+  const bool guide = segment && a.g_rel != nullptr;
+  const bool local = segment && a.lr_pos != nullptr;
+  const size_t bytes =
+      pass_bytes(a.n, a.E, segment, biased, vb, guide, local, a.S);
   const dim3 grid((unsigned)((a.P + per_block - 1) / per_block));
-  if (segment && biased)
-    return vb
-        ? launch_kernel(segment_pass_biased_kernel<NP, true>, a, grid,
-                        bytes, stream)
-        : launch_kernel(segment_pass_biased_kernel<NP, false>, a, grid,
-                        bytes, stream);
   if (segment)
-    return vb
-        ? launch_kernel(segment_pass_kernel<NP, true>, a, grid, bytes,
-                        stream)
-        : launch_kernel(segment_pass_kernel<NP, false>, a, grid, bytes,
-                        stream);
+    return vb ? segment_variant<NP, true>(a, biased, guide, local, grid,
+                                          bytes, stream, nullptr)
+              : segment_variant<NP, false>(a, biased, guide, local, grid,
+                                           bytes, stream, nullptr);
   return launch_kernel(trip_kernel<NP>, a, grid, bytes, stream);
 }
 
@@ -1888,6 +2213,16 @@ int dispatch(const Args& a, bool segment, void* stream) {
   if (a.log_pilot != nullptr
       && (a.K < 1 || a.K > MAX_DELAY_SLOTS || a.S < 1 || a.S > MAX_SECTIONS
           || a.delay_k < 1 || a.delay_k > 30))
+    return (int)cudaErrorInvalidValue;
+  if (a.g_rel != nullptr
+      && (!segment || a.log_pilot == nullptr || a.cum_mass == nullptr
+          || a.g_leaf == nullptr || a.Wg < 1 || !(a.ws > 0.0f)))
+    return (int)cudaErrorInvalidValue;
+  if (a.lr_pos != nullptr
+      && (!segment || a.R < 1 || a.R > MAX_LOCAL_SLOTS || a.lr_due == nullptr
+          || a.lr_time == nullptr || a.lr_desc == nullptr
+          || a.lr_dropped == nullptr || a.lags == nullptr
+          || a.ropp == nullptr))
     return (int)cudaErrorInvalidValue;
   if (a.P <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -1943,7 +2278,10 @@ extern "C" int smc_segment_pass_launch(
     int delay_k, int* pop, float* mig_time, int* mig_dest, double* diag,
     const int* key, const float* ne, const float* mig, const float* tot_mig,
     const int* pop_map, int Pp, int Mw, int max_events,
-    const float* vb_coal, const float* vb_mig, void* stream) {
+    const float* vb_coal, const float* vb_mig, const float* g_rel,
+    const float* cum_mass, const float* g_leaf, int Wg, float ws,
+    float* lr_pos, float* lr_due, float* lr_time, long long* lr_desc,
+    int* lr_dropped, const float* lags, float* ropp, int R, void* stream) {
   if (F < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.uniforms = uniforms;
@@ -1997,76 +2335,56 @@ extern "C" int smc_segment_pass_launch(
   a.max_events = max_events;
   a.vb_coal = vb_coal;
   a.vb_mig = vb_mig;
+  a.g_rel = g_rel;
+  a.cum_mass = cum_mass;
+  a.g_leaf = g_leaf;
+  a.Wg = Wg;
+  a.ws = ws;
+  a.lr_pos = lr_pos;
+  a.lr_due = lr_due;
+  a.lr_time = lr_time;
+  a.lr_desc = lr_desc;
+  a.lr_dropped = lr_dropped;
+  a.lags = lags;
+  a.ropp = ropp;
+  a.R = R;
   return dispatch(a, true, stream);
 }
 
-// What a kernel takes on the card, as the card reports it: out[0]
-// registers per thread, out[1] local (stack) bytes per thread, out[2]
-// static shared bytes, out[3] dynamic shared bytes per block as launched,
-// out[4] particles per block, out[5] blocks an SM holds at once, out[6]
-// the card's SMs.
-template <typename Kernel>
-int resources_of(Kernel kernel, int threads, size_t bytes, int ppb,
-                 int* out) {
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return (int)err;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int blocks = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      threads, bytes);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = fa.numRegs;
-  out[1] = (int)fa.localSizeBytes;
-  out[2] = (int)fa.sharedSizeBytes;
-  out[3] = (int)bytes;
-  out[4] = ppb;
-  out[5] = blocks;
-  out[6] = sms;
-  return 0;
-}
-
 template <int NP>
-int resources_np(int kind, int n, int E, int S, bool vb, int* out) {
+int resources_np(int kind, int n, int E, int S, bool vb, bool guide,
+                 bool local, int* out) {
   const bool segment = kind != 0, biased = kind == 2;
-  const int per_block = BLOCK / GROUP;
-  const size_t bytes = sizeof(float)
-      * ((size_t)tables_words(E, segment, biased, vb)
-         + (size_t)per_block * work_words(2 * n - 1, E, segment, biased, S));
+  const size_t bytes =
+      pass_bytes(n, E, segment, biased, vb, guide, local, S);
   if (kind == 0)
-    return resources_of(trip_kernel<NP>, BLOCK, bytes, per_block, out);
-  if (biased)
-    return vb
-        ? resources_of(segment_pass_biased_kernel<NP, true>, BLOCK, bytes,
-                       per_block, out)
-        : resources_of(segment_pass_biased_kernel<NP, false>, BLOCK, bytes,
-                       per_block, out);
-  return vb
-      ? resources_of(segment_pass_kernel<NP, true>, BLOCK, bytes, per_block,
-                     out)
-      : resources_of(segment_pass_kernel<NP, false>, BLOCK, bytes,
-                     per_block, out);
+    return resources_of(trip_kernel<NP>, BLOCK, bytes, BLOCK / GROUP, out);
+  const Args none = {};
+  return vb ? segment_variant<NP, true>(none, biased, guide, local, dim3(1),
+                                        bytes, nullptr, out)
+            : segment_variant<NP, false>(none, biased, guide, local, dim3(1),
+                                         bytes, nullptr, out);
 }
 
 // kind 0: trip, 1: segment_pass, 2: its biased variant (S sections), 3:
 // its migration variant (Pp populations, buffers of Mw events); at n
-// leaves, E epochs; vb: the pass's VB variant (not for trip).
+// leaves, E epochs; vb: the pass's VB variant (not for trip); guide: the
+// biased pass's guided variant; local: the plain or biased pass's local
+// recording.
 extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
-                                    int Mw, int vb, int* out) {
+                                    int Mw, int vb, int guide, int local,
+                                    int* out) {
   if (kind < 0 || kind > 3 || n < 2 || n > MAX_LEAVES || E < 1
       || E > MAX_EPOCHS || (kind == 2 && (S < 1 || S > MAX_SECTIONS))
-      || (kind == 0 && vb))
+      || (kind == 0 && vb) || (guide && kind != 2)
+      || (local && kind != 1 && kind != 2))
     return (int)cudaErrorInvalidValue;
   if (kind != 3)
-    return n <= 4 ? resources_np<7>(kind, n, E, S, vb != 0, out)
-                  : resources_np<MAX_NODES>(kind, n, E, S, vb != 0, out);
+    return n <= 4
+        ? resources_np<7>(kind, n, E, S, vb != 0, guide != 0, local != 0,
+                          out)
+        : resources_np<MAX_NODES>(kind, n, E, S, vb != 0, guide != 0,
+                                  local != 0, out);
   if (Pp < 1 || Pp > MAX_POPS || Mw < 1 || Mw > MAX_MIG)
     return (int)cudaErrorInvalidValue;
   int ppb;

@@ -8,8 +8,12 @@ are copied from ``smcsmc_tpu/em.py``: the port imports nothing of the JAX
 package.  ``_auto_mig_buffer`` is copied too.  With ``-apf`` each chunk's
 lookahead columns come from the C scan of ``csrc/lookahead.c`` (built with
 gcc at first use) and its terminal-branch quantiles from trees drawn on the
-device.  Not ported yet (ROADMAP queue 1): online EM, the multi-process
-chunk partition, guide and ARG recording.
+device.  With ``-guide`` each chunk's guide comes from the copied
+``recombio.guide_to_windows``; with ``-alpha`` each iteration records the
+windows into ``emiter{it}/chunk{ci}.recomb.gz`` and, from iteration 1 on,
+sweeps on the previous iteration's record smoothed by the copied
+``processrecombination.LocalRecombination``.  Not ported yet (ROADMAP
+queue 1): online EM, the multi-process chunk partition, ARG recording.
 """
 
 from __future__ import annotations
@@ -41,10 +45,14 @@ from .checkpoint import (
 from .demography import Demography
 from .device import resolve_device
 from .kernels._build import load_lookahead_library
+from .kernels.guide import guide_tables
+from .kernels.local import split_windows
 from .kernels.migration import MAX_MIG, MAX_POPS
 from .kernels.tree import epochs_from_demography
 from .kernels.trip import MAX_EPOCHS, MAX_LEAVES
 from .lookahead import LookaheadData, _compute_lookahead_native
+from .processrecombination import LocalRecombination
+from .recombio import guide_to_windows, write_recomb
 from .segio import (
     SEGMENT_INVARIANT,
     SegData,
@@ -131,6 +139,14 @@ class EMConfig:
     # per-branch migration-event capacity (-migbuf; 0 = sized from the
     # demography by _auto_mig_buffer)
     mig_buffer: int = 0
+    # recombination guide loop (-alpha, model.py:65,1125-1148): alpha > 0
+    # records local recombination into .recomb.gz every iteration, smooths
+    # it (WBS) into the next iteration's guide, and samples recombination
+    # positions and points from that guide with importance weights
+    alpha: float = 0.0
+    beta: float = 4.0  # WBS smoothness (model.py:68)
+    guide_file: str | None = None  # explicit guide for every chunk (-guide)
+    guide_interval: float = 100.0  # local_recording_interval_ (count.hpp:115)
     device: str = "cuda"
 
 
@@ -150,8 +166,16 @@ def _auto_mig_buffer(demo: Demography) -> int:
 def refuse_unported(demo: Demography, cfg: EMConfig) -> None:
     """Raise NotImplementedError for the combinations with several
     populations that the port does not run (ROADMAP queue 1, item 15):
-    height bias or calibrated lags with structure or migration."""
+    height bias, calibrated lags, a recombination guide or local recording
+    with structure or migration (the migration pass has neither the biased
+    point nor a ring of local events)."""
     structured = demo.num_populations > 1 or bool(np.any(demo.mig_rates > 0))
+    for flag, used in (("-guide", cfg.guide_file is not None),
+                       ("-alpha", cfg.alpha > 0)):
+        if structured and used:
+            raise NotImplementedError(
+                f"{flag} with several populations or migration is not in "
+                "the torch port (ROADMAP queue 1, item 15)")
     if structured and cfg.bias_heights:
         raise NotImplementedError(
             "-bias_heights with several populations or migration is not in "
@@ -399,13 +423,16 @@ class Sweep(NamedTuple):
 
 
 def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
-                chunk=(None, None), seed: int = 1, vb_counts=None) -> Sweep:
+                chunk=(None, None), seed: int = 1, vb_counts=None,
+                guide_file: str | None = None) -> Sweep:
     """Set up a sweep over (a window of) the genome: the initial state, the
     chunk's segments, the segment step, the chunk start and the generator
     that the state was drawn from and the step goes on drawing from.
     ``vb_counts`` = (coal [E, Pp], mig [E, Pp, Pp]), the previous
     iteration's event counts, sets the VB tables of ``cfg.vb`` (None: the
-    tables of counts 1e10, before the first M-step)."""
+    tables of counts 1e10, before the first M-step).  ``guide_file`` (a
+    ``.recomb_guide.gz``) guides the sweep; ``cfg.alpha`` > 0 records its
+    windows of ``cfg.guide_interval`` bp."""
     dev = resolve_device(cfg.device)
     start, end = chunk
     if start is not None:
@@ -417,8 +444,12 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     # bound per-step recombination work (pfparam.cpp:364: 2/(4*N0*rho))
     max_seg_len = 2.0 / max(4.0 * demo.n0 * demo.recombination_rate, 1e-30)
     seg = split_long_segments(seg, max_seg_len)
+    chunk_len = float(seg.end) - chunk_start
+    num_windows = (int(np.ceil(chunk_len / cfg.guide_interval))
+                   if cfg.alpha > 0 else 0)
 
-    refuse_unported(demo, cfg)
+    refuse_unported(demo, dataclasses.replace(
+        cfg, guide_file=guide_file or cfg.guide_file))
     refuse_caps(demo, cfg)
     epochs = epochs_from_demography(demo, dev)
     bias_strengths = cfg.bias_strengths
@@ -436,6 +467,9 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
         has_migration=epochs.structured,
         max_mig=cfg.mig_buffer or _auto_mig_buffer(demo),
         apf=cfg.apf,
+        use_guide=guide_file is not None,
+        num_windows=num_windows,
+        window_size=cfg.guide_interval,
     )
     rho = demo.recombination_rate
     delays = None
@@ -453,15 +487,26 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     else:
         lags = default_lags(demo.change_times, rho)
     bias = {}  # the step's optional inputs
-    if pfcfg.use_bias:
+    if pfcfg.use_bias or pfcfg.use_guide:
         if delays is None:
             # no calibration pre-pass: survival ~ lag / lag_fraction
             delays = np.asarray(lags) * (cfg.delay / cfg.lag_fraction)
-        bias = dict(
+        bias["delays"] = np.asarray(delays, np.float32)
+    if pfcfg.use_bias:
+        bias.update(
             bias_heights=np.concatenate([[0.0], list(cfg.bias_heights),
                                          [3e38]]),
-            bias_strengths=np.asarray(bias_strengths, np.float32),
-            delays=np.asarray(delays, np.float32))
+            bias_strengths=np.asarray(bias_strengths, np.float32))
+    guide = None
+    if pfcfg.use_guide:
+        g_rate, g_leaf = guide_to_windows(guide_file, chunk_start, chunk_len,
+                                          cfg.guide_interval)
+        if g_leaf.shape[1] != demo.num_samples:
+            raise ValueError(
+                f"guide file has {g_leaf.shape[1]} leaf columns, "
+                f"expected {demo.num_samples}")
+        guide = guide_tables(g_rate, g_leaf, rho, cfg.guide_interval, dev)
+        bias["guide"] = guide
 
     # phase-configuration capacity: 1 unless unphased data (or -dephase)
     has_unphased = bool(np.any(seg.alleles == 2)) or cfg.dephase
@@ -483,7 +528,7 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     state = init_state(gen, epochs, pfcfg, demo.sample_pops, rho,
-                       sample_time=demo.sample_times)
+                       sample_time=demo.sample_times, guide=guide)
     segs = prepare_segments(seg, chunk_start, lags, dev,
                             max_configs=max_configs, dephase=cfg.dephase,
                             xc_epochs=cfg.xc_epochs, xr_epochs=cfg.xr_epochs,
@@ -494,7 +539,8 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
 
 
 def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
-              chunk=(None, None), seed: int = 1, vb_counts=None):
+              chunk=(None, None), seed: int = 1, vb_counts=None,
+              guide_file: str | None = None):
     """One particle-filter sweep over (a chunk of) the genome; returns host
     SuffStats, the w^2 stats, the log-likelihood and diagnostics.
 
@@ -502,9 +548,13 @@ def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
     state is saved every ``checkpoint_blocks * CHECK_EVERY`` segments under
     ``ckpt/seed{seed}_start{chunk_start}`` (unique per EM iteration and
     chunk, because ``run_em`` derives ``seed`` from both); a re-run of the
-    same chunk continues from there, and the file goes when the chunk ends."""
-    state, segs, step, chunk_start, gen = start_sweep(demo, seg, cfg, chunk,
-                                                      seed, vb_counts)
+    same chunk continues from there, and the file goes when the chunk ends.
+
+    ``guide_file`` guides the sweep (``-guide``, or the guide loop); with
+    ``cfg.alpha`` > 0 ``diag["local_recomb"]`` holds the recorded windows
+    (what ``recombio.write_recomb`` writes)."""
+    state, segs, step, chunk_start, gen = start_sweep(
+        demo, seg, cfg, chunk, seed, vb_counts, guide_file)
     ess_trace = np.zeros(len(segs))
     resample_rows = []  # (genome position, ESS) at each resample event
     first = 0
@@ -540,7 +590,7 @@ def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
             save_state(ckpt_path, state, gen, {
                 "segments": s + 1, "ess": ess_trace[:s + 1].tolist(),
                 "resample_rows": [list(r) for r in resample_rows]})
-    state = flush_pending(state)
+    state = flush_pending(state, cfg.guide_interval)
     if ckpt_path:
         # chunk finished: iteration-level resume takes over from here
         remove_state(ckpt_path)
@@ -578,6 +628,22 @@ def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
                                & (segs.states == SEGMENT_INVARIANT)
                                & (segs.leaf_status != -1)).sum()),
     }
+    if state.win_cnt is not None:
+        leaf, tcnt, lcnt = (x.cpu().numpy().astype(np.float64)
+                            for x in split_windows(state.win_cnt))
+        diag["local_recomb"] = {
+            "opp_diff": state.win_opp_diff.cpu().numpy().astype(np.float64),
+            "leaf_cnt": leaf,
+            "time_cnt": tcnt,
+            "logtime_cnt": lcnt,
+            "dropped": int(state.lr_dropped),
+            "start": chunk_start,
+            "window_size": cfg.guide_interval,
+        }
+        if diag["local_recomb"]["dropped"]:
+            logger.warning("%d local recombination events dropped on full "
+                           "rings in the chunk starting at %d",
+                           diag["local_recomb"]["dropped"], chunk_start)
     return stats, stats_wt, float(state.ln_norm), diag
 
 
@@ -606,7 +672,7 @@ def _resolve_bias_strengths(demo: Demography, cfg: EMConfig, epochs=None):
 
 
 def run_chunks(demo: Demography, seg: SegData, cfg: EMConfig, chunks,
-               seeds=None, vb_counts=None):
+               seeds=None, vb_counts=None, guide_files=None):
     """Run genome chunks concurrently, the scale-out axis the reference
     implements as concurrent ``smcsmc`` subprocesses (model.py:1094-1100,
     execute.py:26-105).  Each chunk runs in its own thread on its own GPU
@@ -614,11 +680,13 @@ def run_chunks(demo: Demography, seg: SegData, cfg: EMConfig, chunks,
     draws from a global generator), so on a multi-GPU host the sweeps run
     in parallel; with one device (or one worker) the chunks run one after
     another.  ``vb_counts``: the previous iteration's event counts for
-    ``cfg.vb``.  Returns the per-chunk (stats, stats_wt, logl, diag) tuples
-    in chunk order."""
+    ``cfg.vb``; ``guide_files``: each chunk's guide file or None.  Returns
+    the per-chunk (stats, stats_wt, logl, diag) tuples in chunk order."""
     n = len(chunks)
     if seeds is None:
         seeds = [cfg.seed + ci for ci in range(n)]
+    if guide_files is None:
+        guide_files = [None] * n
     if cfg.bias_heights and not cfg.bias_strengths:
         # once for the whole run: every chunk proposes with the same
         # strengths, and the 20,000-tree pre-pass runs once
@@ -631,7 +699,7 @@ def run_chunks(demo: Demography, seg: SegData, cfg: EMConfig, chunks,
     def one(ci, device=cfg.device):
         return run_chunk(demo, seg, dataclasses.replace(cfg, device=device),
                          chunk=chunks[ci], seed=seeds[ci],
-                         vb_counts=vb_counts)
+                         vb_counts=vb_counts, guide_file=guide_files[ci])
 
     if workers <= 1:
         return [one(ci) for ci in range(n)]
@@ -763,8 +831,13 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
     Clump row group per chunk when there are several) and the M-step; then
     ``result.out`` with the iterations' aggregate rows, newest first.  An
     iteration whose ``chunkfinal.out`` is already complete in ``outdir`` is
-    not swept again: its statistics are read back from the file."""
+    not swept again: its statistics are read back from the file.  With
+    ``cfg.alpha`` > 0 each iteration also writes each chunk's
+    ``chunk{ci}.recomb.gz`` and, from iteration 1 on, sweeps each chunk on
+    the previous iteration's, smoothed into ``chunk{ci}.recomb_guide.gz``;
+    ``cfg.guide_file`` guides every chunk from iteration 0 on."""
     refuse_caps(demo, cfg)
+    refuse_unported(demo, cfg)
     result = EMResult(demos=[], stats=[], stats_wt=[], log_likelihoods=[])
     if cfg.outdir:
         os.makedirs(cfg.outdir, exist_ok=True)
@@ -819,13 +892,40 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
                         it, cfg.outdir)
             continue
 
+        guide_files = [cfg.guide_file] * len(chunks)
+        if cfg.alpha > 0 and it > 0 and cfg.outdir:
+            # the guide loop (model.py:1125-1143): the previous iteration's
+            # .recomb.gz of each chunk, smoothed, guides that chunk
+            for ci in range(len(chunks)):
+                recomb = os.path.join(cfg.outdir, f"emiter{it - 1}",
+                                      f"chunk{ci}.recomb.gz")
+                if not os.path.exists(recomb):
+                    continue
+                lr = LocalRecombination(recomb, iteration=it - 1)
+                lr.smooth(cfg.alpha, cfg.beta)
+                guide_files[ci] = os.path.join(cfg.outdir, f"emiter{it}",
+                                               f"chunk{ci}.recomb_guide.gz")
+                os.makedirs(os.path.dirname(guide_files[ci]), exist_ok=True)
+                lr.write_data(guide_files[ci])
+                logger.info("iteration %d, chunk %d: guide %s", it, ci,
+                            guide_files[ci])
         t0 = time.monotonic()
         per_chunk = run_chunks(
             current, seg, cfg, chunks,
             seeds=[cfg.seed + 1000 * it + ci for ci in range(len(chunks))],
-            vb_counts=vb_counts,
+            vb_counts=vb_counts, guide_files=guide_files,
         )
         seconds = time.monotonic() - t0
+        if cfg.alpha > 0 and cfg.outdir:
+            os.makedirs(os.path.join(cfg.outdir, f"emiter{it}"), exist_ok=True)
+            for ci, pc in enumerate(per_chunk):
+                lrd = pc[3]["local_recomb"]
+                write_recomb(
+                    os.path.join(cfg.outdir, f"emiter{it}",
+                                 f"chunk{ci}.recomb.gz"),
+                    it, lrd["window_size"], lrd["opp_diff"], lrd["leaf_cnt"],
+                    lrd["time_cnt"], lrd["logtime_cnt"],
+                    start_position=lrd["start"])
         stats = sum_stats([pc[0] for pc in per_chunk])
         stats_wt = sum_stats([pc[1] for pc in per_chunk])
         logl = sum(pc[2] for pc in per_chunk)

@@ -118,11 +118,17 @@ def load_trip_library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, ci,
         vp, vp,  # the VB tables vb_coal, vb_mig (0: VB off)
+        # the guide (0: off): g_rel, cum_mass, g_leaf; windows Wg, size ws
+        vp, vp, vp, ci, cf,
+        # local recording (0: off): lr_pos, lr_due, lr_time, lr_desc,
+        # lr_dropped, lags, ropp; ring slots R
+        vp, vp, vp, vp, vp, vp, vp, ci,
         vp,  # stream
     ]
     lib.smc_segment_pass_launch.restype = ci
-    # kind, n, E, S, Pp, Mw, vb, out
-    lib.smc_kernel_resources.argtypes = [ci, ci, ci, ci, ci, ci, ci, vp]
+    # kind, n, E, S, Pp, Mw, vb, guide, local, out
+    lib.smc_kernel_resources.argtypes = [ci, ci, ci, ci, ci, ci, ci, ci, ci,
+                                         vp]
     lib.smc_kernel_resources.restype = ci
     lib.smc_noop_launch.argtypes = [vp]
     lib.smc_noop_launch.restype = ci

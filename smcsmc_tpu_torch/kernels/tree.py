@@ -179,6 +179,26 @@ def count_data_leaves_below(parent: torch.Tensor,
     return cnt[:, :N]
 
 
+def descendant_bitmask(parent: torch.Tensor) -> torch.Tensor:
+    """[P, N] int64 bitmask of the sample leaves below (and including) each
+    node, bit l for leaf l: the JAX package's ``descendant_bitmask`` and
+    ``descendant_bitmask64`` (tree.py:271/:292) in one word of up to 64
+    leaves (the reference's u64 Descendants_t, descendants.hpp:16)."""
+    P, N = parent.shape
+    n = (N + 1) // 2
+    if n > 64:
+        raise ValueError(f"descendant bitmasks hold at most 64 leaves, got {n}")
+    ids = leaf_ancestor_ids(parent).reshape(P, n * n)
+    bits = torch.ones(n, dtype=torch.int64, device=parent.device) << \
+        torch.arange(n, dtype=torch.int64, device=parent.device)
+    vals = bits[:, None].expand(n, n).reshape(1, n * n).expand(P, -1)
+    out = torch.zeros((P, N + 1), dtype=torch.int64, device=parent.device)
+    # the bits of distinct leaves are disjoint, so adding them is OR-ing;
+    # ids == -1 land in the spare column N, which is dropped
+    out.scatter_add_(1, torch.where(ids >= 0, ids, N).long(), vals)
+    return out[:, :N]
+
+
 def data_branch_length(time, parent, has_data) -> torch.Tensor:
     """[P] length of branches informative about mutations: at least one
     data-carrying leaf below and not all of them."""

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,9 +58,12 @@ from .bias import (
     apply_due_delayed,
     biased_point,
     epoch_index,
+    guide_branch_rates,
     push_delayed,
     section_of,
 )
+from .guide import GuideTables, draw_gap, leaf_rates_at, span_log_iw
+from .local import MAX_LOCAL_SLOTS, LocalPass, push_local_event
 from .migration import (
     MAX_MIG,
     MAX_POPS,
@@ -76,6 +80,7 @@ from .tree import (
     _pick,
     branch_lengths,
     data_branch_length,
+    descendant_bitmask,
     parent_time,
     tree_summaries,
 )
@@ -98,18 +103,35 @@ def _onehot(idx: torch.Tensor, N: int) -> torch.Tensor:
     return torch.arange(N, device=idx.device)[None, :] == idx[:, None]
 
 
-def _trip_once(u, leaf_status, time, parent, child0, child1, next_rec, upd,
-               log_w, tl, B, tl_e, pending, L, mu, rho, est, eend, i2n,
-               has_data, bias=None):
+class TripRecord(NamedTuple):
+    """What one trip hands back beyond the updated tensors, per particle
+    (values of inactive particles are not meaningful)."""
+
+    h_r: torch.Tensor  # recombination height
+    t_c: torch.Tensor  # coalescence height
+    log_iw: torch.Tensor  # importance weight of the point (0 unbiased)
+    strength: torch.Tensor  # bias strength of the point's section
+    log_iw_bias: torch.Tensor  # its height-bias part (log_iw unguided)
+    c: torch.Tensor  # [P] i32 the node whose branch was cut
+
+
+def _trip(u, leaf_status, time, parent, child0, child1, next_rec, upd,
+          log_w, tl, B, tl_e, pending, L, mu, rho, est, eend, i2n,
+          has_data, bias=None, guide: GuideTables | None = None,
+          front: float = 0.0):
     """One trip over the population; returns the updated tensors and the
-    trip's event ``(h_r, t_c, log_iw, strength)`` of every particle.
+    trip's :class:`TripRecord`.
 
     Follows ``pallas_trip._trip_kernel`` step for step, except for the
     mixed-data branch length, which is computed as ``data_branch_length``
     (the kernel's ancestor-chain walk restarts at node 0 after passing the
     root; see ROADMAP, faults).  ``bias`` = (heights [S+1], strengths [S])
     draws the point with :func:`bias.biased_point` instead (log_iw 0 and
-    strength 1 without it)."""
+    strength 1 without it); a third entry, the leaves' guide rates [P, n]
+    at the event's window, weighs each branch by its guide rate
+    (:func:`bias.guide_branch_rates` of the tree before the trip).
+    ``guide`` draws the next gap from the guide at ``front + next_rec``
+    (:func:`guide.draw_gap`)."""
     P, N = time.shape
     E = est.shape[0]
     f32 = torch.float32
@@ -139,8 +161,12 @@ def _trip_once(u, leaf_status, time, parent, child0, child1, next_rec, upd,
         prev = _pick(cum, cc)[:, 0] - _pick(bl, cc)[:, 0]
         h_r = _pick(time, cc)[:, 0] + (x_pt - prev)
         log_iw, strength = zero, torch.ones_like(zero)
+        log_iw_bias = zero
     else:
-        c, h_r, log_iw, strength = biased_point(u_pt, time, parent, *bias)
+        rates = (None if len(bias) < 3 else
+                 guide_branch_rates(time, parent, child0, child1, bias[2]))
+        c, h_r, log_iw, strength, log_iw_bias = biased_point(
+            u_pt, time, parent, bias[0], bias[1], rates)
         cc = c[:, None]
 
     # ---- hazard inversion over the (epoch x node) grid --------------------
@@ -242,12 +268,16 @@ def _trip_once(u, leaf_status, time, parent, child0, child1, next_rec, upd,
     B_out = torch.where(active, B2, B)
 
     # ---- next recombination gap (from the refreshed tree length) ----------
-    gap = -torch.log1p(-u_gap) / (rho * tl_out).clamp(min=1e-30)
+    x_gap = -torch.log1p(-u_gap)
+    if guide is None:
+        gap = x_gap / (rho * tl_out).clamp(min=1e-30)
+    else:
+        gap = draw_gap(guide, x_gap, rho, tl_out, next_rec + front)
     upd_out = torch.where(active, next_rec, upd)
     nr_out = torch.where(active, next_rec + gap, next_rec)
     return ((t2, par2, c0_2, c1_2, nr_out, upd_out, log_w, tl_out, B_out,
              torch.where(act1, tle2, tl_e), pending),
-            (h_r, t_c, log_iw, strength))
+            TripRecord(h_r, t_c, log_iw, strength, log_iw_bias, c))
 
 
 def vb_coal_term(vb_coal: torch.Tensor, epoch_start: torch.Tensor,
@@ -258,13 +288,40 @@ def vb_coal_term(vb_coal: torch.Tensor, epoch_start: torch.Tensor,
     return torch.where(active, vb_coal[epoch_index(epoch_start, t_c)], 0.0)
 
 
+def _local_ring(local: LocalPass | None) -> tuple:
+    """The ring of a LocalPass as the tuple ``push_local_event`` takes."""
+    return (() if local is None else
+            (local.lr_pos, local.lr_due, local.lr_time, local.lr_desc,
+             local.lr_dropped))
+
+
+def _push_trip_event(local: LocalPass, ring: tuple, active, next_rec,
+                     rec: TripRecord, desc_pre, epoch_start) -> tuple:
+    """Push each active particle's trip as a pending local event: at
+    ``front + next_rec``, due a lag of the recombination height's epoch
+    later, with the leaves below the cut node in the tree before the trip
+    (``desc_pre`` [P, N]); smc.py:1054-1069 of the JAX package."""
+    pos = next_rec + local.front
+    due = pos + local.lags[epoch_index(epoch_start, rec.h_r)]
+    desc = desc_pre.gather(1, rec.c.clamp(min=0).long()[:, None])[:, 0]
+    return push_local_event(*ring, active, pos, due, rec.h_r, desc)
+
+
+def _store_ring(local: LocalPass | None, ring: tuple) -> None:
+    if local is not None:
+        for dst, src in zip(_local_ring(local), ring):
+            dst.copy_(src)
+
+
 def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
                upd, log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start,
-               inv2ne, has_data, vb_coal=None):
+               inv2ne, has_data, vb_coal=None, local: LocalPass | None = None):
     """Plain torch version of :func:`trip` on any device (same arguments,
     same in-place contract).  Stops early once no particle is active.
     ``vb_coal`` [E] (the plain segment pass's VB; ``trip`` takes none)
-    adds each trip's :func:`vb_coal_term` to ``log_w`` after it."""
+    adds each trip's :func:`vb_coal_term` to ``log_w`` after it; ``local``
+    (the plain segment pass's local recording) pushes each trip's event
+    into its ring."""
     f32 = torch.float32
     dev = time.device
     L = torch.tensor(L, dtype=f32, device=dev)
@@ -275,19 +332,25 @@ def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
     outs = (time, parent, child0, child1, next_rec, upd, log_w, tl, B, tl_e,
             pending)
     cur = outs
+    ring = _local_ring(local)
     for j in range(uniforms.shape[0]):
         if not bool((cur[4] < L).any()):
             break
         (t, p, c0, c1, nr, up, lw, tl_, B_, tle, pend) = cur
-        cur, ev = _trip_once(uniforms[j], int(leaf_status), t, p, c0, c1, nr,
-                             up, lw, tl_, B_, tle, pend, L, mu, rho, est,
-                             eend, inv2ne, has_data)
+        desc_pre = None if local is None else descendant_bitmask(p)
+        cur, rec = _trip(uniforms[j], int(leaf_status), t, p, c0, c1, nr,
+                         up, lw, tl_, B_, tle, pend, L, mu, rho, est, eend,
+                         inv2ne, has_data)
         if vb_coal is not None:
-            cur = cur[:6] + (cur[6] + vb_coal_term(vb_coal, est, ev[1],
+            cur = cur[:6] + (cur[6] + vb_coal_term(vb_coal, est, rec.t_c,
                                                    nr < L),) + cur[7:]
+        if local is not None:
+            ring = _push_trip_event(local, ring, nr < L, nr, rec, desc_pre,
+                                    est)
     if cur is not outs:
         for dst, src in zip(outs, cur):
             dst.copy_(src)
+        _store_ring(local, ring)
 
 
 def float_tolerances(ref: dict, L: float, mu: float, scale: float = 1e-5,
@@ -487,13 +550,19 @@ trip.launches = 0
 def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
                   next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
                   epoch_start, inv2ne, has_data, b: BiasedPass,
-                  vb_coal=None):
+                  vb_coal=None, guide: GuideTables | None = None,
+                  local: LocalPass | None = None):
     """The biased form of :func:`trip_plain`, IN PLACE: after each trip the
     posterior weight takes the whole importance weight, the pilot weight
-    the no-mutation factor and the immediate part, and the delayed part
+    the no-mutation factor and the immediate part (its height-bias part,
+    where the delay height's section is unbiased), and the delayed part
     goes into the particle's ring at ``front + next_rec`` (smc.py:968-1020
     of the JAX package).  With ``vb_coal`` [E] both weights take the
-    trip's VB term first (smc.py:951-967)."""
+    trip's VB term first (smc.py:951-967).  With ``guide`` each extension
+    takes the guide's survival weight in both weights (smc.py:903-914),
+    the point is weighed by the branches' guide rates at the event's
+    window, and the next gap comes from the guide; with ``local`` each
+    trip's event goes into the particle's ring of pending local events."""
     f32 = torch.float32
     dev = time.device
     L_t = torch.tensor(L, dtype=f32, device=dev)
@@ -506,39 +575,53 @@ def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
     cur = outs
     lp = b.log_pilot
     ring = (b.df_pos, b.df_logf, b.df_delta, b.df_k)
+    lring = _local_ring(local)
     for j in range(uniforms.shape[0]):
-        nr, up, B_pre = cur[4], cur[5], cur[8]
+        nr, up, tl_pre, B_pre = cur[4], cur[5], cur[7], cur[8]
         active = nr < L_t
         if not bool(active.any()):
             break
-        delta = torch.where(active, nr - up, torch.zeros_like(nr))
-        cur, (h_r, t_c, log_iw, strength) = _trip_once(
+        zero = torch.zeros_like(nr)
+        delta = torch.where(active, nr - up, zero)
+        point = (b.heights, b.strengths)
+        if guide is not None:
+            liw = torch.where(active, span_log_iw(
+                guide, rho_t, tl_pre, up + b.front, nr + b.front), zero)
+            point += (leaf_rates_at(guide, nr + b.front),)
+        desc_pre = None if local is None else descendant_bitmask(cur[1])
+        cur, rec = _trip(
             uniforms[j], int(leaf_status), *cur, L_t, mu_t, rho_t,
-            epoch_start, eend, inv2ne, has_data, (b.heights, b.strengths))
-        zero = torch.zeros_like(log_iw)
+            epoch_start, eend, inv2ne, has_data, point, guide, b.front)
         lp = lp - mu_t * B_pre * delta
         lw = cur[6]
+        if guide is not None:
+            lw, lp = lw + liw, lp + liw
         if vb_coal is not None:
-            term = vb_coal_term(vb_coal, epoch_start, t_c, active)
+            term = vb_coal_term(vb_coal, epoch_start, rec.t_c, active)
             lw, lp = lw + term, lp + term
-        cur = cur[:6] + (lw + torch.where(active, log_iw, zero),) + cur[7:]
-        d_h = h_r if by_point else t_c
-        strength_h = (strength if by_point
+        cur = cur[:6] + (lw + torch.where(active, rec.log_iw, zero),) \
+            + cur[7:]
+        d_h = rec.h_r if by_point else rec.t_c
+        strength_h = (rec.strength if by_point
                       else b.strengths[section_of(b.heights, d_h)])
         immediate = (strength_h - 1.0).abs() < 1e-6
-        imm = torch.where(immediate, log_iw, zero)
-        late = log_iw - imm
+        imm = torch.where(immediate, rec.log_iw_bias, zero)
+        late = rec.log_iw - imm
         lp = lp + torch.where(active, imm, zero)
         delay = b.delays[epoch_index(epoch_start, d_h)]
         *ring, overflow = push_delayed(
             *ring, active & (late.abs() > 1e-9), nr + b.front, delay, late,
             b.delay_k)
         lp = lp + overflow
+        if local is not None:
+            lring = _push_trip_event(local, lring, active, nr, rec, desc_pre,
+                                     epoch_start)
     if cur is not outs:
         for dst, src in zip(outs + (b.log_pilot, b.df_pos, b.df_logf,
                                     b.df_delta, b.df_k),
                             cur + (lp, *ring)):
             dst.copy_(src)
+        _store_ring(local, lring)
 
 
 def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
@@ -546,14 +629,18 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
                        epoch_start, inv2ne, has_data,
                        biased: BiasedPass | None = None,
                        migration: MigrationPass | None = None,
-                       vb: tuple | None = None):
+                       vb: tuple | None = None,
+                       guide: GuideTables | None = None,
+                       local: LocalPass | None = None):
     """Plain torch version of :func:`segment_pass` on any device (same
     arguments, same in-place contract): ``tree_summaries``, the trips
     (``trip_plain``, :func:`_biased_trips` or
     ``migration.migration_trips``, each with the VB term after every trip
-    when ``vb`` is given), the final extension, under bias the drain of
-    the delayed factors due at ``front + L``, and the push into FIFO slot
-    0."""
+    when ``vb`` is given; the first two with the local events of ``local``,
+    the biased one with the ``guide``), the final extension (with the
+    guide's survival weight), under bias the drain of the delayed factors
+    due at ``front + L``, and the push into FIFO slot 0; with ``local``
+    the segment's ungated recombination opportunity into ``local.ropp``."""
     P = time.shape[0]
     E = epoch_start.shape[0]
     dev = time.device
@@ -565,30 +652,46 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
     tl, tl_e, B = tl.contiguous(), tl_e.contiguous(), B.contiguous()
     upd = torch.zeros(P, device=dev)
     pending = torch.zeros((P, off["width"]), device=dev)
+    if migration is not None and (guide is not None or local is not None):
+        raise ValueError("the migration pass has no guide or local variant")
+    if guide is not None and biased is None:
+        raise ValueError("the guide runs in the biased pass")
 
     # ---- recombination trips inside [front, front + L) ---------------------
     if uniforms.shape[0] > 0:
         args = (uniforms, leaf_status, time, parent, child0, child1, next_rec,
                 upd, log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start,
                 inv2ne, has_data)
+        vb_coal = None if vb is None else vb[0][:, 0]
         if migration is not None:
             migration_trips(*args[:-2], has_data, migration, vb)
         elif biased is None:
-            trip_plain(*args, None if vb is None else vb[0][:, 0])
+            trip_plain(*args, vb_coal, local)
         else:
-            _biased_trips(*args, biased, None if vb is None else vb[0][:, 0])
+            _biased_trips(*args, biased, vb_coal, guide, local)
 
     # ---- final extension to the segment end --------------------------------
     delta = L - upd
     log_w.copy_(log_w - mu * B * delta)
+    liw = None
+    if guide is not None:
+        front = biased.front
+        end = torch.full_like(upd, float(np.float32(front) + np.float32(L)))
+        liw = torch.where(delta > 0,
+                          span_log_iw(guide, float(np.float32(rho)), tl,
+                                      upd + front, end),
+                          torch.zeros_like(delta))
+        log_w.add_(liw)
     ro = off["recomb_opp"]
     pending[:, ro:ro + E] += delta[:, None] * tl_e
     next_rec.copy_(next_rec - L)
 
     if biased is not None:
-        # ---- the pilot's extension and the factors due at the end ----------
+        # ---- the pilot's extension; the factors due at the end -------------
         b = biased
         lp = b.log_pilot - mu * B * delta
+        if liw is not None:
+            lp = lp + liw
         add, *ring = apply_due_delayed(
             b.df_pos, b.df_logf, b.df_delta, b.df_k,
             float(np.float32(b.front) + np.float32(L)))
@@ -599,6 +702,8 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
     # ---- push pending increments into FIFO slot 0 --------------------------
     fifo[:, 0] += pending * fifo_mask[None, :]
     tl_out.copy_(tl)
+    if local is not None:
+        local.ropp.copy_(pending[:, ro:ro + E].sum(dim=1))
 
 
 def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
@@ -606,7 +711,9 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
                  epoch_start, inv2ne, has_data,
                  biased: BiasedPass | None = None,
                  migration: MigrationPass | None = None,
-                 vb: tuple | None = None):
+                 vb: tuple | None = None,
+                 guide: GuideTables | None = None,
+                 local: LocalPass | None = None):
     """One segment's tree pass for every particle, IN PLACE.
 
     From the trees alone: tree length, per-epoch tree length and data branch
@@ -643,6 +750,19 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     pass's pilot) takes the table entry of every coalescence and migration
     the trip records, whatever the recording gate says.
 
+    ``guide`` (a ``guide.GuideTables``, with ``biased`` only: the guide
+    without height bias is the biased pass with one section of strength
+    1) makes it the guided pass: each extension over [x0, x1) takes the
+    guide's survival weight in both weights, the point's segments are
+    weighed by the branches' guide rates at the event's window (the
+    delayed part is then the whole weight less its height-bias part), and
+    each gap is drawn in guide mass.  ``local`` (a ``local.LocalPass``,
+    with the plain or the biased pass) makes each trip push its pending
+    local event into the particle's ring (the first free slot; on a full
+    ring it is dropped and counted) and writes the segment's ungated
+    recombination opportunity into ``local.ropp``.  Its ring holds at most
+    32 slots.
+
     CPU tensors run :func:`segment_pass_plain`.  CUDA tensors launch the
     kernel of ``csrc/trip.cu`` on the current stream (one launch) or raise;
     nothing falls back.  Every call checks every tensor, as :func:`trip`
@@ -650,13 +770,19 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     kernel, ``segment_pass.biased_launches`` those of the biased one and
     ``segment_pass.migration_launches`` those of the migration one; the
     ``vb_`` counts (``vb_launches``, ``biased_vb_launches``,
-    ``migration_vb_launches``) those of their VB variants."""
+    ``migration_vb_launches``) those of their VB variants; the guided and
+    local variants count under :func:`launch_count`'s names
+    (``local_launches``, ``biased_guide_local_vb_launches``, ...)."""
     dev = time.device
+    if guide is not None and biased is None:
+        raise ValueError("the guide runs in the biased pass")
+    if migration is not None and (guide is not None or local is not None):
+        raise ValueError("the migration pass has no guide or local variant")
     if dev.type == "cpu":
         segment_pass_plain(uniforms, leaf_status, time, parent, child0,
                            child1, next_rec, log_w, fifo, fifo_mask, tl_out,
                            L, mu, rho, epoch_start, inv2ne, has_data, biased,
-                           migration, vb)
+                           migration, vb, guide, local)
         return
     if dev.type != "cuda":
         raise ValueError(f"segment_pass: unsupported device {dev}")
@@ -739,8 +865,39 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
         spec += [("vb_coal", vb[0], f32, (E, Pp)),
                  ("vb_mig", vb[1], f32, (E, Pp, Pp))]
         vb_args = (vb[0].data_ptr(), vb[1].data_ptr())
+    guide_args = (None, None, None, 0, 0.0)
+    if guide is not None:
+        Wg = guide.g_rel.shape[0]
+        if Wg < 1 or not guide.ws > 0:
+            raise ValueError(f"a guide of {Wg} windows of {guide.ws} bp")
+        spec += [("g_rel", guide.g_rel, f32, (Wg,)),
+                 ("cum_mass", guide.cum_mass, f32, (Wg + 1,)),
+                 ("g_leaf", guide.g_leaf, f32, (Wg, n))]
+        guide_args = (guide.g_rel.data_ptr(), guide.cum_mass.data_ptr(),
+                      guide.g_leaf.data_ptr(), Wg, float(guide.ws))
+    local_args = (None,) * 7 + (0,)
+    front = 0.0 if biased is None else float(biased.front)
+    if local is not None:
+        R = local.lr_pos.shape[-1]
+        if not 1 <= R <= MAX_LOCAL_SLOTS:
+            raise ValueError(f"segment_pass takes local rings of 1.."
+                             f"{MAX_LOCAL_SLOTS} slots, got {R}")
+        if biased is not None and float(local.front) != front:
+            raise ValueError(f"the local front {local.front} is not the "
+                             f"biased front {front}")
+        front = float(local.front)
+        spec += [("lr_pos", local.lr_pos, f32, (P, R)),
+                 ("lr_due", local.lr_due, f32, (P, R)),
+                 ("lr_time", local.lr_time, f32, (P, R)),
+                 ("lr_desc", local.lr_desc, torch.int64, (P, R)),
+                 ("lr_dropped", local.lr_dropped, i32, ()),
+                 ("lags", local.lags, f32, (E,)),
+                 ("ropp", local.ropp, f32, (P,))]
+        local_args = (*(x.data_ptr() for x in local[:7]), R)
     for name, x, dtype, shape in spec:
         _check_tensor(name, x, dtype, shape, dev)
+    # the segment's start: the biased pass's, or the local ring's
+    bias_args = bias_args[:10] + (front,) + bias_args[11:]
     _launch("smc_segment_pass_launch", dev,
             uniforms.data_ptr(), T, P, n, E, F, int(leaf_status),
             time.data_ptr(), parent.data_ptr(), child0.data_ptr(),
@@ -748,17 +905,34 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
             fifo.data_ptr(), fifo_mask.data_ptr(), tl_out.data_ptr(),
             float(L), float(mu), float(rho), epoch_start.data_ptr(),
             inv2ne.data_ptr(), has_data.data_ptr(), *bias_args, *mig_args,
-            *vb_args)
-    kind = ("migration_" if migration is not None
-            else "" if biased is None else "biased_")
-    name = kind + ("vb_launches" if vb is not None else "launches")
+            *vb_args, *guide_args, *local_args)
+    name = launch_count(biased is not None, migration is not None,
+                        vb is not None, guide is not None, local is not None)
     setattr(segment_pass, name, getattr(segment_pass, name) + 1)
 
 
-# launches of the plain, the biased and the migration kernel, and of their
-# VB variants
-LAUNCH_COUNTS = ("launches", "biased_launches", "migration_launches",
-                 "vb_launches", "biased_vb_launches", "migration_vb_launches")
+def launch_count(biased=False, migration=False, vb=False, guide=False,
+                 local=False) -> str:
+    """The name of the ``segment_pass`` count of a kernel variant:
+    ``[biased_|migration_][guide_][local_][vb_]launches``."""
+    return ("migration_" if migration else "biased_" if biased else "") \
+        + ("guide_" if guide else "") + ("local_" if local else "") \
+        + ("vb_" if vb else "") + "launches"
+
+
+# launches of every variant of the kernel: the plain, the biased and the
+# migration pass, each with and without VB; the plain pass with local
+# recording; the biased pass guided, with local recording or both
+LAUNCH_COUNTS = tuple(
+    launch_count(b, m, v, g, lo)
+    for b, m, g, lo in ((False, False, False, False),
+                        (True, False, False, False),
+                        (False, True, False, False),
+                        (False, False, False, True),
+                        (True, False, True, False),
+                        (True, False, False, True),
+                        (True, False, True, True))
+    for v in (False, True))
 for _count in LAUNCH_COUNTS:
     setattr(segment_pass, _count, 0)
 
@@ -773,7 +947,8 @@ WAVES_AT = 10000  # the particle count of the paths chip_smoke drives
 
 
 def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
-                     Mw: int = 0, S: int = 2, vb: bool = False) -> dict:
+                     Mw: int = 0, S: int = 2, vb: bool = False,
+                     guide: bool = False, local: bool = False) -> dict:
     """What a kernel of ``csrc/trip.cu`` takes on the current CUDA device
     at (n leaves, E epochs; for the biased pass also S bias sections, for
     the migration pass Pp populations and Mw events per buffer): registers
@@ -783,8 +958,9 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     and the card's SMs (:data:`RESOURCES`), and from those the particles an
     SM holds and the waves a launch of :data:`WAVES_AT` particles takes.  ``variant`` is a key of :data:`RESOURCE_VARIANTS`
     (n picks the instantiation: 7 padded nodes up to 4 leaves, 15 above;
-    ``vb`` a pass's VB variant).  Raises on an unknown variant or a shape
-    beyond the caps before any CUDA call."""
+    ``vb`` a pass's VB variant, ``guide`` the biased pass's guided one,
+    ``local`` the plain or biased pass's local recording).  Raises on an
+    unknown variant or a shape beyond the caps before any CUDA call."""
     if variant not in RESOURCE_VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}; one of "
                          f"{tuple(RESOURCE_VARIANTS)}")
@@ -798,10 +974,14 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     if variant == "biased" and not 1 <= S <= MAX_SECTIONS:
         raise ValueError(f"the biased pass takes 1..{MAX_SECTIONS} sections,"
                          f" got {S}")
+    if guide and variant != "biased":
+        raise ValueError("only the biased pass has a guided variant")
+    if local and variant not in ("segment_pass", "biased"):
+        raise ValueError("only the plain and biased passes record locally")
     out = (ctypes.c_int * len(RESOURCES))()
     lib = load_trip_library()
     err = lib.smc_kernel_resources(RESOURCE_VARIANTS[variant], n, E, S, Pp,
-                                   Mw, int(vb), out)
+                                   Mw, int(vb), int(guide), int(local), out)
     if err != 0:
         raise RuntimeError(f"smc_kernel_resources failed: CUDA error {err} "
                            f"({lib.smc_cuda_error_string(err).decode()})")

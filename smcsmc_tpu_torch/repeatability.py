@@ -3,7 +3,8 @@ and the two-population paths' estimates spread over seeds?
 
     python -m smcsmc_tpu_torch.repeatability [--np 10000] [--device cuda]
         [--seeds 7 7 8 9] [--main-runs 3] [--twopop-seeds 7 8 9]
-        [--feature-runs 2] [--scan cumsum]
+        [--feature-runs 2] [--features vb apf apf8 bias_guide alpha]
+        [--scan cumsum]
     python -m smcsmc_tpu_torch.repeatability --lockstep 3
     python -m smcsmc_tpu_torch.repeatability --summary twopop result.out
     python -m smcsmc_tpu_torch.repeatability --genealogy 13 1 2 3
@@ -14,8 +15,10 @@ Five measurements, each printed as it ends:
    held bit for bit to their first result, with a matrix product queued now
    and then so that the card's timing varies: the resampler's scan of the
    normalised weights (``smc.block_scan``) beside ``torch.cumsum``, which
-   it replaced, ``logsumexp`` (the normaliser's) and the weighted column
-   sum of a [P, 198] block (the commit's), at P, 4096 and 100,000;
+   it replaced, ``logsumexp`` (the normaliser's), the weighted column
+   sum of a [P, 198] block (the commit's) and the local recording's commit
+   (``index_put_`` with accumulation of 8 P rows of 6 values into 201
+   windows), at P, 4096 and 100,000;
 2. the log-likelihood of the smoke's main path (``sweep_profile.bench_data``,
    one E-step) in ``--main-runs`` fresh processes with one seed;
 3. the whole-genome path (``sweep_profile.genome_data``, ``-chunks 4 -EM 1
@@ -28,10 +31,17 @@ Five measurements, each printed as it ends:
    of ``--twopop-seeds``, each in a fresh process: LogL per iteration and,
    per iteration, each population's posterior coalescences and Ne estimate
    by epoch, its pooled interior Ne and the pooled migration rate;
-5. VB and the APF: the main path's data with ``-vb -EM 2`` (``vb``), with
-   ``-apf 2`` (``apf``) and ``sweep_profile.apf8_data`` with ``-apf 2``
-   (``apf8``), each ``--feature-runs`` times with one seed, each run in a
-   fresh process: LogL per iteration, which must repeat bit for bit.
+5. VB, the APF and the guide: the main path's data with ``-vb -EM 2``
+   (``vb``), with ``-apf 2`` (``apf``), ``sweep_profile.apf8_data`` with
+   ``-apf 2`` (``apf8``), the main path's data with bench.py's
+   feature_bias_guide (``bias_guide``: ``BIAS_GUIDE_FLAGS`` and the
+   constant guide of ``write_constant_guide``, one E-step) and with
+   ``-alpha 0.5 -EM 1`` (``alpha``: the guide loop; the digest of each
+   iteration's ``.recomb.gz`` text, uncompressed, is printed too: gzip
+   stamps the time into the file's header), each ``--feature-runs`` times
+   with one seed, each run in a fresh process: LogL per iteration (and
+   the ``.recomb.gz`` digests), which must repeat bit for bit.  ``--features``
+   picks some of them.
 
 ``--lockstep N`` instead sweeps the main path's data and the genome path's
 first chunk N times each as two sweeps of one seed side by side in one
@@ -57,6 +67,8 @@ is what kept a run from repeating.
 from __future__ import annotations
 
 import argparse
+import gzip
+import hashlib
 import os
 import subprocess
 import sys
@@ -69,6 +81,7 @@ from . import smc
 from .segio import define_chunks, write_seg
 from .simulate import _Sim
 from .sweep_profile import (
+    BIAS_GUIDE_FLAGS,
     GENOME_PATTERN,
     apf8_data,
     bench_data,
@@ -76,9 +89,12 @@ from .sweep_profile import (
     genome_model,
     twopop_data,
     twopop_flags,
+    write_constant_guide,
 )
 
 MODEL = ["-N0", "10000", "-mu", "1e-8", "-rho", "1e-9"]
+# the feature paths of measurement 5
+FEATURES = ("vb", "apf", "apf8", "bias_guide", "alpha")
 
 
 def reductions(P: int, device: str, repeats: int = 20000) -> list[str]:
@@ -89,10 +105,18 @@ def reductions(P: int, device: str, repeats: int = 20000) -> list[str]:
     w = torch.softmax(log_w, 0)
     block = torch.rand(P, 198, generator=gen, device=device)
     filler = torch.randn(2048, 2048, device=device)
+    # the commit of due local events: rows of 6 values (n=4) into 200
+    # windows and a sink, as local.commit_due_local adds them
+    rows = torch.randint(0, 201, (P * 8,), generator=gen, device=device)
+    vals = torch.rand(P * 8, 6, generator=gen, device=device) * w.repeat(
+        8)[:, None]
     ops = {"block scan": lambda: smc.block_scan(w),
            "cumsum": lambda: w.cumsum(0),
            "logsumexp": lambda: torch.logsumexp(log_w, 0),
-           "weighted sum": lambda: (block * w[:, None]).sum(0)}
+           "weighted sum": lambda: (block * w[:, None]).sum(0),
+           "local commit": lambda: torch.zeros(
+               201, 6, device=device).index_put_((rows,), vals,
+                                                 accumulate=True)}
     lines = []
     for name, op in ops.items():
         first, differ = op(), 0
@@ -192,15 +216,29 @@ def run_cli(data: str, seed: int, num_particles: int, device: str,
         run = ["-o", out, "-Np", str(num_particles), "-seed", str(seed),
                "-device", device]
         common = [*run, *MODEL]
-        if data in ("main", "vb", "apf", "apf8"):
+        if data in ("main", "vb", "apf", "apf8", "bias_guide", "alpha"):
             seg = os.path.join(tmp, "bench.seg")
-            write_seg(seg, (apf8_data() if data == "apf8"
-                            else bench_data())[1])
+            demo, chrom = apf8_data() if data == "apf8" else bench_data()
+            write_seg(seg, chrom)
+            guide = write_constant_guide(
+                os.path.join(tmp, "g.recomb_guide.gz"), demo)
             flags = {"main": ["-EM", "0"], "vb": ["-EM", "2", "-vb"],
                      "apf": ["-EM", "0", "-apf", "2"],
-                     "apf8": ["-EM", "0", "-apf", "2"]}[data]
+                     "apf8": ["-EM", "0", "-apf", "2"],
+                     "bias_guide": ["-EM", "0", *BIAS_GUIDE_FLAGS,
+                                    "-guide", guide],
+                     "alpha": ["-EM", "1", "-alpha", "0.5"]}[data]
             smcsmc_main(["-seg", seg, *flags, "-P", "133", "133016",
                          "7*1", *common])
+            if data == "alpha":
+                for it in (0, 1):
+                    with gzip.open(os.path.join(out, f"emiter{it}",
+                                                "chunk0.recomb.gz")) as fh:
+                        text = fh.read()
+                    print(f"alpha path seed {seed}: emiter{it}/chunk0."
+                          f"recomb.gz text sha256 "
+                          f"{hashlib.sha256(text).hexdigest()} "
+                          f"({text.count(b'\n') - 1} windows)", flush=True)
         elif data == "twopop":
             seg = os.path.join(tmp, "twopop.seg")
             write_seg(seg, twopop_data()[1])
@@ -343,7 +381,9 @@ def main(argv=None) -> int:
     ap.add_argument("--main-runs", type=int, default=3)
     ap.add_argument("--twopop-seeds", type=int, nargs="*", default=[7, 8, 9])
     ap.add_argument("--feature-runs", type=int, default=2,
-                    help="runs of each of the vb, apf and apf8 paths")
+                    help="runs of each feature path")
+    ap.add_argument("--features", nargs="*", default=list(FEATURES),
+                    choices=FEATURES, help="the feature paths to run")
     ap.add_argument("--scan", choices=("block", "cumsum"),
                     default="block", help="the resampler's scan")
     ap.add_argument("--lockstep", type=int, default=0, metavar="N",
@@ -382,7 +422,7 @@ def main(argv=None) -> int:
     runs = ([("main", 7)] * args.main_runs
             + [("genome", s) for s in args.seeds]
             + [("twopop", s) for s in args.twopop_seeds]
-            + [(data, 7) for data in ("vb", "apf", "apf8")
+            + [(data, 7) for data in args.features
                for _ in range(args.feature_runs)])
     for data, seed in runs:
         subprocess.run(

@@ -2,7 +2,7 @@
 
     python -m smcsmc_tpu_torch.sweep_profile [--np 10000] [--device cuda]
         [--data bench|genome|twopop|apf8] [--biased] [--vb] [--apf LEVEL]
-        [--trace out/sweep_trace.json]
+        [--guide] [--alpha A] [--trace out/sweep_trace.json]
 
 It sweeps bench.py's headline data (one population of Ne 10,000, n=4, 8
 epochs from 0 and logspace(2.5, 5), 2 Mb, ``simulate_seg(seed=11)``) or,
@@ -17,7 +17,10 @@ the production proposal of ``-bias_heights 0 0.05 -calibrate_lag 2`` at N0
 10,000, bias strengths and lags calibrated from the model, as
 :data:`BIASED_OPTIONS` says; ``--vb``: the VB variant of the pass, with
 the tables of iteration 0; ``--apf LEVEL``: the auxiliary particle filter,
-its lookahead after every pass): the initial trees, then
+its lookahead after every pass; ``--guide``: bench.py's feature_bias_guide,
+the constant guide of :func:`write_constant_guide` with
+:data:`BIAS_GUIDE_OPTIONS`; ``--alpha A``: local recording into windows,
+as iteration 0 of the guide loop): the initial trees, then
 ``warm`` segments, ``timed`` segments without the profiler (milliseconds
 per segment), then ``profiled`` segments under torch.profiler.  It reports
 the device time per segment and its share of the unprofiled and of the
@@ -43,6 +46,31 @@ from .simulate import simulate_seg
 
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx")
+
+
+# bench.py's feature_bias_guide (bench.py:259-274): -bias_heights 0 0.01
+# (400 generations at N0 10,000) -bias_strengths 2 1 and a constant guide
+BIAS_GUIDE_OPTIONS = {"bias_heights": (400.0,), "bias_strengths": (2.0, 1.0)}
+BIAS_GUIDE_FLAGS = ["-bias_heights", "0", "0.01", "-bias_strengths", "2",
+                    "1"]
+
+
+def write_constant_guide(path: str, demo: Demography,
+                         window: int = 10000) -> str:
+    """The synthetic constant guide bench.py writes for feature_bias_guide:
+    rows of ``window`` bp over the sequence and one beyond, each at the
+    model's recombination rate with every leaf's relative rate 1."""
+    import gzip
+
+    n = demo.num_samples
+    L = int(demo.sequence_length)
+    with gzip.open(path, "wt") as fh:
+        fh.write("locus\tsize\trecomb_rate\t"
+                 + "\t".join(str(i + 1) for i in range(n)) + "\n")
+        for w in range(0, L + window, window):
+            fh.write(f"{w}\t{window}\t{demo.recombination_rate:.4e}\t"
+                     + "\t".join("1.0" for _ in range(n)) + "\n")
+    return path
 
 
 def bench_data(n: int = 4, E: int = 8, L: float = 2e6, seed: int = 11):
@@ -195,11 +223,13 @@ def genome_model(paths, maxgap: int = 200000):
 def profile_sweep(demo, seg, num_particles: int, device: str = "cuda",
                   seed: int = 7, warm: int = 100, timed: int = 300,
                   profiled: int = 200, trace: str | None = None,
-                  chunk=(None, None), **options) -> dict:
+                  chunk=(None, None), guide_file: str | None = None,
+                  **options) -> dict:
     """Sweep the first ``warm + timed + profiled`` segments (of the window
     ``chunk``) with the ``EMConfig`` ``options`` (for example
-    :data:`BIASED_OPTIONS`); return the report as a dict (times in ms and
-    us, shares of the profiled wall)."""
+    :data:`BIASED_OPTIONS`) and the recombination guide ``guide_file``;
+    return the report as a dict (times in ms and us, shares of the
+    profiled wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -211,7 +241,8 @@ def profile_sweep(demo, seg, num_particles: int, device: str = "cuda",
             torch.cuda.synchronize()
 
     t0 = time.monotonic()
-    state, segs, step, _, _ = start_sweep(demo, seg, cfg, chunk, seed)
+    state, segs, step, _, _ = start_sweep(demo, seg, cfg, chunk, seed,
+                                          guide_file=guide_file)
     sync()
     init_s = time.monotonic() - t0
     if len(segs) < warm + timed + profiled:
@@ -309,6 +340,10 @@ def main(argv=None) -> int:
                     help="the production proposal (BIASED_OPTIONS)")
     ap.add_argument("--vb", action="store_true", help="-vb")
     ap.add_argument("--apf", type=int, default=0, help="-apf LEVEL")
+    ap.add_argument("--guide", action="store_true",
+                    help="feature_bias_guide (BIAS_GUIDE_OPTIONS)")
+    ap.add_argument("--alpha", type=float, default=0.0,
+                    help="-alpha: local recording")
     args = ap.parse_args(argv)
     chunk = (None, None)
     if args.data == "bench":
@@ -330,7 +365,15 @@ def main(argv=None) -> int:
         c = define_chunks(seg, 4)[0]
         chunk = (c.start, c.end)
     options = dict(BIASED_OPTIONS if args.biased else {}, vb=args.vb,
-                   apf=args.apf)
+                   apf=args.apf, alpha=args.alpha)
+    if args.guide:
+        import os
+        import tempfile
+
+        options.update(BIAS_GUIDE_OPTIONS)
+        tmp = tempfile.mkdtemp()
+        options["guide_file"] = write_constant_guide(
+            os.path.join(tmp, "g.recomb_guide.gz"), demo)
     rep = profile_sweep(demo, seg, args.np, args.device, trace=args.trace,
                         chunk=chunk, **options)
     print("\n".join(report_lines(rep)))

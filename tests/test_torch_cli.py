@@ -32,7 +32,7 @@ torch.set_num_threads(1)
 PORT_FIELDS = [f.name for f in dataclasses.fields(tem.EMConfig)
                if f.name != "device"]
 IO_KEYS = ("segs", "out", "pattern", "maxgap", "minseg", "startpos", "length",
-           "mu", "rho", "N0", "nsam", "logfile", "bias_heights")
+           "mu", "rho", "N0", "nsam", "logfile", "bias_heights", "alpha")
 
 
 @pytest.mark.parametrize("argv", [
@@ -64,6 +64,12 @@ IO_KEYS = ("segs", "out", "pattern", "maxgap", "minseg", "startpos", "length",
     ["-delay_migr", "-delay", "0.7", "-calibrate_lag", "3"],
     ["-seg", "a.seg", "-bias_heights", "0", "0.05", "-calibrate_lag", "2",
      "-Np", "200"],
+    ["-guide", "g.recomb_guide.gz"],
+    ["-alpha", "0.5"],
+    ["-alpha", "-1"],
+    ["-seg", "a.seg", "-alpha", "0.5", "-EM", "1", "-bias_heights", "0",
+     "0.01", "-bias_strengths", "2", "1", "-guide", "g.recomb_guide.gz",
+     "-vb", "-apf", "2"],
 ], ids=lambda argv: " ".join(argv)[:40])
 def test_flags_parse_as_in_the_jax_cli(argv):
     tcfg, tio = tcli.parse_args(argv)

@@ -414,8 +414,8 @@ def test_chunk_workers_get_their_own_device(monkeypatch):
     seen = []
 
     def fake_run_chunk(demo, seg, cfg, chunk=(None, None), seed=1,
-                       vb_counts=None):
-        assert vb_counts is None
+                       vb_counts=None, guide_file=None):
+        assert vb_counts is None and guide_file is None
         seen.append((cfg.device, chunk, seed))
         return seed
 
@@ -511,7 +511,8 @@ def test_repeatability_reports_on_cpu(capsys, monkeypatch):
     lines = repeatability.reductions(64, "cpu", repeats=5)
     assert [ln.split(":")[0] for ln in lines] == [
         "repeat block scan P=64", "repeat cumsum P=64",
-        "repeat logsumexp P=64", "repeat weighted sum P=64"]
+        "repeat logsumexp P=64", "repeat weighted sum P=64",
+        "repeat local commit P=64"]
     assert all(" 0 of 5 results differ" in ln for ln in lines)
     short = sweep_profile.bench_data(L=1e5)
     monkeypatch.setattr(repeatability, "bench_data", lambda: short)

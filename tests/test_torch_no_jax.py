@@ -112,8 +112,8 @@ def test_trip_wrapper_rejects_other_devices():
 @pytest.mark.parametrize("argv,flag", [
     (["-tmax", "3"], "-tmax"),
     (["-p", "1*3+4*2"], "-p"),
-    (["-guide", "g.recomb.gz"], "-guide"),
-    (["-alpha", "0.5"], "-alpha"),
+    (["-nproc", "2"], "-nproc"),
+    (["-smcsmcpath", "x"], "-smcsmcpath"),
     (["-arg"], "-arg"),
     (["-online"], "-online"),
     (["-c"], "-c"),
@@ -121,3 +121,30 @@ def test_trip_wrapper_rejects_other_devices():
 def test_cli_refuses_what_is_not_ported(argv, flag):
     with pytest.raises(SystemExit, match=re.escape(repr(flag))):
         cli.parse_args(["-seg", "a.seg", *argv])
+
+
+@pytest.mark.parametrize("argv,flag", [
+    (["-guide", "g.recomb_guide.gz"], "-guide"),
+    (["-alpha", "0.5"], "-alpha"),
+])
+def test_cli_refuses_guide_and_alpha_with_several_populations(tmp_path, argv,
+                                                              flag):
+    """The guide and the guide loop run for one population only: with
+    ``-I 2 2 2`` the command exits naming the flag, before any sweep."""
+    import numpy as np
+
+    from smcsmc_tpu_torch.demography import Demography
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.simulate import simulate_seg
+
+    demo = Demography(change_times=np.array([0.0]),
+                      pop_sizes=np.array([[10000.0]]),
+                      mig_rates=np.zeros((1, 1, 1)),
+                      sample_pops=np.zeros(4, np.int32), mutation_rate=1e-8,
+                      recombination_rate=1e-9, sequence_length=2e4)
+    seg = str(tmp_path / "t.seg")
+    write_seg(seg, simulate_seg(demo, seed=3))
+    with pytest.raises(SystemExit, match=re.escape(repr(flag))):
+        cli.smcsmc_main(["-seg", seg, "-o", str(tmp_path / "out"), "-Np", "8",
+                         "-N0", "10000", "-I", "2", "2", "2", "-eM", "0", "1",
+                         *argv, "-device", "cpu"])

@@ -668,3 +668,132 @@ def test_cuda_migration_segment_pass_matches_plain(leaf_status, case):
             assert float(outs["plain"]["diag"][1]) > 0
         if case == "capped":
             assert float(outs["plain"]["diag"][0]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vb", [False, True])
+@pytest.mark.parametrize("variant", ["guide", "guide+local", "biased+local",
+                                     "local"])
+def test_cuda_guided_and_local_passes_match_plain(variant, vb):
+    """Each guided or local variant of ``segment_pass`` on the card against
+    its plain version, on a guide that is not constant and a ring of
+    pending events 30% in use (16 rings full): one trip with no tree
+    mismatch, every float within ``float_tolerances`` and the rings equal
+    (bitmasks and drops exactly), on a guide that changes in every window;
+    64 trips with at most 0.1% of the particles apart, on a guide that
+    changes every 50 windows.  The kernel's count of its variant goes up by one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from smcsmc_tpu_torch import em as tem
+    from smcsmc_tpu_torch.demography import Demography as TDemography
+    from smcsmc_tpu_torch.kernels import guide as tguide
+    from smcsmc_tpu_torch.kernels import local as tlocal
+    from smcsmc_tpu_torch.kernels import trip as ttrip
+    from smcsmc_tpu_torch.kernels.bias import BiasedPass
+    from smcsmc_tpu_torch.kernels.tree import (
+        INF,
+        epochs_from_demography as t_epochs,
+        make_initial_trees,
+    )
+
+    biased = variant != "local"
+    guide = variant.startswith("guide")
+    local = variant.endswith("local")
+    Pc, n, E, R = 4096, 4, 9, 32
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    demo = _demo(E, n)
+    demo = TDemography(**{k: getattr(demo, k) for k in (
+        "change_times", "pop_sizes", "mig_rates", "sample_pops",
+        "mutation_rate", "recombination_rate", "sequence_length")})
+    epochs = t_epochs(demo, dev)
+    trees = make_initial_trees(gen, epochs, Pc, [0] * n)
+    hd = torch.ones(n, dtype=torch.bool, device=dev)
+    start, inv2ne = epochs.start.contiguous(), epochs.inv2ne.contiguous()
+    front = 10000.0
+    rng = np.random.default_rng(2)
+    Wg = int(np.ceil((front + 1e5) / 100.0))
+    rate, leaf = RHO * rng.uniform(0.2, 3.0, Wg), rng.uniform(0.3, 2.0,
+                                                               (Wg, n))
+    # chains of trips on a guide that changes every 50 windows (as a
+    # smoothed one does at its change points; chip_smoke.GUIDE_CHAIN_ROWS)
+    guides = {1: tguide.guide_tables(rate, leaf, RHO, 100.0, dev),
+              64: tguide.guide_tables(np.repeat(rate[::50], 50)[:Wg],
+                                      np.repeat(leaf[::50], 50, axis=0)[:Wg],
+                                      RHO, 100.0, dev)}
+    vb_t = ((tem.vb_pass_tables(demo, (
+        rng.uniform(0.05, 5.0, (E, 1)), rng.uniform(0.05, 5.0, (E, 1, 1))),
+        tem.EMConfig(vb=True))) if vb else None)
+    if vb_t is not None:
+        vb_t = tuple(torch.as_tensor(x, device=dev) for x in vb_t)
+    name = ttrip.launch_count(biased, False, vb, guide, local)
+    for T, L, nr_scale in ((1, 20000.0, 1.5), (64, 50000.0, 0.1)):
+        used = torch.rand((Pc, R), generator=gen, device=dev) < 0.3
+        used[:16] = True
+        pos = front - 2e4 * torch.rand((Pc, R), generator=gen, device=dev)
+        ring0 = (torch.where(used, pos, INF),
+                 torch.where(used, pos + 3e4, INF),
+                 torch.where(used, 1e4 * torch.rand(
+                     (Pc, R), generator=gen, device=dev), 0.0),
+                 torch.where(used, torch.randint(1, 16, (Pc, R), generator=gen,
+                                                 device=dev), 0))
+        dfs = (torch.full((Pc, 32), INF, device=dev),
+               torch.zeros((Pc, 32), device=dev),
+               torch.zeros((Pc, 32), device=dev),
+               torch.zeros((Pc, 32), dtype=torch.int32, device=dev))
+        base = dict(time=trees.time, parent=trees.parent,
+                    child0=trees.child0, child1=trees.child1,
+                    next_rec=torch.rand(Pc, generator=gen, device=dev)
+                    * nr_scale * L,
+                    log_w=torch.randn(Pc, generator=gen, device=dev))
+        u = torch.rand((T, Pc, 4), generator=gen, device=dev)
+        fifo0 = torch.zeros((Pc, 4, 6 * E), device=dev)
+        mask = torch.ones(6 * E, device=dev)
+        outs = {}
+        for which, fn in (("plain", ttrip.segment_pass_plain),
+                          ("kernel", ttrip.segment_pass)):
+            st = {k: v.clone().contiguous() for k, v in base.items()}
+            fifo, tl = fifo0.clone(), torch.empty(Pc, device=dev)
+            b = (BiasedPass(torch.zeros(Pc, device=dev),
+                            *(x.clone() for x in dfs),
+                            torch.tensor([0.0, 2000.0, INF], device=dev),
+                            torch.tensor([3.0, 1.0], device=dev),
+                            torch.linspace(3000.0, 9000.0, E, device=dev),
+                            front) if biased else None)
+            lp = (tlocal.LocalPass(
+                *(x.clone() for x in ring0),
+                torch.zeros((), dtype=torch.int32, device=dev),
+                torch.linspace(2000.0, 40000.0, E, device=dev),
+                torch.zeros(Pc, device=dev), front) if local else None)
+            before = getattr(ttrip.segment_pass, name)
+            fn(u, 1, *(st[k] for k in ("time", "parent", "child0", "child1",
+                                        "next_rec", "log_w")), fifo, mask,
+               tl, L, MU, RHO, start, inv2ne, hd, b, vb=vb_t,
+               guide=guides[T] if guide else None, local=lp)
+            assert getattr(ttrip.segment_pass, name) == before + (
+                which == "kernel")
+            outs[which] = dict(st, tl=tl, pending=fifo[:, 0], ring=lp)
+            if biased:
+                outs[which].update(log_pilot=b.log_pilot, df_pos=b.df_pos,
+                                   df_logf=b.df_logf, df_delta=b.df_delta,
+                                   df_k=b.df_k)
+        torch.cuda.synchronize()
+        rings = [outs[w].pop("ring") for w in ("kernel", "plain")]
+        trees_d, floats_d, errs = ttrip.disagreement(
+            outs["kernel"], outs["plain"], L, MU)
+        if T == 1:
+            assert not trees_d.any() and not floats_d.any(), errs
+            if local:
+                tol = ttrip.float_tolerances(outs["plain"], L, MU)
+                a, r = rings
+                assert torch.equal(a.lr_desc, r.lr_desc)
+                assert int(a.lr_dropped) == int(r.lr_dropped) > 0
+                for k, atol in (("lr_pos", tol["next_rec"]),
+                                ("lr_due", tol["next_rec"]),
+                                ("lr_time", tol["time"]),
+                                ("ropp", float(tol["pending"][4 * E]))):
+                    torch.testing.assert_close(getattr(a, k), getattr(r, k),
+                                               rtol=1e-4, atol=atol)
+        else:
+            assert int((trees_d | floats_d).sum()) <= 0.001 * Pc, errs

@@ -586,13 +586,13 @@ def test_vb_step_with_trips_matches_jax_step(kind, leaf_status, delay_type,
                 mp.pop, mp.mig_time, mp.mig_dest))
             capped, dropped = (float(x) for x in mp.diag)
         else:
-            out, ev = ttrip._trip_once(
+            out, rec = ttrip._trip(
                 U[j], leaf_status, *tr, nr, zeros, zeros, torch.ones(P),
                 zeros, torch.zeros((P, E)), pend, f32(L), f32(MU), f32(RHO),
                 est, eend, t_ep.inv2ne, has_data,
                 (torch.from_numpy(bh), torch.from_numpy(bs)) if biased
                 else None)
-            tr, pend = list(out[:4]), out[10]
+            tr, pend, ev = list(out[:4]), out[10], rec[:4]
         trips.append(pend.numpy())
         ev = [torch.where(act, x, 0.0).numpy() for x in ev]
         diag = np.zeros((2, P), np.float32)

@@ -217,6 +217,9 @@ inline double atomicAdd(double* p, double v) {
   *p = o + v;
   return o;
 }
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
 inline int atomicOr(int* p, int v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }

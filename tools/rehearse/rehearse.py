@@ -22,6 +22,15 @@ runs every fifth case.  Exits 1 if any case differs.  The arithmetic is the
 host's (its ``logf`` is not the card's), so hold a change to a commit, not
 to the plain version.
 
+``--guide`` holds the working tree's GUIDE and LOCAL variants (guided
+biased pass with and without local recording, local biased and plain
+passes; every fourth case plus one with every ring full, a third of them
+with VB) to their plain versions on a guide that is not constant and a
+ring 30% in use: trees equal, floats within ``float_tolerances`` (rtol
+1e-4), the ring's positions, due positions, heights and the segment's
+opportunity within their tolerances, its bitmasks, slots in use and drop
+count equal.
+
 ``--vb`` holds the working tree's VB variants instead (every fifth case,
 biased and plain pass): with VB tables of zeros bit for bit the pass
 without VB; with ``chip_smoke.vb_tables``'s small-count tables against the
@@ -51,6 +60,7 @@ from smcsmc_tpu_torch.kernels.tree import (  # noqa: E402
 )
 
 SOURCE = "smcsmc_tpu_torch/csrc/trip.cu"
+LOCAL_STATE = ("lr_pos", "lr_due", "lr_time", "lr_desc", "lr_dropped")
 OUT = ROOT / "build" / "rehearse"
 # the source's device launches, as host loops
 LAUNCHES = (
@@ -75,13 +85,16 @@ def build(text: str, name: str) -> ctypes.CDLL:
          "-o", str(lib), str(src), str(HERE / "host_glue.cpp")], check=True)
     out = ctypes.CDLL(str(lib))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # a source with VB takes its two tables before the stream
+    # a source with VB takes its two tables before the stream, one with
+    # the guide and local recording their eight pointers and three sizes
     out.vb = "vb_coal" in text
+    out.gl = "cum_mass" in text
     out.smc_segment_pass_launch.argtypes = [
         vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         cf, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, cf, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-        ci, ci, ci] + [vp, vp] * out.vb + [vp]
+        ci, ci, ci] + [vp, vp] * out.vb + [
+            vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, vp, ci] * out.gl + [vp]
     out.smc_segment_pass_launch.restype = ci
     return out
 
@@ -134,17 +147,26 @@ def case(P, n, E, S, ls, T, L, nr_scale, seed, full=False, empty=False,
     return st, fix
 
 
-def run(lib, st, f, biased=True, vb=None):
+def run(lib, st, f, biased=True, vb=None, guide=None, local=False):
     """One segment pass of ``lib`` on a copy of ``st``; ``vb`` = its VB
-    table [E] (a library with VB only)."""
+    table [E] (a library with VB only); ``guide`` a ``GuideTables`` and
+    ``local`` the local ring of ``st`` (a library with them only)."""
     st = {k: v.clone() for k, v in st.items()}
     p = (lambda x: ctypes.c_void_p(x.data_ptr()))
     tables = ((p(vb), p(vb)) if vb is not None else (None, None)) * lib.vb
+    if lib.gl:
+        g = ((p(guide.g_rel), p(guide.cum_mass), p(guide.g_leaf),
+              guide.g_rel.shape[0], guide.ws) if guide is not None
+             else (None, None, None, 0, 0.0))
+        lo = ((*(p(st[k]) for k in LOCAL_STATE), p(f["lags"]),
+               p(st["ropp"]), st["lr_pos"].shape[1]) if local
+              else (None,) * 7 + (0,))
+        tables = tables + g + lo
     bias = ((p(st["log_pilot"]), p(st["df_pos"]), p(st["df_logf"]),
              p(st["df_delta"]), p(st["df_k"]), p(f["heights"]),
              p(f["strengths"]), p(f["delays"]), f["D"], f["S"], f["front"],
              f["delay_type"], f["delay_k"]) if biased
-            else (None,) * 8 + (0, 0, 0.0, 0, 0))
+            else (None,) * 8 + (0, 0, f["front"] if local else 0.0, 0, 0))
     err = lib.smc_segment_pass_launch(
         p(f["u"]), f["T"], f["P"], f["n"], f["E"], cs.FIFO_SLOTS, f["ls"],
         p(st["time"]), p(st["parent"]), p(st["child0"]), p(st["child1"]),
@@ -233,15 +255,130 @@ def rehearse_vb() -> int:
     return 1 if failed else 0
 
 
+def local_ring(st, f, seed, R=32, full_rows=16):
+    """Add a ring of pending local events to ``st`` (30% of the slots in
+    use, the first ``full_rows`` rings full, positions before the front and
+    due anywhere from the front to two segments on) and the lags to
+    ``f``."""
+    g = torch.Generator().manual_seed(seed)
+    P, n, front, L = f["P"], f["n"], f["front"], f["L"]
+    used = torch.rand((P, R), generator=g) < 0.3
+    used[:full_rows] = True
+    pos = front - 2e4 * torch.rand((P, R), generator=g)
+    st.update(
+        lr_pos=torch.where(used, pos, torch.full((P, R), INF)),
+        lr_due=torch.where(used, pos + 2e4 + 2 * L * torch.rand(
+            (P, R), generator=g), torch.full((P, R), INF)),
+        lr_time=torch.where(used, 5e4 * torch.rand((P, R), generator=g),
+                            0.0),
+        lr_desc=torch.where(used, torch.randint(1, 1 << n, (P, R),
+                                                generator=g), 0),
+        lr_dropped=torch.tensor(3, dtype=torch.int32),
+        ropp=torch.zeros(P))
+    f["lags"] = torch.linspace(2000.0, 40000.0, f["E"])
+
+
+def guide_of(f, seed):
+    """A guide that is not constant over [0, front + 2L): random rates
+    around rho by 100-bp window, random leaf rates."""
+    from smcsmc_tpu_torch.kernels.guide import guide_tables
+
+    rng = np.random.default_rng(seed)
+    W = int(np.ceil((f["front"] + 2 * f["L"]) / 100.0))
+    return guide_tables(cs.RHO * rng.uniform(0.2, 3.0, W),
+                        rng.uniform(0.3, 2.0, (W, f["n"])), cs.RHO, 100.0,
+                        "cpu")
+
+
+def rehearse_guide() -> int:
+    """The ``--guide`` check: the GUIDE and LOCAL variants against their
+    plain versions on the same inputs."""
+    from smcsmc_tpu_torch.kernels.bias import BiasedPass
+    from smcsmc_tpu_torch.kernels.local import LocalPass
+    from smcsmc_tpu_torch.kernels.trip import (
+        disagreement,
+        float_tolerances,
+        segment_pass_plain,
+    )
+
+    new = build((ROOT / SOURCE).read_text(), "tree")
+    failed = 0
+    todo = cases()[::4] + [dict(P=203, n=8, E=33, S=2, ls=1, T=64,
+                                L=cs.MAX_SEG, nr_scale=0.1, delay_type=0,
+                                full=True)]
+    variants = ((True, True, False), (True, True, True), (True, False, True),
+                (False, False, True))
+    for j, c in enumerate(todo):
+        st, f = case(seed=500 + j, **c)
+        local_ring(st, f, 700 + j, full_rows=f["P"] if c.get("full") else 16)
+        gt = guide_of(f, j)
+        vb = vb_table(f["E"], j) if j % 3 == 1 else None
+        for biased, guide, local in variants:
+            got = run(new, st, f, biased, vb, gt if guide else None, local)
+            ref = {k: v.clone() for k, v in st.items()}
+            b = (BiasedPass(ref["log_pilot"], ref["df_pos"], ref["df_logf"],
+                            ref["df_delta"], ref["df_k"], f["heights"],
+                            f["strengths"], f["delays"], f["front"],
+                            ("recomb", "coal")[f["delay_type"]], f["delay_k"])
+                 if biased else None)
+            lp = (LocalPass(*(ref[k] for k in LOCAL_STATE), f["lags"],
+                            ref["ropp"], f["front"]) if local else None)
+            segment_pass_plain(
+                f["u"], f["ls"], *(ref[k] for k in cs.SEGMENT_STATE),
+                ref["fifo"], f["mask"], ref["tl"], f["L"], cs.MU, cs.RHO,
+                f["start"], f["inv2ne"], f["hd"], b,
+                vb=None if vb is None else (vb[:, None],
+                                            torch.zeros((f["E"], 1, 1))),
+                guide=gt if guide else None, local=lp)
+            keys = cs.SEGMENT_STATE + (("log_pilot", "df_pos", "df_logf",
+                                        "df_delta", "df_k") if biased else ())
+            res = [{**{k: x[k] for k in keys}, "tl": x["tl"],
+                    "pending": x["fifo"][:, 0]} for x in (got, ref)]
+            trees, floats, errs = disagreement(*res, f["L"], cs.MU, 1e-4)
+            ring_bad = []
+            if local:
+                tol = float_tolerances(res[1], f["L"], cs.MU)
+                E = f["E"]
+                ro_atol = float(tol["pending"][4 * E])
+                for k, atol in (("lr_pos", tol["next_rec"]),
+                                ("lr_due", tol["next_rec"]),
+                                ("lr_time", tol["time"]),
+                                ("ropp", ro_atol)):
+                    if not torch.allclose(got[k], ref[k], rtol=1e-4,
+                                          atol=atol):
+                        ring_bad.append(k)
+                for k in ("lr_desc", "lr_dropped"):
+                    if not torch.equal(got[k], ref[k]):
+                        ring_bad.append(k)
+                if not torch.equal(got["lr_pos"] < INF, ref["lr_pos"] < INF):
+                    ring_bad.append("slots in use")
+            pushed = int((ref["lr_pos"] != st["lr_pos"]).sum()) if local else 0
+            good = not trees.any() and not floats.any() and not ring_bad
+            print(f"{'biased' if biased else 'plain'}"
+                  f"{' guide' if guide else ''}{' local' if local else ''}"
+                  f"{' vb' if vb is not None else ''} {c}: "
+                  f"{int(trees.sum())} trees, {int(floats.sum())} floats "
+                  f"apart, ring {'ok' if not ring_bad else ring_bad} "
+                  f"({pushed} slots pushed, dropped "
+                  f"{int(ref['lr_dropped']) if local else 0}) -> "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+            failed += not good
+    print(f"{failed} of the guide and local cases fail")
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", default="HEAD")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--vb", action="store_true")
+    ap.add_argument("--guide", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     if args.vb:
         return rehearse_vb()
+    if args.guide:
+        return rehearse_guide()
     old = subprocess.run(["git", "show", f"{args.against}:{SOURCE}"],
                          cwd=ROOT, capture_output=True, text=True,
                          check=True).stdout
