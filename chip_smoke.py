@@ -70,7 +70,7 @@ Phases, each fatal on failure:
    through ``save_state``/``load_state`` at half way into a sweep set up
    from another seed: log-likelihood and committed statistics bit for
    bit;
-8. profile 100 steady segments of both sweeps with torch.profiler
+8. profile 50 steady segments of both sweeps with torch.profiler
    (smcsmc_tpu_torch.sweep_profile): device busy share, launches per
    segment, kernel time per launch, top device operations;
 9. the biased path: the whole-genome data through the same entry point
@@ -182,10 +182,29 @@ Phases, each fatal on failure:
    their own without the profiler (``variant_sweeps``); the local
    recording's torch ops alone (``local_ops_cost``).
 
+15. Samples above 8 haplotypes (the wide kernels of ``csrc/trip.cu``:
+   ``trip``, the plain and the biased pass, each pass with and without
+   VB; 16 lanes per particle up to 16 leaves, a warp up to 64): compared
+   in phase 3 (``compare_wide``) at n of 9, 16, 33 and 64, 9 and 64
+   epochs (``WIDE_SHAPES``, P ragged against the block), each leaf status,
+   one trip at 20 kb and 64 trips at 50 kb (the VB variants at one trip),
+   the biased pass with 2 sections at 9 epochs and 8 at 64 and a ring 30%
+   in use, against the plain version run in float64 and rounded to
+   float32; timed at (10,000, 16, 9) and (10,000, 64, 9) on the data's
+   mean segment and at 50 kb, beside the bound from counted work; then
+   bench.py's headline demography with n=16 (``sweep_profile.wide_data``)
+   through the main path's command (``-Np 10000 -EM 1``: the wide pass
+   once per segment, nothing else, estimates as in 6, a profile), the same
+   with ``-bias_heights 0 0.05 -calibrate_lag 2`` and one E-step (the wide
+   biased pass, the wide ``trip`` in the lag pre-passes), the VB variants
+   in short sweeps, and n=64 over 200 kb swept once (a finite LogL, more
+   than one coalescence counted).
+
 The line before the last is a JSON object with each kernel's build/compare/
 time record (the VB, guided and local variants as kernels of their own)
 and the new paths' updates/s, launches and device ms per segment
-(``feature_paths``); the last line is {"ok": true, "device": {...}}.  Without a
+(``feature_paths``) and the wide paths' (``wide_paths``); the last line
+is {"ok": true, "device": {...}}.  Without a
 CUDA device the script exits non-zero and prints no result.
 """
 
@@ -220,14 +239,24 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FIFO_SLOTS = 4  # PFConfig.fifo_slots, the sweep's lag FIFO depth
 # the segments of every sweep profile: warmed, timed without the profiler,
-# profiled (sweep_profile's defaults are 100, 300 and 200; half of them
-# keeps the whole script well inside its time limit on a slow host)
-PROFILE_WINDOW = dict(warm=50, timed=150, profiled=100)
+# profiled (sweep_profile's defaults are 100, 300 and 200; a quarter of
+# them keeps the whole script, with the wide kernels' paths, inside its
+# time limit on a slow host: a profile costs 15-35 s, most of it reading
+# the profiler's events)
+PROFILE_WINDOW = dict(warm=25, timed=75, profiled=50)
 DEVICE = "cuda"  # where the entry points are driven
+
+
+_T0 = time.monotonic()
 
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _elapsed(what: str) -> None:
+    """The script's seconds so far, after ``what``."""
+    _log(f"elapsed {time.monotonic() - _T0:.1f} s after {what}")
 
 
 def _demo(n: int, E: int, L: float = 2e6):
@@ -311,6 +340,27 @@ for _name, ((_b, _g, _l), _) in GUIDE_PASSES.items():
     LAUNCH_COUNTS[_name] = ("biased_" if _b else "") + ("guide_" if _g else "") \
         + ("local_" if _l else "") + ("vb_" if "vb" in _name else "") \
         + "launches"
+# the wide kernels (more than 8 leaves): the plain and biased passes, each
+# with and without VB, and trip
+WIDE_PASS = "segment_pass (wide)"
+WIDE_VB_PASS = "segment_pass (wide, vb)"
+BIASED_WIDE_PASS = "segment_pass (biased, wide)"
+BIASED_WIDE_VB_PASS = "segment_pass (biased, wide, vb)"
+WIDE_TRIP = "trip (wide)"
+LAUNCH_COUNTS.update({WIDE_PASS: "wide_launches",
+                      WIDE_VB_PASS: "wide_vb_launches",
+                      BIASED_WIDE_PASS: "biased_wide_launches",
+                      BIASED_WIDE_VB_PASS: "biased_wide_vb_launches"})
+# each wide kernel by the name phase_time gives the narrow one
+WIDE_NAMES = {"trip": WIDE_TRIP, "segment_pass": WIDE_PASS,
+              VB_PASS: WIDE_VB_PASS, BIASED_PASS: BIASED_WIDE_PASS,
+              BIASED_VB_PASS: BIASED_WIDE_VB_PASS}
+# the compared shapes (P, n, E): P leaves the last block ragged (8
+# particles per block up to 16 leaves, 4 above) and is smaller where the
+# plain version's [P, N + E, E, N] hazard grid would take more than a few GB
+WIDE_SHAPES = ((10001, 9, 9), (4001, 9, 64), (10001, 16, 9), (4001, 16, 64),
+               (4001, 33, 9), (2001, 33, 64), (4001, 64, 9), (1001, 64, 64))
+WIDE_P = 10000
 GUIDE_WINDOW = 100.0  # EMConfig.guide_interval, bp
 LOCAL_SLOTS = 32  # PFConfig.local_ring
 # bench.py's feature_bias_guide: -bias_heights 0 0.01 (400 generations)
@@ -899,6 +949,7 @@ def phase_compare(kernels):
     ok &= compare_migration(segment_pass, segment_pass_plain, tallies)
     ok &= compare_vb(segment_pass, segment_pass_plain, tallies)
     ok &= compare_guide(segment_pass, segment_pass_plain, tallies)
+    ok &= compare_wide(kernels, tallies)
     if not ok:
         raise SystemExit("kernel and plain version disagree beyond tolerance")
     return tallies
@@ -980,6 +1031,121 @@ def compare_migration(segment_pass, segment_pass_plain, tallies,
                     f"buffers bit for bit {exact})",
                     Pc, trees, floats, errs, good)
             ok &= good
+    return ok
+
+
+def _in_double(x):
+    """``x`` with its float32 tensors in float64: a state or a dict of
+    them, a tuple of tensors, or a :class:`Case` (a shallow copy with its
+    epoch tables, FIFO, gate and bias tables in float64), for a run of the
+    plain version in double."""
+    import copy
+
+    import torch
+
+    def up(v):
+        return (v.double() if isinstance(v, torch.Tensor)
+                and v.dtype == torch.float32 else v)
+    if isinstance(x, dict):
+        return {k: _in_double(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_in_double(v) for v in x)
+    if isinstance(x, Case):
+        d = copy.copy(x)
+        for k in ("start", "inv2ne", "fifo", "fifo_mask"):
+            setattr(d, k, up(getattr(x, k)))
+        if hasattr(x, "bias_tables"):
+            d.bias_tables = _in_double(x.bias_tables)
+        return d
+    return up(x)
+
+
+def compare_wide(kernels, tallies):
+    """The wide kernels (more than 8 leaves) against their plain versions
+    on identical inputs at each of :data:`WIDE_SHAPES`, leaf status 1, 0
+    and -1, one trip at 20 kb and 64 trips at 50 kb: ``trip``, the plain
+    and the biased pass (2 sections at 9 epochs, 8 at 64; a ring 30% in
+    use), each pass with and without VB (:func:`vb_tables`; the VB
+    variants at one trip, as ``compare_vb`` holds the caps).  One trip: no
+    tree mismatch and every float within tolerance; 64 trips: at most 0.1%
+    of the particles apart, as the narrow kernels.  The reference is the
+    plain version run in float64 (:func:`_in_double`) and rounded to
+    float32 as the kernel stores it: the wide kernels
+    compute a trip in double, and along 64 trips at 64 leaves the plain
+    version in float32 drifts by up to 2.4 node units from the float64 run
+    (the kernel by 0.09; host rehearsal), which put single particles of
+    the float32 comparison beyond tolerance.  ``trip``'s 64 trips in one
+    launch equal 64 single-trip launches bit for bit."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.trip import FIELDS, disagreement
+
+    trip, trip_plain = kernels["trip"]
+    segment_pass, segment_pass_plain = kernels["segment_pass"]
+    for name in (WIDE_TRIP, *WIDE_NAMES.values()):
+        tallies.setdefault(name, (Tally(), Tally()))
+    ok = True
+    for P, n, E in WIDE_SHAPES:
+        t0 = time.monotonic()
+        bias = ({} if E < 64 else dict(heights=BIAS_CAPS_HEIGHTS,
+                                       strengths=BIAS_CAPS_STRENGTHS))
+        for ls in (1, 0, -1):
+            for T, L, nr_scale in ((1, 20000.0, 1.5), (64, MAX_SEG, 0.1)):
+                c = Case(P, n, E, ls, L=L, nr_scale=nr_scale,
+                         seed=23 * P + n + E + T + ls)
+                u = c.uniforms(T)
+                vb = vb_tables(c.demo, T + ls + n)
+                runs = {WIDE_TRIP: (c.fresh, c.run, trip, trip_plain, None)}
+                for name, fresh, run, tables in (
+                        (WIDE_PASS, c.fresh_segment, c.run_segment, None),
+                        (WIDE_VB_PASS, c.fresh_segment, c.run_segment, vb),
+                        (BIASED_WIDE_PASS,
+                         lambda: c.fresh_biased(**bias), c.run_biased,
+                         None),
+                        (BIASED_WIDE_VB_PASS,
+                         lambda: c.fresh_biased(**bias), c.run_biased, vb)):
+                    runs[name] = (fresh, run, segment_pass,
+                                  segment_pass_plain, tables)
+                for name, (fresh, run, fn, plain, tables) in runs.items():
+                    if tables is not None and T > 1:
+                        continue  # the VB variants at one trip
+                    extra = {} if tables is None else dict(vb=tables)
+                    got = run(fn, u, fresh(), **extra)
+                    d = _in_double(c)
+                    ref = getattr(d, run.__name__)(
+                        plain, u.double(), _in_double(fresh()),
+                        **_in_double(extra))
+                    if name != WIDE_TRIP:
+                        got, ref = c.segment_result(got), d.segment_result(ref)
+                    # the float64 answer as the float32 the kernel stores
+                    ref = {k: v.float() if v.dtype == torch.float64 else v
+                           for k, v in ref.items()}
+                    torch.cuda.synchronize()
+                    trees, floats, errs = disagreement(got, ref, c.L, MU,
+                                                       RTOL)
+                    if T == 1:
+                        good = int(trees.sum()) == 0 and int(floats.sum()) == 0
+                    else:
+                        good = (int((trees | floats).sum())
+                                <= (1.0 - MATCH_MIN) * P)
+                    tallies[name][T > 1].add(trees, floats, errs)
+                    _report(f"{name} P={P} n={n} E={E} leaf_status={ls} "
+                            f"trips={T}" + (" vs plain" if T > 1 else ""),
+                            P, trees, floats, errs, good)
+                    ok &= good
+                    if name == WIDE_TRIP and T > 1:
+                        seq = c.fresh()
+                        for j in range(T):
+                            c.run(trip, u[j:j + 1].contiguous(), seq)
+                        torch.cuda.synchronize()
+                        same = all(torch.equal(got[k], seq[k])
+                                   for k in FIELDS)
+                        _log(f"compare {WIDE_TRIP} P={P} n={n} E={E} "
+                             f"leaf_status={ls} trips=64 vs 64x trips=1: bit "
+                             f"for bit {'equal -> ok' if same else 'FAIL'}")
+                        ok &= same
+        _log(f"compare wide shape P={P} n={n} E={E}: "
+             f"{time.monotonic() - t0:.1f} s")
     return ok
 
 
@@ -1263,7 +1429,7 @@ def _guide_bound(bound, c, active, trips, name):
 
 
 def phase_time(kernels, shape, seg_lengths, biased=False, vb=False,
-               guide=False):
+               guide=False, names=None):
     """Times of both entry points (and, with ``biased``, of the biased
     pass; with ``vb``, of the VB variant of the segment pass and, with
     ``biased`` too, of the biased one, without the trip ladder, on the
@@ -1271,7 +1437,8 @@ def phase_time(kernels, shape, seg_lengths, biased=False, vb=False,
     guided and local passes without the ladder, their VB variants on the
     first segment length alone, on a guide that is not constant and a ring
     30% in use) at ``shape`` (P, n, E) for each (label, segment length);
-    see the module docstring."""
+    see the module docstring.  ``names`` renames the entries in the rows
+    and the log (the wide kernels: :data:`WIDE_NAMES`)."""
     P, n, E = shape
     filler = _filler()
     rows = {}
@@ -1377,8 +1544,9 @@ def phase_time(kernels, shape, seg_lengths, biased=False, vb=False,
                      ladder=ladder, plain_ms=_plain_ms(run, plain, u, fresh),
                      host_us=_host_us(launch, [fresh() for _ in range(200)]),
                      **bounds[name])
-            rows[label][name] = t
-            _log(f"time {name} {label}: kernel {t['kernel_ms'] * 1e3:.2f} us "
+            shown = (names or {}).get(name, name)
+            rows[label][shown] = t
+            _log(f"time {shown} {label}: kernel {t['kernel_ms'] * 1e3:.2f} us "
                  f"of device time per launch (best of 3 x 20 launches; "
                  + ", ".join(f"{k} {x * 1e3:.2f} us"
                              for k, x in ladder.items())
@@ -1589,6 +1757,7 @@ def reset_counts():
     import smcsmc_tpu_torch.kernels.trip as trip_mod
 
     trip_mod.trip.launches = 0
+    trip_mod.trip.wide_launches = 0
     for count in LAUNCH_COUNTS.values():
         setattr(trip_mod.segment_pass, count, 0)
 
@@ -1598,6 +1767,7 @@ def read_counts():
     import smcsmc_tpu_torch.kernels.trip as trip_mod
 
     return {"trip": trip_mod.trip.launches,
+            WIDE_TRIP: trip_mod.trip.wide_launches,
             **{name: getattr(trip_mod.segment_pass, count)
                for name, count in LAUNCH_COUNTS.items()}}
 
@@ -1683,8 +1853,8 @@ def _check_estimates(rows, it, problems, min_events=MIN_EPOCH_EVENTS,
 def _check_launches(launches, plain, segments, problems, path,
                     name="segment_pass"):
     """One launch per segment of the pass ``name`` that the path takes and
-    none of the other passes; no plain version; ``trip`` only in the biased
-    path's pre-pass."""
+    none of the other passes; no plain version; ``trip`` (the wide one
+    with a wide pass) only in the biased path's pre-pass."""
     if launches[name] != segments:
         problems.append(f"{name} launched {launches[name]} "
                         f"times for {segments} segments")
@@ -1692,9 +1862,14 @@ def _check_launches(launches, plain, segments, problems, path,
         if other != name and launches[other] != 0:
             problems.append(f"{other} launched {launches[other]} times on "
                             f"the {path}")
-    if launches["trip"] != 0 and name not in (BIASED_PASS, BIASED_VB_PASS):
-        problems.append(f"trip launched {launches['trip']} times on the "
-                        f"{path}, which goes through segment_pass")
+    biased = name in (BIASED_PASS, BIASED_VB_PASS, BIASED_WIDE_PASS,
+                      BIASED_WIDE_VB_PASS)
+    wide = name in WIDE_NAMES.values()
+    for entry in ("trip", WIDE_TRIP):
+        if launches[entry] != 0 and (not biased or wide != (entry ==
+                                                            WIDE_TRIP)):
+            problems.append(f"{entry} launched {launches[entry]} times on "
+                            f"the {path}")
     if any(plain.values()):
         problems.append(f"the {path} ran a plain version: {plain}")
 
@@ -1756,6 +1931,7 @@ def _profile(card, label, demo, seg, P, **options):
     _log(f"{label} sweep profile on {card}: launches {launches}")
     for ln in report_lines(rep):
         _log(ln)
+    _elapsed(f"the {label} profile")
     return rep, launches
 
 
@@ -2004,15 +2180,11 @@ def phase_alpha_path(card, seg):
 def variant_sweeps(card, segments=60):
     """Each guided or local pass that neither path of the slice runs,
     driven over the first ``segments`` segments of the main path's data
-    at P=10,000, without the profiler (their counts set to 0 before and
-    read after; each must launch once per segment, and no other pass):
-    the local biased pass (-alpha with feature_bias_guide's bias), and the
-    VB variants of the four.  Returns {pass: launches}."""
+    at P=10,000 by :func:`_short_sweep`: the local biased pass (-alpha with
+    feature_bias_guide's bias), and the VB variants of the four.  Returns
+    {pass: launches}."""
     import tempfile as _tf
 
-    import torch
-
-    from smcsmc_tpu_torch.em import EMConfig, start_sweep
     from smcsmc_tpu_torch.sweep_profile import BIAS_GUIDE_OPTIONS, bench_data
 
     demo, seg = bench_data()
@@ -2029,23 +2201,8 @@ def variant_sweeps(card, segments=60):
                            (LOCAL_PASS, dict(alpha=0.5))):
             runs[vb_name(name)] = dict(opts, vb=True)
         for name, opts in runs.items():
-            opts = dict(opts)
-            gfile = opts.pop("guide_file", None)
-            reset_counts()
-            state, segs, step, _, _ = start_sweep(
-                demo, seg, EMConfig(num_particles=10000, device=DEVICE,
-                                    **opts), seed=7, guide_file=gfile)
-            for k in range(segments):
-                state, _ = step(state, segs[k])
-            torch.cuda.synchronize()
-            n = read_counts()
-            out[name] = n[name]
-            others = {k: v for k, v in n.items() if v and k != name}
-            _log(f"variant sweep {name} on {card}: {n[name]} launches over "
-                 f"{segments} segments"
-                 + (f"; others launched {others}" if others else ""))
-            if n[name] != segments or others:
-                raise SystemExit(f"the sweep of {name} launched {n}")
+            out[name] = _short_sweep(card, name, demo, seg, segments,
+                                     **opts)[name]
     return out
 
 
@@ -2753,6 +2910,173 @@ def phase_twopop_path(card):
 
 
 
+def _run_wide(argv, seg):
+    """``seg`` written to a .seg file and swept by ``smcsmc_main`` with the
+    main path's command and ``argv`` after it (``-EM`` replaced where
+    given); returns what :func:`_run_cli` returns and the rows of
+    ``result.out`` by iteration."""
+    from smcsmc_tpu_torch.segio import write_seg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "wide.seg")
+        write_seg(seg_path, seg)
+        out = os.path.join(tmp, "out")
+        cmd = _main_argv(seg_path, out)
+        if "-EM" in argv:
+            i = argv.index("-EM")
+            cmd[cmd.index("-EM") + 1] = argv[i + 1]
+            argv = argv[:i] + argv[i + 2:]
+        launches, plain, steps, records, wall = _run_cli(cmd + argv)
+        rows = [_read_out(os.path.join(out, "result.out"), it)
+                for it in range(len(steps))]
+    return launches, plain, steps, records, wall, rows
+
+
+def _short_sweep(card, name, demo, seg, segments=60, guide_file=None,
+                 **options):
+    """The first ``segments`` segments of ``seg`` swept at P=10,000 with the
+    ``EMConfig`` ``options`` (and the recombination guide ``guide_file``),
+    without the profiler, the launch counts set to 0 before and read after:
+    the pass ``name`` must launch once per segment and no other pass.
+    Returns the launches."""
+    import torch
+
+    from smcsmc_tpu_torch.em import EMConfig, start_sweep
+
+    reset_counts()
+    state, segs, step, _, _ = start_sweep(
+        demo, seg, EMConfig(num_particles=10000, device=DEVICE, **options),
+        seed=7, guide_file=guide_file)
+    for k in range(segments):
+        state, _ = step(state, segs[k])
+    torch.cuda.synchronize()
+    n = read_counts()
+    others = {k: v for k, v in n.items() if v and k != name}
+    _log(f"short sweep of {name} on {card}: {n[name]} launches over "
+         f"{segments} segments" + (f"; others {others}" if others else ""))
+    if n[name] != segments or others:
+        raise SystemExit(f"the sweep of {name} launched {n}")
+    return n
+
+
+def phase_wide_path(card):
+    """bench.py's headline demography with n=16 (``sweep_profile.wide_data``,
+    2 Mb) through smcsmc_main with the main path's command (``-Np 10000
+    -EM 1``): the wide pass once per segment of each E-step, nothing else,
+    estimates as on the main path; a profile, and a short sweep with
+    ``-vb`` (the wide pass's VB variant, :func:`_short_sweep`).  Returns
+    (launches, E-step records, the profile, the data's mean segment
+    length)."""
+    from smcsmc_tpu_torch.segio import split_long_segments
+    from smcsmc_tpu_torch.sweep_profile import wide_data
+
+    demo, seg = wide_data()
+    launches, plain, steps, _, wall, rows = _run_wide([], seg)
+    _log(f"wide path (n=16): smc2-torch -Np {WIDE_P} -EM 1 ran in "
+         f"{wall:.2f} s wall; kernel launches {launches}; calls of the "
+         f"plain versions {plain}")
+    _log_esteps(steps, WIDE_P, card)
+    _log(f"wide path: LogL by iteration {[r.args[4] for r in steps]!r} "
+         f"(in full)")
+    problems = []
+    if len(steps) != 2:
+        problems.append(f"{len(steps)} EM iterations logged")
+    _check_estimates(rows[-1], len(rows) - 1, problems)
+    _check_launches(launches, plain, sum(r.args[2] for r in steps), problems,
+                    "wide path", WIDE_PASS)
+    if problems:
+        raise SystemExit("wide path checks failed: " + "; ".join(problems))
+    _log("wide path checks: ok")
+    _elapsed("the wide path's run")
+    rep, _ = _profile(card, "wide path (n=16, E=9)", demo, seg, WIDE_P)
+    launches[WIDE_VB_PASS] = _short_sweep(card, WIDE_VB_PASS, demo, seg,
+                                          vb=True)[WIDE_VB_PASS]
+    mean_len = float(split_long_segments(seg, MAX_SEG).lengths.mean())
+    return launches, steps, rep, mean_len
+
+
+def phase_wide_biased_path(card):
+    """The wide path's command with the production proposal
+    (``BIASED_FLAGS``) and one E-step: the wide biased pass once per
+    segment, the wide ``trip`` as often as the lag calibration's pre-passes
+    report (more than 0), nothing else, estimates as on the main path; a
+    profile with the proposal, and a short sweep of the biased pass with
+    ``-vb`` (its VB variant; bias strengths from the model, lags not
+    calibrated).  Returns (launches, E-step records, trip launches
+    reported, the profile)."""
+    from smcsmc_tpu_torch.sweep_profile import BIASED_OPTIONS, wide_data
+
+    demo, seg = wide_data()
+    launches, plain, steps, records, wall, rows = _run_wide(
+        ["-EM", "0"] + BIASED_FLAGS, seg)
+    _log(f"wide biased path (n=16): smc2-torch -Np {WIDE_P} -EM 0 "
+         f"{' '.join(BIASED_FLAGS)} ran in {wall:.2f} s wall; kernel "
+         f"launches {launches}; calls of the plain versions {plain}")
+    _log_esteps(steps, WIDE_P, card)
+    _log(f"wide biased path: LogL {[r.args[4] for r in steps]!r} (in full)")
+    reported = sum(r.args[0] for r in records
+                   if r.msg.startswith("survival calibration:"))
+    for r in records:
+        m = r.getMessage()
+        if m.startswith(("auto-calibrated bias_strengths", "calibrated lags",
+                         "survival calibration")):
+            _log("  log: " + m)
+    problems = []
+    if len(steps) != 1:
+        problems.append(f"{len(steps)} EM iterations logged")
+    _check_launches(launches, plain, sum(r.args[2] for r in steps), problems,
+                    "wide biased path", BIASED_WIDE_PASS)
+    if launches[WIDE_TRIP] == 0 or launches[WIDE_TRIP] != reported:
+        problems.append(f"{WIDE_TRIP} launched {launches[WIDE_TRIP]} times, "
+                        f"the calibration pre-passes report {reported}")
+    _check_estimates(rows[0], 0, problems)
+    if problems:
+        raise SystemExit("wide biased path checks failed: "
+                         + "; ".join(problems))
+    _log("wide biased path checks: ok")
+    _elapsed("the wide biased path's run")
+    rep, _ = _profile(card, "wide biased path (n=16, E=9)", demo, seg,
+                      WIDE_P, **BIASED_OPTIONS)
+    launches[BIASED_WIDE_VB_PASS] = _short_sweep(
+        card, BIASED_WIDE_VB_PASS, demo, seg, vb=True,
+        bias_heights=BIASED_OPTIONS["bias_heights"])[BIASED_WIDE_VB_PASS]
+    return launches, steps, reported, rep
+
+
+def phase_wide64_path(card):
+    """The wide kernels' cap: bench.py's headline demography with n=64
+    over 200 kb (``sweep_profile.wide64_data``) swept once (``-EM 0``) at
+    P=10,000 through smcsmc_main: the wide pass once per segment, a finite
+    negative LogL and more than one coalescence counted (what
+    tests/test_large_n.py asks of the JAX package at n=64).  Returns
+    (launches, E-step records, the data's mean segment length)."""
+    from smcsmc_tpu_torch.segio import split_long_segments
+    from smcsmc_tpu_torch.sweep_profile import wide64_data
+
+    import numpy as np
+
+    demo, seg = wide64_data()
+    launches, plain, steps, _, wall, rows = _run_wide(["-EM", "0"], seg)
+    _log_esteps(steps, WIDE_P, card)
+    logl = [float(r["Count"]) for r in rows[0] if r["Type"] == "LogL"]
+    coal = sum(float(r["Count"]) for r in rows[0] if r["Type"] == "Coal")
+    _log(f"n=64 sweep: smc2-torch -Np {WIDE_P} -EM 0 over 200 kb ran in "
+         f"{wall:.2f} s wall; kernel launches {launches}; LogL {logl}; "
+         f"{coal:.1f} coalescences counted")
+    problems = []
+    if len(logl) != 1 or not np.isfinite(logl[0]) or logl[0] >= 0:
+        problems.append(f"LogL {logl}")
+    if not coal > 1.0:
+        problems.append(f"{coal} coalescences counted")
+    _check_launches(launches, plain, sum(r.args[2] for r in steps), problems,
+                    "n=64 sweep", WIDE_PASS)
+    if problems:
+        raise SystemExit("n=64 sweep checks failed: " + "; ".join(problems))
+    _log("n=64 sweep checks: ok")
+    return launches, steps, float(
+        split_long_segments(seg, MAX_SEG).lengths.mean())
+
+
 def vb_tables(demo, seed):
     """VB tables on the card as the sweep passes them (em.vb_pass_tables):
     from event counts drawn in [0.05, 5] with epoch ``XC_EPOCH`` excluded,
@@ -2804,7 +3128,23 @@ RESOURCE_SHAPES = (
         ("genome (n=8, E=33)", (8, 33, 1, 0, 2, "vb" in name, *flags[1:])))
      + ((("caps (n=8, E=64, S=8)", (8, 64, 1, 0, 8, "vb" in name,
                                       *flags[1:])),) if flags[0] else ()))
-    for name, (flags, _) in GUIDE_PASSES.items())
+    for name, (flags, _) in GUIDE_PASSES.items()) + (
+    # the wide kernels at the wide path's shape (n=16), at n=64 and, for
+    # the biased pass, at its caps
+    (WIDE_TRIP, "trip", (("wide (n=16, E=9)", (16, 9)),
+                         ("n=64 (n=64, E=9)", (64, 9)))),
+    (WIDE_PASS, "segment_pass", (("wide (n=16, E=9)", (16, 9)),
+                                 ("n=64 (n=64, E=9)", (64, 9)),
+                                 ("n=64 (n=64, E=64)", (64, 64)))),
+    (WIDE_VB_PASS, "segment_pass", (
+        ("wide (n=16, E=9)", (16, 9, 1, 0, 2, True)),
+        ("n=64 (n=64, E=9)", (64, 9, 1, 0, 2, True)))),
+    (BIASED_WIDE_PASS, "biased", (
+        ("wide (n=16, E=9, S=2)", (16, 9)), ("n=64 (n=64, E=9, S=2)", (64, 9)),
+        ("caps (n=64, E=64, S=8)", (64, 64, 1, 0, 8)))),
+    (BIASED_WIDE_VB_PASS, "biased", (
+        ("wide (n=16, E=9, S=2)", (16, 9, 1, 0, 2, True)),
+        ("caps (n=64, E=64, S=8)", (64, 64, 1, 0, 8, True)))))
 SOURCE = "smcsmc_tpu_torch/csrc/trip.cu"
 
 
@@ -2821,10 +3161,9 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; no GPU, "
               "nothing measured", file=sys.stderr)
         return 1
-    t_start = time.monotonic()
-
-    def elapsed(phase):
-        _log(f"elapsed {time.monotonic() - t_start:.1f} s after {phase}")
+    global _T0
+    _T0 = time.monotonic()
+    elapsed = _elapsed
     sys.path.insert(0, HERE)
     from smcsmc_tpu_torch.kernels import _build
     from smcsmc_tpu_torch.kernels.trip import (
@@ -2849,7 +3188,8 @@ def main(argv=None) -> int:
     info = _build.build_trip_library(force=True)
     _log(f"built {os.path.relpath(info.path, HERE)} from "
          f"{os.path.relpath(_build.SOURCE, HERE)} with nvcc "
-         f"{' '.join(_build.NVCC_FLAGS)} in {info.seconds:.2f} s")
+         f"{' '.join(_build.NVCC_FLAGS)} in {info.seconds:.2f} s "
+         f"({_build.TRIP_PARTS} units compiled side by side, then linked)")
     for ln in info.log.splitlines():
         if ("registers" in ln or "spill" in ln or "stack frame" in ln
                 or "Compiling entry function" in ln):
@@ -2951,6 +3291,24 @@ def main(argv=None) -> int:
         vb=True)
     elapsed("the migration pass's timing")
 
+    # the wide kernels' paths (n=16 plain and biased, n=64) and their times
+    # at (10,000, 16, 9) and (10,000, 64, 9)
+    w_launches, w_steps, w_rep, w_mean = phase_wide_path(card)
+    elapsed("the wide path")
+    wb_launches, wb_steps, wb_reported, wb_rep = phase_wide_biased_path(card)
+    elapsed("the wide biased path")
+    w64_launches, w64_steps, w64_mean = phase_wide64_path(card)
+    elapsed("the n=64 sweep")
+    w_timing = phase_time(kernels, (WIDE_P, 16, 9),
+                          [("mean wide segment", w_mean),
+                           ("longest segment", MAX_SEG)], biased=True,
+                          vb=True, names=WIDE_NAMES)
+    w64_timing = phase_time(kernels, (WIDE_P, 64, 9),
+                            [("mean n=64 segment", w64_mean),
+                             ("longest segment", MAX_SEG)], biased=True,
+                            vb=True, names=WIDE_NAMES)
+    elapsed("the wide passes' timing")
+
     head = timing["mean bench segment"]
     g_head = g_timing["mean genome segment"]
     record = {"kernels": [], "empty_launch_ms": empty_ms,
@@ -3031,6 +3389,56 @@ def main(argv=None) -> int:
                           - main_rep["launches_per_segment"])),
         "local_ops": local_cost}
     timed_keys = ("kernel_ms", "plain_ms", "bound_ms", "bound_by")
+
+    def wide_path(steps_, rep):
+        return {"updates_per_s": [WIDE_P * r.args[2] / r.args[1]
+                                  for r in steps_],
+                "estep_seconds": [r.args[1] for r in steps_],
+                "segments": sum(r.args[2] for r in steps_),
+                "logl": [r.args[4] for r in steps_],
+                **{k: rep[k] for k in (
+                    "launches_per_segment", "device_ms_per_segment",
+                    "device_busy_share", "ms_per_segment",
+                    "pass_us_per_launch")}}
+
+    record["wide_paths"] = {
+        "card": card,
+        "wide": wide_path(w_steps, w_rep),
+        "wide_biased": dict(wide_path(wb_steps, wb_rep),
+                            trip_launches_reported=wb_reported),
+        "n64": {"estep_seconds": [r.args[1] for r in w64_steps],
+                "segments": sum(r.args[2] for r in w64_steps),
+                "logl": [r.args[4] for r in w64_steps]}}
+    for name in (WIDE_TRIP, WIDE_PASS, WIDE_VB_PASS, BIASED_WIDE_PASS,
+                 BIASED_WIDE_VB_PASS):
+        # launches on the path that runs each: the wide path for the plain
+        # pass and its VB variant (from its -vb profile), the wide biased
+        # path for the biased pass, its VB variant and trip (the lag
+        # calibration); times at (10,000, 16, 9), and at n=64 beside
+        single, chained = tallies[name]
+        own = ("wide" if name in (WIDE_PASS, WIDE_VB_PASS)
+               else "wide biased")
+        by_path = {"wide": w_launches[name], "wide biased":
+                   wb_launches[name], "n=64": w64_launches[name]}
+        t = w_timing["mean wide segment"][name]
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": by_path[own],
+            "launches_on": own, "launches_by_path": by_path,
+            "max_abs_err": single.max_abs_err,
+            "compare": {"trips=1": single.record(),
+                        "trips=64 vs plain": chained.record()},
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "host_us_per_call": t["host_us"],
+            "resources": resources[name],
+            "n64_shape": {label: {k: row[name][k] for k in timed_keys}
+                          for label, row in w64_timing.items()
+                          if name in row}}
+        if name in w_timing["longest segment"]:
+            entry["longest_segment"] = {
+                k: w_timing["longest segment"][name][k] for k in timed_keys}
+        record["kernels"].append(entry)
     for name in GUIDE_PASSES:
         # the guided and local passes: launches on the path of the slice
         # that runs each, or in its own short sweep; times at the main

@@ -63,6 +63,10 @@
 //                 (transition.py:1170); a warp per particle, see the
 //                 section "The migration pass" below.  Held against
 //                 kernels/migration.py through segment_pass_plain.
+//                 Above MAX_LEAVES leaves (up to WIDE_MAX_LEAVES) trip
+//                 and the plain and biased passes, each with and without
+//                 VB, run as the wide kernels: node times in shared
+//                 memory, each trip in double; see "The wide passes".
 //
 // What bounds it on Hopper: launch and latency, neither bytes nor FLOPs.
 // At the sweep's shape (10,000 particles, 4 leaves, 9 epochs, about one
@@ -132,6 +136,26 @@
 
 // VB on or off: each pass has a compile-time variant with VB and one
 // without, so that the pass without VB is the code it was before VB.
+
+// The library is built from this file as two units compiled side by side
+// (kernels/_build.py) and linked: SMC_PART 1 instantiates the wide kernels
+// and defines smc_wide_dispatch, SMC_PART 0 everything else.  Without
+// SMC_PART one unit holds both (the host rehearsal).
+#if !defined(SMC_PART) || SMC_PART == 0
+#define SMC_NARROW 1
+#else
+#define SMC_NARROW 0
+#endif
+#if !defined(SMC_PART) || SMC_PART == 1
+#define SMC_WIDE 1
+#else
+#define SMC_WIDE 0
+#endif
+
+// a wide kernel for the run-time flags (args: an Args), launched on
+// `stream` (res == nullptr) or asked for its resources
+extern "C" int smc_wide_dispatch(const void* args, int segment, int biased,
+                                 int vb, void* stream, int* res);
 
 namespace {
 
@@ -1245,6 +1269,804 @@ __global__ void __launch_bounds__(BLOCK, BIAS_MIN_BLOCKS)
 }
 
 // ===========================================================================
+// The wide passes: trees of 9 to WIDE_MAX_LEAVES leaves.
+//
+// Replaces the same Pallas kernel as the passes above (the JAX package runs
+// it at n <= 8 and its XLA twin above: transition.py:108/:160 for the
+// point, :231 for the re-coalescence, :1170 for the SPR, smc.py:417 for the
+// summaries).  The plain and the biased segment pass (each with and without
+// VB) and trip; the migration, guided and local variants have no wide form.
+//
+// What changes against the narrow kernels, and why.  There every lane holds
+// all node and parent times in registers, unrolled over 7 or 15 padded
+// nodes; at 64 leaves (127 nodes) that would be 254 floats per lane.  Here
+// the node and parent times live in the group's slice of shared memory
+// beside the pointers, and a group is G lanes: 16 up to 16 leaves (so that
+// a block holds 8 particles), a warp above.  The leaf cap ML is a template
+// argument of these kernels alone (it sizes the has-data table and the
+// ballot stripes), so MAX_LEAVES and the narrow kernels stay as they were.
+//
+// * Sums over nodes run in node order, each lane the whole chain on the
+//   same shared words (a broadcast), so every lane holds the same scalars
+//   without exchanges: the point's running sum, each epoch's overlaps
+//   (lanes by epoch, as before), the data branch length.
+// * The trip computes in double from the float tree: every sum, the
+//   point's height, the hazard and the re-coalescence time t_c, and every
+//   decision on them (the point, the candidates, the branches crossing
+//   t_c, the epochs of h_r and t_c); what is stored is rounded to float
+//   once.  A float chain over 127 nodes loses up to 127 roundings, and t_c
+//   comes from a difference of two such sums: along 64 trips at 64 leaves
+//   float sums drifted up to 6.5 node units (1e-5 of the tallest node)
+//   from a float64 run, the plain version in float32 2.4 and this design
+//   0.09 (a host rehearsal).  So the plain version in float64 is what the
+//   wide kernels are held to.
+// * Exact steps are spread over the lanes: which branches cross a time
+//   (their count, the r-th in node order) is a ballot per stripe of G
+//   nodes, node j being lane j % G's; the candidate node times inside the
+//   hazard's epoch are lane-strided with a group maximum; the data leaves
+//   below each node are counted by each data leaf's lane walking up its
+//   ancestors with an atomic add in shared memory.
+// * The biased point's running sum over the [N, S] (node, section)
+//   segments computes each segment and its weight inside the one chain
+//   instead of staging them: only the running sums stay in shared memory
+//   (N S doubles, each lane its own pairs for the search, after every
+//   group's slice).  At the caps (64 leaves, 64 epochs, 8 sections) a
+//   particle then takes about 13 KB.
+// * The SPR is lane 0's on shared memory as before; the group then
+//   refreshes the parent times, lane-strided.
+// ===========================================================================
+
+#define WIDE_MAX_LEAVES 64  // the reference's u64 Descendants_t
+
+template <int G>
+__device__ __forceinline__ unsigned wide_mask() {
+  if constexpr (G == 32)
+    return 0xffffffffu;
+  else
+    return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+}
+
+// the group's ballot, bit k for the group's lane k
+template <int G>
+__device__ __forceinline__ unsigned wide_ballot(unsigned gm, bool p) {
+  const unsigned b = __ballot_sync(gm, p);
+  if constexpr (G == 32)
+    return b;
+  else
+    return (b >> ((threadIdx.x & 31) & ~(G - 1))) & ((1u << G) - 1u);
+}
+
+template <int G>
+__device__ __forceinline__ float wide_max(float v, unsigned gm) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(gm, v, off));
+  return v;
+}
+
+// every lane ends with the same bits: each step adds the same two values
+template <int G, typename T>
+__device__ __forceinline__ T wide_sum(T v, unsigned gm) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v = v + __shfl_xor_sync(gm, v, off);
+  return v;
+}
+
+template <int G>
+__device__ __forceinline__ int wide_min(int v, unsigned gm) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    v = min(v, __shfl_xor_sync(gm, v, off));
+  return v;
+}
+
+// est, eend, i2n [E]; has-data [ML]; with segment the FIFO gate [6E]; with
+// biased the sections' heights and strengths and the delays [E]; with vb
+// the VB table [E]
+template <int ML>
+__host__ __device__ inline int wide_tables_words(int E, bool segment,
+                                                 bool biased, bool vb) {
+  return 3 * E + ML + (segment ? 6 * E : 0)
+      + (biased ? 2 * MAX_SECTIONS + 1 + E : 0) + (vb ? E : 0);
+}
+
+// one particle's slice: node times, parent times, parent, children, data
+// leaves below [N]; tree length and hazard mass per epoch [E]; the segment
+// pass's statistics [6E]; the biased pass's ring.  The biased point's
+// running sums (N S doubles a particle) follow every group's slice.
+__host__ __device__ inline int wide_work_words(int N, int E, bool segment,
+                                               bool biased) {
+  return (6 * N + 2 * E + (segment ? 6 * E : 0)
+          + (biased ? 4 * MAX_DELAY_SLOTS : 0)) | 1;  // odd
+}
+
+// the words before the running sums: the tables and every group's slice,
+// rounded up to an even count so that the doubles are aligned
+template <int ML>
+__host__ __device__ inline int wide_block_words(int G, int N, int E,
+                                                bool segment, bool biased,
+                                                bool vb) {
+  return (wide_tables_words<ML>(E, segment, biased, vb)
+          + (BLOCK / G) * wide_work_words(N, E, segment, biased) + 1) & ~1;
+}
+
+struct WideWork {
+  float* t;     // [N] node times
+  float* pt;    // [N] parent times (BIG at the root)
+  int* par;     // [N]
+  int* c0;      // [N]
+  int* c1;      // [N]
+  int* cnt;     // [N] data leaves below the node (mixed data)
+  float* tle;   // [E] tree length per epoch
+  float* full;  // [E] hazard mass of each epoch above h_r
+  float* rpos;  // the biased pass's ring, [MAX_DELAY_SLOTS] each
+  float* rlogf;
+  float* rdelta;
+  int* rk;
+  double* cum;  // [N S] the biased point's running sums
+};
+
+template <int ML>
+__device__ void wide_stage_tables(const Args& a, float* smem, bool segment,
+                                  bool biased, bool vb) {
+  const int E = a.E;
+  for (int e = threadIdx.x; e < E; e += blockDim.x) {
+    smem[e] = a.epoch_start[e];
+    smem[E + e] = (e + 1 < E) ? a.epoch_start[e + 1] : BIG;
+    smem[2 * E + e] = a.inv2ne[e];
+  }
+  int* s_hd = reinterpret_cast<int*>(smem + 3 * E);
+  for (int l = threadIdx.x; l < ML; l += blockDim.x)
+    s_hd[l] = (l < a.n && a.has_data[l] != 0) ? 1 : 0;
+  float* p = smem + 3 * E + ML;
+  if (segment) {
+    for (int k = threadIdx.x; k < 6 * E; k += blockDim.x)
+      p[k] = a.fifo_mask[k];
+    p += 6 * E;
+  }
+  if (biased) {
+    for (int k = threadIdx.x; k <= a.S; k += blockDim.x)
+      p[k] = a.bias_heights[k];
+    for (int k = threadIdx.x; k < a.S; k += blockDim.x)
+      p[MAX_SECTIONS + 1 + k] = a.bias_strengths[k];
+    for (int e = threadIdx.x; e < E; e += blockDim.x)
+      p[2 * MAX_SECTIONS + 1 + e] = a.delays[e];
+    p += 2 * MAX_SECTIONS + 1 + E;
+  }
+  if (vb)
+    for (int e = threadIdx.x; e < E; e += blockDim.x) p[e] = a.vb_coal[e];
+}
+
+template <int ML>
+__device__ void wide_bind_tables(const Args& a, float* smem, Tables& tb,
+                                 bool segment, bool biased, bool vb) {
+  const int E = a.E;
+  tb.est = smem;
+  tb.eend = smem + E;
+  tb.i2n = smem + 2 * E;
+  tb.hd = reinterpret_cast<const int*>(smem + 3 * E);
+  const float* p = smem + 3 * E + ML;
+  tb.gate = p;
+  if (segment) p += 6 * E;
+  tb.bh = p;
+  tb.bs = p + MAX_SECTIONS + 1;
+  tb.dl = tb.bs + MAX_SECTIONS;
+  if (biased) p += 2 * MAX_SECTIONS + 1 + E;
+  tb.vb = vb ? p : nullptr;
+  tb.lag = nullptr;
+  tb.front = a.front;
+  tb.S = a.S;
+  tb.delay_type = a.delay_type;
+  tb.n = a.n;
+  tb.N = 2 * a.n - 1;
+  tb.E = E;
+  tb.total_data = 0;
+  for (int l = 0; l < a.n; ++l) tb.total_data += tb.hd[l];
+  tb.leaf_status = a.leaf_status;
+  tb.L = a.L;
+  tb.mu = a.mu;
+  tb.rho = a.rho;
+}
+
+// Carve this group's slice (`pend` is only there for segment_pass).
+// Returns the particle index of the calling thread's group.
+template <int G, int ML>
+__device__ int wide_carve(const Args& a, float* smem, bool segment,
+                          bool biased, bool vb, WideWork& w, float*& pend) {
+  const int E = a.E, N = 2 * a.n - 1;
+  const int group = threadIdx.x / G;
+  float* base = smem + wide_tables_words<ML>(E, segment, biased, vb)
+      + (size_t)group * wide_work_words(N, E, segment, biased);
+  w.t = base;
+  w.pt = base + N;
+  w.par = reinterpret_cast<int*>(base + 2 * N);
+  w.c0 = reinterpret_cast<int*>(base + 3 * N);
+  w.c1 = reinterpret_cast<int*>(base + 4 * N);
+  w.cnt = reinterpret_cast<int*>(base + 5 * N);
+  w.tle = base + 6 * N;
+  w.full = base + 6 * N + E;
+  pend = base + 6 * N + 2 * E;
+  float* ring = pend + 6 * E;
+  w.rpos = ring;
+  w.rlogf = ring + MAX_DELAY_SLOTS;
+  w.rdelta = ring + 2 * MAX_DELAY_SLOTS;
+  w.rk = reinterpret_cast<int*>(ring + 3 * MAX_DELAY_SLOTS);
+  w.cum = reinterpret_cast<double*>(
+              smem + wide_block_words<ML>(G, N, E, segment, biased, vb))
+      + (size_t)group * N * a.S;
+  return blockIdx.x * (blockDim.x / G) + group;
+}
+
+template <int G>
+__device__ void wide_load_tree(const Args& a, const WideWork& w, int i,
+                               int N, int lane) {
+  for (int j = lane; j < N; j += G) {
+    w.t[j] = a.time[(size_t)i * N + j];
+    w.par[j] = a.parent[(size_t)i * N + j];
+    w.c0[j] = a.child0[(size_t)i * N + j];
+    w.c1[j] = a.child1[(size_t)i * N + j];
+  }
+}
+
+template <int G>
+__device__ void wide_store_tree(const Args& a, const WideWork& w, int i,
+                                int N, int lane) {
+  for (int j = lane; j < N; j += G) {
+    a.time[(size_t)i * N + j] = w.t[j];
+    a.parent[(size_t)i * N + j] = w.par[j];
+    a.child0[(size_t)i * N + j] = w.c0[j];
+    a.child1[(size_t)i * N + j] = w.c1[j];
+  }
+}
+
+// Each node's parent time from the tree in shared memory; the group must
+// be synchronised after the last write to w.t / w.par, and again before
+// w.pt is read.
+template <int G>
+__device__ __forceinline__ void wide_parent_times(const WideWork& w, int N,
+                                                  int lane) {
+  for (int j = lane; j < N; j += G) {
+    const int p = w.par[j];
+    w.pt[j] = p < 0 ? BIG : w.t[p];
+  }
+}
+
+// sum_j |branch_j ∩ [lo, hi_e) ∩ (-inf, v]|, in node order, in double
+__device__ __forceinline__ double wide_overlap(const WideWork& w, int N,
+                                               double lo, double hi_e,
+                                               double v) {
+  double s = 0.0;
+  for (int j = 0; j < N; ++j)
+    s += fmax(fmin(fmin((double)w.pt[j], hi_e), v) - fmax((double)w.t[j], lo),
+              0.0);
+  return s;
+}
+
+// The branches crossing x (t_j <= x < pt_j), one ballot per stripe of G
+// nodes: bits[k] bit l is node k G + l; returns their count.
+template <int G, int ML>
+__device__ __forceinline__ int wide_crossing(const WideWork& w, int N,
+                                             int lane, unsigned gm, double x,
+                                             unsigned* bits) {
+  constexpr int STRIPES = (2 * ML - 1 + G - 1) / G;
+  int count = 0;
+#pragma unroll
+  for (int k = 0; k < STRIPES; ++k) {
+    const int j = k * G + lane;
+    const bool cross = j < N && (double)w.t[j] <= x && x < (double)w.pt[j];
+    bits[k] = wide_ballot<G>(gm, cross);
+    count += __popc(bits[k]);
+  }
+  return count;
+}
+
+// Tree summaries from the tree in shared memory (w.t, w.pt, w.par up to
+// date and the group synchronised): tree length per epoch (w.tle, each lane
+// its own epochs), tree length, data branch length; every lane returns the
+// same tl and B.
+template <int G>
+__device__ void wide_summaries(const Tables& tb, const WideWork& w, int lane,
+                               unsigned gm, float& tl, float& B) {
+  const int E = tb.E, N = tb.N;
+  if (tb.leaf_status == 0) {
+    for (int j = lane; j < N; j += G) w.cnt[j] = 0;
+    __syncwarp(gm);
+    // each data leaf counts itself on its ancestor chain
+    for (int l = lane; l < tb.n; l += G) {
+      if (!tb.hd[l]) continue;
+      int cur = l;
+      for (int s = 0; s < tb.n && cur >= 0; ++s) {
+        atomicAdd(&w.cnt[cur], 1);
+        cur = w.par[cur];
+      }
+    }
+    __syncwarp(gm);
+  }
+  double mine = 0.0;
+  for (int e = lane; e < E; e += G) {
+    const float lo_e = tb.est[e], hi_e = tb.eend[e];
+    double s = 0.0;
+    for (int j = 0; j < N; ++j) {
+      const float pt = w.pt[j];
+      if (pt < BIG)  // not the root's lineage
+        s += fmax((double)fminf(pt, hi_e) - (double)fmaxf(w.t[j], lo_e),
+                  0.0);
+    }
+    w.tle[e] = (float)s;
+    mine += s;
+  }
+  tl = (float)wide_sum<G>(mine, gm);
+  if (tb.leaf_status == 1) {
+    B = tl;
+  } else if (tb.leaf_status == -1) {
+    B = 0.0f;
+  } else {
+    // informative branches: at least one and not all data leaves below
+    double b = 0.0;
+    for (int j = 0; j < N; ++j) {
+      const float pt = w.pt[j];
+      if (pt < BIG) {
+        const int c = w.cnt[j];
+        if (c >= 1 && c < tb.total_data) b += (double)pt - (double)w.t[j];
+      }
+    }
+    B = (float)b;
+  }
+}
+
+// One trip of the particle in `w`: one_trip's steps for a tree in shared
+// memory.  Called by all lanes of a synchronised group with identical
+// scalars, w.tle and w.pt up to date; returns the same way.
+template <int G, int ML, bool BIAS, bool VB>
+__device__ TripEvent wide_trip(const Tables& tb, const WideWork& w, int lane,
+                               unsigned gm, const float4 u, float* pend,
+                               float& nr, float& up, float& lw, float& tl,
+                               float& B) {
+  constexpr int STRIPES = (2 * ML - 1 + G - 1) / G;
+  const int N = tb.N, E = tb.E;
+  const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
+  const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
+
+  // ---- extension: no-mutation likelihood + recombination opportunity ----
+  const float delta = nr - up;
+  lw = lw - tb.mu * B * delta;
+
+  int c = -1;
+  double h_r;  // the point's height; the trip's decisions take it in double
+  float log_iw = 0.0f, strength = 1.0f;
+  if constexpr (!BIAS) {
+    // ---- recombination point: first node whose prefix sum >= u*total ---
+    double total = 0.0;
+    for (int j = 0; j < N; ++j) {
+      const float pt = w.pt[j];
+      total += pt < BIG ? (double)pt - (double)w.t[j] : 0.0;
+    }
+    const double x_pt = (double)u_pt * total;
+    double prev = 0.0, cum = 0.0;
+    float t_cut = 0.0f;
+    for (int j = 0; j < N; ++j) {
+      const float pt = w.pt[j], t = w.t[j];
+      const double bl = pt < BIG ? (double)pt - (double)t : 0.0;
+      cum += bl;
+      if (c < 0 && cum >= x_pt) {
+        c = j;
+        prev = cum - bl;
+        t_cut = t;
+      }
+    }
+    h_r = (double)t_cut + (x_pt - prev);
+  } else {
+    // ---- height-biased point: the running sums over the (node, section)
+    // segments weighted by strength, node-major, one chain in every lane;
+    // each lane keeps the sums of its own pairs (q % G its lane) and
+    // searches them; the group's least hit is the first ----
+    const int S = tb.S, Q = N * S;
+    double wtot = 0.0, ptot = 0.0;
+    int q = 0;
+    for (int j = 0; j < N; ++j) {
+      const double t_j = w.t[j], pt_j = w.pt[j];
+#pragma unroll
+      for (int s = 0; s < MAX_SECTIONS; ++s) {
+        if (s < S) {
+          const double seg = pt_j < BIG
+              ? fmax(fmin(pt_j, (double)tb.bh[s + 1])
+                         - fmax(t_j, (double)tb.bh[s]), 0.0)
+              : 0.0;
+          wtot += seg * (double)tb.bs[s];
+          ptot += seg;
+          if ((q & (G - 1)) == lane) w.cum[q] = wtot;
+          ++q;
+        }
+      }
+    }
+    __syncwarp(gm);
+    const double x = (double)u_pt * wtot;
+    int mine = Q;
+    for (int k = lane; k < Q; k += G)
+      if (w.cum[k] >= x) {
+        mine = k;
+        break;
+      }
+    const int hit = wide_min<G>(mine, gm);
+    // the hit pair, or the last one; `prev` is the running sum before it
+    const int q_hit = hit < Q ? hit : Q - 1;
+    c = hit < Q ? q_hit / S : N - 1;
+    const int s_hit = q_hit - (q_hit / S) * S;
+    const double prev = q_hit > 0 ? w.cum[q_hit - 1] : 0.0;
+    const double lo_hit = fmax((double)w.t[q_hit / S], (double)tb.bh[s_hit]);
+    strength = tb.bs[s_hit];
+    h_r = lo_hit + (x - prev) / fmax((double)strength, 1e-30);
+    log_iw = (float)(log(wtot) - log(fmax(ptot, 1e-30))
+                     - log(fmax((double)strength, 1e-30)));
+  }
+
+  // ---- SMC' hazard inversion (one_trip's, in double) --------------------
+  const double x_exp = -log1p(-(double)u_exp);
+  for (int e = lane; e < E; e += G)
+    w.full[e] = (float)wide_overlap(w, N, fmax((double)tb.est[e], h_r),
+                                    tb.eend[e], BIG);
+  __syncwarp(gm);
+  int es = 0;         // last epoch whose start has lam <= x_exp
+  double base = 0.0;  // lam at that epoch's start
+  {
+    double run = 0.0;
+    for (int e = 0; e < E; ++e) {
+      if (!(run <= x_exp)) break;
+      es = e;
+      base = run;
+      run += (double)w.full[e] * (double)tb.i2n[e];
+    }
+  }
+  const double lo_s = fmax((double)tb.est[es], h_r), hi_s = tb.eend[es];
+  const double i2n_s = tb.i2n[es];
+  // node times inside epoch e* are the remaining candidates, lane-strided
+  float best = -BIG;
+  for (int k = lane; k < N; k += G) {
+    const float v = w.t[k];
+    if (v >= lo_s && v < hi_s) {
+      const double lam = base + wide_overlap(w, N, lo_s, hi_s, v) * i2n_s;
+      if (lam <= x_exp) best = fmaxf(best, v);
+    }
+  }
+  const double t_lo = fmax((double)wide_max<G>(best, gm), lo_s);
+  const double lam_lo = base + wide_overlap(w, N, lo_s, hi_s, t_lo) * i2n_s;
+  unsigned bits[STRIPES];
+  const int k_lo = wide_crossing<G, ML>(w, N, lane, gm, t_lo, bits);
+  const double rate_lo = (double)k_lo * i2n_s;
+  const double t_c = rate_lo > 0.0
+      ? fmin(t_lo + (x_exp - lam_lo) / rate_lo, 0.99 * 3e38)
+      : 0.99 * 3e38;
+
+  // ---- coalescence target: the r-th branch crossing t_c -----------------
+  const float kc = (float)wide_crossing<G, ML>(w, N, lane, gm, t_c, bits);
+  const int r = (int)floorf(u_tgt * fmaxf(kc, 1.0f));
+  int d = -1, seen = 0;
+#pragma unroll
+  for (int k = 0; k < STRIPES; ++k) {
+    unsigned b = bits[k];
+    const int pc = __popc(b);
+    if (d < 0 && r < seen + pc) {
+      for (int skip = r - seen; skip > 0; --skip) b &= b - 1u;
+      d = k * G + __ffs((int)b) - 1;
+    }
+    seen += pc;
+  }
+
+  // ---- opportunity / count records (one_trip's layout) ------------------
+  int key_epoch = E;
+  float vbv = 0.0f;
+  for (int e = lane; e < E; e += G) {
+    const double st_e = tb.est[e], hi_e = tb.eend[e];
+    const double lo_e = fmax(st_e, h_r);
+    double coal_opp;
+    if (hi_e <= t_c)
+      coal_opp = w.full[e];  // no branch of the epoch is cut at t_c
+    else if (lo_e >= t_c)
+      coal_opp = 0.0;
+    else
+      coal_opp = wide_overlap(w, N, lo_e, hi_e, t_c);
+    const double span = fmax(fmin(hi_e, t_c) - lo_e, 0.0);
+    const bool in_c = t_c >= st_e && t_c < hi_e;
+    const bool in_r = h_r >= st_e && h_r < hi_e;
+    if constexpr (BIAS) {
+      if (tb.delay_type == 0 ? in_r : in_c) key_epoch = e;
+    }
+    if (VB && in_c) vbv = tb.vb[e];
+    pend[e] += (float)coal_opp;
+    pend[E + e] += in_c ? 1.0f : 0.0f;
+    pend[2 * E + e] += (float)span;
+    pend[4 * E + e] += delta * w.tle[e];
+    pend[5 * E + e] += in_r ? 1.0f : 0.0f;
+  }
+  const float vb = VB ? wide_sum<G>(vbv, gm) : 0.0f;
+
+  // ---- SPR: cut the branch above c, regraft onto d at t_c (lane 0, once
+  // every lane is done reading the tree) -----------------------------------
+  __syncwarp(gm);
+  if (lane == 0) {
+#define PICK(arr, idx) ((idx) >= 0 ? (arr)[(idx)] : 0)
+    const int p = PICK(w.par, c);
+    const int sib0 = PICK(w.c0, p), sib1 = PICK(w.c1, p);
+    const int o = sib0 == c ? sib1 : sib0;
+    const int g = PICK(w.par, p);
+    const bool noop = d == c;
+    const int d_eff = d == p ? o : d;
+    const int gp = d_eff == o ? g : PICK(w.par, d_eff);
+#undef PICK
+    if (!noop) {
+      if (o >= 0) w.par[o] = g;
+      if (d_eff >= 0) w.par[d_eff] = p;
+      if (p >= 0) w.par[p] = gp;
+      if (g >= 0) {
+        if (w.c0[g] == p) w.c0[g] = o;
+        if (w.c1[g] == p) w.c1[g] = o;
+      }
+      if (p >= 0) {
+        w.c0[p] = c;
+        w.c1[p] = d_eff;
+      }
+      if (gp >= 0) {
+        if (w.c0[gp] == d_eff) w.c0[gp] = p;
+        if (w.c1[gp] == d_eff) w.c1[gp] = p;
+      }
+      if (p >= 0) w.t[p] = (float)t_c;
+    }
+  }
+  __syncwarp(gm);
+
+  // ---- refreshed tree summaries, then the next gap ----------------------
+  wide_parent_times<G>(w, N, lane);
+  __syncwarp(gm);
+  wide_summaries<G>(tb, w, lane, gm, tl, B);
+  const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
+  up = nr;
+  nr = nr + gap;
+  return TripEvent{(float)h_r, (float)t_c, log_iw, strength, key_epoch, vb,
+                   0.0f, log_iw};
+}
+
+template <int G, int ML>
+__global__ void __launch_bounds__(BLOCK) trip_wide_kernel(const Args a) {
+  extern __shared__ float smem[];
+  WideWork w;
+  float* unused;
+  const int i = wide_carve<G, ML>(a, smem, false, false, false, w, unused);
+  const int lane = threadIdx.x % G;
+  const unsigned gm = wide_mask<G>();
+  const int N = 2 * a.n - 1, E = a.E;
+
+  float nr = i < a.P ? a.next_rec[i] : BIG;
+  wide_stage_tables<ML>(a, smem, false, false, false);
+  const bool active = nr < a.L;  // else every output stays as it is
+  float up = 0.0f, lw = 0.0f, tl = 0.0f, B = 0.0f;
+  if (active) {
+    wide_load_tree<G>(a, w, i, N, lane);
+    for (int e = lane; e < E; e += G) w.tle[e] = a.tl_e[(size_t)i * E + e];
+    up = a.upd[i], lw = a.log_w[i], tl = a.tl[i], B = a.B[i];
+  }
+  __syncthreads();
+  if (!active) return;
+  Tables tb;
+  wide_bind_tables<ML>(a, smem, tb, false, false, false);
+  float* pend = a.pending + (size_t)i * 6 * E;
+  wide_parent_times<G>(w, N, lane);
+  __syncwarp(gm);
+
+  float4 u = load_uniforms(a, 0, i);
+  for (int k = 0; k < a.trips; ++k) {
+    if (!(nr < a.L)) break;
+    const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
+    wide_trip<G, ML, false, false>(tb, w, lane, gm, u, pend, nr, up, lw, tl,
+                                   B);
+    u = u_next;
+  }
+
+  wide_store_tree<G>(a, w, i, N, lane);
+  for (int e = lane; e < E; e += G) a.tl_e[(size_t)i * E + e] = w.tle[e];
+  if (lane == 0) {
+    a.next_rec[i] = nr;
+    a.upd[i] = up;
+    a.log_w[i] = lw;
+    a.tl[i] = tl;
+    a.B[i] = B;
+  }
+}
+
+// push_delayed for a group of G lanes: slot s is lane s % G's, bit s / G
+// of its mask `changed`
+template <int G>
+__device__ __forceinline__ void wide_push_delayed(
+    const Tables& tb, const WideWork& w, int D, int kk, int lane,
+    unsigned gm, float d_h, int key_epoch, float abs_pos, float late,
+    float& lp, unsigned& changed) {
+  int mine = MAX_DELAY_SLOTS;
+  for (int s = lane; s < D; s += G)
+    if (w.rpos[s] >= 0.5f * BIG) {
+      mine = s;
+      break;
+    }
+  const int first = wide_min<G>(mine, gm);
+  if (first >= D) {  // no free slot
+    lp = lp + late;
+    return;
+  }
+  int e = wide_min<G>(key_epoch, gm);
+  if (first % G != lane) return;
+  if (e >= tb.E) e = d_h >= tb.est[0] ? tb.E - 1 : 0;
+  const float dd = tb.dl[e] / (float)((1 << kk) - 1);
+  w.rpos[first] = abs_pos + dd;
+  w.rlogf[first] = late / (float)kk;
+  w.rdelta[first] = dd;
+  w.rk[first] = kk;
+  changed |= 1u << (first / G);
+}
+
+// segment_pass_body for the wide tree (no guide, no local recording)
+template <int G, int ML, bool BIAS, bool VB>
+__device__ __forceinline__ void wide_segment_body(const Args& a) {
+  constexpr int SLOTS = MAX_DELAY_SLOTS / G;  // ring slots per lane
+  extern __shared__ float smem[];
+  WideWork w;
+  float* pend;
+  const int i = wide_carve<G, ML>(a, smem, true, BIAS, VB, w, pend);
+  const int lane = threadIdx.x % G;
+  const unsigned gm = wide_mask<G>();
+  const int N = 2 * a.n - 1, E = a.E, K = 6 * a.E;
+  const int D = a.K;  // ring slots (BIAS)
+
+  const bool live = i < a.P;
+  float nr = 0.0f, lw = 0.0f, up = 0.0f, lp = 0.0f;
+  // this lane's ring slots (bit k: slot lane + k G) to write back
+  unsigned changed = 0u;
+  wide_stage_tables<ML>(a, smem, true, BIAS, VB);
+  if (live) {
+    wide_load_tree<G>(a, w, i, N, lane);
+    for (int k = lane; k < K; k += G) pend[k] = 0.0f;
+    nr = a.next_rec[i], lw = a.log_w[i];
+    if constexpr (BIAS) {
+      lp = a.log_pilot[i];
+      for (int s = lane; s < D; s += G)
+        w.rpos[s] = a.df_pos[(size_t)i * D + s];
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  if constexpr (BIAS) {
+    // the other words of the slots due at the segment end, under way
+    // while the trips run
+    const float end = a.front + a.L;
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      const int s = lane + k * G;
+      if (s < D && w.rpos[s] <= end) {
+        const size_t at = (size_t)i * D + s;
+        copy_word_async(&w.rlogf[s], &a.df_logf[at]);
+        copy_word_async(&w.rdelta[s], &a.df_delta[at]);
+        copy_word_async(&w.rk[s], &a.df_k[at]);
+      }
+    }
+  }
+  Tables tb;
+  wide_bind_tables<ML>(a, smem, tb, true, BIAS, VB);
+  wide_parent_times<G>(w, N, lane);
+  __syncwarp(gm);
+  float tl, B;
+  wide_summaries<G>(tb, w, lane, gm, tl, B);  // at segment entry
+
+  bool moved = false;
+  float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (a.trips > 0 && nr < a.L) u = load_uniforms(a, 0, i);
+  for (int k = 0; k < a.trips; ++k) {
+    if (!(nr < a.L)) break;
+    const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
+    const float delta = nr - up, B_pre = B;
+    const TripEvent ev = wide_trip<G, ML, BIAS, VB>(tb, w, lane, gm, u, pend,
+                                                    nr, up, lw, tl, B);
+    if (VB) lw = lw + ev.vb;
+    if constexpr (BIAS) {
+      // segment_pass_body's weights (smc.py:968-1020)
+      lp = lp - a.mu * B_pre * delta;
+      if (VB) lp = lp + ev.vb;
+      lw = lw + ev.log_iw;
+      const float d_h = a.delay_type == 0 ? ev.h_r : ev.t_c;
+      float strength_h = ev.strength;
+      if (a.delay_type != 0) {
+        int cnt = 0;  // section of d_h
+        for (int s = 0; s <= tb.S; ++s) cnt += tb.bh[s] <= d_h ? 1 : 0;
+        strength_h = tb.bs[min(max(cnt - 1, 0), tb.S - 1)];
+      }
+      const float imm = fabsf(strength_h - 1.0f) < 1e-6f ? ev.log_iw : 0.0f;
+      const float late = ev.log_iw - imm;
+      lp = lp + imm;
+      if (fabsf(late) > 1e-9f)
+        wide_push_delayed<G>(tb, w, D, a.delay_k, lane, gm, d_h,
+                             ev.key_epoch, a.front + up, late, lp, changed);
+    }
+    u = u_next;
+    moved = true;
+  }
+
+  // ---- final extension to the segment end -------------------------------
+  const float delta = a.L - up;
+  lw = lw - a.mu * B * delta;
+  for (int e = lane; e < E; e += G) pend[4 * E + e] += delta * w.tle[e];
+  nr = nr - a.L;
+  if constexpr (BIAS) {
+    // ---- the pilot's extension; the delayed factors due at front + L ----
+    lp = lp - a.mu * B * delta;
+    const float end = a.front + a.L;
+    unsigned due = 0u;
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      const int s = lane + k * G;
+      if (s < D && w.rpos[s] <= end) due |= 1u << k;
+    }
+    wait_copies();
+    float add = 0.0f;
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      if (due >> k & 1u) {
+        const int s = lane + k * G;
+        add += w.rlogf[s];
+        if (w.rk[s] > 1) {
+          w.rpos[s] = w.rpos[s] + 2.0f * w.rdelta[s];
+          w.rdelta[s] = 2.0f * w.rdelta[s];
+          w.rk[s] = w.rk[s] - 1;
+        } else {
+          w.rpos[s] = BIG;
+          w.rlogf[s] = 0.0f;
+          w.rk[s] = 0;
+        }
+      }
+    }
+    changed |= due;
+    lp = lp + (__any_sync(gm, due != 0u) ? wide_sum<G>(add, gm) : 0.0f);
+  }
+  __syncwarp(gm);
+
+  // ---- push the segment's statistics into FIFO slot 0 -------------------
+  float* slot = a.fifo + (size_t)i * a.fifo_stride;
+  for (int k = lane; k < K; k += G) {
+    const float v = pend[k] * tb.gate[k];
+    if (v != 0.0f) slot[k] += v;
+  }
+
+  if (moved) wide_store_tree<G>(a, w, i, N, lane);
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      if (changed >> k & 1u) {
+        const int s = lane + k * G;
+        const size_t at = (size_t)i * D + s;
+        a.df_pos[at] = w.rpos[s];
+        a.df_logf[at] = w.rlogf[s];
+        a.df_delta[at] = w.rdelta[s];
+        a.df_k[at] = w.rk[s];
+      }
+    }
+    if (lane == 0) a.log_pilot[i] = lp;
+  }
+  if (lane == 0) {
+    a.next_rec[i] = nr;
+    a.log_w[i] = lw;
+    a.tl_out[i] = tl;
+  }
+}
+
+template <int G, int ML, bool VB>
+__global__ void __launch_bounds__(BLOCK) segment_pass_wide_kernel(
+    const Args a) {
+  wide_segment_body<G, ML, false, VB>(a);
+}
+
+template <int G, int ML, bool VB>
+__global__ void __launch_bounds__(BLOCK) segment_pass_biased_wide_kernel(
+    const Args a) {
+  wide_segment_body<G, ML, true, VB>(a);
+}
+
+// ===========================================================================
 // The migration pass: a warp per particle, the particle's tree, buffers,
 // walk lists, routing rows and statistics row in shared memory.
 //
@@ -2062,7 +2884,9 @@ segment_pass_mig_kernel(const Args a) {
   }
 }
 
+#if SMC_NARROW
 __global__ void noop_kernel() {}
+#endif
 
 template <typename Kernel>
 int launch_kernel(Kernel kernel, const Args& a, dim3 grid, size_t bytes,
@@ -2076,6 +2900,7 @@ int launch_kernel(Kernel kernel, const Args& a, dim3 grid, size_t bytes,
   return (int)cudaGetLastError();
 }
 
+#if SMC_NARROW
 // Particles per block of the migration pass and its dynamic shared bytes:
 // MIG_PPB, halved until the block fits in what the card grants one block.
 int mig_shape(int n, int E, int Pp, int Mw, bool vb, int& ppb,
@@ -2094,6 +2919,7 @@ int mig_shape(int n, int E, int Pp, int Mw, bool vb, int& ppb,
   }
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
 // What a kernel takes on the card, as the card reports it: out[0]
 // registers per thread, out[1] local (stack) bytes per thread, out[2]
@@ -2128,6 +2954,52 @@ int resources_of(Kernel kernel, int threads, size_t bytes, int ppb,
   return 0;
 }
 
+#if SMC_WIDE
+// dynamic shared bytes of a block of a wide pass or trip
+template <int G, int ML>
+size_t wide_bytes(int n, int E, bool segment, bool biased, bool vb, int S) {
+  const int N = 2 * n - 1;
+  return sizeof(float)
+      * (size_t)wide_block_words<ML>(G, N, E, segment, biased, vb)
+      + (biased ? sizeof(double) * (size_t)(BLOCK / G) * N * S : 0);
+}
+
+// A wide kernel for the run-time flags: launched (res == nullptr) or asked
+// for its resources.
+template <int G, int ML>
+int wide_variant(const Args& a, bool segment, bool biased, bool vb,
+                 cudaStream_t s, int* res) {
+  const size_t bytes = wide_bytes<G, ML>(a.n, a.E, segment, biased, vb, a.S);
+  void (*kernel)(const Args) =
+      !segment ? trip_wide_kernel<G, ML>
+      : biased ? (vb ? segment_pass_biased_wide_kernel<G, ML, true>
+                     : segment_pass_biased_wide_kernel<G, ML, false>)
+               : (vb ? segment_pass_wide_kernel<G, ML, true>
+                     : segment_pass_wide_kernel<G, ML, false>);
+  if (res) return resources_of(kernel, BLOCK, bytes, BLOCK / G, res);
+  const dim3 grid((unsigned)((a.P + BLOCK / G - 1) / (BLOCK / G)));
+  return launch_kernel(kernel, a, grid, bytes, s);
+}
+
+}  // namespace
+
+// the wide instantiation for n leaves: 16 lanes per particle up to 16
+// leaves, a warp above
+extern "C" int smc_wide_dispatch(const void* args, int segment, int biased,
+                                 int vb, void* stream, int* res) {
+  const Args& a = *static_cast<const Args*>(args);
+  cudaStream_t s = (cudaStream_t)stream;
+  return a.n <= 16
+      ? wide_variant<16, 16>(a, segment != 0, biased != 0, vb != 0, s, res)
+      : wide_variant<32, WIDE_MAX_LEAVES>(a, segment != 0, biased != 0,
+                                          vb != 0, s, res);
+}
+
+namespace {
+
+#endif
+
+#if SMC_NARROW
 // The segment pass's variant for the run-time flags: its kernel, launched
 // (run) or asked for its resources (shape: out[7]).
 template <int NP, bool VB, bool LOCAL>
@@ -2189,8 +3061,13 @@ int launch(const Args& a, bool segment, cudaStream_t stream) {
 }
 
 int dispatch(const Args& a, bool segment, void* stream) {
-  if (a.n < 2 || a.n > MAX_LEAVES || a.E < 1 || a.E > MAX_EPOCHS
-      || a.trips < 0)
+  // above MAX_LEAVES the wide kernels: the plain and biased passes and
+  // trip, no migration, guide or local recording
+  const bool wide = a.n > MAX_LEAVES;
+  if (a.n < 2 || a.n > WIDE_MAX_LEAVES || a.E < 1 || a.E > MAX_EPOCHS
+      || a.trips < 0
+      || (wide && (a.pop != nullptr || a.g_rel != nullptr
+                   || a.lr_pos != nullptr)))
     return (int)cudaErrorInvalidValue;
   if (a.pop != nullptr) {  // the migration pass
     if (!segment || a.log_pilot != nullptr || a.Pp < 1 || a.Pp > MAX_POPS
@@ -2226,12 +3103,17 @@ int dispatch(const Args& a, bool segment, void* stream) {
     return (int)cudaErrorInvalidValue;
   if (a.P <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (wide)
+    return smc_wide_dispatch(&a, segment, a.log_pilot != nullptr,
+                             segment && a.vb_coal != nullptr, s, nullptr);
   return a.n <= 4 ? launch<7>(a, segment, s)
                   : launch<MAX_NODES>(a, segment, s);
 }
 
+#endif
 }  // namespace
 
+#if SMC_NARROW
 extern "C" int smc_trip_launch(
     const float* uniforms, int trips, int P, int n, int E, int leaf_status,
     float* time, int* parent, int* child0, int* child1, float* next_rec,
@@ -2368,17 +3250,26 @@ int resources_np(int kind, int n, int E, int S, bool vb, bool guide,
 
 // kind 0: trip, 1: segment_pass, 2: its biased variant (S sections), 3:
 // its migration variant (Pp populations, buffers of Mw events); at n
-// leaves, E epochs; vb: the pass's VB variant (not for trip); guide: the
+// leaves (above MAX_LEAVES the wide kernels of kinds 0-2), E epochs; vb: the pass's VB variant (not for trip); guide: the
 // biased pass's guided variant; local: the plain or biased pass's local
 // recording.
 extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
                                     int Mw, int vb, int guide, int local,
                                     int* out) {
-  if (kind < 0 || kind > 3 || n < 2 || n > MAX_LEAVES || E < 1
+  if (kind < 0 || kind > 3 || n < 2 || n > WIDE_MAX_LEAVES || E < 1
       || E > MAX_EPOCHS || (kind == 2 && (S < 1 || S > MAX_SECTIONS))
       || (kind == 0 && vb) || (guide && kind != 2)
-      || (local && kind != 1 && kind != 2))
+      || (local && kind != 1 && kind != 2)
+      || (n > MAX_LEAVES && (kind == 3 || guide || local)))
     return (int)cudaErrorInvalidValue;
+  if (n > MAX_LEAVES) {
+    Args a = {};
+    a.n = n;
+    a.E = E;
+    a.S = S;
+    return smc_wide_dispatch(&a, kind != 0, kind == 2, vb != 0, nullptr,
+                             out);
+  }
   if (kind != 3)
     return n <= 4
         ? resources_np<7>(kind, n, E, S, vb != 0, guide != 0, local != 0,
@@ -2407,3 +3298,4 @@ extern "C" int smc_noop_launch(void* stream) {
 extern "C" const char* smc_cuda_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
+#endif

@@ -49,7 +49,7 @@ from .kernels.guide import guide_tables
 from .kernels.local import split_windows
 from .kernels.migration import MAX_MIG, MAX_POPS
 from .kernels.tree import epochs_from_demography
-from .kernels.trip import MAX_EPOCHS, MAX_LEAVES
+from .kernels.trip import MAX_EPOCHS, MAX_LEAVES, WIDE_MAX_LEAVES
 from .lookahead import LookaheadData, _compute_lookahead_native
 from .processrecombination import LocalRecombination
 from .recombio import guide_to_windows, write_recomb
@@ -189,13 +189,29 @@ def refuse_unported(demo: Demography, cfg: EMConfig) -> None:
 def refuse_caps(demo: Demography, cfg: EMConfig) -> None:
     """Raise NotImplementedError for a run on the card that the CUDA
     kernels' compile-time caps do not hold (ROADMAP queue 1, item 19):
-    more haplotypes, epochs or populations, or longer migration buffers.
-    The CPU runs every size.  Callers check before any tree is built."""
+    more haplotypes, epochs or populations, or longer migration buffers;
+    above MAX_LEAVES haplotypes (the wide kernels of the plain and biased
+    passes) also several populations or migration, ``-guide``, ``-alpha``
+    and ``-apf``, whose passes have no wide form.  The CPU runs every size.
+    Callers check before any tree is built."""
     if torch.device(cfg.device).type != "cuda":
         return
     buffer = cfg.mig_buffer or _auto_mig_buffer(demo)
+    n = demo.num_samples
+    if n > MAX_LEAVES:
+        structured = (demo.num_populations > 1
+                      or bool(np.any(demo.mig_rates > 0)))
+        for what, used in (
+                ("several populations or migration", structured),
+                ("-guide", cfg.guide_file is not None),
+                ("-alpha", cfg.alpha > 0), ("-apf", cfg.apf > 0)):
+            if used:
+                raise NotImplementedError(
+                    f"{n} haplotypes with {what} on the card: the kernels "
+                    f"of that path hold at most {MAX_LEAVES} (MAX_LEAVES); "
+                    "run with -device cpu (ROADMAP queue 1, item 19)")
     for what, value, cap, name in (
-            ("haplotypes", demo.num_samples, MAX_LEAVES, "MAX_LEAVES"),
+            ("haplotypes", n, WIDE_MAX_LEAVES, "WIDE_MAX_LEAVES"),
             ("epochs", demo.num_epochs, MAX_EPOCHS, "MAX_EPOCHS"),
             ("populations", demo.num_populations, MAX_POPS, "MAX_POPS"),
             ("-migbuf events per migration buffer", buffer, MAX_MIG,

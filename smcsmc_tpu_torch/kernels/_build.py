@@ -5,6 +5,9 @@ scan of the APF lookahead (``csrc/lookahead.c``).
 with a plain C interface, loaded with ``ctypes``.  Each library is built at
 first use into ``build/smcsmc_tpu_torch/`` beside the package and rebuilt
 whenever a hash of its source and flags changes; a failed build raises.
+``trip.cu`` is compiled as two units side by side (``-DSMC_PART=0``: the
+narrow and migration kernels and the C interface; ``-DSMC_PART=1``: the
+wide kernels), then linked.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ NVCC_FLAGS = (
     "-fmad=false",  # round each product and sum as the plain version does
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+TRIP_PARTS = 2  # units of trip.cu compiled in parallel (SMC_PART)
 
 
 @dataclass(frozen=True)
@@ -81,8 +85,42 @@ def _build(compiler: str, flags, source: Path, stem: str,
 
 def build_trip_library(force: bool = False) -> BuildInfo:
     """Compile ``csrc/trip.cu`` unless a library for the same source and
-    flags exists; raise with the compiler's output on failure."""
-    return _build(_nvcc(), NVCC_FLAGS, SOURCE, "libsmctrip", force)
+    flags exists: its :data:`TRIP_PARTS` units by as many nvcc processes
+    started together, then one link; raise with the compiler's output on
+    failure.  ``seconds`` is the wall time of the whole build."""
+    flags = tuple(f for f in NVCC_FLAGS if f != "-shared")
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(
+        NVCC_FLAGS).encode() + b"parts%d" % TRIP_PARTS).hexdigest()
+    out = BUILD_DIR / f"libsmctrip_{digest[:16]}.so"
+    if out.exists() and not force:
+        return BuildInfo(out, False, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    objs = [out.with_name(f"{out.stem}.{os.getpid()}.part{k}.o")
+            for k in range(TRIP_PARTS)]
+    t0 = time.monotonic()
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([nvcc, *flags, f"-DSMC_PART={k}", "-c", "-o",
+                          str(obj), str(SOURCE)]
+                         for k, obj in enumerate(objs))]
+    logs = []
+    for cmd, proc in procs:
+        text = proc.communicate()[0]
+        logs.append(text)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{text}")
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
+    return BuildInfo(out, True, time.monotonic() - t0, "".join(logs))
 
 
 @functools.cache

@@ -6,7 +6,9 @@ Infinite-sites-style two-state likelihood (reference particle.cpp:625-680):
 (-1) scores [1, 1], root prior 1/2:1/2 (or 1:0 with ``ancestral_aware``).
 A ready-propagation sweep: each pass combines every internal node whose
 two children already carry partials, with per-node rescaling so the log
-likelihood stays exact at large n.
+likelihood stays exact at large n; n-1 passes at every n, the same launches
+whatever the trees (the JAX package stops its loop at n > 8 once every node
+is ready, kernels/likelihood.py:144, which gives the same result).
 """
 
 from __future__ import annotations
@@ -65,17 +67,11 @@ def _prune(trees, al: torch.Tensor, mutation_rate: float, prior):
         acc = acc + torch.where(can, torch.log(sc), torch.zeros_like(sc)).sum(2)
         return partial, acc, ready | can
 
-    if n <= 8:
-        # n-1 passes always suffice; no data-dependent loop condition
-        for _ in range(n - 1):
-            partial, acc, ready = combine_pass(partial, acc, ready)
-    else:
-        # data-dependent depth: stop when every node is ready (a host read
-        # per pass)
-        for _ in range(n):
-            if not bool((~ready).any()):
-                break
-            partial, acc, ready = combine_pass(partial, acc, ready)
+    # n-1 passes always suffice (each readies at least the lowest internal
+    # node not yet ready); once every node is ready a pass changes nothing,
+    # so there is no data-dependent loop condition and no host read
+    for _ in range(n - 1):
+        partial, acc, ready = combine_pass(partial, acc, ready)
     root = (parent < 0)[:, :, None]
     root_part = torch.where(root, partial, torch.zeros_like(partial)).sum(2)
     return root_part[..., 0] * prior[0] + root_part[..., 1] * prior[1], acc

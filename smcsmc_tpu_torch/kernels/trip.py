@@ -85,8 +85,12 @@ from .tree import (
     tree_summaries,
 )
 
-# compile-time caps of the CUDA kernel (csrc/trip.cu MAX_LEAVES/MAX_EPOCHS)
+# compile-time caps of the CUDA kernel (csrc/trip.cu MAX_LEAVES/MAX_EPOCHS):
+# the narrow kernels take up to MAX_LEAVES leaves; the wide ones (the plain
+# and biased passes, each with and without VB, and trip) up to
+# WIDE_MAX_LEAVES
 MAX_LEAVES = 8
+WIDE_MAX_LEAVES = 64
 MAX_EPOCHS = 64
 
 # the tensors a trip updates, in argument order
@@ -428,12 +432,19 @@ def disagreement(got: dict, ref: dict, L: float, mu: float,
     return tree_differs, floats_differ, errs
 
 
-def _check_caps(N: int, E: int, Pp: int = 1, Mw: int = 0) -> int:
+def _check_caps(N: int, E: int, Pp: int = 1, Mw: int = 0,
+                variant: str | None = None) -> int:
     """Leaves for N nodes; raise outside the kernels' compile-time caps
-    (for the migration pass also populations and buffer capacity)."""
+    (for the migration pass also populations and buffer capacity).  The
+    plain and biased passes and trip take up to :data:`WIDE_MAX_LEAVES`
+    leaves (the wide kernels above :data:`MAX_LEAVES`); ``variant`` names
+    a pass that has no wide form (migration, guided, local), which takes
+    up to :data:`MAX_LEAVES`."""
     n = (N + 1) // 2
-    if N != 2 * n - 1 or n < 2 or n > MAX_LEAVES:
-        raise ValueError(f"trip kernel supports 2..{MAX_LEAVES} leaves, got N={N}")
+    cap = MAX_LEAVES if variant else WIDE_MAX_LEAVES
+    if N != 2 * n - 1 or n < 2 or n > cap:
+        raise ValueError(f"the {variant or 'trip'} kernel supports 2..{cap} "
+                         f"leaves, got N={N}")
     if E < 1 or E > MAX_EPOCHS:
         raise ValueError(f"trip kernel supports 1..{MAX_EPOCHS} epochs, got {E}")
     if Pp < 1 or Pp > MAX_POPS:
@@ -515,7 +526,8 @@ def trip(uniforms, leaf_status, time, parent, child0, child1, next_rec, upd,
 
     CPU tensors run :func:`trip_plain`.  CUDA tensors launch the kernel of
     ``csrc/trip.cu`` on the current stream (one launch for all T trips) or
-    raise; nothing falls back.  The sweep launches :func:`segment_pass`;
+    raise; nothing falls back.  Above :data:`MAX_LEAVES` leaves that is the
+    wide kernel, counted in ``trip.wide_launches``.  The sweep launches :func:`segment_pass`;
     this entry point is the one held against the Pallas kernel."""
     dev = time.device
     if dev.type == "cpu":
@@ -536,10 +548,14 @@ def trip(uniforms, leaf_status, time, parent, child0, child1, next_rec, upd,
             log_w.data_ptr(), tl.data_ptr(), B.data_ptr(), tl_e.data_ptr(),
             pending.data_ptr(), float(L), float(mu), float(rho),
             epoch_start.data_ptr(), inv2ne.data_ptr(), has_data.data_ptr())
-    trip.launches += 1
+    if (N + 1) // 2 > MAX_LEAVES:
+        trip.wide_launches += 1
+    else:
+        trip.launches += 1
 
 
 trip.launches = 0
+trip.wide_launches = 0  # the wide kernel's (more than MAX_LEAVES leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -763,6 +779,12 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     recombination opportunity into ``local.ropp``.  Its ring holds at most
     32 slots.
 
+    Up to :data:`MAX_LEAVES` leaves every variant runs; above, up to
+    :data:`WIDE_MAX_LEAVES`, the plain and biased passes with and without
+    VB run as the wide kernels (counted as ``wide_launches``,
+    ``biased_wide_vb_launches``, ...) and the migration, guided and local
+    variants raise.
+
     CPU tensors run :func:`segment_pass_plain`.  CUDA tensors launch the
     kernel of ``csrc/trip.cu`` on the current stream (one launch) or raise;
     nothing falls back.  Every call checks every tensor, as :func:`trip`
@@ -792,7 +814,10 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     E = epoch_start.shape[0]
     Pp = 1 if migration is None else migration.ne.shape[1]
     Mw = 0 if migration is None else migration.mig_time.shape[2]
-    n = _check_caps(N, E, Pp, Mw)
+    narrow_only = ("migration" if migration is not None else
+                   "guided" if guide is not None else
+                   "local" if local is not None else None)
+    n = _check_caps(N, E, Pp, Mw, narrow_only)
     K = stats_offsets(E, Pp)["width"]
     if fifo.dim() != 3:
         raise ValueError(f"fifo has shape {tuple(fifo.shape)}, expected "
@@ -907,31 +932,37 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
             inv2ne.data_ptr(), has_data.data_ptr(), *bias_args, *mig_args,
             *vb_args, *guide_args, *local_args)
     name = launch_count(biased is not None, migration is not None,
-                        vb is not None, guide is not None, local is not None)
+                        vb is not None, guide is not None, local is not None,
+                        n > MAX_LEAVES)
     setattr(segment_pass, name, getattr(segment_pass, name) + 1)
 
 
 def launch_count(biased=False, migration=False, vb=False, guide=False,
-                 local=False) -> str:
+                 local=False, wide=False) -> str:
     """The name of the ``segment_pass`` count of a kernel variant:
-    ``[biased_|migration_][guide_][local_][vb_]launches``."""
+    ``[biased_|migration_][wide_][guide_][local_][vb_]launches`` (``wide``:
+    the wide kernels, more than :data:`MAX_LEAVES` leaves)."""
     return ("migration_" if migration else "biased_" if biased else "") \
+        + ("wide_" if wide else "") \
         + ("guide_" if guide else "") + ("local_" if local else "") \
         + ("vb_" if vb else "") + "launches"
 
 
 # launches of every variant of the kernel: the plain, the biased and the
 # migration pass, each with and without VB; the plain pass with local
-# recording; the biased pass guided, with local recording or both
+# recording; the biased pass guided, with local recording or both; the
+# wide plain and biased passes
 LAUNCH_COUNTS = tuple(
-    launch_count(b, m, v, g, lo)
-    for b, m, g, lo in ((False, False, False, False),
-                        (True, False, False, False),
-                        (False, True, False, False),
-                        (False, False, False, True),
-                        (True, False, True, False),
-                        (True, False, False, True),
-                        (True, False, True, True))
+    launch_count(b, m, v, g, lo, wd)
+    for b, m, g, lo, wd in ((False, False, False, False, False),
+                            (True, False, False, False, False),
+                            (False, True, False, False, False),
+                            (False, False, False, True, False),
+                            (True, False, True, False, False),
+                            (True, False, False, True, False),
+                            (True, False, True, True, False),
+                            (False, False, False, False, True),
+                            (True, False, False, False, True))
     for v in (False, True))
 for _count in LAUNCH_COUNTS:
     setattr(segment_pass, _count, 0)
@@ -957,7 +988,9 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     particles per block it is launched with, the blocks an SM holds at once
     and the card's SMs (:data:`RESOURCES`), and from those the particles an
     SM holds and the waves a launch of :data:`WAVES_AT` particles takes.  ``variant`` is a key of :data:`RESOURCE_VARIANTS`
-    (n picks the instantiation: 7 padded nodes up to 4 leaves, 15 above;
+    (n picks the instantiation: 7 padded nodes up to 4 leaves, 15 up to 8;
+    above 8 the wide kernels, 16 lanes per particle up to 16 leaves and a
+    warp up to 64;
     ``vb`` a pass's VB variant, ``guide`` the biased pass's guided one,
     ``local`` the plain or biased pass's local recording).  Raises on an
     unknown variant or a shape beyond the caps before any CUDA call."""
@@ -968,7 +1001,9 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     if migration and (Pp < 1 or Mw < 1):
         raise ValueError(f"the migration pass needs populations and buffers,"
                          f" got Pp={Pp}, Mw={Mw}")
-    _check_caps(2 * n - 1, E, Pp if migration else 1, Mw if migration else 0)
+    _check_caps(2 * n - 1, E, Pp if migration else 1, Mw if migration else 0,
+                "migration" if migration else "guided" if guide else
+                "local" if local else None)
     if vb and variant == "trip":
         raise ValueError("trip has no VB variant")
     if variant == "biased" and not 1 <= S <= MAX_SECTIONS:

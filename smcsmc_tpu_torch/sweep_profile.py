@@ -1,7 +1,8 @@
 """Where the sweep's time goes, read from torch.profiler.
 
     python -m smcsmc_tpu_torch.sweep_profile [--np 10000] [--device cuda]
-        [--data bench|genome|twopop|apf8] [--biased] [--vb] [--apf LEVEL]
+        [--data bench|genome|twopop|apf8|wide|wide64] [--biased] [--vb]
+        [--apf LEVEL]
         [--guide] [--alpha A] [--trace out/sweep_trace.json]
 
 It sweeps bench.py's headline data (one population of Ne 10,000, n=4, 8
@@ -11,7 +12,9 @@ with ``--data genome``, the first chunk of the whole-genome data of
 or, with ``--data twopop``, bench.py's two-population data
 (:func:`twopop_data`: the migration pass) or, with ``--data apf8``,
 bench.py's feature_apf8 data (:func:`apf8_data`: n=8, missing windows, an
-unphased pair)
+unphased pair) or, with ``--data wide``, bench.py's headline demography
+with n=16 (:func:`wide_data`: the wide kernels) or, with ``--data wide64``,
+the same with n=64 over 200 kb
 with the port's segment step, as ``em.run_chunk`` does (``--biased``: with
 the production proposal of ``-bias_heights 0 0.05 -calibrate_lag 2`` at N0
 10,000, bias strengths and lags calibrated from the model, as
@@ -82,6 +85,19 @@ def bench_data(n: int = 4, E: int = 8, L: float = 2e6, seed: int = 11):
         mutation_rate=1e-8, recombination_rate=1e-9, sequence_length=L,
     )
     return demo, simulate_seg(demo, seed=seed)
+
+
+def wide_data(n: int = 16, L: float = 2e6):
+    """bench.py's ``single_pop_demo(n=16)`` and its data
+    (``simulate_seg(seed=11)``, 2 Mb): eight diploid genomes, the wide
+    kernels' path (2,664 records before the sweep's split).  With n=64
+    and L=2e5 (:func:`wide64_data`) the wide kernels' cap."""
+    return bench_data(n=n, L=L)
+
+
+def wide64_data():
+    """:func:`wide_data` with 64 haplotypes over 200 kb (403 records)."""
+    return wide_data(n=64, L=2e5)
 
 
 def apf8_data(L: float = 2e6):
@@ -334,7 +350,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome trace of the profiled segments here")
-    ap.add_argument("--data", choices=("bench", "genome", "twopop", "apf8"),
+    ap.add_argument("--data", choices=("bench", "genome", "twopop", "apf8",
+                                       "wide", "wide64"),
                     default="bench")
     ap.add_argument("--biased", action="store_true",
                     help="the production proposal (BIASED_OPTIONS)")
@@ -352,6 +369,8 @@ def main(argv=None) -> int:
         demo, seg = apf8_data()
     elif args.data == "twopop":
         demo, seg = twopop_data()
+    elif args.data in ("wide", "wide64"):
+        demo, seg = wide_data() if args.data == "wide" else wide64_data()
     else:
         import os
         import tempfile

@@ -470,17 +470,22 @@ def test_kernel_caps_are_refused_on_the_card(device, over, cap):
             tem.refuse_caps(demo, cfg)
 
 
-def test_run_em_refuses_the_caps_before_any_tree(monkeypatch):
-    """``run_em`` on the card refuses 9 haplotypes before it sets up a
-    sweep: nothing is built or swept."""
+@pytest.mark.parametrize("n,options,cap", [
+    (65, {}, "WIDE_MAX_LEAVES"), (9, {"alpha": 0.5}, "-alpha.*MAX_LEAVES")])
+def test_run_em_refuses_the_caps_before_any_tree(monkeypatch, n, options,
+                                                 cap):
+    """``run_em`` on the card refuses 65 haplotypes, and 9 with ``-alpha``
+    (whose local pass has no wide form), before it sets up a sweep: nothing
+    is built or swept."""
     def reached(*args, **kwargs):
         raise AssertionError("the sweep was set up")
 
     monkeypatch.setattr(tem, "run_chunks", reached)
     monkeypatch.setattr(tem, "epochs_from_demography", reached)
     seg = simulate_seg(_demo(L=2e4), seed=1)
-    with pytest.raises(NotImplementedError, match="MAX_LEAVES"):
-        tem.run_em(_structured_demo(n=9), seg, tem.EMConfig(device="cuda"))
+    with pytest.raises(NotImplementedError, match=cap):
+        tem.run_em(_structured_demo(n=n, Pp=1), seg,
+                   tem.EMConfig(device="cuda", **options))
 
 
 def test_sweep_profile_reports_on_cpu():

@@ -555,7 +555,8 @@ def test_cuda_kernel_resources_of_every_variant():
 
 @pytest.mark.parametrize("args,match", [
     (("bogus", 4, 9), "unknown kernel variant"),
-    (("segment_pass", 9, 9), "leaves"),
+    (("segment_pass", 65, 9), "leaves"),
+    (("migration", 9, 8, 2, 56), "leaves"),
     (("trip", 8, 65), "epochs"),
     (("biased", 8, 33, 1, 0, 9), "sections"),
     (("migration", 4, 8, 5, 56), "populations"),

@@ -2,6 +2,7 @@
 on the CPU: no chip, no nvcc.
 
     python3 tools/rehearse/rehearse.py [--against COMMIT] [--quick] [--vb]
+        [--guide] [--wide]
 
 Builds the working tree's ``smcsmc_tpu_torch/csrc/trip.cu`` and COMMIT's
 (``git show``, default HEAD) as host C++ with g++ against the stand-in
@@ -30,6 +31,19 @@ ring 30% in use: trees equal, floats within ``float_tolerances`` (rtol
 1e-4), the ring's positions, due positions, heights and the segment's
 opportunity within their tolerances, its bitmasks, slots in use and drop
 count equal.
+
+``--wide`` holds the working tree's wide kernels (more than 8 leaves: the
+plain and biased passes with and without VB, and ``trip``) to their plain
+versions: n of 9, 16, 33 and 64 at 9 and 64 epochs, leaf status 1, 0 and
+-1, one trip at 20 kb and 64 trips at 50 kb, the biased pass with 2
+sections at 9 epochs and 8 at 64 and a ring 30% in use, VB on every other
+case, P ragged against the block; trees equal, floats within
+``float_tolerances`` (rtol 1e-4), against the plain version run in
+float64 (``chip_smoke._in_double``): the wide kernels compute a trip in
+double,
+and a float32 chain of 64 trips of the plain version itself drifts from
+the float64 one by up to 2.4 node units at 64 leaves.  ``--quick`` runs
+every third case.
 
 ``--vb`` holds the working tree's VB variants instead (every fifth case,
 biased and plain pass): with VB tables of zeros bit for bit the pass
@@ -96,6 +110,10 @@ def build(text: str, name: str) -> ctypes.CDLL:
         ci, ci, ci] + [vp, vp] * out.vb + [
             vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, vp, ci] * out.gl + [vp]
     out.smc_segment_pass_launch.restype = ci
+    out.smc_trip_launch.argtypes = [
+        vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        cf, cf, cf, vp, vp, vp, vp]
+    out.smc_trip_launch.restype = ci
     return out
 
 
@@ -367,14 +385,117 @@ def rehearse_guide() -> int:
     return 1 if failed else 0
 
 
+def wide_cases():
+    """The ``--wide`` cases: (n, E, P) x leaf status x (trips, L)."""
+    out = []
+    for n, E, P in ((9, 9, 45), (16, 9, 70), (16, 64, 37), (33, 64, 30),
+                    (64, 9, 26), (64, 64, 23)):
+        for ls in (1, 0, -1):
+            for T, L, nr_scale in ((1, 20000.0, 1.5), (64, cs.MAX_SEG, 0.1)):
+                out.append(dict(P=P, n=n, E=E, S=2 if E == 9 else 8, ls=ls,
+                                T=T, L=L, nr_scale=nr_scale, delay_type=0))
+    return out
+
+
+def run_trip(lib, st, f):
+    """``trip`` of ``lib`` on a copy of ``st``'s trees from the tree
+    summaries, with the FIFO's slot 0 as ``pending``."""
+    from smcsmc_tpu_torch.kernels.tree import Epochs, Trees, tree_summaries
+
+    st = {k: v.clone() for k, v in st.items()}
+    trees = Trees(st["parent"], st["time"], st["child0"], st["child1"])
+    tl, tle, B = tree_summaries(trees, Epochs(f["start"], (
+        0.5 / f["inv2ne"])[:, None]), f["ls"], f["hd"])
+    st.update(upd=torch.zeros(f["P"], dtype=tl.dtype), tl=tl.contiguous(),
+              B=B.contiguous(), tl_e=tle.contiguous(),
+              pending=torch.zeros((f["P"], 6 * f["E"]), dtype=tl.dtype))
+    if lib is None:
+        from smcsmc_tpu_torch.kernels.trip import trip_plain
+
+        trip_plain(f["u"], f["ls"], *(st[k] for k in TRIP_FIELDS), f["L"],
+                   cs.MU, cs.RHO, f["start"], f["inv2ne"], f["hd"])
+        return st
+    p = (lambda x: ctypes.c_void_p(x.data_ptr()))
+    err = lib.smc_trip_launch(
+        p(f["u"]), f["T"], f["P"], f["n"], f["E"], f["ls"],
+        *(p(st[k]) for k in TRIP_FIELDS), f["L"], cs.MU, cs.RHO,
+        p(f["start"]), p(f["inv2ne"]), p(f["hd"]), None)
+    if err != 0:
+        raise SystemExit(f"smc_trip_launch returned {err}")
+    return st
+
+
+TRIP_FIELDS = ("time", "parent", "child0", "child1", "next_rec", "upd",
+               "log_w", "tl", "B", "tl_e", "pending")
+
+
+def rehearse_wide(quick: bool) -> int:
+    """The ``--wide`` check of the module docstring."""
+    from smcsmc_tpu_torch.kernels.bias import BiasedPass
+    from smcsmc_tpu_torch.kernels.trip import disagreement, segment_pass_plain
+
+    new = build((ROOT / SOURCE).read_text(), "tree")
+    failed = 0
+    todo = wide_cases()[::3] if quick else wide_cases()
+    for j, c in enumerate(todo):
+        st, f = case(seed=900 + j, **c)
+        vb = vb_table(f["E"], j) if j % 2 else None
+        # the reference: the plain version in float64
+        st_r, f_r, vb_r = (cs._in_double(x) for x in (st, f, vb))
+        results = []
+        for biased in (False, True):
+            got = run(new, st, f, biased, vb)
+            ref = {k: v.clone() for k, v in st_r.items()}
+            b = (BiasedPass(ref["log_pilot"], ref["df_pos"], ref["df_logf"],
+                            ref["df_delta"], ref["df_k"], f_r["heights"],
+                            f_r["strengths"], f_r["delays"], f["front"],
+                            ("recomb", "coal")[f["delay_type"]], f["delay_k"])
+                 if biased else None)
+            segment_pass_plain(
+                f_r["u"], f["ls"], *(ref[k] for k in cs.SEGMENT_STATE),
+                ref["fifo"], f_r["mask"], ref["tl"], f["L"], cs.MU, cs.RHO,
+                f_r["start"], f_r["inv2ne"], f["hd"], b,
+                vb=None if vb is None else (
+                    vb_r[:, None], torch.zeros((f["E"], 1, 1),
+                                               dtype=vb_r.dtype)))
+            keys = cs.SEGMENT_STATE + (("log_pilot", "df_pos", "df_logf",
+                                        "df_delta", "df_k") if biased else ())
+            results.append((f"{'biased' if biased else 'plain'}"
+                            f"{' vb' if vb is not None else ''}",
+                            [{**{k: x[k] for k in keys}, "tl": x["tl"],
+                              "pending": x["fifo"][:, 0]}
+                             for x in (got, ref)]))
+        got, ref = run_trip(new, st, f), run_trip(None, st_r, f_r)
+        results.append(("trip", [{k: x[k] for k in TRIP_FIELDS}
+                                 for x in (got, ref)]))
+        for name, res in results:
+            # the float64 answer as the float32 the kernel stores
+            res[1] = {k: v.float() if v.dtype == torch.float64 else v
+                      for k, v in res[1].items()}
+            trees, floats, errs = disagreement(*res, f["L"], cs.MU, 1e-4)
+            moved = int((res[1]["parent"] != st["parent"]).any(1).sum())
+            good = not trees.any() and not floats.any()
+            worst = max(errs, key=lambda k: errs[k][1])
+            print(f"wide {name} {c}: {int(trees.sum())} trees, "
+                  f"{int(floats.sum())} floats apart ({moved} trees moved; "
+                  f"worst {worst} at {errs[worst][1]:.3g} of its "
+                  f"tolerance) -> {'ok' if good else 'FAIL'}", flush=True)
+            failed += not good
+    print(f"{failed} of the wide cases fail")
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", default="HEAD")
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--vb", action="store_true")
     ap.add_argument("--guide", action="store_true")
+    ap.add_argument("--wide", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
+    if args.wide:
+        return rehearse_wide(args.quick)
     if args.vb:
         return rehearse_vb()
     if args.guide:
