@@ -117,8 +117,8 @@ Phases, each fatal on failure:
    populations together within 2x, each population's pooled interior Ne
    within 25%, the pooled migration rate within [0.5x, 2x] of 5e-5 and
    Recomb within 2x (``TWOPOP_POOLED_WITHIN`` says why); walks capped and
-   events dropped printed; the same command again with -EM 0 must give
-   iteration 0's LogL bit for bit; a
+   events dropped printed; the same command again with -EM 0 -arg must
+   give iteration 0's LogL bit for bit (see 16); a
    profile of the twopop sweep; the migration pass timed at the twopop
    data's mean segment and at 50 kb (device us per launch, host us, plain
    ms, bound from counted work with the buffer events read and the rows
@@ -200,10 +200,32 @@ Phases, each fatal on failure:
    in short sweeps, and n=64 over 200 kb swept once (a finite LogL, more
    than one coalescence counted).
 
+16. ARG recording (``-arg``: the ARG variants of the plain, biased,
+   migration and wide plain passes, each with and without VB, which push
+   each trip's R, C and M rows into the particle's ring of 512 rows):
+   compared in phase 3 (``compare_arg``) with their plain versions on a
+   ring in use, at the main and genome shapes (and once at P=10,001), the
+   twopop shape and its caps corner, n=16 and n=64, each leaf status, one
+   trip and 64, VB off and on: 0 tree mismatches and equal rings at one
+   trip, the 0.1% budget at 64, the migration pass's trees, buffers and
+   heights bit for bit, every output but the ring bit for bit the same
+   kernel's without ARG; then the main path's command with ``-arg`` (the
+   ARG plain pass once per segment, the main path's LogL bit for bit,
+   every R/C row's leaves nonzero and within the full mask, a full binary
+   tree at 7 positions from ``argout.build_tables``), its profiles with
+   and without ``-vb``, the ring's gather alone; the biased ARG passes in
+   short sweeps of the genome data; the twopop rerun with ``-arg`` (see
+   10: M rows, ``find_segments`` tracts) and its profiles; the wide ARG
+   pass in short sweeps of the n=16 and n=64 data (a row reaching leaf
+   63) and a profile; each ARG pass timed beside its parent on the
+   parent's timed inputs, in turns, with the bound from counted work, the
+   ring's bytes included.
+
 The line before the last is a JSON object with each kernel's build/compare/
 time record (the VB, guided and local variants as kernels of their own)
 and the new paths' updates/s, launches and device ms per segment
-(``feature_paths``) and the wide paths' (``wide_paths``); the last line
+(``feature_paths``), the wide paths' (``wide_paths``) and the ARG paths'
+with the ring's gather (``arg_paths``); the last line
 is {"ok": true, "device": {...}}.  Without a
 CUDA device the script exits non-zero and prints no result.
 """
@@ -355,6 +377,24 @@ LAUNCH_COUNTS.update({WIDE_PASS: "wide_launches",
 WIDE_NAMES = {"trip": WIDE_TRIP, "segment_pass": WIDE_PASS,
               VB_PASS: WIDE_VB_PASS, BIASED_PASS: BIASED_WIDE_PASS,
               BIASED_VB_PASS: BIASED_WIDE_VB_PASS}
+# ARG recording (-arg): the ARG variants of the plain, biased, migration
+# and wide plain passes, each with and without VB; by name the count its
+# wrapper adds to and the pass it is a variant of
+ARG_PASS = "segment_pass (arg)"
+BIASED_ARG_PASS = "segment_pass (biased, arg)"
+MIGRATION_ARG_PASS = "segment_pass (migration, arg)"
+WIDE_ARG_PASS = "segment_pass (wide, arg)"
+ARG_PARENTS = {ARG_PASS: "segment_pass", BIASED_ARG_PASS: BIASED_PASS,
+               MIGRATION_ARG_PASS: MIGRATION_PASS, WIDE_ARG_PASS: WIDE_PASS}
+ARG_PARENTS.update({vb_name(k): vb_name(v) if v != "segment_pass"
+                    else VB_PASS for k, v in list(ARG_PARENTS.items())})
+for _name in ARG_PARENTS:
+    LAUNCH_COUNTS[_name] = (
+        ("biased_" if "biased" in _name else "migration_"
+         if "migration" in _name else "") + ("wide_" if "wide" in _name
+                                             else "")
+        + "arg_" + ("vb_" if "vb" in _name else "") + "launches")
+ARG_A = 512  # PFConfig.arg_slots
 # the compared shapes (P, n, E): P leaves the last block ragged (8
 # particles per block up to 16 leaves, 4 above) and is smaller where the
 # plain version's [P, N + E, E, N] hazard grid would take more than a few GB
@@ -391,7 +431,7 @@ class MigCase:
         )
         from smcsmc_tpu_torch.sweep_profile import caps_demo, twopop_demo
 
-        dev = torch.device("cuda")
+        dev = torch.device(DEVICE)
         demo = (caps_demo(m) if caps
                 else twopop_demo(m=m, sample_pops=sample_pops))
         self.demo = demo
@@ -433,15 +473,15 @@ class MigCase:
     def uniforms(self, T):
         import torch
 
-        return torch.rand((T, self.P, 4), generator=self.gen, device="cuda")
+        return torch.rand((T, self.P, 4), generator=self.gen, device=DEVICE)
 
     def fresh(self):
         import torch
 
         st = {k: v.clone() for k, v in self.base.items()}
         st["fifo"] = self.fifo.clone()
-        st["tl"] = torch.empty(self.P, device="cuda")
-        st["diag"] = torch.zeros(2, dtype=torch.float64, device="cuda")
+        st["tl"] = torch.empty(self.P, device=DEVICE)
+        st["diag"] = torch.zeros(2, dtype=torch.float64, device=DEVICE)
         return st
 
     def run(self, fn, u, st, vb=None):
@@ -481,7 +521,7 @@ class Case:
             tree_summaries,
         )
 
-        dev = torch.device("cuda")
+        dev = torch.device(DEVICE)
         self.P, self.n, self.E, self.L = P, n, E, L
         self.leaf_status = leaf_status
         self.gen = torch.Generator(device=dev)
@@ -524,7 +564,7 @@ class Case:
     def uniforms(self, T):
         import torch
 
-        return torch.rand((T, self.P, 4), generator=self.gen, device="cuda")
+        return torch.rand((T, self.P, 4), generator=self.gen, device=DEVICE)
 
     def fresh(self):
         return {k: v.clone() for k, v in self.base.items()}
@@ -543,7 +583,7 @@ class Case:
 
         st = {k: self.base[k].clone() for k in SEGMENT_STATE}
         st["fifo"] = self.fifo.clone()
-        st["tl"] = torch.empty(self.P, device="cuda")
+        st["tl"] = torch.empty(self.P, device=DEVICE)
         return st
 
     def run_segment(self, fn, u, st, vb=None):
@@ -580,7 +620,7 @@ class Case:
         from smcsmc_tpu_torch.kernels.tree import INF
 
         if not hasattr(self, "ring"):
-            P, D, dev = self.P, BIAS_SLOTS, "cuda"
+            P, D, dev = self.P, BIAS_SLOTS, DEVICE
             used = torch.rand((P, D), generator=self.gen, device=dev) < 0.3
             used[:16] = True
             if full:
@@ -1149,6 +1189,286 @@ def compare_wide(kernels, tallies):
     return ok
 
 
+def _sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def arg_ring(P, n, gen, A=ARG_A):
+    """An ARG ring in use on ``DEVICE``: ``arg_n`` from 0 to 2A (about
+    half the rings wrapped, the first 16 one row short of wrapping), rows
+    drawn at random (codes 0-2, populations -1..1, heights up to 5e4,
+    positions before ``BIAS_FRONT``, leaves any of n bits)."""
+    import torch
+
+    dev = DEVICE
+    arg_n = torch.randint(0, 2 * A, (P,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    arg_n[:16] = A - 1
+
+    def small(lo, hi):
+        return torch.randint(lo, hi, (P, A), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+    return dict(
+        arg_pos=BIAS_FRONT * torch.rand((P, A), generator=gen, device=dev),
+        arg_code=small(0, 3),
+        arg_time=5e4 * torch.rand((P, A), generator=gen, device=dev),
+        arg_from=small(-1, 2), arg_to=small(-1, 2),
+        arg_desc=torch.randint(0, 1 << min(n, 62), (P, A), generator=gen,
+                               device=dev, dtype=torch.int64),
+        arg_n=arg_n)
+
+
+def arg_apart(got, ref, agree, tol, exact_time=False):
+    """Where two runs' ARG rings differ: a [P] bool mask of the particles
+    whose rings differ in any row (``arg_n``, codes, populations and
+    leaves exactly; positions to the positions' tolerance and heights to
+    a node height's, or bit for bit with ``exact_time``), and the fields
+    that differ on the particles in ``agree``."""
+    import torch
+
+    differs = got["arg_n"] != ref["arg_n"]
+    fields = ["arg_n"] if bool(differs[agree].any()) else []
+    for k in ("arg_code", "arg_from", "arg_to", "arg_desc"):
+        bad = (got[k] != ref[k]).any(dim=1)
+        differs |= bad
+        if bool(bad[agree].any()):
+            fields.append(k)
+    for k, atol in (("arg_pos", tol["next_rec"]), ("arg_time", tol["time"])):
+        a, b = got[k].double(), ref[k].double()
+        if exact_time and k == "arg_time":
+            bad = (got[k].view(torch.int32) != ref[k].view(torch.int32)
+                   ).any(dim=1)
+        else:
+            bad = ((a - b).abs() > RTOL * b.abs() + atol).any(dim=1)
+        differs |= bad
+        if bool(bad[agree].any()):
+            fields.append(k)
+    return differs, fields
+
+
+def _arg_of(st, front=BIAS_FRONT):
+    from smcsmc_tpu_torch.kernels.arg import ARG_FIELDS, ArgPass
+
+    return ArgPass(*(st[k] for k in ARG_FIELDS), front)
+
+
+def _arg_rows(st, base, code=None):
+    """Rows pushed over all particles (the change of ``arg_n``), or those
+    of one ``code`` among the newest ``A`` of each particle."""
+    import torch
+
+    new = (st["arg_n"] - base["arg_n"]).long()
+    if code is None:
+        return int(new.sum())
+    A = st["arg_code"].shape[1]
+    k = torch.arange(A, device=new.device)
+    slot = (base["arg_n"].long()[:, None] + k[None, :]) % A
+    mine = k[None, :] < new[:, None]
+    return int(((st["arg_code"].gather(1, slot) == code) & mine).sum())
+
+
+def _arg_check(name, label, P, got_st, ref_st, plain_st, result, L, T,
+               tallies, exact_time=False, Pp=1, base=None, want_bit63=False):
+    """One ARG comparison: the kernel's run ``got_st`` against the plain
+    version's ``ref_st`` (``result`` maps a state to what ``disagreement``
+    takes), and against the same kernel without ARG (``plain_st``): every
+    output but the ring bit for bit.  One trip: no tree mismatch, floats
+    within tolerance, rings equal; 64 trips: at most 0.1% of the
+    particles apart in trees, floats or rings.  The rows must have been
+    pushed; with ``want_bit63`` some row's leaves must reach bit 63."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.arg import ARG_FIELDS
+    from smcsmc_tpu_torch.kernels.trip import disagreement, float_tolerances
+
+    got, ref = result(got_st), result(ref_st)
+    trees, floats, errs = disagreement(got, ref, L, MU, RTOL, Pp=Pp)
+    agree = ~(trees | floats)
+    tol = float_tolerances(ref, L, MU, Pp=Pp)
+    ring_differs, fields = arg_apart(got_st, ref_st, agree, tol, exact_time)
+    base_out = result(plain_st)
+    same = [k for k in base_out if not torch.equal(
+        got[k].view(torch.int32) if got[k].dtype == torch.float32 else got[k],
+        base_out[k].view(torch.int32) if base_out[k].dtype == torch.float32
+        else base_out[k])]
+    rows = _arg_rows(ref_st, base)
+    apart = int((trees | floats | ring_differs).sum())
+    if T == 1:
+        good = apart == 0
+    else:
+        good = apart <= (1.0 - MATCH_MIN) * P and not fields
+    good &= not same and rows > 0
+    bit63 = bool((ref_st["arg_desc"] < 0).any())
+    if want_bit63:
+        good &= bit63
+    tallies[name][T > 1].add(trees, floats, errs)
+    _report(f"{name}{label} trips={T}" + (" vs plain" if T > 1 else "")
+            + f"; {rows} rows pushed, rings apart {int(ring_differs.sum())}"
+            + (f" {fields}" if fields else "")
+            + f"; without ARG {'bit for bit' if not same else same}"
+            + ("; a row reaches leaf 63" if bit63 else ""),
+            P, trees, floats, errs, good)
+    return good
+
+
+def compare_arg(segment_pass, segment_pass_plain, tallies, P=10000,
+                wide_P=(10001, 1001), mig_exact=True):
+    """The ARG variants against their plain versions on identical inputs
+    and a ring in use (:func:`arg_ring`, about half the rings wrapped):
+    the plain and the biased pass at the main shape (P, n=4, E=9) and the
+    genome shape (P, n=8, E=33), once at P + 1 (a ragged last block); the
+    migration pass at the twopop shape (P, n=4, E=8, Pp=2, Mw=56) and at
+    its caps corner (P + 1, n=8, E=64, Pp=4, Mw=96); the wide plain pass
+    at (wide_P[0], n=16, E=9) and (wide_P[1], n=64, E=9), against the
+    plain version in float64; each at leaf status 1, 0 and -1, one trip
+    and 64, VB off and on (at n=64 and the caps corners leaf status 1).
+    See :func:`_arg_check` for what must hold; the migration pass's trees,
+    buffers and the rings' heights bit for bit, as ``MIG_EXACT`` (within
+    tolerance without ``mig_exact``: a host build's ``log1pf`` is not the
+    card's, so its walk times part in the last bit)."""
+    import torch
+
+    for name in ARG_PARENTS:
+        tallies.setdefault(name, (Tally(), Tally()))
+    ok = True
+
+    def narrow(Pc, n, E, ls, T, biased, vb, label=""):
+        L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
+        c = Case(Pc, n, E, ls, L=L, nr_scale=nr_scale,
+                 seed=31 * Pc + n + E + T + ls)
+        u = c.uniforms(T)
+        tables = vb_tables(c.demo, T + ls + n) if vb else None
+        fresh = c.fresh_biased if biased else c.fresh_segment
+        c.aring = arg_ring(Pc, n, c.gen)
+
+        def run(fn, with_arg=True):
+            st = fresh()
+            st.update({k: v.clone() for k, v in c.aring.items()})
+            b = None
+            if biased:
+                from smcsmc_tpu_torch.kernels.bias import BiasedPass
+
+                b = BiasedPass(st["log_pilot"], st["df_pos"], st["df_logf"],
+                               st["df_delta"], st["df_k"], *c.bias_tables,
+                               BIAS_FRONT)
+            fn(u, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
+               st["fifo"], c.fifo_mask, st["tl"], c.L, MU, RHO, c.start,
+               c.inv2ne, c.has_data, b, vb=tables,
+               arg=_arg_of(st) if with_arg else None)
+            return st
+        got, ref, base = (run(segment_pass), run(segment_pass_plain),
+                          run(segment_pass, False))
+        _sync()
+        name = BIASED_ARG_PASS if biased else ARG_PASS
+        name = vb_name(name) if vb else name
+        return _arg_check(name, f"{label} P={Pc} n={n} E={E} leaf_status="
+                          f"{ls}", Pc, got, ref, base, c.segment_result,
+                          c.L, T, tallies, base=c.aring)
+
+    def migration(ls, T, vb, caps=False):
+        L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
+        kw = dict(caps=True, m=1e-4, Mw=96) if caps else {}
+        Pc = P + 1 if caps else P
+        c = MigCase(Pc, ls, L, nr_scale, seed=17 * Pc + T + ls, **kw)
+        u = c.uniforms(T)
+        tables = vb_tables(c.demo, T + ls) if vb else None
+        aring = arg_ring(Pc, c.n, c.gen)
+
+        def run(fn, with_arg=True):
+            st = c.fresh()
+            st.update({k: v.clone() for k, v in aring.items()})
+            from smcsmc_tpu_torch.kernels.migration import MigrationPass
+
+            mp = MigrationPass(st["pop"], st["mig_time"], st["mig_dest"],
+                               st["diag"], c.key, *c.tables)
+            fn(u, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
+               st["fifo"], c.fifo_mask, st["tl"], c.L, MU, RHO, c.start,
+               c.inv2ne, c.has_data, None, mp, vb=tables,
+               arg=_arg_of(st) if with_arg else None)
+            return st
+        got, ref, base = (run(segment_pass), run(segment_pass_plain),
+                          run(segment_pass, False))
+        _sync()
+        exact = all(torch.equal(got[k], ref[k]) for k in MIG_EXACT)
+        hops = _arg_rows(ref, aring, code=2)
+        m_rows.append(hops)
+        name = vb_name(MIGRATION_ARG_PASS) if vb else MIGRATION_ARG_PASS
+        good = _arg_check(name, f"{' caps corner' if caps else ''} P={Pc} "
+                          f"n={c.n} E={c.E} Pp={c.Pp} Mw={c.Mw} leaf_status="
+                          f"{ls} (trees and buffers bit for bit {exact}, "
+                          f"{hops} M rows)", Pc, got, ref, base, c.result,
+                          c.L, T, tallies, exact_time=mig_exact, Pp=c.Pp,
+                          base=aring)
+        return good and (exact or not mig_exact)
+
+    def wide(Pc, n, ls, T, vb):
+        L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
+        c = Case(Pc, n, 9, ls, L=L, nr_scale=nr_scale,
+                 seed=37 * Pc + n + T + ls)
+        u = c.uniforms(T)
+        tables = vb_tables(c.demo, T + ls + n) if vb else None
+        aring = arg_ring(Pc, n, c.gen)
+        d = _in_double(c)
+
+        def run(case, fn, uu, tbl, dbl=False, with_arg=True):
+            st = case.fresh_segment()
+            st.update({k: v.clone() for k, v in aring.items()})
+            if dbl:
+                st = _in_double(st)
+            fn(uu, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
+               st["fifo"], case.fifo_mask, st["tl"], c.L, MU, RHO,
+               case.start, case.inv2ne, c.has_data, vb=tbl,
+               arg=_arg_of(st) if with_arg else None)
+            return st
+        got = run(c, segment_pass, u, tables)
+        base = run(c, segment_pass, u, tables, with_arg=False)
+        ref = run(d, segment_pass_plain, u.double(), _in_double(tables),
+                  dbl=True)
+        # the float64 answer as the float32 the kernel stores
+        ref = {k: v.float() if v.dtype == torch.float64 else v
+               for k, v in ref.items()}
+        _sync()
+        name = vb_name(WIDE_ARG_PASS) if vb else WIDE_ARG_PASS
+        return _arg_check(name, f" P={Pc} n={n} E=9 leaf_status={ls}", Pc,
+                          got, ref, base, c.segment_result, c.L, T, tallies,
+                          base=aring, want_bit63=n == 64 and ls == 1)
+
+    t0 = time.monotonic()
+    for n, E in ((4, 9), (8, 33)):
+        for ls in (1, 0, -1):
+            for T in (1, 64):
+                for biased in (False, True):
+                    for vb in (False, True):
+                        ok &= narrow(P, n, E, ls, T, biased, vb)
+    for biased in (False, True):
+        ok &= narrow(P + 1, 8, 33, 1, 1, biased, False, " ragged")
+    _log(f"compare ARG narrow: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    m_rows = []
+    for ls in (1, 0, -1):
+        for T in (1, 64):
+            for vb in (False, True):
+                ok &= migration(ls, T, vb)
+    for T in (1, 64):
+        ok &= migration(1, T, False, caps=True)
+    ok &= sum(m_rows) > 0
+    _log(f"compare ARG migration: {time.monotonic() - t0:.1f} s, "
+         f"{sum(m_rows)} M rows pushed")
+    t0 = time.monotonic()
+    for ls in (1, 0, -1):
+        for T in (1, 64):
+            for vb in (False, True):
+                ok &= wide(wide_P[0], 16, ls, T, vb)
+    for T in (1, 64):
+        for vb in (False, True):
+            ok &= wide(wide_P[1], 64, 1, T, vb)
+    _log(f"compare ARG wide: {time.monotonic() - t0:.1f} s")
+    return ok
+
+
 def vb_cases():
     """The VB variants' cases: (pass, label, shape or MigCase arguments,
     leaf status): the main path's shape and the genome path's for the plain
@@ -1587,6 +1907,24 @@ def _mig_bounds(c, active, trips, events, valid, rows, pushed):
                 bytes=nbytes, flop=flop)
 
 
+def _mig_timing_case(P, L):
+    """A migration case as a segment of length L finds it (next
+    recombination Exp(1)/(rho*tl), as at a segment start), and uniforms for
+    64 trips."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.tree import Trees, tree_summaries
+
+    c = MigCase(P, 1, L, 0.0, seed=99)
+    b = c.base
+    tl, _, _ = tree_summaries(
+        Trees(b["parent"], b["time"], b["child0"], b["child1"]),
+        c.epochs, 1, c.has_data)
+    expo = torch.empty(P, device=DEVICE).exponential_(1.0, generator=c.gen)
+    b["next_rec"] = (expo / (RHO * tl)).contiguous()
+    return c, c.uniforms(64)
+
+
 def phase_time_migration(kernel, plain, seg_lengths, P=TWOPOP_P, vb=False):
     """The migration pass at the two-population path's shape (P, n=4, E=8,
     Pp=2, Mw=56) for each (label, segment length): device time per launch
@@ -1601,21 +1939,14 @@ def phase_time_migration(kernel, plain, seg_lengths, P=TWOPOP_P, vb=False):
 
     import smcsmc_tpu_torch.kernels.migration as mig_mod
     from smcsmc_tpu_torch.kernels.migration import stats_offsets
-    from smcsmc_tpu_torch.kernels.tree import INF, Trees, tree_summaries
+    from smcsmc_tpu_torch.kernels.tree import INF
     from smcsmc_tpu_torch.kernels.trip import disagreement
 
     filler = _filler()
     rows_out = {}
     for label, L in seg_lengths:
-        c = MigCase(P, 1, L, 0.0, seed=99)
+        c, u = _mig_timing_case(P, L)
         b = c.base
-        tl, _, _ = tree_summaries(
-            Trees(b["parent"], b["time"], b["child0"], b["child1"]),
-            c.epochs, 1, c.has_data)
-        expo = torch.empty(P, device="cuda").exponential_(1.0,
-                                                          generator=c.gen)
-        b["next_rec"] = (expo / (RHO * tl)).contiguous()
-        u = c.uniforms(64)
         seen, walk = [], mig_mod.walk_mig
 
         def counting(*a, **k):
@@ -2842,9 +3173,15 @@ def phase_twopop_path(card):
     """bench.py's twopop_em_iter configuration through smcsmc_main:
     ``smc2-torch -Np 10000 -EM 2`` with the flags of
     ``sweep_profile.twopop_flags`` on ``simulate_seg(twopop_demo, seed=13)``
-    (2 Mb), started at the truth; the same command a second time, which
-    with ``-EM 0`` must give iteration 0's LogL bit for bit.  Returns
-    (launches, E-step records, the model and data, the profile)."""
+    (2 Mb), started at the truth; the same command a second time with
+    ``-EM 0 -arg``, which must give iteration 0's LogL bit for bit through
+    the migration pass's ARG variant (once per segment, nothing else),
+    its ``.trees.gz`` holding M rows (from one population to another, with
+    leaves) and ``argout.find_segments`` giving tracts of positive length
+    (tests/test_migration_inference.py::TestMigrationTracts).  Returns
+    (launches, E-step records, the model and data, the profile, the pooled
+    migration rate, the walk diagnostics, and the ARG run's launches,
+    E-step records and profile)."""
     from smcsmc_tpu_torch.segio import write_seg
     from smcsmc_tpu_torch.sweep_profile import (
         profile_sweep,
@@ -2862,12 +3199,20 @@ def phase_twopop_path(card):
             out = os.path.join(tmp, f"out{run}")
             argv = ["-seg", seg_path, "-o", out, "-Np", str(TWOPOP_P), "-EM",
                     "0" if run else "2", *twopop_flags(), "-seed", "7",
-                    "-device", DEVICE]
+                    "-device", DEVICE] + (["-arg"] if run else [])
             # the first run is checked and reported; the second, one E-step
-            # only (to keep the script inside its time), gives only its LogL
+            # only (to keep the script inside its time), records the ARG
             launches_r, plain, steps_r, records, wall = _run_cli(argv)
             logls.append([r.args[4] for r in steps_r])
             if run:
+                arg_launches, arg_steps = launches_r, steps_r
+                _log(f"twopop path with -arg -EM 0 ran in {wall:.2f} s "
+                     f"wall; kernel launches {launches_r}")
+                _log_esteps(steps_r, TWOPOP_P, card)
+                _check_launches(launches_r, plain,
+                                sum(r.args[2] for r in steps_r), problems,
+                                "twopop ARG path", MIGRATION_ARG_PASS)
+                problems += _twopop_trees(out)
                 continue
             launches, steps = launches_r, steps_r
             shown = " ".join(a for a in argv if a not in (seg_path, out))
@@ -2887,7 +3232,7 @@ def phase_twopop_path(card):
             _check_twopop(_read_out(result, 0), 0, problems, True)
             pooled = _check_twopop(_read_out(result, 2), 2, problems, False)
     _log(f"twopop path: LogL by iteration {logls[0]} and, the same seed "
-         f"again for one E-step, {logls[1]}: bit for bit equal "
+         f"again for one E-step with -arg, {logls[1]}: bit for bit equal "
          f"{logls[0][:1] == logls[1]}")
     if logls[0][:1] != logls[1]:
         problems.append("the same seed gave another LogL")
@@ -2905,7 +3250,54 @@ def phase_twopop_path(card):
     if (vb_launches[MIGRATION_VB_PASS] == 0
             or vb_launches[MIGRATION_PASS] != 0):
         raise SystemExit(f"the twopop sweep with -vb launched {vb_launches}")
-    return launches, steps, demo, seg, rep, pooled, pressure
+    # and with -arg, and -arg -vb: the ARG migration pass in the sweep
+    arg_rep, arg_prof_launches = _profile(card, "twopop path with -arg", demo,
+                                          seg, TWOPOP_P, record_arg=True)
+    _, vb_arg = _profile(card, "twopop path with -arg -vb", demo, seg,
+                         TWOPOP_P, record_arg=True, vb=True)
+    arg_launches[vb_name(MIGRATION_ARG_PASS)] = \
+        vb_arg[vb_name(MIGRATION_ARG_PASS)]
+    if (arg_prof_launches[MIGRATION_ARG_PASS] == 0
+            or vb_arg[vb_name(MIGRATION_ARG_PASS)] == 0
+            or vb_arg[MIGRATION_ARG_PASS] != 0):
+        raise SystemExit(f"the twopop sweeps with -arg launched "
+                         f"{arg_prof_launches} and {vb_arg}")
+    return (launches, steps, demo, seg, rep, pooled, pressure, arg_launches,
+            arg_steps, arg_rep)
+
+
+def _twopop_trees(out):
+    """The problems of a twopop run's ``emiter0/chunk0.trees.gz``: it must
+    hold M rows, each between two populations and with leaves, R/C rows
+    with leaves within the full mask, and ``find_segments`` tracts of
+    positive length in one direction or the other."""
+    import numpy as np
+
+    from smcsmc_tpu_torch.argout import find_segments, read_trees
+
+    from smcsmc_tpu_torch.sweep_profile import twopop_data
+
+    L = float(twopop_data()[0].sequence_length)
+    path = os.path.join(out, "emiter0", "chunk0.trees.gz")
+    ev = read_trees(path)
+    m = ev[ev["code"] == "M"]
+    bad, rc = _rc_rows(ev, 4)
+    tracts = [find_segments(path, a, b, sequence_length=L)
+              for a, b in ((0, 1), (1, 0))]
+    lengths = [float((t["right"] - t["left"]).sum()) if len(t) else 0.0
+               for t in tracts]
+    _log(f"  twopop emiter0/chunk0.trees.gz: {len(ev)} rows, {len(m)} M "
+         f"rows, {rc} R/C rows ({bad} with empty or too wide leaves); "
+         f"tracts 0->1 {len(tracts[0])} ({lengths[0]:.0f} bp), 1->0 "
+         f"{len(tracts[1])} ({lengths[1]:.0f} bp)")
+    problems = []
+    if not len(m) or np.any(m["from"] == m["to"]) or np.any(m["desc"] == 0):
+        problems.append(f"M rows {len(m)}")
+    if bad:
+        problems.append(f"{bad} R/C rows with bad leaves")
+    if not any(len(t) and np.all(t["right"] > t["left"]) for t in tracts):
+        problems.append("no tract of positive length")
+    return problems
 
 
 
@@ -3077,6 +3469,269 @@ def phase_wide64_path(card):
         split_long_segments(seg, MAX_SEG).lengths.mean())
 
 
+def _tree_problems(tb, L, n):
+    """tests/test_tskit_conversion.py::_check_trees_valid as a list of
+    problems: at 7 positions a full binary tree (2n - 2 edges, every child
+    one parent, every leaf present, parents above children)."""
+    import numpy as np
+
+    problems = []
+    edges = tb["edges"]
+    if len(edges) < 2 * n - 2 or not np.all(edges["right"] > edges["left"]):
+        problems.append(f"{len(edges)} edges")
+    t = tb["nodes"]["time"]
+    for x in np.linspace(1.0, L - 1.0, 7):
+        cover = edges[(edges["left"] <= x) & (x < edges["right"])]
+        children, counts = np.unique(cover["child"], return_counts=True)
+        if (len(cover) != 2 * n - 2 or not np.all(counts == 1)
+                or not set(range(n)) <= set(children.tolist())
+                or not np.all(t[cover["parent"]] > t[cover["child"]])):
+            problems.append(f"no full binary tree at {x:.0f} "
+                            f"({len(cover)} edges)")
+    return problems
+
+
+def _rc_rows(ev, n):
+    """The R and C rows of a .trees.gz whose leaves are empty or beyond the
+    full mask of n leaves, and how many R/C rows it has."""
+    import numpy as np
+
+    rc = ev[(ev["code"] == "R") | (ev["code"] == "C")]
+    full = np.uint64((1 << n) - 1) if n < 64 else np.uint64(2 ** 64 - 1)
+    bad = int(((rc["desc"] == 0) | (rc["desc"] > full)).sum())
+    return bad, len(rc)
+
+
+def phase_arg_main_path(card, seg, main_steps):
+    """The main path's command with ``-arg`` (``-Np 10000 -EM 1``): the ARG
+    plain pass once per segment of each E-step and nothing else, each
+    iteration's LogL bit for bit the main path's (the ARG variant draws
+    nothing and changes no weight), each ``emiter{it}/chunk0.trees.gz``
+    with every R/C row's leaves nonzero and within the full mask, and the
+    copied ``argout.build_tables`` giving a full binary tree at 7
+    positions.  Returns (launches, E-step records)."""
+    from smcsmc_tpu_torch.argout import build_tables, read_trees
+    from smcsmc_tpu_torch.segio import write_seg
+
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "bench.seg")
+        write_seg(seg_path, seg)
+        out = os.path.join(tmp, "out")
+        launches, plain, steps, _, wall = _run_cli(
+            _main_argv(seg_path, out) + ["-arg"])
+        _log(f"ARG main path: smc2-torch -Np 10000 -EM 1 -arg ran in "
+             f"{wall:.2f} s wall; kernel launches {launches}")
+        _log_esteps(steps, 10000, card)
+        _check_launches(launches, plain, sum(r.args[2] for r in steps),
+                        problems, "ARG main path", ARG_PASS)
+        logl, main = [r.args[4] for r in steps], [r.args[4]
+                                                  for r in main_steps]
+        _log(f"ARG main path: LogL by iteration {logl!r}, the main path's "
+             f"{main!r}: bit for bit equal {logl == main}")
+        if logl != main:
+            problems.append("LogL differs from the main path's")
+        for it in range(len(steps)):
+            ev = read_trees(os.path.join(out, f"emiter{it}",
+                                         "chunk0.trees.gz"))
+            bad, rc = _rc_rows(ev, 4)
+            tp = _tree_problems(build_tables(ev, float(seg.end)),
+                                float(seg.end), 4)
+            _log(f"  emiter{it}/chunk0.trees.gz: {len(ev)} rows, {rc} R/C "
+                 f"rows, {bad} with empty or too wide leaves; trees at 7 "
+                 f"positions {'full and binary' if not tp else tp}")
+            if bad or tp or rc < 3:
+                problems.append(f"emiter{it} trees: {bad} bad rows, {tp}")
+    if problems:
+        raise SystemExit("ARG main path checks failed: "
+                         + "; ".join(problems))
+    _log("ARG main path checks: ok")
+    return launches, steps
+
+
+def ring_gather_cost(P=10000, A=ARG_A, repeats=20):
+    """What the ARG ring's gather costs at each resampling: the seven
+    ``index_select`` of ``smc.gather_particles`` on a ring of P x A slots
+    (19 B a slot), device time per gather by CUDA events over ``repeats``
+    gathers, beside its bound (the ring read and written once)."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.arg import ARG_FIELDS
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    ring = arg_ring(P, 4, gen, A)
+    idx = torch.randint(0, P, (P,), generator=gen, device=DEVICE)
+
+    def gather(_):
+        for k in ARG_FIELDS:
+            ring[k].index_select(0, idx)
+    gather(None)
+    ms = _device_ms(gather, range(repeats), _filler())
+    nbytes = 2 * sum(ring[k].element_size() * ring[k].numel()
+                     for k in ARG_FIELDS)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    _log(f"ARG ring gather at P={P}, A={A}: {ms * 1e3:.2f} us of device "
+         f"time per resampling (7 index_select), bound {bound * 1e3:.2f} us "
+         f"by bytes ({nbytes} B read and written)")
+    return {"P": P, "A": A, "ms": ms, "bound_ms": bound, "bytes": nbytes}
+
+
+def phase_arg_wide(card):
+    """The wide ARG pass in short sweeps: bench.py's headline demography
+    with n=16 (60 segments at P=10,000, ``record_arg``) and n=64 over 200
+    kb (30 segments): the ARG wide pass once per segment and no other
+    pass, every pushed R/C row's leaves nonzero and within the full mask,
+    at n=64 a pushed row reaching leaf 63.  Returns (launches by data,
+    the n=16 data's profile)."""
+    import torch
+
+    from smcsmc_tpu_torch.em import EMConfig, start_sweep
+    from smcsmc_tpu_torch.sweep_profile import wide64_data, wide_data
+
+    out = {}
+    problems = []
+    for label, (demo, seg), segments in (("n=16", wide_data(), 60),
+                                         ("n=64", wide64_data(), 30)):
+        n = demo.num_samples
+        reset_counts()
+        state, segs, step, _, _ = start_sweep(
+            demo, seg, EMConfig(num_particles=WIDE_P, device=DEVICE,
+                                record_arg=True), seed=7)
+        n0 = state.arg_n.clone()
+        for k in range(segments):
+            state, _ = step(state, segs[k])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        others = {k: v for k, v in counts.items()
+                  if v and k != WIDE_ARG_PASS}
+        out[label] = counts
+        # the rows pushed in these segments (fewer than A per particle)
+        A = state.arg_code.shape[1]
+        new = (state.arg_n - n0).long()
+        k = torch.arange(A, device=new.device)
+        slot = (n0.long()[:, None] + k[None, :]) % A
+        mine = (k[None, :] < new[:, None]) & (new[:, None] <= A)
+        code = state.arg_code.gather(1, slot)
+        desc = state.arg_desc.gather(1, slot)
+        rc = mine & (code <= 1)
+        # leaves empty, or (below 64 leaves) beyond the full mask
+        bad_leaves = ((desc <= 0) | (desc > (1 << n) - 1) if n < 64
+                      else desc == 0)
+        bad = int((rc & bad_leaves).sum())
+        top = int((rc & (desc < 0)).sum())
+        _log(f"ARG wide short sweep {label} on {card}: "
+             f"{counts[WIDE_ARG_PASS]} launches over {segments} segments, "
+             f"{int(rc.sum())} R/C rows pushed, {bad} with empty or too "
+             f"wide leaves, {top} reaching leaf 63"
+             + (f"; others {others}" if others else ""))
+        if counts[WIDE_ARG_PASS] != segments or others or bad \
+                or not int(rc.sum()) or (n == 64 and not top):
+            problems.append(f"{label}: {counts[WIDE_ARG_PASS]} launches, "
+                            f"others {others}, {bad} bad rows, {top} at "
+                            "leaf 63")
+    if problems:
+        raise SystemExit("ARG wide checks failed: " + "; ".join(problems))
+    _log("ARG wide checks: ok")
+    demo, seg = wide_data()
+    rep, _ = _profile(card, "wide path (n=16) with -arg", demo, seg, WIDE_P,
+                      record_arg=True)
+    return out, rep
+
+
+def phase_time_arg(kernels, lengths, parents):
+    """Each ARG pass timed beside its parent pass on the inputs that
+    ``phase_time`` / ``phase_time_migration`` timed the parent on (the
+    same shape, segment length and seed; ``lengths`` maps a pass to its
+    data's mean segment length, ``parents`` to the parent's timed row), in
+    turns (parent, ARG, ARG, parent; best of 3 x 20 launches each), with
+    a ring in use: device time per launch of both, host time per wrapper
+    call, the plain version's time and the bound: the parent's counted
+    work plus the ring's (every particle's ``arg_n`` read, a recombining
+    particle's written, 19 B per row pushed; per trip the leaves' walks up
+    the tree, two compares per node and leaf)."""
+    from smcsmc_tpu_torch.kernels.bias import BiasedPass
+    from smcsmc_tpu_torch.kernels.migration import MigrationPass
+
+    segment_pass, segment_pass_plain = kernels["segment_pass"]
+    filler = _filler()
+    rows = {}
+    for name, parent in ARG_PARENTS.items():
+        vb = "vb" in name
+        L = lengths[name]
+        if "migration" in name:
+            c, u = _mig_timing_case(TWOPOP_P, L)
+            fresh0 = c.fresh
+
+            def run(fn, u, st, with_arg=True, c=c):
+                mp = MigrationPass(st["pop"], st["mig_time"],
+                                   st["mig_dest"], st["diag"], c.key,
+                                   *c.tables)
+                fn(u, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
+                   st["fifo"], c.fifo_mask, st["tl"], c.L, MU, RHO, c.start,
+                   c.inv2ne, c.has_data, None, mp, vb=tables,
+                   arg=_arg_of(st) if with_arg else None)
+                return st
+        else:
+            n = 16 if "wide" in name else 8 if "biased" in name else 4
+            E = 33 if "biased" in name else 9
+            c, u = _timing_case(10000, n, E, L)
+            biased = "biased" in name
+            fresh0 = (c.fresh_biased if biased else c.fresh_segment)
+
+            def run(fn, u, st, with_arg=True, c=c, biased=biased):
+                bp = (BiasedPass(st["log_pilot"], st["df_pos"],
+                                 st["df_logf"], st["df_delta"], st["df_k"],
+                                 *c.bias_tables, BIAS_FRONT)
+                      if biased else None)
+                fn(u, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
+                   st["fifo"], c.fifo_mask, st["tl"], c.L, MU, RHO, c.start,
+                   c.inv2ne, c.has_data, bp, vb=tables,
+                   arg=_arg_of(st) if with_arg else None)
+                return st
+        tables = vb_tables(c.demo, 5) if vb else None
+        fresh0()  # draws the biased pass's ring as phase_time did
+        aring = arg_ring(c.P, c.n, c.gen)
+
+        def fresh(fresh0=fresh0, aring=aring):
+            st = fresh0()
+            st.update({k: v.clone() for k, v in aring.items()})
+            return st
+        st = run(segment_pass, u, fresh())
+        pushed = _arg_rows(st, aring)
+        active = int((c.base["next_rec"] < L).sum())
+        trips = pushed // 2 if "migration" not in name \
+            else parents[name]["trips"]
+        N = 2 * c.n - 1
+        prow = parents[name]
+        bound = _bound_of(prow["bytes"] + 4 * c.P + 4 * active + 19 * pushed,
+                          prow["flop"] + trips * 2 * c.n * N)
+
+        def launch(st, run=run, u=u):
+            run(segment_pass, u, st)
+
+        def launch_parent(st, run=run, u=u):
+            run(segment_pass, u, st, False)
+        turns = [_best_device_ms(fn, fresh, filler) for fn in (
+            launch_parent, launch, launch, launch_parent)]
+        t = dict(kernel_ms=min(turns[1:3]),
+                 parent_ms=min(turns[0], turns[3]), turns_ms=turns,
+                 plain_ms=_plain_ms(run, segment_pass_plain, u, fresh),
+                 host_us=_host_us(launch, [fresh() for _ in range(20)]),
+                 rows_pushed=pushed, active=active, trips=trips, L=L,
+                 **bound)
+        rows[name] = t
+        _log(f"time {name} at L={L:g} bp (P={c.P} n={c.n} E={c.E}): "
+             f"kernel {t['kernel_ms'] * 1e3:.2f} us per launch beside "
+             f"{parent} {t['parent_ms'] * 1e3:.2f} us (turns parent, ARG, "
+             f"ARG, parent: {', '.join(f'{x * 1e3:.2f}' for x in turns)} "
+             f"us); host {t['host_us']:.2f} us per call; plain "
+             f"{t['plain_ms']:.4f} ms; {pushed} rows pushed by {active} "
+             f"particles; bound {t['bound_ms'] * 1e3:.3f} us by "
+             f"{t['bound_by']} ({t['bytes']} B, {t['flop']} FLOP), kernel "
+             f"reaches {t['bound_ms'] / t['kernel_ms']:.4f} of it")
+    return rows
+
+
 def vb_tables(demo, seed):
     """VB tables on the card as the sweep passes them (em.vb_pass_tables):
     from event counts drawn in [0.05, 5] with epoch ``XC_EPOCH`` excluded,
@@ -3094,7 +3749,7 @@ def vb_tables(demo, seed):
               rng.uniform(0.05, 5.0, (E, Pp, Pp)))
     coal, mig = vb_pass_tables(demo, counts, EMConfig(vb=True,
                                                       xc_epochs=(XC_EPOCH,)))
-    return tuple(torch.as_tensor(x, device="cuda").contiguous()
+    return tuple(torch.as_tensor(x, device=DEVICE).contiguous()
                  for x in (coal, mig))
 
 
@@ -3144,7 +3799,23 @@ RESOURCE_SHAPES = (
         ("caps (n=64, E=64, S=8)", (64, 64, 1, 0, 8)))),
     (BIASED_WIDE_VB_PASS, "biased", (
         ("wide (n=16, E=9, S=2)", (16, 9, 1, 0, 2, True)),
-        ("caps (n=64, E=64, S=8)", (64, 64, 1, 0, 8, True)))))
+        ("caps (n=64, E=64, S=8)", (64, 64, 1, 0, 8, True))))) + tuple(
+    # the ARG variants (kernel_resources(..., arg=True)) at their paths'
+    # shapes and caps
+    (name, variant, tuple((label, (*dims, "vb" in name, False, False, True))
+                          for label, dims in shapes))
+    for base, variant, shapes in (
+        (ARG_PASS, "segment_pass", (("main (n=4, E=9)", (4, 9, 1, 0, 2)),
+                                    ("genome (n=8, E=33)", (8, 33, 1, 0, 2)))),
+        (BIASED_ARG_PASS, "biased", (
+            ("genome (n=8, E=33, S=2)", (8, 33, 1, 0, 2)),
+            ("caps (n=8, E=64, S=8)", (8, 64, 1, 0, 8)))),
+        (MIGRATION_ARG_PASS, "migration", (
+            ("twopop (n=4, E=8, Pp=2, Mw=56)", (4, 8, 2, TWOPOP_MW, 2)),
+            ("caps (n=8, E=64, Pp=4, Mw=96)", (8, 64, 4, 96, 2)))),
+        (WIDE_ARG_PASS, "segment_pass", (("wide (n=16, E=9)", (16, 9, 1, 0, 2)),
+                                         ("n=64 (n=64, E=9)", (64, 9, 1, 0, 2)))))
+    for name in (base, vb_name(base)))
 SOURCE = "smcsmc_tpu_torch/csrc/trip.cu"
 
 
@@ -3213,6 +3884,7 @@ def main(argv=None) -> int:
         bench_data,
         profile_sweep,
         report_lines,
+        wide_data,
     )
 
     # bench.py's headline data (n=4, 2 Mb); the main path sweeps it with
@@ -3224,6 +3896,9 @@ def main(argv=None) -> int:
                "segment_pass": (segment_pass, segment_pass_plain)}
     tallies = phase_compare(kernels)
     elapsed("compare")
+    if not compare_arg(segment_pass, segment_pass_plain, tallies):
+        raise SystemExit("an ARG pass disagrees with its plain version")
+    elapsed("the ARG compare")
     if args.until == "compare":
         return 0
     empty_ms = time_empty_launch()
@@ -3241,6 +3916,18 @@ def main(argv=None) -> int:
     main_rep = profile_sweep(demo, seg, 10000, "cuda", **PROFILE_WINDOW)
     for ln in report_lines(main_rep):
         _log(ln)
+
+    # the main path's command with -arg: the ARG plain pass, the same LogL
+    arg_launches, arg_steps = phase_arg_main_path(card, seg, steps)
+    arg_rep, _ = _profile(card, "ARG main path", demo, seg, 10000,
+                          record_arg=True)
+    _, arg_vb = _profile(card, "ARG main path with -vb", demo, seg, 10000,
+                         record_arg=True, vb=True)
+    arg_launches[vb_name(ARG_PASS)] = arg_vb[vb_name(ARG_PASS)]
+    if arg_vb[vb_name(ARG_PASS)] == 0 or arg_vb[ARG_PASS] != 0:
+        raise SystemExit(f"the ARG sweep with -vb launched {arg_vb}")
+    gather = ring_gather_cost()
+    elapsed("the ARG main path")
 
     # bench.py's feature_vb and feature_apf on the main path's data, and
     # the lookahead alone at its shape
@@ -3273,6 +3960,16 @@ def main(argv=None) -> int:
 
     b_launches, b_steps, b_reported, b_profile = phase_biased_path(card)
     elapsed("the biased path")
+    # the biased pass's ARG variants in short sweeps of the genome data
+    # (no path of the slice runs them), the strengths given so that no
+    # calibration launches trip
+    ab_launches = {}
+    for vb in (False, True):
+        name = vb_name(BIASED_ARG_PASS) if vb else BIASED_ARG_PASS
+        ab_launches[name] = _short_sweep(
+            card, name, g_demo, g_seg, record_arg=True, vb=vb,
+            bias_heights=(2000.0,), bias_strengths=(4.0, 1.0))[name]
+    elapsed("the biased ARG sweeps")
 
     # bench.py's feature_apf8 (n=8, missing windows, an unphased pair)
     a8_launches, a8_step, a8_rep, a8_base = phase_apf8_path(card)
@@ -3282,7 +3979,7 @@ def main(argv=None) -> int:
     elapsed("the APF8 path")
 
     (m_launches, m_steps, m_demo, m_seg, m_profile, m_pooled,
-     m_pressure) = phase_twopop_path(card)
+     m_pressure, ma_launches, ma_steps, ma_rep) = phase_twopop_path(card)
     elapsed("the twopop path")
     m_mean_len = float(split_long_segments(m_seg, MAX_SEG).lengths.mean())
     m_timing = phase_time_migration(
@@ -3299,6 +3996,14 @@ def main(argv=None) -> int:
     elapsed("the wide biased path")
     w64_launches, w64_steps, w64_mean = phase_wide64_path(card)
     elapsed("the n=64 sweep")
+    wa_launches, wa_rep = phase_arg_wide(card)
+    _, wa_vb = _profile(card, "wide path (n=16) with -arg -vb", *wide_data(),
+                        WIDE_P, record_arg=True, vb=True)
+    wa_launches["n=16"][vb_name(WIDE_ARG_PASS)] = \
+        wa_vb[vb_name(WIDE_ARG_PASS)]
+    if wa_vb[vb_name(WIDE_ARG_PASS)] == 0 or wa_vb[WIDE_ARG_PASS] != 0:
+        raise SystemExit(f"the wide ARG sweep with -vb launched {wa_vb}")
+    elapsed("the wide ARG sweeps")
     w_timing = phase_time(kernels, (WIDE_P, 16, 9),
                           [("mean wide segment", w_mean),
                            ("longest segment", MAX_SEG)], biased=True,
@@ -3308,6 +4013,26 @@ def main(argv=None) -> int:
                              ("longest segment", MAX_SEG)], biased=True,
                             vb=True, names=WIDE_NAMES)
     elapsed("the wide passes' timing")
+    # each ARG pass beside its parent, on the parent's timed inputs
+    mean_w = w_timing["mean wide segment"]
+    m_row = m_timing["mean twopop segment"]
+    main_t = timing["mean bench segment"]
+    genome_t = g_timing["mean genome segment"]
+    parents = {ARG_PASS: main_t["segment_pass"], vb_name(ARG_PASS):
+               main_t[VB_PASS], BIASED_ARG_PASS: genome_t[BIASED_PASS],
+               vb_name(BIASED_ARG_PASS): genome_t[BIASED_VB_PASS],
+               MIGRATION_ARG_PASS: m_row,
+               vb_name(MIGRATION_ARG_PASS): dict(m_row["vb"],
+                                                 trips=m_row["trips"]),
+               WIDE_ARG_PASS: mean_w[WIDE_PASS],
+               vb_name(WIDE_ARG_PASS): mean_w[WIDE_VB_PASS]}
+    lengths = {}
+    for name in ARG_PARENTS:
+        lengths[name] = (m_mean_len if "migration" in name else w_mean
+                         if "wide" in name else g_mean_len
+                         if "biased" in name else mean_len)
+    a_timing = phase_time_arg(kernels, lengths, parents)
+    elapsed("the ARG passes' timing")
 
     head = timing["mean bench segment"]
     g_head = g_timing["mean genome segment"]
@@ -3544,6 +4269,55 @@ def main(argv=None) -> int:
             entry["longest_segment"] = {
                 k: timing["longest segment"][name][k] for k in timed_keys}
         record["kernels"].append(entry)
+    # the ARG variants: launches on the path that runs each (the VB
+    # variants in their path's profile with -vb, the biased ones in short
+    # sweeps), times beside the parent pass on its timed inputs
+    arg_where = {ARG_PASS: ("ARG main", arg_launches),
+                 BIASED_ARG_PASS: ("its own sweep", ab_launches),
+                 MIGRATION_ARG_PASS: ("twopop ARG", ma_launches),
+                 WIDE_ARG_PASS: ("ARG wide n=16 sweep", wa_launches["n=16"])}
+    arg_where.update({vb_name(k): (f"{where} with -vb", counts)
+                      for k, (where, counts) in list(arg_where.items())})
+    for name, parent in ARG_PARENTS.items():
+        single, chained = tallies[name]
+        t = a_timing[name]
+        where, counts = arg_where[name]
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": counts[name],
+            "launches_on": where, "max_abs_err": single.max_abs_err,
+            "compare": {"trips=1": single.record(),
+                        "trips=64 vs plain": chained.record()},
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "host_us_per_call": t["host_us"],
+            "parent": parent, "parent_ms": t["parent_ms"],
+            "timed_at": {k: t[k] for k in ("L", "active", "trips",
+                                           "rows_pushed")},
+            "resources": resources[name]})
+
+    def profiled(rep, P):
+        return {"updates_per_s_unprofiled": P / rep["ms_per_segment"] * 1e3,
+                **{k: rep[k] for k in (
+                    "launches_per_segment", "device_ms_per_segment",
+                    "device_busy_share", "ms_per_segment",
+                    "pass_us_per_launch")}}
+    record["arg_paths"] = {
+        "card": card,
+        "main": dict(feature(arg_steps, 10000, arg_rep, main_rep),
+                     logl=[r.args[4] for r in arg_steps]),
+        "twopop": dict(profiled(ma_rep, TWOPOP_P), logl=[
+            r.args[4] for r in ma_steps], updates_per_s=[
+            TWOPOP_P * r.args[2] / r.args[1] for r in ma_steps],
+            added_launches_per_segment=(ma_rep["launches_per_segment"]
+                                        - m_profile["launches_per_segment"])),
+        "wide": dict(profiled(wa_rep, WIDE_P),
+                     added_launches_per_segment=(
+                         wa_rep["launches_per_segment"]
+                         - w_rep["launches_per_segment"])),
+        "wide_short_sweeps": {k: v[WIDE_ARG_PASS]
+                              for k, v in wa_launches.items()},
+        "ring_gather": gather}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

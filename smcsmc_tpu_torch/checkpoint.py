@@ -8,10 +8,11 @@ Two layers:
   copied from ``smcsmc_tpu/checkpoint.py``;
 - mid-sweep state checkpointing with ``torch.save``: every tensor of the
   ``PFState`` (the trees' populations and migration buffers, the
-  migration diagnostics, and the window accumulators and ring of pending
-  local events among them), its host fields, the state of the sweep's
-  ``torch.Generator`` and the caller's progress record, in one file, so
-  that a resumed sweep continues exactly where the saved one stood.
+  migration diagnostics, the window accumulators and ring of pending
+  local events, and the ARG ring among them), its host fields, the state
+  of the sweep's ``torch.Generator`` and the caller's progress record, in
+  one file, so that a resumed sweep continues exactly where the saved one
+  stood.
 """
 
 from __future__ import annotations

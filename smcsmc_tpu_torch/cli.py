@@ -7,8 +7,8 @@ structured populations with migration through ``-I -eN -en -em -eM -ema
 unphased and missing data; the M-step's options and ``-vb``; height-biased
 proposals with delayed importance weights and calibrated lags, for one
 population; the auxiliary particle filter ``-apf``; the recombination
-guide ``-guide`` and the guide loop ``-alpha``, for one population) plus
-``-device``, each parsed as ``smcsmc_tpu.cli`` parses it; every other
+guide ``-guide`` and the guide loop ``-alpha``, for one population; ARG
+recording ``-arg``) plus ``-device``, each parsed as ``smcsmc_tpu.cli`` parses it; every other
 flag, and bias, calibrated lags, a guide or ``-alpha`` with several
 populations, is refused with a message naming it.  The helpers that turn
 flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
@@ -32,6 +32,9 @@ logger = logging.getLogger("smcsmc_tpu_torch")
 
 _NOT_PORTED = ("is not yet in the torch port (ROADMAP queue 1, item 18: CLI "
                "and API surface); run it with smc2 (smcsmc_tpu)")
+_NOT_PORTED_STRUCTURED = ("is not yet in the torch port (ROADMAP queue 1, "
+                          "item 15: structured populations); run it with "
+                          "smc2 (smcsmc_tpu)")
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +208,7 @@ def parse_args(argv: list[str]):
     -chunks -maxgap -minseg -startpos -ckpt -nothreads -dephase
     -ancestral_aware -cap -xc -xr -no_infer_recomb -no_m_step -record_ess
     -bias_heights -bias_strengths -delay -lag_fraction -calibrate_lag
-    -delay_coal -delay_migr -vb -apf -alpha -guide -device, the demography
+    -delay_coal -delay_migr -vb -apf -alpha -guide -arg -device, the demography
     flags -I -eN -en -em -eM -ema -ej (kept with their values in
     ``io["demo_args"]``) and -migbuf."""
     argv = load_option_file(argv)
@@ -215,6 +218,7 @@ def parse_args(argv: list[str]):
         "tmax": 2.0, "maxgap": 200000, "minseg": 500000, "startpos": 1,
         "length": None, "mu": None, "rho": None, "N0": None, "nsam": None,
         "logfile": None, "bias_heights": None, "demo_args": [], "alpha": 0.0,
+        "arg": False,
     }
     i = 0
     while i < len(argv):
@@ -359,6 +363,11 @@ def parse_args(argv: list[str]):
         elif o == "-guide":
             # explicit recombination guide file (model.py:1060-1061)
             cfg.guide_file = take()
+        elif o == "-arg":
+            # write each chunk's sampled ARG as .trees.gz
+            io["arg"] = True
+            cfg.record_arg = True
+            i += 1
         elif o in DEMOGRAPHY_FLAGS:
             # demography flags pass through with their arguments
             io["demo_args"].append(o)
@@ -403,7 +412,7 @@ def smcsmc_main(argv=None) -> int:
             if used:
                 raise SystemExit(
                     f"smc2-torch: option {flag!r} with several populations "
-                    f"or migration {_NOT_PORTED}")
+                    f"or migration {_NOT_PORTED_STRUCTURED}")
     if io["bias_heights"]:
         # 4N0 units -> generations; a leading 0 is dropped
         cfg.bias_heights = tuple(h * 4 * io["N0"] for h in io["bias_heights"]

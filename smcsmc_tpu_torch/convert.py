@@ -3,7 +3,8 @@
 The tests start both packages from the same trees (with their populations
 and migration buffers), weights (posterior and pilot), FIFO, statistics,
 ring of delayed factors, diagnostics and, with local recording, the window
-accumulators and the ring of pending local events: a JAX ``PFState``
+accumulators and the ring of pending local events, with ARG recording the
+ARG ring: a JAX ``PFState``
 with every leaf passed through ``np.asarray`` goes in through
 :func:`state_from_numpy`, and :func:`state_to_numpy` gives the port's state
 back as numpy arrays under the same field names (the port's one window
@@ -110,6 +111,24 @@ def _local_from_numpy(d, device) -> dict:
                                             np.int32), device=device))
 
 
+def _arg_from_numpy(d, device) -> dict:
+    """The port's ARG ring from a JAX state's ``arg_*`` (none where it has
+    none); the leaves' u32 words as one int64."""
+    if _opt(d, "arg_pos") is None:
+        return {}
+    t = lambda x, dt: torch.as_tensor(np.array(x, dt),  # noqa: E731
+                                      device=device)
+    return dict(
+        arg_pos=t(_get(d, "arg_pos"), np.float32),
+        arg_code=t(_get(d, "arg_code"), np.int8),
+        arg_time=t(_get(d, "arg_time"), np.float32),
+        arg_from=t(_get(d, "arg_from"), np.int8),
+        arg_to=t(_get(d, "arg_to"), np.int8),
+        arg_desc=torch.as_tensor(desc_words_to_int64(_get(d, "arg_desc")),
+                                 device=device),
+        arg_n=t(_get(d, "arg_n"), np.int32))
+
+
 def state_from_numpy(d, device, max_mig: int = 0) -> PFState:
     """PFState from a JAX ``PFState`` (or mapping) with numpy leaves
     (``max_mig`` as in :func:`trees_from_numpy`)."""
@@ -137,6 +156,7 @@ def state_from_numpy(d, device, max_mig: int = 0) -> PFState:
         diag=torch.as_tensor(np.zeros(2) if diag is None
                              else np.array(diag, np.float64), device=device),
         **_local_from_numpy(d, device),
+        **_arg_from_numpy(d, device),
     )
 
 

@@ -54,6 +54,21 @@
 //                 ring counted by one integer atomic per particle; and it
 //                 writes the segment's ungated recombination opportunity.
 //                 Without GUIDE and LOCAL each pass is the code it was.
+//                 ARG (the plain and biased passes, the migration pass and
+//                 the wide plain pass) records the genealogy for -arg
+//                 (smc.py:1021-1052 of the JAX package, which runs it
+//                 through XLA): each trip pushes an R row (position, h_r,
+//                 the leaves below c) and a C row (t_c, the coalescence's
+//                 population, the leaves below c or d), the migration pass
+//                 an M row for each of the walk's first ARG_MIG_ROWS hops,
+//                 into slot arg_n % A of the particle's ring in device
+//                 memory.  The leaves come from a ballot over the leaves'
+//                 lanes, each walking up the tree before the SPR (a ballot
+//                 per stripe of leaves in the wide pass); lane 0 writes the
+//                 rows; arg_n stays in a register and is written back once
+//                 per segment.  What bounds it is what bounds the pass: a
+//                 row is 19 bytes, a trip's walks N steps per lane.
+//                 Without ARG each pass is the code it was.
 //                 A third variant is the migration pass (several
 //                 populations; the Pallas kernel refuses migration, and the
 //                 JAX package runs it through XLA, transition.py:1348):
@@ -155,7 +170,7 @@
 // a wide kernel for the run-time flags (args: an Args), launched on
 // `stream` (res == nullptr) or asked for its resources
 extern "C" int smc_wide_dispatch(const void* args, int segment, int biased,
-                                 int vb, void* stream, int* res);
+                                 int vb, int arg, void* stream, int* res);
 
 namespace {
 
@@ -226,6 +241,16 @@ struct Args {
   const float* lags;      // [E] lag (bp) by epoch
   float* ropp;            // [P] out: the segment's ungated opportunity
   int R;
+  // ARG recording (arg_pos == nullptr: off); the ring [P, A], slot
+  // arg_n % A taken by each push
+  float* arg_pos;          // event position
+  signed char* arg_code;   // 0 R, 1 C, 2 M
+  float* arg_time;         // event height
+  signed char* arg_from;   // population (R: -1)
+  signed char* arg_to;     // destination (M), else -1
+  long long* arg_desc;     // leaves below
+  int* arg_n;              // [P] rows pushed so far
+  int A;
 };
 
 // per-block tables in shared memory, and the launch's scalars
@@ -354,6 +379,20 @@ __device__ __forceinline__ unsigned group_or(unsigned v, unsigned gm) {
   for (int off = GROUP / 2; off > 0; off >>= 1)
     v = v | __shfl_xor_sync(gm, v, off);
   return v;
+}
+
+// ARG: one row into slot n % A of particle i's ring (the calling lane
+// alone; smc.py:513 of the JAX package)
+__device__ __forceinline__ void arg_push(const Args& a, int i, int n,
+                                         int code, float pos, float time,
+                                         int from, int to, long long desc) {
+  const size_t at = (size_t)i * a.A + (unsigned)n % (unsigned)a.A;
+  a.arg_pos[at] = pos;
+  a.arg_code[at] = (signed char)code;
+  a.arg_time[at] = time;
+  a.arg_from[at] = (signed char)from;
+  a.arg_to[at] = (signed char)to;
+  a.arg_desc[at] = desc;
 }
 
 // A 4-byte copy from device memory into shared memory, under way until
@@ -631,15 +670,16 @@ __device__ __forceinline__ float guide_span(const Tables& tb, float tl,
 // t_c reads it, the group sums it with zeros: exact).  GUIDE (with BIAS)
 // adds the extension's survival weight to lw and returns it, weighs the
 // point by the branches' guide rates and draws the gap in guide mass;
-// LOCAL pushes the trip's event into particle i's ring of `a`.
+// LOCAL pushes the trip's event into particle i's ring of `a`; ARG its R
+// and C rows into the particle's ARG ring, from row *an on.
 template <int NP, bool BIAS, bool VB = false, bool GUIDE = false,
-          bool LOCAL = false>
+          bool LOCAL = false, bool ARG = false>
 __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
                               int lane, unsigned gm, const float4 u,
                               float* pend, float& nr, float& up, float& lw,
                               float& tl, float& B,
                               const Args* a = nullptr, int i = 0,
-                              LocalRing* ring = nullptr) {
+                              LocalRing* ring = nullptr, int* an = nullptr) {
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
   const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
@@ -919,6 +959,30 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
     }
   }
 
+  if constexpr (ARG) {
+    // ---- the trip's ARG rows (smc.py:1021-1037): R at h_r with the
+    // leaves below c, C at t_c with the leaves below c or d, in the tree
+    // before the SPR; each leaf's lane walks up its ancestors ----
+    bool bc = false, bd = false;
+    if (lane < tb.n) {
+      int cur = lane;
+      for (int s = 0; s < N && cur >= 0; ++s) {
+        bc = bc || cur == c;
+        bd = bd || cur == d;
+        cur = w.par[cur];
+      }
+    }
+    const int shift = (threadIdx.x & 31) & ~(GROUP - 1);
+    const unsigned dc = (__ballot_sync(gm, bc) >> shift) & ((1u << GROUP) - 1u);
+    const unsigned dd = (__ballot_sync(gm, bd) >> shift) & ((1u << GROUP) - 1u);
+    if (lane == 0) {
+      const float pos = tb.front + nr;
+      arg_push(*a, i, *an, 0, pos, h_r, -1, -1, (long long)dc);
+      arg_push(*a, i, *an + 1, 1, pos, t_c, 0, -1, (long long)(dc | dd));
+    }
+    *an += 2;
+  }
+
   // ---- SPR: cut the branch above c, regraft onto d at t_c ---------------
   // pick(x, idx) reads 0 for idx < 0, and writes to idx < 0 are dropped,
   // as in the reference's one-hot index algebra.  Nothing else reads the
@@ -1064,7 +1128,8 @@ __device__ __forceinline__ void push_delayed(
 }
 
 // The segment pass; a kernel of its own for each variant below.
-template <int NP, bool BIAS, bool VB, bool GUIDE = false, bool LOCAL = false>
+template <int NP, bool BIAS, bool VB, bool GUIDE = false, bool LOCAL = false,
+          bool ARG = false>
 __device__ __forceinline__ void segment_pass_body(const Args& a) {
   extern __shared__ float smem[];
   Work w;
@@ -1083,11 +1148,13 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   // this lane's ring slots (bit k: slot lane + k GROUP) to write back
   unsigned changed = 0u;
   LocalRing ring{0u, 0};  // LOCAL: this lane's free slots, until combined
+  int an = 0;             // ARG: the ring's rows pushed so far
   stage_tables(a, smem, true, BIAS, vb, LOCAL);
   if (live) {
     load_tree(a, w, i, N, lane);
     for (int k = lane; k < K; k += GROUP) pend[k] = 0.0f;
     nr = a.next_rec[i], lw = a.log_w[i];
+    if constexpr (ARG) an = a.arg_n[i];
     if constexpr (BIAS) {
       // what is due and what is free: the positions alone
       lp = a.log_pilot[i];
@@ -1136,8 +1203,8 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     // the next trip's uniforms are under way while this trip runs
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
     const float delta = nr - up, B_pre = B;
-    const TripEvent ev = one_trip<NP, BIAS, VB, GUIDE, LOCAL>(
-        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &ring);
+    const TripEvent ev = one_trip<NP, BIAS, VB, GUIDE, LOCAL, ARG>(
+        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &ring, &an);
     // the VB term follows the extension and comes before the importance
     // weight, in both weights (smc.py:951-967)
     if (vb) lw = lw + ev.vb;
@@ -1253,19 +1320,22 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     a.next_rec[i] = nr;
     a.log_w[i] = lw;
     a.tl_out[i] = tl;
+    if constexpr (ARG) {
+      if (moved) a.arg_n[i] = an;
+    }
   }
 }
 
-template <int NP, bool VB, bool LOCAL>
+template <int NP, bool VB, bool LOCAL, bool ARG = false>
 __global__ void __launch_bounds__(BLOCK) segment_pass_kernel(const Args a) {
-  segment_pass_body<NP, false, VB, false, LOCAL>(a);
+  segment_pass_body<NP, false, VB, false, LOCAL, ARG>(a);
 }
 
 // the biased pass, held at BIAS_MIN_BLOCKS resident blocks per SM
-template <int NP, bool VB, bool GUIDE, bool LOCAL>
+template <int NP, bool VB, bool GUIDE, bool LOCAL, bool ARG = false>
 __global__ void __launch_bounds__(BLOCK, BIAS_MIN_BLOCKS)
     segment_pass_biased_kernel(const Args a) {
-  segment_pass_body<NP, true, VB, GUIDE, LOCAL>(a);
+  segment_pass_body<NP, true, VB, GUIDE, LOCAL, ARG>(a);
 }
 
 // ===========================================================================
@@ -1275,7 +1345,8 @@ __global__ void __launch_bounds__(BLOCK, BIAS_MIN_BLOCKS)
 // it at n <= 8 and its XLA twin above: transition.py:108/:160 for the
 // point, :231 for the re-coalescence, :1170 for the SPR, smc.py:417 for the
 // summaries).  The plain and the biased segment pass (each with and without
-// VB) and trip; the migration, guided and local variants have no wide form.
+// VB), the plain pass's ARG variant and trip; the migration, guided and
+// local variants and the biased pass's ARG variant have no wide form.
 //
 // What changes against the narrow kernels, and why.  There every lane holds
 // all node and parent times in registers, unrolled over 7 or 15 padded
@@ -1617,12 +1688,14 @@ __device__ void wide_summaries(const Tables& tb, const WideWork& w, int lane,
 
 // One trip of the particle in `w`: one_trip's steps for a tree in shared
 // memory.  Called by all lanes of a synchronised group with identical
-// scalars, w.tle and w.pt up to date; returns the same way.
-template <int G, int ML, bool BIAS, bool VB>
+// scalars, w.tle and w.pt up to date; returns the same way.  ARG pushes
+// the trip's R and C rows into particle i's ARG ring, from row *an on.
+template <int G, int ML, bool BIAS, bool VB, bool ARG = false>
 __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w, int lane,
                                unsigned gm, const float4 u, float* pend,
                                float& nr, float& up, float& lw, float& tl,
-                               float& B) {
+                               float& B, const Args* a = nullptr, int i = 0,
+                               int* an = nullptr) {
   constexpr int STRIPES = (2 * ML - 1 + G - 1) / G;
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
@@ -1781,6 +1854,35 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w, int lane,
   }
   const float vb = VB ? wide_sum<G>(vbv, gm) : 0.0f;
 
+  if constexpr (ARG) {
+    // ---- the trip's ARG rows (one_trip's): leaf l is lane l % G's, its
+    // stripe's ballot the word's bits l - l % G on ----
+    constexpr int LSTRIPES = (ML + G - 1) / G;
+    unsigned long long dc = 0ull, dd = 0ull;
+#pragma unroll
+    for (int k = 0; k < LSTRIPES; ++k) {
+      const int l = k * G + lane;
+      bool bc = false, bd = false;
+      if (l < tb.n) {
+        int cur = l;
+        for (int s = 0; s < N && cur >= 0; ++s) {
+          bc = bc || cur == c;
+          bd = bd || cur == d;
+          cur = w.par[cur];
+        }
+      }
+      dc |= (unsigned long long)wide_ballot<G>(gm, bc) << (k * G);
+      dd |= (unsigned long long)wide_ballot<G>(gm, bd) << (k * G);
+    }
+    if (lane == 0) {
+      const float pos = tb.front + nr;
+      arg_push(*a, i, *an, 0, pos, (float)h_r, -1, -1, (long long)dc);
+      arg_push(*a, i, *an + 1, 1, pos, (float)t_c, 0, -1,
+               (long long)(dc | dd));
+    }
+    *an += 2;
+  }
+
   // ---- SPR: cut the branch above c, regraft onto d at t_c (lane 0, once
   // every lane is done reading the tree) -----------------------------------
   __syncwarp(gm);
@@ -1902,8 +2004,9 @@ __device__ __forceinline__ void wide_push_delayed(
   changed |= 1u << (first / G);
 }
 
-// segment_pass_body for the wide tree (no guide, no local recording)
-template <int G, int ML, bool BIAS, bool VB>
+// segment_pass_body for the wide tree (no guide, no local recording; ARG
+// without BIAS)
+template <int G, int ML, bool BIAS, bool VB, bool ARG = false>
 __device__ __forceinline__ void wide_segment_body(const Args& a) {
   constexpr int SLOTS = MAX_DELAY_SLOTS / G;  // ring slots per lane
   extern __shared__ float smem[];
@@ -1919,11 +2022,13 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
   float nr = 0.0f, lw = 0.0f, up = 0.0f, lp = 0.0f;
   // this lane's ring slots (bit k: slot lane + k G) to write back
   unsigned changed = 0u;
+  int an = 0;  // ARG: the ring's rows pushed so far
   wide_stage_tables<ML>(a, smem, true, BIAS, VB);
   if (live) {
     wide_load_tree<G>(a, w, i, N, lane);
     for (int k = lane; k < K; k += G) pend[k] = 0.0f;
     nr = a.next_rec[i], lw = a.log_w[i];
+    if constexpr (ARG) an = a.arg_n[i];
     if constexpr (BIAS) {
       lp = a.log_pilot[i];
       for (int s = lane; s < D; s += G)
@@ -1961,8 +2066,8 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
     if (!(nr < a.L)) break;
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
     const float delta = nr - up, B_pre = B;
-    const TripEvent ev = wide_trip<G, ML, BIAS, VB>(tb, w, lane, gm, u, pend,
-                                                    nr, up, lw, tl, B);
+    const TripEvent ev = wide_trip<G, ML, BIAS, VB, ARG>(
+        tb, w, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &an);
     if (VB) lw = lw + ev.vb;
     if constexpr (BIAS) {
       // segment_pass_body's weights (smc.py:968-1020)
@@ -2051,13 +2156,16 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
     a.next_rec[i] = nr;
     a.log_w[i] = lw;
     a.tl_out[i] = tl;
+    if constexpr (ARG) {
+      if (moved) a.arg_n[i] = an;
+    }
   }
 }
 
-template <int G, int ML, bool VB>
+template <int G, int ML, bool VB, bool ARG = false>
 __global__ void __launch_bounds__(BLOCK) segment_pass_wide_kernel(
     const Args a) {
-  wide_segment_body<G, ML, false, VB>(a);
+  wide_segment_body<G, ML, false, VB, ARG>(a);
 }
 
 template <int G, int ML, bool VB>
@@ -2460,7 +2568,12 @@ __device__ void mig_summaries(const float* est, const int* hd,
   B = b;
 }
 
-template <bool VB>
+// ARG pushes each trip's R, C and M rows (smc.py:1021-1052) into the
+// particle's ARG ring: the leaves below c and below d from the leaves'
+// lanes walking up the tree before the SPR, the coalescence's population,
+// and the walk's first ARG_MIG_ROWS hops from its lists in shared memory.
+#define ARG_MIG_ROWS 4
+template <bool VB, bool ARG = false>
 __global__ void __launch_bounds__(MIG_PPB * 32, MIG_MIN_BLOCKS)
 segment_pass_mig_kernel(const Args a) {
   extern __shared__ float smem[];
@@ -2507,9 +2620,11 @@ segment_pass_mig_kernel(const Args a) {
   // recombines in this segment, its buffers: all under way before the one
   // barrier
   float nr = 0.0f, lw = 0.0f;
+  int an = 0;  // ARG: the ring's rows pushed so far
   if (live) {
     nr = a.next_rec[i];
     lw = a.log_w[i];
+    if constexpr (ARG) an = a.arg_n[i];
     if (lane < N) {
       const size_t at = (size_t)i * N + lane;
       w.tm[lane] = a.time[at];
@@ -2598,6 +2713,7 @@ segment_pass_mig_kernel(const Args a) {
     // the floating lineage starts in c's population after c's own events
     // below h_r
     int p_raw = __shfl_sync(WARP_ALL, bpop, c);
+    const int p_start = p_raw;  // the first M row's source (ARG)
     int r_raw = w.pp[root];
     int e = epoch_of(est, E, h_r);
     float tt = h_r, t_c = 0.0f;
@@ -2727,6 +2843,31 @@ segment_pass_mig_kernel(const Args a) {
       w.pend[o_rcnt + epoch_of(est, E, h_r)] += 1.0f;
     }
     __syncwarp();
+    if constexpr (ARG) {
+      // ---- the trip's ARG rows, in the tree before the SPR ---------------
+      bool bc = false, bd = false;
+      if (lane < n) {
+        int cur = lane;
+        for (int s = 0; s < N && cur >= 0; ++s) {
+          bc = bc || cur == c;
+          bd = bd || cur == d;
+          cur = w.par[cur];
+        }
+      }
+      const unsigned dc = __ballot_sync(WARP_ALL, bc);
+      const unsigned dd = __ballot_sync(WARP_ALL, bd);
+      const int hops = min(min(n_ev, 2 * Mw), ARG_MIG_ROWS);
+      if (lane == 0) {
+        const float pos = a.front + nr;
+        arg_push(a, i, an, 0, pos, h_r, -1, -1, (long long)dc);
+        arg_push(a, i, an + 1, 1, pos, t_c, fpop, -1, (long long)(dc | dd));
+        for (int j = 0; j < hops; ++j)
+          arg_push(a, i, an + 2 + j, 2, pos, w.ev_t[j],
+                   j == 0 ? p_start : (int)w.ev_d[j - 1], (int)w.ev_d[j],
+                   (long long)dc);
+      }
+      an += 2 + hops;
+    }
 
     // ---- the SPR with buffer routing --------------------------------------
     // rows of a negative node read as row 0 and are not written, as in the
@@ -2881,6 +3022,9 @@ segment_pass_mig_kernel(const Args a) {
     a.next_rec[i] = nr;
     a.log_w[i] = lw;
     a.tl_out[i] = tl;
+    if constexpr (ARG) {
+      if (moved) a.arg_n[i] = an;
+    }
   }
 }
 
@@ -2967,13 +3111,15 @@ size_t wide_bytes(int n, int E, bool segment, bool biased, bool vb, int S) {
 // A wide kernel for the run-time flags: launched (res == nullptr) or asked
 // for its resources.
 template <int G, int ML>
-int wide_variant(const Args& a, bool segment, bool biased, bool vb,
+int wide_variant(const Args& a, bool segment, bool biased, bool vb, bool arg,
                  cudaStream_t s, int* res) {
   const size_t bytes = wide_bytes<G, ML>(a.n, a.E, segment, biased, vb, a.S);
   void (*kernel)(const Args) =
       !segment ? trip_wide_kernel<G, ML>
       : biased ? (vb ? segment_pass_biased_wide_kernel<G, ML, true>
                      : segment_pass_biased_wide_kernel<G, ML, false>)
+      : arg    ? (vb ? segment_pass_wide_kernel<G, ML, true, true>
+                     : segment_pass_wide_kernel<G, ML, false, true>)
                : (vb ? segment_pass_wide_kernel<G, ML, true>
                      : segment_pass_wide_kernel<G, ML, false>);
   if (res) return resources_of(kernel, BLOCK, bytes, BLOCK / G, res);
@@ -2984,15 +3130,17 @@ int wide_variant(const Args& a, bool segment, bool biased, bool vb,
 }  // namespace
 
 // the wide instantiation for n leaves: 16 lanes per particle up to 16
-// leaves, a warp above
+// leaves, a warp above (arg: the plain pass's ARG variant)
 extern "C" int smc_wide_dispatch(const void* args, int segment, int biased,
-                                 int vb, void* stream, int* res) {
+                                 int vb, int arg, void* stream, int* res) {
   const Args& a = *static_cast<const Args*>(args);
   cudaStream_t s = (cudaStream_t)stream;
+  if (arg && (!segment || biased)) return (int)cudaErrorInvalidValue;
   return a.n <= 16
-      ? wide_variant<16, 16>(a, segment != 0, biased != 0, vb != 0, s, res)
+      ? wide_variant<16, 16>(a, segment != 0, biased != 0, vb != 0,
+                             arg != 0, s, res)
       : wide_variant<32, WIDE_MAX_LEAVES>(a, segment != 0, biased != 0,
-                                          vb != 0, s, res);
+                                          vb != 0, arg != 0, s, res);
 }
 
 namespace {
@@ -3002,27 +3150,36 @@ namespace {
 #if SMC_NARROW
 // The segment pass's variant for the run-time flags: its kernel, launched
 // (run) or asked for its resources (shape: out[7]).
-template <int NP, bool VB, bool LOCAL>
+template <int NP, bool VB, bool LOCAL, bool ARG = false>
 int plain_variant(const Args& a, dim3 grid, size_t bytes, cudaStream_t s,
                   int* res) {
-  return res ? resources_of(segment_pass_kernel<NP, VB, LOCAL>, BLOCK, bytes,
-                            BLOCK / GROUP, res)
-             : launch_kernel(segment_pass_kernel<NP, VB, LOCAL>, a, grid,
+  return res ? resources_of(segment_pass_kernel<NP, VB, LOCAL, ARG>, BLOCK,
+                            bytes, BLOCK / GROUP, res)
+             : launch_kernel(segment_pass_kernel<NP, VB, LOCAL, ARG>, a, grid,
                              bytes, s);
 }
 
-template <int NP, bool VB, bool GUIDE, bool LOCAL>
+template <int NP, bool VB, bool GUIDE, bool LOCAL, bool ARG = false>
 int biased_variant(const Args& a, dim3 grid, size_t bytes, cudaStream_t s,
                    int* res) {
-  return res ? resources_of(segment_pass_biased_kernel<NP, VB, GUIDE, LOCAL>,
-                            BLOCK, bytes, BLOCK / GROUP, res)
-             : launch_kernel(segment_pass_biased_kernel<NP, VB, GUIDE, LOCAL>,
-                             a, grid, bytes, s);
+  return res ? resources_of(
+                   segment_pass_biased_kernel<NP, VB, GUIDE, LOCAL, ARG>,
+                   BLOCK, bytes, BLOCK / GROUP, res)
+             : launch_kernel(
+                   segment_pass_biased_kernel<NP, VB, GUIDE, LOCAL, ARG>, a,
+                   grid, bytes, s);
 }
 
+// arg: the plain or biased pass's ARG variant (no guide, no local
+// recording)
 template <int NP, bool VB>
 int segment_variant(const Args& a, bool biased, bool guide, bool local,
-                    dim3 grid, size_t bytes, cudaStream_t s, int* res) {
+                    bool arg, dim3 grid, size_t bytes, cudaStream_t s,
+                    int* res) {
+  if (arg)
+    return biased
+        ? biased_variant<NP, VB, false, false, true>(a, grid, bytes, s, res)
+        : plain_variant<NP, VB, false, true>(a, grid, bytes, s, res);
   if (!biased)
     return local ? plain_variant<NP, VB, true>(a, grid, bytes, s, res)
                  : plain_variant<NP, VB, false>(a, grid, bytes, s, res);
@@ -3049,25 +3206,34 @@ int launch(const Args& a, bool segment, cudaStream_t stream) {
   const bool vb = segment && a.vb_coal != nullptr;
   const bool guide = segment && a.g_rel != nullptr;
   const bool local = segment && a.lr_pos != nullptr;
+  const bool arg = segment && a.arg_pos != nullptr;
   const size_t bytes =
       pass_bytes(a.n, a.E, segment, biased, vb, guide, local, a.S);
   const dim3 grid((unsigned)((a.P + per_block - 1) / per_block));
   if (segment)
-    return vb ? segment_variant<NP, true>(a, biased, guide, local, grid,
+    return vb ? segment_variant<NP, true>(a, biased, guide, local, arg, grid,
                                           bytes, stream, nullptr)
-              : segment_variant<NP, false>(a, biased, guide, local, grid,
-                                           bytes, stream, nullptr);
+              : segment_variant<NP, false>(a, biased, guide, local, arg,
+                                           grid, bytes, stream, nullptr);
   return launch_kernel(trip_kernel<NP>, a, grid, bytes, stream);
 }
 
 int dispatch(const Args& a, bool segment, void* stream) {
   // above MAX_LEAVES the wide kernels: the plain and biased passes and
-  // trip, no migration, guide or local recording
+  // trip, no migration, guide or local recording; ARG recording in the
+  // plain, the biased and the migration pass and the wide plain pass,
+  // without the guide or local recording
   const bool wide = a.n > MAX_LEAVES;
+  const bool arg = a.arg_pos != nullptr;
   if (a.n < 2 || a.n > WIDE_MAX_LEAVES || a.E < 1 || a.E > MAX_EPOCHS
       || a.trips < 0
       || (wide && (a.pop != nullptr || a.g_rel != nullptr
-                   || a.lr_pos != nullptr)))
+                   || a.lr_pos != nullptr))
+      || (arg && (!segment || a.g_rel != nullptr || a.lr_pos != nullptr
+                  || (wide && a.log_pilot != nullptr) || a.A < 1
+                  || a.arg_code == nullptr || a.arg_time == nullptr
+                  || a.arg_from == nullptr || a.arg_to == nullptr
+                  || a.arg_desc == nullptr || a.arg_n == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (a.pop != nullptr) {  // the migration pass
     if (!segment || a.log_pilot != nullptr || a.Pp < 1 || a.Pp > MAX_POPS
@@ -3081,6 +3247,12 @@ int dispatch(const Args& a, bool segment, void* stream) {
     const int err = mig_shape(a.n, a.E, a.Pp, a.Mw, vb, ppb, bytes);
     if (err != 0) return err;
     const dim3 grid((unsigned)((a.P + ppb - 1) / ppb));
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (arg)
+      return vb ? launch_kernel(segment_pass_mig_kernel<true, true>, a, grid,
+                                bytes, s, ppb * 32)
+                : launch_kernel(segment_pass_mig_kernel<false, true>, a,
+                                grid, bytes, s, ppb * 32);
     return vb
         ? launch_kernel(segment_pass_mig_kernel<true>, a, grid, bytes,
                         (cudaStream_t)stream, ppb * 32)
@@ -3105,7 +3277,8 @@ int dispatch(const Args& a, bool segment, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (wide)
     return smc_wide_dispatch(&a, segment, a.log_pilot != nullptr,
-                             segment && a.vb_coal != nullptr, s, nullptr);
+                             segment && a.vb_coal != nullptr, arg, s,
+                             nullptr);
   return a.n <= 4 ? launch<7>(a, segment, s)
                   : launch<MAX_NODES>(a, segment, s);
 }
@@ -3163,7 +3336,10 @@ extern "C" int smc_segment_pass_launch(
     const float* vb_coal, const float* vb_mig, const float* g_rel,
     const float* cum_mass, const float* g_leaf, int Wg, float ws,
     float* lr_pos, float* lr_due, float* lr_time, long long* lr_desc,
-    int* lr_dropped, const float* lags, float* ropp, int R, void* stream) {
+    int* lr_dropped, const float* lags, float* ropp, int R, float* arg_pos,
+    signed char* arg_code, float* arg_time, signed char* arg_from,
+    signed char* arg_to, long long* arg_desc, int* arg_n, int A,
+    void* stream) {
   if (F < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.uniforms = uniforms;
@@ -3230,58 +3406,74 @@ extern "C" int smc_segment_pass_launch(
   a.lags = lags;
   a.ropp = ropp;
   a.R = R;
+  a.arg_pos = arg_pos;
+  a.arg_code = arg_code;
+  a.arg_time = arg_time;
+  a.arg_from = arg_from;
+  a.arg_to = arg_to;
+  a.arg_desc = arg_desc;
+  a.arg_n = arg_n;
+  a.A = A;
   return dispatch(a, true, stream);
 }
 
 template <int NP>
 int resources_np(int kind, int n, int E, int S, bool vb, bool guide,
-                 bool local, int* out) {
+                 bool local, bool arg, int* out) {
   const bool segment = kind != 0, biased = kind == 2;
   const size_t bytes =
       pass_bytes(n, E, segment, biased, vb, guide, local, S);
   if (kind == 0)
     return resources_of(trip_kernel<NP>, BLOCK, bytes, BLOCK / GROUP, out);
   const Args none = {};
-  return vb ? segment_variant<NP, true>(none, biased, guide, local, dim3(1),
-                                        bytes, nullptr, out)
-            : segment_variant<NP, false>(none, biased, guide, local, dim3(1),
-                                         bytes, nullptr, out);
+  return vb ? segment_variant<NP, true>(none, biased, guide, local, arg,
+                                        dim3(1), bytes, nullptr, out)
+            : segment_variant<NP, false>(none, biased, guide, local, arg,
+                                         dim3(1), bytes, nullptr, out);
 }
 
 // kind 0: trip, 1: segment_pass, 2: its biased variant (S sections), 3:
 // its migration variant (Pp populations, buffers of Mw events); at n
 // leaves (above MAX_LEAVES the wide kernels of kinds 0-2), E epochs; vb: the pass's VB variant (not for trip); guide: the
 // biased pass's guided variant; local: the plain or biased pass's local
-// recording.
+// recording; arg: the ARG variant of the plain, biased (narrow) or
+// migration pass.
 extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
                                     int Mw, int vb, int guide, int local,
-                                    int* out) {
+                                    int arg, int* out) {
   if (kind < 0 || kind > 3 || n < 2 || n > WIDE_MAX_LEAVES || E < 1
       || E > MAX_EPOCHS || (kind == 2 && (S < 1 || S > MAX_SECTIONS))
       || (kind == 0 && vb) || (guide && kind != 2)
       || (local && kind != 1 && kind != 2)
-      || (n > MAX_LEAVES && (kind == 3 || guide || local)))
+      || (n > MAX_LEAVES && (kind == 3 || guide || local))
+      || (arg && (kind == 0 || guide || local
+                  || (n > MAX_LEAVES && kind == 2))))
     return (int)cudaErrorInvalidValue;
   if (n > MAX_LEAVES) {
     Args a = {};
     a.n = n;
     a.E = E;
     a.S = S;
-    return smc_wide_dispatch(&a, kind != 0, kind == 2, vb != 0, nullptr,
-                             out);
+    return smc_wide_dispatch(&a, kind != 0, kind == 2, vb != 0, arg != 0,
+                             nullptr, out);
   }
   if (kind != 3)
     return n <= 4
         ? resources_np<7>(kind, n, E, S, vb != 0, guide != 0, local != 0,
-                          out)
+                          arg != 0, out)
         : resources_np<MAX_NODES>(kind, n, E, S, vb != 0, guide != 0,
-                                  local != 0, out);
+                                  local != 0, arg != 0, out);
   if (Pp < 1 || Pp > MAX_POPS || Mw < 1 || Mw > MAX_MIG)
     return (int)cudaErrorInvalidValue;
   int ppb;
   size_t bytes;
   const int shape = mig_shape(n, E, Pp, Mw, vb != 0, ppb, bytes);
   if (shape != 0) return shape;
+  if (arg)
+    return vb ? resources_of(segment_pass_mig_kernel<true, true>, ppb * 32,
+                             bytes, ppb, out)
+              : resources_of(segment_pass_mig_kernel<false, true>, ppb * 32,
+                             bytes, ppb, out);
   return vb
       ? resources_of(segment_pass_mig_kernel<true>, ppb * 32, bytes, ppb,
                      out)

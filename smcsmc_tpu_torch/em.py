@@ -12,8 +12,11 @@ device.  With ``-guide`` each chunk's guide comes from the copied
 ``recombio.guide_to_windows``; with ``-alpha`` each iteration records the
 windows into ``emiter{it}/chunk{ci}.recomb.gz`` and, from iteration 1 on,
 sweeps on the previous iteration's record smoothed by the copied
-``processrecombination.LocalRecombination``.  Not ported yet (ROADMAP
-queue 1): online EM, the multi-process chunk partition, ARG recording.
+``processrecombination.LocalRecombination``.  With ``-arg`` each
+iteration writes each chunk's ``emiter{it}/chunk{ci}.trees.gz`` (the
+copied ``argout.write_trees``) from the ARG ring of one particle drawn by
+weight (``_sample_arg_particle``, copied).  Not ported yet (ROADMAP queue
+1): online EM, the multi-process chunk partition.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from . import outfmt
+from .argout import write_trees
 from .calibrate import (
     calibrated_lags_and_delays,
     default_bias_strengths,
@@ -147,6 +151,9 @@ class EMConfig:
     beta: float = 4.0  # WBS smoothness (model.py:68)
     guide_file: str | None = None  # explicit guide for every chunk (-guide)
     guide_interval: float = 100.0  # local_recording_interval_ (count.hpp:115)
+    # -arg: keep each particle's ARG event ring and write one particle's
+    # (drawn by weight) as emiter{it}/chunk{ci}.trees.gz
+    record_arg: bool = False
     device: str = "cuda"
 
 
@@ -192,12 +199,26 @@ def refuse_caps(demo: Demography, cfg: EMConfig) -> None:
     more haplotypes, epochs or populations, or longer migration buffers;
     above MAX_LEAVES haplotypes (the wide kernels of the plain and biased
     passes) also several populations or migration, ``-guide``, ``-alpha``
-    and ``-apf``, whose passes have no wide form.  The CPU runs every size.
-    Callers check before any tree is built."""
+    and ``-apf``, whose passes have no wide form; and ``-arg`` with
+    ``-guide`` or ``-alpha``, or with height bias above MAX_LEAVES
+    haplotypes, which have no ARG variant (ROADMAP queue 1, item 16).  The
+    CPU runs every size and combination.  Callers check before any tree is
+    built."""
     if torch.device(cfg.device).type != "cuda":
         return
     buffer = cfg.mig_buffer or _auto_mig_buffer(demo)
     n = demo.num_samples
+    if cfg.record_arg:
+        for what, used in (
+                ("-guide", cfg.guide_file is not None),
+                ("-alpha", cfg.alpha > 0),
+                (f"-bias_heights at {n} haplotypes",
+                 bool(cfg.bias_heights) and n > MAX_LEAVES)):
+            if used:
+                raise NotImplementedError(
+                    f"-arg with {what} on the card: that pass has no ARG "
+                    "variant; run with -device cpu (ROADMAP queue 1, item "
+                    "16)")
     if n > MAX_LEAVES:
         structured = (demo.num_populations > 1
                       or bool(np.any(demo.mig_rates > 0)))
@@ -486,6 +507,7 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
         use_guide=guide_file is not None,
         num_windows=num_windows,
         window_size=cfg.guide_interval,
+        record_arg=cfg.record_arg,
     )
     rho = demo.recombination_rate
     delays = None
@@ -568,7 +590,9 @@ def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
 
     ``guide_file`` guides the sweep (``-guide``, or the guide loop); with
     ``cfg.alpha`` > 0 ``diag["local_recomb"]`` holds the recorded windows
-    (what ``recombio.write_recomb`` writes)."""
+    (what ``recombio.write_recomb`` writes); with ``cfg.record_arg``
+    ``diag["arg"]`` the ARG ring of one particle drawn by weight (what
+    ``argout.write_trees`` writes)."""
     state, segs, step, chunk_start, gen = start_sweep(
         demo, seg, cfg, chunk, seed, vb_counts, guide_file)
     ess_trace = np.zeros(len(segs))
@@ -660,7 +684,27 @@ def run_chunk(demo: Demography, seg: SegData, cfg: EMConfig,
             logger.warning("%d local recombination events dropped on full "
                            "rings in the chunk starting at %d",
                            diag["local_recomb"]["dropped"], chunk_start)
+    if state.arg_pos is not None:
+        best = _sample_arg_particle(state.log_w.cpu().numpy(), seed)
+        row = {k: getattr(state, f"arg_{k}")[best].cpu().numpy()
+               for k in ("pos", "code", "time", "from", "to", "desc")}
+        # the int64 word as the reference's u64, so that leaf 63 prints
+        row["desc"] = row["desc"].view(np.uint64)
+        diag["arg"] = dict(row, n=int(state.arg_n[best]), start=chunk_start)
     return stats, stats_wt, float(state.ln_norm), diag
+
+
+def _sample_arg_particle(log_w: np.ndarray, seed: int) -> int:
+    """Draw ONE particle index proportional to posterior weight for the
+    -arg output (the reference resamples down to a single particle before
+    printTrees: smcsmc.cpp:395-396 + particleContainer.cpp:247 — a weighted
+    draw, not the argmax, so ARG-derived outputs are not biased toward the
+    posterior mode)."""
+    lw = np.asarray(log_w, dtype=np.float64)
+    w = np.exp(lw - lw.max())
+    w = w / w.sum()
+    rng = np.random.default_rng(seed + 65537)
+    return int(rng.choice(w.shape[0], p=w))
 
 
 def _worker_devices(device: str) -> list[str]:
@@ -851,7 +895,9 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
     ``cfg.alpha`` > 0 each iteration also writes each chunk's
     ``chunk{ci}.recomb.gz`` and, from iteration 1 on, sweeps each chunk on
     the previous iteration's, smoothed into ``chunk{ci}.recomb_guide.gz``;
-    ``cfg.guide_file`` guides every chunk from iteration 0 on."""
+    ``cfg.guide_file`` guides every chunk from iteration 0 on.  With
+    ``cfg.record_arg`` each iteration writes each chunk's
+    ``chunk{ci}.trees.gz``."""
     refuse_caps(demo, cfg)
     refuse_unported(demo, cfg)
     result = EMResult(demos=[], stats=[], stats_wt=[], log_likelihoods=[])
@@ -942,6 +988,15 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
                     it, lrd["window_size"], lrd["opp_diff"], lrd["leaf_cnt"],
                     lrd["time_cnt"], lrd["logtime_cnt"],
                     start_position=lrd["start"])
+        if cfg.record_arg and cfg.outdir:
+            os.makedirs(os.path.join(cfg.outdir, f"emiter{it}"), exist_ok=True)
+            for ci, pc in enumerate(per_chunk):
+                a = pc[3]["arg"]
+                write_trees(
+                    os.path.join(cfg.outdir, f"emiter{it}",
+                                 f"chunk{ci}.trees.gz"),
+                    a["pos"], a["code"], a["time"], a["from"], a["to"],
+                    a["desc"], a["n"], start_position=a["start"])
         stats = sum_stats([pc[0] for pc in per_chunk])
         stats_wt = sum_stats([pc[1] for pc in per_chunk])
         logl = sum(pc[2] for pc in per_chunk)

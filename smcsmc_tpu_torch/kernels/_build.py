@@ -161,12 +161,15 @@ def load_trip_library() -> ctypes.CDLL:
         # local recording (0: off): lr_pos, lr_due, lr_time, lr_desc,
         # lr_dropped, lags, ropp; ring slots R
         vp, vp, vp, vp, vp, vp, vp, ci,
+        # ARG recording (0: off): arg_pos, arg_code, arg_time, arg_from,
+        # arg_to, arg_desc, arg_n; ring slots A
+        vp, vp, vp, vp, vp, vp, vp, ci,
         vp,  # stream
     ]
     lib.smc_segment_pass_launch.restype = ci
-    # kind, n, E, S, Pp, Mw, vb, guide, local, out
+    # kind, n, E, S, Pp, Mw, vb, guide, local, arg, out
     lib.smc_kernel_resources.argtypes = [ci, ci, ci, ci, ci, ci, ci, ci, ci,
-                                         vp]
+                                         ci, vp]
     lib.smc_kernel_resources.restype = ci
     lib.smc_noop_launch.argtypes = [vp]
     lib.smc_noop_launch.restype = ci

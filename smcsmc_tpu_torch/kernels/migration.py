@@ -30,12 +30,14 @@ from typing import NamedTuple
 
 import torch
 
+from .arg import pick_desc, push_trip_rows, store_ring
 from .bias import epoch_index
 from .tree import (
     INF,
     Epochs,
     Trees,
     branch_lengths,
+    descendant_bitmask,
     parent_time,
     tree_summaries,
 )
@@ -246,6 +248,16 @@ def _categorical_seq(w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def start_pop(mig_time, mig_dest, pop, c, h_r):
+    """[P] the population the floating lineage starts in: c's at h_r,
+    after c's own events below h_r (transition.py:402-405)."""
+    mt_c, md_c = _rows(mig_time, c), _rows(mig_dest, c)
+    k0 = (mt_c <= h_r[:, None]).sum(dim=1)
+    return torch.where(k0 > 0, md_c.gather(1, (k0 - 1).clamp(min=0)[:, None]
+                                           )[:, 0],
+                       pop.gather(1, c.long()[:, None])[:, 0])
+
+
 def walk_mig(mp: MigrationPass, trip: int, time, parent, c, h_r, active,
              epoch_start, pending, E: int, Pp: int):
     """The lock-step loop walk (transition.py:339-592) of every active
@@ -280,13 +292,7 @@ def walk_mig(mp: MigrationPass, trip: int, time, parent, c, h_r, active,
                      mig_time.reshape(P, N * Mw)], dim=1)
     cols_N = torch.arange(N, device=dev)
 
-    # the floating lineage starts in c's population at h_r, after c's own
-    # events below h_r
-    mt_c, md_c = _rows(mig_time, c), _rows(mig_dest, c)
-    k0 = (mt_c <= h_r[:, None]).sum(dim=1)
-    p_raw = torch.where(k0 > 0, md_c.gather(1, (k0 - 1).clamp(min=0)[:, None]
-                                            )[:, 0],
-                        pop.gather(1, c.long()[:, None])[:, 0])
+    p_raw = start_pop(mig_time, mig_dest, pop, c, h_r)
     r_raw = pop.gather(1, root.long()[:, None])[:, 0]
     t = h_r.clone()
     done = ~active
@@ -511,7 +517,8 @@ def uniform_point(u_pt, time, parent):
 
 def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
                     next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
-                    epoch_start, has_data, mp: MigrationPass, vb=None):
+                    epoch_start, has_data, mp: MigrationPass, vb=None,
+                    arg=None):
     """The trips of a migration segment pass, IN PLACE (the migration
     branch of ``recombination_transition`` and the sweep's trip loop,
     smc.py:876-1080 of the JAX package): per trip and active particle the
@@ -522,7 +529,13 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
     Pp]) each trip adds to ``log_w`` the table entries of the coalescence
     and the migrations its walk records (smc.py:951-967): the trip's count
     rows (the change of ``pending``'s counts over the walk) times the
-    tables, the coalescence's sum and then the migrations'."""
+    tables, the coalescence's sum and then the migrations'.  With ``arg``
+    (a ``kernels.arg.ArgPass``) each trip pushes its R, C and M rows
+    (smc.py:1021-1052): the leaves below c and below the target in the
+    tree before the SPR, the coalescence's population, and each of the
+    walk's first hops from the population it left (the start population,
+    then the hops' destinations, transition.py:1366) to its
+    destination."""
     E, Pp = epoch_start.shape[0], mp.ne.shape[1]
     off = stats_offsets(E, Pp)
     counts = slice(off["coal_cnt"], off["coal_cnt"] + E * Pp)
@@ -535,6 +548,7 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
                tl_e=tl_e)
     start = dict(cur)
     diag = mp.diag.clone()
+    aring = None if arg is None else arg.ring
     for j in range(uniforms.shape[0]):
         active = cur["next_rec"] < L
         if not bool(active.any()):
@@ -559,6 +573,14 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
             term_m = ((pending[:, mig_counts] - before[1])
                       * vb[1].reshape(-1)).sum(dim=1)
             cur["log_w"] = cur["log_w"] + (term_c + term_m)
+        if arg is not None:
+            desc = descendant_bitmask(cur["parent"])
+            p0 = start_pop(cur["mig_time"], cur["mig_dest"], cur["pop"], c,
+                           h_r)
+            aring = push_trip_rows(
+                aring, active, nr + arg.front, h_r, t_c, fpop,
+                pick_desc(desc, c), pick_desc(desc, d),
+                (ev_t, torch.cat([p0[:, None], ev_d[:, :-1]], dim=1), ev_d))
         e_r = epoch_index(epoch_start, h_r)
         pending[:, off["recomb_cnt"]:off["recomb_cnt"] + E] += (
             (torch.arange(E, device=time.device)[None, :] == e_r[:, None])
@@ -587,3 +609,4 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
         if cur[k] is not dst:
             dst.copy_(cur[k])
     mp.diag.copy_(diag)
+    store_ring(arg, aring)

@@ -62,6 +62,7 @@ from .bias import (
     push_delayed,
     section_of,
 )
+from .arg import ArgPass, pick_desc, push_trip_rows, store_ring
 from .guide import GuideTables, draw_gap, leaf_rates_at, span_log_iw
 from .local import MAX_LOCAL_SLOTS, LocalPass, push_local_event
 from .migration import (
@@ -117,6 +118,7 @@ class TripRecord(NamedTuple):
     strength: torch.Tensor  # bias strength of the point's section
     log_iw_bias: torch.Tensor  # its height-bias part (log_iw unguided)
     c: torch.Tensor  # [P] i32 the node whose branch was cut
+    d: torch.Tensor  # [P] i32 the coalescence target, before the SPR
 
 
 def _trip(u, leaf_status, time, parent, child0, child1, next_rec, upd,
@@ -281,7 +283,7 @@ def _trip(u, leaf_status, time, parent, child0, child1, next_rec, upd,
     nr_out = torch.where(active, next_rec + gap, next_rec)
     return ((t2, par2, c0_2, c1_2, nr_out, upd_out, log_w, tl_out, B_out,
              torch.where(act1, tle2, tl_e), pending),
-            TripRecord(h_r, t_c, log_iw, strength, log_iw_bias, c))
+            TripRecord(h_r, t_c, log_iw, strength, log_iw_bias, c, d))
 
 
 def vb_coal_term(vb_coal: torch.Tensor, epoch_start: torch.Tensor,
@@ -317,15 +319,29 @@ def _store_ring(local: LocalPass | None, ring: tuple) -> None:
             dst.copy_(src)
 
 
+def _push_arg_rows(arg: ArgPass, ring: tuple, active, next_rec,
+                   rec: TripRecord, desc_pre) -> tuple:
+    """Push each active particle's trip as ARG rows at ``front +
+    next_rec``: R and C, with the leaves below the cut node and below the
+    target in the tree before the trip (``desc_pre`` [P, N]); one
+    population, so the coalescence's is 0 (smc.py:1021-1037 of the JAX
+    package)."""
+    return push_trip_rows(ring, active, next_rec + arg.front, rec.h_r,
+                          rec.t_c, 0, pick_desc(desc_pre, rec.c),
+                          pick_desc(desc_pre, rec.d))
+
+
 def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
                upd, log_w, tl, B, tl_e, pending, L, mu, rho, epoch_start,
-               inv2ne, has_data, vb_coal=None, local: LocalPass | None = None):
+               inv2ne, has_data, vb_coal=None, local: LocalPass | None = None,
+               arg: ArgPass | None = None):
     """Plain torch version of :func:`trip` on any device (same arguments,
     same in-place contract).  Stops early once no particle is active.
     ``vb_coal`` [E] (the plain segment pass's VB; ``trip`` takes none)
     adds each trip's :func:`vb_coal_term` to ``log_w`` after it; ``local``
     (the plain segment pass's local recording) pushes each trip's event
-    into its ring."""
+    into its ring, ``arg`` (its ARG recording) the trip's rows into its
+    ring."""
     f32 = torch.float32
     dev = time.device
     L = torch.tensor(L, dtype=f32, device=dev)
@@ -337,11 +353,13 @@ def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
             pending)
     cur = outs
     ring = _local_ring(local)
+    aring = None if arg is None else arg.ring
     for j in range(uniforms.shape[0]):
         if not bool((cur[4] < L).any()):
             break
         (t, p, c0, c1, nr, up, lw, tl_, B_, tle, pend) = cur
-        desc_pre = None if local is None else descendant_bitmask(p)
+        desc_pre = (None if local is None and arg is None
+                    else descendant_bitmask(p))
         cur, rec = _trip(uniforms[j], int(leaf_status), t, p, c0, c1, nr,
                          up, lw, tl_, B_, tle, pend, L, mu, rho, est, eend,
                          inv2ne, has_data)
@@ -351,10 +369,13 @@ def trip_plain(uniforms, leaf_status, time, parent, child0, child1, next_rec,
         if local is not None:
             ring = _push_trip_event(local, ring, nr < L, nr, rec, desc_pre,
                                     est)
+        if arg is not None:
+            aring = _push_arg_rows(arg, aring, nr < L, nr, rec, desc_pre)
     if cur is not outs:
         for dst, src in zip(outs, cur):
             dst.copy_(src)
         _store_ring(local, ring)
+        store_ring(arg, aring)
 
 
 def float_tolerances(ref: dict, L: float, mu: float, scale: float = 1e-5,
@@ -438,8 +459,8 @@ def _check_caps(N: int, E: int, Pp: int = 1, Mw: int = 0,
     (for the migration pass also populations and buffer capacity).  The
     plain and biased passes and trip take up to :data:`WIDE_MAX_LEAVES`
     leaves (the wide kernels above :data:`MAX_LEAVES`); ``variant`` names
-    a pass that has no wide form (migration, guided, local), which takes
-    up to :data:`MAX_LEAVES`."""
+    a pass that has no wide form (migration, guided, local, biased ARG),
+    which takes up to :data:`MAX_LEAVES`."""
     n = (N + 1) // 2
     cap = MAX_LEAVES if variant else WIDE_MAX_LEAVES
     if N != 2 * n - 1 or n < 2 or n > cap:
@@ -567,7 +588,7 @@ def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
                   next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
                   epoch_start, inv2ne, has_data, b: BiasedPass,
                   vb_coal=None, guide: GuideTables | None = None,
-                  local: LocalPass | None = None):
+                  local: LocalPass | None = None, arg: ArgPass | None = None):
     """The biased form of :func:`trip_plain`, IN PLACE: after each trip the
     posterior weight takes the whole importance weight, the pilot weight
     the no-mutation factor and the immediate part (its height-bias part,
@@ -578,7 +599,8 @@ def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
     takes the guide's survival weight in both weights (smc.py:903-914),
     the point is weighed by the branches' guide rates at the event's
     window, and the next gap comes from the guide; with ``local`` each
-    trip's event goes into the particle's ring of pending local events."""
+    trip's event goes into the particle's ring of pending local events,
+    with ``arg`` its rows into the particle's ARG ring."""
     f32 = torch.float32
     dev = time.device
     L_t = torch.tensor(L, dtype=f32, device=dev)
@@ -592,6 +614,7 @@ def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
     lp = b.log_pilot
     ring = (b.df_pos, b.df_logf, b.df_delta, b.df_k)
     lring = _local_ring(local)
+    aring = None if arg is None else arg.ring
     for j in range(uniforms.shape[0]):
         nr, up, tl_pre, B_pre = cur[4], cur[5], cur[7], cur[8]
         active = nr < L_t
@@ -604,7 +627,8 @@ def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
             liw = torch.where(active, span_log_iw(
                 guide, rho_t, tl_pre, up + b.front, nr + b.front), zero)
             point += (leaf_rates_at(guide, nr + b.front),)
-        desc_pre = None if local is None else descendant_bitmask(cur[1])
+        desc_pre = (None if local is None and arg is None
+                    else descendant_bitmask(cur[1]))
         cur, rec = _trip(
             uniforms[j], int(leaf_status), *cur, L_t, mu_t, rho_t,
             epoch_start, eend, inv2ne, has_data, point, guide, b.front)
@@ -632,12 +656,15 @@ def _biased_trips(uniforms, leaf_status, time, parent, child0, child1,
         if local is not None:
             lring = _push_trip_event(local, lring, active, nr, rec, desc_pre,
                                      epoch_start)
+        if arg is not None:
+            aring = _push_arg_rows(arg, aring, active, nr, rec, desc_pre)
     if cur is not outs:
         for dst, src in zip(outs + (b.log_pilot, b.df_pos, b.df_logf,
                                     b.df_delta, b.df_k),
                             cur + (lp, *ring)):
             dst.copy_(src)
         _store_ring(local, lring)
+        store_ring(arg, aring)
 
 
 def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
@@ -647,13 +674,15 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
                        migration: MigrationPass | None = None,
                        vb: tuple | None = None,
                        guide: GuideTables | None = None,
-                       local: LocalPass | None = None):
+                       local: LocalPass | None = None,
+                       arg: ArgPass | None = None):
     """Plain torch version of :func:`segment_pass` on any device (same
     arguments, same in-place contract): ``tree_summaries``, the trips
     (``trip_plain``, :func:`_biased_trips` or
     ``migration.migration_trips``, each with the VB term after every trip
-    when ``vb`` is given; the first two with the local events of ``local``,
-    the biased one with the ``guide``), the final extension (with the
+    when ``vb`` is given and the rows of ``arg``; the first two with the
+    local events of ``local``, the biased one with the ``guide``), the
+    final extension (with the
     guide's survival weight), under bias the drain of the delayed factors
     due at ``front + L``, and the push into FIFO slot 0; with ``local``
     the segment's ungated recombination opportunity into ``local.ropp``."""
@@ -680,11 +709,11 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
                 inv2ne, has_data)
         vb_coal = None if vb is None else vb[0][:, 0]
         if migration is not None:
-            migration_trips(*args[:-2], has_data, migration, vb)
+            migration_trips(*args[:-2], has_data, migration, vb, arg)
         elif biased is None:
-            trip_plain(*args, vb_coal, local)
+            trip_plain(*args, vb_coal, local, arg)
         else:
-            _biased_trips(*args, biased, vb_coal, guide, local)
+            _biased_trips(*args, biased, vb_coal, guide, local, arg)
 
     # ---- final extension to the segment end --------------------------------
     delta = L - upd
@@ -729,7 +758,8 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
                  migration: MigrationPass | None = None,
                  vb: tuple | None = None,
                  guide: GuideTables | None = None,
-                 local: LocalPass | None = None):
+                 local: LocalPass | None = None,
+                 arg: ArgPass | None = None):
     """One segment's tree pass for every particle, IN PLACE.
 
     From the trees alone: tree length, per-epoch tree length and data branch
@@ -779,11 +809,18 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     recombination opportunity into ``local.ropp``.  Its ring holds at most
     32 slots.
 
+    ``arg`` (a ``kernels.arg.ArgPass``, with the plain, the biased or the
+    migration pass; not with ``guide`` or ``local``) makes it the ARG
+    variant: each trip pushes its R and C rows (and with migration an M
+    row for each of the walk's first 4 hops) into the particle's ARG ring
+    at slot ``arg_n % A``; the pass draws nothing and changes no weight.
+
     Up to :data:`MAX_LEAVES` leaves every variant runs; above, up to
     :data:`WIDE_MAX_LEAVES`, the plain and biased passes with and without
-    VB run as the wide kernels (counted as ``wide_launches``,
-    ``biased_wide_vb_launches``, ...) and the migration, guided and local
-    variants raise.
+    VB and the plain pass's ARG variant run as the wide kernels (counted
+    as ``wide_launches``, ``biased_wide_vb_launches``, ``wide_arg_launches``,
+    ...) and the migration, guided, local and biased ARG variants
+    raise.
 
     CPU tensors run :func:`segment_pass_plain`.  CUDA tensors launch the
     kernel of ``csrc/trip.cu`` on the current stream (one launch) or raise;
@@ -792,9 +829,10 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     kernel, ``segment_pass.biased_launches`` those of the biased one and
     ``segment_pass.migration_launches`` those of the migration one; the
     ``vb_`` counts (``vb_launches``, ``biased_vb_launches``,
-    ``migration_vb_launches``) those of their VB variants; the guided and
-    local variants count under :func:`launch_count`'s names
-    (``local_launches``, ``biased_guide_local_vb_launches``, ...)."""
+    ``migration_vb_launches``) those of their VB variants; the guided,
+    local and ARG variants count under :func:`launch_count`'s names
+    (``local_launches``, ``biased_guide_local_vb_launches``,
+    ``arg_launches``, ``migration_arg_vb_launches``, ...)."""
     dev = time.device
     if guide is not None and biased is None:
         raise ValueError("the guide runs in the biased pass")
@@ -804,19 +842,45 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
         segment_pass_plain(uniforms, leaf_status, time, parent, child0,
                            child1, next_rec, log_w, fifo, fifo_mask, tl_out,
                            L, mu, rho, epoch_start, inv2ne, has_data, biased,
-                           migration, vb, guide, local)
+                           migration, vb, guide, local, arg)
         return
     if dev.type != "cuda":
         raise ValueError(f"segment_pass: unsupported device {dev}")
+    name, args = segment_pass_launch_args(
+        uniforms, leaf_status, time, parent, child0, child1, next_rec, log_w,
+        fifo, fifo_mask, tl_out, L, mu, rho, epoch_start, inv2ne, has_data,
+        biased, migration, vb, guide, local, arg)
+    _launch("smc_segment_pass_launch", dev, *args)
+    setattr(segment_pass, name, getattr(segment_pass, name) + 1)
+
+
+def segment_pass_launch_args(uniforms, leaf_status, time, parent, child0,
+                             child1, next_rec, log_w, fifo, fifo_mask, tl_out,
+                             L, mu, rho, epoch_start, inv2ne, has_data,
+                             biased=None, migration=None, vb=None, guide=None,
+                             local=None, arg=None) -> tuple:
+    """What :func:`segment_pass` hands ``smc_segment_pass_launch`` (all
+    but the stream) for its arguments, every tensor checked; returns
+    (the name of the variant's launch count, the arguments).  Raises on
+    anything the kernels do not take."""
+    dev = time.device
+    if guide is not None and biased is None:
+        raise ValueError("the guide runs in the biased pass")
+    if migration is not None and (guide is not None or local is not None):
+        raise ValueError("the migration pass has no guide or local variant")
     if biased is not None and migration is not None:
         raise ValueError("segment_pass has no biased migration variant")
+    if arg is not None and (guide is not None or local is not None):
+        raise ValueError("segment_pass has no guided or local ARG variant")
     P, N = time.shape
     E = epoch_start.shape[0]
     Pp = 1 if migration is None else migration.ne.shape[1]
     Mw = 0 if migration is None else migration.mig_time.shape[2]
     narrow_only = ("migration" if migration is not None else
                    "guided" if guide is not None else
-                   "local" if local is not None else None)
+                   "local" if local is not None else
+                   "biased ARG" if biased is not None and arg is not None
+                   else None)
     n = _check_caps(N, E, Pp, Mw, narrow_only)
     K = stats_offsets(E, Pp)["width"]
     if fifo.dim() != 3:
@@ -919,50 +983,72 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
                  ("lags", local.lags, f32, (E,)),
                  ("ropp", local.ropp, f32, (P,))]
         local_args = (*(x.data_ptr() for x in local[:7]), R)
+    arg_args = (None,) * 7 + (0,)
+    if arg is not None:
+        A = arg.arg_pos.shape[-1]
+        if A < 1:
+            raise ValueError("segment_pass takes ARG rings of 1 slot or more")
+        if (biased is not None or local is not None) \
+                and float(arg.front) != front:
+            raise ValueError(f"the ARG front {arg.front} is not the pass's "
+                             f"front {front}")
+        front = float(arg.front)
+        i8 = torch.int8
+        spec += [("arg_pos", arg.arg_pos, f32, (P, A)),
+                 ("arg_code", arg.arg_code, i8, (P, A)),
+                 ("arg_time", arg.arg_time, f32, (P, A)),
+                 ("arg_from", arg.arg_from, i8, (P, A)),
+                 ("arg_to", arg.arg_to, i8, (P, A)),
+                 ("arg_desc", arg.arg_desc, torch.int64, (P, A)),
+                 ("arg_n", arg.arg_n, i32, (P,))]
+        arg_args = (*(x.data_ptr() for x in arg.ring), A)
     for name, x, dtype, shape in spec:
         _check_tensor(name, x, dtype, shape, dev)
-    # the segment's start: the biased pass's, or the local ring's
+    # the segment's start: the biased pass's, the local or the ARG ring's
     bias_args = bias_args[:10] + (front,) + bias_args[11:]
-    _launch("smc_segment_pass_launch", dev,
-            uniforms.data_ptr(), T, P, n, E, F, int(leaf_status),
+    args = (uniforms.data_ptr(), T, P, n, E, F, int(leaf_status),
             time.data_ptr(), parent.data_ptr(), child0.data_ptr(),
             child1.data_ptr(), next_rec.data_ptr(), log_w.data_ptr(),
             fifo.data_ptr(), fifo_mask.data_ptr(), tl_out.data_ptr(),
             float(L), float(mu), float(rho), epoch_start.data_ptr(),
             inv2ne.data_ptr(), has_data.data_ptr(), *bias_args, *mig_args,
-            *vb_args, *guide_args, *local_args)
-    name = launch_count(biased is not None, migration is not None,
+            *vb_args, *guide_args, *local_args, *arg_args)
+    return launch_count(biased is not None, migration is not None,
                         vb is not None, guide is not None, local is not None,
-                        n > MAX_LEAVES)
-    setattr(segment_pass, name, getattr(segment_pass, name) + 1)
+                        n > MAX_LEAVES, arg is not None), args
 
 
 def launch_count(biased=False, migration=False, vb=False, guide=False,
-                 local=False, wide=False) -> str:
+                 local=False, wide=False, arg=False) -> str:
     """The name of the ``segment_pass`` count of a kernel variant:
-    ``[biased_|migration_][wide_][guide_][local_][vb_]launches`` (``wide``:
-    the wide kernels, more than :data:`MAX_LEAVES` leaves)."""
+    ``[biased_|migration_][wide_][guide_][local_][arg_][vb_]launches``
+    (``wide``: the wide kernels, more than :data:`MAX_LEAVES` leaves)."""
     return ("migration_" if migration else "biased_" if biased else "") \
         + ("wide_" if wide else "") \
         + ("guide_" if guide else "") + ("local_" if local else "") \
-        + ("vb_" if vb else "") + "launches"
+        + ("arg_" if arg else "") + ("vb_" if vb else "") + "launches"
 
 
 # launches of every variant of the kernel: the plain, the biased and the
 # migration pass, each with and without VB; the plain pass with local
 # recording; the biased pass guided, with local recording or both; the
-# wide plain and biased passes
+# wide plain and biased passes; the ARG variants of the plain, biased,
+# migration and wide plain passes
 LAUNCH_COUNTS = tuple(
-    launch_count(b, m, v, g, lo, wd)
-    for b, m, g, lo, wd in ((False, False, False, False, False),
-                            (True, False, False, False, False),
-                            (False, True, False, False, False),
-                            (False, False, False, True, False),
-                            (True, False, True, False, False),
-                            (True, False, False, True, False),
-                            (True, False, True, True, False),
-                            (False, False, False, False, True),
-                            (True, False, False, False, True))
+    launch_count(b, m, v, g, lo, wd, a)
+    for b, m, g, lo, wd, a in ((False, False, False, False, False, False),
+                               (True, False, False, False, False, False),
+                               (False, True, False, False, False, False),
+                               (False, False, False, True, False, False),
+                               (True, False, True, False, False, False),
+                               (True, False, False, True, False, False),
+                               (True, False, True, True, False, False),
+                               (False, False, False, False, True, False),
+                               (True, False, False, False, True, False),
+                               (False, False, False, False, False, True),
+                               (True, False, False, False, False, True),
+                               (False, True, False, False, False, True),
+                               (False, False, False, False, True, True))
     for v in (False, True))
 for _count in LAUNCH_COUNTS:
     setattr(segment_pass, _count, 0)
@@ -979,7 +1065,8 @@ WAVES_AT = 10000  # the particle count of the paths chip_smoke drives
 
 def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
                      Mw: int = 0, S: int = 2, vb: bool = False,
-                     guide: bool = False, local: bool = False) -> dict:
+                     guide: bool = False, local: bool = False,
+                     arg: bool = False) -> dict:
     """What a kernel of ``csrc/trip.cu`` takes on the current CUDA device
     at (n leaves, E epochs; for the biased pass also S bias sections, for
     the migration pass Pp populations and Mw events per buffer): registers
@@ -992,7 +1079,8 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     above 8 the wide kernels, 16 lanes per particle up to 16 leaves and a
     warp up to 64;
     ``vb`` a pass's VB variant, ``guide`` the biased pass's guided one,
-    ``local`` the plain or biased pass's local recording).  Raises on an
+    ``local`` the plain or biased pass's local recording, ``arg`` the
+    plain, biased or migration pass's ARG recording).  Raises on an
     unknown variant or a shape beyond the caps before any CUDA call."""
     if variant not in RESOURCE_VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}; one of "
@@ -1003,7 +1091,8 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
                          f" got Pp={Pp}, Mw={Mw}")
     _check_caps(2 * n - 1, E, Pp if migration else 1, Mw if migration else 0,
                 "migration" if migration else "guided" if guide else
-                "local" if local else None)
+                "local" if local else
+                "biased ARG" if arg and variant == "biased" else None)
     if vb and variant == "trip":
         raise ValueError("trip has no VB variant")
     if variant == "biased" and not 1 <= S <= MAX_SECTIONS:
@@ -1013,10 +1102,15 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
         raise ValueError("only the biased pass has a guided variant")
     if local and variant not in ("segment_pass", "biased"):
         raise ValueError("only the plain and biased passes record locally")
+    if arg and (variant == "trip" or guide or local):
+        raise ValueError("only the plain, biased and migration passes "
+                         "without the guide or local recording record the "
+                         "ARG")
     out = (ctypes.c_int * len(RESOURCES))()
     lib = load_trip_library()
     err = lib.smc_kernel_resources(RESOURCE_VARIANTS[variant], n, E, S, Pp,
-                                   Mw, int(vb), int(guide), int(local), out)
+                                   Mw, int(vb), int(guide), int(local),
+                                   int(arg), out)
     if err != 0:
         raise RuntimeError(f"smc_kernel_resources failed: CUDA error {err} "
                            f"({lib.smc_cuda_error_string(err).decode()})")

@@ -3,7 +3,8 @@ and the two-population paths' estimates spread over seeds?
 
     python -m smcsmc_tpu_torch.repeatability [--np 10000] [--device cuda]
         [--seeds 7 7 8 9] [--main-runs 3] [--twopop-seeds 7 8 9]
-        [--feature-runs 2] [--features vb apf apf8 bias_guide alpha]
+        [--feature-runs 2]
+        [--features vb apf apf8 bias_guide alpha arg twopop_arg]
         [--scan cumsum]
     python -m smcsmc_tpu_torch.repeatability --lockstep 3
     python -m smcsmc_tpu_torch.repeatability --summary twopop result.out
@@ -40,8 +41,11 @@ Five measurements, each printed as it ends:
    iteration's ``.recomb.gz`` text, uncompressed, is printed too: gzip
    stamps the time into the file's header), each ``--feature-runs`` times
    with one seed, each run in a fresh process: LogL per iteration (and
-   the ``.recomb.gz`` digests), which must repeat bit for bit.  ``--features``
-   picks some of them.
+   the ``.recomb.gz`` digests), which must repeat bit for bit.  ``arg``
+   runs the main path's data with ``-arg -EM 1`` and ``twopop_arg`` the
+   two-population path with ``-arg -EM 0``: the digest of each
+   iteration's ``.trees.gz`` text, uncompressed, is printed beside the
+   LogL.  ``--features`` picks some of them.
 
 ``--lockstep N`` instead sweeps the main path's data and the genome path's
 first chunk N times each as two sweeps of one seed side by side in one
@@ -94,7 +98,20 @@ from .sweep_profile import (
 
 MODEL = ["-N0", "10000", "-mu", "1e-8", "-rho", "1e-9"]
 # the feature paths of measurement 5
-FEATURES = ("vb", "apf", "apf8", "bias_guide", "alpha")
+FEATURES = ("vb", "apf", "apf8", "bias_guide", "alpha", "arg", "twopop_arg")
+
+
+def _print_digests(out: str, label: str, kind: str, iterations) -> None:
+    """The sha256 of each iteration's chunk-0 ``.recomb.gz`` or
+    ``.trees.gz`` text, uncompressed (gzip stamps the time into its
+    header)."""
+    for it in iterations:
+        with gzip.open(os.path.join(out, f"emiter{it}",
+                                    f"chunk0.{kind}.gz")) as fh:
+            text = fh.read()
+        print(f"{label}: emiter{it}/chunk0.{kind}.gz text sha256 "
+              f"{hashlib.sha256(text).hexdigest()} "
+              f"({text.count(b'\n')} lines)", flush=True)
 
 
 def reductions(P: int, device: str, repeats: int = 20000) -> list[str]:
@@ -216,7 +233,8 @@ def run_cli(data: str, seed: int, num_particles: int, device: str,
         run = ["-o", out, "-Np", str(num_particles), "-seed", str(seed),
                "-device", device]
         common = [*run, *MODEL]
-        if data in ("main", "vb", "apf", "apf8", "bias_guide", "alpha"):
+        if data in ("main", "vb", "apf", "apf8", "bias_guide", "alpha",
+                    "arg"):
             seg = os.path.join(tmp, "bench.seg")
             demo, chrom = apf8_data() if data == "apf8" else bench_data()
             write_seg(seg, chrom)
@@ -227,22 +245,23 @@ def run_cli(data: str, seed: int, num_particles: int, device: str,
                      "apf8": ["-EM", "0", "-apf", "2"],
                      "bias_guide": ["-EM", "0", *BIAS_GUIDE_FLAGS,
                                     "-guide", guide],
-                     "alpha": ["-EM", "1", "-alpha", "0.5"]}[data]
+                     "alpha": ["-EM", "1", "-alpha", "0.5"],
+                     "arg": ["-EM", "1", "-arg"]}[data]
             smcsmc_main(["-seg", seg, *flags, "-P", "133", "133016",
                          "7*1", *common])
-            if data == "alpha":
-                for it in (0, 1):
-                    with gzip.open(os.path.join(out, f"emiter{it}",
-                                                "chunk0.recomb.gz")) as fh:
-                        text = fh.read()
-                    print(f"alpha path seed {seed}: emiter{it}/chunk0."
-                          f"recomb.gz text sha256 "
-                          f"{hashlib.sha256(text).hexdigest()} "
-                          f"({text.count(b'\n') - 1} windows)", flush=True)
-        elif data == "twopop":
+            if data in ("alpha", "arg"):
+                _print_digests(out, f"{data} path seed {seed}",
+                               "recomb" if data == "alpha" else "trees",
+                               (0, 1))
+        elif data in ("twopop", "twopop_arg"):
             seg = os.path.join(tmp, "twopop.seg")
             write_seg(seg, twopop_data()[1])
-            smcsmc_main(["-seg", seg, "-EM", "2", *twopop_flags(), *run])
+            flags = (["-EM", "2"] if data == "twopop"
+                     else ["-EM", "0", "-arg"])
+            smcsmc_main(["-seg", seg, *flags, *twopop_flags(), *run])
+            if data == "twopop_arg":
+                _print_digests(out, f"{data} path seed {seed}", "trees",
+                               (0,))
         else:
             paths = [os.path.join(tmp, n) for n in ("a.seg", "b.seg")]
             for path, chrom in zip(paths, genome_data()):
@@ -267,7 +286,7 @@ def report(rows, data: str, label: str) -> None:
         print("  epoch:coalescences/Ne "
               + " ".join(f"{r['Epoch']}:{float(r['Count']):.1f}/"
                          f"{float(r['Ne']):.0f}" for r in coal), flush=True)
-    if data == "twopop":
+    if data in ("twopop", "twopop_arg"):
         for it in sorted(logl):
             print(f"  iteration {it}: " + _twopop_summary(
                 [r for r in rows if int(r["Iter"]) == it]), flush=True)

@@ -3,7 +3,7 @@
     python -m smcsmc_tpu_torch.sweep_profile [--np 10000] [--device cuda]
         [--data bench|genome|twopop|apf8|wide|wide64] [--biased] [--vb]
         [--apf LEVEL]
-        [--guide] [--alpha A] [--trace out/sweep_trace.json]
+        [--guide] [--alpha A] [--arg] [--trace out/sweep_trace.json]
 
 It sweeps bench.py's headline data (one population of Ne 10,000, n=4, 8
 epochs from 0 and logspace(2.5, 5), 2 Mb, ``simulate_seg(seed=11)``) or,
@@ -23,7 +23,9 @@ the tables of iteration 0; ``--apf LEVEL``: the auxiliary particle filter,
 its lookahead after every pass; ``--guide``: bench.py's feature_bias_guide,
 the constant guide of :func:`write_constant_guide` with
 :data:`BIAS_GUIDE_OPTIONS`; ``--alpha A``: local recording into windows,
-as iteration 0 of the guide loop): the initial trees, then
+as iteration 0 of the guide loop; ``--arg``: ARG recording, the ARG
+variant of the pass and the ring's gather at each resampling): the
+initial trees, then
 ``warm`` segments, ``timed`` segments without the profiler (milliseconds
 per segment), then ``profiled`` segments under torch.profiler.  It reports
 the device time per segment and its share of the unprofiled and of the
@@ -361,6 +363,7 @@ def main(argv=None) -> int:
                     help="feature_bias_guide (BIAS_GUIDE_OPTIONS)")
     ap.add_argument("--alpha", type=float, default=0.0,
                     help="-alpha: local recording")
+    ap.add_argument("--arg", action="store_true", help="-arg")
     args = ap.parse_args(argv)
     chunk = (None, None)
     if args.data == "bench":
@@ -384,7 +387,7 @@ def main(argv=None) -> int:
         c = define_chunks(seg, 4)[0]
         chunk = (c.start, c.end)
     options = dict(BIASED_OPTIONS if args.biased else {}, vb=args.vb,
-                   apf=args.apf, alpha=args.alpha)
+                   apf=args.apf, alpha=args.alpha, record_arg=args.arg)
     if args.guide:
         import os
         import tempfile

@@ -7,6 +7,7 @@ files and chunks, twice (the second run sweeps nothing), and with
 """
 
 import dataclasses
+import gzip
 import logging
 import os
 import re
@@ -129,7 +130,6 @@ def test_structured_flags_give_the_jax_demography(argv):
     (["-bias_heights", "0", "0.05"], "-bias_heights"),
     (["-calibrate_lag", "2"], "-calibrate_lag"),
     (["-eI", "0.1", "1"], "-eI"),
-    (["-arg"], "-arg"),
 ])
 def test_out_of_scope_with_migration_is_refused_by_name(tmp_path, extra,
                                                         flag):
@@ -139,6 +139,31 @@ def test_out_of_scope_with_migration_is_refused_by_name(tmp_path, extra,
     with pytest.raises(SystemExit, match=re.escape(repr(flag))):
         tcli.smcsmc_main(["-seg", seg, "-o", str(tmp_path / "out"), "-Np",
                           "8", *TWOPOP, *extra, "-device", "cpu"])
+
+
+def test_arg_with_migration_is_accepted(tmp_path):
+    """``-arg`` with bench.py's twopop model runs and writes the sampled
+    ARG of iteration 0, with M rows for the walks' migrations."""
+    seg = str(tmp_path / "t.seg")
+    write_seg(seg, twopop_data(L=2e4)[1])
+    out = tmp_path / "out"
+    assert tcli.smcsmc_main(["-seg", seg, "-o", str(out), "-Np", "8",
+                             "-EM", "0", *TWOPOP, "-arg", "-seed", "3",
+                             "-device", "cpu"]) == 0
+    with gzip.open(out / "emiter0" / "chunk0.trees.gz", "rt") as fh:
+        codes = [ln.split()[0] for ln in fh]
+    assert codes[:3] == ["C"] * 3 and "R" in codes
+
+
+def test_structured_refusals_cite_item_15(tmp_path):
+    """Height bias with several populations is refused as part of ROADMAP
+    item 15 (structured populations), as ``em.refuse_unported`` says."""
+    seg = str(tmp_path / "t.seg")
+    write_seg(seg, twopop_data(L=2e4)[1])
+    with pytest.raises(SystemExit, match="item 15"):
+        tcli.smcsmc_main(["-seg", seg, "-o", str(tmp_path / "out"), "-Np",
+                          "8", *TWOPOP, "-bias_heights", "0", "0.05",
+                          "-device", "cpu"])
 
 
 def test_card_caps_are_refused_before_the_sweep(tmp_path, monkeypatch):

@@ -183,7 +183,7 @@ def test_copies_are_the_originals_letter_for_letter():
     only the prefix of the reference tree's location is dropped from the
     paths that two docstrings cite."""
     for name in ("demography", "pattern", "segio", "simulate", "outfmt",
-                 "lookahead"):
+                 "lookahead", "argout"):
         ref = (REPO / "smcsmc_tpu" / f"{name}.py").read_text()
         got = (REPO / "smcsmc_tpu_torch" / f"{name}.py").read_text()
         first, rest = got.split("\n", 1)

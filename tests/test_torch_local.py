@@ -555,8 +555,8 @@ def test_kernel_resources_refuses_missing_variants(monkeypatch, args, kw,
 def test_launch_counts_name_every_variant():
     """Every variant of the kernel has its own launch count, at 0 on
     import, named as ``launch_count`` names it (the wide plain and biased
-    passes, with and without VB, among them)."""
-    assert len(set(ttrip.LAUNCH_COUNTS)) == 18
+    passes and the ARG variants, with and without VB, among them)."""
+    assert len(set(ttrip.LAUNCH_COUNTS)) == 26
     for b, g, lo, vb, name in [
             (True, True, False, False, "biased_guide_launches"),
             (True, True, True, True, "biased_guide_local_vb_launches"),

@@ -114,7 +114,7 @@ def test_trip_wrapper_rejects_other_devices():
     (["-p", "1*3+4*2"], "-p"),
     (["-nproc", "2"], "-nproc"),
     (["-smcsmcpath", "x"], "-smcsmcpath"),
-    (["-arg"], "-arg"),
+    (["-C"], "-C"),
     (["-online"], "-online"),
     (["-c"], "-c"),
 ])

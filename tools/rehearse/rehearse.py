@@ -2,7 +2,7 @@
 on the CPU: no chip, no nvcc.
 
     python3 tools/rehearse/rehearse.py [--against COMMIT] [--quick] [--vb]
-        [--guide] [--wide]
+        [--guide] [--wide] [--arg]
 
 Builds the working tree's ``smcsmc_tpu_torch/csrc/trip.cu`` and COMMIT's
 (``git show``, default HEAD) as host C++ with g++ against the stand-in
@@ -44,6 +44,17 @@ double,
 and a float32 chain of 64 trips of the plain version itself drifts from
 the float64 one by up to 2.4 node units at 64 leaves.  ``--quick`` runs
 every third case.
+
+``--arg`` holds the working tree's ARG variants (the plain, biased,
+migration and wide plain passes, each with and without VB) to their plain
+versions: ``chip_smoke.compare_arg`` itself on CPU tensors, at P of 160
+(161 for the ragged cases) and at (161, 16) and (23, 64) for the wide
+pass, each launch going through ``trip.segment_pass_launch_args`` into the
+host build: trees, floats and rings as the chip holds them (the migration
+pass's times within tolerance, as the host's ``log1pf`` is not the
+card's), every output but the ring bit for bit the same kernel's without
+ARG.  ``--quick``
+takes P of 48.
 
 ``--vb`` holds the working tree's VB variants instead (every fifth case,
 biased and plain pass): with VB tables of zeros bit for bit the pass
@@ -103,12 +114,14 @@ def build(text: str, name: str) -> ctypes.CDLL:
     # the guide and local recording their eight pointers and three sizes
     out.vb = "vb_coal" in text
     out.gl = "cum_mass" in text
+    out.arg = "arg_desc" in text
     out.smc_segment_pass_launch.argtypes = [
         vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         cf, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, cf, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, ci] + [vp, vp] * out.vb + [
-            vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, vp, ci] * out.gl + [vp]
+            vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, vp, ci] * out.gl + [
+            vp, vp, vp, vp, vp, vp, vp, ci] * out.arg + [vp]
     out.smc_segment_pass_launch.restype = ci
     out.smc_trip_launch.argtypes = [
         vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
@@ -165,6 +178,33 @@ def case(P, n, E, S, ls, T, L, nr_scale, seed, full=False, empty=False,
     return st, fix
 
 
+def host_pass(lib):
+    """``segment_pass``'s interface on CPU tensors, launching ``lib``'s
+    kernel (a host build): the wrapper's own argument packing, then
+    ``smc_segment_pass_launch``."""
+    from smcsmc_tpu_torch.kernels.trip import segment_pass_launch_args
+
+    def segment_pass(*args, **kw):
+        _, packed = segment_pass_launch_args(*args, **kw)
+        err = lib.smc_segment_pass_launch(*packed, None)
+        if err != 0:
+            raise SystemExit(f"smc_segment_pass_launch returned {err}")
+    return segment_pass
+
+
+def rehearse_arg(quick: bool) -> int:
+    """The ``--arg`` check of the module docstring."""
+    from smcsmc_tpu_torch.kernels.trip import segment_pass_plain
+
+    cs.DEVICE = "cpu"
+    new = build((ROOT / SOURCE).read_text(), "tree")
+    P = 48 if quick else 160
+    ok = cs.compare_arg(host_pass(new), segment_pass_plain, {}, P=P,
+                        wide_P=(P + 1, 23), mig_exact=False)
+    print("every ARG case holds" if ok else "some ARG case FAILS")
+    return 0 if ok else 1
+
+
 def run(lib, st, f, biased=True, vb=None, guide=None, local=False):
     """One segment pass of ``lib`` on a copy of ``st``; ``vb`` = its VB
     table [E] (a library with VB only); ``guide`` a ``GuideTables`` and
@@ -180,6 +220,8 @@ def run(lib, st, f, biased=True, vb=None, guide=None, local=False):
                p(st["ropp"]), st["lr_pos"].shape[1]) if local
               else (None,) * 7 + (0,))
         tables = tables + g + lo
+    if lib.arg:
+        tables = tables + (None,) * 7 + (0,)
     bias = ((p(st["log_pilot"]), p(st["df_pos"]), p(st["df_logf"]),
              p(st["df_delta"]), p(st["df_k"]), p(f["heights"]),
              p(f["strengths"]), p(f["delays"]), f["D"], f["S"], f["front"],
@@ -492,8 +534,11 @@ def main(argv=None) -> int:
     ap.add_argument("--vb", action="store_true")
     ap.add_argument("--guide", action="store_true")
     ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--arg", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
+    if args.arg:
+        return rehearse_arg(args.quick)
     if args.wide:
         return rehearse_wide(args.quick)
     if args.vb:
