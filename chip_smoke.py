@@ -184,8 +184,8 @@ Phases, each fatal on failure:
 
 15. Samples above 8 haplotypes (the wide kernels of ``csrc/trip.cu``:
    ``trip``, the plain and the biased pass, each pass with and without
-   VB; 16 lanes per particle up to 16 leaves, a warp up to 64): compared
-   in phase 3 (``compare_wide``) at n of 9, 16, 33 and 64, 9 and 64
+   VB; 8 lanes per particle up to 16 leaves, 16 up to 64): compared
+   in phase 3 (``compare_wide``) at n of 9, 16, 17, 33 and 64, 9 and 64
    epochs (``WIDE_SHAPES``, P ragged against the block), each leaf status,
    one trip at 20 kb and 64 trips at 50 kb (the VB variants at one trip),
    the biased pass with 2 sections at 9 epochs and 8 at 64 and a ring 30%
@@ -395,11 +395,13 @@ for _name in ARG_PARENTS:
                                              else "")
         + "arg_" + ("vb_" if "vb" in _name else "") + "launches")
 ARG_A = 512  # PFConfig.arg_slots
-# the compared shapes (P, n, E): P leaves the last block ragged (8
-# particles per block up to 16 leaves, 4 above) and is smaller where the
-# plain version's [P, N + E, E, N] hazard grid would take more than a few GB
+# the compared shapes (P, n, E): P leaves the last block ragged (16
+# particles per block up to 16 leaves, 8 above; n = 16 and 17 on either
+# side of the group sizes' boundary) and is smaller where the plain
+# version's [P, N + E, E, N] hazard grid would take more than a few GB
 WIDE_SHAPES = ((10001, 9, 9), (4001, 9, 64), (10001, 16, 9), (4001, 16, 64),
-               (4001, 33, 9), (2001, 33, 64), (4001, 64, 9), (1001, 64, 64))
+               (4001, 17, 9), (4001, 33, 9), (2001, 33, 64), (4001, 64, 9),
+               (1001, 64, 64))
 WIDE_P = 10000
 GUIDE_WINDOW = 100.0  # EMConfig.guide_interval, bp
 LOCAL_SLOTS = 32  # PFConfig.local_ring

@@ -80,8 +80,9 @@
 //                 kernels/migration.py through segment_pass_plain.
 //                 Above MAX_LEAVES leaves (up to WIDE_MAX_LEAVES) trip
 //                 and the plain and biased passes, each with and without
-//                 VB, run as the wide kernels: node times in shared
-//                 memory, each trip in double; see "The wide passes".
+//                 VB, run as the wide kernels: each lane a chunk of the
+//                 nodes, every sum of a trip lane-parallel and in double;
+//                 see "The wide passes".
 //
 // What bounds it on Hopper: launch and latency, neither bytes nor FLOPs.
 // At the sweep's shape (10,000 particles, 4 leaves, 9 epochs, about one
@@ -1348,46 +1349,73 @@ __global__ void __launch_bounds__(BLOCK, BIAS_MIN_BLOCKS)
 // VB), the plain pass's ARG variant and trip; the migration, guided and
 // local variants and the biased pass's ARG variant have no wide form.
 //
-// What changes against the narrow kernels, and why.  There every lane holds
-// all node and parent times in registers, unrolled over 7 or 15 padded
-// nodes; at 64 leaves (127 nodes) that would be 254 floats per lane.  Here
-// the node and parent times live in the group's slice of shared memory
-// beside the pointers, and a group is G lanes: 16 up to 16 leaves (so that
-// a block holds 8 particles), a warp above.  The leaf cap ML is a template
-// argument of these kernels alone (it sizes the has-data table and the
-// ballot stripes), so MAX_LEAVES and the narrow kernels stay as they were.
+// What bounds it on Hopper: neither bytes nor operations but the dependent
+// chain of a particle's trips (a launch lasts as long as the longest chain
+// among the particles of its waves), and the FP64 issue rate: the trip is
+// computed in double (below), and an SM issues 64 FP64 operations a clock
+// against 128 in float32, fewer conversions from float, and a min or max
+// of doubles takes several instructions.  So a clip against float bounds
+// is taken in float (exact) before the conversion, and an overlap's clip
+// at 0 is a select.
 //
-// * Sums over nodes run in node order, each lane the whole chain on the
-//   same shared words (a broadcast), so every lane holds the same scalars
-//   without exchanges: the point's running sum, each epoch's overlaps
-//   (lanes by epoch, as before), the data branch length.
+// What the design does about it.  A group of G lanes owns a particle: G = 8
+// up to 16 leaves (31 nodes, 4 a lane), so that a block of 128 threads holds
+// 16 particles, and 16 above (127 nodes at the cap, 8 a lane; 8 particles a
+// block).  WIDE_MIN_BLOCKS = 5 resident blocks an SM (at most 96 registers a
+// thread) hold 80 particles an SM up to 16 leaves, so that 10,000 particles
+// run in one wave on 132 SMs, and 40 above, two waves.  The leaf cap ML is a
+// template argument of these kernels alone (it sizes the has-data table and
+// the stripes), so MAX_LEAVES and the narrow kernels stay as they were.
+//
+// * Lane l owns the contiguous chunk of nodes l cr .. l cr + cr - 1 (cr =
+//   ceil(N / G)); node order is lane order, then chunk order.  Each lane
+//   keeps its chunk's node and parent times in registers (WideChunk, padded
+//   to C = ceil((2 ML - 1) / G) with BIG, which has no branch length,
+//   overlaps nothing and crosses no time), reloaded from shared memory after
+//   each SPR.  The tree itself (times, pointers) stays in the group's slice
+//   of shared memory, where lane 0 does the SPR.
+// * Every sum over nodes is lane-parallel and in double: each lane adds its
+//   chunk in node order, a fixed xor-shuffle tree (wide_sum) combines the
+//   lanes so that every lane ends with the same bits, and a value stored is
+//   rounded to float once.  So are the per-epoch sums (tree length per
+//   epoch, each epoch's hazard mass), one epoch after the other over all the
+//   nodes, not one epoch per lane.
+// * "First node in node order whose running sum reaches u total" (the
+//   point; the biased point over the (node, section) pairs, node-major):
+//   each lane's chunk total, every lane's prefix as one left fold of those
+//   totals in lane order (wide_prefix), a ballot for the first lane whose
+//   running sum at its chunk's end reaches the target, then that lane
+//   alone walks its chunk again.  The running sum at a node is its lane's
+//   prefix plus the chunk's running sum; a lane's sum at its chunk's end
+//   is the next lane's prefix bit for bit, so the running sums rise in node
+//   order and the total is that of the last node: some node always reaches
+//   u total < total.  No running sums are staged in shared memory.
+// * The hazard in the epoch e* of t_c: its candidate node times are a
+//   ballot per lane's chunk, visited in node order; the hazard at each is a
+//   lane-parallel sum, skipped where it cannot move t_lo (the hazard is
+//   monotone: a time at or below the best one accepted, or at or above one
+//   refused).  Which branches cross a time, their count and the r-th of
+//   them in node order: each lane's chunk bits, a scan of their counts.
 // * The trip computes in double from the float tree: every sum, the
 //   point's height, the hazard and the re-coalescence time t_c, and every
 //   decision on them (the point, the candidates, the branches crossing
-//   t_c, the epochs of h_r and t_c); what is stored is rounded to float
-//   once.  A float chain over 127 nodes loses up to 127 roundings, and t_c
-//   comes from a difference of two such sums: along 64 trips at 64 leaves
-//   float sums drifted up to 6.5 node units (1e-5 of the tallest node)
-//   from a float64 run, the plain version in float32 2.4 and this design
-//   0.09 (a host rehearsal).  So the plain version in float64 is what the
-//   wide kernels are held to.
-// * Exact steps are spread over the lanes: which branches cross a time
-//   (their count, the r-th in node order) is a ballot per stripe of G
-//   nodes, node j being lane j % G's; the candidate node times inside the
-//   hazard's epoch are lane-strided with a group maximum; the data leaves
-//   below each node are counted by each data leaf's lane walking up its
-//   ancestors with an atomic add in shared memory.
-// * The biased point's running sum over the [N, S] (node, section)
-//   segments computes each segment and its weight inside the one chain
-//   instead of staging them: only the running sums stay in shared memory
-//   (N S doubles, each lane its own pairs for the search, after every
-//   group's slice).  At the caps (64 leaves, 64 epochs, 8 sections) a
-//   particle then takes about 13 KB.
-// * The SPR is lane 0's on shared memory as before; the group then
-//   refreshes the parent times, lane-strided.
+//   t_c, the epochs of h_r and t_c).  A float chain over 127 nodes loses up
+//   to 127 roundings, and t_c comes from a difference of two such sums:
+//   along 64 trips at 64 leaves float sums drifted up to 6.5 node units
+//   (1e-5 of the tallest node) from a float64 run, the plain version in
+//   float32 2.4 and a kernel in double 0.09 (a host rehearsal).  So the
+//   plain version in float64 is what the wide kernels are held to.
+// * Per-epoch records and the ring of delayed factors are each lane's own
+//   epochs and slots (e % G, s % G), so no lane reads another's words; the
+//   data leaves below each node are counted by each data leaf's lane
+//   walking up its ancestors with an atomic add in shared memory.
 // ===========================================================================
 
 #define WIDE_MAX_LEAVES 64  // the reference's u64 Descendants_t
+#define WIDE_MIN_BLOCKS 5   // resident wide blocks per SM: <= 96 registers
+
+// nodes a lane holds at most: the chunk of 2 ML - 1 nodes over G lanes
+#define WIDE_CHUNK(G, ML) ((2 * (ML) - 1 + (G) - 1) / (G))
 
 template <int G>
 __device__ __forceinline__ unsigned wide_mask() {
@@ -1407,14 +1435,6 @@ __device__ __forceinline__ unsigned wide_ballot(unsigned gm, bool p) {
     return (b >> ((threadIdx.x & 31) & ~(G - 1))) & ((1u << G) - 1u);
 }
 
-template <int G>
-__device__ __forceinline__ float wide_max(float v, unsigned gm) {
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(gm, v, off));
-  return v;
-}
-
 // every lane ends with the same bits: each step adds the same two values
 template <int G, typename T>
 __device__ __forceinline__ T wide_sum(T v, unsigned gm) {
@@ -1424,11 +1444,59 @@ __device__ __forceinline__ T wide_sum(T v, unsigned gm) {
   return v;
 }
 
+// two wide_sums at once, their shuffles interleaved
+template <int G>
+__device__ __forceinline__ void wide_sum2(double& a, double& b,
+                                          unsigned gm) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const double x = __shfl_xor_sync(gm, a, off);
+    const double y = __shfl_xor_sync(gm, b, off);
+    a = a + x;
+    b = b + y;
+  }
+}
+
 template <int G>
 __device__ __forceinline__ int wide_min(int v, unsigned gm) {
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1)
     v = min(v, __shfl_xor_sync(gm, v, off));
+  return v;
+}
+
+// lane `src`'s value (src the same in every lane)
+template <int G, typename T>
+__device__ __forceinline__ T wide_from(T v, int src, unsigned gm) {
+  return __shfl_sync(gm, v, ((threadIdx.x & 31) & ~(G - 1)) + src);
+}
+
+// the sum of the lanes before the calling one, each lane's value added in
+// lane order (a left fold), and in `total` the fold of all G: lane l's
+// prefix plus its own value is lane l + 1's prefix, bit for bit
+template <int G>
+__device__ __forceinline__ double wide_prefix(double v, int lane,
+                                              unsigned gm, double& total) {
+  double ex = 0.0, all = 0.0;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const double y = wide_from<G>(v, k, gm);
+    if (k == lane) ex = all;
+    all += y;
+  }
+  total = all;
+  return ex;
+}
+
+// inclusive scan of counts over the group's lanes in lane order
+template <int G>
+__device__ __forceinline__ int wide_scan(int v, int lane, unsigned gm) {
+  const int wl = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) {
+    const int y = __shfl_sync(gm, v, lane >= off ? wl - off : wl);
+    if (lane >= off) v = v + y;
+  }
   return v;
 }
 
@@ -1442,40 +1510,44 @@ __host__ __device__ inline int wide_tables_words(int E, bool segment,
       + (biased ? 2 * MAX_SECTIONS + 1 + E : 0) + (vb ? E : 0);
 }
 
-// one particle's slice: node times, parent times, parent, children, data
-// leaves below [N]; tree length and hazard mass per epoch [E]; the segment
-// pass's statistics [6E]; the biased pass's ring.  The biased point's
-// running sums (N S doubles a particle) follow every group's slice.
+// one particle's slice: node times, parent, children, data leaves below
+// [N]; tree length and hazard mass per epoch [E]; the segment pass's
+// statistics [6E]; the biased pass's ring
 __host__ __device__ inline int wide_work_words(int N, int E, bool segment,
                                                bool biased) {
-  return (6 * N + 2 * E + (segment ? 6 * E : 0)
+  return (5 * N + 2 * E + (segment ? 6 * E : 0)
           + (biased ? 4 * MAX_DELAY_SLOTS : 0)) | 1;  // odd
 }
 
-// the words before the running sums: the tables and every group's slice,
-// rounded up to an even count so that the doubles are aligned
 template <int ML>
 __host__ __device__ inline int wide_block_words(int G, int N, int E,
                                                 bool segment, bool biased,
                                                 bool vb) {
-  return (wide_tables_words<ML>(E, segment, biased, vb)
-          + (BLOCK / G) * wide_work_words(N, E, segment, biased) + 1) & ~1;
+  return wide_tables_words<ML>(E, segment, biased, vb)
+      + (BLOCK / G) * wide_work_words(N, E, segment, biased);
 }
 
 struct WideWork {
   float* t;     // [N] node times
-  float* pt;    // [N] parent times (BIG at the root)
   int* par;     // [N]
   int* c0;      // [N]
   int* c1;      // [N]
   int* cnt;     // [N] data leaves below the node (mixed data)
-  float* tle;   // [E] tree length per epoch
-  float* full;  // [E] hazard mass of each epoch above h_r
+  float* tle;   // [E] tree length per epoch (lane e % G's)
+  float* full;  // [E] hazard mass of each epoch above h_r (lane e % G's)
   float* rpos;  // the biased pass's ring, [MAX_DELAY_SLOTS] each
   float* rlogf;
   float* rdelta;
   int* rk;
-  double* cum;  // [N S] the biased point's running sums
+};
+
+// the calling lane's chunk: nodes j0 .. j0 + cr - 1 of the tree, their
+// node and parent times (BIG past the last node; pt BIG at the root)
+template <int C>
+struct WideChunk {
+  float t[C];
+  float pt[C];
+  int j0, cr;
 };
 
 template <int ML>
@@ -1532,8 +1604,9 @@ __device__ void wide_bind_tables(const Args& a, float* smem, Tables& tb,
   tb.n = a.n;
   tb.N = 2 * a.n - 1;
   tb.E = E;
-  tb.total_data = 0;
-  for (int l = 0; l < a.n; ++l) tb.total_data += tb.hd[l];
+  tb.total_data = 0;  // the data leaves, for mixed data's B alone
+  if (a.leaf_status == 0)
+    for (int l = 0; l < a.n; ++l) tb.total_data += tb.hd[l];
   tb.leaf_status = a.leaf_status;
   tb.L = a.L;
   tb.mu = a.mu;
@@ -1550,33 +1623,34 @@ __device__ int wide_carve(const Args& a, float* smem, bool segment,
   float* base = smem + wide_tables_words<ML>(E, segment, biased, vb)
       + (size_t)group * wide_work_words(N, E, segment, biased);
   w.t = base;
-  w.pt = base + N;
-  w.par = reinterpret_cast<int*>(base + 2 * N);
-  w.c0 = reinterpret_cast<int*>(base + 3 * N);
-  w.c1 = reinterpret_cast<int*>(base + 4 * N);
-  w.cnt = reinterpret_cast<int*>(base + 5 * N);
-  w.tle = base + 6 * N;
-  w.full = base + 6 * N + E;
-  pend = base + 6 * N + 2 * E;
+  w.par = reinterpret_cast<int*>(base + N);
+  w.c0 = reinterpret_cast<int*>(base + 2 * N);
+  w.c1 = reinterpret_cast<int*>(base + 3 * N);
+  w.cnt = reinterpret_cast<int*>(base + 4 * N);
+  w.tle = base + 5 * N;
+  w.full = base + 5 * N + E;
+  pend = base + 5 * N + 2 * E;
   float* ring = pend + 6 * E;
   w.rpos = ring;
   w.rlogf = ring + MAX_DELAY_SLOTS;
   w.rdelta = ring + 2 * MAX_DELAY_SLOTS;
   w.rk = reinterpret_cast<int*>(ring + 3 * MAX_DELAY_SLOTS);
-  w.cum = reinterpret_cast<double*>(
-              smem + wide_block_words<ML>(G, N, E, segment, biased, vb))
-      + (size_t)group * N * a.S;
   return blockIdx.x * (blockDim.x / G) + group;
 }
 
-template <int G>
+// every load of the tree under way at once (node j is lane j % G's here)
+template <int G, int ML>
 __device__ void wide_load_tree(const Args& a, const WideWork& w, int i,
                                int N, int lane) {
-  for (int j = lane; j < N; j += G) {
-    w.t[j] = a.time[(size_t)i * N + j];
-    w.par[j] = a.parent[(size_t)i * N + j];
-    w.c0[j] = a.child0[(size_t)i * N + j];
-    w.c1[j] = a.child1[(size_t)i * N + j];
+#pragma unroll
+  for (int q = 0; q < WIDE_CHUNK(G, ML); ++q) {
+    const int j = lane + q * G;
+    if (j < N) {
+      w.t[j] = a.time[(size_t)i * N + j];
+      w.par[j] = a.parent[(size_t)i * N + j];
+      w.c0[j] = a.child0[(size_t)i * N + j];
+      w.c1[j] = a.child1[(size_t)i * N + j];
+    }
   }
 }
 
@@ -1591,54 +1665,77 @@ __device__ void wide_store_tree(const Args& a, const WideWork& w, int i,
   }
 }
 
-// Each node's parent time from the tree in shared memory; the group must
-// be synchronised after the last write to w.t / w.par, and again before
-// w.pt is read.
-template <int G>
-__device__ __forceinline__ void wide_parent_times(const WideWork& w, int N,
-                                                  int lane) {
-  for (int j = lane; j < N; j += G) {
-    const int p = w.par[j];
-    w.pt[j] = p < 0 ? BIG : w.t[p];
+// The lane's chunk from the tree in shared memory; the group must be
+// synchronised after the last write to w.t / w.par.
+template <int G, int C>
+__device__ __forceinline__ void wide_chunk_load(const WideWork& w, int N,
+                                                int lane, WideChunk<C>& h) {
+  h.cr = (N + G - 1) / G;
+  h.j0 = lane * h.cr;
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int j = h.j0 + k;
+    const bool in = k < h.cr && j < N;
+    const int p = in ? w.par[j] : -1;
+    h.t[k] = in ? w.t[j] : BIG;
+    h.pt[k] = p >= 0 ? w.t[p] : BIG;
   }
 }
 
-// sum_j |branch_j ∩ [lo, hi_e) ∩ (-inf, v]|, in node order, in double
-__device__ __forceinline__ double wide_overlap(const WideWork& w, int N,
-                                               double lo, double hi_e,
-                                               double v) {
+// the chunk's part of sum_j |branch_j ∩ [lo, hi) ∩ (-inf, v]|, in double.
+// A min or max of doubles takes several instructions on this card, so the
+// overlap's clip at 0 is a select: max(a - b, 0) is a - b where a > b.
+template <int C>
+__device__ __forceinline__ double chunk_overlap(const WideChunk<C>& h,
+                                                double lo, double hi,
+                                                double v) {
+  const double top = fmin(hi, v);
   double s = 0.0;
-  for (int j = 0; j < N; ++j)
-    s += fmax(fmin(fmin((double)w.pt[j], hi_e), v) - fmax((double)w.t[j], lo),
-              0.0);
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const double a = fmin((double)h.pt[k], top), b = fmax((double)h.t[k], lo);
+    s += a > b ? a - b : 0.0;
+  }
   return s;
 }
 
-// The branches crossing x (t_j <= x < pt_j), one ballot per stripe of G
-// nodes: bits[k] bit l is node k G + l; returns their count.
-template <int G, int ML>
-__device__ __forceinline__ int wide_crossing(const WideWork& w, int N,
-                                             int lane, unsigned gm, double x,
-                                             unsigned* bits) {
-  constexpr int STRIPES = (2 * ML - 1 + G - 1) / G;
-  int count = 0;
+// chunk_overlap with v = BIG for two intervals at once, each node's times
+// converted once
+template <int C>
+__device__ __forceinline__ void chunk_overlap2(const WideChunk<C>& h,
+                                               double lo0, double hi0,
+                                               double lo1, double hi1,
+                                               double& f0, double& f1) {
+  f0 = 0.0;
+  f1 = 0.0;
 #pragma unroll
-  for (int k = 0; k < STRIPES; ++k) {
-    const int j = k * G + lane;
-    const bool cross = j < N && (double)w.t[j] <= x && x < (double)w.pt[j];
-    bits[k] = wide_ballot<G>(gm, cross);
-    count += __popc(bits[k]);
+  for (int k = 0; k < C; ++k) {
+    const double t = h.t[k], pt = h.pt[k];
+    const double a0 = fmin(pt, hi0), b0 = fmax(t, lo0);
+    const double a1 = fmin(pt, hi1), b1 = fmax(t, lo1);
+    f0 += a0 > b0 ? a0 - b0 : 0.0;
+    f1 += a1 > b1 ? a1 - b1 : 0.0;
   }
-  return count;
 }
 
-// Tree summaries from the tree in shared memory (w.t, w.pt, w.par up to
-// date and the group synchronised): tree length per epoch (w.tle, each lane
-// its own epochs), tree length, data branch length; every lane returns the
-// same tl and B.
-template <int G>
-__device__ void wide_summaries(const Tables& tb, const WideWork& w, int lane,
-                               unsigned gm, float& tl, float& B) {
+// the chunk's branches crossing x (t <= x < pt), bit k for its node k
+template <int C>
+__device__ __forceinline__ unsigned chunk_crossing(const WideChunk<C>& h,
+                                                   double x) {
+  unsigned m = 0u;
+#pragma unroll
+  for (int k = 0; k < C; ++k)
+    if ((double)h.t[k] <= x && x < (double)h.pt[k]) m |= 1u << k;
+  return m;
+}
+
+// Tree summaries from the chunks (h up to date, w.par too): tree length
+// per epoch (w.tle, lane e % G storing epoch e), tree length, data branch
+// length; every lane returns the same tl and B.
+template <int G, int C>
+__device__ void wide_summaries(const Tables& tb, const WideWork& w,
+                               const WideChunk<C>& h, int lane, unsigned gm,
+                               float& tl, float& B) {
   const int E = tb.E, N = tb.N;
   if (tb.leaf_status == 0) {
     for (int j = lane; j < N; j += G) w.cnt[j] = 0;
@@ -1654,20 +1751,40 @@ __device__ void wide_summaries(const Tables& tb, const WideWork& w, int lane,
     }
     __syncwarp(gm);
   }
-  double mine = 0.0;
-  for (int e = lane; e < E; e += G) {
-    const float lo_e = tb.est[e], hi_e = tb.eend[e];
-    double s = 0.0;
-    for (int j = 0; j < N; ++j) {
-      const float pt = w.pt[j];
-      if (pt < BIG)  // not the root's lineage
-        s += fmax((double)fminf(pt, hi_e) - (double)fmaxf(w.t[j], lo_e),
-                  0.0);
+  // the root's time: no branch but the root's lineage reaches an epoch
+  // that starts at or above it, so such epochs have no length
+  float mine = 0.0f;
+#pragma unroll
+  for (int k = 0; k < C; ++k)
+    if (h.pt[k] >= BIG && h.t[k] < BIG) mine = h.t[k];
+  const unsigned at = wide_ballot<G>(gm, mine > 0.0f);
+  const float root = at ? wide_from<G>(mine, __ffs((int)at) - 1, gm) : BIG;
+  double tl_d = 0.0;
+  for (int e = 0; e < E; e += 2) {  // two epochs at a time
+    double s[2] = {0.0, 0.0};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (e + q < E && tb.est[e + q] < root) {
+        const float lo_e = tb.est[e + q], hi_e = tb.eend[e + q];
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          // the clip in float (exact), the length in double where positive
+          const float a = fminf(h.pt[k], hi_e), b = fmaxf(h.t[k], lo_e);
+          if (h.pt[k] < BIG && a > b)  // not the root's lineage
+            s[q] += (double)a - (double)b;
+        }
+      }
     }
-    w.tle[e] = (float)s;
-    mine += s;
+    if (tb.est[e] < root) wide_sum2<G>(s[0], s[1], gm);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (e + q < E) {
+        if (((e + q) & (G - 1)) == lane) w.tle[e + q] = (float)s[q];
+        tl_d += s[q];
+      }
+    }
   }
-  tl = (float)wide_sum<G>(mine, gm);
+  tl = (float)tl_d;
   if (tb.leaf_status == 1) {
     B = tl;
   } else if (tb.leaf_status == -1) {
@@ -1675,31 +1792,36 @@ __device__ void wide_summaries(const Tables& tb, const WideWork& w, int lane,
   } else {
     // informative branches: at least one and not all data leaves below
     double b = 0.0;
-    for (int j = 0; j < N; ++j) {
-      const float pt = w.pt[j];
-      if (pt < BIG) {
-        const int c = w.cnt[j];
-        if (c >= 1 && c < tb.total_data) b += (double)pt - (double)w.t[j];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      if (h.pt[k] < BIG) {
+        const int c = w.cnt[h.j0 + k];
+        if (c >= 1 && c < tb.total_data)
+          b += (double)h.pt[k] - (double)h.t[k];
       }
     }
-    B = (float)b;
+    B = (float)wide_sum<G>(b, gm);
   }
 }
 
 // One trip of the particle in `w`: one_trip's steps for a tree in shared
 // memory.  Called by all lanes of a synchronised group with identical
-// scalars, w.tle and w.pt up to date; returns the same way.  ARG pushes
-// the trip's R and C rows into particle i's ARG ring, from row *an on.
+// scalars, w.tle and the chunks up to date; returns the same way.  ARG
+// pushes the trip's R and C rows into particle i's ARG ring, from row *an
+// on.
 template <int G, int ML, bool BIAS, bool VB, bool ARG = false>
-__device__ TripEvent wide_trip(const Tables& tb, const WideWork& w, int lane,
+__device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
+                               WideChunk<WIDE_CHUNK(G, ML)>& h, int lane,
                                unsigned gm, const float4 u, float* pend,
                                float& nr, float& up, float& lw, float& tl,
                                float& B, const Args* a = nullptr, int i = 0,
                                int* an = nullptr) {
-  constexpr int STRIPES = (2 * ML - 1 + G - 1) / G;
+  constexpr int C = WIDE_CHUNK(G, ML);
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
   const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
+  // the lane that holds node N - 1; the lanes after it hold none
+  const int last = (N - 1) / h.cr;
 
   // ---- extension: no-mutation likelihood + recombination opportunity ----
   const float delta = nr - up;
@@ -1709,136 +1831,211 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w, int lane,
   double h_r;  // the point's height; the trip's decisions take it in double
   float log_iw = 0.0f, strength = 1.0f;
   if constexpr (!BIAS) {
-    // ---- recombination point: first node whose prefix sum >= u*total ---
-    double total = 0.0;
-    for (int j = 0; j < N; ++j) {
-      const float pt = w.pt[j];
-      total += pt < BIG ? (double)pt - (double)w.t[j] : 0.0;
-    }
-    const double x_pt = (double)u_pt * total;
-    double prev = 0.0, cum = 0.0;
-    float t_cut = 0.0f;
-    for (int j = 0; j < N; ++j) {
-      const float pt = w.pt[j], t = w.t[j];
-      const double bl = pt < BIG ? (double)pt - (double)t : 0.0;
-      cum += bl;
-      if (c < 0 && cum >= x_pt) {
-        c = j;
-        prev = cum - bl;
-        t_cut = t;
-      }
-    }
-    h_r = (double)t_cut + (x_pt - prev);
-  } else {
-    // ---- height-biased point: the running sums over the (node, section)
-    // segments weighted by strength, node-major, one chain in every lane;
-    // each lane keeps the sums of its own pairs (q % G its lane) and
-    // searches them; the group's least hit is the first ----
-    const int S = tb.S, Q = N * S;
-    double wtot = 0.0, ptot = 0.0;
-    int q = 0;
-    for (int j = 0; j < N; ++j) {
-      const double t_j = w.t[j], pt_j = w.pt[j];
+    // ---- recombination point: first node whose running sum of branch
+    // lengths reaches u * total ----
+    double s = 0.0;
 #pragma unroll
-      for (int s = 0; s < MAX_SECTIONS; ++s) {
-        if (s < S) {
-          const double seg = pt_j < BIG
-              ? fmax(fmin(pt_j, (double)tb.bh[s + 1])
-                         - fmax(t_j, (double)tb.bh[s]), 0.0)
-              : 0.0;
-          wtot += seg * (double)tb.bs[s];
-          ptot += seg;
-          if ((q & (G - 1)) == lane) w.cum[q] = wtot;
-          ++q;
+    for (int k = 0; k < C; ++k)
+      s += h.pt[k] < BIG ? (double)h.pt[k] - (double)h.t[k] : 0.0;
+    double total;
+    const double ex = wide_prefix<G>(s, lane, gm, total);  // lanes before
+    const double end = ex + s;  // the running sum at my chunk's end
+    const double x_pt = (double)u_pt * total;
+    const unsigned hits = wide_ballot<G>(gm, lane <= last && end >= x_pt);
+    const int src = hits ? __ffs((int)hits) - 1 : -1;
+    int c_l = -1;
+    double hr_l = 0.0;
+    if (lane == src) {
+      double r = 0.0;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        if (c_l < 0 && k < h.cr && h.j0 + k < N) {
+          const double bl =
+              h.pt[k] < BIG ? (double)h.pt[k] - (double)h.t[k] : 0.0;
+          r += bl;
+          const double g = ex + r;
+          if (g >= x_pt) {
+            c_l = h.j0 + k;
+            hr_l = (double)h.t[k] + (x_pt - (g - bl));
+          }
         }
       }
     }
-    __syncwarp(gm);
-    const double x = (double)u_pt * wtot;
-    int mine = Q;
-    for (int k = lane; k < Q; k += G)
-      if (w.cum[k] >= x) {
-        mine = k;
-        break;
+    if (src >= 0) {
+      c = wide_from<G>(c_l, src, gm);
+      h_r = wide_from<G>(hr_l, src, gm);
+    } else {
+      h_r = x_pt;
+    }
+  } else {
+    // ---- height-biased point: the running sum over the (node, section)
+    // segments weighted by strength, node-major, found as the plain point
+    // is; the pairs of the hit lane's chunk are weighed again by that lane
+    const int S = tb.S;
+    double s = 0.0, ps = 0.0;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      if (h.pt[k] < BIG) {  // the root's lineage and padding weigh nothing
+        const double t_k = h.t[k], pt_k = h.pt[k];
+        for (int q = 0; q < S; ++q) {
+          const double seg = fmax(fmin(pt_k, (double)tb.bh[q + 1])
+                                  - fmax(t_k, (double)tb.bh[q]), 0.0);
+          s += seg * (double)tb.bs[q];
+          ps += seg;
+        }
       }
-    const int hit = wide_min<G>(mine, gm);
-    // the hit pair, or the last one; `prev` is the running sum before it
-    const int q_hit = hit < Q ? hit : Q - 1;
-    c = hit < Q ? q_hit / S : N - 1;
-    const int s_hit = q_hit - (q_hit / S) * S;
-    const double prev = q_hit > 0 ? w.cum[q_hit - 1] : 0.0;
-    const double lo_hit = fmax((double)w.t[q_hit / S], (double)tb.bh[s_hit]);
+    }
+    double wtot;
+    const double ex = wide_prefix<G>(s, lane, gm, wtot);
+    const double end = ex + s;
+    const double ptot = wide_sum<G>(ps, gm);
+    const double x = (double)u_pt * wtot;
+    const unsigned hits = wide_ballot<G>(gm, lane <= last && end >= x);
+    // no hit only where a sum is not a number: the last pair, as before
+    const int src = hits ? __ffs((int)hits) - 1 : last;
+    int c_l = -1, q_l = 0;
+    double hr_l = 0.0;
+    if (lane == src) {
+      double r = 0.0, prev = 0.0, lo = 0.0;
+      bool found = false;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        if (!found && k < h.cr && h.j0 + k < N) {
+          const double t_k = h.t[k], pt_k = h.pt[k];
+          for (int q = 0; q < S && !found; ++q) {
+            const double seg = pt_k < BIG
+                ? fmax(fmin(pt_k, (double)tb.bh[q + 1])
+                           - fmax(t_k, (double)tb.bh[q]), 0.0)
+                : 0.0;
+            prev = ex + r;
+            r += seg * (double)tb.bs[q];
+            found = ex + r >= x;
+            c_l = h.j0 + k;
+            q_l = q;
+            lo = fmax(t_k, (double)tb.bh[q]);
+          }
+        }
+      }
+      hr_l = lo + (x - prev) / fmax((double)tb.bs[q_l], 1e-30);
+    }
+    c = wide_from<G>(c_l, src, gm);
+    const int s_hit = wide_from<G>(q_l, src, gm);
+    h_r = wide_from<G>(hr_l, src, gm);
     strength = tb.bs[s_hit];
-    h_r = lo_hit + (x - prev) / fmax((double)strength, 1e-30);
-    log_iw = (float)(log(wtot) - log(fmax(ptot, 1e-30))
-                     - log(fmax((double)strength, 1e-30)));
+    // log(wtot) - log(ptot) - log(strength), one logarithm
+    log_iw = (float)log(wtot / (fmax(ptot, 1e-30)
+                                * fmax((double)strength, 1e-30)));
   }
 
   // ---- SMC' hazard inversion (one_trip's, in double) --------------------
+  // each epoch's hazard mass above h_r over every node, two epochs at a
+  // time, until the running hazard crosses x_exp in the epoch e*; an epoch
+  // that ends at or below h_r has none
   const double x_exp = -log1p(-(double)u_exp);
-  for (int e = lane; e < E; e += G)
-    w.full[e] = (float)wide_overlap(w, N, fmax((double)tb.est[e], h_r),
-                                    tb.eend[e], BIG);
-  __syncwarp(gm);
   int es = 0;         // last epoch whose start has lam <= x_exp
   double base = 0.0;  // lam at that epoch's start
+  int done = 0;       // epochs whose mass is in w.full
   {
     double run = 0.0;
-    for (int e = 0; e < E; ++e) {
-      if (!(run <= x_exp)) break;
+    for (; done < E && (double)tb.eend[done] <= h_r; ++done) {
+      if ((done & (G - 1)) == lane) w.full[done] = 0.0f;
+      es = done;
+    }
+    while (done < E && run <= x_exp) {
+      const int e = done;
+      const bool two = e + 1 < E;
+      double f0, f1;  // (f1 is 0 past the last epoch: an empty interval)
+      chunk_overlap2(h, fmax((double)tb.est[e], h_r), tb.eend[e],
+                     two ? fmax((double)tb.est[e + 1], h_r) : 0.0,
+                     two ? (double)tb.eend[e + 1] : 0.0, f0, f1);
+      wide_sum2<G>(f0, f1, gm);
+      if ((e & (G - 1)) == lane) w.full[e] = (float)f0;
+      if (two && ((e + 1) & (G - 1)) == lane) w.full[e + 1] = (float)f1;
+      done = e + 1 + two;
       es = e;
       base = run;
-      run += (double)w.full[e] * (double)tb.i2n[e];
+      run += f0 * (double)tb.i2n[e];
+      if (two && run <= x_exp) {
+        es = e + 1;
+        base = run;
+        run += f1 * (double)tb.i2n[e + 1];
+      }
     }
   }
   const double lo_s = fmax((double)tb.est[es], h_r), hi_s = tb.eend[es];
   const double i2n_s = tb.i2n[es];
-  // node times inside epoch e* are the remaining candidates, lane-strided
-  float best = -BIG;
-  for (int k = lane; k < N; k += G) {
-    const float v = w.t[k];
-    if (v >= lo_s && v < hi_s) {
-      const double lam = base + wide_overlap(w, N, lo_s, hi_s, v) * i2n_s;
-      if (lam <= x_exp) best = fmaxf(best, v);
+  // the node times inside e* are the candidates for t_lo, the greatest
+  // with lam <= x_exp; visited in node order, each lane its chunk's
+  unsigned cand = 0u;
+#pragma unroll
+  for (int k = 0; k < C; ++k)
+    if ((double)h.t[k] >= lo_s && (double)h.t[k] < hi_s) cand |= 1u << k;
+  float ok_v = -BIG, no_v = BIG;  // the best accepted, the least refused
+  double lam_lo = base;           // lam at lo_s: nothing overlaps below it
+  for (;;) {
+    const unsigned has = wide_ballot<G>(gm, cand != 0u);
+    if (!has) break;
+    const int src = __ffs((int)has) - 1;
+    const int j = wide_from<G>(h.j0 + __ffs((int)cand) - 1, src, gm);
+    if (lane == src) cand &= cand - 1u;
+    const float v = w.t[j];
+    if (v <= ok_v || v >= no_v) continue;  // cannot move t_lo
+    const double lam =
+        base + wide_sum<G>(chunk_overlap(h, lo_s, hi_s, v), gm) * i2n_s;
+    if (lam <= x_exp) {
+      ok_v = v;
+      lam_lo = lam;
+    } else {
+      no_v = v;
     }
   }
-  const double t_lo = fmax((double)wide_max<G>(best, gm), lo_s);
-  const double lam_lo = base + wide_overlap(w, N, lo_s, hi_s, t_lo) * i2n_s;
-  unsigned bits[STRIPES];
-  const int k_lo = wide_crossing<G, ML>(w, N, lane, gm, t_lo, bits);
+  const double t_lo = fmax((double)ok_v, lo_s);
+  const int k_lo = wide_sum<G>(__popc(chunk_crossing(h, t_lo)), gm);
   const double rate_lo = (double)k_lo * i2n_s;
   const double t_c = rate_lo > 0.0
       ? fmin(t_lo + (x_exp - lam_lo) / rate_lo, 0.99 * 3e38)
       : 0.99 * 3e38;
 
   // ---- coalescence target: the r-th branch crossing t_c -----------------
-  const float kc = (float)wide_crossing<G, ML>(w, N, lane, gm, t_c, bits);
+  const unsigned cm = chunk_crossing(h, t_c);
+  const int mine = __popc(cm);
+  const int upto = wide_scan<G>(mine, lane, gm);  // crossings to my end
+  const float kc = (float)wide_from<G>(upto, G - 1, gm);
   const int r = (int)floorf(u_tgt * fmaxf(kc, 1.0f));
-  int d = -1, seen = 0;
-#pragma unroll
-  for (int k = 0; k < STRIPES; ++k) {
-    unsigned b = bits[k];
-    const int pc = __popc(b);
-    if (d < 0 && r < seen + pc) {
-      for (int skip = r - seen; skip > 0; --skip) b &= b - 1u;
-      d = k * G + __ffs((int)b) - 1;
-    }
-    seen += pc;
+  int d_l = -1;
+  if (r >= upto - mine && r < upto) {
+    unsigned b = cm;
+    for (int skip = r - (upto - mine); skip > 0; --skip) b &= b - 1u;
+    d_l = h.j0 + __ffs((int)b) - 1;
   }
+  const unsigned dh = wide_ballot<G>(gm, d_l >= 0);
+  const int d = dh ? wide_from<G>(d_l, __ffs((int)dh) - 1, gm) : -1;
 
   // ---- opportunity / count records (one_trip's layout) ------------------
+  // at most one epoch is cut at t_c (lo_e < t_c < hi_e): its opportunity
+  // below t_c over every node; below it each epoch's whole mass, above 0
+  for (int e = done; e < E && (double)tb.eend[e] <= t_c; ++e) {
+    // past e* only where t_c is clamped above every epoch's start
+    const double f = wide_sum<G>(
+        chunk_overlap(h, fmax((double)tb.est[e], h_r), tb.eend[e], BIG), gm);
+    if ((e & (G - 1)) == lane) w.full[e] = (float)f;
+  }
+  int ecut = -1;
+  for (int e = 0; e < E; ++e)
+    if (!((double)tb.eend[e] <= t_c)
+        && !(fmax((double)tb.est[e], h_r) >= t_c))
+      ecut = e;
+  const double cut_opp = ecut >= 0
+      ? wide_sum<G>(chunk_overlap(h, fmax((double)tb.est[ecut], h_r),
+                                  tb.eend[ecut], t_c), gm)
+      : 0.0;
   int key_epoch = E;
   float vbv = 0.0f;
   for (int e = lane; e < E; e += G) {
     const double st_e = tb.est[e], hi_e = tb.eend[e];
     const double lo_e = fmax(st_e, h_r);
-    double coal_opp;
-    if (hi_e <= t_c)
-      coal_opp = w.full[e];  // no branch of the epoch is cut at t_c
-    else if (lo_e >= t_c)
-      coal_opp = 0.0;
-    else
-      coal_opp = wide_overlap(w, N, lo_e, hi_e, t_c);
+    const double coal_opp = hi_e <= t_c ? (double)w.full[e]
+        : e == ecut ? cut_opp : 0.0;
     const double span = fmax(fmin(hi_e, t_c) - lo_e, 0.0);
     const bool in_c = t_c >= st_e && t_c < hi_e;
     const bool in_r = h_r >= st_e && h_r < hi_e;
@@ -1918,9 +2115,8 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w, int lane,
   __syncwarp(gm);
 
   // ---- refreshed tree summaries, then the next gap ----------------------
-  wide_parent_times<G>(w, N, lane);
-  __syncwarp(gm);
-  wide_summaries<G>(tb, w, lane, gm, tl, B);
+  wide_chunk_load<G>(w, N, lane, h);
+  wide_summaries<G>(tb, w, h, lane, gm, tl, B);
   const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
   up = nr;
   nr = nr + gap;
@@ -1929,7 +2125,8 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w, int lane,
 }
 
 template <int G, int ML>
-__global__ void __launch_bounds__(BLOCK) trip_wide_kernel(const Args a) {
+__global__ void __launch_bounds__(BLOCK, WIDE_MIN_BLOCKS)
+    trip_wide_kernel(const Args a) {
   extern __shared__ float smem[];
   WideWork w;
   float* unused;
@@ -1943,8 +2140,12 @@ __global__ void __launch_bounds__(BLOCK) trip_wide_kernel(const Args a) {
   const bool active = nr < a.L;  // else every output stays as it is
   float up = 0.0f, lw = 0.0f, tl = 0.0f, B = 0.0f;
   if (active) {
-    wide_load_tree<G>(a, w, i, N, lane);
-    for (int e = lane; e < E; e += G) w.tle[e] = a.tl_e[(size_t)i * E + e];
+    wide_load_tree<G, ML>(a, w, i, N, lane);
+#pragma unroll
+    for (int q = 0; q < MAX_EPOCHS / G; ++q) {
+      const int e = lane + q * G;
+      if (e < E) w.tle[e] = a.tl_e[(size_t)i * E + e];
+    }
     up = a.upd[i], lw = a.log_w[i], tl = a.tl[i], B = a.B[i];
   }
   __syncthreads();
@@ -1952,18 +2153,19 @@ __global__ void __launch_bounds__(BLOCK) trip_wide_kernel(const Args a) {
   Tables tb;
   wide_bind_tables<ML>(a, smem, tb, false, false, false);
   float* pend = a.pending + (size_t)i * 6 * E;
-  wide_parent_times<G>(w, N, lane);
-  __syncwarp(gm);
+  WideChunk<WIDE_CHUNK(G, ML)> h;
+  wide_chunk_load<G>(w, N, lane, h);
 
   float4 u = load_uniforms(a, 0, i);
   for (int k = 0; k < a.trips; ++k) {
     if (!(nr < a.L)) break;
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
-    wide_trip<G, ML, false, false>(tb, w, lane, gm, u, pend, nr, up, lw, tl,
-                                   B);
+    wide_trip<G, ML, false, false>(tb, w, h, lane, gm, u, pend, nr, up, lw,
+                                   tl, B);
     u = u_next;
   }
 
+  __syncwarp(gm);
   wide_store_tree<G>(a, w, i, N, lane);
   for (int e = lane; e < E; e += G) a.tl_e[(size_t)i * E + e] = w.tle[e];
   if (lane == 0) {
@@ -2025,14 +2227,17 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
   int an = 0;  // ARG: the ring's rows pushed so far
   wide_stage_tables<ML>(a, smem, true, BIAS, VB);
   if (live) {
-    wide_load_tree<G>(a, w, i, N, lane);
+    wide_load_tree<G, ML>(a, w, i, N, lane);
     for (int k = lane; k < K; k += G) pend[k] = 0.0f;
     nr = a.next_rec[i], lw = a.log_w[i];
     if constexpr (ARG) an = a.arg_n[i];
     if constexpr (BIAS) {
       lp = a.log_pilot[i];
-      for (int s = lane; s < D; s += G)
-        w.rpos[s] = a.df_pos[(size_t)i * D + s];
+#pragma unroll
+      for (int k = 0; k < SLOTS; ++k) {
+        const int s = lane + k * G;
+        if (s < D) w.rpos[s] = a.df_pos[(size_t)i * D + s];
+      }
     }
   }
   __syncthreads();
@@ -2054,10 +2259,10 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
   }
   Tables tb;
   wide_bind_tables<ML>(a, smem, tb, true, BIAS, VB);
-  wide_parent_times<G>(w, N, lane);
-  __syncwarp(gm);
+  WideChunk<WIDE_CHUNK(G, ML)> h;
+  wide_chunk_load<G>(w, N, lane, h);
   float tl, B;
-  wide_summaries<G>(tb, w, lane, gm, tl, B);  // at segment entry
+  wide_summaries<G>(tb, w, h, lane, gm, tl, B);  // at segment entry
 
   bool moved = false;
   float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -2067,7 +2272,7 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
     const float delta = nr - up, B_pre = B;
     const TripEvent ev = wide_trip<G, ML, BIAS, VB, ARG>(
-        tb, w, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &an);
+        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &an);
     if (VB) lw = lw + ev.vb;
     if constexpr (BIAS) {
       // segment_pass_body's weights (smc.py:968-1020)
@@ -2131,10 +2336,19 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
   __syncwarp(gm);
 
   // ---- push the segment's statistics into FIFO slot 0 -------------------
+  // four of the lane's entries at a time, their reads under way together
   float* slot = a.fifo + (size_t)i * a.fifo_stride;
-  for (int k = lane; k < K; k += G) {
-    const float v = pend[k] * tb.gate[k];
-    if (v != 0.0f) slot[k] += v;
+  for (int k0 = lane; k0 < K; k0 += 4 * G) {
+    float v[4], old[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = k0 + q * G;
+      v[q] = k < K ? pend[k] * tb.gate[k] : 0.0f;
+      old[q] = v[q] != 0.0f ? slot[k] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (v[q] != 0.0f) slot[k0 + q * G] = old[q] + v[q];
   }
 
   if (moved) wide_store_tree<G>(a, w, i, N, lane);
@@ -2163,14 +2377,14 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
 }
 
 template <int G, int ML, bool VB, bool ARG = false>
-__global__ void __launch_bounds__(BLOCK) segment_pass_wide_kernel(
-    const Args a) {
+__global__ void __launch_bounds__(BLOCK, WIDE_MIN_BLOCKS)
+    segment_pass_wide_kernel(const Args a) {
   wide_segment_body<G, ML, false, VB, ARG>(a);
 }
 
 template <int G, int ML, bool VB>
-__global__ void __launch_bounds__(BLOCK) segment_pass_biased_wide_kernel(
-    const Args a) {
+__global__ void __launch_bounds__(BLOCK, WIDE_MIN_BLOCKS)
+    segment_pass_biased_wide_kernel(const Args a) {
   wide_segment_body<G, ML, true, VB>(a);
 }
 
@@ -3101,11 +3315,9 @@ int resources_of(Kernel kernel, int threads, size_t bytes, int ppb,
 #if SMC_WIDE
 // dynamic shared bytes of a block of a wide pass or trip
 template <int G, int ML>
-size_t wide_bytes(int n, int E, bool segment, bool biased, bool vb, int S) {
-  const int N = 2 * n - 1;
+size_t wide_bytes(int n, int E, bool segment, bool biased, bool vb) {
   return sizeof(float)
-      * (size_t)wide_block_words<ML>(G, N, E, segment, biased, vb)
-      + (biased ? sizeof(double) * (size_t)(BLOCK / G) * N * S : 0);
+      * (size_t)wide_block_words<ML>(G, 2 * n - 1, E, segment, biased, vb);
 }
 
 // A wide kernel for the run-time flags: launched (res == nullptr) or asked
@@ -3113,7 +3325,7 @@ size_t wide_bytes(int n, int E, bool segment, bool biased, bool vb, int S) {
 template <int G, int ML>
 int wide_variant(const Args& a, bool segment, bool biased, bool vb, bool arg,
                  cudaStream_t s, int* res) {
-  const size_t bytes = wide_bytes<G, ML>(a.n, a.E, segment, biased, vb, a.S);
+  const size_t bytes = wide_bytes<G, ML>(a.n, a.E, segment, biased, vb);
   void (*kernel)(const Args) =
       !segment ? trip_wide_kernel<G, ML>
       : biased ? (vb ? segment_pass_biased_wide_kernel<G, ML, true>
@@ -3129,17 +3341,18 @@ int wide_variant(const Args& a, bool segment, bool biased, bool vb, bool arg,
 
 }  // namespace
 
-// the wide instantiation for n leaves: 16 lanes per particle up to 16
-// leaves, a warp above (arg: the plain pass's ARG variant)
+// the wide instantiation for n leaves: 8 lanes per particle up to 16
+// leaves (16 particles a block), 16 above (8 a block); arg: the plain
+// pass's ARG variant
 extern "C" int smc_wide_dispatch(const void* args, int segment, int biased,
                                  int vb, int arg, void* stream, int* res) {
   const Args& a = *static_cast<const Args*>(args);
   cudaStream_t s = (cudaStream_t)stream;
   if (arg && (!segment || biased)) return (int)cudaErrorInvalidValue;
   return a.n <= 16
-      ? wide_variant<16, 16>(a, segment != 0, biased != 0, vb != 0,
-                             arg != 0, s, res)
-      : wide_variant<32, WIDE_MAX_LEAVES>(a, segment != 0, biased != 0,
+      ? wide_variant<8, 16>(a, segment != 0, biased != 0, vb != 0, arg != 0,
+                            s, res)
+      : wide_variant<16, WIDE_MAX_LEAVES>(a, segment != 0, biased != 0,
                                           vb != 0, arg != 0, s, res);
 }
 

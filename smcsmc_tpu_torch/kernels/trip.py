@@ -1076,8 +1076,8 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     and the card's SMs (:data:`RESOURCES`), and from those the particles an
     SM holds and the waves a launch of :data:`WAVES_AT` particles takes.  ``variant`` is a key of :data:`RESOURCE_VARIANTS`
     (n picks the instantiation: 7 padded nodes up to 4 leaves, 15 up to 8;
-    above 8 the wide kernels, 16 lanes per particle up to 16 leaves and a
-    warp up to 64;
+    above 8 the wide kernels, 8 lanes per particle up to 16 leaves and 16
+    up to 64;
     ``vb`` a pass's VB variant, ``guide`` the biased pass's guided one,
     ``local`` the plain or biased pass's local recording, ``arg`` the
     plain, biased or migration pass's ARG recording).  Raises on an

@@ -476,7 +476,7 @@ def _double(x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("biased", [False, True])
-@pytest.mark.parametrize("n,E", [(16, 9), (64, 9), (64, 64)])
+@pytest.mark.parametrize("n,E", [(16, 9), (17, 9), (64, 9), (64, 64)])
 def test_cuda_wide_segment_pass_matches_plain(n, E, biased):
     """The wide plain and biased passes on the card against the plain
     version run in float64 on the same inputs: one trip with no tree
@@ -547,7 +547,7 @@ def test_cuda_wide_segment_pass_matches_plain(n, E, biased):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 64])
+@pytest.mark.parametrize("n", [16, 17, 64])
 def test_cuda_wide_trip_matches_plain(n):
     """The wide ``trip`` on the card against ``trip_plain`` in float64,
     one trip and 64; 64 trips in one launch equal 64 launches of one."""

@@ -96,38 +96,38 @@ LAUNCHES = (
 )
 
 
-def build(text: str, name: str) -> ctypes.CDLL:
-    """``text`` (a trip.cu) as a host library ``build/rehearse/<name>.so``."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def build(text: str, name: str, out: Path = OUT) -> ctypes.CDLL:
+    """``text`` (a trip.cu) as a host library ``<out>/<name>.so``."""
+    out.mkdir(parents=True, exist_ok=True)
     for old, new in LAUNCHES:
         text = text.replace(old, new)
-    src = OUT / f"{name}.cpp"
+    src = out / f"{name}.cpp"
     src.write_text(text)
-    lib = OUT / f"{name}.so"
+    lib = out / f"{name}.so"
     subprocess.run(
         ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-pthread",
          "-shared", "-fPIC", f"-I{HERE}", "-include", "cuda_runtime.h",
          "-o", str(lib), str(src), str(HERE / "host_glue.cpp")], check=True)
-    out = ctypes.CDLL(str(lib))
+    dll = ctypes.CDLL(str(lib))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # a source with VB takes its two tables before the stream, one with
     # the guide and local recording their eight pointers and three sizes
-    out.vb = "vb_coal" in text
-    out.gl = "cum_mass" in text
-    out.arg = "arg_desc" in text
-    out.smc_segment_pass_launch.argtypes = [
+    dll.vb = "vb_coal" in text
+    dll.gl = "cum_mass" in text
+    dll.arg = "arg_desc" in text
+    dll.smc_segment_pass_launch.argtypes = [
         vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         cf, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, cf, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-        ci, ci, ci] + [vp, vp] * out.vb + [
-            vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, vp, ci] * out.gl + [
-            vp, vp, vp, vp, vp, vp, vp, ci] * out.arg + [vp]
-    out.smc_segment_pass_launch.restype = ci
-    out.smc_trip_launch.argtypes = [
+        ci, ci, ci] + [vp, vp] * dll.vb + [
+            vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, vp, ci] * dll.gl + [
+            vp, vp, vp, vp, vp, vp, vp, ci] * dll.arg + [vp]
+    dll.smc_segment_pass_launch.restype = ci
+    dll.smc_trip_launch.argtypes = [
         vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         cf, cf, cf, vp, vp, vp, vp]
-    out.smc_trip_launch.restype = ci
-    return out
+    dll.smc_trip_launch.restype = ci
+    return dll
 
 
 def case(P, n, E, S, ls, T, L, nr_scale, seed, full=False, empty=False,
@@ -430,8 +430,8 @@ def rehearse_guide() -> int:
 def wide_cases():
     """The ``--wide`` cases: (n, E, P) x leaf status x (trips, L)."""
     out = []
-    for n, E, P in ((9, 9, 45), (16, 9, 70), (16, 64, 37), (33, 64, 30),
-                    (64, 9, 26), (64, 64, 23)):
+    for n, E, P in ((9, 9, 45), (16, 9, 70), (16, 64, 37), (17, 9, 25),
+                    (33, 64, 30), (64, 9, 26), (64, 64, 23)):
         for ls in (1, 0, -1):
             for T, L, nr_scale in ((1, 20000.0, 1.5), (64, cs.MAX_SEG, 0.1)):
                 out.append(dict(P=P, n=n, E=E, S=2 if E == 9 else 8, ls=ls,
@@ -471,58 +471,70 @@ TRIP_FIELDS = ("time", "parent", "child0", "child1", "next_rec", "upd",
                "log_w", "tl", "B", "tl_e", "pending")
 
 
-def rehearse_wide(quick: bool) -> int:
-    """The ``--wide`` check of the module docstring."""
+def check_wide(lib, c, seed, vb_seed=None):
+    """One ``--wide`` case ``c`` (a dict of :func:`case`'s arguments) made
+    from ``seed``: the plain and the biased pass of ``lib`` (with a VB
+    table drawn from ``vb_seed`` where one is given) and its ``trip``
+    against their plain versions run in float64.  Prints a line for each
+    and returns a list of (name, good, worst share of a tolerance)."""
     from smcsmc_tpu_torch.kernels.bias import BiasedPass
     from smcsmc_tpu_torch.kernels.trip import disagreement, segment_pass_plain
 
-    new = build((ROOT / SOURCE).read_text(), "tree")
+    st, f = case(seed=seed, **c)
+    vb = vb_table(f["E"], vb_seed) if vb_seed is not None else None
+    # the reference: the plain version in float64
+    st_r, f_r, vb_r = (cs._in_double(x) for x in (st, f, vb))
+    results = []
+    for biased in (False, True):
+        got = run(lib, st, f, biased, vb)
+        ref = {k: v.clone() for k, v in st_r.items()}
+        b = (BiasedPass(ref["log_pilot"], ref["df_pos"], ref["df_logf"],
+                        ref["df_delta"], ref["df_k"], f_r["heights"],
+                        f_r["strengths"], f_r["delays"], f["front"],
+                        ("recomb", "coal")[f["delay_type"]], f["delay_k"])
+             if biased else None)
+        segment_pass_plain(
+            f_r["u"], f["ls"], *(ref[k] for k in cs.SEGMENT_STATE),
+            ref["fifo"], f_r["mask"], ref["tl"], f["L"], cs.MU, cs.RHO,
+            f_r["start"], f_r["inv2ne"], f["hd"], b,
+            vb=None if vb is None else (
+                vb_r[:, None], torch.zeros((f["E"], 1, 1),
+                                           dtype=vb_r.dtype)))
+        keys = cs.SEGMENT_STATE + (("log_pilot", "df_pos", "df_logf",
+                                    "df_delta", "df_k") if biased else ())
+        results.append((f"{'biased' if biased else 'plain'}"
+                        f"{' vb' if vb is not None else ''}",
+                        [{**{k: x[k] for k in keys}, "tl": x["tl"],
+                          "pending": x["fifo"][:, 0]}
+                         for x in (got, ref)]))
+    got, ref = run_trip(lib, st, f), run_trip(None, st_r, f_r)
+    results.append(("trip", [{k: x[k] for k in TRIP_FIELDS}
+                             for x in (got, ref)]))
+    out = []
+    for name, res in results:
+        # the float64 answer as the float32 the kernel stores
+        res[1] = {k: v.float() if v.dtype == torch.float64 else v
+                  for k, v in res[1].items()}
+        trees, floats, errs = disagreement(*res, f["L"], cs.MU, 1e-4)
+        moved = int((res[1]["parent"] != st["parent"]).any(1).sum())
+        good = not trees.any() and not floats.any()
+        worst = max(errs, key=lambda k: errs[k][1])
+        print(f"wide {name} {c}: {int(trees.sum())} trees, "
+              f"{int(floats.sum())} floats apart ({moved} trees moved; "
+              f"worst {worst} at {errs[worst][1]:.3g} of its "
+              f"tolerance) -> {'ok' if good else 'FAIL'}", flush=True)
+        out.append((name, good, errs[worst][1]))
+    return out
+
+
+def rehearse_wide(quick: bool) -> int:
+    """The ``--wide`` check of the module docstring."""
+    lib = build((ROOT / SOURCE).read_text(), "tree")
     failed = 0
     todo = wide_cases()[::3] if quick else wide_cases()
     for j, c in enumerate(todo):
-        st, f = case(seed=900 + j, **c)
-        vb = vb_table(f["E"], j) if j % 2 else None
-        # the reference: the plain version in float64
-        st_r, f_r, vb_r = (cs._in_double(x) for x in (st, f, vb))
-        results = []
-        for biased in (False, True):
-            got = run(new, st, f, biased, vb)
-            ref = {k: v.clone() for k, v in st_r.items()}
-            b = (BiasedPass(ref["log_pilot"], ref["df_pos"], ref["df_logf"],
-                            ref["df_delta"], ref["df_k"], f_r["heights"],
-                            f_r["strengths"], f_r["delays"], f["front"],
-                            ("recomb", "coal")[f["delay_type"]], f["delay_k"])
-                 if biased else None)
-            segment_pass_plain(
-                f_r["u"], f["ls"], *(ref[k] for k in cs.SEGMENT_STATE),
-                ref["fifo"], f_r["mask"], ref["tl"], f["L"], cs.MU, cs.RHO,
-                f_r["start"], f_r["inv2ne"], f["hd"], b,
-                vb=None if vb is None else (
-                    vb_r[:, None], torch.zeros((f["E"], 1, 1),
-                                               dtype=vb_r.dtype)))
-            keys = cs.SEGMENT_STATE + (("log_pilot", "df_pos", "df_logf",
-                                        "df_delta", "df_k") if biased else ())
-            results.append((f"{'biased' if biased else 'plain'}"
-                            f"{' vb' if vb is not None else ''}",
-                            [{**{k: x[k] for k in keys}, "tl": x["tl"],
-                              "pending": x["fifo"][:, 0]}
-                             for x in (got, ref)]))
-        got, ref = run_trip(new, st, f), run_trip(None, st_r, f_r)
-        results.append(("trip", [{k: x[k] for k in TRIP_FIELDS}
-                                 for x in (got, ref)]))
-        for name, res in results:
-            # the float64 answer as the float32 the kernel stores
-            res[1] = {k: v.float() if v.dtype == torch.float64 else v
-                      for k, v in res[1].items()}
-            trees, floats, errs = disagreement(*res, f["L"], cs.MU, 1e-4)
-            moved = int((res[1]["parent"] != st["parent"]).any(1).sum())
-            good = not trees.any() and not floats.any()
-            worst = max(errs, key=lambda k: errs[k][1])
-            print(f"wide {name} {c}: {int(trees.sum())} trees, "
-                  f"{int(floats.sum())} floats apart ({moved} trees moved; "
-                  f"worst {worst} at {errs[worst][1]:.3g} of its "
-                  f"tolerance) -> {'ok' if good else 'FAIL'}", flush=True)
-            failed += not good
+        failed += sum(not good for _, good, _ in check_wide(
+            lib, c, 900 + j, j if j % 2 else None))
     print(f"{failed} of the wide cases fail")
     return 1 if failed else 0
 
