@@ -45,8 +45,16 @@
 //                 by each branch's guide rate (the leaves' rates at the
 //                 event's window, merged bottom up by lane 0 over the tree
 //                 in shared memory), and the gap is drawn in guide mass
-//                 through a search of the chunk's mass table in device
-//                 memory.  LOCAL (plain or biased) pushes each trip's local
+//                 through a binary search of the chunk's mass table.  What
+//                 bounds the guide is the latency of its dependent loads
+//                 (a few hundred cycles each from device memory on an
+//                 H100), so each block stages in shared memory the pivots
+//                 of the search's first nine steps (kernels/guide.py's
+//                 search_pivots, a copy by node of its decision tree: the
+//                 search's own path and values); each position's mass is
+//                 looked up once, and the leaves' rates are under way
+//                 with it.
+//                 LOCAL (plain or biased) pushes each trip's local
 //                 recombination event (position, due position, height, the
 //                 cut branch's leaves from a ballot over the tree before
 //                 the SPR) into the particle's ring in device memory, the
@@ -148,6 +156,7 @@
 #define MIG_PPB 2  // particles (warps) per migration block
 #define MIG_MIN_BLOCKS 10  // resident migration blocks per SM: <= 96 registers
 #define BIAS_MIN_BLOCKS 5  // resident biased blocks per SM: 80 particles
+#define GUIDE_TOP 512  // the guide's search's first 9 steps: pivots by node
 #define BIG 3e38f
 
 // VB on or off: each pass has a compile-time variant with VB and one
@@ -231,6 +240,7 @@ struct Args {
   const float* g_rel;     // [Wg] rate relative to rho by window
   const float* cum_mass;  // [Wg + 1] guide mass (bp) at window boundaries
   const float* g_leaf;    // [Wg, n] relative rate of each leaf
+  const float* g_top;     // [GUIDE_TOP] the search's first pivots by node
   int Wg;
   float ws;               // window size (bp)
   // local recording (lr_pos == nullptr: off); the ring [P, R]
@@ -269,6 +279,9 @@ struct Tables {
   const float* g_rel;     // the guide's tables, in device memory (GUIDE)
   const float* cum_mass;
   const float* g_leaf;
+  // GUIDE, in shared memory: the pivots of the mass table's search by
+  // node (heap order) of its first steps' decision tree [GUIDE_TOP]
+  const float* g_top;
   int n, N, E, total_data, leaf_status, S, delay_type, Wg;
   float L, mu, rho, front, ws;
 };
@@ -311,10 +324,9 @@ struct Work {
   float* wseg;
   float* cum;
   // GUIDE: the branches' guide rates [N], the internal nodes in time order
-  // [MAX_LEAVES], the segments weighted by the strengths alone [N S]
+  // [MAX_LEAVES]
   float* rate;
   int* order;
-  float* wsegb;
 };
 
 // one particle's node and parent times in registers, padded to NP nodes
@@ -327,22 +339,24 @@ struct Heights {
   float pt[NP];
 };
 
+// guide: the guided pass's staged pivots
 __host__ __device__ inline int tables_words(int E, bool with_gate,
                                             bool biased, bool vb = false,
-                                            bool local = false) {
+                                            bool local = false,
+                                            bool guide = false) {
   return 3 * E + MAX_LEAVES + (with_gate ? 6 * E : 0)
       + (biased ? 2 * MAX_SECTIONS + 1 + E : 0) + (vb ? E : 0)
-      + (local ? E : 0);
+      + (local ? E : 0) + (guide ? GUIDE_TOP : 0);
 }
 
 // S: the biased pass's sections (its point's scratch is 3 N S words; the
-// guided one's 4 N S, its rates N and order MAX_LEAVES more)
+// guided one's rates N and order MAX_LEAVES more)
 __host__ __device__ inline int work_words(int N, int E, bool with_pending,
                                           bool biased, int S,
                                           bool guide = false) {
   return (5 * N + 2 * E + (with_pending ? 6 * E : 0)
           + (biased ? 4 * MAX_DELAY_SLOTS + 3 * N * S : 0)
-          + (guide ? N + MAX_LEAVES + N * S : 0)) | 1;  // odd
+          + (guide ? N + MAX_LEAVES : 0)) | 1;  // odd
 }
 
 __device__ __forceinline__ float clip_u(float u) {
@@ -415,12 +429,13 @@ __device__ __forceinline__ void wait_copies() {
 }
 
 // Block-wide: the epoch tables (and, for segment_pass, the FIFO gate; for
-// the biased pass the sections and delays) on their way into shared
-// memory.  No barrier here: the caller starts its own loads too, so that
-// all of them are in flight together, and then calls __syncthreads().
+// the biased pass the sections and delays; for the guided pass the
+// search's first pivots) on their way into shared memory.  No barrier
+// here: the caller starts its own loads too, so that all of them are in
+// flight together, and then calls __syncthreads().
 __device__ void stage_tables(const Args& a, float* smem, bool with_gate,
                              bool biased, bool vb = false,
-                             bool local = false) {
+                             bool local = false, bool guide = false) {
   const int E = a.E;
   float* s_est = smem;
   float* s_eend = smem + E;
@@ -456,6 +471,12 @@ __device__ void stage_tables(const Args& a, float* smem, bool with_gate,
     float* s_lag = smem + tables_words(E, with_gate, biased, vb);
     for (int e = threadIdx.x; e < E; e += blockDim.x) s_lag[e] = a.lags[e];
   }
+  if (guide) {
+    // under way at once (the caller waits for them before its barrier)
+    float* s_top = smem + tables_words(E, with_gate, biased, vb, local);
+    for (int h = threadIdx.x; h < GUIDE_TOP; h += blockDim.x)
+      copy_word_async(&s_top[h], &a.g_top[h]);
+  }
 }
 
 // After the barrier that follows stage_tables (vb: the VB table was
@@ -480,6 +501,7 @@ __device__ void bind_tables(const Args& a, float* smem, Tables& tb,
     tb.g_leaf = a.g_leaf;
     tb.Wg = a.Wg;
     tb.ws = a.ws;
+    tb.g_top = smem + tables_words(E, true, biased, vb, local);
   }
   tb.front = a.front;
   tb.S = a.S;
@@ -502,7 +524,7 @@ __device__ int carve(const Args& a, float* smem, bool segment, bool biased,
                      bool guide = false) {
   const int E = a.E, N = 2 * a.n - 1;
   const int group = threadIdx.x / GROUP;
-  float* base = smem + tables_words(E, segment, biased, vb, local)
+  float* base = smem + tables_words(E, segment, biased, vb, local, guide)
       + (size_t)group * work_words(N, E, segment, biased, a.S, guide);
   w.t = base;
   w.par = reinterpret_cast<int*>(base + N);
@@ -522,7 +544,6 @@ __device__ int carve(const Args& a, float* smem, bool segment, bool biased,
   w.cum = w.wseg + N * a.S;
   w.rate = w.cum + N * a.S;
   w.order = reinterpret_cast<int*>(w.rate + N);
-  w.wsegb = w.rate + N + MAX_LEAVES;
   return blockIdx.x * (blockDim.x / GROUP) + group;
 }
 
@@ -628,20 +649,40 @@ __device__ __forceinline__ float overlap_below(const Heights<NP>& h, float lo,
   return s;
 }
 
-// GUIDE: the guide mass (bp) at position x, from its window's boundary
-// mass and rate (mass() of smc.py:792; the first or last window beyond the
-// table's ends)
-__device__ __forceinline__ float guide_mass(const Tables& tb, float x) {
-  const float q = fminf(fmaxf(floorf(x / tb.ws), 0.0f), (float)(tb.Wg - 1));
-  const int i = (int)q;
+// GUIDE: the window of position x, the first or last beyond the table's
+// ends (the window of mass() of smc.py:792, and of the leaves' rates)
+__device__ __forceinline__ int guide_window(const Tables& tb, float x) {
+  return (int)fminf(fmaxf(floorf(x / tb.ws), 0.0f), (float)(tb.Wg - 1));
+}
+
+// GUIDE: the guide mass (bp) at position x in its window i, from the
+// window's boundary mass and rate (mass() of smc.py:792)
+__device__ __forceinline__ float guide_mass(const Tables& tb, int i,
+                                            float x) {
   return tb.cum_mass[i] + (x - (float)i * tb.ws) * tb.g_rel[i];
 }
 
+__device__ __forceinline__ float guide_mass(const Tables& tb, float x) {
+  return guide_mass(tb, guide_window(tb, x), x);
+}
+
 // GUIDE: the position of guide mass m (inv_mass() of smc.py:796): the last
-// window boundary at or below m, by binary search of the table in device
-// memory (every lane the same addresses), plus the rest at its rate
+// window boundary at or below m, by binary search of the table (every lane
+// the same addresses), plus the rest at its rate.  The first steps' pivots
+// come from the block's copy of them by node of the search's decision tree
+// (g_top, heap order: the search's own path and values), the later ones
+// from device memory.
 __device__ __forceinline__ float guide_inv_mass(const Tables& tb, float m) {
   int lo = 0, hi = tb.Wg + 1;  // the first boundary above m is in [lo, hi]
+  for (int h = 1; h < GUIDE_TOP && lo < hi;) {
+    const int mid = (lo + hi) >> 1;
+    const int right = tb.g_top[h] <= m ? 1 : 0;
+    if (right)
+      lo = mid + 1;
+    else
+      hi = mid;
+    h = 2 * h + right;
+  }
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (tb.cum_mass[mid] <= m)
@@ -654,12 +695,12 @@ __device__ __forceinline__ float guide_inv_mass(const Tables& tb, float m) {
       + (m - tb.cum_mass[j]) / fmaxf(tb.g_rel[j], 1e-30f);
 }
 
-// GUIDE: the survival weight over [x0, x1), rho tl (m(x1) - m(x0) - (x1 -
-// x0)) (span_log_iw() of smc.py:809)
+// GUIDE: the survival weight over [x0, x1) from the guide masses m0, m1 at
+// its ends, rho tl (m1 - m0 - (x1 - x0)) (span_log_iw() of smc.py:809)
 __device__ __forceinline__ float guide_span(const Tables& tb, float tl,
-                                            float x0, float x1) {
-  const float dm = guide_mass(tb, x1) - guide_mass(tb, x0);
-  return tb.rho * tl * (dm - (x1 - x0));
+                                            float x0, float x1, float m0,
+                                            float m1) {
+  return tb.rho * tl * ((m1 - m0) - (x1 - x0));
 }
 
 // One trip of the particle in `w` / `h`.  Called by all lanes of a
@@ -670,7 +711,8 @@ __device__ __forceinline__ float guide_span(const Tables& tb, float tl,
 // table entry of the coalescence's epoch (the one lane whose epoch holds
 // t_c reads it, the group sums it with zeros: exact).  GUIDE (with BIAS)
 // adds the extension's survival weight to lw and returns it, weighs the
-// point by the branches' guide rates and draws the gap in guide mass;
+// point by the branches' guide rates and draws the gap in guide mass,
+// *m_up the guide mass at front + up (kept from one trip to the next);
 // LOCAL pushes the trip's event into particle i's ring of `a`; ARG its R
 // and C rows into the particle's ARG ring, from row *an on.
 template <int NP, bool BIAS, bool VB = false, bool GUIDE = false,
@@ -680,7 +722,8 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
                               float* pend, float& nr, float& up, float& lw,
                               float& tl, float& B,
                               const Args* a = nullptr, int i = 0,
-                              LocalRing* ring = nullptr, int* an = nullptr) {
+                              LocalRing* ring = nullptr, int* an = nullptr,
+                              float* m_up = nullptr) {
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
   const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
@@ -689,9 +732,17 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   const float delta = nr - up;
   lw = lw - tb.mu * B * delta;
   float liw = 0.0f;
+  float m_nr = 0.0f, leaf_rate = 0.0f;  // GUIDE: at the event's position
   if constexpr (GUIDE) {
-    // the guide's survival weight over the extension (smc.py:903-914)
-    liw = guide_span(tb, tl, tb.front + up, tb.front + nr);
+    // the guide's survival weight over the extension (smc.py:903-914);
+    // the mass at its start is the last trip's (*m_up), the window of its
+    // end gives the mass there and lane l leaf l's rate, all under way
+    // together
+    const float x0 = tb.front + up, x1 = tb.front + nr;
+    const int win = guide_window(tb, x1);
+    if (lane < tb.n) leaf_rate = tb.g_leaf[(size_t)win * tb.n + lane];
+    m_nr = guide_mass(tb, win, x1);
+    liw = guide_span(tb, tl, x0, x1, *m_up, m_nr);
     lw = lw + liw;
   }
 
@@ -728,16 +779,13 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
     const int S = tb.S, Q = N * S;
     if constexpr (GUIDE) {
       // the branches' guide rates (transition.py:124): the leaves' rates
-      // at the event's window; each lane ranks one internal node in the
-      // stable order of the times; lane 0 merges them in that order (the
-      // mean of the children's rates) and gives both children of the last
-      // the larger of their two rates
-      const float q = (tb.front + nr) / tb.ws;
-      const int win = q >= (float)(tb.Wg - 1) ? tb.Wg - 1
-                                              : (q > 0.0f ? (int)q : 0);
+      // at the event's window (under way since the extension); each lane
+      // ranks one internal node in the stable order of the times; lane 0
+      // merges them in that order (the mean of the children's rates) and
+      // gives both children of the last the larger of their two rates
       const int n = tb.n;
       for (int j = lane; j < N; j += GROUP)
-        w.rate[j] = j < n ? tb.g_leaf[(size_t)win * n + j] : 0.0f;
+        w.rate[j] = j < n ? leaf_rate : 0.0f;
       if (lane < n - 1) {
         const int v = n + lane;
         const float tv = w.t[v];
@@ -774,9 +822,7 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
               : 0.0f;
           w.seg[j * S + s] = seg;
           if constexpr (GUIDE) {
-            const float wb = seg * tb.bs[s];
-            w.wsegb[j * S + s] = wb;
-            w.wseg[j * S + s] = wb * r_j;
+            w.wseg[j * S + s] = seg * tb.bs[s] * r_j;
           } else {
             w.wseg[j * S + s] = seg * tb.bs[s];
           }
@@ -784,12 +830,18 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
       }
     }
     __syncwarp(gm);
+    // GUIDE: btot sums the segments weighted by the strengths alone, each
+    // product as the weighing took it (s_q: q's section)
     float wtot = 0.0f, ptot = 0.0f, btot = 0.0f;
+    int s_q = 0;
 #pragma unroll 4
     for (int q = 0; q < Q; ++q) {
       wtot += w.wseg[q];
       ptot += w.seg[q];
-      if constexpr (GUIDE) btot += w.wsegb[q];
+      if constexpr (GUIDE) {
+        btot += w.seg[q] * tb.bs[s_q];
+        s_q = s_q + 1 == S ? 0 : s_q + 1;
+      }
       if (q % GROUP == lane) w.cum[q] = wtot;
     }
     __syncwarp(gm);
@@ -1023,10 +1075,12 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   load_heights<NP>(w, N, h);
   summaries<NP>(tb, w, h, lane, gm, tl, B);
   if constexpr (GUIDE) {
-    // the gap in guide mass from the event's position (smc.py:802-808)
+    // the gap in guide mass from the event's position (smc.py:802-808),
+    // whose mass the extension read; it is the next extension's start
     const float gap_m = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
     const float at = tb.front + nr;
-    const float nxt = guide_inv_mass(tb, guide_mass(tb, at) + gap_m);
+    const float nxt = guide_inv_mass(tb, m_nr + gap_m);
+    *m_up = m_nr;
     up = nr;
     nr = nr + fmaxf(nxt - at, 1e-3f);
   } else {
@@ -1150,7 +1204,7 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   unsigned changed = 0u;
   LocalRing ring{0u, 0};  // LOCAL: this lane's free slots, until combined
   int an = 0;             // ARG: the ring's rows pushed so far
-  stage_tables(a, smem, true, BIAS, vb, LOCAL);
+  stage_tables(a, smem, true, BIAS, vb, LOCAL, GUIDE);
   if (live) {
     load_tree(a, w, i, N, lane);
     for (int k = lane; k < K; k += GROUP) pend[k] = 0.0f;
@@ -1170,6 +1224,7 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
           if (a.lr_pos[(size_t)i * a.R + s] >= 0.5f * BIG) ring.free |= 1u << s;
     }
   }
+  if constexpr (GUIDE) wait_copies();  // the guide's staged tables
   __syncthreads();
   if (!live) return;
   if constexpr (LOCAL) ring.free = group_or(ring.free, gm);
@@ -1195,6 +1250,8 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   load_heights<NP>(w, N, h);
   float tl, B;
   summaries<NP>(tb, w, h, lane, gm, tl, B);  // at segment entry
+  float m_up = 0.0f;  // GUIDE: the guide mass at front + up
+  if constexpr (GUIDE) m_up = guide_mass(tb, tb.front + up);
 
   bool moved = false;
   float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -1205,7 +1262,8 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
     const float delta = nr - up, B_pre = B;
     const TripEvent ev = one_trip<NP, BIAS, VB, GUIDE, LOCAL, ARG>(
-        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &ring, &an);
+        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &ring, &an,
+        &m_up);
     // the VB term follows the extension and comes before the importance
     // weight, in both weights (smc.py:951-967)
     if (vb) lw = lw + ev.vb;
@@ -1243,7 +1301,10 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   float liwf = 0.0f;
   if constexpr (GUIDE) {
     // the guide's survival weight of the final extension (smc.py:1123-1131)
-    if (delta > 0.0f) liwf = guide_span(tb, tl, tb.front + up, tb.front + a.L);
+    if (delta > 0.0f) {
+      const float x1 = tb.front + a.L;
+      liwf = guide_span(tb, tl, tb.front + up, x1, m_up, guide_mass(tb, x1));
+    }
     lw = lw + liwf;
   }
   for (int e = lane; e < E; e += GROUP) pend[4 * E + e] += delta * w.tle[e];
@@ -3407,7 +3468,7 @@ int segment_variant(const Args& a, bool biased, bool guide, bool local,
 size_t pass_bytes(int n, int E, bool segment, bool biased, bool vb,
                   bool guide, bool local, int S) {
   return sizeof(float)
-      * ((size_t)tables_words(E, segment, biased, vb, local)
+      * ((size_t)tables_words(E, segment, biased, vb, local, guide)
          + (size_t)(BLOCK / GROUP)
              * work_words(2 * n - 1, E, segment, biased, S, guide));
 }
@@ -3478,7 +3539,8 @@ int dispatch(const Args& a, bool segment, void* stream) {
     return (int)cudaErrorInvalidValue;
   if (a.g_rel != nullptr
       && (!segment || a.log_pilot == nullptr || a.cum_mass == nullptr
-          || a.g_leaf == nullptr || a.Wg < 1 || !(a.ws > 0.0f)))
+          || a.g_leaf == nullptr || a.g_top == nullptr || a.Wg < 1
+          || !(a.ws > 0.0f)))
     return (int)cudaErrorInvalidValue;
   if (a.lr_pos != nullptr
       && (!segment || a.R < 1 || a.R > MAX_LOCAL_SLOTS || a.lr_due == nullptr
@@ -3547,7 +3609,8 @@ extern "C" int smc_segment_pass_launch(
     const int* key, const float* ne, const float* mig, const float* tot_mig,
     const int* pop_map, int Pp, int Mw, int max_events,
     const float* vb_coal, const float* vb_mig, const float* g_rel,
-    const float* cum_mass, const float* g_leaf, int Wg, float ws,
+    const float* cum_mass, const float* g_leaf, const float* g_top, int Wg,
+    float ws,
     float* lr_pos, float* lr_due, float* lr_time, long long* lr_desc,
     int* lr_dropped, const float* lags, float* ropp, int R, float* arg_pos,
     signed char* arg_code, float* arg_time, signed char* arg_from,
@@ -3609,6 +3672,7 @@ extern "C" int smc_segment_pass_launch(
   a.g_rel = g_rel;
   a.cum_mass = cum_mass;
   a.g_leaf = g_leaf;
+  a.g_top = g_top;
   a.Wg = Wg;
   a.ws = ws;
   a.lr_pos = lr_pos;

@@ -156,8 +156,9 @@ def load_trip_library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, ci,
         vp, vp,  # the VB tables vb_coal, vb_mig (0: VB off)
-        # the guide (0: off): g_rel, cum_mass, g_leaf; windows Wg, size ws
-        vp, vp, vp, ci, cf,
+        # the guide (0: off): g_rel, cum_mass, g_leaf, the search's first
+        # pivots; windows Wg, size ws
+        vp, vp, vp, vp, ci, cf,
         # local recording (0: off): lr_pos, lr_due, lr_time, lr_desc,
         # lr_dropped, lags, ropp; ring slots R
         vp, vp, vp, vp, vp, vp, vp, ci,

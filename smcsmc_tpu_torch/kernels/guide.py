@@ -13,7 +13,9 @@ over ``[x0, x1)`` takes the survival importance weight ``rho * tl *
 
 ``cum_mass`` is built on the host once per chunk, in float32, in the order
 of the JAX package's ``jnp.cumsum`` on the CPU (:func:`xla_cumsum`), so that
-both packages search the same table.
+both packages search the same table; beside it the pivots of the search's
+first steps (:func:`search_pivots`), which the guided kernels keep in
+shared memory.
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ import numpy as np
 import torch
 
 
+# nodes of the decision tree of the mass table's search whose pivots the
+# guided kernels keep (csrc/trip.cu's GUIDE_TOP): its first 9 steps
+SEARCH_NODES = 512
+
+
 class GuideTables(NamedTuple):
     """A guide resampled to the sweep's windows, on the device."""
 
@@ -31,6 +38,29 @@ class GuideTables(NamedTuple):
     cum_mass: torch.Tensor  # [Wg + 1] f32 mass at the window boundaries (bp)
     g_leaf: torch.Tensor  # [Wg, n] f32 relative rate of each leaf
     ws: float  # window size (bp)
+    pivots: torch.Tensor  # [SEARCH_NODES] f32 (search_pivots of cum_mass)
+
+
+def search_pivots(cum: np.ndarray) -> np.ndarray:
+    """[SEARCH_NODES] the boundaries the binary search of ``cum`` (the first
+    index whose boundary is above m, over [0, len(cum))) reads first, by
+    node of its decision tree in heap order: node 1 the first step's pivot,
+    nodes 2h and 2h + 1 the next step's after h's pivot was above m or at
+    or below it; 0 where the search ends before the node."""
+    out = np.zeros(SEARCH_NODES, np.float32)
+    for h in range(1, SEARCH_NODES):
+        lo, hi = 0, len(cum)
+        for d in range(h.bit_length() - 2, -1, -1):
+            if lo >= hi:
+                break
+            mid = (lo + hi) >> 1
+            if (h >> d) & 1:
+                lo = mid + 1
+            else:
+                hi = mid
+        if lo < hi:
+            out[h] = cum[(lo + hi) >> 1]
+    return out
 
 
 def xla_cumsum(x: np.ndarray, base: int = 16) -> np.ndarray:
@@ -56,15 +86,16 @@ def guide_tables(g_rate, g_leaf, rho: float, ws: float,
     """GuideTables from a chunk's per-window guide rates [Wg] and leaf rates
     [Wg, n] (``recombio.guide_to_windows``), as the JAX step builds them:
     ``g_rel = g_rate / max(rho, 1e-38)``, ``cum_mass = [0, cumsum(g_rel *
-    ws)]``, all in float32."""
+    ws)]``, all in float32; and the search's first pivots of ``cum_mass``
+    (:func:`search_pivots`)."""
     rho32 = np.float32(max(np.float32(rho), np.float32(1e-38)))
     g_rel = (np.asarray(g_rate, np.float32) / rho32).astype(np.float32)
     cum = np.concatenate([np.zeros(1, np.float32),
                           xla_cumsum(g_rel * np.float32(ws))])
-    return GuideTables(*(torch.as_tensor(np.ascontiguousarray(x)).to(device)
-                         for x in (g_rel, cum,
-                                   np.asarray(g_leaf, np.float32))),
-                       float(ws))
+    on = [torch.as_tensor(np.ascontiguousarray(x)).to(device)
+          for x in (g_rel, cum, np.asarray(g_leaf, np.float32),
+                    search_pivots(cum))]
+    return GuideTables(*on[:3], float(ws), on[3])
 
 
 def _window(g: GuideTables, x: torch.Tensor) -> torch.Tensor:

@@ -63,7 +63,13 @@ from .bias import (
     section_of,
 )
 from .arg import ArgPass, pick_desc, push_trip_rows, store_ring
-from .guide import GuideTables, draw_gap, leaf_rates_at, span_log_iw
+from .guide import (
+    SEARCH_NODES,
+    GuideTables,
+    draw_gap,
+    leaf_rates_at,
+    span_log_iw,
+)
 from .local import MAX_LOCAL_SLOTS, LocalPass, push_local_event
 from .migration import (
     MAX_MIG,
@@ -954,16 +960,18 @@ def segment_pass_launch_args(uniforms, leaf_status, time, parent, child0,
         spec += [("vb_coal", vb[0], f32, (E, Pp)),
                  ("vb_mig", vb[1], f32, (E, Pp, Pp))]
         vb_args = (vb[0].data_ptr(), vb[1].data_ptr())
-    guide_args = (None, None, None, 0, 0.0)
+    guide_args = (None, None, None, None, 0, 0.0)
     if guide is not None:
         Wg = guide.g_rel.shape[0]
         if Wg < 1 or not guide.ws > 0:
             raise ValueError(f"a guide of {Wg} windows of {guide.ws} bp")
         spec += [("g_rel", guide.g_rel, f32, (Wg,)),
                  ("cum_mass", guide.cum_mass, f32, (Wg + 1,)),
-                 ("g_leaf", guide.g_leaf, f32, (Wg, n))]
+                 ("g_leaf", guide.g_leaf, f32, (Wg, n)),
+                 ("pivots", guide.pivots, f32, (SEARCH_NODES,))]
         guide_args = (guide.g_rel.data_ptr(), guide.cum_mass.data_ptr(),
-                      guide.g_leaf.data_ptr(), Wg, float(guide.ws))
+                      guide.g_leaf.data_ptr(), guide.pivots.data_ptr(), Wg,
+                      float(guide.ws))
     local_args = (None,) * 7 + (0,)
     front = 0.0 if biased is None else float(biased.front)
     if local is not None:

@@ -25,12 +25,15 @@ to the plain version.
 
 ``--guide`` holds the working tree's GUIDE and LOCAL variants (guided
 biased pass with and without local recording, local biased and plain
-passes; every fourth case plus one with every ring full, a third of them
-with VB) to their plain versions on a guide that is not constant and a
-ring 30% in use: trees equal, floats within ``float_tolerances`` (rtol
-1e-4), the ring's positions, due positions, heights and the segment's
-opportunity within their tolerances, its bitmasks, slots in use and drop
-count equal.
+passes; every fourth case plus one with every ring full, a 2 Mb table of
+20,000 windows with the segment at its middle, a table that ends a
+segment after the front, trees whose first internal node is tied in
+time with its parent of lower index; a third of them with VB) to their
+plain versions on a guide that is not constant and a ring 30% in use:
+trees equal, floats within ``float_tolerances`` (rtol 1e-4), the ring's
+positions, due positions, heights and the segment's opportunity within
+their tolerances, its bitmasks, slots in use and drop count equal; and
+every output bit for bit COMMIT's (``--against``) on the same inputs.
 
 ``--wide`` holds the working tree's wide kernels (more than 8 leaves: the
 plain and biased passes with and without VB, and ``trip``) to their plain
@@ -111,16 +114,19 @@ def build(text: str, name: str, out: Path = OUT) -> ctypes.CDLL:
     dll = ctypes.CDLL(str(lib))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # a source with VB takes its two tables before the stream, one with
-    # the guide and local recording their eight pointers and three sizes
+    # the guide and local recording their eight pointers (nine with the
+    # guide's search pivots) and three sizes
     dll.vb = "vb_coal" in text
     dll.gl = "cum_mass" in text
+    dll.top = "g_top" in text  # the guide's search pivots among its tables
     dll.arg = "arg_desc" in text
     dll.smc_segment_pass_launch.argtypes = [
         vp, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         cf, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, cf, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-        ci, ci, ci] + [vp, vp] * dll.vb + [
-            vp, vp, vp, ci, cf, vp, vp, vp, vp, vp, vp, vp, ci] * dll.gl + [
+        ci, ci, ci] + [vp, vp] * dll.vb + (
+            [vp, vp, vp] + [vp] * dll.top
+            + [ci, cf, vp, vp, vp, vp, vp, vp, vp, ci]) * dll.gl + [
             vp, vp, vp, vp, vp, vp, vp, ci] * dll.arg + [vp]
     dll.smc_segment_pass_launch.restype = ci
     dll.smc_trip_launch.argtypes = [
@@ -131,7 +137,8 @@ def build(text: str, name: str, out: Path = OUT) -> ctypes.CDLL:
 
 
 def case(P, n, E, S, ls, T, L, nr_scale, seed, full=False, empty=False,
-         due_at_end=False, delay_type=0, delay_k=3, D=32):
+         due_at_end=False, delay_type=0, delay_k=3, D=32,
+         front=cs.BIAS_FRONT):
     """A biased segment pass's state and inputs on the CPU from a seed."""
     g = torch.Generator().manual_seed(seed)
     ep = epochs_from_demography(cs._demo(n, E), "cpu")
@@ -141,7 +148,6 @@ def case(P, n, E, S, ls, T, L, nr_scale, seed, full=False, empty=False,
         hd[0] = hd[n // 2] = False
     elif ls == -1:
         hd[:] = False
-    front = cs.BIAS_FRONT
     used = torch.rand((P, D), generator=g) < 0.3
     used[:16] = True
     if full:
@@ -213,9 +219,10 @@ def run(lib, st, f, biased=True, vb=None, guide=None, local=False):
     p = (lambda x: ctypes.c_void_p(x.data_ptr()))
     tables = ((p(vb), p(vb)) if vb is not None else (None, None)) * lib.vb
     if lib.gl:
-        g = ((p(guide.g_rel), p(guide.cum_mass), p(guide.g_leaf),
-              guide.g_rel.shape[0], guide.ws) if guide is not None
-             else (None, None, None, 0, 0.0))
+        g = ((p(guide.g_rel), p(guide.cum_mass), p(guide.g_leaf))
+             + (p(guide.pivots),) * lib.top
+             + (guide.g_rel.shape[0], guide.ws) if guide is not None
+             else (None,) * (3 + lib.top) + (0, 0.0))
         lo = ((*(p(st[k]) for k in LOCAL_STATE), p(f["lags"]),
                p(st["ropp"]), st["lr_pos"].shape[1]) if local
               else (None,) * 7 + (0,))
@@ -338,21 +345,70 @@ def local_ring(st, f, seed, R=32, full_rows=16):
     f["lags"] = torch.linspace(2000.0, 40000.0, f["E"])
 
 
-def guide_of(f, seed):
-    """A guide that is not constant over [0, front + 2L): random rates
-    around rho by 100-bp window, random leaf rates."""
+def guide_of(f, seed, windows=None):
+    """A guide that is not constant: random rates around rho by 100-bp
+    window, random leaf rates, over [0, front + 2L) or over ``windows``
+    windows."""
     from smcsmc_tpu_torch.kernels.guide import guide_tables
 
     rng = np.random.default_rng(seed)
-    W = int(np.ceil((f["front"] + 2 * f["L"]) / 100.0))
+    W = windows or int(np.ceil((f["front"] + 2 * f["L"]) / 100.0))
     return guide_tables(cs.RHO * rng.uniform(0.2, 3.0, W),
                         rng.uniform(0.3, 2.0, (W, f["n"])), cs.RHO, 100.0,
                         "cpu")
 
 
-def rehearse_guide() -> int:
-    """The ``--guide`` check: the GUIDE and LOCAL variants against their
-    plain versions on the same inputs."""
+def tie_first_node(st, n):
+    """Give each tree's first internal node (n) its parent's time and swap
+    the two nodes' labels, so that the parent has the lower index and the
+    stable order of the internal nodes' times takes it before its child
+    (which it then reads at rate 0)."""
+    P, N = st["time"].shape
+    for i in range(P):
+        p = int(st["parent"][i, n])
+        if p < 0:
+            continue
+        lab = list(range(N))
+        lab[n], lab[p] = p, n
+        rows = {k: st[k][i].clone() for k in ("time", "parent", "child0",
+                                                "child1")}
+        for j in range(N):
+            st["time"][i, lab[j]] = rows["time"][j]
+            for k in ("parent", "child0", "child1"):
+                x = int(rows[k][j])
+                st[k][i, lab[j]] = lab[x] if x >= 0 else -1
+        st["time"][i, p] = st["time"][i, n]
+
+
+# the variants of the --guide check: (biased, guide, local)
+GUIDE_VARIANTS = ((True, True, False), (True, True, True),
+                  (True, False, True), (False, False, True))
+
+
+def guide_case(c, j, tied=False, windows=None, vb=False):
+    """Case ``j`` of the --guide check: :func:`case` ``c`` (seed 500 + j)
+    with a ring of pending local events (seed 700 + j; every ring full
+    with ``full``), a guide that is not constant (seed j; of ``windows``
+    windows where given), each tree's first internal node tied with its
+    parent where ``tied``, and with ``vb`` a VB table (seed j).  Returns
+    (state, inputs, guide, VB table or None)."""
+    st, f = case(seed=500 + j, **c)
+    local_ring(st, f, 700 + j, full_rows=f["P"] if c.get("full") else 16)
+    if tied:
+        tie_first_node(st, f["n"])
+    return (st, f, guide_of(f, j, windows),
+            vb_table(f["E"], j) if vb else None)
+
+
+def check_guide(lib, st, f, gt, vb=None, old=None, variants=GUIDE_VARIANTS,
+                label=""):
+    """Each of ``variants`` of ``lib`` on state ``st`` and inputs ``f``,
+    with the guide ``gt`` and VB table ``vb``, against its plain version:
+    trees equal, floats within ``float_tolerances`` (rtol 1e-4), the local
+    ring's positions, due positions, heights and the segment's
+    opportunity within their tolerances, its bitmasks, slots in use and
+    drop count equal; with ``old`` (another build) every output bit for bit
+    ``old``'s.  Prints a line for each; returns [(name, good)]."""
     from smcsmc_tpu_torch.kernels.bias import BiasedPass
     from smcsmc_tpu_torch.kernels.local import LocalPass
     from smcsmc_tpu_torch.kernels.trip import (
@@ -361,68 +417,96 @@ def rehearse_guide() -> int:
         segment_pass_plain,
     )
 
+    out = []
+    for biased, guide, local in variants:
+        got = run(lib, st, f, biased, vb, gt if guide else None, local)
+        ref = {k: v.clone() for k, v in st.items()}
+        b = (BiasedPass(ref["log_pilot"], ref["df_pos"], ref["df_logf"],
+                        ref["df_delta"], ref["df_k"], f["heights"],
+                        f["strengths"], f["delays"], f["front"],
+                        ("recomb", "coal")[f["delay_type"]], f["delay_k"])
+             if biased else None)
+        lp = (LocalPass(*(ref[k] for k in LOCAL_STATE), f["lags"],
+                        ref["ropp"], f["front"]) if local else None)
+        segment_pass_plain(
+            f["u"], f["ls"], *(ref[k] for k in cs.SEGMENT_STATE),
+            ref["fifo"], f["mask"], ref["tl"], f["L"], cs.MU, cs.RHO,
+            f["start"], f["inv2ne"], f["hd"], b,
+            vb=None if vb is None else (vb[:, None],
+                                        torch.zeros((f["E"], 1, 1))),
+            guide=gt if guide else None, local=lp)
+        keys = cs.SEGMENT_STATE + (("log_pilot", "df_pos", "df_logf",
+                                    "df_delta", "df_k") if biased else ())
+        res = [{**{k: x[k] for k in keys}, "tl": x["tl"],
+                "pending": x["fifo"][:, 0]} for x in (got, ref)]
+        trees, floats, errs = disagreement(*res, f["L"], cs.MU, 1e-4)
+        ring_bad = []
+        if local:
+            tol = float_tolerances(res[1], f["L"], cs.MU)
+            ro_atol = float(tol["pending"][4 * f["E"]])
+            for k, atol in (("lr_pos", tol["next_rec"]),
+                            ("lr_due", tol["next_rec"]),
+                            ("lr_time", tol["time"]), ("ropp", ro_atol)):
+                if not torch.allclose(got[k], ref[k], rtol=1e-4, atol=atol):
+                    ring_bad.append(k)
+            for k in ("lr_desc", "lr_dropped"):
+                if not torch.equal(got[k], ref[k]):
+                    ring_bad.append(k)
+            if not torch.equal(got["lr_pos"] < INF, ref["lr_pos"] < INF):
+                ring_bad.append("slots in use")
+        pushed = int((ref["lr_pos"] != st["lr_pos"]).sum()) if local else 0
+        apart = (differing(got, run(old, st, f, biased, vb,
+                                    gt if guide else None, local))
+                 if old is not None else [])
+        good = (not trees.any() and not floats.any() and not ring_bad
+                and not apart)
+        name = (f"{'biased' if biased else 'plain'}"
+                f"{' guide' if guide else ''}{' local' if local else ''}"
+                f"{' vb' if vb is not None else ''}")
+        against = ("" if old is None else "; against the commit "
+                   + ("bit for bit" if not apart else f"DIFFER in {apart}"))
+        print(f"{name}{label}: {int(trees.sum())} trees, "
+              f"{int(floats.sum())} floats apart, ring "
+              f"{'ok' if not ring_bad else ring_bad} ({pushed} slots "
+              f"pushed, dropped {int(ref['lr_dropped']) if local else 0})"
+              f"{against} -> {'ok' if good else 'FAIL'}", flush=True)
+        out.append((name, good))
+    return out
+
+
+def guide_cases():
+    """The ``--guide`` cases: (case, options of :func:`guide_case`)."""
+    out = [(c, {}) for c in cases()[::4]]
+    out.append((dict(P=203, n=8, E=33, S=2, ls=1, T=64, L=cs.MAX_SEG,
+                     nr_scale=0.1, delay_type=0, full=True), {}))
+    # a 2 Mb table, the segment at its middle: the search's full depth
+    for n, T, L, nr in ((4, 64, cs.MAX_SEG, 0.1), (8, 1, 20000.0, 1.5)):
+        out.append((dict(P=150, n=n, E=9, S=2, ls=1, T=T, L=L, nr_scale=nr,
+                         delay_type=0, front=1e6), dict(windows=20000)))
+    # a table that ends a segment after the front: gaps past its last
+    # window
+    out.append((dict(P=150, n=4, E=9, S=2, ls=1, T=64, L=1500.0,
+                     nr_scale=0.5, delay_type=0), {}))
+    # parents tied in time with a child of higher index
+    for n, P in ((4, 150), (8, 203)):
+        out.append((dict(P=P, n=n, E=9, S=2, ls=1, T=1, L=20000.0,
+                         nr_scale=1.5, delay_type=0), dict(tied=True)))
+    return out
+
+
+def rehearse_guide(against: str) -> int:
+    """The ``--guide`` check: the GUIDE and LOCAL variants against their
+    plain versions on the same inputs, and bit for bit against
+    ``against``'s."""
     new = build((ROOT / SOURCE).read_text(), "tree")
+    old = build(subprocess.run(["git", "show", f"{against}:{SOURCE}"],
+                               cwd=ROOT, capture_output=True, text=True,
+                               check=True).stdout, "against")
     failed = 0
-    todo = cases()[::4] + [dict(P=203, n=8, E=33, S=2, ls=1, T=64,
-                                L=cs.MAX_SEG, nr_scale=0.1, delay_type=0,
-                                full=True)]
-    variants = ((True, True, False), (True, True, True), (True, False, True),
-                (False, False, True))
-    for j, c in enumerate(todo):
-        st, f = case(seed=500 + j, **c)
-        local_ring(st, f, 700 + j, full_rows=f["P"] if c.get("full") else 16)
-        gt = guide_of(f, j)
-        vb = vb_table(f["E"], j) if j % 3 == 1 else None
-        for biased, guide, local in variants:
-            got = run(new, st, f, biased, vb, gt if guide else None, local)
-            ref = {k: v.clone() for k, v in st.items()}
-            b = (BiasedPass(ref["log_pilot"], ref["df_pos"], ref["df_logf"],
-                            ref["df_delta"], ref["df_k"], f["heights"],
-                            f["strengths"], f["delays"], f["front"],
-                            ("recomb", "coal")[f["delay_type"]], f["delay_k"])
-                 if biased else None)
-            lp = (LocalPass(*(ref[k] for k in LOCAL_STATE), f["lags"],
-                            ref["ropp"], f["front"]) if local else None)
-            segment_pass_plain(
-                f["u"], f["ls"], *(ref[k] for k in cs.SEGMENT_STATE),
-                ref["fifo"], f["mask"], ref["tl"], f["L"], cs.MU, cs.RHO,
-                f["start"], f["inv2ne"], f["hd"], b,
-                vb=None if vb is None else (vb[:, None],
-                                            torch.zeros((f["E"], 1, 1))),
-                guide=gt if guide else None, local=lp)
-            keys = cs.SEGMENT_STATE + (("log_pilot", "df_pos", "df_logf",
-                                        "df_delta", "df_k") if biased else ())
-            res = [{**{k: x[k] for k in keys}, "tl": x["tl"],
-                    "pending": x["fifo"][:, 0]} for x in (got, ref)]
-            trees, floats, errs = disagreement(*res, f["L"], cs.MU, 1e-4)
-            ring_bad = []
-            if local:
-                tol = float_tolerances(res[1], f["L"], cs.MU)
-                E = f["E"]
-                ro_atol = float(tol["pending"][4 * E])
-                for k, atol in (("lr_pos", tol["next_rec"]),
-                                ("lr_due", tol["next_rec"]),
-                                ("lr_time", tol["time"]),
-                                ("ropp", ro_atol)):
-                    if not torch.allclose(got[k], ref[k], rtol=1e-4,
-                                          atol=atol):
-                        ring_bad.append(k)
-                for k in ("lr_desc", "lr_dropped"):
-                    if not torch.equal(got[k], ref[k]):
-                        ring_bad.append(k)
-                if not torch.equal(got["lr_pos"] < INF, ref["lr_pos"] < INF):
-                    ring_bad.append("slots in use")
-            pushed = int((ref["lr_pos"] != st["lr_pos"]).sum()) if local else 0
-            good = not trees.any() and not floats.any() and not ring_bad
-            print(f"{'biased' if biased else 'plain'}"
-                  f"{' guide' if guide else ''}{' local' if local else ''}"
-                  f"{' vb' if vb is not None else ''} {c}: "
-                  f"{int(trees.sum())} trees, {int(floats.sum())} floats "
-                  f"apart, ring {'ok' if not ring_bad else ring_bad} "
-                  f"({pushed} slots pushed, dropped "
-                  f"{int(ref['lr_dropped']) if local else 0}) -> "
-                  f"{'ok' if good else 'FAIL'}", flush=True)
-            failed += not good
+    for j, (c, opts) in enumerate(guide_cases()):
+        st, f, gt, vb = guide_case(c, j, vb=j % 3 == 1, **opts)
+        failed += sum(not good for _, good in check_guide(
+            new, st, f, gt, vb, old, label=f" {c} {opts}"))
     print(f"{failed} of the guide and local cases fail")
     return 1 if failed else 0
 
@@ -556,7 +640,7 @@ def main(argv=None) -> int:
     if args.vb:
         return rehearse_vb()
     if args.guide:
-        return rehearse_guide()
+        return rehearse_guide(args.against)
     old = subprocess.run(["git", "show", f"{args.against}:{SOURCE}"],
                          cwd=ROOT, capture_output=True, text=True,
                          check=True).stdout

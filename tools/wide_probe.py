@@ -190,16 +190,18 @@ BODY_PROBES = (
 
 def _insert(lines, start, stop, probes):
     """Put each probe's text before the first line in [start, stop) that
-    begins its anchor (an anchor of several lines: consecutive lines)."""
+    begins its anchor (an anchor of several lines: consecutive lines), or
+    after its last line where the anchor starts with ">"."""
     put = {}
     for anchor, text in probes:
-        first = anchor.split("\n")
+        after = anchor.startswith(">")
+        first = anchor.lstrip(">").split("\n")
         j = next((j for j in range(start, stop - len(first) + 1)
                   if all(lines[j + q].startswith(first[q])
                          for q in range(len(first)))), None)
         if j is None:
-            raise SystemExit(f"wide_probe: anchor not found: {first[0]!r}")
-        put.setdefault(j, []).append(text)
+            raise SystemExit(f"probe: anchor not found: {first[0]!r}")
+        put.setdefault(j + len(first) if after else j, []).append(text)
     out = []
     for j, ln in enumerate(lines):
         out += put.get(j, [])
