@@ -1286,6 +1286,7 @@ def _arg_check(name, label, P, got_st, ref_st, plain_st, result, L, T,
     from smcsmc_tpu_torch.kernels.arg import ARG_FIELDS
     from smcsmc_tpu_torch.kernels.trip import disagreement, float_tolerances
 
+    tallies.setdefault(name, (Tally(), Tally()))
     got, ref = result(got_st), result(ref_st)
     trees, floats, errs = disagreement(got, ref, L, MU, RTOL, Pp=Pp)
     agree = ~(trees | floats)
@@ -1316,6 +1317,173 @@ def _arg_check(name, label, P, got_st, ref_st, plain_st, result, L, T,
     return good
 
 
+def arg_narrow(segment_pass, segment_pass_plain, tallies, P, n, E, ls, T,
+               biased, vb, label="", A=ARG_A):
+    """One case of :func:`compare_arg`: the plain or the biased pass's ARG
+    variant at (P, n, E), leaf status ``ls``, ``T`` trips, with or without
+    VB, on a ring of ``A`` slots in use."""
+    L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
+    c = Case(P, n, E, ls, L=L, nr_scale=nr_scale, seed=31 * P + n + E + T + ls)
+    u = c.uniforms(T)
+    tables = vb_tables(c.demo, T + ls + n) if vb else None
+    fresh = c.fresh_biased if biased else c.fresh_segment
+    c.aring = arg_ring(P, n, c.gen, A)
+
+    def run(fn, with_arg=True):
+        st = fresh()
+        st.update({k: v.clone() for k, v in c.aring.items()})
+        b = None
+        if biased:
+            from smcsmc_tpu_torch.kernels.bias import BiasedPass
+
+            b = BiasedPass(st["log_pilot"], st["df_pos"], st["df_logf"],
+                           st["df_delta"], st["df_k"], *c.bias_tables,
+                           BIAS_FRONT)
+        fn(u, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
+           st["fifo"], c.fifo_mask, st["tl"], c.L, MU, RHO, c.start,
+           c.inv2ne, c.has_data, b, vb=tables,
+           arg=_arg_of(st) if with_arg else None)
+        return st
+    got, ref, base = (run(segment_pass), run(segment_pass_plain),
+                      run(segment_pass, False))
+    _sync()
+    name = BIASED_ARG_PASS if biased else ARG_PASS
+    name = vb_name(name) if vb else name
+    ring = f" A={A}" if A != ARG_A else ""
+    return _arg_check(name, f"{label}{ring} P={P} n={n} E={E} leaf_status="
+                      f"{ls}", P, got, ref, base, c.segment_result,
+                      c.L, T, tallies, base=c.aring)
+
+
+def arg_migration(segment_pass, segment_pass_plain, tallies, P, ls, T, vb,
+                  caps=False, A=ARG_A, mig_exact=True, m_rows=None):
+    """One case of :func:`compare_arg`: the migration pass's ARG variant at
+    the twopop shape (P, n=4, E=8, Pp=2, Mw=56) or its caps corner (n=8,
+    E=64, Pp=4, Mw=96), leaf status ``ls``, ``T`` trips, with or without
+    VB, on a ring of ``A`` slots in use; the M rows pushed are appended to
+    ``m_rows``."""
+    import torch
+
+    L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
+    kw = dict(caps=True, m=1e-4, Mw=96) if caps else {}
+    c = MigCase(P, ls, L, nr_scale, seed=17 * P + T + ls, **kw)
+    u = c.uniforms(T)
+    tables = vb_tables(c.demo, T + ls) if vb else None
+    aring = arg_ring(P, c.n, c.gen, A)
+
+    def run(fn, with_arg=True):
+        st = c.fresh()
+        st.update({k: v.clone() for k, v in aring.items()})
+        from smcsmc_tpu_torch.kernels.migration import MigrationPass
+
+        mp = MigrationPass(st["pop"], st["mig_time"], st["mig_dest"],
+                           st["diag"], c.key, *c.tables)
+        fn(u, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
+           st["fifo"], c.fifo_mask, st["tl"], c.L, MU, RHO, c.start,
+           c.inv2ne, c.has_data, None, mp, vb=tables,
+           arg=_arg_of(st) if with_arg else None)
+        return st
+    got, ref, base = (run(segment_pass), run(segment_pass_plain),
+                      run(segment_pass, False))
+    _sync()
+    exact = all(torch.equal(got[k], ref[k]) for k in MIG_EXACT)
+    hops = _arg_rows(ref, aring, code=2)
+    if m_rows is not None:
+        m_rows.append(hops)
+    name = vb_name(MIGRATION_ARG_PASS) if vb else MIGRATION_ARG_PASS
+    ring = f" A={A}" if A != ARG_A else ""
+    good = _arg_check(name, f"{' caps corner' if caps else ''}{ring} P={P} "
+                      f"n={c.n} E={c.E} Pp={c.Pp} Mw={c.Mw} leaf_status="
+                      f"{ls} (trees and buffers bit for bit {exact}, "
+                      f"{hops} M rows)", P, got, ref, base, c.result,
+                      c.L, T, tallies, exact_time=mig_exact, Pp=c.Pp,
+                      base=aring)
+    return good and (exact or not mig_exact)
+
+
+def arg_wide(segment_pass, segment_pass_plain, tallies, P, n, ls, T, vb):
+    """One case of :func:`compare_arg`: the wide plain pass's ARG variant
+    at (P, n, E=9), leaf status ``ls``, ``T`` trips, with or without VB,
+    against the plain version in float64."""
+    import torch
+
+    L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
+    c = Case(P, n, 9, ls, L=L, nr_scale=nr_scale, seed=37 * P + n + T + ls)
+    u = c.uniforms(T)
+    tables = vb_tables(c.demo, T + ls + n) if vb else None
+    aring = arg_ring(P, n, c.gen)
+    d = _in_double(c)
+
+    def run(case, fn, uu, tbl, dbl=False, with_arg=True):
+        st = case.fresh_segment()
+        st.update({k: v.clone() for k, v in aring.items()})
+        if dbl:
+            st = _in_double(st)
+        fn(uu, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
+           st["fifo"], case.fifo_mask, st["tl"], c.L, MU, RHO,
+           case.start, case.inv2ne, c.has_data, vb=tbl,
+           arg=_arg_of(st) if with_arg else None)
+        return st
+    got = run(c, segment_pass, u, tables)
+    base = run(c, segment_pass, u, tables, with_arg=False)
+    ref = run(d, segment_pass_plain, u.double(), _in_double(tables),
+              dbl=True)
+    # the float64 answer as the float32 the kernel stores
+    ref = {k: v.float() if v.dtype == torch.float64 else v
+           for k, v in ref.items()}
+    _sync()
+    name = vb_name(WIDE_ARG_PASS) if vb else WIDE_ARG_PASS
+    return _arg_check(name, f" P={P} n={n} E=9 leaf_status={ls}", P,
+                      got, ref, base, c.segment_result, c.L, T, tallies,
+                      base=aring, want_bit63=n == 64 and ls == 1)
+
+
+def arg_cases(P=10000, wide_P=(10001, 1001)):
+    """The cases of :func:`compare_arg` in its order: (group, function,
+    keyword arguments)."""
+    out = []
+    for n, E in ((4, 9), (8, 33)):
+        for ls in (1, 0, -1):
+            for T in (1, 64):
+                for biased in (False, True):
+                    for vb in (False, True):
+                        out.append(("narrow", arg_narrow, dict(
+                            P=P, n=n, E=E, ls=ls, T=T, biased=biased,
+                            vb=vb)))
+    for biased in (False, True):
+        out.append(("narrow", arg_narrow, dict(
+            P=P + 1, n=8, E=33, ls=1, T=1, biased=biased, vb=False,
+            label=" ragged")))
+    # rings of fewer slots than a trip's rows: later rows take the slots
+    # of earlier ones
+    out.append(("narrow", arg_narrow, dict(P=P + 1, n=4, E=9, ls=1, T=64,
+                                           biased=False, vb=False, A=1)))
+    out.append(("narrow", arg_narrow, dict(P=P + 1, n=8, E=33, ls=1, T=64,
+                                           biased=True, vb=False, A=3)))
+    for ls in (1, 0, -1):
+        for T in (1, 64):
+            for vb in (False, True):
+                out.append(("migration", arg_migration, dict(
+                    P=P, ls=ls, T=T, vb=vb)))
+    for T in (1, 64):
+        out.append(("migration", arg_migration, dict(P=P + 1, ls=1, T=T,
+                                                     vb=False, caps=True)))
+    out.append(("migration", arg_migration, dict(P=P + 1, ls=1, T=64,
+                                                 vb=False, A=3)))
+    out.append(("migration", arg_migration, dict(P=P + 1, ls=1, T=1,
+                                                 vb=True, A=1)))
+    for ls in (1, 0, -1):
+        for T in (1, 64):
+            for vb in (False, True):
+                out.append(("wide", arg_wide, dict(P=wide_P[0], n=16, ls=ls,
+                                                   T=T, vb=vb)))
+    for T in (1, 64):
+        for vb in (False, True):
+            out.append(("wide", arg_wide, dict(P=wide_P[1], n=64, ls=1, T=T,
+                                               vb=vb)))
+    return out
+
+
 def compare_arg(segment_pass, segment_pass_plain, tallies, P=10000,
                 wide_P=(10001, 1001), mig_exact=True):
     """The ARG variants against their plain versions on identical inputs
@@ -1326,149 +1494,28 @@ def compare_arg(segment_pass, segment_pass_plain, tallies, P=10000,
     its caps corner (P + 1, n=8, E=64, Pp=4, Mw=96); the wide plain pass
     at (wide_P[0], n=16, E=9) and (wide_P[1], n=64, E=9), against the
     plain version in float64; each at leaf status 1, 0 and -1, one trip
-    and 64, VB off and on (at n=64 and the caps corners leaf status 1).
-    See :func:`_arg_check` for what must hold; the migration pass's trees,
-    buffers and the rings' heights bit for bit, as ``MIG_EXACT`` (within
-    tolerance without ``mig_exact``: a host build's ``log1pf`` is not the
-    card's, so its walk times part in the last bit)."""
-    import torch
-
-    for name in ARG_PARENTS:
-        tallies.setdefault(name, (Tally(), Tally()))
+    and 64, VB off and on (at n=64 and the caps corners leaf status 1);
+    and the narrow and migration passes on rings of 1 and 3 slots, fewer
+    than a trip's rows (:func:`arg_cases`).  See :func:`_arg_check` for
+    what must hold; the migration pass's trees, buffers and the rings'
+    heights bit for bit, as ``MIG_EXACT`` (within tolerance without
+    ``mig_exact``: a host build's ``log1pf`` is not the card's, so its
+    walk times part in the last bit)."""
     ok = True
-
-    def narrow(Pc, n, E, ls, T, biased, vb, label=""):
-        L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
-        c = Case(Pc, n, E, ls, L=L, nr_scale=nr_scale,
-                 seed=31 * Pc + n + E + T + ls)
-        u = c.uniforms(T)
-        tables = vb_tables(c.demo, T + ls + n) if vb else None
-        fresh = c.fresh_biased if biased else c.fresh_segment
-        c.aring = arg_ring(Pc, n, c.gen)
-
-        def run(fn, with_arg=True):
-            st = fresh()
-            st.update({k: v.clone() for k, v in c.aring.items()})
-            b = None
-            if biased:
-                from smcsmc_tpu_torch.kernels.bias import BiasedPass
-
-                b = BiasedPass(st["log_pilot"], st["df_pos"], st["df_logf"],
-                               st["df_delta"], st["df_k"], *c.bias_tables,
-                               BIAS_FRONT)
-            fn(u, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
-               st["fifo"], c.fifo_mask, st["tl"], c.L, MU, RHO, c.start,
-               c.inv2ne, c.has_data, b, vb=tables,
-               arg=_arg_of(st) if with_arg else None)
-            return st
-        got, ref, base = (run(segment_pass), run(segment_pass_plain),
-                          run(segment_pass, False))
-        _sync()
-        name = BIASED_ARG_PASS if biased else ARG_PASS
-        name = vb_name(name) if vb else name
-        return _arg_check(name, f"{label} P={Pc} n={n} E={E} leaf_status="
-                          f"{ls}", Pc, got, ref, base, c.segment_result,
-                          c.L, T, tallies, base=c.aring)
-
-    def migration(ls, T, vb, caps=False):
-        L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
-        kw = dict(caps=True, m=1e-4, Mw=96) if caps else {}
-        Pc = P + 1 if caps else P
-        c = MigCase(Pc, ls, L, nr_scale, seed=17 * Pc + T + ls, **kw)
-        u = c.uniforms(T)
-        tables = vb_tables(c.demo, T + ls) if vb else None
-        aring = arg_ring(Pc, c.n, c.gen)
-
-        def run(fn, with_arg=True):
-            st = c.fresh()
-            st.update({k: v.clone() for k, v in aring.items()})
-            from smcsmc_tpu_torch.kernels.migration import MigrationPass
-
-            mp = MigrationPass(st["pop"], st["mig_time"], st["mig_dest"],
-                               st["diag"], c.key, *c.tables)
-            fn(u, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
-               st["fifo"], c.fifo_mask, st["tl"], c.L, MU, RHO, c.start,
-               c.inv2ne, c.has_data, None, mp, vb=tables,
-               arg=_arg_of(st) if with_arg else None)
-            return st
-        got, ref, base = (run(segment_pass), run(segment_pass_plain),
-                          run(segment_pass, False))
-        _sync()
-        exact = all(torch.equal(got[k], ref[k]) for k in MIG_EXACT)
-        hops = _arg_rows(ref, aring, code=2)
-        m_rows.append(hops)
-        name = vb_name(MIGRATION_ARG_PASS) if vb else MIGRATION_ARG_PASS
-        good = _arg_check(name, f"{' caps corner' if caps else ''} P={Pc} "
-                          f"n={c.n} E={c.E} Pp={c.Pp} Mw={c.Mw} leaf_status="
-                          f"{ls} (trees and buffers bit for bit {exact}, "
-                          f"{hops} M rows)", Pc, got, ref, base, c.result,
-                          c.L, T, tallies, exact_time=mig_exact, Pp=c.Pp,
-                          base=aring)
-        return good and (exact or not mig_exact)
-
-    def wide(Pc, n, ls, T, vb):
-        L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
-        c = Case(Pc, n, 9, ls, L=L, nr_scale=nr_scale,
-                 seed=37 * Pc + n + T + ls)
-        u = c.uniforms(T)
-        tables = vb_tables(c.demo, T + ls + n) if vb else None
-        aring = arg_ring(Pc, n, c.gen)
-        d = _in_double(c)
-
-        def run(case, fn, uu, tbl, dbl=False, with_arg=True):
-            st = case.fresh_segment()
-            st.update({k: v.clone() for k, v in aring.items()})
-            if dbl:
-                st = _in_double(st)
-            fn(uu, c.leaf_status, *(st[k] for k in SEGMENT_STATE),
-               st["fifo"], case.fifo_mask, st["tl"], c.L, MU, RHO,
-               case.start, case.inv2ne, c.has_data, vb=tbl,
-               arg=_arg_of(st) if with_arg else None)
-            return st
-        got = run(c, segment_pass, u, tables)
-        base = run(c, segment_pass, u, tables, with_arg=False)
-        ref = run(d, segment_pass_plain, u.double(), _in_double(tables),
-                  dbl=True)
-        # the float64 answer as the float32 the kernel stores
-        ref = {k: v.float() if v.dtype == torch.float64 else v
-               for k, v in ref.items()}
-        _sync()
-        name = vb_name(WIDE_ARG_PASS) if vb else WIDE_ARG_PASS
-        return _arg_check(name, f" P={Pc} n={n} E=9 leaf_status={ls}", Pc,
-                          got, ref, base, c.segment_result, c.L, T, tallies,
-                          base=aring, want_bit63=n == 64 and ls == 1)
-
-    t0 = time.monotonic()
-    for n, E in ((4, 9), (8, 33)):
-        for ls in (1, 0, -1):
-            for T in (1, 64):
-                for biased in (False, True):
-                    for vb in (False, True):
-                        ok &= narrow(P, n, E, ls, T, biased, vb)
-    for biased in (False, True):
-        ok &= narrow(P + 1, 8, 33, 1, 1, biased, False, " ragged")
-    _log(f"compare ARG narrow: {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
     m_rows = []
-    for ls in (1, 0, -1):
-        for T in (1, 64):
-            for vb in (False, True):
-                ok &= migration(ls, T, vb)
-    for T in (1, 64):
-        ok &= migration(1, T, False, caps=True)
-    ok &= sum(m_rows) > 0
-    _log(f"compare ARG migration: {time.monotonic() - t0:.1f} s, "
-         f"{sum(m_rows)} M rows pushed")
-    t0 = time.monotonic()
-    for ls in (1, 0, -1):
-        for T in (1, 64):
-            for vb in (False, True):
-                ok &= wide(wide_P[0], 16, ls, T, vb)
-    for T in (1, 64):
-        for vb in (False, True):
-            ok &= wide(wide_P[1], 64, 1, T, vb)
-    _log(f"compare ARG wide: {time.monotonic() - t0:.1f} s")
-    return ok
+    t0, group = time.monotonic(), "narrow"
+    for kind, fn, kw in arg_cases(P, wide_P) + [("end", None, None)]:
+        if kind != group:
+            _log(f"compare ARG {group}: {time.monotonic() - t0:.1f} s"
+                 + (f", {sum(m_rows)} M rows pushed"
+                    if group == "migration" else ""))
+            t0, group = time.monotonic(), kind
+        if fn is None:
+            break
+        if kind == "migration":
+            kw = dict(kw, mig_exact=mig_exact, m_rows=m_rows)
+        ok &= fn(segment_pass, segment_pass_plain, tallies, **kw)
+    return ok and sum(m_rows) > 0
 
 
 def vb_cases():

@@ -70,12 +70,25 @@
 //                 population, the leaves below c or d), the migration pass
 //                 an M row for each of the walk's first ARG_MIG_ROWS hops,
 //                 into slot arg_n % A of the particle's ring in device
-//                 memory.  The leaves come from a ballot over the leaves'
-//                 lanes, each walking up the tree before the SPR (a ballot
-//                 per stripe of leaves in the wide pass); lane 0 writes the
-//                 rows; arg_n stays in a register and is written back once
-//                 per segment.  What bounds it is what bounds the pass: a
-//                 row is 19 bytes, a trip's walks N steps per lane.
+//                 memory.  A row is 19 bytes, so what the ARG costs is its
+//                 place on each trip's serial chain before the SPR.  In
+//                 the narrow and migration passes each leaf's lane walks
+//                 its path to the root at the trip's start (a mask of
+//                 nodes, the walk unrolled and under way with the point
+//                 and the hazard; the tree changes only in the SPR), so
+//                 the leaves below c and d are bit tests and one ballot
+//                 (two at 5-8 leaves in the narrow passes: one lane per
+//                 leaf and node tested); lane r writes row r, so that a
+//                 warp issues one store per field and adjacent slots share
+//                 a sector, before the SPR in the narrow passes and at the
+//                 trip's end in the migration pass (whose SPR has many
+//                 warp syncs); the slot is kept beside arg_n in a register
+//                 and advanced by compare and subtract (A any size; a row
+//                 whose slot a later row of the trip takes is not
+//                 written), the first one a mask of arg_n (a division
+//                 unless A is a power of two); arg_n is written back once
+//                 per segment.  The wide plain pass walks each stripe of
+//                 leaves after the target and lane 0 writes the rows.
 //                 Without ARG each pass is the code it was.
 //                 A third variant is the migration pass (several
 //                 populations; the Pallas kernel refuses migration, and the
@@ -396,18 +409,67 @@ __device__ __forceinline__ unsigned group_or(unsigned v, unsigned gm) {
   return v;
 }
 
-// ARG: one row into slot n % A of particle i's ring (the calling lane
-// alone; smc.py:513 of the JAX package)
-__device__ __forceinline__ void arg_push(const Args& a, int i, int n,
-                                         int code, float pos, float time,
-                                         int from, int to, long long desc) {
-  const size_t at = (size_t)i * a.A + (unsigned)n % (unsigned)a.A;
+// ARG: one row into `slot` of particle i's ring (the calling lane alone;
+// smc.py:513 of the JAX package)
+__device__ __forceinline__ void arg_put(const Args& a, int i, unsigned slot,
+                                       int code, float pos, float time,
+                                       int from, int to, long long desc) {
+  const size_t at = (size_t)i * a.A + slot;
   a.arg_pos[at] = pos;
   a.arg_code[at] = (signed char)code;
   a.arg_time[at] = time;
   a.arg_from[at] = (signed char)from;
   a.arg_to[at] = (signed char)to;
   a.arg_desc[at] = desc;
+}
+
+// ARG: row n into slot n % A (the wide pass)
+__device__ __forceinline__ void arg_push(const Args& a, int i, int n,
+                                         int code, float pos, float time,
+                                         int from, int to, long long desc) {
+  arg_put(a, i, (unsigned)n % (unsigned)a.A, code, pos, time, from, to,
+          desc);
+}
+
+// ARG (the narrow and migration passes): where the particle's next row
+// goes, its rows pushed so far and their count's slot n % A, kept in step
+// without a division
+struct ArgCursor {
+  int n;
+  int slot;
+};
+
+// ARG: the slot of row n in a ring of A slots (any A > 0; a mask for a
+// power of two, as the ring's 512)
+__device__ __forceinline__ int arg_slot_of(int n, int A) {
+  return (int)((A & (A - 1)) == 0 ? (unsigned)n & (unsigned)(A - 1)
+                                  : (unsigned)n % (unsigned)A);
+}
+
+// ARG: the slot `ahead` rows after `slot` in a ring of A slots (any A > 0)
+__device__ __forceinline__ int arg_slot_after(int slot, int ahead, int A) {
+  int s = slot + ahead;
+  while (s >= A) s -= A;
+  return s;
+}
+
+// ARG: the nodes on the path from leaf `leaf` up to the root of the tree
+// `par` as a mask (bit j: node j, the leaf's own bit included), 0 for
+// leaf >= n.  A leaf's path holds at most n <= (NP + 1) / 2 nodes, so the
+// walk is unrolled, its loads with no loop test between them.
+template <int NP>
+__device__ __forceinline__ unsigned leaf_path(const int* par, int leaf,
+                                              int n) {
+  int cur = leaf < n ? leaf : -1;
+  unsigned path = 0u;
+#pragma unroll
+  for (int s = 0; s < (NP + 1) / 2; ++s) {
+    if (cur >= 0) {
+      path |= 1u << cur;
+      cur = s + 1 < (NP + 1) / 2 ? par[cur] : -1;
+    }
+  }
+  return path;
 }
 
 // A 4-byte copy from device memory into shared memory, under way until
@@ -714,7 +776,7 @@ __device__ __forceinline__ float guide_span(const Tables& tb, float tl,
 // point by the branches' guide rates and draws the gap in guide mass,
 // *m_up the guide mass at front + up (kept from one trip to the next);
 // LOCAL pushes the trip's event into particle i's ring of `a`; ARG its R
-// and C rows into the particle's ARG ring, from row *an on.
+// and C rows into the particle's ARG ring at the cursor *ac.
 template <int NP, bool BIAS, bool VB = false, bool GUIDE = false,
           bool LOCAL = false, bool ARG = false>
 __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
@@ -722,11 +784,18 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
                               float* pend, float& nr, float& up, float& lw,
                               float& tl, float& B,
                               const Args* a = nullptr, int i = 0,
-                              LocalRing* ring = nullptr, int* an = nullptr,
+                              LocalRing* ring = nullptr,
+                              ArgCursor* ac = nullptr,
                               float* m_up = nullptr) {
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
   const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
+  // ARG: leaf `lane`'s path to the root in the tree before the SPR (the
+  // tree changes only there), under way with the point and the hazard; up
+  // to 4 leaves (NP 7) lane 4 + l holds leaf l's too, for one ballot
+  unsigned path = 0u;
+  if constexpr (ARG)
+    path = leaf_path<NP>(w.par, NP == 7 ? lane & 3 : lane, tb.n);
 
   // ---- extension: no-mutation likelihood + recombination opportunity ----
   const float delta = nr - up;
@@ -1015,25 +1084,33 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   if constexpr (ARG) {
     // ---- the trip's ARG rows (smc.py:1021-1037): R at h_r with the
     // leaves below c, C at t_c with the leaves below c or d, in the tree
-    // before the SPR; each leaf's lane walks up its ancestors ----
-    bool bc = false, bd = false;
-    if (lane < tb.n) {
-      int cur = lane;
-      for (int s = 0; s < N && cur >= 0; ++s) {
-        bc = bc || cur == c;
-        bd = bd || cur == d;
-        cur = w.par[cur];
-      }
-    }
+    // before the SPR (a leaf is below a node on its path: up to 4 leaves
+    // lanes 0-3 test c and lanes 4-7 d in one ballot); lane 0 writes the R
+    // row and lane 1 the C row, at the cursor's slots.  With one slot the
+    // C row, the later push, is the one kept ----
     const int shift = (threadIdx.x & 31) & ~(GROUP - 1);
-    const unsigned dc = (__ballot_sync(gm, bc) >> shift) & ((1u << GROUP) - 1u);
-    const unsigned dd = (__ballot_sync(gm, bd) >> shift) & ((1u << GROUP) - 1u);
-    if (lane == 0) {
-      const float pos = tb.front + nr;
-      arg_push(*a, i, *an, 0, pos, h_r, -1, -1, (long long)dc);
-      arg_push(*a, i, *an + 1, 1, pos, t_c, 0, -1, (long long)(dc | dd));
+    unsigned dc, dd;
+    if constexpr (NP == 7) {
+      const int x = lane < 4 ? c : d;
+      const unsigned m =
+          (__ballot_sync(gm, x >= 0 && (path >> x & 1u) != 0u) >> shift)
+          & ((1u << GROUP) - 1u);
+      dc = m & 15u;
+      dd = m >> 4;
+    } else {
+      const bool bc = c >= 0 && (path >> c & 1u) != 0u;
+      const bool bd = d >= 0 && (path >> d & 1u) != 0u;
+      dc = (__ballot_sync(gm, bc) >> shift) & ((1u << GROUP) - 1u);
+      dd = (__ballot_sync(gm, bd) >> shift) & ((1u << GROUP) - 1u);
     }
-    *an += 2;
+    if (lane < 2 && (lane == 1 || a->A > 1)) {
+      const bool C = lane == 1;
+      arg_put(*a, i, C ? arg_slot_after(ac->slot, 1, a->A) : ac->slot,
+              C ? 1 : 0, tb.front + nr, C ? t_c : h_r, C ? 0 : -1, -1,
+              (long long)(C ? dc | dd : dc));
+    }
+    ac->n += 2;
+    ac->slot = arg_slot_after(ac->slot, 2, a->A);
   }
 
   // ---- SPR: cut the branch above c, regraft onto d at t_c ---------------
@@ -1203,13 +1280,13 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   // this lane's ring slots (bit k: slot lane + k GROUP) to write back
   unsigned changed = 0u;
   LocalRing ring{0u, 0};  // LOCAL: this lane's free slots, until combined
-  int an = 0;             // ARG: the ring's rows pushed so far
+  ArgCursor ac{0, 0};     // ARG: the ring's rows pushed so far, next slot
   stage_tables(a, smem, true, BIAS, vb, LOCAL, GUIDE);
   if (live) {
     load_tree(a, w, i, N, lane);
     for (int k = lane; k < K; k += GROUP) pend[k] = 0.0f;
     nr = a.next_rec[i], lw = a.log_w[i];
-    if constexpr (ARG) an = a.arg_n[i];
+    if constexpr (ARG) ac.n = a.arg_n[i];
     if constexpr (BIAS) {
       // what is due and what is free: the positions alone
       lp = a.log_pilot[i];
@@ -1255,14 +1332,18 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
 
   bool moved = false;
   float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (a.trips > 0 && nr < a.L) u = load_uniforms(a, 0, i);
+  if (a.trips > 0 && nr < a.L) {
+    u = load_uniforms(a, 0, i);
+    // ARG: the first row's slot (arg_slot_of), once a segment
+    if constexpr (ARG) ac.slot = arg_slot_of(ac.n, a.A);
+  }
   for (int k = 0; k < a.trips; ++k) {
     if (!(nr < a.L)) break;
     // the next trip's uniforms are under way while this trip runs
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
     const float delta = nr - up, B_pre = B;
     const TripEvent ev = one_trip<NP, BIAS, VB, GUIDE, LOCAL, ARG>(
-        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &ring, &an,
+        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &ring, &ac,
         &m_up);
     // the VB term follows the extension and comes before the importance
     // weight, in both weights (smc.py:951-967)
@@ -1383,7 +1464,7 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     a.log_w[i] = lw;
     a.tl_out[i] = tl;
     if constexpr (ARG) {
-      if (moved) a.arg_n[i] = an;
+      if (moved) a.arg_n[i] = ac.n;
     }
   }
 }
@@ -2844,9 +2925,12 @@ __device__ void mig_summaries(const float* est, const int* hd,
 }
 
 // ARG pushes each trip's R, C and M rows (smc.py:1021-1052) into the
-// particle's ARG ring: the leaves below c and below d from the leaves'
-// lanes walking up the tree before the SPR, the coalescence's population,
-// and the walk's first ARG_MIG_ROWS hops from its lists in shared memory.
+// particle's ARG ring: the leaves below c and below d by one ballot of the
+// leaves' lanes (lanes 0-7 and 8-15), each holding its path to the root in
+// the tree before the SPR (walked at the trip's start, under way with the
+// point and the loop walk), the coalescence's population, and the walk's
+// first ARG_MIG_ROWS hops from its lists in shared memory; lane r holds
+// row r and writes it at the trip's end, after the SPR's warp syncs.
 #define ARG_MIG_ROWS 4
 template <bool VB, bool ARG = false>
 __global__ void __launch_bounds__(MIG_PPB * 32, MIG_MIN_BLOCKS)
@@ -2895,11 +2979,11 @@ segment_pass_mig_kernel(const Args a) {
   // recombines in this segment, its buffers: all under way before the one
   // barrier
   float nr = 0.0f, lw = 0.0f;
-  int an = 0;  // ARG: the ring's rows pushed so far
+  ArgCursor ac{0, 0};  // ARG: the ring's rows pushed so far, next slot
   if (live) {
     nr = a.next_rec[i];
     lw = a.log_w[i];
-    if constexpr (ARG) an = a.arg_n[i];
+    if constexpr (ARG) ac.n = a.arg_n[i];
     if (lane < N) {
       const size_t at = (size_t)i * N + lane;
       w.tm[lane] = a.time[at];
@@ -2924,11 +3008,26 @@ segment_pass_mig_kernel(const Args a) {
   float up = 0.0f, capped = 0.0f, dropped = 0.0f;
   bool moved = false;
   unsigned dirty = 0u;  // buffer rows to write back
+  // ARG: the first row's slot (arg_slot_of), once a segment
+  if constexpr (ARG) {
+    if (a.trips > 0 && nr < a.L) ac.slot = arg_slot_of(ac.n, a.A);
+  }
 
   for (int k = 0; k < a.trips; ++k) {
     if (!(nr < a.L)) break;
     const float4 u = load_uniforms(a, k, i);
     const float u_pt = clip_u(u.x), u_gap = clip_u(u.w);
+    // ARG: leaf `lane`'s path to the root in the tree before the SPR, and
+    // lane 8 + l leaf l's too, for one ballot
+    unsigned path = 0u;
+    if constexpr (ARG)
+      path = leaf_path<MAX_NODES>(w.par, lane & 7, lane < 16 ? n : 0);
+    // ARG: this lane's row of the trip (lane 0 R, lane 1 C, lane 2 + j the
+    // M row of hop j), whether it is written, the trip's rows
+    float row_t = 0.0f;
+    int row_from = 0, row_to = 0, rows = 0;
+    unsigned row_desc = 0u;
+    bool row_put = false;
     // the walk's first draw is under way while the point is found
     uint4 r4_next = philox4x32_10(
         make_uint4((unsigned)i, (unsigned)k, 0u, 0u), k0, k1);
@@ -3119,29 +3218,24 @@ segment_pass_mig_kernel(const Args a) {
     }
     __syncwarp();
     if constexpr (ARG) {
-      // ---- the trip's ARG rows, in the tree before the SPR ---------------
-      bool bc = false, bd = false;
-      if (lane < n) {
-        int cur = lane;
-        for (int s = 0; s < N && cur >= 0; ++s) {
-          bc = bc || cur == c;
-          bd = bd || cur == d;
-          cur = w.par[cur];
-        }
+      // ---- the trip's ARG rows, in the tree before the SPR, each lane's
+      // own: the leaves below c (lanes 0-7) and below d (lanes 8-15) by
+      // one ballot of the leaves' paths; a row whose slot a later row of
+      // the trip takes (a ring of fewer slots than rows) is not written ----
+      const int x = lane < 8 ? c : d;
+      const unsigned m =
+          __ballot_sync(WARP_ALL, x >= 0 && (path >> x & 1u) != 0u);
+      const unsigned dc = m & 0xffu, dd = m >> 8 & 0xffu;
+      rows = 2 + min(min(n_ev, 2 * Mw), ARG_MIG_ROWS);
+      row_put = lane < rows && lane + a.A >= rows;
+      if (row_put) {
+        const int j = lane - 2;  // an M row's hop
+        row_t = lane == 0 ? h_r : lane == 1 ? t_c : w.ev_t[j];
+        row_from = lane == 0 ? -1 : lane == 1 ? fpop
+            : j == 0 ? p_start : (int)w.ev_d[j - 1];
+        row_to = lane < 2 ? -1 : (int)w.ev_d[j];
+        row_desc = lane == 1 ? dc | dd : dc;
       }
-      const unsigned dc = __ballot_sync(WARP_ALL, bc);
-      const unsigned dd = __ballot_sync(WARP_ALL, bd);
-      const int hops = min(min(n_ev, 2 * Mw), ARG_MIG_ROWS);
-      if (lane == 0) {
-        const float pos = a.front + nr;
-        arg_push(a, i, an, 0, pos, h_r, -1, -1, (long long)dc);
-        arg_push(a, i, an + 1, 1, pos, t_c, fpop, -1, (long long)(dc | dd));
-        for (int j = 0; j < hops; ++j)
-          arg_push(a, i, an + 2 + j, 2, pos, w.ev_t[j],
-                   j == 0 ? p_start : (int)w.ev_d[j - 1], (int)w.ev_d[j],
-                   (long long)dc);
-      }
-      an += 2 + hops;
     }
 
     // ---- the SPR with buffer routing --------------------------------------
@@ -3254,6 +3348,15 @@ segment_pass_mig_kernel(const Args a) {
     up = nr;
     nr = nr + gap;
     moved = true;
+    if constexpr (ARG) {
+      // ---- the trip's rows at its position (now up), written last, so
+      // that no warp sync of this trip waits on them ----
+      if (row_put)
+        arg_put(a, i, arg_slot_after(ac.slot, lane, a.A), min(lane, 2),
+                a.front + up, row_t, row_from, row_to, (long long)row_desc);
+      ac.n += rows;
+      ac.slot = arg_slot_after(ac.slot, rows, a.A);
+    }
   }
 
   // ---- final extension to the segment end, push into FIFO slot 0 --------
@@ -3298,7 +3401,7 @@ segment_pass_mig_kernel(const Args a) {
     a.log_w[i] = lw;
     a.tl_out[i] = tl;
     if constexpr (ARG) {
-      if (moved) a.arg_n[i] = an;
+      if (moved) a.arg_n[i] = ac.n;
     }
   }
 }
