@@ -70,7 +70,7 @@ Phases, each fatal on failure:
    through ``save_state``/``load_state`` at half way into a sweep set up
    from another seed: log-likelihood and committed statistics bit for
    bit;
-8. profile 50 steady segments of both sweeps with torch.profiler
+8. profile 10 steady segments of both sweeps with torch.profiler
    (smcsmc_tpu_torch.sweep_profile): device busy share, launches per
    segment, kernel time per launch, top device operations;
 9. the biased path: the whole-genome data through the same entry point
@@ -108,17 +108,18 @@ Phases, each fatal on failure:
    after the build; then the twopop path: bench.py's
    ``twopop_em_iter`` configuration (2 populations, samples [0, 0, 1, 1],
    8 epochs, m=5e-5, 2 Mb, ``simulate_seg(seed=13)``) through the same
-   entry point with ``-Np 10000 -EM 2`` and the flags of
-   ``sweep_profile.twopop_flags``: the migration pass once per segment of
-   each E-step, every other pass and every plain version never; in the
-   E-step at the truth (iteration 0) per population Coal Ne within 2x in
-   every interior epoch with >= 5 posterior coalescences (>= 3 such); in
-   iterations 0 and 2 every interior epoch with >= 5 coalescences in both
-   populations together within 2x, each population's pooled interior Ne
-   within 25%, the pooled migration rate within [0.5x, 2x] of 5e-5 and
-   Recomb within 2x (``TWOPOP_POOLED_WITHIN`` says why); walks capped and
-   events dropped printed; the same command again with -EM 0 -arg must
-   give iteration 0's LogL bit for bit (see 16); a
+   entry point with ``-Np 10000 -EM 0`` (one E-step since the twopop
+   proposal's runs, 17, sweep the data twice more) and the flags of
+   ``sweep_profile.twopop_flags``: the migration pass once per segment,
+   every other pass and every plain version never; in the E-step at the
+   truth per population Coal Ne within 2x in every interior epoch with >=
+   5 posterior coalescences (>= 3 such), every interior epoch with >= 5
+   coalescences in both populations together within 2x, each
+   population's pooled interior Ne within 25%, the pooled migration rate
+   within [0.5x, 2x] of 5e-5 and Recomb within 2x
+   (``TWOPOP_POOLED_WITHIN`` says why); walks capped and events dropped
+   printed; the same command again with -arg must give its LogL bit for
+   bit (see 16); a
    profile of the twopop sweep; the migration pass timed at the twopop
    data's mean segment and at 50 kb (device us per launch, host us, plain
    ms, bound from counted work with the buffer events read and the rows
@@ -193,7 +194,7 @@ Phases, each fatal on failure:
    float32; timed at (10,000, 16, 9) and (10,000, 64, 9) on the data's
    mean segment and at 50 kb, beside the bound from counted work; then
    bench.py's headline demography with n=16 (``sweep_profile.wide_data``)
-   through the main path's command (``-Np 10000 -EM 1``: the wide pass
+   through the main path's command at ``-EM 0`` (the wide pass
    once per segment, nothing else, estimates as in 6, a profile), the same
    with ``-bias_heights 0 0.05 -calibrate_lag 2`` and one E-step (the wide
    biased pass, the wide ``trip`` in the lag pre-passes), the VB variants
@@ -221,11 +222,33 @@ Phases, each fatal on failure:
    parent's timed inputs, in turns, with the bound from counted work, the
    ring's bytes included.
 
+17. Structured populations with the production proposal (the migration
+   pass's proposal variants: biased, guided and biased, local, biased
+   local, guided local, each with and without VB): compared in phase 3
+   (``compare_mig_proposal``) with their plain versions at the twopop
+   shape and its caps corner (8 sections), each leaf status, one trip and
+   64, the delay keyed by the point, the coalescence and -delay_migr, a
+   ring of delayed factors and one of local events 30% in use, a guide
+   that is not constant: no tree mismatch, trees, buffers and heights bit
+   for bit, floats within tolerance, rings equal; then bench.py's
+   twopop_em_iter data with ``-bias_heights 0 0.05 -calibrate_lag 2
+   -delay_migr -EM 1`` (run A: the biased migration pass once per
+   segment, the migration pass exactly as often as the lag calibration
+   logs) and with ``-alpha 0.5 -EM 1`` (run B: the local migration pass in
+   iteration 0, writing its ``.recomb.gz``, the guided local one on the
+   smoothed guide in iteration 1), no plain version, estimates checked
+   per interior epoch over both populations with the pooled migration
+   rate, a profile of each; the variants neither run takes in short
+   sweeps; each variant timed at the twopop mean segment and at 50 kb in
+   turns with the migration pass without the proposal, beside its bound
+   and plain version.
+
 The line before the last is a JSON object with each kernel's build/compare/
 time record (the VB, guided and local variants as kernels of their own)
 and the new paths' updates/s, launches and device ms per segment
-(``feature_paths``), the wide paths' (``wide_paths``) and the ARG paths'
-with the ring's gather (``arg_paths``); the last line
+(``feature_paths``), the wide paths' (``wide_paths``), the ARG paths'
+with the ring's gather (``arg_paths``) and the twopop proposal's runs
+(``twopop_proposal_paths``); the last line
 is {"ok": true, "device": {...}}.  Without a
 CUDA device the script exits non-zero and prints no result.
 """
@@ -261,11 +284,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FIFO_SLOTS = 4  # PFConfig.fifo_slots, the sweep's lag FIFO depth
 # the segments of every sweep profile: warmed, timed without the profiler,
-# profiled (sweep_profile's defaults are 100, 300 and 200; a quarter of
-# them keeps the whole script, with the wide kernels' paths, inside its
-# time limit on a slow host: a profile costs 15-35 s, most of it reading
-# the profiler's events)
-PROFILE_WINDOW = dict(warm=25, timed=75, profiled=50)
+# profiled (sweep_profile's defaults are 100, 300 and 200; a twentieth of
+# them keeps the whole script, with the twopop proposal's paths, inside
+# its time limit on a slow host: a profile costs 2-12 s, most of it
+# reading the profiler's events)
+PROFILE_WINDOW = dict(warm=3, timed=15, profiled=10)
 DEVICE = "cuda"  # where the entry points are driven
 
 
@@ -395,6 +418,26 @@ for _name in ARG_PARENTS:
                                              else "")
         + "arg_" + ("vb_" if "vb" in _name else "") + "launches")
 ARG_A = 512  # PFConfig.arg_slots
+# the migration pass with the production proposal and local recording:
+# biased, guided (and biased), local, biased local, guided local, each
+# with and without VB; by name its flags (biased, guide, local)
+MIG_BIASED_PASS = "segment_pass (migration, biased)"
+MIG_GUIDE_PASS = "segment_pass (migration, biased, guide)"
+MIG_LOCAL_PASS = "segment_pass (migration, local)"
+MIG_BIASED_LOCAL_PASS = "segment_pass (migration, biased, local)"
+MIG_GUIDE_LOCAL_PASS = "segment_pass (migration, biased, guide, local)"
+MIG_PROPOSAL_PASSES = {MIG_BIASED_PASS: (True, False, False),
+                       MIG_GUIDE_PASS: (True, True, False),
+                       MIG_LOCAL_PASS: (False, False, True),
+                       MIG_BIASED_LOCAL_PASS: (True, False, True),
+                       MIG_GUIDE_LOCAL_PASS: (True, True, True)}
+MIG_PROPOSAL_PASSES.update({vb_name(k): v for k, v in
+                            list(MIG_PROPOSAL_PASSES.items())})
+for _name, (_b, _g, _l) in MIG_PROPOSAL_PASSES.items():
+    LAUNCH_COUNTS[_name] = ("migration_" + ("biased_" if _b else "")
+                            + ("guide_" if _g else "")
+                            + ("local_" if _l else "")
+                            + ("vb_" if "vb" in _name else "") + "launches")
 # the compared shapes (P, n, E): P leaves the last block ragged (16
 # particles per block up to 16 leaves, 8 above; n = 16 and 17 on either
 # side of the group sizes' boundary) and is smaller where the plain
@@ -499,16 +542,110 @@ class MigCase:
         return st
 
     def result(self, st):
-        """The pass's outputs under the names ``disagreement`` knows."""
+        """The pass's outputs under the names ``disagreement`` knows (with
+        a proposal variant's pilot weight and ring of delayed factors)."""
         import torch
+
+        from smcsmc_tpu_torch.kernels.trip import BIAS_FIELDS
 
         if not torch.equal(st["fifo"][:, 1:], self.fifo[:, 1:]):
             raise SystemExit("the migration pass wrote outside FIFO slot 0")
         out = {k: st[k] for k in SEGMENT_STATE + ("pop", "mig_time",
-                                                  "mig_dest")}
+                                                  "mig_dest")
+               + BIAS_FIELDS if k in st}
         out["tl"] = st["tl"]
         out["pending"] = st["fifo"][:, 0]
         return out
+
+    def fresh_proposal(self, flags, S=2):
+        """State of a proposal variant of the pass (``flags`` = (biased,
+        guide, local)): the pass's, with a pilot weight and a ring of
+        delayed factors (30% of the slots in use and every slot of the
+        first 16 particles; due from the segment's start to two segments
+        on) where biased, and a ring of pending local events (the same
+        shares; positions before the front, due from the front to two
+        segments on) and the output of the segment's opportunity where
+        local; the rings, the section table (2 or ``S`` = 8 sections) and
+        the lags drawn at the first call."""
+        import torch
+
+        from smcsmc_tpu_torch.kernels.tree import INF
+
+        biased, _, local = flags
+        if not hasattr(self, "pring"):
+            P, dev, g = self.P, DEVICE, self.gen
+
+            def used_of(K):
+                used = torch.rand((P, K), generator=g, device=dev) < 0.3
+                used[:16] = True
+                return used
+
+            used = used_of(BIAS_SLOTS)
+            self.pring = dict(
+                log_pilot=torch.randn(P, generator=g, device=dev),
+                df_pos=torch.where(used, BIAS_FRONT + 2 * self.L * torch.rand(
+                    (P, BIAS_SLOTS), generator=g, device=dev), INF),
+                df_logf=torch.where(used, torch.randn(
+                    (P, BIAS_SLOTS), generator=g, device=dev), 0.0),
+                df_delta=torch.where(used, 3000.0 * torch.rand(
+                    (P, BIAS_SLOTS), generator=g, device=dev), 0.0),
+                df_k=torch.where(used, torch.randint(
+                    1, 4, (P, BIAS_SLOTS), generator=g, device=dev,
+                    dtype=torch.int32), 0))
+            heights, strengths = ((BIAS_HEIGHTS, BIAS_STRENGTHS) if S == 2
+                                  else (BIAS_CAPS_HEIGHTS,
+                                        BIAS_CAPS_STRENGTHS))
+            self.bias_tables = (
+                torch.tensor(heights, device=dev),
+                torch.tensor(strengths, device=dev),
+                torch.linspace(3000.0, 30000.0, self.E, device=dev))
+            used = used_of(LOCAL_SLOTS)
+            pos = BIAS_FRONT - 2e4 * torch.rand((P, LOCAL_SLOTS),
+                                                generator=g, device=dev)
+            self.lring = dict(
+                lr_pos=torch.where(used, pos, INF),
+                lr_due=torch.where(used, pos + 2e4 + 2 * self.L * torch.rand(
+                    (P, LOCAL_SLOTS), generator=g, device=dev), INF),
+                lr_time=torch.where(used, 5e4 * torch.rand(
+                    (P, LOCAL_SLOTS), generator=g, device=dev), 0.0),
+                lr_desc=torch.where(used, torch.randint(
+                    1, 1 << self.n, (P, LOCAL_SLOTS), generator=g,
+                    device=dev), 0),
+                lr_dropped=torch.zeros((), dtype=torch.int32, device=dev))
+            self.lags = torch.linspace(2000.0, 40000.0, self.E, device=dev)
+        st = self.fresh()
+        if biased:
+            st.update({k: v.clone() for k, v in self.pring.items()})
+        if local:
+            st.update({k: v.clone() for k, v in self.lring.items()})
+            st["ropp"] = torch.zeros(self.P, device=DEVICE)
+        return st
+
+    def run_proposal(self, fn, u, st, flags, vb=None, delay="recomb",
+                     rows=1):
+        """A proposal variant (``flags``) of the pass on state ``st``, the
+        delay keyed by ``delay``, a guide's rates constant over ``rows``
+        windows (:func:`_guide_of`)."""
+        from smcsmc_tpu_torch.kernels.bias import BiasedPass
+        from smcsmc_tpu_torch.kernels.local import LocalPass
+        from smcsmc_tpu_torch.kernels.migration import MigrationPass
+
+        biased, guide, local = flags
+        b = (BiasedPass(st["log_pilot"], st["df_pos"], st["df_logf"],
+                        st["df_delta"], st["df_k"], *self.bias_tables,
+                        BIAS_FRONT, delay) if biased else None)
+        lp = (LocalPass(st["lr_pos"], st["lr_due"], st["lr_time"],
+                        st["lr_desc"], st["lr_dropped"], self.lags,
+                        st["ropp"], BIAS_FRONT) if local else None)
+        mp = MigrationPass(st["pop"], st["mig_time"], st["mig_dest"],
+                           st["diag"], self.key, *self.tables)
+        if self.max_walk_events is not None:
+            mp = mp._replace(max_walk_events=self.max_walk_events)
+        fn(u, self.leaf_status, *(st[k] for k in SEGMENT_STATE), st["fifo"],
+           self.fifo_mask, st["tl"], self.L, MU, RHO, self.start,
+           self.inv2ne, self.has_data, b, mp, vb=vb,
+           guide=_guide_of(self, rows) if guide else None, local=lp)
+        return st
 
 
 class Case:
@@ -687,7 +824,7 @@ def _guide_of(c, rows=1):
         rate = np.repeat(RHO * rng.uniform(0.2, 3.0, nrow), rows)[:W]
         leaf = np.repeat(rng.uniform(0.3, 2.0, (nrow, c.n)), rows,
                          axis=0)[:W]
-        c._guide = guide_tables(rate, leaf, RHO, GUIDE_WINDOW, "cuda")
+        c._guide = guide_tables(rate, leaf, RHO, GUIDE_WINDOW, DEVICE)
         c._guide_rows = rows
     return c._guide
 
@@ -989,6 +1126,7 @@ def phase_compare(kernels):
                     trees, floats, errs, good)
             ok &= good
     ok &= compare_migration(segment_pass, segment_pass_plain, tallies)
+    ok &= compare_mig_proposal(segment_pass, segment_pass_plain, tallies)
     ok &= compare_vb(segment_pass, segment_pass_plain, tallies)
     ok &= compare_guide(segment_pass, segment_pass_plain, tallies)
     ok &= compare_wide(kernels, tallies)
@@ -1073,6 +1211,127 @@ def compare_migration(segment_pass, segment_pass_plain, tallies,
                     f"buffers bit for bit {exact})",
                     Pc, trees, floats, errs, good)
             ok &= good
+    return ok
+
+
+# the proposal variants' cases: (pass, label, MigCase options, leaf
+# status, trips, delay type), each of the ten at the twopop shape and at
+# the caps corner (8 sections; P ragged against the block) with one trip,
+# the biased and the guided local pass also with 64 trips on the longest
+# segment; across them every leaf status, both trip counts, 2 sections
+# and 8 and the three delay types
+MIG_CAPS = {"caps": True, "m": 1e-4, "Mw": 96}
+MIG_PROPOSAL_CASES = (
+    [(MIG_BIASED_PASS, "", {}, 1, 1, "recomb"),
+     (MIG_BIASED_PASS, "", {}, 0, 64, "coal"),
+     (MIG_BIASED_PASS, " caps corner", MIG_CAPS, 1, 1, "migr"),
+     (MIG_GUIDE_PASS, "", {}, 1, 1, "migr"),
+     (MIG_GUIDE_PASS, "", {}, -1, 1, "recomb"),
+     (MIG_GUIDE_PASS, " caps corner", MIG_CAPS, 0, 1, "coal"),
+     (MIG_LOCAL_PASS, "", {}, 0, 1, "recomb"),
+     (MIG_LOCAL_PASS, "", {}, 1, 1, "recomb"),
+     (MIG_LOCAL_PASS, " caps corner", MIG_CAPS, 1, 1, "recomb"),
+     (MIG_BIASED_LOCAL_PASS, "", {}, -1, 1, "coal"),
+     (MIG_BIASED_LOCAL_PASS, "", {}, 1, 1, "migr"),
+     (MIG_BIASED_LOCAL_PASS, " caps corner", MIG_CAPS, 1, 1, "recomb"),
+     (MIG_GUIDE_LOCAL_PASS, "", {}, 0, 1, "recomb"),
+     (MIG_GUIDE_LOCAL_PASS, "", {}, 0, 64, "migr"),
+     (MIG_GUIDE_LOCAL_PASS, " caps corner", MIG_CAPS, 1, 1, "coal")]
+    + [(vb_name(name), label, kw, ls, 1, delay)
+       for name, label, kw, ls, delay in (
+           (MIG_BIASED_PASS, "", {}, 1, "migr"),
+           (MIG_BIASED_PASS, " caps corner", MIG_CAPS, 0, "coal"),
+           (MIG_GUIDE_PASS, "", {}, 0, "recomb"),
+           (MIG_GUIDE_PASS, " caps corner", MIG_CAPS, 1, "coal"),
+           (MIG_LOCAL_PASS, "", {}, 0, "recomb"),
+           (MIG_LOCAL_PASS, " caps corner", MIG_CAPS, -1, "recomb"),
+           (MIG_BIASED_LOCAL_PASS, "", {}, 1, "recomb"),
+           (MIG_BIASED_LOCAL_PASS, " caps corner", MIG_CAPS, 1, "migr"),
+           (MIG_GUIDE_LOCAL_PASS, "", {}, -1, "migr"),
+           (MIG_GUIDE_LOCAL_PASS, " caps corner", MIG_CAPS, 0, "coal"))])
+
+
+def mig_proposal_one(segment_pass, segment_pass_plain, tallies, name,
+                     label, kw, ls, T, delay, P=TWOPOP_P, caps_P=CAPS_P,
+                     exact=True):
+    """One case of :func:`compare_mig_proposal`: the proposal variant
+    ``name`` and its plain version on identical inputs (a ring of delayed
+    factors and one of local events each 30% in use, a guide that is not
+    constant: its rates change every window at one trip, every
+    ``GUIDE_CHAIN_ROWS`` windows at 64).  As :func:`compare_migration`
+    holds the migration pass: no tree mismatch, node times, populations
+    and the buffers' times and destinations bit for bit (times within
+    tolerance with ``exact`` False), the walk diagnostics equal, every
+    float within ``float_tolerances``; the local ring as
+    :func:`compare_guide` holds it (slots in use, bitmasks and drops
+    exactly); the case must change a ring slot and push a local event."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.migration import stats_offsets
+    from smcsmc_tpu_torch.kernels.trip import disagreement, float_tolerances
+
+    flags = MIG_PROPOSAL_PASSES[name]
+    biased, _, local = flags
+    Pc = caps_P if kw.get("caps") else P
+    L, nr_scale = (20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1)
+    c = MigCase(Pc, ls, L, nr_scale, seed=29 * Pc + T + ls + len(name), **kw)
+    u = c.uniforms(T)
+    vb = vb_tables(c.demo, T + ls) if "vb" in name else None
+    rows = 1 if T == 1 else GUIDE_CHAIN_ROWS
+    S = 8 if kw.get("caps") else 2
+    sts = [c.run_proposal(fn, u, c.fresh_proposal(flags, S), flags, vb,
+                          delay, rows)
+           for fn in (segment_pass, segment_pass_plain)]
+    _sync()
+    got, ref = (c.result(st) for st in sts)
+    trees, floats, errs = disagreement(got, ref, c.L, MU, RTOL, Pp=c.Pp)
+    keys = MIG_EXACT if exact else tuple(k for k in MIG_EXACT if k not in (
+        "time", "mig_time"))
+    same = all(torch.equal(got[k], ref[k]) for k in keys)
+    same_diag = torch.equal(sts[0]["diag"], sts[1]["diag"])
+    apart, notes = [], []
+    if biased:
+        changed = int((sts[1]["df_pos"] != c.pring["df_pos"]).sum())
+        notes.append(f"{changed} ring slots changed")
+        if changed == 0:
+            apart.append("no ring slot changed")
+    if local:
+        tol = float_tolerances(ref, c.L, MU, Pp=c.Pp)
+        tol["ropp"] = float(tol["pending"][stats_offsets(
+            c.E, c.Pp)["recomb_opp"]])
+        apart += _ring_apart(sts[0], sts[1], ~(trees | floats), c.L, tol)
+        drops = [int(st["lr_dropped"]) for st in sts]
+        pushed = int((sts[1]["lr_pos"] != c.lring["lr_pos"]).sum())
+        if drops[0] != drops[1]:
+            apart.append("drops")
+        if pushed == 0:
+            apart.append("no event pushed")
+        notes.append(f"{pushed} local events pushed, dropped {drops[0]} / "
+                     f"{drops[1]}")
+    good = (int(trees.sum()) == 0 and int(floats.sum()) == 0 and same
+            and same_diag and not apart)
+    tallies.setdefault(name, (Tally(), Tally()))[T > 1].add(trees, floats,
+                                                             errs)
+    _report(f"{name}{label} P={Pc} n={c.n} E={c.E} Pp={c.Pp} Mw={c.Mw} "
+            f"leaf_status={ls} trips={T}" + (" vs plain" if T > 1 else "")
+            + (f" delay {delay}" if biased else "")
+            + f" ({'; '.join(notes)}; walks capped, events dropped "
+            f"{sts[1]['diag'].tolist()}; trees and buffers bit for bit "
+            f"{same}" + (f"; rings {apart}" if apart else "") + ")",
+            Pc, trees, floats, errs, good)
+    return good
+
+
+def compare_mig_proposal(segment_pass, segment_pass_plain, tallies,
+                         P=TWOPOP_P, caps_P=CAPS_P, exact=True):
+    """Each proposal variant of the migration pass against its plain
+    version, :data:`MIG_PROPOSAL_CASES` by :func:`mig_proposal_one` (the
+    caps corner at ``caps_P`` particles, the others at ``P``)."""
+    ok = True
+    for name, label, kw, ls, T, delay in MIG_PROPOSAL_CASES:
+        ok &= mig_proposal_one(segment_pass, segment_pass_plain, tallies,
+                               name, label, kw, ls, T, delay, P, caps_P,
+                               exact)
     return ok
 
 
@@ -2041,6 +2300,7 @@ def phase_time_migration(kernel, plain, seg_lengths, P=TWOPOP_P, vb=False):
                  plain_ms=_plain_ms(c.run, plain, u, c.fresh),
                  host_us=_host_us(launch, [c.fresh() for _ in range(100)]),
                  active=active, trips=trips, walks=int(per_walk.numel()),
+                 walk_events=events,
                  events_per_walk_mean=(events / max(per_walk.numel(), 1)),
                  events_per_walk_max=int(per_walk.max()) if per_walk.numel()
                  else 0, valid_events_read=valid, rows_changed=changed,
@@ -2090,6 +2350,187 @@ def phase_time_migration(kernel, plain, seg_lengths, P=TWOPOP_P, vb=False):
              f"{t['bound_ms'] * 1e3:.3f} us by {t['bound_by']} "
              f"({t['bytes']} B, {t['flop']} operations), kernel reaches "
              f"{t['bound_ms'] / t['kernel_ms']:.4f} of it")
+    return rows_out
+
+
+def _mig_proposal_bound(bound, c, name, active, trips, slots_changed):
+    """A proposal variant's bound: the migration pass's (:func:`_mig_bounds`
+    at this variant's own trips and walk events) plus, under bias, the
+    section table and the delays, every particle's pilot weight read and
+    written and its ring's positions read (what is due and what is free),
+    a ring slot that changed its other three words read and all four
+    written, and per trip the N x S segments weighed and summed (about 6
+    operations each); under the guide per trip the mass table's search
+    (15 entries), four mass lookups (two words each) and the n leaf rates
+    read, the branch rates merged and ranked and the segments weighed once
+    more; with local recording the lags, per recombining particle its
+    ring's positions read, per trip an event written (20 B) and the cut
+    branch's leaves found, and every particle's opportunity written; with
+    VB its tables and one addition per trip."""
+    biased, guide, local = MIG_PROPOSAL_PASSES[name]
+    N, E, n, P = 2 * c.n - 1, c.E, c.n, c.P
+    S, D = len(BIAS_STRENGTHS), BIAS_SLOTS
+    nbytes, flop = bound["bytes"], bound["flop"]
+    if biased:
+        nbytes += (4 * (2 * S + 1 + E) + P * (2 * 4 + 4 * D)
+                   + slots_changed * (3 + 4) * 4)
+        flop += trips * N * S * 6 + P * D * 2
+    if guide:
+        nbytes += trips * 4 * (15 + 8 + n)
+        flop += trips * (3 * n + n * n + 2 * N * S + 40)
+    if local:
+        nbytes += 4 * E + active * 4 * LOCAL_SLOTS + trips * 20 + 4 * P
+        flop += trips * (N + 10) + P * E
+    out = _bound_of(nbytes, flop)
+    return _with_vb(out, E, c.Pp, trips) if "vb" in name else out
+
+
+def _walk_events(plain, c, u, flags):
+    """Events per walk [walks] of a proposal variant (``flags``; delay
+    ``migr``, the guide's rates constant over ``GUIDE_CHAIN_ROWS`` windows)
+    on case ``c``, counted on the plain version, which draws the kernel's
+    numbers."""
+    import torch
+
+    import smcsmc_tpu_torch.kernels.migration as mig_mod
+
+    seen, walk = [], mig_mod.walk_mig
+
+    def counting(*a, **k):
+        out = walk(*a, **k)
+        seen.append(out[8][a[6]])
+        return out
+
+    mig_mod.walk_mig = counting
+    try:
+        c.run_proposal(plain, u, c.fresh_proposal(flags), flags, None,
+                       "migr" if flags[0] else "recomb", GUIDE_CHAIN_ROWS)
+    finally:
+        mig_mod.walk_mig = walk
+    return torch.cat(seen) if seen else torch.zeros(0)
+
+
+def phase_time_mig_proposal(kernel, plain, seg_lengths, uniform_walks,
+                            P=TWOPOP_P):
+    """Each proposal variant of the migration pass at the two-population
+    path's shape (P, n=4, E=8, Pp=2, Mw=56; 2 sections, the delay keyed
+    by -delay_migr, rings 30% in use, the guide's rates constant over
+    ``GUIDE_CHAIN_ROWS`` windows) for each (label, segment length), in
+    turns with the migration pass without the proposal (its VB variant
+    beside a VB variant) on the same inputs: parent, variant, variant,
+    parent, each the best of 3 x 20 launches; the host's time per wrapper
+    call; on the first length the plain version (one run, CUDA events),
+    its outputs held to the kernel's as :func:`mig_proposal_one` holds
+    them; the bound from counted work (:func:`_mig_proposal_bound`), the
+    walks' events counted on the plain versions of the biased and guided
+    points and, for the uniform point, taken from ``uniform_walks``
+    ({label: (walks, events)} of :func:`phase_time_migration`'s run on the
+    same inputs); a variant's walks are those of its point (VB and local
+    recording change no walk).  Returns {label: {pass: row}}."""
+    import torch
+
+    from smcsmc_tpu_torch.kernels.tree import INF
+    from smcsmc_tpu_torch.kernels.trip import disagreement
+
+    filler = _filler()
+    rows_out = {}
+    for li, (label, L) in enumerate(seg_lengths):
+        c, u = _mig_timing_case(P, L)
+        b = c.base
+        act = b["next_rec"] < L
+        active = int(act.sum())
+        valid = int((b["mig_time"][act] < INF).sum())
+        walks = {"uniform": uniform_walks[label]}
+        for kind, flags in (("biased", MIG_PROPOSAL_PASSES[MIG_BIASED_PASS]),
+                            ("guided", MIG_PROPOSAL_PASSES[MIG_GUIDE_PASS])):
+            per_walk = _walk_events(plain, c, u, flags)
+            walks[kind] = (int(per_walk.numel()), int(per_walk.sum()))
+        row = {}
+        for name, flags in MIG_PROPOSAL_PASSES.items():
+            biased, guide, local = flags
+            vb = vb_tables(c.demo, 5) if "vb" in name else None
+            delay = "migr" if biased else "recomb"
+            trips, events = walks["guided" if guide else "biased" if biased
+                                  else "uniform"]
+
+            def launch(st, c=c, u=u, flags=flags, vb=vb, delay=delay):
+                c.run_proposal(kernel, u, st, flags, vb, delay,
+                               GUIDE_CHAIN_ROWS)
+
+            def parent(st, c=c, u=u, vb=vb):
+                c.run(kernel, u, st, vb)
+
+            def fresh(c=c, flags=flags):
+                return c.fresh_proposal(flags)
+
+            turns = [_best_device_ms(f, fr, filler) for f, fr in (
+                (parent, c.fresh), (launch, fresh), (launch, fresh),
+                (parent, c.fresh))]
+            st = fresh()
+            launch(st)
+            torch.cuda.synchronize()
+            changed = int(((st["mig_time"] != b["mig_time"])
+                           | (st["mig_dest"] != b["mig_dest"])).any(
+                               dim=2).sum())
+            pushed = int((st["fifo"][:, 0] != 0).sum())
+            slots = (int(((st["df_pos"] != c.pring["df_pos"])
+                          | (st["df_k"] != c.pring["df_k"])).sum())
+                     if biased else 0)
+            bound = _mig_proposal_bound(
+                _mig_bounds(c, active, trips, events, valid, changed,
+                            pushed), c, name, active, trips, slots)
+            t = dict(kernel_ms=min(turns[1:3]), parent_ms=min(turns[0],
+                                                               turns[3]),
+                     turns_ms=turns,
+                     host_us=_host_us(launch, [fresh() for _ in range(50)]),
+                     active=active, trips=trips, walk_events=events,
+                     valid_events_read=valid, rows_changed=changed,
+                     pushed=pushed, slots_changed=slots, L=L, **bound)
+            if li == 0:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                ref = fresh()
+                torch.cuda.synchronize()
+                t0.record()
+                c.run_proposal(plain, u, ref, flags, vb, delay,
+                               GUIDE_CHAIN_ROWS)
+                t1.record()
+                torch.cuda.synchronize()
+                t["plain_ms"] = t0.elapsed_time(t1)
+                got_r, ref_r = c.result(st), c.result(ref)
+                trees_d, floats_d, errs = disagreement(got_r, ref_r, L, MU,
+                                                       RTOL, Pp=2)
+                exact = all(torch.equal(got_r[k], ref_r[k])
+                            for k in MIG_EXACT)
+                good = (int((trees_d | floats_d).sum()) == 0 and exact
+                        and torch.equal(st["diag"], ref["diag"]))
+                if local:
+                    good &= bool(torch.equal(st["lr_desc"], ref["lr_desc"])
+                                 and torch.equal(st["lr_dropped"],
+                                                 ref["lr_dropped"]))
+                _report(f"{name} timed launch P={P} L={L:g} trips=64 vs "
+                        f"plain (trees and buffers bit for bit {exact})", P,
+                        trees_d, floats_d, errs, good)
+                if not good:
+                    raise SystemExit(f"the timed {name} disagrees with its "
+                                     "plain version")
+            row[name] = t
+            _log(f"time {name} {label} (P={P} n=4 E=8 Pp=2 Mw={c.Mw}, "
+                 f"L={L:g} bp): {active} particles recombine, {trips} "
+                 f"walks of {events / max(trips, 1):.2f} events on average; "
+                 f"{slots} ring slots changed, {pushed} statistics pushed; "
+                 f"kernel {t['kernel_ms'] * 1e3:.2f} us of device time per "
+                 f"launch beside {MIGRATION_VB_PASS if vb is not None else MIGRATION_PASS} "
+                 f"{t['parent_ms'] * 1e3:.2f} us (turns parent, variant, "
+                 f"variant, parent: "
+                 + ", ".join(f"{x * 1e3:.2f}" for x in turns)
+                 + f" us); host {t['host_us']:.2f} us per call"
+                 + (f"; plain {t['plain_ms']:.4f} ms" if "plain_ms" in t
+                    else "")
+                 + f"; bound {t['bound_ms'] * 1e3:.3f} us by "
+                 f"{t['bound_by']} ({t['bytes']} B, {t['flop']} operations), "
+                 f"kernel reaches {t['bound_ms'] / t['kernel_ms']:.4f} of it")
+        rows_out[label] = row
     return rows_out
 
 
@@ -3220,10 +3661,10 @@ def _check_twopop(rows, it, problems, per_epoch):
 
 def phase_twopop_path(card):
     """bench.py's twopop_em_iter configuration through smcsmc_main:
-    ``smc2-torch -Np 10000 -EM 2`` with the flags of
+    ``smc2-torch -Np 10000 -EM 0`` with the flags of
     ``sweep_profile.twopop_flags`` on ``simulate_seg(twopop_demo, seed=13)``
-    (2 Mb), started at the truth; the same command a second time with
-    ``-EM 0 -arg``, which must give iteration 0's LogL bit for bit through
+    (2 Mb), at the truth; the same command a second time with ``-arg``,
+    which must give the same LogL bit for bit through
     the migration pass's ARG variant (once per segment, nothing else),
     its ``.trees.gz`` holding M rows (from one population to another, with
     leaves) and ``argout.find_segments`` giving tracts of positive length
@@ -3247,15 +3688,15 @@ def phase_twopop_path(card):
         for run in (0, 1):
             out = os.path.join(tmp, f"out{run}")
             argv = ["-seg", seg_path, "-o", out, "-Np", str(TWOPOP_P), "-EM",
-                    "0" if run else "2", *twopop_flags(), "-seed", "7",
-                    "-device", DEVICE] + (["-arg"] if run else [])
-            # the first run is checked and reported; the second, one E-step
-            # only (to keep the script inside its time), records the ARG
+                    "0", *twopop_flags(), "-seed", "7", "-device",
+                    DEVICE] + (["-arg"] if run else [])
+            # the first run is checked and reported; the second records the
+            # ARG
             launches_r, plain, steps_r, records, wall = _run_cli(argv)
             logls.append([r.args[4] for r in steps_r])
             if run:
                 arg_launches, arg_steps = launches_r, steps_r
-                _log(f"twopop path with -arg -EM 0 ran in {wall:.2f} s "
+                _log(f"twopop path with -arg ran in {wall:.2f} s "
                      f"wall; kernel launches {launches_r}")
                 _log_esteps(steps_r, TWOPOP_P, card)
                 _check_launches(launches_r, plain,
@@ -3269,7 +3710,7 @@ def phase_twopop_path(card):
                  f"wall; kernel launches {launches}; calls of the plain "
                  f"versions {plain}")
             _log_esteps(steps, TWOPOP_P, card)
-            if len(steps) != 3:
+            if len(steps) != 1:
                 raise SystemExit(f"twopop path: {len(steps)} EM iterations")
             _check_launches(launches, plain, sum(r.args[2] for r in steps),
                             problems, "twopop path", MIGRATION_PASS)
@@ -3277,13 +3718,11 @@ def phase_twopop_path(card):
                         if r.msg.startswith("approximation pressure")]
             _log(f"  migration walks capped and events dropped, per E-step "
                  f"with any: {pressure or 'none'}")
-            result = os.path.join(out, "result.out")
-            _check_twopop(_read_out(result, 0), 0, problems, True)
-            pooled = _check_twopop(_read_out(result, 2), 2, problems, False)
-    _log(f"twopop path: LogL by iteration {logls[0]} and, the same seed "
-         f"again for one E-step with -arg, {logls[1]}: bit for bit equal "
-         f"{logls[0][:1] == logls[1]}")
-    if logls[0][:1] != logls[1]:
+            pooled = _check_twopop(_read_out(os.path.join(out, "result.out"),
+                                             0), 0, problems, True)
+    _log(f"twopop path: LogL {logls[0]} and, the same seed again with -arg, "
+         f"{logls[1]}: bit for bit equal {logls[0] == logls[1]}")
+    if logls[0] != logls[1]:
         problems.append("the same seed gave another LogL")
     if problems:
         raise SystemExit("twopop path checks failed: " + "; ".join(problems))
@@ -3313,6 +3752,156 @@ def phase_twopop_path(card):
                          f"{arg_prof_launches} and {vb_arg}")
     return (launches, steps, demo, seg, rep, pooled, pressure, arg_launches,
             arg_steps, arg_rep)
+
+
+def _check_mig_launches(launches, plain, want, problems, path):
+    """Each pass of ``want`` ({pass: launches}) launched as often as it
+    says, every other pass and ``trip`` never, no plain version."""
+    for name in LAUNCH_COUNTS:
+        if launches[name] != want.get(name, 0):
+            problems.append(f"{name} launched {launches[name]} times on the "
+                            f"{path} (want {want.get(name, 0)})")
+    for entry in ("trip", WIDE_TRIP):
+        if launches[entry] != 0:
+            problems.append(f"{entry} launched {launches[entry]} times on "
+                            f"the {path}")
+    if any(plain.values()):
+        problems.append(f"the {path} ran a plain version: {plain}")
+
+
+def phase_twopop_proposal(card):
+    """bench.py's twopop_em_iter data through smcsmc_main with the
+    production proposal and with the guide loop, each ``-Np 10000 -EM 1``
+    with the flags of ``sweep_profile.twopop_flags``:
+
+    A. ``TWOPOP_PROPOSAL_FLAGS`` (``-bias_heights 0 0.05 -calibrate_lag 2
+       -delay_migr``): the biased migration pass once per segment of each
+       E-step, the migration pass exactly as often as the lag calibration
+       pre-passes log (one trip per launch), nothing else, no plain
+       version; the calibrated strengths and lags logged;
+    B. ``-alpha 0.5``: iteration 0 records its windows with the local
+       migration pass once per segment into ``emiter0/chunk0.recomb.gz``
+       (20,000 windows), iteration 1 sweeps on the smoothed guide (the log
+       names it) with the guided local migration pass once per segment;
+       nothing else.
+
+    Each iteration's estimates checked as the twopop path checks its later
+    iterations (``_check_twopop`` without the per-population epochs);
+    each run's profile (run B's of iteration 1's setup).  Returns
+    ({run: launches}, {run: E-step records}, {run: profile}, calibration
+    launches logged)."""
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.sweep_profile import (
+        TWOPOP_PROPOSAL_FLAGS,
+        TWOPOP_PROPOSAL_OPTIONS,
+        twopop_data,
+        twopop_flags,
+    )
+
+    demo, seg = twopop_data()
+    problems = []
+    launches, steps, reps = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "twopop.seg")
+        write_seg(seg_path, seg)
+        for run, extra in (("A", TWOPOP_PROPOSAL_FLAGS),
+                           ("B", ["-alpha", "0.5"])):
+            out = os.path.join(tmp, f"out{run}")
+            argv = ["-seg", seg_path, "-o", out, "-Np", str(TWOPOP_P), "-EM",
+                    "1", *twopop_flags(), *extra, "-seed", "7", "-device",
+                    DEVICE]
+            got, plain, st, records, wall = _run_cli(argv)
+            launches[run], steps[run] = got, st
+            segs = [r.args[2] for r in st]
+            shown = " ".join(a for a in argv if a not in (seg_path, out))
+            _log(f"twopop {run}: smc2-torch {shown} ran in {wall:.2f} s "
+                 f"wall; kernel launches {got}; calls of the plain versions "
+                 f"{plain}; LogL by iteration {[r.args[4] for r in st]!r}")
+            _log_esteps(st, TWOPOP_P, card)
+            if len(st) != 2:
+                raise SystemExit(f"twopop {run}: {len(st)} EM iterations")
+            if run == "A":
+                reported = sum(r.args[0] for r in records
+                               if r.msg.startswith("survival calibration:"))
+                for r in records:
+                    m = r.getMessage()
+                    if m.startswith(("auto-calibrated bias_strengths",
+                                     "calibrated lags",
+                                     "survival calibration")):
+                        _log("  log: " + m)
+                if reported == 0 or not any(
+                        r.getMessage().startswith("calibrated lags")
+                        for r in records):
+                    problems.append("A: no lag calibration logged")
+                want = {MIG_BIASED_PASS: sum(segs), MIGRATION_PASS: reported}
+            else:
+                want = {MIG_LOCAL_PASS: segs[0], MIG_GUIDE_LOCAL_PASS: segs[1]}
+                guide = os.path.join(out, "emiter1", "chunk0.recomb_guide.gz")
+                windows, opp, cnt = recomb_totals(os.path.join(
+                    out, "emiter0", "chunk0.recomb.gz"))
+                read = [r for r in records if "guide" in r.getMessage()
+                        and r.getMessage().startswith("iteration 1")]
+                _log(f"twopop B: iteration 0's .recomb.gz {windows} windows, "
+                     f"opportunity {opp:.6g}, leaf counts {cnt:.6g}; "
+                     f"{read[0].getMessage() if read else 'no guide read'}")
+                if windows != 20000 or not opp > 0 or not cnt > 0:
+                    problems.append(f"B: iteration 0's .recomb.gz has "
+                                    f"{windows} windows, {opp} opportunity")
+                if not os.path.exists(guide) or not read:
+                    problems.append("B: iteration 1 did not read a smoothed "
+                                    "guide")
+            _check_mig_launches(got, plain, want, problems, f"twopop {run}")
+            for it in range(2):
+                _check_twopop(_read_out(os.path.join(out, "result.out"), it),
+                              it, problems, False)
+            if run == "B":
+                reps["B"], _ = _profile(card, "twopop B (iteration 1: "
+                                        "guided, recording)", demo, seg,
+                                        TWOPOP_P, alpha=0.5,
+                                        guide_file=guide)
+    if problems:
+        raise SystemExit("twopop proposal checks failed: "
+                         + "; ".join(problems))
+    _log("twopop proposal path checks: ok")
+    reps["A"], prof = _profile(card, "twopop A (production proposal)", demo,
+                               seg, TWOPOP_P, **TWOPOP_PROPOSAL_OPTIONS)
+    if prof[MIG_BIASED_PASS] == 0:
+        raise SystemExit(f"the twopop A profile launched {prof}")
+    return launches, steps, reps, reported
+
+
+def mig_proposal_sweeps(card, segments=30):
+    """The proposal variants of the migration pass that neither run of
+    :func:`phase_twopop_proposal` takes, each driven over the first
+    ``segments`` segments of the twopop data at P=10,000 by
+    :func:`_short_sweep`: the guided biased pass (``-guide``, a constant
+    guide, with bias), the biased local pass (-alpha with bias) and the
+    VB variant of every one.  The bias strengths are given (4 1), so no
+    calibration runs.  Returns {pass: launches}."""
+    from smcsmc_tpu_torch.sweep_profile import twopop_data
+
+    demo, seg = twopop_data()
+    bias = dict(bias_heights=(2000.0,), bias_strengths=(4.0, 1.0),
+                delay_type="migr")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        guide = write_constant_guide(os.path.join(tmp, "g.recomb_guide.gz"),
+                                     demo)
+        runs = {MIG_GUIDE_PASS: dict(guide_file=guide, **bias),
+                MIG_BIASED_LOCAL_PASS: dict(alpha=0.5, **bias)}
+        for name, opts in ((MIG_BIASED_PASS, bias),
+                           (MIG_GUIDE_PASS, runs[MIG_GUIDE_PASS]),
+                           (MIG_LOCAL_PASS, dict(alpha=0.5)),
+                           (MIG_BIASED_LOCAL_PASS,
+                            runs[MIG_BIASED_LOCAL_PASS]),
+                           (MIG_GUIDE_LOCAL_PASS, dict(guide_file=guide,
+                                                       alpha=0.5))):
+            runs[vb_name(name)] = dict(opts, vb=True)
+        for name, opts in runs.items():
+            guide_file = opts.pop("guide_file", None)
+            out[name] = _short_sweep(card, name, demo, seg, segments,
+                                     guide_file=guide_file, **opts)[name]
+    return out
 
 
 def _twopop_trees(out):
@@ -3402,8 +3991,9 @@ def _short_sweep(card, name, demo, seg, segments=60, guide_file=None,
 
 def phase_wide_path(card):
     """bench.py's headline demography with n=16 (``sweep_profile.wide_data``,
-    2 Mb) through smcsmc_main with the main path's command (``-Np 10000
-    -EM 1``): the wide pass once per segment of each E-step, nothing else,
+    2 Mb) through smcsmc_main with the main path's command at one E-step
+    (``-Np 10000 -EM 0``: the wide passes' time is on the wide biased path
+    too): the wide pass once per segment, nothing else,
     estimates as on the main path; a profile, and a short sweep with
     ``-vb`` (the wide pass's VB variant, :func:`_short_sweep`).  Returns
     (launches, E-step records, the profile, the data's mean segment
@@ -3412,15 +4002,15 @@ def phase_wide_path(card):
     from smcsmc_tpu_torch.sweep_profile import wide_data
 
     demo, seg = wide_data()
-    launches, plain, steps, _, wall, rows = _run_wide([], seg)
-    _log(f"wide path (n=16): smc2-torch -Np {WIDE_P} -EM 1 ran in "
+    launches, plain, steps, _, wall, rows = _run_wide(["-EM", "0"], seg)
+    _log(f"wide path (n=16): smc2-torch -Np {WIDE_P} -EM 0 ran in "
          f"{wall:.2f} s wall; kernel launches {launches}; calls of the "
          f"plain versions {plain}")
     _log_esteps(steps, WIDE_P, card)
     _log(f"wide path: LogL by iteration {[r.args[4] for r in steps]!r} "
          f"(in full)")
     problems = []
-    if len(steps) != 2:
+    if len(steps) != 1:
         problems.append(f"{len(steps)} EM iterations logged")
     _check_estimates(rows[-1], len(rows) - 1, problems)
     _check_launches(launches, plain, sum(r.args[2] for r in steps), problems,
@@ -3864,7 +4454,15 @@ RESOURCE_SHAPES = (
             ("caps (n=8, E=64, Pp=4, Mw=96)", (8, 64, 4, 96, 2)))),
         (WIDE_ARG_PASS, "segment_pass", (("wide (n=16, E=9)", (16, 9, 1, 0, 2)),
                                          ("n=64 (n=64, E=9)", (64, 9, 1, 0, 2)))))
-    for name in (base, vb_name(base)))
+    for name in (base, vb_name(base))) + tuple(
+    # the migration pass's proposal variants (kernel_resources("migration",
+    # ..., vb, guide, local, biased=)) at the twopop shape and the caps
+    (name, "migration", (
+        ("twopop (n=4, E=8, Pp=2, Mw=56, S=2)",
+         (4, 8, 2, TWOPOP_MW, 2, "vb" in name, g, lo, False, b)),
+        ("caps (n=8, E=64, Pp=4, Mw=96, S=8)",
+         (8, 64, 4, 96, 8, "vb" in name, g, lo, False, b))))
+    for name, (b, g, lo) in MIG_PROPOSAL_PASSES.items())
 SOURCE = "smcsmc_tpu_torch/csrc/trip.cu"
 
 
@@ -4036,6 +4634,18 @@ def main(argv=None) -> int:
         [("mean twopop segment", m_mean_len), ("longest segment", MAX_SEG)],
         vb=True)
     elapsed("the migration pass's timing")
+    # the production proposal and the guide loop on the twopop data, the
+    # proposal variants that neither runs in short sweeps, and each
+    # variant's time beside the migration pass
+    mp_launches, mp_steps, mp_reps, mp_cal = phase_twopop_proposal(card)
+    mp_sweeps = mig_proposal_sweeps(card)
+    elapsed("the twopop proposal paths")
+    mp_timing = phase_time_mig_proposal(
+        segment_pass, segment_pass_plain,
+        [("mean twopop segment", m_mean_len), ("longest segment", MAX_SEG)],
+        {label: (row["walks"], row["walk_events"])
+         for label, row in m_timing.items()})
+    elapsed("the proposal variants' timing")
 
     # the wide kernels' paths (n=16 plain and biased, n=64) and their times
     # at (10,000, 16, 9) and (10,000, 64, 9)
@@ -4345,6 +4955,40 @@ def main(argv=None) -> int:
                                            "rows_pushed")},
             "resources": resources[name]})
 
+    # the migration pass's proposal variants: launches on the run that
+    # takes each (A: the production proposal, B: the guide loop) or in
+    # its own short sweep, times beside the migration pass
+    mp_where = {MIG_BIASED_PASS: "twopop A", MIG_LOCAL_PASS: "twopop B",
+                MIG_GUIDE_LOCAL_PASS: "twopop B"}
+    mp_mean = mp_timing["mean twopop segment"]
+    mp_long = mp_timing["longest segment"]
+    for name in MIG_PROPOSAL_PASSES:
+        single, chained = tallies[name]
+        t = mp_mean[name]
+        where = mp_where.get(name, "its own sweep")
+        record["kernels"].append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES,
+            "launches": (mp_launches[where[-1]][name] if name in mp_where
+                         else mp_sweeps[name]),
+            "launches_on": where,
+            "max_abs_err": single.max_abs_err,
+            "compare": {"trips=1": single.record(),
+                        "trips=64 vs plain": chained.record()},
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "host_us_per_call": t["host_us"],
+            "parent": (MIGRATION_VB_PASS if "vb" in name
+                       else MIGRATION_PASS),
+            "parent_ms": t["parent_ms"],
+            "timed_at": {k: t[k] for k in (
+                "L", "active", "trips", "walk_events", "slots_changed",
+                "pushed")},
+            "longest_segment": {k: mp_long[name][k] for k in (
+                "kernel_ms", "parent_ms", "bound_ms", "bound_by", "trips",
+                "walk_events")},
+            "resources": resources[name]})
+
     def profiled(rep, P):
         return {"updates_per_s_unprofiled": P / rep["ms_per_segment"] * 1e3,
                 **{k: rep[k] for k in (
@@ -4367,6 +5011,25 @@ def main(argv=None) -> int:
         "wide_short_sweeps": {k: v[WIDE_ARG_PASS]
                               for k, v in wa_launches.items()},
         "ring_gather": gather}
+
+    def twopop_run(run, rep):
+        st = mp_steps[run]
+        return {"updates_per_s": [TWOPOP_P * r.args[2] / r.args[1]
+                                  for r in st],
+                "estep_seconds": [r.args[1] for r in st],
+                "segments": [r.args[2] for r in st],
+                "logl": [r.args[4] for r in st],
+                "launches": {k: v for k, v in mp_launches[run].items() if v},
+                **{k: rep[k] for k in (
+                    "launches_per_segment", "device_ms_per_segment",
+                    "device_busy_share", "ms_per_segment",
+                    "pass_us_per_launch")}}
+    record["twopop_proposal_paths"] = {
+        "card": card,
+        "A": dict(twopop_run("A", mp_reps["A"]),
+                  calibration_launches=mp_cal),
+        "B": twopop_run("B", mp_reps["B"]),
+        "short_sweeps": mp_sweeps}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

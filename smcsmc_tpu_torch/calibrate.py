@@ -10,9 +10,10 @@
   (calculate_median_survival_distances, smcsmc.cpp:169-263); ``lag =
   lag_fraction * survival`` and the delayed factors' application ``delay =
   delay_fraction * survival``.  The genealogies advance through the SMC'
-  process with the ``trip`` kernel, one trip per launch; births, the
-  per-epoch histogram of survival distances and its medians stay on the
-  device.
+  process with the ``trip`` kernel, one trip per launch (with several
+  populations or migration the migration pass of ``segment_pass``, as
+  the JAX package's has_migration does); births, the per-epoch histogram
+  of survival distances and its medians stay on the device.
 - :func:`terminal_branch_quantiles`: the APF lookahead's quantiles of each
   leaf's terminal branch and the mean tree length, from trees drawn from
   the model on the device (:func:`simulate_terminal_branches`) and reduced
@@ -35,9 +36,14 @@ from .kernels.tree import (
     tree_summaries,
 )
 from .kernels.lookahead import TBLQ_PROBS, Quantiles, tblq_bin_widths
-from .kernels.trip import trip
+from .kernels.migration import MigrationPass, migration_tables, stats_offsets
+from .kernels.trip import segment_pass, trip
 
 logger = logging.getLogger("smcsmc_tpu_torch")
+
+# events per branch buffer of the structured genealogies of the survival
+# calibration (calibrate.py:36 of the JAX package)
+CAL_MAX_MIG = 16
 
 
 def default_bias_strengths(generator: torch.Generator, epochs: Epochs,
@@ -89,7 +95,14 @@ def calibrate_survival(generator: torch.Generator, epochs: Epochs, sample_pop,
     whose time changed by more than 1e-3 is ``p``: it died there, and the
     node in its slot is born there.  Survival distances go into a
     histogram per epoch of the dead node's height, over log-spaced bins
-    from 100 bp to 10 ``distance``."""
+    from 100 bp to 10 ``distance``.
+
+    With several populations or migration (``epochs.structured``) the
+    genealogies carry branch buffers of :data:`CAL_MAX_MIG` events and each
+    launch is the migration pass of ``segment_pass`` with one trip, under
+    a fresh Philox key drawn from ``generator``, over the rest of the
+    window (``next_rec`` is relative to the window's start again after
+    it); the death rule and the histogram are the same."""
     dev = epochs.start.device
     E, Q = epochs.num_epochs, num_particles
     window = float(np.float32(distance / num_windows))
@@ -100,7 +113,9 @@ def calibrate_survival(generator: torch.Generator, epochs: Epochs, sample_pop,
                             [distance * 10]])
     centers = torch.as_tensor(0.5 * (edges[:-1] + edges[1:]), device=dev)
 
-    trees = make_initial_trees(generator, epochs, Q, sample_pop)
+    structured = epochs.structured
+    trees = make_initial_trees(generator, epochs, Q, sample_pop,
+                               max_mig=CAL_MAX_MIG if structured else 0)
     n = trees.num_leaves
     time, parent = trees.time.contiguous(), trees.parent.contiguous()
     child0, child1 = trees.child0.contiguous(), trees.child1.contiguous()
@@ -115,6 +130,15 @@ def calibrate_survival(generator: torch.Generator, epochs: Epochs, sample_pop,
     start, inv2ne = epochs.start.contiguous(), epochs.inv2ne.contiguous()
     birth = torch.zeros_like(time)
     hist = torch.zeros(E * num_bins, dtype=torch.float64, device=dev)
+    if structured:
+        K = stats_offsets(E, epochs.num_pops)["width"]
+        fifo = torch.zeros((Q, 1, K), device=dev)
+        gate = torch.zeros(K, device=dev)  # the pass pushes nothing
+        tl_out = torch.empty(Q, device=dev)
+        diag = torch.zeros(2, dtype=torch.float64, device=dev)
+        bufs = (trees.pop.contiguous(), trees.mig_time.contiguous(),
+                trees.mig_dest.contiguous())
+        tables = migration_tables(epochs)
 
     x0, trips = 0.0, 0
     for _ in range(num_windows):
@@ -122,9 +146,20 @@ def calibrate_survival(generator: torch.Generator, epochs: Epochs, sample_pop,
             trips += 1
             pre_time, pre_nr = time.clone(), next_rec.clone()
             u = torch.rand((1, Q, 4), generator=generator, device=dev)
-            trip(u, 1, time, parent, child0, child1, next_rec, upd, log_w,
-                 tl, B, tl_e, pending, window, 0.0, rho, start, inv2ne,
-                 has_data)
+            if structured:
+                key = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator,
+                                    device=dev, dtype=torch.int32)
+                segment_pass(u, 1, time, parent, child0, child1, next_rec,
+                             log_w, fifo, gate, tl_out, window, 0.0, rho,
+                             start, inv2ne, has_data, None,
+                             MigrationPass(*bufs, diag, key, *tables))
+                # the pass leaves next_rec relative to the window's end
+                next_rec.copy_(torch.where(pre_nr < window,
+                                           next_rec + window, pre_nr))
+            else:
+                trip(u, 1, time, parent, child0, child1, next_rec, upd,
+                     log_w, tl, B, tl_e, pending, window, 0.0, rho, start,
+                     inv2ne, has_data)
             moved = (time - pre_time).abs() > 1e-3
             died = moved.any(dim=1)
             p = moved.to(torch.int32).argmax(dim=1, keepdim=True)
@@ -144,8 +179,9 @@ def calibrate_survival(generator: torch.Generator, epochs: Epochs, sample_pop,
     overall = _hist_median(h.sum(dim=0), centers)
     medians = torch.where(h.sum(dim=1) >= 10, _hist_median(h, centers),
                           overall)
-    logger.info("survival calibration: %d trip launches for %d genealogies "
-                "over %g bp", trips, Q, distance)
+    logger.info("survival calibration: %d %s launches for %d genealogies "
+                "over %g bp", trips, "migration pass" if structured
+                else "trip", Q, distance)
     return medians.cpu().numpy()
 
 

@@ -5,12 +5,11 @@ It accepts the ``smc2`` flags of the ported paths (one population, or
 structured populations with migration through ``-I -eN -en -em -eM -ema
 -ej -migbuf``; several ``.seg`` files, chunks, resume and checkpoints;
 unphased and missing data; the M-step's options and ``-vb``; height-biased
-proposals with delayed importance weights and calibrated lags, for one
-population; the auxiliary particle filter ``-apf``; the recombination
-guide ``-guide`` and the guide loop ``-alpha``, for one population; ARG
-recording ``-arg``) plus ``-device``, each parsed as ``smcsmc_tpu.cli`` parses it; every other
-flag, and bias, calibrated lags, a guide or ``-alpha`` with several
-populations, is refused with a message naming it.  The helpers that turn
+proposals with delayed importance weights and calibrated lags; the
+auxiliary particle filter ``-apf``; the recombination guide ``-guide`` and
+the guide loop ``-alpha``; ARG recording ``-arg``) plus ``-device``, each
+parsed as ``smcsmc_tpu.cli`` parses it; every other flag is refused with
+a message naming it.  The helpers that turn
 flags into a ``Demography`` (``load_option_file``, ``_split_timed_opts``,
 ``_is_number``, ``resolve_n0``, ``build_demography``) are copied from
 ``smcsmc_tpu/cli.py`` at commit dfc2fad and kept letter for letter.
@@ -22,8 +21,6 @@ import logging
 import os
 import sys
 
-import numpy as np
-
 from .device import resolve_device
 from .em import EMConfig, refuse_caps, run_em
 from .segio import merge_segs, read_seg
@@ -32,9 +29,6 @@ logger = logging.getLogger("smcsmc_tpu_torch")
 
 _NOT_PORTED = ("is not yet in the torch port (ROADMAP queue 1, item 18: CLI "
                "and API surface); run it with smc2 (smcsmc_tpu)")
-_NOT_PORTED_STRUCTURED = ("is not yet in the torch port (ROADMAP queue 1, "
-                          "item 15: structured populations); run it with "
-                          "smc2 (smcsmc_tpu)")
 
 
 # ---------------------------------------------------------------------------
@@ -400,23 +394,14 @@ def smcsmc_main(argv=None) -> int:
     else:
         seg = read_seg(io["segs"][0])
     demo = build_demography(cfg, io["demo_args"], io, seg=seg)
-    try:
-        refuse_caps(demo, cfg)
-    except NotImplementedError as err:
-        raise SystemExit(f"smc2-torch: {err}") from None
-    if demo.num_populations > 1 or np.any(demo.mig_rates > 0):
-        for flag, used in (("-bias_heights", io["bias_heights"]),
-                           ("-calibrate_lag", cfg.calibrate_lag),
-                           ("-guide", cfg.guide_file is not None),
-                           ("-alpha", cfg.alpha > 0)):
-            if used:
-                raise SystemExit(
-                    f"smc2-torch: option {flag!r} with several populations "
-                    f"or migration {_NOT_PORTED_STRUCTURED}")
     if io["bias_heights"]:
         # 4N0 units -> generations; a leading 0 is dropped
         cfg.bias_heights = tuple(h * 4 * io["N0"] for h in io["bias_heights"]
                                  if h > 0)
+    try:
+        refuse_caps(demo, cfg)
+    except NotImplementedError as err:
+        raise SystemExit(f"smc2-torch: {err}") from None
     cfg.outdir = io["out"]
     # chunk-window controls (model.py:563-662; pfparam.cpp -startpos)
     cfg.maxgap = io["maxgap"]

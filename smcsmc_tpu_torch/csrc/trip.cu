@@ -175,10 +175,12 @@
 // VB on or off: each pass has a compile-time variant with VB and one
 // without, so that the pass without VB is the code it was before VB.
 
-// The library is built from this file as two units compiled side by side
-// (kernels/_build.py) and linked: SMC_PART 1 instantiates the wide kernels
-// and defines smc_wide_dispatch, SMC_PART 0 everything else.  Without
-// SMC_PART one unit holds both (the host rehearsal).
+// The library is built from this file as four units compiled side by
+// side (kernels/_build.py) and linked: SMC_PART 1 instantiates the wide
+// kernels and defines smc_wide_dispatch, SMC_PART 2 and 3 the migration
+// pass's kernels without and with VB and smc_mig_dispatch /
+// smc_mig_vb_dispatch, SMC_PART 0 everything else.  Without SMC_PART one
+// unit holds all (the host rehearsal).
 #if !defined(SMC_PART) || SMC_PART == 0
 #define SMC_NARROW 1
 #else
@@ -189,11 +191,34 @@
 #else
 #define SMC_WIDE 0
 #endif
+#if !defined(SMC_PART) || SMC_PART == 2
+#define SMC_MIG 1
+#else
+#define SMC_MIG 0
+#endif
+#if !defined(SMC_PART) || SMC_PART == 3
+#define SMC_MIG_VB 1
+#else
+#define SMC_MIG_VB 0
+#endif
 
 // a wide kernel for the run-time flags (args: an Args), launched on
 // `stream` (res == nullptr) or asked for its resources
 extern "C" int smc_wide_dispatch(const void* args, int segment, int biased,
                                  int vb, int arg, void* stream, int* res);
+// a kernel of the migration pass for the run-time flags (args: an Args;
+// arg: the ARG variant; bias, guide, local: a proposal variant), launched
+// with `blocks` blocks of `ppb` particles and `bytes` of shared memory on
+// `stream` (res == nullptr) or asked for its resources; the VB variants by
+// smc_mig_vb_dispatch
+extern "C" int smc_mig_dispatch(const void* args, int vb, int arg, int bias,
+                                int guide, int local, unsigned blocks,
+                                size_t bytes, int ppb, void* stream,
+                                int* res);
+extern "C" int smc_mig_vb_dispatch(const void* args, int arg, int bias,
+                                   int guide, int local, unsigned blocks,
+                                   size_t bytes, int ppb, void* stream,
+                                   int* res);
 
 namespace {
 
@@ -2659,11 +2684,20 @@ __host__ __device__ inline int mig_stats_width(int E, int Pp) {
 }
 
 // est [E]; ne, tot_mig, pop_map [E Pp]; mig [E Pp Pp]; has_data; the FIFO
-// gate [K]; with vb the VB tables [E Pp] and [E Pp Pp]
+// gate [K]; with vb the VB tables [E Pp] and [E Pp Pp]; then, for the
+// proposal variants (MigExtra), with bias the section table [MAX_SECTIONS
+// + 1], its strengths [MAX_SECTIONS] and the delays [E], with local
+// recording the lags [E], with the guide the search's first pivots
+// [GUIDE_TOP]
 __host__ __device__ inline int mig_table_words(int E, int Pp,
-                                               bool vb = false) {
+                                               bool vb = false,
+                                               bool bias = false,
+                                               bool guide = false,
+                                               bool local = false) {
   return E + 3 * E * Pp + E * Pp * Pp + MAX_LEAVES + mig_stats_width(E, Pp)
-      + (vb ? E * Pp + E * Pp * Pp : 0);
+      + (vb ? E * Pp + E * Pp * Pp : 0)
+      + (bias ? 2 * MAX_SECTIONS + 1 + E : 0) + (local ? E : 0)
+      + (guide ? GUIDE_TOP : 0);
 }
 
 // the words of MigWork: its floats and ints, then its destination bytes
@@ -2671,6 +2705,24 @@ __host__ __device__ inline int mig_work_words(int N, int E, int Pp, int Mw) {
   const int events = N * Mw + 10 * Mw;
   return 7 * N + E + mig_stats_width(E, Pp) + events + (events + 3) / 4;
 }
+
+// the proposal variants' scratch beyond MigWork, at the end of the
+// particle's slice: with bias the biased point's (node, section) segments,
+// their weighted lengths and running sums [N S] each, node-major; with the
+// guide the branches' rates [N] and the internal nodes in time order
+// [MAX_LEAVES]
+__host__ __device__ inline int mig_extra_words(int N, int S, bool bias,
+                                               bool guide) {
+  return (bias ? 3 * N * S : 0) + (guide ? N + MAX_LEAVES : 0);
+}
+
+struct MigExtra {
+  float* seg;
+  float* wseg;
+  float* cum;
+  float* rate;
+  int* order;
+};
 
 __device__ MigWork carve_mig(float* f, int N, int E, int K, int Mw) {
   MigWork w;
@@ -2932,9 +2984,8 @@ __device__ void mig_summaries(const float* est, const int* hd,
 // first ARG_MIG_ROWS hops from its lists in shared memory; lane r holds
 // row r and writes it at the trip's end, after the SPR's warp syncs.
 #define ARG_MIG_ROWS 4
-template <bool VB, bool ARG = false>
-__global__ void __launch_bounds__(MIG_PPB * 32, MIG_MIN_BLOCKS)
-segment_pass_mig_kernel(const Args a) {
+template <bool VB, bool ARG, bool BIAS, bool GUIDE, bool LOCAL>
+__device__ __forceinline__ void mig_pass_body(const Args& a) {
   extern __shared__ float smem[];
   const bool vb = VB;
   const int n = a.n, N = 2 * n - 1, E = a.E, Pp = a.Pp, Mw = a.Mw;
@@ -2970,20 +3021,83 @@ segment_pass_mig_kernel(const Args a) {
     for (int k = threadIdx.x; k < EP * Pp; k += blockDim.x)
       vbm[k] = a.vb_mig[k];
   }
+  // the proposal variants' tables (mig_table_words) and the guide's
+  // functions' view of them
+  Tables gt;
+  float* bh = vbc + (vb ? EP + EP * Pp : 0);
+  float* bs = bh + MAX_SECTIONS + 1;
+  float* dl = bs + MAX_SECTIONS;
+  float* lag = BIAS ? dl + E : bh;
+  float* top = LOCAL ? lag + E : lag;
+  if constexpr (BIAS) {
+    for (int k = threadIdx.x; k <= a.S; k += blockDim.x)
+      bh[k] = a.bias_heights[k];
+    for (int k = threadIdx.x; k < a.S; k += blockDim.x)
+      bs[k] = a.bias_strengths[k];
+    for (int k = threadIdx.x; k < E; k += blockDim.x) dl[k] = a.delays[k];
+  }
+  if constexpr (LOCAL) {
+    for (int k = threadIdx.x; k < E; k += blockDim.x) lag[k] = a.lags[k];
+  }
+  if constexpr (GUIDE) {
+    for (int k = threadIdx.x; k < GUIDE_TOP; k += blockDim.x)
+      top[k] = a.g_top[k];
+    gt.g_rel = a.g_rel;
+    gt.cum_mass = a.cum_mass;
+    gt.g_top = top;
+    gt.Wg = a.Wg;
+    gt.ws = a.ws;
+    gt.rho = a.rho;
+  }
+  const int S = BIAS ? a.S : 0, Q = N * S, D = BIAS ? a.K : 0;
+  const int words = mig_work_words(N, E, Pp, Mw)
+      + ((BIAS || GUIDE) ? mig_extra_words(N, S, BIAS, GUIDE) : 0);
   const MigWork w = carve_mig(
-      smem + mig_table_words(E, Pp, vb)
-          + (size_t)(threadIdx.x / 32) * mig_work_words(N, E, Pp, Mw),
+      smem + mig_table_words(E, Pp, vb, BIAS, GUIDE, LOCAL)
+          + (size_t)(threadIdx.x / 32) * words,
       N, E, K, Mw);
+  MigExtra xw{};
+  if constexpr (BIAS || GUIDE) {
+    float* f = smem + mig_table_words(E, Pp, vb, BIAS, GUIDE, LOCAL)
+        + (size_t)(threadIdx.x / 32) * words
+        + mig_work_words(N, E, Pp, Mw);
+    xw.seg = f;
+    xw.wseg = f + Q;
+    xw.cum = f + 2 * Q;
+    xw.rate = f + 3 * Q;
+    xw.order = reinterpret_cast<int*>(xw.rate + N);
+  }
 
   // ---- the particle's tree, a zeroed statistics row and, if it
   // recombines in this segment, its buffers: all under way before the one
   // barrier
   float nr = 0.0f, lw = 0.0f;
   ArgCursor ac{0, 0};  // ARG: the ring's rows pushed so far, next slot
+  // BIAS: the pilot weight, and slot `lane` of the ring of delayed factors
+  // (position, log factor, spacing, applications left), whether it changed
+  float lp = 0.0f, rpos = BIG, rlogf = 0.0f, rdelta = 0.0f;
+  int rk = 0;
+  bool rchanged = false;
+  bool lfree = false;  // LOCAL: slot `lane` of the local ring is free
   if (live) {
     nr = a.next_rec[i];
     lw = a.log_w[i];
     if constexpr (ARG) ac.n = a.arg_n[i];
+    if constexpr (BIAS) {
+      lp = a.log_pilot[i];
+      if (lane < D) {
+        const size_t at = (size_t)i * D + lane;
+        rpos = a.df_pos[at];
+        rlogf = a.df_logf[at];
+        rdelta = a.df_delta[at];
+        rk = a.df_k[at];
+      }
+    }
+    if constexpr (LOCAL) {
+      // read only by a particle that recombines in this segment
+      if (a.trips > 0 && nr < a.L && lane < a.R)
+        lfree = a.lr_pos[(size_t)i * a.R + lane] >= 0.5f * BIG;
+    }
     if (lane < N) {
       const size_t at = (size_t)i * N + lane;
       w.tm[lane] = a.time[at];
@@ -3006,6 +3120,12 @@ segment_pass_mig_kernel(const Args a) {
   mig_summaries(est, hd, w, n, E, a.leaf_status, lane, tl, B);
   const unsigned k0 = (unsigned)a.key[0], k1 = (unsigned)a.key[1];
   float up = 0.0f, capped = 0.0f, dropped = 0.0f;
+  // LOCAL: the ring's free slots (bit s: slot s), the events dropped
+  unsigned ring_free = 0u;
+  int ring_dropped = 0;
+  if constexpr (LOCAL) ring_free = __ballot_sync(WARP_ALL, lfree);
+  float m_up = 0.0f;  // GUIDE: the guide mass at front + up
+  if constexpr (GUIDE) m_up = guide_mass(gt, a.front + up);
   bool moved = false;
   unsigned dirty = 0u;  // buffer rows to write back
   // ARG: the first row's slot (arg_slot_of), once a segment
@@ -3035,32 +3155,142 @@ segment_pass_mig_kernel(const Args a) {
     // ---- extension ------------------------------------------------------
     const float delta = nr - up;
     lw = lw - a.mu * B * delta;
+    if constexpr (BIAS) lp = lp - a.mu * B * delta;
+    float m_nr = 0.0f, leaf_rate = 0.0f;  // GUIDE: at the event's position
+    if constexpr (GUIDE) {
+      // the guide's survival weight over the extension, in both weights
+      // (smc.py:903-914); lane l reads leaf l's rate at the event's window
+      const float x0 = a.front + up, x1 = a.front + nr;
+      const int win = guide_window(gt, x1);
+      if (lane < n) leaf_rate = a.g_leaf[(size_t)win * n + lane];
+      m_nr = guide_mass(gt, win, x1);
+      const float liw = guide_span(gt, tl, x0, x1, m_up, m_nr);
+      lw = lw + liw;
+      lp = lp + liw;
+    }
     for (int e = lane; e < E; e += 32) w.pend[o_ropp + e] += delta * w.tle[e];
 
-    // ---- uniform point: running sum of branch lengths in node order -----
-    float total = 0.0f;
-#pragma unroll
-    for (int j = 0; j < MAX_NODES; ++j)
-      if (j < N) total += w.bl[j];
-    const float x_pt = u_pt * total;
     int c = -1;
-    float cum = 0.0f, prev = 0.0f;
+    float h_r;
+    float log_iw = 0.0f, strength = 1.0f, log_iw_bias = 0.0f;
+    if constexpr (!BIAS) {
+      // ---- uniform point: running sum of branch lengths in node order ---
+      float total = 0.0f;
 #pragma unroll
-    for (int j = 0; j < MAX_NODES; ++j) {
-      if (j < N) {
-        const float before = cum;
-        cum += w.bl[j];
-        if (c < 0 && cum >= x_pt) {
-          c = j;
-          prev = before;
+      for (int j = 0; j < MAX_NODES; ++j)
+        if (j < N) total += w.bl[j];
+      const float x_pt = u_pt * total;
+      float cum = 0.0f, prev = 0.0f;
+#pragma unroll
+      for (int j = 0; j < MAX_NODES; ++j) {
+        if (j < N) {
+          const float before = cum;
+          cum += w.bl[j];
+          if (c < 0 && cum >= x_pt) {
+            c = j;
+            prev = before;
+          }
         }
       }
+      if (c < 0) {
+        c = N - 1;
+        prev = cum - w.bl[N - 1];
+      }
+      h_r = w.tm[c] + (x_pt - prev);
+    } else {
+      // ---- height-biased point (transition.py:160): the segments
+      // |branch_j ∩ section_s| weighted by strength_s (times branch j's
+      // guide rate), node-major; the first whose running sum reaches u
+      // times their total, the last if rounding leaves none.  Lane j
+      // weighs node j's segments; every lane then adds them in node-major
+      // order as one chain (the plain version's order), lane q % 32
+      // keeping running sum q; each lane searches its own pairs ----
+      if constexpr (GUIDE) {
+        // the branches' guide rates (transition.py:124): the leaves' rates
+        // at the event's window; each lane ranks one internal node in the
+        // stable order of the times, lane 0 merges them in that order and
+        // gives both children of the last the larger of their two rates
+        // (a missing child, -1 in an internal node a forest leaves unused,
+        // reads the last node's rate, as the plain version does)
+        if (lane < N) xw.rate[lane] = lane < n ? leaf_rate : 0.0f;
+        if (lane < n - 1) {
+          const int v = n + lane;
+          const float tv = w.tm[v];
+          int rank = 0;
+          for (int q = n; q < N; ++q) {
+            const float tq = w.tm[q];
+            rank += (tq < tv || (tq == tv && q < v)) ? 1 : 0;
+          }
+          xw.order[rank] = v;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          for (int q = 0; q < n - 1; ++q) {
+            const int v = xw.order[q];
+            const int v0 = w.c0[v], v1 = w.c1[v];
+            xw.rate[v] = 0.5f * (xw.rate[v0 < 0 ? N - 1 : v0]
+                                 + xw.rate[v1 < 0 ? N - 1 : v1]);
+          }
+          const int root = xw.order[n - 2];
+          const int rc0 = w.c0[root] < 0 ? N - 1 : w.c0[root];
+          const int rc1 = w.c1[root] < 0 ? N - 1 : w.c1[root];
+          const float mx = fmaxf(xw.rate[rc0], xw.rate[rc1]);
+          xw.rate[rc0] = mx;
+          xw.rate[rc1] = mx;
+        }
+        __syncwarp();
+      }
+      if (lane < N) {
+        const float t_j = w.tm[lane], pt_j = w.pt[lane];
+        const float r_j = GUIDE ? xw.rate[lane] : 1.0f;
+        for (int q = 0; q < S; ++q) {
+          const float seg = pt_j < BIG
+              ? fmaxf(fminf(pt_j, bh[q + 1]) - fmaxf(t_j, bh[q]), 0.0f)
+              : 0.0f;
+          xw.seg[lane * S + q] = seg;
+          if constexpr (GUIDE) {
+            xw.wseg[lane * S + q] = seg * bs[q] * r_j;
+          } else {
+            xw.wseg[lane * S + q] = seg * bs[q];
+          }
+        }
+      }
+      __syncwarp();
+      float wtot = 0.0f, ptot = 0.0f, btot = 0.0f;
+      int s_q = 0;
+      for (int q = 0; q < Q; ++q) {
+        wtot += xw.wseg[q];
+        ptot += xw.seg[q];
+        if constexpr (GUIDE) {
+          btot += xw.seg[q] * bs[s_q];
+          s_q = s_q + 1 == S ? 0 : s_q + 1;
+        }
+        if ((q & 31) == lane) xw.cum[q] = wtot;
+      }
+      __syncwarp();
+      const float xb = u_pt * wtot;
+      unsigned mine = (unsigned)Q;
+      for (int q = lane; q < Q; q += 32)
+        if (xw.cum[q] >= xb) {
+          mine = (unsigned)q;
+          break;
+        }
+      const int hit = (int)__reduce_min_sync(WARP_ALL, mine);
+      const int q_hit = hit < Q ? hit : Q - 1;
+      c = q_hit / S;
+      const int s_hit = q_hit - c * S;
+      const float prev = q_hit > 0 ? xw.cum[q_hit - 1] : 0.0f;
+      strength = bs[s_hit];
+      const float local_w = GUIDE ? strength * xw.rate[c] : strength;
+      h_r = fmaxf(w.tm[c], bh[s_hit]) + (xb - prev) / fmaxf(local_w, 1e-30f);
+      log_iw = logf(wtot) - logf(fmaxf(ptot, 1e-30f))
+          - logf(fmaxf(local_w, 1e-30f));
+      if constexpr (GUIDE)
+        log_iw_bias = logf(btot) - logf(fmaxf(ptot, 1e-30f))
+            - logf(fmaxf(strength, 1e-30f));
+      else
+        log_iw_bias = log_iw;
     }
-    if (c < 0) {
-      c = N - 1;
-      prev = cum - w.bl[N - 1];
-    }
-    const float h_r = w.tm[c] + (x_pt - prev);
 
     // ---- the loop walk from (c, h_r) --------------------------------------
     const unsigned roots = __ballot_sync(WARP_ALL,
@@ -3204,6 +3434,9 @@ segment_pass_mig_kernel(const Args a) {
     }
     // the whole term after the walk, after the extension (smc.py:951-967)
     if (vb) lw = lw + (vb_c + vb_m);
+    if constexpr (BIAS) {
+      if (vb) lp = lp + (vb_c + vb_m);
+    }
     // the lists end at their first BIG: a merge reads no further
     if (lane == 0) {
       if (n_ev < 2 * Mw) {
@@ -3217,6 +3450,77 @@ segment_pass_mig_kernel(const Args a) {
       w.pend[o_rcnt + epoch_of(est, E, h_r)] += 1.0f;
     }
     __syncwarp();
+    if constexpr (BIAS) {
+      // ---- the importance weight (smc.py:968-1020): the posterior takes
+      // all of it, the pilot the height-bias part where the delay
+      // height's section is unbiased, and the rest goes into the first
+      // free slot of the ring (slot s: lane s), k applications of late / k
+      // from front + nr + delay / (2^k - 1) on; a full ring gives it to
+      // the pilot at once.  The delay height: h_r, t_c, or under
+      // -delay_migr the lower of t_c and the walk's first migration (the
+      // head of its list, BIG if none) ----
+      lw = lw + log_iw;
+      const float d_h = a.delay_type == 0 ? h_r
+          : a.delay_type == 1 ? t_c : fminf(t_c, w.ev_t[0]);
+      float strength_h = strength;
+      if (a.delay_type != 0) {
+        int cnt = 0;  // section of d_h
+        for (int q = 0; q <= S; ++q) cnt += bh[q] <= d_h ? 1 : 0;
+        strength_h = bs[min(max(cnt - 1, 0), S - 1)];
+      }
+      const float imm =
+          fabsf(strength_h - 1.0f) < 1e-6f ? log_iw_bias : 0.0f;
+      const float late = log_iw - imm;
+      lp = lp + imm;
+      if (fabsf(late) > 1e-9f) {
+        const unsigned frees =
+            __ballot_sync(WARP_ALL, lane < D && rpos >= 0.5f * BIG);
+        if (frees == 0u) {
+          lp = lp + late;
+        } else if (lane == __ffs(frees) - 1) {
+          const int kk = a.delay_k;
+          const float dd =
+              dl[epoch_of(est, E, d_h)] / (float)((1 << kk) - 1);
+          rpos = (a.front + nr) + dd;
+          rlogf = late / (float)kk;
+          rdelta = dd;
+          rk = kk;
+          rchanged = true;
+        }
+      }
+    }
+    if constexpr (LOCAL) {
+      // ---- the trip's local event (smc.py:1054-1069): at front + nr, due
+      // a lag of h_r's epoch later, the leaves below c in the tree before
+      // the SPR (each leaf's lane walks up to c); into the first free
+      // slot, a full ring counts it dropped ----
+      bool below = false;
+      if (lane < n) {
+        int cur = lane;
+        for (int q = 0; q < N && cur >= 0; ++q) {
+          if (cur == c) {
+            below = true;
+            break;
+          }
+          cur = w.par[cur];
+        }
+      }
+      const unsigned desc = __ballot_sync(WARP_ALL, below);
+      if (ring_free != 0u) {
+        const int slot = __ffs(ring_free) - 1;
+        ring_free &= ring_free - 1u;
+        if (lane == 0) {
+          const size_t at = (size_t)i * a.R + slot;
+          const float pos = a.front + nr;
+          a.lr_pos[at] = pos;
+          a.lr_due[at] = pos + lag[epoch_of(est, E, h_r)];
+          a.lr_time[at] = h_r;
+          a.lr_desc[at] = (long long)desc;
+        }
+      } else {
+        ring_dropped += 1;
+      }
+    }
     if constexpr (ARG) {
       // ---- the trip's ARG rows, in the tree before the SPR, each lane's
       // own: the leaves below c (lanes 0-7) and below d (lanes 8-15) by
@@ -3344,9 +3648,20 @@ segment_pass_mig_kernel(const Args a) {
     mig_branches(w, N, lane);
     __syncwarp();
     mig_summaries(est, hd, w, n, E, a.leaf_status, lane, tl, B);
-    const float gap = -log1pf(-u_gap) / fmaxf(a.rho * tl, 1e-30f);
-    up = nr;
-    nr = nr + gap;
+    if constexpr (GUIDE) {
+      // the gap in guide mass from the event's position (smc.py:802-808),
+      // whose mass the extension read; it is the next extension's start
+      const float gap_m = -log1pf(-u_gap) / fmaxf(a.rho * tl, 1e-30f);
+      const float at = a.front + nr;
+      const float nxt = guide_inv_mass(gt, m_nr + gap_m);
+      m_up = m_nr;
+      up = nr;
+      nr = nr + fmaxf(nxt - at, 1e-3f);
+    } else {
+      const float gap = -log1pf(-u_gap) / fmaxf(a.rho * tl, 1e-30f);
+      up = nr;
+      nr = nr + gap;
+    }
     moved = true;
     if constexpr (ARG) {
       // ---- the trip's rows at its position (now up), written last, so
@@ -3362,9 +3677,55 @@ segment_pass_mig_kernel(const Args a) {
   // ---- final extension to the segment end, push into FIFO slot 0 --------
   const float delta = a.L - up;
   lw = lw - a.mu * B * delta;
+  float liwf = 0.0f;
+  if constexpr (GUIDE) {
+    // the guide's survival weight of the final extension (smc.py:1123-1131)
+    if (delta > 0.0f) {
+      const float x1 = a.front + a.L;
+      liwf = guide_span(gt, tl, a.front + up, x1, m_up, guide_mass(gt, x1));
+    }
+    lw = lw + liwf;
+  }
   for (int e = lane; e < E; e += 32) w.pend[o_ropp + e] += delta * w.tle[e];
   nr = nr - a.L;
   __syncwarp();
+  if constexpr (LOCAL) {
+    // the segment's ungated recombination opportunity, in epoch order; the
+    // events dropped
+    if (lane == 0) {
+      float ropp = 0.0f;
+      for (int e = 0; e < E; ++e) ropp += w.pend[o_ropp + e];
+      a.ropp[i] = ropp;
+      if (ring_dropped > 0) atomicAdd(a.lr_dropped, ring_dropped);
+    }
+  }
+  if constexpr (BIAS) {
+    // ---- the pilot's extension; the delayed factors due at front + L,
+    // each lane its slot ----
+    lp = lp - a.mu * B * delta;
+    if constexpr (GUIDE) lp = lp + liwf;
+    const bool due = lane < D && rpos <= a.front + a.L;
+    float add = 0.0f;
+    if (due) {
+      add = rlogf;
+      if (rk > 1) {
+        rpos = rpos + 2.0f * rdelta;
+        rdelta = 2.0f * rdelta;
+        rk = rk - 1;
+      } else {
+        rpos = BIG;
+        rlogf = 0.0f;
+        rk = 0;
+      }
+      rchanged = true;
+    }
+    if (__any_sync(WARP_ALL, due)) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        add += __shfl_xor_sync(WARP_ALL, add, off);
+      lp = lp + add;
+    }
+  }
   float* slot = a.fifo + (size_t)i * a.fifo_stride;
   for (int k = lane; k < K; k += 4 * 32) {
     float v[4], cur[4];
@@ -3394,6 +3755,17 @@ segment_pass_mig_kernel(const Args a) {
              a.mig_dest + row, lane);
     }
   }
+  if constexpr (BIAS) {
+    // only the slots that were pushed or applied
+    if (rchanged) {
+      const size_t at = (size_t)i * D + lane;
+      a.df_pos[at] = rpos;
+      a.df_logf[at] = rlogf;
+      a.df_delta[at] = rdelta;
+      a.df_k[at] = rk;
+    }
+    if (lane == 0) a.log_pilot[i] = lp;
+  }
   if (lane == 0) {
     if (capped > 0.0f) atomicAdd(&a.diag[0], (double)capped);
     if (dropped > 0.0f) atomicAdd(&a.diag[1], (double)dropped);
@@ -3404,6 +3776,21 @@ segment_pass_mig_kernel(const Args a) {
       if (moved) a.arg_n[i] = ac.n;
     }
   }
+}
+
+template <bool VB, bool ARG = false>
+__global__ void __launch_bounds__(MIG_PPB * 32, MIG_MIN_BLOCKS)
+segment_pass_mig_kernel(const Args a) {
+  mig_pass_body<VB, ARG, false, false, false>(a);
+}
+
+// The migration pass with the production proposal and local recording
+// (BIAS, GUIDE: the guided biased pass, LOCAL); see "The proposal in the
+// migration pass" above.
+template <bool VB, bool BIAS, bool GUIDE, bool LOCAL>
+__global__ void __launch_bounds__(MIG_PPB * 32, MIG_MIN_BLOCKS)
+segment_pass_mig_proposal_kernel(const Args a) {
+  mig_pass_body<VB, false, BIAS, GUIDE, LOCAL>(a);
 }
 
 #if SMC_NARROW
@@ -3425,22 +3812,27 @@ int launch_kernel(Kernel kernel, const Args& a, dim3 grid, size_t bytes,
 #if SMC_NARROW
 // Particles per block of the migration pass and its dynamic shared bytes:
 // MIG_PPB, halved until the block fits in what the card grants one block.
+// bias, guide, local (S sections): a proposal variant's tables and scratch.
 int mig_shape(int n, int E, int Pp, int Mw, bool vb, int& ppb,
-              size_t& bytes) {
+              size_t& bytes, bool bias = false, bool guide = false,
+              bool local = false, int S = 0) {
   int dev = 0, most = 48 * 1024;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
+  const int N = 2 * n - 1;
   for (ppb = MIG_PPB; ppb >= 1; ppb /= 2) {
     bytes = sizeof(float)
-        * ((size_t)mig_table_words(E, Pp, vb)
-           + (size_t)ppb * mig_work_words(2 * n - 1, E, Pp, Mw));
+        * ((size_t)mig_table_words(E, Pp, vb, bias, guide, local)
+           + (size_t)ppb * (mig_work_words(N, E, Pp, Mw)
+                            + mig_extra_words(N, S, bias, guide)));
     if (bytes <= (size_t)most) return 0;
   }
   return (int)cudaErrorInvalidValue;
 }
+
 #endif
 
 // What a kernel takes on the card, as the card reports it: out[0]
@@ -3524,6 +3916,56 @@ namespace {
 
 #endif
 
+#if SMC_MIG || SMC_MIG_VB
+// The migration pass's variant for the run-time flags (arg: the ARG
+// variant; bias, guide: guided and biased, local: a proposal variant),
+// launched (res == nullptr) or asked for its resources.
+template <bool VB>
+int mig_variant(const Args& a, bool arg, bool bias, bool guide, bool local,
+                dim3 grid, size_t bytes, int ppb, cudaStream_t s, int* res) {
+  void (*kernel)(const Args) =
+      guide ? (local ? segment_pass_mig_proposal_kernel<VB, true, true, true>
+                     : segment_pass_mig_proposal_kernel<VB, true, true, false>)
+      : bias ? (local
+                    ? segment_pass_mig_proposal_kernel<VB, true, false, true>
+                    : segment_pass_mig_proposal_kernel<VB, true, false, false>)
+      : local ? segment_pass_mig_proposal_kernel<VB, false, false, true>
+      : arg   ? segment_pass_mig_kernel<VB, true>
+              : segment_pass_mig_kernel<VB>;
+  if (res) return resources_of(kernel, ppb * 32, bytes, ppb, res);
+  return launch_kernel(kernel, a, grid, bytes, s, ppb * 32);
+}
+}  // namespace
+
+#if SMC_MIG
+extern "C" int smc_mig_dispatch(const void* args, int vb, int arg, int bias,
+                                int guide, int local, unsigned blocks,
+                                size_t bytes, int ppb, void* stream,
+                                int* res) {
+  if (vb)
+    return smc_mig_vb_dispatch(args, arg, bias, guide, local, blocks, bytes,
+                               ppb, stream, res);
+  return mig_variant<false>(*static_cast<const Args*>(args), arg != 0,
+                            bias != 0, guide != 0, local != 0, dim3(blocks),
+                            bytes, ppb, (cudaStream_t)stream, res);
+}
+#endif
+
+#if SMC_MIG_VB
+extern "C" int smc_mig_vb_dispatch(const void* args, int arg, int bias,
+                                   int guide, int local, unsigned blocks,
+                                   size_t bytes, int ppb, void* stream,
+                                   int* res) {
+  return mig_variant<true>(*static_cast<const Args*>(args), arg != 0,
+                           bias != 0, guide != 0, local != 0, dim3(blocks),
+                           bytes, ppb, (cudaStream_t)stream, res);
+}
+#endif
+
+namespace {
+
+#endif
+
 #if SMC_NARROW
 // The segment pass's variant for the run-time flags: its kernel, launched
 // (run) or asked for its resources (shape: out[7]).
@@ -3599,7 +4041,7 @@ int dispatch(const Args& a, bool segment, void* stream) {
   // above MAX_LEAVES the wide kernels: the plain and biased passes and
   // trip, no migration, guide or local recording; ARG recording in the
   // plain, the biased and the migration pass and the wide plain pass,
-  // without the guide or local recording
+  // without the guide or local recording (nor bias in the migration pass)
   const bool wide = a.n > MAX_LEAVES;
   const bool arg = a.arg_pos != nullptr;
   if (a.n < 2 || a.n > WIDE_MAX_LEAVES || a.E < 1 || a.E > MAX_EPOCHS
@@ -3607,35 +4049,12 @@ int dispatch(const Args& a, bool segment, void* stream) {
       || (wide && (a.pop != nullptr || a.g_rel != nullptr
                    || a.lr_pos != nullptr))
       || (arg && (!segment || a.g_rel != nullptr || a.lr_pos != nullptr
-                  || (wide && a.log_pilot != nullptr) || a.A < 1
+                  || (wide && a.log_pilot != nullptr)
+                  || (a.pop != nullptr && a.log_pilot != nullptr) || a.A < 1
                   || a.arg_code == nullptr || a.arg_time == nullptr
                   || a.arg_from == nullptr || a.arg_to == nullptr
                   || a.arg_desc == nullptr || a.arg_n == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (a.pop != nullptr) {  // the migration pass
-    if (!segment || a.log_pilot != nullptr || a.Pp < 1 || a.Pp > MAX_POPS
-        || a.Mw < 1 || a.Mw > MAX_MIG || a.max_events < 1)
-      return (int)cudaErrorInvalidValue;
-    if (a.P <= 0) return 0;
-    int ppb;
-    size_t bytes;
-    const bool vb = a.vb_coal != nullptr;
-    if (vb && a.vb_mig == nullptr) return (int)cudaErrorInvalidValue;
-    const int err = mig_shape(a.n, a.E, a.Pp, a.Mw, vb, ppb, bytes);
-    if (err != 0) return err;
-    const dim3 grid((unsigned)((a.P + ppb - 1) / ppb));
-    const cudaStream_t s = (cudaStream_t)stream;
-    if (arg)
-      return vb ? launch_kernel(segment_pass_mig_kernel<true, true>, a, grid,
-                                bytes, s, ppb * 32)
-                : launch_kernel(segment_pass_mig_kernel<false, true>, a,
-                                grid, bytes, s, ppb * 32);
-    return vb
-        ? launch_kernel(segment_pass_mig_kernel<true>, a, grid, bytes,
-                        (cudaStream_t)stream, ppb * 32)
-        : launch_kernel(segment_pass_mig_kernel<false>, a, grid, bytes,
-                        (cudaStream_t)stream, ppb * 32);
-  }
   if (a.log_pilot != nullptr
       && (a.K < 1 || a.K > MAX_DELAY_SLOTS || a.S < 1 || a.S > MAX_SECTIONS
           || a.delay_k < 1 || a.delay_k > 30))
@@ -3651,6 +4070,24 @@ int dispatch(const Args& a, bool segment, void* stream) {
           || a.lr_dropped == nullptr || a.lags == nullptr
           || a.ropp == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (a.pop != nullptr) {  // the migration pass
+    if (!segment || a.Pp < 1 || a.Pp > MAX_POPS || a.Mw < 1
+        || a.Mw > MAX_MIG || a.max_events < 1)
+      return (int)cudaErrorInvalidValue;
+    if (a.P <= 0) return 0;
+    int ppb;
+    size_t bytes;
+    const bool vb = a.vb_coal != nullptr;
+    const bool bias = a.log_pilot != nullptr, guide = a.g_rel != nullptr;
+    const bool local = a.lr_pos != nullptr;
+    if (vb && a.vb_mig == nullptr) return (int)cudaErrorInvalidValue;
+    const int err = mig_shape(a.n, a.E, a.Pp, a.Mw, vb, ppb, bytes, bias,
+                              guide, local, bias ? a.S : 0);
+    if (err != 0) return err;
+    return smc_mig_dispatch(&a, vb, arg, bias, guide, local,
+                            (unsigned)((a.P + ppb - 1) / ppb), bytes, ppb,
+                            stream, nullptr);
+  }
   if (a.P <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (wide)
@@ -3813,20 +4250,22 @@ int resources_np(int kind, int n, int E, int S, bool vb, bool guide,
 }
 
 // kind 0: trip, 1: segment_pass, 2: its biased variant (S sections), 3:
-// its migration variant (Pp populations, buffers of Mw events); at n
-// leaves (above MAX_LEAVES the wide kernels of kinds 0-2), E epochs; vb: the pass's VB variant (not for trip); guide: the
-// biased pass's guided variant; local: the plain or biased pass's local
-// recording; arg: the ARG variant of the plain, biased (narrow) or
-// migration pass.
+// its migration variant (Pp populations, buffers of Mw events), 4: the
+// migration variant biased (S sections); at n leaves (above MAX_LEAVES
+// the wide kernels of kinds 0-2), E epochs; vb: the pass's VB variant
+// (not for trip); guide: the biased or biased migration pass's guided
+// variant; local: the plain, biased or migration pass's local recording;
+// arg: the ARG variant of the plain, biased (narrow) or migration pass.
 extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
                                     int Mw, int vb, int guide, int local,
                                     int arg, int* out) {
-  if (kind < 0 || kind > 3 || n < 2 || n > WIDE_MAX_LEAVES || E < 1
-      || E > MAX_EPOCHS || (kind == 2 && (S < 1 || S > MAX_SECTIONS))
-      || (kind == 0 && vb) || (guide && kind != 2)
-      || (local && kind != 1 && kind != 2)
-      || (n > MAX_LEAVES && (kind == 3 || guide || local))
-      || (arg && (kind == 0 || guide || local
+  if (kind < 0 || kind > 4 || n < 2 || n > WIDE_MAX_LEAVES || E < 1
+      || E > MAX_EPOCHS
+      || ((kind == 2 || kind == 4) && (S < 1 || S > MAX_SECTIONS))
+      || (kind == 0 && vb) || (guide && kind != 2 && kind != 4)
+      || (local && kind == 0)
+      || (n > MAX_LEAVES && (kind >= 3 || guide || local))
+      || (arg && (kind == 0 || kind == 4 || guide || local
                   || (n > MAX_LEAVES && kind == 2))))
     return (int)cudaErrorInvalidValue;
   if (n > MAX_LEAVES) {
@@ -3837,7 +4276,7 @@ extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
     return smc_wide_dispatch(&a, kind != 0, kind == 2, vb != 0, arg != 0,
                              nullptr, out);
   }
-  if (kind != 3)
+  if (kind < 3)
     return n <= 4
         ? resources_np<7>(kind, n, E, S, vb != 0, guide != 0, local != 0,
                           arg != 0, out)
@@ -3847,18 +4286,13 @@ extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
     return (int)cudaErrorInvalidValue;
   int ppb;
   size_t bytes;
-  const int shape = mig_shape(n, E, Pp, Mw, vb != 0, ppb, bytes);
+  const bool bias = kind == 4;
+  const int shape = mig_shape(n, E, Pp, Mw, vb != 0, ppb, bytes, bias,
+                              guide != 0, local != 0, bias ? S : 0);
   if (shape != 0) return shape;
-  if (arg)
-    return vb ? resources_of(segment_pass_mig_kernel<true, true>, ppb * 32,
-                             bytes, ppb, out)
-              : resources_of(segment_pass_mig_kernel<false, true>, ppb * 32,
-                             bytes, ppb, out);
-  return vb
-      ? resources_of(segment_pass_mig_kernel<true>, ppb * 32, bytes, ppb,
-                     out)
-      : resources_of(segment_pass_mig_kernel<false>, ppb * 32, bytes, ppb,
-                     out);
+  const Args none = {};
+  return smc_mig_dispatch(&none, vb, arg, bias, guide, local, 1u, bytes, ppb,
+                          nullptr, out);
 }
 
 // An empty launch, for timing what any launch costs on the card.

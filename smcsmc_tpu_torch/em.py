@@ -170,29 +170,6 @@ def _auto_mig_buffer(demo: Demography) -> int:
     return int(np.clip(8 * np.ceil((6.0 * expect + 8.0) / 8.0), 16, 96))
 
 
-def refuse_unported(demo: Demography, cfg: EMConfig) -> None:
-    """Raise NotImplementedError for the combinations with several
-    populations that the port does not run (ROADMAP queue 1, item 15):
-    height bias, calibrated lags, a recombination guide or local recording
-    with structure or migration (the migration pass has neither the biased
-    point nor a ring of local events)."""
-    structured = demo.num_populations > 1 or bool(np.any(demo.mig_rates > 0))
-    for flag, used in (("-guide", cfg.guide_file is not None),
-                       ("-alpha", cfg.alpha > 0)):
-        if structured and used:
-            raise NotImplementedError(
-                f"{flag} with several populations or migration is not in "
-                "the torch port (ROADMAP queue 1, item 15)")
-    if structured and cfg.bias_heights:
-        raise NotImplementedError(
-            "-bias_heights with several populations or migration is not in "
-            "the torch port (ROADMAP queue 1, item 15)")
-    if structured and cfg.calibrate_lag:
-        raise NotImplementedError(
-            "-calibrate_lag with several populations is not in the torch "
-            "port (ROADMAP queue 1, item 15)")
-
-
 def refuse_caps(demo: Demography, cfg: EMConfig) -> None:
     """Raise NotImplementedError for a run on the card that the CUDA
     kernels' compile-time caps do not hold (ROADMAP queue 1, item 19):
@@ -201,27 +178,29 @@ def refuse_caps(demo: Demography, cfg: EMConfig) -> None:
     passes) also several populations or migration, ``-guide``, ``-alpha``
     and ``-apf``, whose passes have no wide form; and ``-arg`` with
     ``-guide`` or ``-alpha``, or with height bias above MAX_LEAVES
-    haplotypes, which have no ARG variant (ROADMAP queue 1, item 16).  The
-    CPU runs every size and combination.  Callers check before any tree is
-    built."""
+    haplotypes or with several populations or migration, which have no ARG
+    variant (ROADMAP queue 1, item 16).  The CPU runs every size and
+    combination.  Callers check before any tree is built."""
     if torch.device(cfg.device).type != "cuda":
         return
     buffer = cfg.mig_buffer or _auto_mig_buffer(demo)
     n = demo.num_samples
+    structured = (demo.num_populations > 1
+                  or bool(np.any(demo.mig_rates > 0)))
     if cfg.record_arg:
         for what, used in (
                 ("-guide", cfg.guide_file is not None),
                 ("-alpha", cfg.alpha > 0),
                 (f"-bias_heights at {n} haplotypes",
-                 bool(cfg.bias_heights) and n > MAX_LEAVES)):
+                 bool(cfg.bias_heights) and n > MAX_LEAVES),
+                ("-bias_heights with several populations or migration",
+                 bool(cfg.bias_heights) and structured)):
             if used:
                 raise NotImplementedError(
                     f"-arg with {what} on the card: that pass has no ARG "
                     "variant; run with -device cpu (ROADMAP queue 1, item "
                     "16)")
     if n > MAX_LEAVES:
-        structured = (demo.num_populations > 1
-                      or bool(np.any(demo.mig_rates > 0)))
         for what, used in (
                 ("several populations or migration", structured),
                 ("-guide", cfg.guide_file is not None),
@@ -485,9 +464,8 @@ def start_sweep(demo: Demography, seg: SegData, cfg: EMConfig,
     num_windows = (int(np.ceil(chunk_len / cfg.guide_interval))
                    if cfg.alpha > 0 else 0)
 
-    refuse_unported(demo, dataclasses.replace(
+    refuse_caps(demo, dataclasses.replace(
         cfg, guide_file=guide_file or cfg.guide_file))
-    refuse_caps(demo, cfg)
     epochs = epochs_from_demography(demo, dev)
     bias_strengths = cfg.bias_strengths
     if cfg.bias_heights and not bias_strengths:
@@ -899,7 +877,6 @@ def run_em(demo: Demography, seg: SegData, cfg: EMConfig) -> EMResult:
     ``cfg.record_arg`` each iteration writes each chunk's
     ``chunk{ci}.trees.gz``."""
     refuse_caps(demo, cfg)
-    refuse_unported(demo, cfg)
     result = EMResult(demos=[], stats=[], stats_wt=[], log_likelihoods=[])
     if cfg.outdir:
         os.makedirs(cfg.outdir, exist_ok=True)

@@ -5,9 +5,10 @@ scan of the APF lookahead (``csrc/lookahead.c``).
 with a plain C interface, loaded with ``ctypes``.  Each library is built at
 first use into ``build/smcsmc_tpu_torch/`` beside the package and rebuilt
 whenever a hash of its source and flags changes; a failed build raises.
-``trip.cu`` is compiled as two units side by side (``-DSMC_PART=0``: the
-narrow and migration kernels and the C interface; ``-DSMC_PART=1``: the
-wide kernels), then linked.
+``trip.cu`` is compiled as four units side by side (``-DSMC_PART=0``: the
+narrow kernels and the C interface; ``-DSMC_PART=1``: the wide kernels;
+``-DSMC_PART=2`` and ``3``: the migration pass's kernels without and with
+VB), then linked.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ NVCC_FLAGS = (
     "-fmad=false",  # round each product and sum as the plain version does
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-TRIP_PARTS = 2  # units of trip.cu compiled in parallel (SMC_PART)
+TRIP_PARTS = 4  # units of trip.cu compiled in parallel (SMC_PART)
 
 
 @dataclass(frozen=True)

@@ -31,7 +31,17 @@ from typing import NamedTuple
 import torch
 
 from .arg import pick_desc, push_trip_rows, store_ring
-from .bias import epoch_index
+from .bias import (
+    MIGR_DELAY,
+    BiasedPass,
+    delay_code,
+    epoch_index,
+    guide_branch_rates,
+    push_delayed,
+    section_of,
+)
+from .guide import GuideTables, draw_gap, leaf_rates_at, span_log_iw
+from .local import LocalPass, push_local_event
 from .tree import (
     INF,
     Epochs,
@@ -515,10 +525,80 @@ def uniform_point(u_pt, time, parent):
     return c, h_r
 
 
+def biased_point_seq(u, time, parent, heights, strengths,
+                     branch_rates=None):
+    """``bias.biased_point`` with every sum taken one addend after the
+    other in node-major order (node j's sections s, pair q = j S + s), as
+    the migration kernel takes them: the weighted lengths' running sums,
+    their total, the plain length and, with ``branch_rates`` [P, N], the
+    length weighted by the strengths alone.  Returns (c, h_r, log_iw,
+    strength, log_iw_bias) as ``biased_point`` does
+    (transition.py:160 of the JAX package)."""
+    P, N = time.shape
+    S = strengths.shape[0]
+    Q = N * S
+    pt = parent_time(time, parent)
+    lo = torch.maximum(time[:, :, None], heights[None, None, :-1])  # [P,N,S]
+    hi = torch.minimum(pt[:, :, None], heights[None, None, 1:])
+    seg = (hi - lo).clamp(min=0.0)
+    seg = torch.where(parent[:, :, None] < 0, torch.zeros_like(seg), seg)
+    wseg_bias = seg * strengths[None, None, :]
+    wseg = (wseg_bias if branch_rates is None
+            else wseg_bias * branch_rates[:, :, None])
+    seg, wseg, wseg_bias = (x.reshape(P, Q) for x in (seg, wseg, wseg_bias))
+    wtot = torch.zeros_like(u)
+    ptot = torch.zeros_like(u)
+    btot = torch.zeros_like(u)
+    cum = torch.empty((P, Q), dtype=u.dtype, device=u.device)
+    for q in range(Q):
+        wtot = wtot + wseg[:, q]
+        ptot = ptot + seg[:, q]
+        if branch_rates is not None:
+            btot = btot + wseg_bias[:, q]
+        cum[:, q] = wtot
+    x = u * wtot
+    hit = cum >= x[:, None]
+    idx = torch.where(hit.any(dim=1), hit.to(torch.int32).argmax(dim=1),
+                      torch.full_like(hit[:, 0], Q - 1, dtype=torch.int64))
+    prev = torch.where(
+        idx > 0, cum.gather(1, (idx - 1).clamp(min=0)[:, None])[:, 0],
+        torch.zeros_like(x))
+    c = idx // S
+    strength = strengths[idx % S]
+    local_w = (strength if branch_rates is None
+               else strength * branch_rates.gather(1, c[:, None])[:, 0])
+    h_r = (lo.reshape(P, Q).gather(1, idx[:, None])[:, 0]
+           + (x - prev) / local_w.clamp(min=1e-30))
+    log_plain = torch.log(ptot.clamp(min=1e-30))
+    log_iw = (torch.log(wtot) - log_plain
+              - torch.log(local_w.clamp(min=1e-30)))
+    if branch_rates is None:
+        log_iw_bias = log_iw
+    else:
+        log_iw_bias = (torch.log(btot) - log_plain
+                       - torch.log(strength.clamp(min=1e-30)))
+    return c.to(torch.int32), h_r, log_iw, strength, log_iw_bias
+
+
+def delay_height(code: int, h_r, t_c, ev_t):
+    """[P] the height that keys a trip's delayed factor: the recombination
+    point (code 0), the coalescence (1), or under ``-delay_migr``
+    (:data:`bias.MIGR_DELAY`) the lower of the coalescence and the walk's
+    first migration on the new branch (``ev_t[:, 0]``, INF if none;
+    smc.py:980-989 of the JAX package)."""
+    if code == 0:
+        return h_r
+    if code == MIGR_DELAY:
+        return torch.minimum(t_c, ev_t[:, 0])
+    return t_c
+
+
 def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
                     next_rec, upd, log_w, tl, B, tl_e, pending, L, mu, rho,
                     epoch_start, has_data, mp: MigrationPass, vb=None,
-                    arg=None):
+                    arg=None, biased: BiasedPass | None = None,
+                    guide: GuideTables | None = None,
+                    local: LocalPass | None = None):
     """The trips of a migration segment pass, IN PLACE (the migration
     branch of ``recombination_transition`` and the sweep's trip loop,
     smc.py:876-1080 of the JAX package): per trip and active particle the
@@ -535,7 +615,22 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
     tree before the SPR, the coalescence's population, and each of the
     walk's first hops from the population it left (the start population,
     then the hops' destinations, transition.py:1366) to its
-    destination."""
+    destination.
+
+    With ``biased`` (a ``bias.BiasedPass``) the point is height-biased
+    (:func:`biased_point_seq`, the same uniform), the posterior weight
+    takes its importance weight after the VB term, the pilot weight the
+    extension, the VB term and the immediate part, and the delayed part
+    goes into the particle's ring at ``front + next_rec`` (smc.py:968-1020),
+    its delay keyed by :func:`delay_height` (under ``-delay_migr`` the
+    walk's first migration where it lies below the coalescence).  With
+    ``guide`` (and ``biased``) each extension takes the guide's survival
+    weight in both weights, the point's segments are weighed by the
+    branches' guide rates at the event's window and the gap is drawn in
+    guide mass.  With ``local`` each trip's event goes into the particle's
+    ring of pending local events (smc.py:1054-1069): at ``front +
+    next_rec``, due a lag of h_r's epoch later, with the leaves below c in
+    the tree before the SPR."""
     E, Pp = epoch_start.shape[0], mp.ne.shape[1]
     off = stats_offsets(E, Pp)
     counts = slice(off["coal_cnt"], off["coal_cnt"] + E * Pp)
@@ -546,6 +641,15 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
                pop=mp.pop, mig_time=mp.mig_time, mig_dest=mp.mig_dest,
                next_rec=next_rec, upd=upd, log_w=log_w, tl=tl, B=B,
                tl_e=tl_e)
+    b = biased
+    if b is not None:
+        cur.update(log_pilot=b.log_pilot, df_pos=b.df_pos, df_logf=b.df_logf,
+                   df_delta=b.df_delta, df_k=b.df_k)
+        code = delay_code(b.delay_type, True)
+    if local is not None:
+        cur.update(lr_pos=local.lr_pos, lr_due=local.lr_due,
+                   lr_time=local.lr_time, lr_desc=local.lr_desc,
+                   lr_dropped=local.lr_dropped)
     start = dict(cur)
     diag = mp.diag.clone()
     aring = None if arg is None else arg.ring
@@ -555,11 +659,27 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
             break
         u = uniforms[j].clamp(1e-7, 1.0 - 1e-7)
         nr, up = cur["next_rec"], cur["upd"]
-        delta = torch.where(active, nr - up, torch.zeros_like(nr))
+        zero = torch.zeros_like(nr)
+        delta = torch.where(active, nr - up, zero)
         cur["log_w"] = cur["log_w"] - mu * cur["B"] * delta
+        if b is not None:
+            cur["log_pilot"] = cur["log_pilot"] - mu * cur["B"] * delta
+        if guide is not None:
+            liw = torch.where(active, span_log_iw(
+                guide, rho, cur["tl"], up + b.front, nr + b.front), zero)
+            cur["log_w"] = cur["log_w"] + liw
+            cur["log_pilot"] = cur["log_pilot"] + liw
         pending[:, off["recomb_opp"]:off["recomb_opp"] + E] += \
             delta[:, None] * cur["tl_e"]
-        c, h_r = uniform_point(u[:, 0], cur["time"], cur["parent"])
+        if b is None:
+            c, h_r = uniform_point(u[:, 0], cur["time"], cur["parent"])
+        else:
+            rates = (None if guide is None else guide_branch_rates(
+                cur["time"], cur["parent"], cur["child0"], cur["child1"],
+                leaf_rates_at(guide, nr + b.front)))
+            c, h_r, log_iw, strength, log_iw_bias = biased_point_seq(
+                u[:, 0], cur["time"], cur["parent"], b.heights, b.strengths,
+                rates)
         walk_mp = mp._replace(pop=cur["pop"], mig_time=cur["mig_time"],
                               mig_dest=cur["mig_dest"])
         if vb is not None:
@@ -572,9 +692,33 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
                       * vb[0].reshape(-1)).sum(dim=1)
             term_m = ((pending[:, mig_counts] - before[1])
                       * vb[1].reshape(-1)).sum(dim=1)
-            cur["log_w"] = cur["log_w"] + (term_c + term_m)
-        if arg is not None:
+            term = term_c + term_m
+            cur["log_w"] = cur["log_w"] + term
+            if b is not None:
+                cur["log_pilot"] = cur["log_pilot"] + term
+        if b is not None:
+            # the posterior takes the whole importance weight, the pilot
+            # its height-bias part where the delay height's section is
+            # unbiased, the ring the rest (smc.py:968-1020)
+            cur["log_w"] = cur["log_w"] + torch.where(active, log_iw, zero)
+            d_h = delay_height(code, h_r, t_c, ev_t)
+            strength_h = (strength if code == 0
+                          else b.strengths[section_of(b.heights, d_h)])
+            imm = torch.where((strength_h - 1.0).abs() < 1e-6, log_iw_bias,
+                              zero)
+            late = log_iw - imm
+            cur["log_pilot"] = cur["log_pilot"] + torch.where(active, imm,
+                                                              zero)
+            delay = b.delays[epoch_index(epoch_start, d_h)]
+            (cur["df_pos"], cur["df_logf"], cur["df_delta"], cur["df_k"],
+             overflow) = push_delayed(
+                cur["df_pos"], cur["df_logf"], cur["df_delta"], cur["df_k"],
+                active & (late.abs() > 1e-9), nr + b.front, delay, late,
+                b.delay_k)
+            cur["log_pilot"] = cur["log_pilot"] + overflow
+        if arg is not None or local is not None:
             desc = descendant_bitmask(cur["parent"])
+        if arg is not None:
             p0 = start_pop(cur["mig_time"], cur["mig_dest"], cur["pop"], c,
                            h_r)
             aring = push_trip_rows(
@@ -582,6 +726,13 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
                 pick_desc(desc, c), pick_desc(desc, d),
                 (ev_t, torch.cat([p0[:, None], ev_d[:, :-1]], dim=1), ev_d))
         e_r = epoch_index(epoch_start, h_r)
+        if local is not None:
+            pos = nr + local.front
+            (cur["lr_pos"], cur["lr_due"], cur["lr_time"], cur["lr_desc"],
+             cur["lr_dropped"]) = push_local_event(
+                cur["lr_pos"], cur["lr_due"], cur["lr_time"], cur["lr_desc"],
+                cur["lr_dropped"], active, pos, pos + local.lags[e_r], h_r,
+                pick_desc(desc, c))
         pending[:, off["recomb_cnt"]:off["recomb_cnt"] + E] += (
             (torch.arange(E, device=time.device)[None, :] == e_r[:, None])
             & active[:, None]).to(f32)
@@ -602,7 +753,11 @@ def migration_trips(uniforms, leaf_status, time, parent, child0, child1,
         cur["tl"] = torch.where(active, tl2, cur["tl"])
         cur["B"] = torch.where(active, B2, cur["B"])
         cur["tl_e"] = torch.where(a1, tle2, cur["tl_e"])
-        gap = -torch.log1p(-u[:, 3]) / (rho * cur["tl"]).clamp(min=1e-30)
+        x_gap = -torch.log1p(-u[:, 3])
+        if guide is None:
+            gap = x_gap / (rho * cur["tl"]).clamp(min=1e-30)
+        else:
+            gap = draw_gap(guide, x_gap, rho, cur["tl"], nr + b.front)
         cur["upd"] = torch.where(active, nr, up)
         cur["next_rec"] = torch.where(active, nr + gap, nr)
     for k, dst in start.items():

@@ -57,6 +57,7 @@ from .bias import (
     BiasedPass,
     apply_due_delayed,
     biased_point,
+    delay_code,
     epoch_index,
     guide_branch_rates,
     push_delayed,
@@ -483,6 +484,19 @@ def _check_caps(N: int, E: int, Pp: int = 1, Mw: int = 0,
     return n
 
 
+def narrow_variant(biased=False, migration=False, guide=False, local=False,
+                   arg=False) -> str | None:
+    """The name :func:`_check_caps` gives a pass that has no wide form
+    (the migration pass and its biased, guided and local variants, the
+    guided and local passes, the biased pass's ARG variant), or None."""
+    if not (migration or guide or local or (biased and arg)):
+        return None
+    return " ".join(w for w, on in (
+        ("migration", migration), ("guided", guide),
+        ("biased", biased and not guide and (migration or local or arg)),
+        ("local", local), ("ARG", arg and not migration)) if on)
+
+
 def _check_tensor(name, x, dtype, shape, dev):
     """Raise unless ``x`` is what the kernel takes for this argument."""
     if x.device != dev:
@@ -686,8 +700,9 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
     arguments, same in-place contract): ``tree_summaries``, the trips
     (``trip_plain``, :func:`_biased_trips` or
     ``migration.migration_trips``, each with the VB term after every trip
-    when ``vb`` is given and the rows of ``arg``; the first two with the
-    local events of ``local``, the biased one with the ``guide``), the
+    when ``vb`` is given and the rows of ``arg``, with the local events of
+    ``local``; the biased and the migration one under ``biased`` with the
+    ``guide``), the
     final extension (with the
     guide's survival weight), under bias the drain of the delayed factors
     due at ``front + L``, and the push into FIFO slot 0; with ``local``
@@ -703,8 +718,6 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
     tl, tl_e, B = tl.contiguous(), tl_e.contiguous(), B.contiguous()
     upd = torch.zeros(P, device=dev)
     pending = torch.zeros((P, off["width"]), device=dev)
-    if migration is not None and (guide is not None or local is not None):
-        raise ValueError("the migration pass has no guide or local variant")
     if guide is not None and biased is None:
         raise ValueError("the guide runs in the biased pass")
 
@@ -715,7 +728,8 @@ def segment_pass_plain(uniforms, leaf_status, time, parent, child0, child1,
                 inv2ne, has_data)
         vb_coal = None if vb is None else vb[0][:, 0]
         if migration is not None:
-            migration_trips(*args[:-2], has_data, migration, vb, arg)
+            migration_trips(*args[:-2], has_data, migration, vb, arg,
+                            biased, guide, local)
         elif biased is None:
             trip_plain(*args, vb_coal, local, arg)
         else:
@@ -787,13 +801,17 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     extension the factors due at ``front + L`` go into the pilot.  Its
     ring holds at most 32 slots per particle and its sections at most 8.
 
-    ``migration`` (a :class:`MigrationPass`, not together with ``biased``)
-    makes it the migration pass of Pp populations: the point from column 0
-    and the gap from column 3 of the uniforms, the re-coalescence by the
-    loop walk on the pass's Philox stream, the SPR with buffer routing;
-    ``fifo`` and ``fifo_mask`` are ``stats_offsets(E, Pp)["width"]`` wide,
-    ``inv2ne`` is not read.  At most 4 populations and 96 events per
-    buffer.
+    ``migration`` (a :class:`MigrationPass`) makes it the migration pass
+    of Pp populations: the point from column 0 and the gap from column 3
+    of the uniforms, the re-coalescence by the loop walk on the pass's
+    Philox stream, the SPR with buffer routing; ``fifo`` and ``fifo_mask``
+    are ``stats_offsets(E, Pp)["width"]`` wide, ``inv2ne`` is not read.
+    At most 4 populations and 96 events per buffer.  With ``biased``,
+    ``guide`` or ``local`` it is one of the migration pass's proposal
+    variants (``migration.migration_trips``): the biased point in
+    node-major order, the delay under ``-delay_migr`` keyed by the walk's
+    first migration where it lies below the coalescence, the guide and
+    the local ring as in the passes below.
 
     ``vb`` = (vb_coal [E, Pp], vb_mig [E, Pp, Pp]) f32, the VB tables with
     the ``-xc`` epochs' entries 0, makes it the VB variant of the pass (a
@@ -809,14 +827,15 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     weighed by the branches' guide rates at the event's window (the
     delayed part is then the whole weight less its height-bias part), and
     each gap is drawn in guide mass.  ``local`` (a ``local.LocalPass``,
-    with the plain or the biased pass) makes each trip push its pending
+    with any pass but the ARG variants) makes each trip push its pending
     local event into the particle's ring (the first free slot; on a full
     ring it is dropped and counted) and writes the segment's ungated
     recombination opportunity into ``local.ropp``.  Its ring holds at most
     32 slots.
 
     ``arg`` (a ``kernels.arg.ArgPass``, with the plain, the biased or the
-    migration pass; not with ``guide`` or ``local``) makes it the ARG
+    migration pass; not with ``guide`` or ``local``, nor with both
+    ``biased`` and ``migration``) makes it the ARG
     variant: each trip pushes its R and C rows (and with migration an M
     row for each of the walk's first 4 hops) into the particle's ARG ring
     at slot ``arg_n % A``; the pass draws nothing and changes no weight.
@@ -836,14 +855,14 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     ``segment_pass.migration_launches`` those of the migration one; the
     ``vb_`` counts (``vb_launches``, ``biased_vb_launches``,
     ``migration_vb_launches``) those of their VB variants; the guided,
-    local and ARG variants count under :func:`launch_count`'s names
-    (``local_launches``, ``biased_guide_local_vb_launches``,
-    ``arg_launches``, ``migration_arg_vb_launches``, ...)."""
+    local, ARG and migration proposal variants count under
+    :func:`launch_count`'s names (``local_launches``,
+    ``biased_guide_local_vb_launches``, ``arg_launches``,
+    ``migration_arg_vb_launches``, ``migration_biased_guide_launches``,
+    ...)."""
     dev = time.device
     if guide is not None and biased is None:
         raise ValueError("the guide runs in the biased pass")
-    if migration is not None and (guide is not None or local is not None):
-        raise ValueError("the migration pass has no guide or local variant")
     if dev.type == "cpu":
         segment_pass_plain(uniforms, leaf_status, time, parent, child0,
                            child1, next_rec, log_w, fifo, fifo_mask, tl_out,
@@ -872,22 +891,18 @@ def segment_pass_launch_args(uniforms, leaf_status, time, parent, child0,
     dev = time.device
     if guide is not None and biased is None:
         raise ValueError("the guide runs in the biased pass")
-    if migration is not None and (guide is not None or local is not None):
-        raise ValueError("the migration pass has no guide or local variant")
-    if biased is not None and migration is not None:
-        raise ValueError("segment_pass has no biased migration variant")
     if arg is not None and (guide is not None or local is not None):
         raise ValueError("segment_pass has no guided or local ARG variant")
+    if arg is not None and migration is not None and biased is not None:
+        raise ValueError("segment_pass has no ARG variant of the biased "
+                         "migration pass")
     P, N = time.shape
     E = epoch_start.shape[0]
     Pp = 1 if migration is None else migration.ne.shape[1]
     Mw = 0 if migration is None else migration.mig_time.shape[2]
-    narrow_only = ("migration" if migration is not None else
-                   "guided" if guide is not None else
-                   "local" if local is not None else
-                   "biased ARG" if biased is not None and arg is not None
-                   else None)
-    n = _check_caps(N, E, Pp, Mw, narrow_only)
+    n = _check_caps(N, E, Pp, Mw, narrow_variant(
+        biased is not None, migration is not None, guide is not None,
+        local is not None, arg is not None))
     K = stats_offsets(E, Pp)["width"]
     if fifo.dim() != 3:
         raise ValueError(f"fifo has shape {tuple(fifo.shape)}, expected "
@@ -920,6 +935,7 @@ def segment_pass_launch_args(uniforms, leaf_status, time, parent, child0,
                              f"got {D} and {S}")
         if b.delay_type not in DELAY_TYPES or b.delay_k < 1:
             raise ValueError(f"delay type {b.delay_type!r}, k {b.delay_k}")
+        code = delay_code(b.delay_type, migration is not None)
         spec += [
             ("log_pilot", b.log_pilot, f32, (P,)),
             ("df_pos", b.df_pos, f32, (P, D)),
@@ -933,7 +949,7 @@ def segment_pass_launch_args(uniforms, leaf_status, time, parent, child0,
         bias_args = (*(x.data_ptr() for x in (
             b.log_pilot, b.df_pos, b.df_logf, b.df_delta, b.df_k, b.heights,
             b.strengths, b.delays)), D, S, float(b.front),
-            DELAY_TYPES[b.delay_type], int(b.delay_k))
+            code, int(b.delay_k))
     if migration is not None:
         m = migration
         if Mw < 1 or not 1 <= m.max_walk_events <= MAX_WALK_EVENTS:
@@ -1029,10 +1045,10 @@ def segment_pass_launch_args(uniforms, leaf_status, time, parent, child0,
 def launch_count(biased=False, migration=False, vb=False, guide=False,
                  local=False, wide=False, arg=False) -> str:
     """The name of the ``segment_pass`` count of a kernel variant:
-    ``[biased_|migration_][wide_][guide_][local_][arg_][vb_]launches``
+    ``[migration_][biased_][wide_][guide_][local_][arg_][vb_]launches``
     (``wide``: the wide kernels, more than :data:`MAX_LEAVES` leaves)."""
-    return ("migration_" if migration else "biased_" if biased else "") \
-        + ("wide_" if wide else "") \
+    return ("migration_" if migration else "") \
+        + ("biased_" if biased else "") + ("wide_" if wide else "") \
         + ("guide_" if guide else "") + ("local_" if local else "") \
         + ("arg_" if arg else "") + ("vb_" if vb else "") + "launches"
 
@@ -1041,7 +1057,9 @@ def launch_count(biased=False, migration=False, vb=False, guide=False,
 # migration pass, each with and without VB; the plain pass with local
 # recording; the biased pass guided, with local recording or both; the
 # wide plain and biased passes; the ARG variants of the plain, biased,
-# migration and wide plain passes
+# migration and wide plain passes; the migration pass biased, guided
+# (and biased), with local recording, biased with local recording, and
+# guided with local recording
 LAUNCH_COUNTS = tuple(
     launch_count(b, m, v, g, lo, wd, a)
     for b, m, g, lo, wd, a in ((False, False, False, False, False, False),
@@ -1056,7 +1074,12 @@ LAUNCH_COUNTS = tuple(
                                (False, False, False, False, False, True),
                                (True, False, False, False, False, True),
                                (False, True, False, False, False, True),
-                               (False, False, False, False, True, True))
+                               (False, False, False, False, True, True),
+                               (True, True, False, False, False, False),
+                               (True, True, True, False, False, False),
+                               (False, True, False, True, False, False),
+                               (True, True, False, True, False, False),
+                               (True, True, True, True, False, False))
     for v in (False, True))
 for _count in LAUNCH_COUNTS:
     setattr(segment_pass, _count, 0)
@@ -1074,7 +1097,7 @@ WAVES_AT = 10000  # the particle count of the paths chip_smoke drives
 def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
                      Mw: int = 0, S: int = 2, vb: bool = False,
                      guide: bool = False, local: bool = False,
-                     arg: bool = False) -> dict:
+                     arg: bool = False, biased: bool = False) -> dict:
     """What a kernel of ``csrc/trip.cu`` takes on the current CUDA device
     at (n leaves, E epochs; for the biased pass also S bias sections, for
     the migration pass Pp populations and Mw events per buffer): registers
@@ -1088,7 +1111,9 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     up to 64;
     ``vb`` a pass's VB variant, ``guide`` the biased pass's guided one,
     ``local`` the plain or biased pass's local recording, ``arg`` the
-    plain, biased or migration pass's ARG recording).  Raises on an
+    plain, biased or migration pass's ARG recording; for the migration
+    pass ``biased`` its biased variant of S sections, ``guide`` its guided
+    one (biased too) and ``local`` its local recording).  Raises on an
     unknown variant or a shape beyond the caps before any CUDA call."""
     if variant not in RESOURCE_VARIANTS:
         raise ValueError(f"unknown kernel variant {variant!r}; one of "
@@ -1097,28 +1122,34 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     if migration and (Pp < 1 or Mw < 1):
         raise ValueError(f"the migration pass needs populations and buffers,"
                          f" got Pp={Pp}, Mw={Mw}")
+    if biased and not migration:
+        raise ValueError("biased= names the migration pass's biased "
+                         "variant; the biased pass is variant 'biased'")
+    biased = biased or guide or variant == "biased"
     _check_caps(2 * n - 1, E, Pp if migration else 1, Mw if migration else 0,
-                "migration" if migration else "guided" if guide else
-                "local" if local else
-                "biased ARG" if arg and variant == "biased" else None)
+                narrow_variant(biased, migration, guide, local,
+                               arg and variant == "biased"))
     if vb and variant == "trip":
         raise ValueError("trip has no VB variant")
-    if variant == "biased" and not 1 <= S <= MAX_SECTIONS:
+    if biased and not 1 <= S <= MAX_SECTIONS:
         raise ValueError(f"the biased pass takes 1..{MAX_SECTIONS} sections,"
                          f" got {S}")
-    if guide and variant != "biased":
-        raise ValueError("only the biased pass has a guided variant")
-    if local and variant not in ("segment_pass", "biased"):
-        raise ValueError("only the plain and biased passes record locally")
-    if arg and (variant == "trip" or guide or local):
+    if guide and variant not in ("biased", "migration"):
+        raise ValueError("only the biased and migration passes have a "
+                         "guided variant")
+    if local and variant not in ("segment_pass", "biased", "migration"):
         raise ValueError("only the plain, biased and migration passes "
-                         "without the guide or local recording record the "
-                         "ARG")
+                         "record locally")
+    if arg and (variant == "trip" or guide or local
+                or (migration and biased)):
+        raise ValueError("only the plain, biased and migration passes "
+                         "without the guide or local recording, and the "
+                         "migration pass without bias, record the ARG")
     out = (ctypes.c_int * len(RESOURCES))()
     lib = load_trip_library()
-    err = lib.smc_kernel_resources(RESOURCE_VARIANTS[variant], n, E, S, Pp,
-                                   Mw, int(vb), int(guide), int(local),
-                                   int(arg), out)
+    kind = 4 if migration and biased else RESOURCE_VARIANTS[variant]
+    err = lib.smc_kernel_resources(kind, n, E, S, Pp, Mw, int(vb),
+                                   int(guide), int(local), int(arg), out)
     if err != 0:
         raise RuntimeError(f"smc_kernel_resources failed: CUDA error {err} "
                            f"({lib.smc_cuda_error_string(err).decode()})")

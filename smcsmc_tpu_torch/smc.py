@@ -15,6 +15,8 @@ With several populations (``PFConfig.has_migration``) the launch is the
 migration pass: the loop walk with migration, the SPR routing the branches'
 migration buffers, walks capped and events dropped counted into
 ``PFState.diag``; resampling gathers the populations and buffers too.
+Under bias, a guide or local recording with several populations the
+launch is the migration pass's proposal variant of the same flags.
 With VB tables the launch is the pass's VB variant, which adds each trip's
 VB term to the weights.  With a recombination guide (``PFConfig.use_guide``)
 the launch is the guided biased pass (one section of strength 1 without
@@ -121,8 +123,9 @@ class PFConfig:
     delay_slots: int = 32  # delayed-importance-factor ring capacity
     delay_k: int = 3  # k-step geometric application (particle.cpp:891)
     # which height keys the delay (particle.cpp:874-876): "recomb" (the
-    # recombination point), "coal" (-delay_coal) or "migr" (-delay_migr;
-    # the coalescence too, without migration)
+    # recombination point), "coal" (-delay_coal) or "migr" (-delay_migr:
+    # the first coalescence or migration of the new branch; the
+    # coalescence without migration)
     delay_type: str = "recomb"
     # several populations: the migration pass (the loop walk; a -ej split
     # without migration runs it with zero rates)

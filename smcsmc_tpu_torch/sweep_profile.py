@@ -181,6 +181,11 @@ GENOME_PATTERN = ("133", "133016", "31*1")  # the standard 31-epoch grid
 # 10,000 (0.05 x 4 N0 generations), the flags a production run adds
 BIASED_OPTIONS = {"bias_heights": (2000.0,), "calibrate_lag": True,
           "lag_fraction": 2.0}
+# the production proposal of the two-population path: those flags with
+# -delay_migr (the delay keyed by the first coalescence or migration)
+TWOPOP_PROPOSAL_FLAGS = ["-bias_heights", "0", "0.05", "-calibrate_lag", "2",
+                         "-delay_migr"]
+TWOPOP_PROPOSAL_OPTIONS = dict(BIASED_OPTIONS, delay_type="migr")
 
 
 def unphase_and_blank(seg: SegData, all_missing, sample_missing,

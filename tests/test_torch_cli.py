@@ -7,6 +7,7 @@ files and chunks, twice (the second run sweeps nothing), and with
 """
 
 import dataclasses
+import functools
 import gzip
 import logging
 import os
@@ -127,8 +128,6 @@ def test_structured_flags_give_the_jax_demography(argv):
 
 
 @pytest.mark.parametrize("extra,flag", [
-    (["-bias_heights", "0", "0.05"], "-bias_heights"),
-    (["-calibrate_lag", "2"], "-calibrate_lag"),
     (["-eI", "0.1", "1"], "-eI"),
 ])
 def test_out_of_scope_with_migration_is_refused_by_name(tmp_path, extra,
@@ -155,15 +154,47 @@ def test_arg_with_migration_is_accepted(tmp_path):
     assert codes[:3] == ["C"] * 3 and "R" in codes
 
 
-def test_structured_refusals_cite_item_15(tmp_path):
-    """Height bias with several populations is refused as part of ROADMAP
-    item 15 (structured populations), as ``em.refuse_unported`` says."""
+def test_structured_refusals_cite_item_15(tmp_path, caplog, monkeypatch):
+    """The production proposal and the guide with several populations are
+    in the port (ROADMAP item 15): with bench.py's twopop model on the CPU
+    ``-bias_heights 0 0.05 -calibrate_lag 2 -delay_migr`` (its survival
+    calibration cut to 32 genealogies over 20 kb), ``-guide FILE`` and
+    ``-alpha 0.5`` each run to ``result.out`` and no message cites item
+    15; on the card ``-arg`` with height bias on such a model is refused
+    by name, citing item 16, before anything is swept."""
+    from smcsmc_tpu_torch import calibrate as tcal
+    from smcsmc_tpu_torch.sweep_profile import write_constant_guide
+
+    caplog.set_level(logging.INFO, logger="smcsmc_tpu_torch")
+    monkeypatch.setattr(tcal, "calibrate_survival", functools.partial(
+        tcal.calibrate_survival, num_particles=32, distance=2e4,
+        num_windows=4))
+    demo, data = twopop_data(L=2e4)
     seg = str(tmp_path / "t.seg")
-    write_seg(seg, twopop_data(L=2e4)[1])
-    with pytest.raises(SystemExit, match="item 15"):
-        tcli.smcsmc_main(["-seg", seg, "-o", str(tmp_path / "out"), "-Np",
-                          "8", *TWOPOP, "-bias_heights", "0", "0.05",
-                          "-device", "cpu"])
+    write_seg(seg, data)
+    guide = write_constant_guide(str(tmp_path / "g.recomb_guide.gz"), demo)
+    for i, extra in enumerate((
+            ["-bias_heights", "0", "0.05", "-calibrate_lag", "2",
+             "-delay_migr"], ["-guide", guide], ["-alpha", "0.5"])):
+        out = str(tmp_path / f"out{i}")
+        assert tcli.smcsmc_main(["-seg", seg, "-o", out, "-Np", "8", "-EM",
+                                 "0", *TWOPOP, *extra, "-seed", "3",
+                                 "-device", "cpu"]) == 0
+        assert os.path.exists(os.path.join(out, "result.out"))
+    msgs = [r.getMessage() for r in caplog.records]
+    assert not any("item 15" in m for m in msgs)
+    assert any("migration pass launches" in m for m in msgs)
+
+    def reached(*args, **kwargs):
+        raise AssertionError("the run started")
+
+    monkeypatch.setattr(tcli, "resolve_device", torch.device)
+    monkeypatch.setattr(tcli, "run_em", reached)
+    with pytest.raises(SystemExit, match=r"-arg with -bias_heights with "
+                       r"several populations.*item 16"):
+        tcli.smcsmc_main(["-seg", seg, "-o", str(tmp_path / "card"), "-Np",
+                          "8", *TWOPOP, "-bias_heights", "0", "0.05", "-arg",
+                          "-device", "cuda"])
 
 
 def test_card_caps_are_refused_before_the_sweep(tmp_path, monkeypatch):

@@ -513,8 +513,9 @@ def test_step_with_trips_matches_jax_step(guide, local, biased, vb,
 
 
 def test_segment_pass_refuses_a_guide_without_the_biased_pass():
-    """The guide runs in the biased pass only; local recording not in the
-    migration pass: refused by name, on any device."""
+    """The guide runs in the biased pass only: refused by name, on any
+    device; the biased migration pass has no ARG variant on the card
+    (its wrapper's arguments are refused before any tensor is read)."""
     from smcsmc_tpu_torch.kernels.migration import MigrationPass
 
     P, N, E = 4, 7, 2
@@ -530,20 +531,22 @@ def test_segment_pass_refuses_a_guide_without_the_biased_pass():
     with pytest.raises(ValueError, match="guide runs in the biased pass"):
         ttrip.segment_pass(*args, guide=gt)
     mig = MigrationPass(*([None] * 10))
-    ring = tlocal.LocalPass(*([None] * 7), 0.0)
-    with pytest.raises(ValueError, match="no guide or local variant"):
-        ttrip.segment_pass(*args, migration=mig, local=ring)
+    with pytest.raises(ValueError, match="no ARG variant of the biased "
+                                         "migration pass"):
+        ttrip.segment_pass_launch_args(*args, biased=object(), migration=mig,
+                                       arg=object())
 
 
 @pytest.mark.parametrize("args,kw,match", [
     (("segment_pass", 4, 9), dict(guide=True), "guided variant"),
     (("trip", 4, 9), dict(local=True), "record locally"),
-    (("migration", 4, 8, 2, 56), dict(local=True), "record locally"),
+    (("trip", 8, 33), dict(local=True), "record locally"),
 ])
 def test_kernel_resources_refuses_missing_variants(monkeypatch, args, kw,
                                                    match):
-    """Only the biased pass has a guided variant, and only the plain and
-    biased passes a local one: refused before the library is loaded."""
+    """Only the biased and migration passes have a guided variant, and
+    only the plain, biased and migration passes a local one (trip none):
+    refused before the library is loaded."""
     def no_library():
         raise AssertionError("the library was loaded")
 
@@ -555,13 +558,18 @@ def test_kernel_resources_refuses_missing_variants(monkeypatch, args, kw,
 def test_launch_counts_name_every_variant():
     """Every variant of the kernel has its own launch count, at 0 on
     import, named as ``launch_count`` names it (the wide plain and biased
-    passes and the ARG variants, with and without VB, among them)."""
-    assert len(set(ttrip.LAUNCH_COUNTS)) == 26
-    for b, g, lo, vb, name in [
-            (True, True, False, False, "biased_guide_launches"),
-            (True, True, True, True, "biased_guide_local_vb_launches"),
-            (False, False, True, False, "local_launches"),
-            (True, False, True, False, "biased_local_launches")]:
-        assert ttrip.launch_count(b, False, vb, g, lo) == name
+    passes, the ARG variants and the migration pass's proposal variants,
+    with and without VB, among them)."""
+    assert len(set(ttrip.LAUNCH_COUNTS)) == 36
+    for b, m, g, lo, vb, name in [
+            (True, False, True, False, False, "biased_guide_launches"),
+            (True, False, True, True, True, "biased_guide_local_vb_launches"),
+            (False, False, False, True, False, "local_launches"),
+            (True, False, False, True, False, "biased_local_launches"),
+            (True, True, False, False, False, "migration_biased_launches"),
+            (True, True, True, True, True,
+             "migration_biased_guide_local_vb_launches"),
+            (False, True, False, True, False, "migration_local_launches")]:
+        assert ttrip.launch_count(b, m, vb, g, lo) == name
         assert name in ttrip.LAUNCH_COUNTS
         assert isinstance(getattr(ttrip.segment_pass, name), int)

@@ -128,14 +128,18 @@ def test_cli_refuses_what_is_not_ported(argv, flag):
     (["-alpha", "0.5"], "-alpha"),
 ])
 def test_cli_refuses_guide_and_alpha_with_several_populations(tmp_path, argv,
-                                                              flag):
-    """The guide and the guide loop run for one population only: with
-    ``-I 2 2 2`` the command exits naming the flag, before any sweep."""
+                                                              flag,
+                                                              monkeypatch):
+    """With ``-I 2 2 2`` the guide and the guide loop run on the CPU (the
+    migration pass's guided and local variants); on the card the command
+    refuses them together with ``-arg`` by name, citing item 16, before
+    any sweep (those variants have no ARG form)."""
     import numpy as np
 
     from smcsmc_tpu_torch.demography import Demography
     from smcsmc_tpu_torch.segio import write_seg
     from smcsmc_tpu_torch.simulate import simulate_seg
+    from smcsmc_tpu_torch.sweep_profile import write_constant_guide
 
     demo = Demography(change_times=np.array([0.0]),
                       pop_sizes=np.array([[10000.0]]),
@@ -144,7 +148,19 @@ def test_cli_refuses_guide_and_alpha_with_several_populations(tmp_path, argv,
                       recombination_rate=1e-9, sequence_length=2e4)
     seg = str(tmp_path / "t.seg")
     write_seg(seg, simulate_seg(demo, seed=3))
-    with pytest.raises(SystemExit, match=re.escape(repr(flag))):
-        cli.smcsmc_main(["-seg", seg, "-o", str(tmp_path / "out"), "-Np", "8",
-                         "-N0", "10000", "-I", "2", "2", "2", "-eM", "0", "1",
-                         *argv, "-device", "cpu"])
+    guide = write_constant_guide(str(tmp_path / "g.recomb_guide.gz"), demo)
+    argv = [guide if a == "g.recomb_guide.gz" else a for a in argv]
+    common = ["-seg", seg, "-Np", "8", "-N0", "10000", "-I", "2", "2", "2",
+              "-eM", "0", "1", "-EM", "0", *argv]
+    assert cli.smcsmc_main([*common, "-o", str(tmp_path / "out"),
+                            "-device", "cpu"]) == 0
+
+    def reached(*args, **kwargs):
+        raise AssertionError("the run started")
+
+    monkeypatch.setattr(cli, "resolve_device", torch.device)
+    monkeypatch.setattr(cli, "run_em", reached)
+    with pytest.raises(SystemExit, match=re.escape(flag) + " on the card.*"
+                       "item 16"):
+        cli.smcsmc_main([*common, "-o", str(tmp_path / "card"), "-arg",
+                         "-device", "cuda"])

@@ -156,9 +156,13 @@ def test_initial_tree_moments_match_jax(piecewise):
 
 
 def test_multi_population_is_refused():
-    """Several populations have device epochs now (the migration pass);
-    what the port still refuses with them is height bias and calibrated
-    lags."""
+    """Several populations have device epochs (the migration pass), and
+    with them the port runs height bias, calibrated lags, the guide and
+    ``-alpha`` on any device; what the card still refuses with them is
+    ``-arg`` under height bias, citing item 16 (the biased migration pass
+    has no ARG variant), while the CPU runs it."""
+    import dataclasses
+
     from smcsmc_tpu_torch import em as tem
 
     demo = Demography(
@@ -167,7 +171,14 @@ def test_multi_population_is_refused():
     )
     ep = ttree.epochs_from_demography(demo, CPU)
     assert ep.structured and tuple(ep.mig.shape) == (1, 2, 2)
-    for cfg in (tem.EMConfig(bias_heights=(100.0,)),
-                tem.EMConfig(calibrate_lag=True)):
-        with pytest.raises(NotImplementedError):
-            tem.refuse_unported(demo, cfg)
+    assert not hasattr(tem, "refuse_unported")
+    for kw in (dict(bias_heights=(100.0,)), dict(calibrate_lag=True),
+               dict(guide_file="g.recomb_guide.gz"), dict(alpha=0.5)):
+        for device in ("cuda", "cpu"):
+            tem.refuse_caps(demo, tem.EMConfig(device=device, **kw))
+    cfg = tem.EMConfig(bias_heights=(100.0,), record_arg=True,
+                       device="cuda")
+    with pytest.raises(NotImplementedError, match="-arg with -bias_heights "
+                       "with several populations.*item 16"):
+        tem.refuse_caps(demo, cfg)
+    tem.refuse_caps(demo, dataclasses.replace(cfg, device="cpu"))

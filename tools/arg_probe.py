@@ -72,9 +72,11 @@ with every particle one trip.
 
 ``sass PARENT_DIR [DIR]`` builds the ``trip.cu`` of both checkouts (DIR
 defaults to this one), disassembles each library with ``cuobjdump -sass``
-and compares them kernel by kernel: every kernel but the narrow and
-migration passes' ARG variants must be the same code, instruction for
-instruction.  Exits 1 if another kernel differs.
+and compares them kernel by kernel: every kernel of the parent must be in
+DIR the same code, instruction for instruction; DIR's kernels that the
+parent lacks are listed (they must be instantiations of the migration
+pass's proposal kernel, ``segment_pass_mig_proposal_kernel``).  Exits 1
+if a kernel differs, is missing or is new and not one of those.
 
 ``--source`` builds another ``trip.cu`` (a parent's, from a ``git archive``
 under ``build/``) behind this tree's wrappers: the C interface is the same.
@@ -830,10 +832,9 @@ def variants(text: str, filler):
             raise SystemExit("arg_probe: a design variant changed an output")
 
 
-# the kernels whose ARG variants (the last template argument true) are
-# redesigned: the narrow plain and biased passes and the migration pass
-REDESIGNED = ("segment_pass_kernel", "segment_pass_biased_kernel",
-              "segment_pass_mig_kernel")
+# the kernels a tree may add beside its parent's: the migration pass's
+# proposal variants
+NEW_KERNELS = ("segment_pass_mig_proposal_kernel",)
 
 
 def _sass(lib: Path) -> dict[str, str]:
@@ -856,14 +857,6 @@ def _sass(lib: Path) -> dict[str, str]:
     return {k: "\n".join(v) for k, v in out.items()}
 
 
-def _redesigned(name: str) -> bool:
-    import re
-
-    m = re.search(r"(segment_pass(?:_biased|_mig)?_kernel)I(.*)EEvN", name)
-    return (m is not None and m.group(1) in REDESIGNED
-            and m.group(2).endswith("Lb1E"))
-
-
 def sass(parent: str, here: str) -> int:
     codes = []
     for d in (parent, here):
@@ -873,18 +866,21 @@ def sass(parent: str, here: str) -> int:
         codes.append(_sass(info.path))
         print(f"sass {src}: {len(codes[-1])} kernels", flush=True)
     old, new = codes
-    if set(old) != set(new):
-        print(f"sass: kernels only in one: {sorted(set(old) ^ set(new))}")
-        return 1
-    differ = sorted(k for k in old if old[k] != new[k])
-    others = [k for k in differ if not _redesigned(k)]
+    missing = sorted(set(old) - set(new))
+    added = sorted(set(new) - set(old))
+    foreign = [k for k in added if not any(x in k for x in NEW_KERNELS)]
+    differ = sorted(k for k in old if k in new and old[k] != new[k])
     for k in sorted(old):
-        print(f"sass {'differs' if k in differ else 'same'}"
-              f"{' (ARG, redesigned)' if _redesigned(k) else ''}: {k} "
-              f"({old[k].count(chr(10))} / {new[k].count(chr(10))} lines)")
-    print(f"sass: {len(old)} kernels, {len(differ)} differ, "
-          f"{len(others)} of them not a redesigned ARG kernel", flush=True)
-    return 1 if others else 0
+        what = ("missing" if k in missing else "differs" if k in differ
+                else "same")
+        print(f"sass {what}: {k} ({old[k].count(chr(10))} / "
+              f"{new[k].count(chr(10)) if k in new else 0} lines)")
+    for k in added:
+        print(f"sass new: {k} ({new[k].count(chr(10))} lines)")
+    print(f"sass: {len(old)} kernels of the parent, {len(differ)} differ, "
+          f"{len(missing)} missing; {len(added)} new, {len(foreign)} of "
+          f"them not a proposal kernel", flush=True)
+    return 1 if differ or missing or foreign else 0
 
 
 def main(argv):

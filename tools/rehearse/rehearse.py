@@ -2,7 +2,7 @@
 on the CPU: no chip, no nvcc.
 
     python3 tools/rehearse/rehearse.py [--against COMMIT] [--quick] [--vb]
-        [--guide] [--wide] [--arg]
+        [--guide] [--wide] [--arg] [--mig-proposal]
 
 Builds the working tree's ``smcsmc_tpu_torch/csrc/trip.cu`` and COMMIT's
 (``git show``, default HEAD) as host C++ with g++ against the stand-in
@@ -61,6 +61,21 @@ of 48.  Every launch of those cases (the ARG variant's and the same
 pass's without ARG) also runs COMMIT's kernel (``--against``) on a copy
 of its inputs, and every tensor, the ring included, must be bit for bit
 COMMIT's.
+
+``--mig-proposal`` holds the working tree's proposal variants of the
+migration pass (biased, guided, local, biased local and guided local, each
+with and without VB) to their plain versions: ``chip_smoke``'s
+``compare_mig_proposal`` on CPU tensors (its cases: twopop at each leaf
+status, one trip and 64, the caps corner with 8 sections, the three delay
+types, a ring of delayed factors and one of local events 30% in use, a
+guide that is not constant), at P of 161 and 49 at the caps (``--quick``:
+49 and 23), trees, buffers' destinations, floats, walk diagnostics and
+rings as the chip holds them but the times within tolerance (the host's
+``log1pf`` is not the card's).  Then the migration pass without the
+proposal, with and without VB, on ``chip_smoke.MIG_CASES`` at those
+particle counts (one trip and 64), and its ARG variant at one case each,
+every launch also run by COMMIT's kernel (``--against``) on a copy of its
+inputs: every tensor bit for bit COMMIT's.
 
 ``--vb`` holds the working tree's VB variants instead (every fifth case,
 biased and plain pass): with VB tables of zeros bit for bit the pass
@@ -261,6 +276,40 @@ def rehearse_arg(quick: bool, against: str) -> int:
     print(f"{len(apart)} launches over {cases} ARG cases (ARG and without): "
           f"{sum(apart)} apart from {against}'s kernel in any bit")
     print("every ARG case holds" if ok else "some ARG case FAILS")
+    return 0 if ok and not any(apart) else 1
+
+
+def rehearse_mig_proposal(quick: bool, against: str) -> int:
+    """The ``--mig-proposal`` check of the module docstring."""
+    from smcsmc_tpu_torch.kernels.trip import segment_pass_plain
+
+    cs.DEVICE = "cpu"
+    new = build((ROOT / SOURCE).read_text(), "tree")
+    old = build(subprocess.run(["git", "show", f"{against}:{SOURCE}"],
+                               cwd=ROOT, capture_output=True, text=True,
+                               check=True).stdout, "against")
+    P, caps_P = (49, 23) if quick else (161, 49)
+    ok = cs.compare_mig_proposal(host_pass(new), segment_pass_plain, {},
+                                 P=P, caps_P=caps_P, exact=False)
+    apart = []
+    same = host_pass(new, old, apart)
+    for label, kw, ls in cs.MIG_CASES:
+        kw = {k: v for k, v in kw.items() if k != "P"}
+        Pc = caps_P if kw.get("caps") else P
+        for T, L, nr_scale in ((1, 20000.0, 1.5), (64, cs.MAX_SEG, 0.1)):
+            c = cs.MigCase(Pc, ls, L, nr_scale, seed=13 * Pc + T + ls, **kw)
+            u = c.uniforms(T)
+            for vb in (None, cs.vb_tables(c.demo, T + ls)):
+                c.run(same, u, c.fresh(), vb)
+            print(f"migration {label} P={Pc} leaf_status={ls} trips={T}: "
+                  f"{sum(apart[-2:])} of 2 launches apart from {against}'s",
+                  flush=True)
+    for vb in (False, True):
+        cs.arg_migration(same, segment_pass_plain, {}, P, 1, 64, vb,
+                         mig_exact=False)
+    print(f"{len(apart)} launches of the migration pass without the "
+          f"proposal: {sum(apart)} apart from {against}'s kernel in any bit")
+    print("every proposal case holds" if ok else "some proposal case FAILS")
     return 0 if ok and not any(apart) else 1
 
 
@@ -684,8 +733,11 @@ def main(argv=None) -> int:
     ap.add_argument("--guide", action="store_true")
     ap.add_argument("--wide", action="store_true")
     ap.add_argument("--arg", action="store_true")
+    ap.add_argument("--mig-proposal", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
+    if args.mig_proposal:
+        return rehearse_mig_proposal(args.quick, args.against)
     if args.arg:
         return rehearse_arg(args.quick, args.against)
     if args.wide:
