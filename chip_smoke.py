@@ -1251,20 +1251,75 @@ MIG_PROPOSAL_CASES = (
            (MIG_GUIDE_LOCAL_PASS, " caps corner", MIG_CAPS, 0, "coal"))])
 
 
+# corners of the proposal variants (mig_corner): every slot of the ring of
+# delayed factors in use, so that the pilot takes each late factor at once;
+# eight slots a particle due in the segment with 2-4 applications left, so
+# that each application doubles its spacing; every slot of the local ring
+# in use, so that each event is dropped; the forests of the caps corner's
+# trees (several roots, an internal node unused, a child of -1), every
+# forest's particle recombining at the segment's start
+MIG_CORNERS = ("full ring", "due many", "local full", "forest")
+
+
+def mig_corner(c, st, corner):
+    """State ``st`` of a proposal variant on case ``c`` turned into
+    ``corner`` (:data:`MIG_CORNERS`), the same tensors at every call."""
+    import torch
+
+    if not hasattr(c, "_corner"):
+        g = torch.Generator(device=DEVICE).manual_seed(c.P + 17)
+        P, D, R = c.P, BIAS_SLOTS, LOCAL_SLOTS
+
+        def draw(shape, scale=1.0, at=0.0):
+            return at + scale * torch.rand(shape, generator=g, device=DEVICE)
+
+        lpos = draw((P, R), -2e4, BIAS_FRONT)
+        c._corner = dict(
+            df_pos=draw((P, D), 2 * c.L, BIAS_FRONT),
+            df_logf=torch.randn((P, D), generator=g, device=DEVICE),
+            df_delta=draw((P, D), 3000.0),
+            df_k=torch.randint(2, 5, (P, D), generator=g, device=DEVICE,
+                               dtype=torch.int32),
+            due=draw((P, 8), c.L, BIAS_FRONT),
+            lr_pos=lpos, lr_due=lpos + 2e4 + draw((P, R), 2 * c.L),
+            lr_time=draw((P, R), 5e4),
+            lr_desc=torch.randint(1, 1 << c.n, (P, R), generator=g,
+                                  device=DEVICE))
+    x = c._corner
+    if corner == "full ring":
+        for k in ("df_pos", "df_logf", "df_delta", "df_k"):
+            st[k] = x[k].clone()
+    elif corner == "due many":
+        st["df_pos"][:, :8] = x["due"]
+        for k in ("df_logf", "df_delta", "df_k"):
+            st[k][:, :8] = x[k][:, :8]
+    elif corner == "local full":
+        for k in ("lr_pos", "lr_due", "lr_time", "lr_desc"):
+            st[k] = x[k].clone()
+    elif corner == "forest":
+        forest = (st["parent"] < 0).sum(dim=1) > 1
+        st["next_rec"][forest] = 1.0
+    elif corner is not None:
+        raise ValueError(f"unknown corner {corner!r}")
+    return st
+
+
 def mig_proposal_one(segment_pass, segment_pass_plain, tallies, name,
                      label, kw, ls, T, delay, P=TWOPOP_P, caps_P=CAPS_P,
-                     exact=True):
+                     exact=True, corner=None):
     """One case of :func:`compare_mig_proposal`: the proposal variant
     ``name`` and its plain version on identical inputs (a ring of delayed
     factors and one of local events each 30% in use, a guide that is not
     constant: its rates change every window at one trip, every
-    ``GUIDE_CHAIN_ROWS`` windows at 64).  As :func:`compare_migration`
-    holds the migration pass: no tree mismatch, node times, populations
-    and the buffers' times and destinations bit for bit (times within
-    tolerance with ``exact`` False), the walk diagnostics equal, every
-    float within ``float_tolerances``; the local ring as
-    :func:`compare_guide` holds it (slots in use, bitmasks and drops
-    exactly); the case must change a ring slot and push a local event."""
+    ``GUIDE_CHAIN_ROWS`` windows at more; ``corner`` one of
+    :data:`MIG_CORNERS` instead).  As :func:`compare_migration` holds the
+    migration pass: no tree mismatch, node times, populations and the
+    buffers' times and destinations bit for bit (times within tolerance
+    with ``exact`` False), the walk diagnostics equal, every float within
+    ``float_tolerances``; the local ring as :func:`compare_guide` holds it
+    (slots in use, bitmasks and drops exactly); the case must change a
+    ring slot and push a local event (drop one, with every slot in use),
+    and a forest's particle must recombine."""
     import torch
 
     from smcsmc_tpu_torch.kernels.migration import stats_offsets
@@ -1279,8 +1334,9 @@ def mig_proposal_one(segment_pass, segment_pass_plain, tallies, name,
     vb = vb_tables(c.demo, T + ls) if "vb" in name else None
     rows = 1 if T == 1 else GUIDE_CHAIN_ROWS
     S = 8 if kw.get("caps") else 2
-    sts = [c.run_proposal(fn, u, c.fresh_proposal(flags, S), flags, vb,
-                          delay, rows)
+    start = mig_corner(c, c.fresh_proposal(flags, S), corner)
+    sts = [c.run_proposal(fn, u, {k: v.clone() for k, v in start.items()},
+                          flags, vb, delay, rows)
            for fn in (segment_pass, segment_pass_plain)]
     _sync()
     got, ref = (c.result(st) for st in sts)
@@ -1291,7 +1347,7 @@ def mig_proposal_one(segment_pass, segment_pass_plain, tallies, name,
     same_diag = torch.equal(sts[0]["diag"], sts[1]["diag"])
     apart, notes = [], []
     if biased:
-        changed = int((sts[1]["df_pos"] != c.pring["df_pos"]).sum())
+        changed = int((sts[1]["df_pos"] != start["df_pos"]).sum())
         notes.append(f"{changed} ring slots changed")
         if changed == 0:
             apart.append("no ring slot changed")
@@ -1301,13 +1357,24 @@ def mig_proposal_one(segment_pass, segment_pass_plain, tallies, name,
             c.E, c.Pp)["recomb_opp"]])
         apart += _ring_apart(sts[0], sts[1], ~(trees | floats), c.L, tol)
         drops = [int(st["lr_dropped"]) for st in sts]
-        pushed = int((sts[1]["lr_pos"] != c.lring["lr_pos"]).sum())
+        pushed = int((sts[1]["lr_pos"] != start["lr_pos"]).sum())
         if drops[0] != drops[1]:
             apart.append("drops")
-        if pushed == 0:
+        if corner == "local full" and drops[0] == 0:
+            apart.append("no event dropped")
+        if pushed == 0 and corner != "local full":
             apart.append("no event pushed")
         notes.append(f"{pushed} local events pushed, dropped {drops[0]} / "
                      f"{drops[1]}")
+    if corner == "forest":
+        # a forest's particle that took its trip has a new next_rec
+        forest = (start["parent"] < 0).sum(dim=1) > 1
+        moved = forest & (sts[1]["next_rec"] != start["next_rec"])
+        grafted = moved & (sts[1]["parent"] != start["parent"]).any(dim=1)
+        notes.append(f"{int(moved.sum())} forests recombine, "
+                     f"{int(grafted.sum())} of them regrafted")
+        if int(moved.sum()) == 0:
+            apart.append("no forest recombines")
     good = (int(trees.sum()) == 0 and int(floats.sum()) == 0 and same
             and same_diag and not apart)
     tallies.setdefault(name, (Tally(), Tally()))[T > 1].add(trees, floats,
@@ -1315,6 +1382,7 @@ def mig_proposal_one(segment_pass, segment_pass_plain, tallies, name,
     _report(f"{name}{label} P={Pc} n={c.n} E={c.E} Pp={c.Pp} Mw={c.Mw} "
             f"leaf_status={ls} trips={T}" + (" vs plain" if T > 1 else "")
             + (f" delay {delay}" if biased else "")
+            + (f" {corner}" if corner else "")
             + f" ({'; '.join(notes)}; walks capped, events dropped "
             f"{sts[1]['diag'].tolist()}; trees and buffers bit for bit "
             f"{same}" + (f"; rings {apart}" if apart else "") + ")",

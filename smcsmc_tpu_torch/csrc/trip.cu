@@ -2607,6 +2607,26 @@ __global__ void __launch_bounds__(BLOCK, WIDE_MIN_BLOCKS)
 // * A block is MIG_PPB warps (fewer only if they would not fit in shared
 //   memory), so that an SM is refilled a few particles at a time as walks
 //   end.
+// * The proposal variants (BIAS, GUIDE, LOCAL: segment_pass_mig_proposal_
+//   kernel) run the same walk and SPR at the same 96 registers, so what
+//   they add must not stay in registers across them (held there, it
+//   spilled 56-136 B into the walk's loop).  Their state lives in the
+//   particle's scratch (MigExtra): the ring of delayed factors, the pilot
+//   weight and the ring's free and pushed slots (lane 0's alone), the
+//   point's importance weights and strength, the guide masses and the
+//   local ring's free slots and drops.  The entry of every migration
+//   kernel, the proposal's or not, puts every table, the tree, the ring
+//   and the buffers' times into shared memory by cp.async, all under way
+//   at once (a load and its store one after the other would wait a round
+//   trip each, and the tables are many); the proposal's tables sit at
+//   constant addresses.  The biased point's chain loads
+//   MIG_CHAIN addends ahead of its adds, which stay one at a time in
+//   node-major order; the delay height's section and epoch are counted by
+//   ballots; the guide's masses at the segment's two ends come from their
+//   windows' entries staged once a block; the branches' guide rates are
+//   merged by lanes in n - 1 rounds of shuffles; the local event takes the
+//   leaves below the point from the leaves' path masks by one ballot and
+//   is stored by lane 0 before the walk.
 //
 // Bit for bit: every float operation that feeds a tree or a buffer is the
 // plain version's, in its order.  The tree length sums each epoch's
@@ -2683,21 +2703,29 @@ __host__ __device__ inline int mig_stats_width(int E, int Pp) {
   return 3 * E * Pp + E * Pp * Pp + 2 * E;
 }
 
-// est [E]; ne, tot_mig, pop_map [E Pp]; mig [E Pp Pp]; has_data; the FIFO
-// gate [K]; with vb the VB tables [E Pp] and [E Pp Pp]; then, for the
-// proposal variants (MigExtra), with bias the section table [MAX_SECTIONS
-// + 1], its strengths [MAX_SECTIONS] and the delays [E], with local
-// recording the lags [E], with the guide the search's first pivots
-// [GUIDE_TOP]
+// the proposal variants' tables, first in shared memory at offsets that
+// depend on the variant alone: with bias the section table [MAX_SECTIONS
+// + 1], its strengths [MAX_SECTIONS] and the delays [MAX_EPOCHS], with
+// local recording the lags [MAX_EPOCHS], with the guide the search's first
+// pivots [GUIDE_TOP] and the mass table's entries (mass, rate) of the
+// windows of the segment's two ends [4]
+__host__ __device__ constexpr int mig_proposal_words(bool bias, bool guide,
+                                                     bool local) {
+  return (bias ? 2 * MAX_SECTIONS + 1 + MAX_EPOCHS : 0)
+      + (local ? MAX_EPOCHS : 0) + (guide ? GUIDE_TOP + 4 : 0);
+}
+
+// the proposal variants' tables (mig_proposal_words); est [E]; ne,
+// tot_mig, pop_map [E Pp]; mig [E Pp Pp]; has_data; the FIFO gate [K];
+// with vb the VB tables [E Pp] and [E Pp Pp]
 __host__ __device__ inline int mig_table_words(int E, int Pp,
                                                bool vb = false,
                                                bool bias = false,
                                                bool guide = false,
                                                bool local = false) {
-  return E + 3 * E * Pp + E * Pp * Pp + MAX_LEAVES + mig_stats_width(E, Pp)
-      + (vb ? E * Pp + E * Pp * Pp : 0)
-      + (bias ? 2 * MAX_SECTIONS + 1 + E : 0) + (local ? E : 0)
-      + (guide ? GUIDE_TOP : 0);
+  return mig_proposal_words(bias, guide, local) + E + 3 * E * Pp
+      + E * Pp * Pp + MAX_LEAVES + mig_stats_width(E, Pp)
+      + (vb ? E * Pp + E * Pp * Pp : 0);
 }
 
 // the words of MigWork: its floats and ints, then its destination bytes
@@ -2707,22 +2735,57 @@ __host__ __device__ inline int mig_work_words(int N, int E, int Pp, int Mw) {
 }
 
 // the proposal variants' scratch beyond MigWork, at the end of the
-// particle's slice: with bias the biased point's (node, section) segments,
-// their weighted lengths and running sums [N S] each, node-major; with the
-// guide the branches' rates [N] and the internal nodes in time order
-// [MAX_LEAVES]
+// particle's slice, first what has a fixed size (so that each word is at a
+// constant offset from the scratch's start): the scalars that cross the
+// loop walk [MIG_KEEP]; with bias the ring of delayed factors (positions,
+// log factors, spacings, applications left) [MAX_DELAY_SLOTS] each; with
+// the guide the branches' rates [MAX_NODES]; then with bias the biased
+// point's (node, section) segments, their weighted lengths and running
+// sums [N S] each, node-major
+#define MIG_KEEP 10
+#define MIG_CHAIN 4  // addends of the biased point's chain loaded at once
 __host__ __device__ inline int mig_extra_words(int N, int S, bool bias,
-                                               bool guide) {
-  return (bias ? 3 * N * S : 0) + (guide ? N + MAX_LEAVES : 0);
+                                               bool guide,
+                                               bool local = false) {
+  return (bias || guide || local ? MIG_KEEP : 0)
+      + (bias ? 4 * MAX_DELAY_SLOTS + 3 * N * S : 0)
+      + (guide ? MAX_NODES : 0);
 }
 
+// the words of MigExtra::keep: the pilot weight, the point's importance
+// weights and strength, the ring's free slots and the slots pushed (bits);
+// the guide masses at front + up and at front + nr; the local ring's free
+// slots (bits) and the events it dropped
+enum { K_LP, K_IW, K_IW_BIAS, K_STRENGTH, K_DFREE, K_PUSHED, K_M_UP, K_M_NR,
+       K_LFREE, K_LDROP };
+
 struct MigExtra {
+  float* keep;
+  float* rpos;
+  float* rlogf;
+  float* rdelta;
+  int* rk;
+  float* rate;
   float* seg;
   float* wseg;
   float* cum;
-  float* rate;
-  int* order;
 };
+
+// The scratch of the proposal variants (mig_extra_words) from its start f.
+__device__ __forceinline__ MigExtra carve_extra(float* f, int Q, bool bias,
+                                                bool guide) {
+  MigExtra x;
+  x.keep = f;
+  x.rpos = f + MIG_KEEP;
+  x.rlogf = x.rpos + MAX_DELAY_SLOTS;
+  x.rdelta = x.rlogf + MAX_DELAY_SLOTS;
+  x.rk = reinterpret_cast<int*>(x.rdelta + MAX_DELAY_SLOTS);
+  x.rate = f + MIG_KEEP + (bias ? 4 * MAX_DELAY_SLOTS : 0);
+  x.seg = x.rate + (guide ? MAX_NODES : 0);
+  x.wseg = x.seg + Q;
+  x.cum = x.wseg + Q;
+  return x;
+}
 
 __device__ MigWork carve_mig(float* f, int N, int E, int K, int Mw) {
   MigWork w;
@@ -2753,32 +2816,14 @@ __device__ MigWork carve_mig(float* f, int N, int E, int K, int Mw) {
   return w;
 }
 
-// Global rows (gt, gd)[0, len) into shared memory by the warp's lanes,
-// four words a load where the rows' alignment allows.
+// Global rows (gt, gd)[0, len) into shared memory by the warp's lanes: the
+// times by cp.async, under way until the caller's wait_copies(); the
+// destinations' loads four at a time ahead of their stores
 __device__ void stage_events(const float* gt, const int* gd, float* st,
                              pop_t* sd, int len, int lane) {
-  if ((len & 3) == 0 && ((reinterpret_cast<size_t>(gt)
-                          | reinterpret_cast<size_t>(gd)) & 15) == 0) {
-    const float4* vt = reinterpret_cast<const float4*>(gt);
-    const int4* vd = reinterpret_cast<const int4*>(gd);
-    for (int k = lane; k < len / 4; k += 32) {
-      const float4 t = vt[k];
-      const int4 d = vd[k];
-      st[4 * k] = t.x;
-      st[4 * k + 1] = t.y;
-      st[4 * k + 2] = t.z;
-      st[4 * k + 3] = t.w;
-      sd[4 * k] = (pop_t)d.x;
-      sd[4 * k + 1] = (pop_t)d.y;
-      sd[4 * k + 2] = (pop_t)d.z;
-      sd[4 * k + 3] = (pop_t)d.w;
-    }
-  } else {
-    for (int k = lane; k < len; k += 32) {
-      st[k] = gt[k];
-      sd[k] = (pop_t)gd[k];
-    }
-  }
+  for (int k = lane; k < len; k += 32) copy_word_async(&st[k], &gt[k]);
+#pragma unroll 4
+  for (int k = lane; k < len; k += 32) sd[k] = (pop_t)gd[k];
 }
 
 // (ot, od)[0, len) = (t, d)[0, len); lane l moves entries l, l + 32, ...
@@ -2997,122 +3042,163 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
   const bool live = i < a.P;
 
   // ---- the block's tables -----------------------------------------------
-  float* est = smem;
+  // the proposal variants' tables, at constant addresses
+  float* const bh = smem;
+  float* const bs = bh + MAX_SECTIONS + 1;
+  float* const dl = bs + MAX_SECTIONS;
+  float* const lag = smem + mig_proposal_words(BIAS, false, false);
+  float* const top = smem + mig_proposal_words(BIAS, false, LOCAL);
+  float* est = smem + mig_proposal_words(BIAS, GUIDE, LOCAL);
   float* ne = est + E;
   float* tot = ne + EP;
   float* mig = tot + EP;
   int* pmap = reinterpret_cast<int*>(mig + EP * Pp);
   int* hd = pmap + EP;
   float* gate = reinterpret_cast<float*>(hd + MAX_LEAVES);
-  for (int k = threadIdx.x; k < E; k += blockDim.x) est[k] = a.epoch_start[k];
-  for (int k = threadIdx.x; k < EP; k += blockDim.x) {
-    ne[k] = a.ne[k];
-    tot[k] = a.tot_mig[k];
-    pmap[k] = a.pop_map[k];
-  }
-  for (int k = threadIdx.x; k < EP * Pp; k += blockDim.x) mig[k] = a.mig[k];
-  for (int l = threadIdx.x; l < MAX_LEAVES; l += blockDim.x)
-    hd[l] = (l < n && a.has_data[l] != 0) ? 1 : 0;
-  for (int k = threadIdx.x; k < K; k += blockDim.x) gate[k] = a.fifo_mask[k];
   float* vbc = gate + K;  // the VB tables, if vb
   float* vbm = vbc + EP;
-  if (vb) {
-    for (int k = threadIdx.x; k < EP; k += blockDim.x) vbc[k] = a.vb_coal[k];
-    for (int k = threadIdx.x; k < EP * Pp; k += blockDim.x)
-      vbm[k] = a.vb_mig[k];
+  // GUIDE: the guide's functions' view of its tables, built where it is
+  // used (so that no register holds it across the walk)
+  auto gtab = [&]() {
+    Tables t;
+    t.g_rel = a.g_rel;
+    t.cum_mass = a.cum_mass;
+    t.g_top = top;
+    t.Wg = a.Wg;
+    t.ws = a.ws;
+    t.rho = a.rho;
+    return t;
+  };
+  // GUIDE: the guide mass at front (end 0) and at front + L (end 1), from
+  // their windows' entries in the block's tables (guide_mass's sums)
+  auto gmass_end = [&](int end) {
+    const float x = a.front + (end ? a.L : 0.0f);
+    const int win = guide_window(gtab(), x);
+    return top[GUIDE_TOP + 2 * end]
+        + (x - (float)win * a.ws) * top[GUIDE_TOP + 2 * end + 1];
+  };
+  // every table's copy under way at once, each thread's copies one after
+  // another with no wait between them (the leaves' data flags, computed,
+  // follow the particle's loads)
+  for (int k = threadIdx.x; k < E; k += blockDim.x)
+    copy_word_async(&est[k], &a.epoch_start[k]);
+  for (int k = threadIdx.x; k < EP; k += blockDim.x) {
+    copy_word_async(&ne[k], &a.ne[k]);
+    copy_word_async(&tot[k], &a.tot_mig[k]);
+    copy_word_async(&pmap[k], &a.pop_map[k]);
   }
-  // the proposal variants' tables (mig_table_words) and the guide's
-  // functions' view of them
-  Tables gt;
-  float* bh = vbc + (vb ? EP + EP * Pp : 0);
-  float* bs = bh + MAX_SECTIONS + 1;
-  float* dl = bs + MAX_SECTIONS;
-  float* lag = BIAS ? dl + E : bh;
-  float* top = LOCAL ? lag + E : lag;
+  for (int k = threadIdx.x; k < EP * Pp; k += blockDim.x)
+    copy_word_async(&mig[k], &a.mig[k]);
+  for (int k = threadIdx.x; k < K; k += blockDim.x)
+    copy_word_async(&gate[k], &a.fifo_mask[k]);
+  if (vb) {
+    for (int k = threadIdx.x; k < EP; k += blockDim.x)
+      copy_word_async(&vbc[k], &a.vb_coal[k]);
+    for (int k = threadIdx.x; k < EP * Pp; k += blockDim.x)
+      copy_word_async(&vbm[k], &a.vb_mig[k]);
+  }
   if constexpr (BIAS) {
     for (int k = threadIdx.x; k <= a.S; k += blockDim.x)
-      bh[k] = a.bias_heights[k];
+      copy_word_async(&bh[k], &a.bias_heights[k]);
     for (int k = threadIdx.x; k < a.S; k += blockDim.x)
-      bs[k] = a.bias_strengths[k];
-    for (int k = threadIdx.x; k < E; k += blockDim.x) dl[k] = a.delays[k];
+      copy_word_async(&bs[k], &a.bias_strengths[k]);
+    for (int k = threadIdx.x; k < E; k += blockDim.x)
+      copy_word_async(&dl[k], &a.delays[k]);
   }
   if constexpr (LOCAL) {
-    for (int k = threadIdx.x; k < E; k += blockDim.x) lag[k] = a.lags[k];
+    for (int k = threadIdx.x; k < E; k += blockDim.x)
+      copy_word_async(&lag[k], &a.lags[k]);
   }
   if constexpr (GUIDE) {
     for (int k = threadIdx.x; k < GUIDE_TOP; k += blockDim.x)
-      top[k] = a.g_top[k];
-    gt.g_rel = a.g_rel;
-    gt.cum_mass = a.cum_mass;
-    gt.g_top = top;
-    gt.Wg = a.Wg;
-    gt.ws = a.ws;
-    gt.rho = a.rho;
+      copy_word_async(&top[k], &a.g_top[k]);
+    // every particle's extension starts at the front (up = 0) and the
+    // final one ends at front + L: their windows' entries once a block
+    if (threadIdx.x < 2) {
+      const int win = guide_window(
+          gtab(), a.front + (threadIdx.x ? a.L : 0.0f));
+      copy_word_async(&top[GUIDE_TOP + 2 * threadIdx.x],
+                      &a.cum_mass[win]);
+      copy_word_async(&top[GUIDE_TOP + 2 * threadIdx.x + 1],
+                      &a.g_rel[win]);
+    }
   }
   const int S = BIAS ? a.S : 0, Q = N * S, D = BIAS ? a.K : 0;
   const int words = mig_work_words(N, E, Pp, Mw)
-      + ((BIAS || GUIDE) ? mig_extra_words(N, S, BIAS, GUIDE) : 0);
+      + ((BIAS || GUIDE || LOCAL) ? mig_extra_words(N, S, BIAS, GUIDE, LOCAL)
+                                  : 0);
   const MigWork w = carve_mig(
       smem + mig_table_words(E, Pp, vb, BIAS, GUIDE, LOCAL)
           + (size_t)(threadIdx.x / 32) * words,
       N, E, K, Mw);
   MigExtra xw{};
-  if constexpr (BIAS || GUIDE) {
-    float* f = smem + mig_table_words(E, Pp, vb, BIAS, GUIDE, LOCAL)
-        + (size_t)(threadIdx.x / 32) * words
-        + mig_work_words(N, E, Pp, Mw);
-    xw.seg = f;
-    xw.wseg = f + Q;
-    xw.cum = f + 2 * Q;
-    xw.rate = f + 3 * Q;
-    xw.order = reinterpret_cast<int*>(xw.rate + N);
-  }
+  if constexpr (BIAS || GUIDE || LOCAL)
+    xw = carve_extra(smem + mig_table_words(E, Pp, vb, BIAS, GUIDE, LOCAL)
+                         + (size_t)(threadIdx.x / 32) * words
+                         + mig_work_words(N, E, Pp, Mw),
+                     Q, BIAS, GUIDE);
 
   // ---- the particle's tree, a zeroed statistics row and, if it
   // recombines in this segment, its buffers: all under way before the one
   // barrier
   float nr = 0.0f, lw = 0.0f;
   ArgCursor ac{0, 0};  // ARG: the ring's rows pushed so far, next slot
-  // BIAS: the pilot weight, and slot `lane` of the ring of delayed factors
-  // (position, log factor, spacing, applications left), whether it changed
-  float lp = 0.0f, rpos = BIG, rlogf = 0.0f, rdelta = 0.0f;
-  int rk = 0;
-  bool rchanged = false;
   bool lfree = false;  // LOCAL: slot `lane` of the local ring is free
+  // the proposal's state lives in the particle's scratch (xw), not in
+  // registers, so that the loop walk and the SPR run with the plain pass's
+  // live set: BIAS the pilot weight (lane 0's alone) and slot `lane` of the
+  // ring of delayed factors (slot s: lane s's words, under way with the
+  // tree)
+  unsigned* const ku = reinterpret_cast<unsigned*>(xw.keep);
   if (live) {
     nr = a.next_rec[i];
     lw = a.log_w[i];
     if constexpr (ARG) ac.n = a.arg_n[i];
     if constexpr (BIAS) {
-      lp = a.log_pilot[i];
+      if (lane == 0) copy_word_async(&xw.keep[K_LP], &a.log_pilot[i]);
       if (lane < D) {
         const size_t at = (size_t)i * D + lane;
-        rpos = a.df_pos[at];
-        rlogf = a.df_logf[at];
-        rdelta = a.df_delta[at];
-        rk = a.df_k[at];
+        copy_word_async(&xw.rpos[lane], &a.df_pos[at]);
+        copy_word_async(&xw.rlogf[lane], &a.df_logf[at]);
+        copy_word_async(&xw.rdelta[lane], &a.df_delta[at]);
+        copy_word_async(&xw.rk[lane], &a.df_k[at]);
       }
-    }
-    if constexpr (LOCAL) {
-      // read only by a particle that recombines in this segment
-      if (a.trips > 0 && nr < a.L && lane < a.R)
-        lfree = a.lr_pos[(size_t)i * a.R + lane] >= 0.5f * BIG;
     }
     if (lane < N) {
       const size_t at = (size_t)i * N + lane;
-      w.tm[lane] = a.time[at];
-      w.par[lane] = a.parent[at];
-      w.c0[lane] = a.child0[at];
-      w.c1[lane] = a.child1[at];
-      w.pp[lane] = a.pop[at];
+      copy_word_async(&w.tm[lane], &a.time[at]);
+      copy_word_async(&w.par[lane], &a.parent[at]);
+      copy_word_async(&w.c0[lane], &a.child0[at]);
+      copy_word_async(&w.c1[lane], &a.child1[at]);
+      copy_word_async(&w.pp[lane], &a.pop[at]);
     }
     for (int k = lane; k < K; k += 32) w.pend[k] = 0.0f;
-    if (a.trips > 0 && nr < a.L)
-      stage_events(a.mig_time + (size_t)i * N * Mw,
-                   a.mig_dest + (size_t)i * N * Mw, w.mt, w.md, N * Mw, lane);
+    // what only a particle that recombines in this segment reads, after
+    // the loads that wait for no next_rec
+    if (a.trips > 0 && nr < a.L) {
+      if constexpr (LOCAL) {
+        if (lane < a.R)
+          lfree = a.lr_pos[(size_t)i * a.R + lane] >= 0.5f * BIG;
+      }
+      const float* gt = a.mig_time + (size_t)i * N * Mw;
+      const int* gd = a.mig_dest + (size_t)i * N * Mw;
+      stage_events(gt, gd, w.mt, w.md, N * Mw, lane);
+    }
   }
+  for (int l = threadIdx.x; l < MAX_LEAVES; l += blockDim.x)
+    hd[l] = (l < n && a.has_data[l] != 0) ? 1 : 0;
+  wait_copies();
   __syncthreads();
   if (!live) return;
+  if constexpr (BIAS) {
+    // the ring's free slots (bit s: slot s), lane 0's from here on
+    const unsigned frees =
+        __ballot_sync(WARP_ALL, lane < D && xw.rpos[lane] >= 0.5f * BIG);
+    if (lane == 0) {
+      ku[K_DFREE] = frees;
+      ku[K_PUSHED] = 0u;
+    }
+  }
 
   mig_branches(w, N, lane);
   __syncwarp();
@@ -3120,12 +3206,19 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
   mig_summaries(est, hd, w, n, E, a.leaf_status, lane, tl, B);
   const unsigned k0 = (unsigned)a.key[0], k1 = (unsigned)a.key[1];
   float up = 0.0f, capped = 0.0f, dropped = 0.0f;
-  // LOCAL: the ring's free slots (bit s: slot s), the events dropped
-  unsigned ring_free = 0u;
-  int ring_dropped = 0;
-  if constexpr (LOCAL) ring_free = __ballot_sync(WARP_ALL, lfree);
-  float m_up = 0.0f;  // GUIDE: the guide mass at front + up
-  if constexpr (GUIDE) m_up = guide_mass(gt, a.front + up);
+  if constexpr (LOCAL) {
+    // the ring's free slots (bit s: slot s) and the events dropped, lane
+    // 0's alone
+    const unsigned frees = __ballot_sync(WARP_ALL, lfree);
+    if (lane == 0) {
+      ku[K_LFREE] = frees;
+      ku[K_LDROP] = 0u;
+    }
+  }
+  // GUIDE: the guide mass at front + up, lane 0's
+  if constexpr (GUIDE) {
+    if (lane == 0) xw.keep[K_M_UP] = gmass_end(0);
+  }
   bool moved = false;
   unsigned dirty = 0u;  // buffer rows to write back
   // ARG: the first row's slot (arg_slot_of), once a segment
@@ -3137,10 +3230,10 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
     if (!(nr < a.L)) break;
     const float4 u = load_uniforms(a, k, i);
     const float u_pt = clip_u(u.x), u_gap = clip_u(u.w);
-    // ARG: leaf `lane`'s path to the root in the tree before the SPR, and
-    // lane 8 + l leaf l's too, for one ballot
+    // ARG, LOCAL: leaf `lane`'s path to the root in the tree before the
+    // SPR, and lane 8 + l leaf l's too, for one ballot
     unsigned path = 0u;
-    if constexpr (ARG)
+    if constexpr (ARG || LOCAL)
       path = leaf_path<MAX_NODES>(w.par, lane & 7, lane < 16 ? n : 0);
     // ARG: this lane's row of the trip (lane 0 R, lane 1 C, lane 2 + j the
     // M row of hop j), whether it is written, the trip's rows
@@ -3148,31 +3241,38 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
     int row_from = 0, row_to = 0, rows = 0;
     unsigned row_desc = 0u;
     bool row_put = false;
-    // the walk's first draw is under way while the point is found
-    uint4 r4_next = philox4x32_10(
-        make_uint4((unsigned)i, (unsigned)k, 0u, 0u), k0, k1);
+    // the walk's first draw is under way while the point is found; the
+    // biased point without local recording holds too many registers for
+    // it, and takes it after
+    constexpr bool DRAW_LATE = BIAS && !LOCAL;
+    uint4 r4_next = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (!DRAW_LATE)
+      r4_next = philox4x32_10(
+          make_uint4((unsigned)i, (unsigned)k, 0u, 0u), k0, k1);
 
     // ---- extension ------------------------------------------------------
     const float delta = nr - up;
     lw = lw - a.mu * B * delta;
-    if constexpr (BIAS) lp = lp - a.mu * B * delta;
-    float m_nr = 0.0f, leaf_rate = 0.0f;  // GUIDE: at the event's position
+    float leaf_rate = 0.0f;  // GUIDE: leaf `lane`'s rate at the event
     if constexpr (GUIDE) {
-      // the guide's survival weight over the extension, in both weights
-      // (smc.py:903-914); lane l reads leaf l's rate at the event's window
-      const float x0 = a.front + up, x1 = a.front + nr;
+      // the guide's survival weight over the extension (smc.py:903-914);
+      // the pilot weight takes it after the walk.  Lane l reads leaf l's
+      // rate at the event's window.  The warp sync orders lane 0's writes
+      // of the masses (at the last gap, and below) after every lane's
+      // reads
+      __syncwarp();
+      const Tables gt = gtab();
+      const float x1 = a.front + nr;
       const int win = guide_window(gt, x1);
       if (lane < n) leaf_rate = a.g_leaf[(size_t)win * n + lane];
-      m_nr = guide_mass(gt, win, x1);
-      const float liw = guide_span(gt, tl, x0, x1, m_up, m_nr);
-      lw = lw + liw;
-      lp = lp + liw;
+      const float m_nr = guide_mass(gt, win, x1);
+      lw = lw + guide_span(gt, tl, a.front + up, x1, xw.keep[K_M_UP], m_nr);
+      if (lane == 0) xw.keep[K_M_NR] = m_nr;
     }
     for (int e = lane; e < E; e += 32) w.pend[o_ropp + e] += delta * w.tle[e];
 
     int c = -1;
     float h_r;
-    float log_iw = 0.0f, strength = 1.0f, log_iw_bias = 0.0f;
     if constexpr (!BIAS) {
       // ---- uniform point: running sum of branch lengths in node order ---
       float total = 0.0f;
@@ -3207,37 +3307,42 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
       // keeping running sum q; each lane searches its own pairs ----
       if constexpr (GUIDE) {
         // the branches' guide rates (transition.py:124): the leaves' rates
-        // at the event's window; each lane ranks one internal node in the
-        // stable order of the times, lane 0 merges them in that order and
-        // gives both children of the last the larger of their two rates
-        // (a missing child, -1 in an internal node a forest leaves unused,
-        // reads the last node's rate, as the plain version does)
-        if (lane < N) xw.rate[lane] = lane < n ? leaf_rate : 0.0f;
-        if (lane < n - 1) {
-          const int v = n + lane;
-          const float tv = w.tm[v];
-          int rank = 0;
+        // at the event's window, merged bottom up in the stable order of
+        // the internal nodes' times, each the mean of its children's rates
+        // as the merge has them at its turn (a child merged later reads 0,
+        // a missing child, -1 in an internal node a forest leaves unused,
+        // the last node's rate, as the plain version does); then both
+        // children of the last take the larger of their two rates.  Lane
+        // v holds node v's rate and ranks internal node v; n - 1 rounds
+        // of the same sums, each from the last round's rates, end at the
+        // merge's, since a node's turn comes after those it reads
+        float rv = lane < n ? leaf_rate : 0.0f;
+        int rank = -1, x0 = 0, x1 = 0;
+        if (lane >= n && lane < N) {
+          const float tv = w.tm[lane];
+          rank = 0;
           for (int q = n; q < N; ++q) {
             const float tq = w.tm[q];
-            rank += (tq < tv || (tq == tv && q < v)) ? 1 : 0;
+            rank += (tq < tv || (tq == tv && q < lane)) ? 1 : 0;
           }
-          xw.order[rank] = v;
+          x0 = w.c0[lane] < 0 ? N - 1 : w.c0[lane];
+          x1 = w.c1[lane] < 0 ? N - 1 : w.c1[lane];
         }
-        __syncwarp();
-        if (lane == 0) {
-          for (int q = 0; q < n - 1; ++q) {
-            const int v = xw.order[q];
-            const int v0 = w.c0[v], v1 = w.c1[v];
-            xw.rate[v] = 0.5f * (xw.rate[v0 < 0 ? N - 1 : v0]
-                                 + xw.rate[v1 < 0 ? N - 1 : v1]);
-          }
-          const int root = xw.order[n - 2];
-          const int rc0 = w.c0[root] < 0 ? N - 1 : w.c0[root];
-          const int rc1 = w.c1[root] < 0 ? N - 1 : w.c1[root];
-          const float mx = fmaxf(xw.rate[rc0], xw.rate[rc1]);
-          xw.rate[rc0] = mx;
-          xw.rate[rc1] = mx;
+        const bool own = lane >= n && lane < N;
+        const bool read0 = __shfl_sync(WARP_ALL, rank, x0) < rank;
+        const bool read1 = __shfl_sync(WARP_ALL, rank, x1) < rank;
+        for (int r = 0; r < n - 1; ++r) {
+          const float a0 = __shfl_sync(WARP_ALL, rv, x0);
+          const float a1 = __shfl_sync(WARP_ALL, rv, x1);
+          if (own) rv = 0.5f * ((read0 ? a0 : 0.0f) + (read1 ? a1 : 0.0f));
         }
+        const int root = __ffs((int)__ballot_sync(WARP_ALL, rank == n - 2)) - 1;
+        const int rc0 = __shfl_sync(WARP_ALL, x0, root);
+        const int rc1 = __shfl_sync(WARP_ALL, x1, root);
+        const float mx = fmaxf(__shfl_sync(WARP_ALL, rv, rc0),
+                               __shfl_sync(WARP_ALL, rv, rc1));
+        if (lane == rc0 || lane == rc1) rv = mx;
+        if (lane < N) xw.rate[lane] = rv;
         __syncwarp();
       }
       if (lane < N) {
@@ -3256,16 +3361,31 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
         }
       }
       __syncwarp();
+      // the chain, MIG_CHAIN addends at a time: their loads (and under the
+      // guide the products btot takes) issued ahead of the adds, the adds
+      // one at a time in node-major order; past Q each addend is +0, which
+      // leaves the non-negative sums' bits as they are
       float wtot = 0.0f, ptot = 0.0f, btot = 0.0f;
       int s_q = 0;
-      for (int q = 0; q < Q; ++q) {
-        wtot += xw.wseg[q];
-        ptot += xw.seg[q];
-        if constexpr (GUIDE) {
-          btot += xw.seg[q] * bs[s_q];
-          s_q = s_q + 1 == S ? 0 : s_q + 1;
+      for (int q0 = 0; q0 < Q; q0 += MIG_CHAIN) {
+        float wv[MIG_CHAIN], pv[MIG_CHAIN], bv[MIG_CHAIN];
+#pragma unroll
+        for (int j = 0; j < MIG_CHAIN; ++j) {
+          const bool in = q0 + j < Q;
+          wv[j] = in ? xw.wseg[q0 + j] : 0.0f;
+          pv[j] = in ? xw.seg[q0 + j] : 0.0f;
+          if constexpr (GUIDE) {
+            bv[j] = pv[j] * bs[s_q];
+            s_q = s_q + 1 == S ? 0 : s_q + 1;
+          }
         }
-        if ((q & 31) == lane) xw.cum[q] = wtot;
+#pragma unroll
+        for (int j = 0; j < MIG_CHAIN; ++j) {
+          wtot += wv[j];
+          ptot += pv[j];
+          if constexpr (GUIDE) btot += bv[j];
+          if (q0 + j < Q && ((q0 + j) & 31) == lane) xw.cum[q0 + j] = wtot;
+        }
       }
       __syncwarp();
       const float xb = u_pt * wtot;
@@ -3280,19 +3400,26 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
       c = q_hit / S;
       const int s_hit = q_hit - c * S;
       const float prev = q_hit > 0 ? xw.cum[q_hit - 1] : 0.0f;
-      strength = bs[s_hit];
+      const float strength = bs[s_hit];
       const float local_w = GUIDE ? strength * xw.rate[c] : strength;
       h_r = fmaxf(w.tm[c], bh[s_hit]) + (xb - prev) / fmaxf(local_w, 1e-30f);
-      log_iw = logf(wtot) - logf(fmaxf(ptot, 1e-30f))
-          - logf(fmaxf(local_w, 1e-30f));
-      if constexpr (GUIDE)
-        log_iw_bias = logf(btot) - logf(fmaxf(ptot, 1e-30f))
-            - logf(fmaxf(strength, 1e-30f));
-      else
-        log_iw_bias = log_iw;
+      // the importance weights and the strength, for after the walk
+      if (lane == 0) {
+        const float log_iw = logf(wtot) - logf(fmaxf(ptot, 1e-30f))
+            - logf(fmaxf(local_w, 1e-30f));
+        xw.keep[K_IW] = log_iw;
+        if constexpr (GUIDE)
+          xw.keep[K_IW_BIAS] = logf(btot) - logf(fmaxf(ptot, 1e-30f))
+              - logf(fmaxf(strength, 1e-30f));
+        else
+          xw.keep[K_IW_BIAS] = log_iw;
+        xw.keep[K_STRENGTH] = strength;
+      }
     }
-
     // ---- the loop walk from (c, h_r) --------------------------------------
+    if constexpr (DRAW_LATE)
+      r4_next = philox4x32_10(
+          make_uint4((unsigned)i, (unsigned)k, 0u, 0u), k0, k1);
     const unsigned roots = __ballot_sync(WARP_ALL,
                                          lane < N && w.par[lane] < 0);
     const int root = roots != 0u ? __ffs(roots) - 1 : 0;
@@ -3321,6 +3448,29 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
     int r_raw = w.pp[root];
     int e = epoch_of(est, E, h_r);
     float tt = h_r, t_c = 0.0f;
+    if constexpr (LOCAL) {
+      // ---- the trip's local event (smc.py:1054-1069): at front + nr, due
+      // a lag of h_r's epoch later, the leaves below c in the tree before
+      // the SPR (one ballot of the leaves' paths); into the first free
+      // slot, a full ring counts it dropped.  The walk changes none of it,
+      // so lane 0 stores it now, with h_r's epoch as the walk starts it ----
+      const unsigned desc =
+          __ballot_sync(WARP_ALL, lane < n && (path >> c & 1u) != 0u);
+      if (lane == 0) {
+        const unsigned frees = ku[K_LFREE];
+        if (frees != 0u) {
+          ku[K_LFREE] = frees & (frees - 1u);
+          const size_t at = (size_t)i * a.R + (__ffs((int)frees) - 1);
+          const float pos = a.front + nr;
+          a.lr_pos[at] = pos;
+          a.lr_due[at] = pos + lag[e];
+          a.lr_time[at] = h_r;
+          a.lr_desc[at] = (long long)desc;
+        } else {
+          ku[K_LDROP] += 1u;
+        }
+      }
+    }
     int d = -1, fpop = 0, n_ev = 0, n_rev = 0;
     bool done = false;
     // the trip's VB term: its coalescence's entry, its migrations' in
@@ -3434,9 +3584,6 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
     }
     // the whole term after the walk, after the extension (smc.py:951-967)
     if (vb) lw = lw + (vb_c + vb_m);
-    if constexpr (BIAS) {
-      if (vb) lp = lp + (vb_c + vb_m);
-    }
     // the lists end at their first BIG: a merge reads no further
     if (lane == 0) {
       if (n_ev < 2 * Mw) {
@@ -3454,71 +3601,55 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
       // ---- the importance weight (smc.py:968-1020): the posterior takes
       // all of it, the pilot the height-bias part where the delay
       // height's section is unbiased, and the rest goes into the first
-      // free slot of the ring (slot s: lane s), k applications of late / k
-      // from front + nr + delay / (2^k - 1) on; a full ring gives it to
-      // the pilot at once.  The delay height: h_r, t_c, or under
-      // -delay_migr the lower of t_c and the walk's first migration (the
-      // head of its list, BIG if none) ----
-      lw = lw + log_iw;
+      // free slot of the ring, k applications of late / k from front + nr
+      // + delay / (2^k - 1) on; a full ring gives it to the pilot at once.
+      // The delay height: h_r, t_c, or under -delay_migr the lower of t_c
+      // and the walk's first migration (the head of its list, BIG if
+      // none).  The pilot weight, the ring's free slots and its push are
+      // lane 0's ----
+      lw = lw + xw.keep[K_IW];
+      // the delay height's section and epoch (epoch_of), counted by
+      // ballots: lane q tests section boundary q, lane e epoch start e
       const float d_h = a.delay_type == 0 ? h_r
           : a.delay_type == 1 ? t_c : fminf(t_c, w.ev_t[0]);
-      float strength_h = strength;
-      if (a.delay_type != 0) {
-        int cnt = 0;  // section of d_h
-        for (int q = 0; q <= S; ++q) cnt += bh[q] <= d_h ? 1 : 0;
-        strength_h = bs[min(max(cnt - 1, 0), S - 1)];
-      }
-      const float imm =
-          fabsf(strength_h - 1.0f) < 1e-6f ? log_iw_bias : 0.0f;
-      const float late = log_iw - imm;
-      lp = lp + imm;
-      if (fabsf(late) > 1e-9f) {
-        const unsigned frees =
-            __ballot_sync(WARP_ALL, lane < D && rpos >= 0.5f * BIG);
-        if (frees == 0u) {
-          lp = lp + late;
-        } else if (lane == __ffs(frees) - 1) {
-          const int kk = a.delay_k;
-          const float dd =
-              dl[epoch_of(est, E, d_h)] / (float)((1 << kk) - 1);
-          rpos = (a.front + nr) + dd;
-          rlogf = late / (float)kk;
-          rdelta = dd;
-          rk = kk;
-          rchanged = true;
-        }
-      }
-    }
-    if constexpr (LOCAL) {
-      // ---- the trip's local event (smc.py:1054-1069): at front + nr, due
-      // a lag of h_r's epoch later, the leaves below c in the tree before
-      // the SPR (each leaf's lane walks up to c); into the first free
-      // slot, a full ring counts it dropped ----
-      bool below = false;
-      if (lane < n) {
-        int cur = lane;
-        for (int q = 0; q < N && cur >= 0; ++q) {
-          if (cur == c) {
-            below = true;
-            break;
+      const int cnt =
+          __popc(__ballot_sync(WARP_ALL, lane <= S && bh[lane] <= d_h));
+      int ecnt = 0;
+      for (int base = 0; base < E; base += 32)
+        ecnt += __popc(__ballot_sync(
+            WARP_ALL, base + lane < E && est[base + lane] <= d_h));
+      if (lane == 0) {
+        const float log_iw = xw.keep[K_IW];
+        float strength_h = xw.keep[K_STRENGTH];
+        if (a.delay_type != 0) strength_h = bs[min(max(cnt - 1, 0), S - 1)];
+        const float imm =
+            fabsf(strength_h - 1.0f) < 1e-6f ? xw.keep[K_IW_BIAS] : 0.0f;
+        const float late = log_iw - imm;
+        // the trip's extension, then its weights, in the plain order
+        float lp = xw.keep[K_LP] - a.mu * B * (nr - up);
+        if constexpr (GUIDE)
+          lp = lp + guide_span(gtab(), tl, a.front + up, a.front + nr,
+                               xw.keep[K_M_UP], xw.keep[K_M_NR]);
+        if (vb) lp = lp + (vb_c + vb_m);
+        lp = lp + imm;
+        if (fabsf(late) > 1e-9f) {
+          const unsigned frees = ku[K_DFREE];
+          if (frees == 0u) {
+            lp = lp + late;
+          } else {
+            const int slot = __ffs((int)frees) - 1;
+            ku[K_DFREE] = frees & (frees - 1u);
+            ku[K_PUSHED] |= 1u << slot;
+            const int kk = a.delay_k;
+            const float dd =
+                dl[min(max(ecnt - 1, 0), E - 1)] / (float)((1 << kk) - 1);
+            xw.rpos[slot] = (a.front + nr) + dd;
+            xw.rlogf[slot] = late / (float)kk;
+            xw.rdelta[slot] = dd;
+            xw.rk[slot] = kk;
           }
-          cur = w.par[cur];
         }
-      }
-      const unsigned desc = __ballot_sync(WARP_ALL, below);
-      if (ring_free != 0u) {
-        const int slot = __ffs(ring_free) - 1;
-        ring_free &= ring_free - 1u;
-        if (lane == 0) {
-          const size_t at = (size_t)i * a.R + slot;
-          const float pos = a.front + nr;
-          a.lr_pos[at] = pos;
-          a.lr_due[at] = pos + lag[epoch_of(est, E, h_r)];
-          a.lr_time[at] = h_r;
-          a.lr_desc[at] = (long long)desc;
-        }
-      } else {
-        ring_dropped += 1;
+        xw.keep[K_LP] = lp;
       }
     }
     if constexpr (ARG) {
@@ -3650,11 +3781,14 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
     mig_summaries(est, hd, w, n, E, a.leaf_status, lane, tl, B);
     if constexpr (GUIDE) {
       // the gap in guide mass from the event's position (smc.py:802-808),
-      // whose mass the extension read; it is the next extension's start
+      // whose mass the extension read; it is the next extension's start.
+      // The next trip's window goes under way at once
+      const Tables gt = gtab();
+      const float m_nr = xw.keep[K_M_NR];
       const float gap_m = -log1pf(-u_gap) / fmaxf(a.rho * tl, 1e-30f);
       const float at = a.front + nr;
       const float nxt = guide_inv_mass(gt, m_nr + gap_m);
-      m_up = m_nr;
+      if (lane == 0) xw.keep[K_M_UP] = m_nr;
       up = nr;
       nr = nr + fmaxf(nxt - at, 1e-3f);
     } else {
@@ -3680,9 +3814,12 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
   float liwf = 0.0f;
   if constexpr (GUIDE) {
     // the guide's survival weight of the final extension (smc.py:1123-1131)
+    // to front + L, whose mass the block holds
+    __syncwarp();
     if (delta > 0.0f) {
       const float x1 = a.front + a.L;
-      liwf = guide_span(gt, tl, a.front + up, x1, m_up, guide_mass(gt, x1));
+      liwf = guide_span(gtab(), tl, a.front + up, x1, xw.keep[K_M_UP],
+                        gmass_end(1));
     }
     lw = lw + liwf;
   }
@@ -3696,34 +3833,40 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
       float ropp = 0.0f;
       for (int e = 0; e < E; ++e) ropp += w.pend[o_ropp + e];
       a.ropp[i] = ropp;
-      if (ring_dropped > 0) atomicAdd(a.lr_dropped, ring_dropped);
+      if (ku[K_LDROP] > 0u) atomicAdd(a.lr_dropped, (int)ku[K_LDROP]);
     }
   }
+  unsigned applied = 0u;  // BIAS: the ring slots applied
   if constexpr (BIAS) {
     // ---- the pilot's extension; the delayed factors due at front + L,
     // each lane its slot ----
-    lp = lp - a.mu * B * delta;
-    if constexpr (GUIDE) lp = lp + liwf;
-    const bool due = lane < D && rpos <= a.front + a.L;
+    const bool due = lane < D && xw.rpos[lane] <= a.front + a.L;
     float add = 0.0f;
     if (due) {
-      add = rlogf;
+      add = xw.rlogf[lane];
+      const int rk = xw.rk[lane];
+      const float rdelta = xw.rdelta[lane];
       if (rk > 1) {
-        rpos = rpos + 2.0f * rdelta;
-        rdelta = 2.0f * rdelta;
-        rk = rk - 1;
+        xw.rpos[lane] = xw.rpos[lane] + 2.0f * rdelta;
+        xw.rdelta[lane] = 2.0f * rdelta;
+        xw.rk[lane] = rk - 1;
       } else {
-        rpos = BIG;
-        rlogf = 0.0f;
-        rk = 0;
+        xw.rpos[lane] = BIG;
+        xw.rlogf[lane] = 0.0f;
+        xw.rk[lane] = 0;
       }
-      rchanged = true;
     }
-    if (__any_sync(WARP_ALL, due)) {
+    applied = __ballot_sync(WARP_ALL, due);
+    if (applied != 0u) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         add += __shfl_xor_sync(WARP_ALL, add, off);
-      lp = lp + add;
+    }
+    if (lane == 0) {
+      float lp = xw.keep[K_LP] - a.mu * B * delta;
+      if constexpr (GUIDE) lp = lp + liwf;
+      if (applied != 0u) lp = lp + add;
+      a.log_pilot[i] = lp;
     }
   }
   float* slot = a.fifo + (size_t)i * a.fifo_stride;
@@ -3757,14 +3900,13 @@ __device__ __forceinline__ void mig_pass_body(const Args& a) {
   }
   if constexpr (BIAS) {
     // only the slots that were pushed or applied
-    if (rchanged) {
+    if ((applied | ku[K_PUSHED]) >> lane & 1u) {
       const size_t at = (size_t)i * D + lane;
-      a.df_pos[at] = rpos;
-      a.df_logf[at] = rlogf;
-      a.df_delta[at] = rdelta;
-      a.df_k[at] = rk;
+      a.df_pos[at] = xw.rpos[lane];
+      a.df_logf[at] = xw.rlogf[lane];
+      a.df_delta[at] = xw.rdelta[lane];
+      a.df_k[at] = xw.rk[lane];
     }
-    if (lane == 0) a.log_pilot[i] = lp;
   }
   if (lane == 0) {
     if (capped > 0.0f) atomicAdd(&a.diag[0], (double)capped);
@@ -3785,8 +3927,8 @@ segment_pass_mig_kernel(const Args a) {
 }
 
 // The migration pass with the production proposal and local recording
-// (BIAS, GUIDE: the guided biased pass, LOCAL); see "The proposal in the
-// migration pass" above.
+// (BIAS, GUIDE: the guided biased pass, LOCAL); see the proposal variants
+// in "The migration pass" above.
 template <bool VB, bool BIAS, bool GUIDE, bool LOCAL>
 __global__ void __launch_bounds__(MIG_PPB * 32, MIG_MIN_BLOCKS)
 segment_pass_mig_proposal_kernel(const Args a) {
@@ -3827,7 +3969,7 @@ int mig_shape(int n, int E, int Pp, int Mw, bool vb, int& ppb,
     bytes = sizeof(float)
         * ((size_t)mig_table_words(E, Pp, vb, bias, guide, local)
            + (size_t)ppb * (mig_work_words(N, E, Pp, Mw)
-                            + mig_extra_words(N, S, bias, guide)));
+                            + mig_extra_words(N, S, bias, guide, local)));
     if (bytes <= (size_t)most) return 0;
   }
   return (int)cudaErrorInvalidValue;

@@ -20,7 +20,12 @@ float within ``kernels.trip.float_tolerances`` (rtol 1e-4), the walk
 diagnostics equal, the local ring's slots, leaves and drops equal.  Node
 and event times are held to tolerance, not bit for bit, as the host's
 ``log1pf`` is not the card's (they came out bit for bit on this host all
-the same).  Skipped where g++ is absent.
+the same).  Then the corners the proposal's scratch-held state
+reaches (``CORNERS``: every slot of the ring of delayed factors in use,
+eight slots due with applications left, 8 sections at the caps corner,
+every slot of the local ring in use, the caps corner's forests
+recombining), four trips each, for the biased, biased local and guided
+local passes with and without VB.  Skipped where g++ is absent.
 """
 
 import shutil
@@ -46,6 +51,24 @@ CASES = [(name, label, kw, ls, 1 if kw.get("caps") else T, delay)
          for name, label, kw, ls, T, delay in cs.MIG_PROPOSAL_CASES]
 
 
+# the corners the scratch-held state reaches (chip_smoke.MIG_CORNERS, and
+# 8 sections at the caps corner over several trips), each for the biased,
+# biased local and guided local passes where it applies, with and without
+# VB: (corner, MigCase options, leaf status, delay type)
+CORNERS = (("full ring", {}, 1, "migr"), ("due many", {}, 0, "coal"),
+           ("8 sections", cs.MIG_CAPS, 1, "coal"),
+           ("local full", {}, -1, "recomb"),
+           ("forest", cs.MIG_CAPS, 1, "migr"))
+CORNER_PASSES = (cs.MIG_BIASED_PASS, cs.MIG_BIASED_LOCAL_PASS,
+                 cs.MIG_GUIDE_LOCAL_PASS)
+CORNER_CASES = [
+    (name, corner, kw, ls, delay)
+    for base in CORNER_PASSES for name in (base, cs.vb_name(base))
+    for corner, kw, ls, delay in CORNERS
+    if (corner != "local full" or cs.MIG_PROPOSAL_PASSES[base][2])
+    and (corner != "forest" or cs.MIG_PROPOSAL_PASSES[base][1])]
+
+
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     if shutil.which("g++") is None:
@@ -68,3 +91,23 @@ def test_mig_proposal_variant_matches_plain(lib, monkeypatch, name, label,
                                {}, name, label, kw, ls, T, delay, P=49,
                                caps_P=23, exact=False), \
         f"{name}{label}: apart from the plain version"
+
+
+@pytest.mark.parametrize(
+    "name,corner,kw,ls,delay", CORNER_CASES,
+    ids=[f"{n[14:-1].replace(', ', '-')}-{c.replace(' ', '-')}"
+         for n, c, _, _, _ in CORNER_CASES])
+def test_mig_proposal_corner_matches_plain(lib, monkeypatch, name, corner,
+                                           kw, ls, delay):
+    """Four trips on a 50 kb segment at a corner (``CORNERS``) of the
+    proposal variant ``name``, held to the plain version as
+    :func:`test_mig_proposal_variant_matches_plain` holds it."""
+    from smcsmc_tpu_torch.kernels.trip import segment_pass_plain
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    assert cs.mig_proposal_one(
+        rehearse.host_pass(lib), segment_pass_plain, {}, name,
+        f" {corner}" if corner == "8 sections" else "", kw, ls, 4, delay,
+        P=49, caps_P=23, exact=False,
+        corner=None if corner == "8 sections" else corner), \
+        f"{name} {corner}: apart from the plain version"

@@ -4,7 +4,7 @@
     python3 tools/arg_probe.py [--source TRIP_CU] [resources] [work] [phases]
     python3 tools/arg_probe.py times DIR [DIR ...]
     python3 tools/arg_probe.py variants [--source TRIP_CU]
-    python3 tools/arg_probe.py sass PARENT_DIR [DIR]
+    python3 tools/arg_probe.py sass PARENT_DIR [DIR] [--changed NAME]
 
 Device time per launch as ``chip_smoke`` times it (CUDA events, best of 3 x
 20 launches on fresh states queued behind a matrix product), every ARG
@@ -76,7 +76,10 @@ and compares them kernel by kernel: every kernel of the parent must be in
 DIR the same code, instruction for instruction; DIR's kernels that the
 parent lacks are listed (they must be instantiations of the migration
 pass's proposal kernel, ``segment_pass_mig_proposal_kernel``).  Exits 1
-if a kernel differs, is missing or is new and not one of those.
+if a kernel differs, is missing or is new and not one of those.  With
+``--changed NAME`` the kernels whose mangled name holds NAME may differ
+(``mig``: the migration unit's), and each is listed with its local loads
+and stores (``LDL``/``STL``: spills) in both builds.
 
 ``--source`` builds another ``trip.cu`` (a parent's, from a ``git archive``
 under ``build/``) behind this tree's wrappers: the C interface is the same.
@@ -97,12 +100,12 @@ sys.path.insert(0, str(ROOT))
 os.chdir(ROOT)
 
 import chip_smoke as cs  # noqa: E402
+import probe_common as pc  # noqa: E402
 import torch  # noqa: E402
 from smcsmc_tpu_torch.kernels import _build  # noqa: E402
 from smcsmc_tpu_torch.kernels.trip import (  # noqa: E402
     kernel_resources,
     segment_pass,
-    segment_pass_launch_args,
 )
 from wide_probe import _insert, _span, _use_source  # noqa: E402
 
@@ -429,23 +432,6 @@ PHASE_CELLS = (("plain", "mean", "bench"), ("plain", "50 kb", None),
                ("migration", "mean", "twopop"), ("migration", "50 kb", None))
 
 
-def _via(lib):
-    """``segment_pass``'s interface launching ``lib``'s kernel (another
-    build of trip.cu) on the current stream."""
-    def fn(*args, **kw):
-        _, packed = segment_pass_launch_args(*args, **kw)
-        err = lib.smc_segment_pass_launch(
-            *packed, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise SystemExit(f"smc_segment_pass_launch returned {err}")
-    return fn
-
-
-def _bits(st):
-    return {k: v.view(torch.int32) if v.dtype == torch.float32 else v
-            for k, v in st.items()}
-
-
 def phases(text: str, filler):
     means = _means()
     # (1) the counters
@@ -484,21 +470,13 @@ def phases(text: str, filler):
         L = means[which] if which else cs.MAX_SEG
         c, u, fresh, run = arg_case(kind, L)
         for vb in (None, cs.vb_tables(c.demo, 5)):
-            want = _bits(run(_via(libs["ARG"]), u, fresh(), vb=vb))
-            same = {}
-            for name in ("walks x2", "stores x2"):
-                got = _bits(run(_via(libs[name]), u, fresh(), vb=vb))
-                same[name] = all(torch.equal(got[k], want[k]) for k in want)
-            order = ("ARG", "walks x2", "stores x2", "stores x2",
-                     "walks x2", "ARG")
-            ms = {}
-            for name in order:
-                t = cs._best_device_ms(
-                    lambda st, fn=_via(libs[name]), vb=vb: run(
-                        fn, u, st, vb=vb), fresh, filler)
-                ms[name] = min(ms.get(name, t), t)
+            names = ("ARG", "walks x2", "stores x2")
+            same = pc.same(libs, names, fresh,
+                           lambda fn, st, vb=vb: run(fn, u, st, vb=vb))
+            ms = pc.turns(libs, names, fresh,
+                          lambda fn, st, vb=vb: run(fn, u, st, vb=vb), filler)
             parent = min(cs._best_device_ms(
-                lambda st, vb=vb: run(_via(libs["ARG"]), u, st, False, vb),
+                lambda st, vb=vb: run(pc.via(libs["ARG"]), u, st, False, vb),
                 fresh, filler) for _ in range(2))
             print(f"apart {kind}{' vb' if vb is not None else ''} {label} "
                   f"(L={L:.1f}): ARG {ms['ARG'] * 1e3:.2f} us, walks x2 "
@@ -814,16 +792,12 @@ def variants(text: str, filler):
         else:
             c, u, fresh, run = arg_case(
                 kind, means[which] if which else cs.MAX_SEG)
-        want = _bits(run(_via(libs["tree"]), u, fresh()))
-        same = {n: all(torch.equal(v, want[k]) for k, v in _bits(run(
-            _via(libs[n]), u, fresh())).items()) for n in names[1:]}
-        ms = {}
-        for n in names + names[::-1]:
-            t = cs._best_device_ms(lambda st, fn=_via(libs[n]): run(
-                fn, u, st), fresh, filler)
-            ms[n] = min(ms.get(n, t), t)
+        same = pc.same(libs, names, fresh,
+                       lambda fn, st: run(fn, u, st))
+        ms = pc.turns(libs, names, fresh, lambda fn, st: run(fn, u, st),
+                      filler)
         parent = cs._best_device_ms(lambda st: run(
-            _via(libs["tree"]), u, st, False), fresh, filler)
+            pc.via(libs["tree"]), u, st, False), fresh, filler)
         print(f"variants {kind} {label}: " + ", ".join(
             f"{n} {ms[n] * 1e3:.2f} us" for n in names)
             + f"; without ARG {parent * 1e3:.2f} us; bit for bit the tree's: "
@@ -837,33 +811,13 @@ def variants(text: str, filler):
 NEW_KERNELS = ("segment_pass_mig_proposal_kernel",)
 
 
-def _sass(lib: Path) -> dict[str, str]:
-    """{kernel's mangled name: its SASS} of a library."""
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
-                          capture_output=True, text=True, check=True).stdout
-    import re
-
-    # the anonymous namespace's name carries a hash of the unit
-    text = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_trip_cu_[0-9a-f]{8}",
-                  "_GLOBAL__N_", text)
-    out, name = {}, None
-    for ln in text.splitlines():
-        if ln.strip().startswith("Function : "):
-            name = ln.split("Function : ", 1)[1].strip()
-            out[name] = []
-        elif name is not None:
-            out[name].append(ln.rstrip())
-    return {k: "\n".join(v) for k, v in out.items()}
-
-
-def sass(parent: str, here: str) -> int:
+def sass(parent: str, here: str, changed: str | None = None) -> int:
     codes = []
     for d in (parent, here):
         src = Path(d).resolve() / "smcsmc_tpu_torch" / "csrc" / "trip.cu"
         info = _use_source(src.read_text(), "arg_probe_sass_"
                            + str(len(codes)))
-        codes.append(_sass(info.path))
+        codes.append(pc.sass(info.path))
         print(f"sass {src}: {len(codes[-1])} kernels", flush=True)
     old, new = codes
     missing = sorted(set(old) - set(new))
@@ -873,14 +827,20 @@ def sass(parent: str, here: str) -> int:
     for k in sorted(old):
         what = ("missing" if k in missing else "differs" if k in differ
                 else "same")
+        spills = ""
+        if changed and changed in k and k in new:
+            (l0, s0), (l1, s1) = pc.spills(old[k]), pc.spills(new[k])
+            spills = f"; LDL {l0} / {l1}, STL {s0} / {s1}"
         print(f"sass {what}: {k} ({old[k].count(chr(10))} / "
-              f"{new[k].count(chr(10)) if k in new else 0} lines)")
+              f"{new[k].count(chr(10)) if k in new else 0} lines{spills})")
     for k in added:
         print(f"sass new: {k} ({new[k].count(chr(10))} lines)")
-    print(f"sass: {len(old)} kernels of the parent, {len(differ)} differ, "
+    outside = [k for k in differ if not (changed and changed in k)]
+    print(f"sass: {len(old)} kernels of the parent, {len(differ)} differ "
+          f"({len(outside)} outside those named {changed!r}), "
           f"{len(missing)} missing; {len(added)} new, {len(foreign)} of "
           f"them not a proposal kernel", flush=True)
-    return 1 if differ or missing or foreign else 0
+    return 1 if outside or missing or foreign else 0
 
 
 def main(argv):
@@ -900,7 +860,11 @@ def main(argv):
         _build.load_trip_library.cache_clear()
         return 0
     if argv[:1] == ["sass"]:
-        rc = sass(argv[1], argv[2] if len(argv) > 2 else str(ROOT))
+        changed = None
+        if "--changed" in argv:
+            k = argv.index("--changed")
+            changed, argv = argv[k + 1], argv[:k] + argv[k + 2:]
+        rc = sass(argv[1], argv[2] if len(argv) > 2 else str(ROOT), changed)
         _build.SOURCE = SOURCE
         _build.load_trip_library.cache_clear()
         return rc
