@@ -165,11 +165,11 @@ Phases, each fatal on failure:
    constant and a ring of pending events 30% in use (``compare_guide``:
    each at the main path's shape at leaf status 1 and 0, one trip and 64;
    the local biased passes with every ring full at the genome shape; the
-   guided local pass at the biased pass's caps corner; the VB variants at
-   one trip), rings held too (bitmasks and drops exactly); each timed in
-   phase 4 at the main path's shape beside the pass it is a variant of
-   (the biased pass is timed there too), its bound counted from its own
-   trips.  Then bench.py's feature_bias_guide, the main path's command
+   guided local, biased local and local passes at the biased pass's caps
+   corner; the VB variants at one trip), rings held too (bitmasks and
+   drops exactly); each timed in phase 4 at the main path's shape beside
+   the pass it is a variant of (the biased pass is timed there too), its
+   bound counted from its own trips.  Then bench.py's feature_bias_guide, the main path's command
    with ``-bias_heights 0 0.01 -bias_strengths 2 1 -guide`` (a constant
    guide as bench.py writes it) ``-EM 0``: the guided pass once per
    segment, nothing else, estimates as in 6, a profile; and the guide
@@ -919,8 +919,8 @@ def guide_cases():
     status, ring and section options, trips): each pass at the main
     path's shape at leaf status 1 and 0, one trip and 64 on the longest
     segment; the local biased passes with every ring full at the genome
-    shape; the guided local pass at the biased pass's caps corner; each
-    VB variant at one trip."""
+    shape; the guided local, biased local and local passes at the biased
+    pass's caps corner; each VB variant at one trip."""
     out = []
     for name in (GUIDE_PASS, GUIDE_LOCAL_PASS, BIASED_LOCAL_PASS,
                  LOCAL_PASS):
@@ -930,9 +930,10 @@ def guide_cases():
     for name in (GUIDE_LOCAL_PASS, BIASED_LOCAL_PASS, LOCAL_PASS):
         out += [(name, " every ring full", (GENOME_P, 8, 33), 1,
                  dict(full=True), T) for T in (1, 64)]
-    out.append((GUIDE_LOCAL_PASS, " caps corner (8 sections)",
-                (CAPS_P, 8, 64), 1, dict(heights=BIAS_CAPS_HEIGHTS,
-                                         strengths=BIAS_CAPS_STRENGTHS), 1))
+    for name in (GUIDE_LOCAL_PASS, BIASED_LOCAL_PASS, LOCAL_PASS):
+        out.append((name, " caps corner (8 sections)", (CAPS_P, 8, 64), 1,
+                    dict(heights=BIAS_CAPS_HEIGHTS,
+                         strengths=BIAS_CAPS_STRENGTHS), 1))
     return out
 
 

@@ -61,6 +61,18 @@
 //                 first free slot of a mask read once per segment, a full
 //                 ring counted by one integer atomic per particle; and it
 //                 writes the segment's ungated recombination opportunity.
+//                 What it adds is latency on each trip's serial chain and
+//                 at entry, so each leaf's lane walks its path to the root
+//                 at the trip's start (a mask, as ARG does below) and the
+//                 leaves below c are bit tests and one ballot; the plain
+//                 pass reads its ring after the block's barrier, under way
+//                 with the first trip's uniforms, and sums the opportunity
+//                 in the final extension's loop (same order).  The guided
+//                 local pass and the biased one above 4 leaves keep the
+//                 walk to c, and the biased ones the read before the
+//                 barrier: those were slower there, timed in turns (a path
+//                 or the ring's positions held in registers at the
+//                 96-register cap).
 //                 Without GUIDE and LOCAL each pass is the code it was.
 //                 ARG (the plain and biased passes, the migration pass and
 //                 the wide plain pass) records the genealogy for -arg
@@ -815,12 +827,19 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
   const float u_tgt = clip_u(u.z), u_gap = clip_u(u.w);
-  // ARG: leaf `lane`'s path to the root in the tree before the SPR (the
-  // tree changes only there), under way with the point and the hazard; up
-  // to 4 leaves (NP 7) lane 4 + l holds leaf l's too, for one ballot
+  // ARG, LOCAL_PATHS: leaf `lane`'s path to the root in the tree before
+  // the SPR (the tree changes only there), under way with the point and
+  // the hazard; for ARG up to 4 leaves (NP 7) lane 4 + l holds leaf l's
+  // too, for one ballot.  Local recording takes the paths in the plain pass
+  // and in the biased one up to 4 leaves; the guided pass and the biased
+  // one above walk each leaf up to c instead: a path held through their
+  // trip at the 96-register cap cost them more than the walk (timed in
+  // turns)
+  constexpr bool LOCAL_PATHS = LOCAL && !GUIDE && (!BIAS || NP == 7);
   unsigned path = 0u;
   if constexpr (ARG)
     path = leaf_path<NP>(w.par, NP == 7 ? lane & 3 : lane, tb.n);
+  if constexpr (LOCAL_PATHS) path = leaf_path<NP>(w.par, lane, tb.n);
 
   // ---- extension: no-mutation likelihood + recombination opportunity ----
   const float delta = nr - up;
@@ -1073,19 +1092,24 @@ __device__ TripEvent one_trip(const Tables& tb, const Work& w, Heights<NP>& h,
   if constexpr (LOCAL) {
     // ---- the trip's local event (smc.py:1054-1069): due a lag of h_r's
     // epoch after its position; the leaves below c in the tree before the
-    // SPR, each leaf's lane walking up to c; into the first free slot ----
+    // SPR (a leaf is below c if c is on its path, or where the leaf walks
+    // up to c), one ballot; into the first free slot ----
     int e = group_min(lag_epoch, gm);
     if (e >= E) e = h_r >= tb.est[0] ? E - 1 : 0;
     bool below = false;
-    if (lane < tb.n) {
-      int cur = lane;
-      for (int s = 0; s < N && cur >= 0; ++s) {
-        if (cur == c) {
-          below = true;
-          break;
+    if constexpr (!LOCAL_PATHS) {
+      if (lane < tb.n) {
+        int cur = lane;
+        for (int s = 0; s < N && cur >= 0; ++s) {
+          if (cur == c) {
+            below = true;
+            break;
+          }
+          cur = w.par[cur];
         }
-        cur = w.par[cur];
       }
+    } else {
+      below = lane < tb.n && c >= 0 && (path >> c & 1u) != 0u;
     }
     const unsigned desc = (__ballot_sync(gm, below)
                            >> ((threadIdx.x & 31) & ~(GROUP - 1)))
@@ -1297,6 +1321,11 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   const unsigned gm = group_mask();
   const int N = 2 * a.n - 1, E = a.E, K = 6 * a.E;
   const int D = a.K;  // ring slots (BIAS)
+  // LOCAL: the plain pass reads its ring's positions after the barrier and
+  // sums the opportunity in the final extension's loop; the biased passes
+  // (more registers held at entry) read before it and sum after the loop
+  // (each faster so, timed in turns)
+  constexpr bool PLAIN_LOCAL = LOCAL && !BIAS;
 
   // the tables, the gate and the particle's rows are all under way before
   // the one barrier, which also publishes the tree and the zeroed pend
@@ -1318,7 +1347,7 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
       for (int s = lane; s < D; s += GROUP)
         w.rpos[s] = a.df_pos[(size_t)i * D + s];
     }
-    if constexpr (LOCAL) {
+    if constexpr (LOCAL && !PLAIN_LOCAL) {
       // the local ring's free slots, read only by a particle that
       // recombines in this segment
       if (nr < a.L)
@@ -1329,7 +1358,19 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
   if constexpr (GUIDE) wait_copies();  // the guide's staged tables
   __syncthreads();
   if (!live) return;
-  if constexpr (LOCAL) ring.free = group_or(ring.free, gm);
+  if constexpr (LOCAL && !PLAIN_LOCAL) ring.free = group_or(ring.free, gm);
+  // PLAIN_LOCAL: the ring's positions (slot lane + k GROUP), read only by a
+  // particle that recombines in this segment, so that no particle of the
+  // block waits at the barrier for a read behind its next_rec; under way
+  // with the summaries and the first trip's uniforms
+  float lpos[MAX_LOCAL_SLOTS / GROUP];
+  if constexpr (PLAIN_LOCAL) {
+#pragma unroll
+    for (int k = 0; k < MAX_LOCAL_SLOTS / GROUP; ++k) {
+      const int s = lane + k * GROUP;
+      lpos[k] = nr < a.L && s < a.R ? a.lr_pos[(size_t)i * a.R + s] : 0.0f;
+    }
+  }
   if constexpr (BIAS) {
     // the other words of the slots due at the segment end, under way
     // while the trips run (a push takes only free slots, so these stay
@@ -1361,6 +1402,13 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     u = load_uniforms(a, 0, i);
     // ARG: the first row's slot (arg_slot_of), once a segment
     if constexpr (ARG) ac.slot = arg_slot_of(ac.n, a.A);
+    if constexpr (PLAIN_LOCAL) {
+      // the ring's free slots (bit s: slot s)
+#pragma unroll
+      for (int k = 0; k < MAX_LOCAL_SLOTS / GROUP; ++k)
+        if (lpos[k] >= 0.5f * BIG) ring.free |= 1u << (lane + k * GROUP);
+      ring.free = group_or(ring.free, gm);
+    }
   }
   for (int k = 0; k < a.trips; ++k) {
     if (!(nr < a.L)) break;
@@ -1413,12 +1461,22 @@ __device__ __forceinline__ void segment_pass_body(const Args& a) {
     }
     lw = lw + liwf;
   }
-  for (int e = lane; e < E; e += GROUP) pend[4 * E + e] += delta * w.tle[e];
+  float mine = 0.0f;  // LOCAL: this lane's epochs of the opportunity
+  if constexpr (PLAIN_LOCAL) {
+    for (int e = lane; e < E; e += GROUP) {
+      const float v = pend[4 * E + e] + delta * w.tle[e];
+      pend[4 * E + e] = v;
+      mine += v;
+    }
+  } else {
+    for (int e = lane; e < E; e += GROUP) pend[4 * E + e] += delta * w.tle[e];
+  }
   nr = nr - a.L;
   if constexpr (LOCAL) {
-    // the segment's ungated recombination opportunity; the dropped events
-    float mine = 0.0f;
-    for (int e = lane; e < E; e += GROUP) mine += pend[4 * E + e];
+    // the segment's ungated recombination opportunity (each lane's epochs
+    // in order); the dropped events
+    if constexpr (!PLAIN_LOCAL)
+      for (int e = lane; e < E; e += GROUP) mine += pend[4 * E + e];
     const float ropp = group_sum(mine, gm);
     if (lane == 0) {
       a.ropp[i] = ropp;

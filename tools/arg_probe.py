@@ -77,9 +77,11 @@ DIR the same code, instruction for instruction; DIR's kernels that the
 parent lacks are listed (they must be instantiations of the migration
 pass's proposal kernel, ``segment_pass_mig_proposal_kernel``).  Exits 1
 if a kernel differs, is missing or is new and not one of those.  With
-``--changed NAME`` the kernels whose mangled name holds NAME may differ
-(``mig``: the migration unit's), and each is listed with its local loads
-and stores (``LDL``/``STL``: spills) in both builds.
+``--changed NAME`` the kernels whose mangled name NAME matches (a regular
+expression: ``mig``, the migration unit's; ``local``, a name of
+:data:`CHANGED`, the narrow kernels with local recording) may differ, and
+each is listed with its local loads and stores (``LDL``/``STL``: spills)
+in both builds.
 
 ``--source`` builds another ``trip.cu`` (a parent's, from a ``git archive``
 under ``build/``) behind this tree's wrappers: the C interface is the same.
@@ -91,6 +93,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -809,9 +812,19 @@ def variants(text: str, filler):
 # the kernels a tree may add beside its parent's: the migration pass's
 # proposal variants
 NEW_KERNELS = ("segment_pass_mig_proposal_kernel",)
+# --changed by name: the narrow kernels with local recording (the plain
+# pass's LOCAL, the third template argument; the biased pass's, the
+# fourth)
+CHANGED = {"local": r"segment_pass_kernelILi\d+ELb[01]ELb1E"
+                    r"|segment_pass_biased_kernelILi\d+ELb[01]ELb[01]ELb1E"}
 
 
 def sass(parent: str, here: str, changed: str | None = None) -> int:
+    pattern = re.compile(CHANGED.get(changed, changed)) if changed else None
+
+    def named(k):
+        return pattern is not None and pattern.search(k) is not None
+
     codes = []
     for d in (parent, here):
         src = Path(d).resolve() / "smcsmc_tpu_torch" / "csrc" / "trip.cu"
@@ -828,14 +841,14 @@ def sass(parent: str, here: str, changed: str | None = None) -> int:
         what = ("missing" if k in missing else "differs" if k in differ
                 else "same")
         spills = ""
-        if changed and changed in k and k in new:
+        if named(k) and k in new:
             (l0, s0), (l1, s1) = pc.spills(old[k]), pc.spills(new[k])
             spills = f"; LDL {l0} / {l1}, STL {s0} / {s1}"
         print(f"sass {what}: {k} ({old[k].count(chr(10))} / "
               f"{new[k].count(chr(10)) if k in new else 0} lines{spills})")
     for k in added:
         print(f"sass new: {k} ({new[k].count(chr(10))} lines)")
-    outside = [k for k in differ if not (changed and changed in k)]
+    outside = [k for k in differ if not named(k)]
     print(f"sass: {len(old)} kernels of the parent, {len(differ)} differ "
           f"({len(outside)} outside those named {changed!r}), "
           f"{len(missing)} missing; {len(added)} new, {len(foreign)} of "

@@ -3,10 +3,12 @@
 build loaded behind this tree's wrappers and launched through them,
 timing in turns, and a library's SASS.
 
-``tools/arg_probe.py`` and ``tools/mig_proposal_probe.py`` import it.  A
-build of trip.cu is four units (``-DSMC_PART=0..3``, as
-``smcsmc_tpu_torch/kernels/_build.py`` builds it); the migration pass
-without VB, and its proposal variants, are unit 2."""
+``tools/arg_probe.py``, ``tools/mig_proposal_probe.py`` and
+``tools/local_probe.py`` import it.  A build of trip.cu is four units
+(``-DSMC_PART=0..3``, as ``smcsmc_tpu_torch/kernels/_build.py`` builds
+it); the narrow kernels (``trip``, the plain, biased and guided passes
+and their local, VB and ARG variants) are unit 0, the migration pass
+without VB, and its proposal variants, unit 2."""
 
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from smcsmc_tpu_torch.kernels import _build
 from smcsmc_tpu_torch.kernels.trip import segment_pass_launch_args
 
 UNITS = 4
+NARROW_UNIT = 0
 MIG_UNIT = 2
 
 
@@ -59,12 +62,13 @@ def _source(where: Path, text: str) -> Path:
 
 def build(out: Path, wholes: dict[str, str],
           variants: dict[str, str] | None = None,
-          base: str | None = None) -> dict[str, tuple[Path, str]]:
+          base: str | None = None,
+          unit: int = MIG_UNIT) -> dict[str, tuple[Path, str]]:
     """{name: (library, ptxas log)} under ``out``: each text of ``wholes``
-    built whole (its four units), each of ``variants`` as the migration
-    unit linked with the other units of ``base`` (a text of ``wholes``);
-    every nvcc process started together, libraries that exist (by hash)
-    not built again."""
+    built whole (its four units), each of ``variants`` as unit ``unit``
+    (the migration unit unless given) linked with the other units of
+    ``base`` (a text of ``wholes``); every nvcc process started together,
+    libraries that exist (by hash) not built again."""
     t0 = time.monotonic()
     variants = variants or {}
     jobs, libs = [], {}
@@ -74,10 +78,10 @@ def build(out: Path, wholes: dict[str, str],
             src = _source(where, text)
             jobs += [(name, where, k, _unit(src, k)) for k in range(UNITS)]
     for name, text in variants.items():
-        where = out / f"variant_{_sha(base + text)}"
+        where = out / f"variant_{unit}_{_sha(base + text)}"
         if not (where / "libsmctrip.so").exists():
-            jobs.append((name, where, MIG_UNIT,
-                         _unit(_source(where, text), MIG_UNIT)))
+            jobs.append((name, where, unit, _unit(_source(where, text),
+                                                  unit)))
     logs = {}
     for name, where, k, (proc, obj) in jobs:
         log = proc.communicate()[0]
@@ -88,8 +92,8 @@ def build(out: Path, wholes: dict[str, str],
         (where / "ptxas.log").write_text("".join(parts))
     for name, text in {**wholes, **variants}.items():
         if name in variants:
-            where = out / f"variant_{_sha(base + text)}"
-            objs = [where / f"part{k}.o" if k == MIG_UNIT
+            where = out / f"variant_{unit}_{_sha(base + text)}"
+            objs = [where / f"part{k}.o" if k == unit
                     else out / f"whole_{_sha(base)}" / f"part{k}.o"
                     for k in range(UNITS)]
         else:
