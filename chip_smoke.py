@@ -243,6 +243,26 @@ Phases, each fatal on failure:
    turns with the migration pass without the proposal, beside its bound
    and plain version.
 
+18. The guide loop above 8 haplotypes (the wide guided and local passes:
+   the plain pass with local recording, the biased pass with it, guided
+   and guided with it, each with and without VB): compared in phase 3
+   (``compare_guide`` on ``wide_proposal_cases``) at n of 9, 16, 17, 33
+   and 64, n = 16 and 64 at P = 10,001 (one shape at 64 epochs with 8
+   sections), one trip at 20 kb and 64 trips at 50 kb, VB
+   on every other case, a guide that is not constant, a ring of pending
+   events 30% in use and, twice, full, against the plain version run in
+   float64 (rings held too: bitmasks and drops exactly); timed at (10,000,
+   16, 9) and (10,000, 64, 9) beside the wide passes; then the wide path's
+   data (n=16) through the main path's command with ``-alpha 0.5 -EM 1``
+   (the wide local pass once per segment of iteration 0, the wide guided
+   local pass on the smoothed guide once per segment of iteration 1,
+   nothing else; finite negative LogL and estimates as in 6 in each
+   iteration, each ``.recomb.gz`` with 16 leaf columns none empty;
+   profiles of both iterations); the other passes in short sweeps
+   (``wide_variant_sweeps``: the biased guided pass on a guide that is not
+   constant, the biased local pass, the VB variants; each of the four at
+   n=64).
+
 The line before the last is a JSON object with each kernel's build/compare/
 time record (the VB, guided and local variants as kernels of their own)
 and the new paths' updates/s, launches and device ms per segment
@@ -396,10 +416,35 @@ LAUNCH_COUNTS.update({WIDE_PASS: "wide_launches",
                       WIDE_VB_PASS: "wide_vb_launches",
                       BIASED_WIDE_PASS: "biased_wide_launches",
                       BIASED_WIDE_VB_PASS: "biased_wide_vb_launches"})
+# the wide guided and local passes: by name their flags (biased, guide,
+# local) and the wide pass they are a variant of, as GUIDE_PASSES
+WIDE_LOCAL_PASS = "segment_pass (wide, local)"
+BIASED_WIDE_LOCAL_PASS = "segment_pass (biased, wide, local)"
+WIDE_GUIDE_PASS = "segment_pass (biased, wide, guide)"
+WIDE_GUIDE_LOCAL_PASS = "segment_pass (biased, wide, guide, local)"
+WIDE_GUIDE_PASSES = {WIDE_LOCAL_PASS: ((False, False, True), WIDE_PASS),
+                     BIASED_WIDE_LOCAL_PASS: ((True, False, True),
+                                              BIASED_WIDE_PASS),
+                     WIDE_GUIDE_PASS: ((True, True, False), BIASED_WIDE_PASS),
+                     WIDE_GUIDE_LOCAL_PASS: ((True, True, True),
+                                             BIASED_WIDE_PASS)}
+WIDE_GUIDE_PASSES.update({vb_name(k): (flags, vb_name(parent))
+                          for k, (flags, parent)
+                          in list(WIDE_GUIDE_PASSES.items())})
+for _name, ((_b, _g, _l), _) in WIDE_GUIDE_PASSES.items():
+    LAUNCH_COUNTS[_name] = ("biased_" if _b else "") + "wide_" \
+        + ("guide_" if _g else "") + ("local_" if _l else "") \
+        + ("vb_" if "vb" in _name else "") + "launches"
 # each wide kernel by the name phase_time gives the narrow one
 WIDE_NAMES = {"trip": WIDE_TRIP, "segment_pass": WIDE_PASS,
               VB_PASS: WIDE_VB_PASS, BIASED_PASS: BIASED_WIDE_PASS,
-              BIASED_VB_PASS: BIASED_WIDE_VB_PASS}
+              BIASED_VB_PASS: BIASED_WIDE_VB_PASS,
+              GUIDE_PASS: WIDE_GUIDE_PASS,
+              GUIDE_LOCAL_PASS: WIDE_GUIDE_LOCAL_PASS,
+              BIASED_LOCAL_PASS: BIASED_WIDE_LOCAL_PASS,
+              LOCAL_PASS: WIDE_LOCAL_PASS}
+WIDE_NAMES.update({vb_name(k): vb_name(v) for k, v in list(
+    WIDE_NAMES.items()) if k in GUIDE_PASSES})
 # ARG recording (-arg): the ARG variants of the plain, biased, migration
 # and wide plain passes, each with and without VB; by name the count its
 # wrapper adds to and the pass it is a variant of
@@ -829,6 +874,11 @@ def _guide_of(c, rows=1):
     return c._guide
 
 
+def _new_flags(name):
+    """(biased, guide, local) of a guided or local pass, narrow or wide."""
+    return (GUIDE_PASSES.get(name) or WIDE_GUIDE_PASSES[name])[0]
+
+
 def _fresh_new(c, name, full=False, heights=BIAS_HEIGHTS,
                strengths=BIAS_STRENGTHS):
     """State of case ``c`` for the guided or local pass ``name``: the
@@ -841,12 +891,12 @@ def _fresh_new(c, name, full=False, heights=BIAS_HEIGHTS,
 
     from smcsmc_tpu_torch.kernels.tree import INF
 
-    (biased, _, local), _ = GUIDE_PASSES[name]
+    biased, _, local = _new_flags(name)
     st = (c.fresh_biased(full, heights, strengths) if biased
           else c.fresh_segment())
     if local:
         if not hasattr(c, "lring"):
-            P, R, dev = c.P, LOCAL_SLOTS, "cuda"
+            P, R, dev = c.P, LOCAL_SLOTS, DEVICE
             used = torch.rand((P, R), generator=c.gen, device=dev) < 0.3
             used[:16] = True
             if full:
@@ -860,11 +910,12 @@ def _fresh_new(c, name, full=False, heights=BIAS_HEIGHTS,
                 lr_time=torch.where(used, 5e4 * torch.rand(
                     (P, R), generator=c.gen, device=dev), 0.0),
                 lr_desc=torch.where(used, torch.randint(
-                    1, 1 << c.n, (P, R), generator=c.gen, device=dev), 0),
+                    1, 1 << min(c.n, 62), (P, R), generator=c.gen,
+                    device=dev), 0),
                 lr_dropped=torch.zeros((), dtype=torch.int32, device=dev))
             c.lags = torch.linspace(2000.0, 40000.0, c.E, device=dev)
         st.update({k: v.clone() for k, v in c.lring.items()})
-        st["ropp"] = torch.zeros(c.P, device="cuda")
+        st["ropp"] = torch.zeros(c.P, device=DEVICE)
     return st
 
 
@@ -875,7 +926,7 @@ def _run_new(c, fn, u, st, name, vb=None, rows=1):
     from smcsmc_tpu_torch.kernels.bias import BiasedPass
     from smcsmc_tpu_torch.kernels.local import LocalPass
 
-    (biased, guide, local), _ = GUIDE_PASSES[name]
+    biased, guide, local = _new_flags(name)
     b = (BiasedPass(st["log_pilot"], st["df_pos"], st["df_logf"],
                     st["df_delta"], st["df_k"], *c.bias_tables, BIAS_FRONT)
          if biased else None)
@@ -937,32 +988,48 @@ def guide_cases():
     return out
 
 
-def compare_guide(segment_pass, segment_pass_plain, tallies):
+def compare_guide(segment_pass, segment_pass_plain, tallies, cases=None,
+                  double=False):
     """Each guided and local pass against its plain version on identical
-    inputs (a guide that is not constant, a ring 30% in use or full): one
-    trip with no tree mismatch, every float within tolerance and the
-    rings' contents equal (bitmasks and drops exactly, positions,
-    heights and the segment's opportunity within their tolerances), on a
-    guide that changes in every window; 64 trips with at most 0.1% of the
-    particles apart and the rings equal on the others, on a guide that
-    changes every ``GUIDE_CHAIN_ROWS`` windows.  The comparisons must push events, and with full rings
-    drop them."""
+    inputs (``cases``, by default :func:`guide_cases`; a guide that is not
+    constant, a ring 30% in use or full): one trip with no tree mismatch,
+    every float within tolerance and the rings' contents equal (bitmasks
+    and drops exactly, positions, heights and the segment's opportunity
+    within their tolerances), on a guide that changes in every window; 64
+    trips with at most 0.1% of the particles apart and the rings equal on
+    the others, on a guide that changes every ``GUIDE_CHAIN_ROWS``
+    windows.  The comparisons must push events, and with full rings drop
+    them.  With ``double`` the plain version runs in float64
+    (:func:`_in_double`, as :func:`compare_wide` holds the wide kernels)
+    and is rounded to the float32 the kernel stores."""
     import torch
 
     from smcsmc_tpu_torch.kernels.trip import disagreement, float_tolerances
 
-    for name in GUIDE_PASSES:
-        tallies[name] = (Tally(), Tally())
     ok = True
-    for name, label, (P, n, E), ls, ring, T in guide_cases():
+    for name, label, (P, n, E), ls, ring, T in (
+            guide_cases() if cases is None else cases):
+        t0 = time.monotonic()
+        tallies.setdefault(name, (Tally(), Tally()))
         L, nr_scale = ((20000.0, 1.5) if T == 1 else (MAX_SEG, 0.1))
         c = Case(P, n, E, ls, L=L, nr_scale=nr_scale,
                  seed=23 * P + T + ls + len(label) + len(name))
         vb = vb_tables(c.demo, T + ls) if "vb" in name else None
         u = c.uniforms(T)
         rows = 1 if T == 1 else GUIDE_CHAIN_ROWS
-        sts = [_run_new(c, fn, u, _fresh_new(c, name, **ring), name, vb,
-                        rows) for fn in (segment_pass, segment_pass_plain)]
+        st = _fresh_new(c, name, **ring)
+        sts = [_run_new(c, segment_pass, u,
+                        {k: v.clone() for k, v in st.items()}, name, vb,
+                        rows)]
+        if double:
+            ref = _run_new(_in_double(c), segment_pass_plain, u.double(),
+                           _in_double(st), name, _in_double(vb), rows)
+            # the float64 answer as the float32 the kernel stores
+            sts.append({k: v.float() if v.dtype == torch.float64 else v
+                        for k, v in ref.items()})
+        else:
+            sts.append(_run_new(c, segment_pass_plain, u, st, name, vb,
+                                rows))
         torch.cuda.synchronize()
         got, ref = (c.segment_result({k: v for k, v in st.items()
                                       if k not in LOCAL_FIELDS
@@ -970,9 +1037,8 @@ def compare_guide(segment_pass, segment_pass_plain, tallies):
                     for st in sts)
         trees, floats, errs = disagreement(got, ref, c.L, MU, RTOL)
         agree = ~(trees | floats)
-        local = GUIDE_PASSES[name][0][2]
-        ring_note = ""
-        if local:
+        ring_note, apart = "", []
+        if _new_flags(name)[2]:
             tol = float_tolerances(ref, c.L, MU)
             tol["ropp"] = float(tol["pending"][4 * E])
             apart = _ring_apart(sts[0], sts[1], agree, c.L, tol)
@@ -987,8 +1053,6 @@ def compare_guide(segment_pass, segment_pass_plain, tallies):
             ring_note = (f"; ring {'equal' if not apart else apart} "
                          f"({pushed} slots pushed, dropped {drops[0]} / "
                          f"{drops[1]})")
-        else:
-            apart = []
         if T == 1:
             good = int(trees.sum()) == 0 and int(floats.sum()) == 0
         else:
@@ -996,7 +1060,8 @@ def compare_guide(segment_pass, segment_pass_plain, tallies):
         good &= not apart
         tallies[name][T > 1].add(trees, floats, errs)
         _report(f"{name}{label} P={P} n={n} E={E} leaf_status={ls} "
-                f"trips={T}" + (" vs plain" if T > 1 else "") + ring_note,
+                f"trips={T}" + (" vs plain" if T > 1 else "") + ring_note
+                + f" ({time.monotonic() - t0:.1f} s)",
                 P, trees, floats, errs, good)
         ok &= good
     return ok
@@ -1131,6 +1196,8 @@ def phase_compare(kernels):
     ok &= compare_vb(segment_pass, segment_pass_plain, tallies)
     ok &= compare_guide(segment_pass, segment_pass_plain, tallies)
     ok &= compare_wide(kernels, tallies)
+    ok &= compare_guide(segment_pass, segment_pass_plain, tallies,
+                        wide_proposal_cases(), double=True)
     if not ok:
         raise SystemExit("kernel and plain version disagree beyond tolerance")
     return tallies
@@ -1517,6 +1584,36 @@ def compare_wide(kernels, tallies):
         _log(f"compare wide shape P={P} n={n} E={E}: "
              f"{time.monotonic() - t0:.1f} s")
     return ok
+
+
+# the wide guided and local passes' compared shapes (P, n, E): n of 9 to
+# 64 on either side of the group sizes' boundary, one at 64 epochs (the
+# biased pass's caps sections); n = 16 and 64 at the wide paths' P and
+# sweeps' P (two waves of blocks at 64 leaves), the others at WIDE_SHAPES'
+WIDE_PROPOSAL_SHAPES = ((10001, 9, 9), (10001, 16, 9), (4001, 17, 9),
+                        (4001, 33, 9), (10001, 64, 9), (4001, 16, 64))
+
+
+def wide_proposal_cases():
+    """The wide guided and local passes' cases for :func:`compare_guide`
+    (``double``): each pass at each shape at one trip (leaf status 1) and 64
+    (leaf status 0), VB on every other case; then every ring full at the
+    first shape above 16 leaves' group boundary and at the last n=64 one,
+    one trip and 64."""
+    out = []
+    base = [k for k in WIDE_GUIDE_PASSES if "vb" not in k]
+    for j, (P, n, E) in enumerate(WIDE_PROPOSAL_SHAPES):
+        ring = ({} if E < 64 else dict(heights=BIAS_CAPS_HEIGHTS,
+                                       strengths=BIAS_CAPS_STRENGTHS))
+        for T in (1, 64):
+            vb = (j + (T > 1)) % 2 == 1
+            out += [(vb_name(k) if vb else k, "", (P, n, E),
+                     1 if T == 1 else 0, ring, T) for k in base]
+    big = [sh for sh in WIDE_PROPOSAL_SHAPES if sh[1] > 16]
+    for sh, T in ((big[0], 1), (big[-1], 64)):
+        out += [(k, " every ring full", sh, 1, dict(full=True), T)
+                for k in base]
+    return out
 
 
 def _sync():
@@ -4177,6 +4274,155 @@ def phase_wide64_path(card):
         split_long_segments(seg, MAX_SEG).lengths.mean())
 
 
+def recomb_leaf_columns(path):
+    """(leaf columns, each leaf column's sum over the windows) of a
+    .recomb.gz."""
+    import gzip
+
+    with gzip.open(path, "rt") as fh:
+        header = fh.readline().rstrip("\n").split("\t")
+        cols = [j for j, col in enumerate(header) if col.isdigit()]
+        sums = [0.0] * len(cols)
+        for ln in fh:
+            e = ln.rstrip("\n").split("\t")
+            for k, j in enumerate(cols):
+                sums[k] += float(e[j])
+    return len(cols), sums
+
+
+def phase_wide_alpha_path(card):
+    """The guide loop above 8 haplotypes: the wide path's data
+    (``sweep_profile.wide_data``, n=16) through smcsmc_main with the main
+    path's command and ``-alpha 0.5 -EM 1`` at P=10,000.  Iteration 0
+    records its windows with the wide local pass, once per segment;
+    iteration 1 sweeps on the guide smoothed from them with the wide guided
+    local pass, once per segment; nothing else, no ``trip``, no plain
+    version.  Each iteration: a finite negative LogL, estimates checked as
+    the wide path's, a ``.recomb.gz`` of 16 leaf columns none of which is
+    empty; the log names iteration 1's guide.  Then sweep profiles of
+    iteration 0's setup and of iteration 1's (on the smoothed guide).
+    Returns (launches, E-step records, profiles)."""
+    import numpy as np
+
+    from smcsmc_tpu_torch.segio import write_seg
+    from smcsmc_tpu_torch.sweep_profile import wide_data
+
+    demo, seg = wide_data()
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        seg_path = os.path.join(tmp, "wide.seg")
+        write_seg(seg_path, seg)
+        out = os.path.join(tmp, "out")
+        argv = _main_argv(seg_path, out, 1) + ["-alpha", "0.5"]
+        launches, plain, steps, records, wall = _run_cli(argv)
+        guide = os.path.join(out, "emiter1", "chunk0.recomb_guide.gz")
+        logl = [r.args[4] for r in steps]
+        _log(f"wide alpha path (n=16): smc2-torch -Np {WIDE_P} -EM 1 -alpha "
+             f"0.5 ran in {wall:.2f} s wall; kernel launches {launches}; "
+             f"calls of the plain versions {plain}; LogL {logl!r} (in full)")
+        _log_esteps(steps, WIDE_P, card)
+        if len(steps) != 2:
+            problems.append(f"{len(steps)} EM iterations logged")
+        for it in range(2):
+            rows = _read_out(os.path.join(out, "result.out"), it)
+            _check_estimates(rows, it, problems)
+            if not (it < len(logl) and np.isfinite(logl[it])
+                    and logl[it] < 0):
+                problems.append(f"iteration {it}'s LogL {logl}")
+            cols, sums = recomb_leaf_columns(os.path.join(
+                out, f"emiter{it}", "chunk0.recomb.gz"))
+            _log(f"wide alpha path iteration {it}: .recomb.gz {cols} leaf "
+                 f"columns, their sums {[round(x, 6) for x in sums]}")
+            if cols != 16 or not all(x > 0 for x in sums):
+                problems.append(f"iteration {it}'s .recomb.gz has {cols} "
+                                f"leaf columns, sums {sums}")
+        read = [r for r in records if "guide" in r.getMessage()
+                and r.getMessage().startswith("iteration 1")]
+        if not os.path.exists(guide) or not read:
+            problems.append("iteration 1 did not read a smoothed guide")
+        segs = [r.args[2] for r in steps] + [0, 0]
+        want = {WIDE_LOCAL_PASS: segs[0], WIDE_GUIDE_LOCAL_PASS: segs[1]}
+        for name, k in launches.items():
+            if k != want.get(name, 0):
+                problems.append(f"{name} launched {k} times on the wide "
+                                f"alpha path (want {want.get(name, 0)})")
+        if any(plain.values()):
+            problems.append(f"the wide alpha path ran a plain version: "
+                            f"{plain}")
+        if problems:
+            raise SystemExit("wide alpha path checks failed: "
+                             + "; ".join(problems))
+        _log("wide alpha path checks: ok")
+        _elapsed("the wide alpha path's run")
+        rep0, _ = _profile(card, "wide alpha path (n=16, iteration 0: "
+                           "recording)", demo, seg, WIDE_P, alpha=0.5)
+        rep1, _ = _profile(card, "wide alpha path (n=16, iteration 1: "
+                           "guided, recording)", demo, seg, WIDE_P,
+                           alpha=0.5, guide_file=guide)
+    return launches, steps, (rep0, rep1)
+
+
+def write_varying_guide(path, demo, seed=5, window=10000):
+    """A guide that is not constant, in the format of bench.py's constant
+    one (``sweep_profile.write_constant_guide``): rows of ``window`` bp over
+    the sequence and one beyond, each at the model's recombination rate
+    times a factor in [0.3, 3] with leaf rates in [0.3, 2], drawn from
+    ``seed``."""
+    import gzip
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, L = demo.num_samples, int(demo.sequence_length)
+    with gzip.open(path, "wt") as fh:
+        fh.write("locus\tsize\trecomb_rate\t"
+                 + "\t".join(str(i + 1) for i in range(n)) + "\n")
+        for w in range(0, L + window, window):
+            rate = demo.recombination_rate * rng.uniform(0.3, 3.0)
+            fh.write(f"{w}\t{window}\t{rate:.4e}\t"
+                     + "\t".join(f"{x:.4f}" for x in rng.uniform(
+                         0.3, 2.0, n)) + "\n")
+    return path
+
+
+def wide_variant_sweeps(card, segments=60):
+    """The wide guided and local passes that the wide alpha path does not
+    run, and each pass at n=64, in short sweeps (:func:`_short_sweep`) at
+    P=10,000: on the wide path's data (n=16) the biased guided pass
+    (``-bias_heights 0 0.05`` and a guide that is not constant), the biased
+    local pass (``-alpha 0.5 -bias_heights 0 0.05``, iteration 0) and the
+    VB variants of the four; on ``sweep_profile.wide64_data`` (n=64) the
+    four without VB over half as many segments.  Returns {"n=16": {pass:
+    launches}, "n=64": ...}."""
+    import tempfile as _tf
+
+    from smcsmc_tpu_torch.sweep_profile import wide64_data, wide_data
+
+    demo, seg = wide_data()
+    demo64, seg64 = wide64_data()
+    bias = dict(bias_heights=(2000.0,))
+    out = {"n=16": {}, "n=64": {}}
+    with _tf.TemporaryDirectory() as tmp:
+        guide = write_varying_guide(os.path.join(tmp, "g.recomb_guide.gz"),
+                                    demo)
+        guide64 = write_varying_guide(os.path.join(tmp, "g64.recomb_guide.gz"),
+                                      demo64)
+        opts = {WIDE_GUIDE_PASS: dict(guide_file=guide, **bias),
+                BIASED_WIDE_LOCAL_PASS: dict(alpha=0.5, **bias),
+                WIDE_GUIDE_LOCAL_PASS: dict(guide_file=guide, alpha=0.5),
+                WIDE_LOCAL_PASS: dict(alpha=0.5)}
+        runs = {k: opts[k] for k in (WIDE_GUIDE_PASS, BIASED_WIDE_LOCAL_PASS)}
+        runs.update({vb_name(k): dict(v, vb=True) for k, v in opts.items()})
+        for name, o in runs.items():
+            out["n=16"][name] = _short_sweep(card, name, demo, seg, segments,
+                                             **o)[name]
+        for name, o in opts.items():
+            o = dict(o, guide_file=guide64) if "guide_file" in o else o
+            out["n=64"][name] = _short_sweep(card, name, demo64, seg64,
+                                             segments // 2, **o)[name]
+    return out
+
+
 def _tree_problems(tb, L, n):
     """tests/test_tskit_conversion.py::_check_trees_valid as a list of
     problems: at 7 positions a full binary tree (2n - 2 edges, every child
@@ -4508,6 +4754,14 @@ RESOURCE_SHAPES = (
     (BIASED_WIDE_VB_PASS, "biased", (
         ("wide (n=16, E=9, S=2)", (16, 9, 1, 0, 2, True)),
         ("caps (n=64, E=64, S=8)", (64, 64, 1, 0, 8, True))))) + tuple(
+    # the wide guided and local passes at the wide alpha path's shape
+    # (n=16), at n=64 and, biased, at the caps
+    (name, "biased" if flags[0] else "segment_pass", (
+        ("wide (n=16, E=9)", (16, 9, 1, 0, 2, "vb" in name, *flags[1:])),
+        ("n=64 (n=64, E=9)", (64, 9, 1, 0, 2, "vb" in name, *flags[1:])))
+     + ((("caps (n=64, E=64, S=8)", (64, 64, 1, 0, 8, "vb" in name,
+                                      *flags[1:])),) if flags[0] else ()))
+    for name, (flags, _) in WIDE_GUIDE_PASSES.items()) + tuple(
     # the ARG variants (kernel_resources(..., arg=True)) at their paths'
     # shapes and caps
     (name, variant, tuple((label, (*dims, "vb" in name, False, False, True))
@@ -4732,14 +4986,20 @@ def main(argv=None) -> int:
     if wa_vb[vb_name(WIDE_ARG_PASS)] == 0 or wa_vb[WIDE_ARG_PASS] != 0:
         raise SystemExit(f"the wide ARG sweep with -vb launched {wa_vb}")
     elapsed("the wide ARG sweeps")
+    # the guide loop at n=16 (the wide local and guided local passes), the
+    # other wide guided and local passes in short sweeps, n=64 too
+    wal_launches, wal_steps, wal_reps = phase_wide_alpha_path(card)
+    elapsed("the wide alpha path")
+    w_sweeps = wide_variant_sweeps(card)
+    elapsed("the wide guided and local sweeps")
     w_timing = phase_time(kernels, (WIDE_P, 16, 9),
                           [("mean wide segment", w_mean),
                            ("longest segment", MAX_SEG)], biased=True,
-                          vb=True, names=WIDE_NAMES)
+                          vb=True, guide=True, names=WIDE_NAMES)
     w64_timing = phase_time(kernels, (WIDE_P, 64, 9),
                             [("mean n=64 segment", w64_mean),
                              ("longest segment", MAX_SEG)], biased=True,
-                            vb=True, names=WIDE_NAMES)
+                            vb=True, guide=True, names=WIDE_NAMES)
     elapsed("the wide passes' timing")
     # each ARG pass beside its parent, on the parent's timed inputs
     mean_w = w_timing["mean wide segment"]
@@ -4861,7 +5121,47 @@ def main(argv=None) -> int:
                             trip_launches_reported=wb_reported),
         "n64": {"estep_seconds": [r.args[1] for r in w64_steps],
                 "segments": sum(r.args[2] for r in w64_steps),
-                "logl": [r.args[4] for r in w64_steps]}}
+                "logl": [r.args[4] for r in w64_steps]},
+        "wide_alpha": dict(
+            wide_path(wal_steps, wal_reps[0]),
+            guided_profile={k: wal_reps[1][k] for k in (
+                "launches_per_segment", "device_ms_per_segment",
+                "device_busy_share", "ms_per_segment",
+                "pass_us_per_launch")})}
+    for name in WIDE_GUIDE_PASSES:
+        # the wide guided and local passes: launches on the wide alpha path
+        # (the local and guided local passes) or in their own n=16 sweep;
+        # times at (10,000, 16, 9) beside the wide pass they are a variant
+        # of, and at n=64
+        single, chained = tallies[name]
+        by_path = {"wide alpha": wal_launches[name],
+                   "n=16 sweep": w_sweeps["n=16"].get(name, 0),
+                   "n=64 sweep": w_sweeps["n=64"].get(name, 0)}
+        own = ("wide alpha" if name in (WIDE_LOCAL_PASS,
+                                        WIDE_GUIDE_LOCAL_PASS)
+               else "n=16 sweep")
+        t = w_timing["mean wide segment"][name]
+        parent = WIDE_GUIDE_PASSES[name][1]
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": by_path[own],
+            "launches_on": own, "launches_by_path": by_path,
+            "max_abs_err": single.max_abs_err,
+            "compare": {"trips=1": single.record(),
+                        "trips=64 vs plain": chained.record()},
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "host_us_per_call": t["host_us"],
+            "parent": parent,
+            "parent_ms": w_timing["mean wide segment"][parent]["kernel_ms"],
+            "resources": resources[name],
+            "n64_shape": {label: {k: row[name][k] for k in timed_keys}
+                          for label, row in w64_timing.items()
+                          if name in row}}
+        if name in w_timing["longest segment"]:
+            entry["longest_segment"] = {
+                k: w_timing["longest segment"][name][k] for k in timed_keys}
+        record["kernels"].append(entry)
     for name in (WIDE_TRIP, WIDE_PASS, WIDE_VB_PASS, BIASED_WIDE_PASS,
                  BIASED_WIDE_VB_PASS):
         # launches on the path that runs each: the wide path for the plain

@@ -111,11 +111,13 @@
 //                 (transition.py:1170); a warp per particle, see the
 //                 section "The migration pass" below.  Held against
 //                 kernels/migration.py through segment_pass_plain.
-//                 Above MAX_LEAVES leaves (up to WIDE_MAX_LEAVES) trip
-//                 and the plain and biased passes, each with and without
-//                 VB, run as the wide kernels: each lane a chunk of the
-//                 nodes, every sum of a trip lane-parallel and in double;
-//                 see "The wide passes".
+//                 Above MAX_LEAVES leaves (up to WIDE_MAX_LEAVES) trip,
+//                 the plain and biased passes, the plain pass with local
+//                 recording and the biased pass guided, with local
+//                 recording or both (each pass with and without VB), and
+//                 the plain pass's ARG variant run as the wide kernels:
+//                 each lane a chunk of the nodes, every sum of a trip
+//                 lane-parallel and in double; see "The wide passes".
 //
 // What bounds it on Hopper: launch and latency, neither bytes nor FLOPs.
 // At the sweep's shape (10,000 particles, 4 leaves, 9 epochs, about one
@@ -187,10 +189,11 @@
 // VB on or off: each pass has a compile-time variant with VB and one
 // without, so that the pass without VB is the code it was before VB.
 
-// The library is built from this file as four units compiled side by
+// The library is built from this file as five units compiled side by
 // side (kernels/_build.py) and linked: SMC_PART 1 instantiates the wide
-// kernels and defines smc_wide_dispatch, SMC_PART 2 and 3 the migration
-// pass's kernels without and with VB and smc_mig_dispatch /
+// kernels and defines smc_wide_dispatch, SMC_PART 4 the wide guided and
+// local kernels and smc_wide_proposal_dispatch, SMC_PART 2 and 3 the
+// migration pass's kernels without and with VB and smc_mig_dispatch /
 // smc_mig_vb_dispatch, SMC_PART 0 everything else.  Without SMC_PART one
 // unit holds all (the host rehearsal).
 #if !defined(SMC_PART) || SMC_PART == 0
@@ -213,11 +216,22 @@
 #else
 #define SMC_MIG_VB 0
 #endif
+#if !defined(SMC_PART) || SMC_PART == 4
+#define SMC_WIDE_PROP 1
+#else
+#define SMC_WIDE_PROP 0
+#endif
 
 // a wide kernel for the run-time flags (args: an Args), launched on
 // `stream` (res == nullptr) or asked for its resources
 extern "C" int smc_wide_dispatch(const void* args, int segment, int biased,
                                  int vb, int arg, void* stream, int* res);
+// a wide guided or local kernel (the segment pass: biased with guide
+// and/or local recording, or plain with local recording), launched on
+// `stream` (res == nullptr) or asked for its resources
+extern "C" int smc_wide_proposal_dispatch(const void* args, int biased,
+                                          int vb, int guide, int local,
+                                          void* stream, int* res);
 // a kernel of the migration pass for the run-time flags (args: an Args;
 // arg: the ARG variant; bias, guide, local: a proposal variant), launched
 // with `blocks` blocks of `ppb` particles and `bytes` of shared memory on
@@ -1571,8 +1585,11 @@ __global__ void __launch_bounds__(BLOCK, BIAS_MIN_BLOCKS)
 // it at n <= 8 and its XLA twin above: transition.py:108/:160 for the
 // point, :231 for the re-coalescence, :1170 for the SPR, smc.py:417 for the
 // summaries).  The plain and the biased segment pass (each with and without
-// VB), the plain pass's ARG variant and trip; the migration, guided and
-// local variants and the biased pass's ARG variant have no wide form.
+// VB), the plain pass's ARG variant and trip; the plain pass with local
+// recording and the biased pass guided, with local recording or both (each
+// with and without VB: segment_pass_wide_local_kernel,
+// segment_pass_biased_wide_proposal_kernel); the migration pass and its
+// variants and the biased pass's ARG variant have no wide form.
 //
 // What bounds it on Hopper: neither bytes nor operations but the dependent
 // chain of a particle's trips (a launch lasts as long as the longest chain
@@ -1634,6 +1651,24 @@ __global__ void __launch_bounds__(BLOCK, BIAS_MIN_BLOCKS)
 //   epochs and slots (e % G, s % G), so no lane reads another's words; the
 //   data leaves below each node are counted by each data leaf's lane
 //   walking up its ancestors with an atomic add in shared memory.
+// * The guided and local passes (GUIDE, LOCAL; one_trip's steps) hold
+//   nothing of theirs in registers across a trip beyond the guide mass at
+//   the extension's start: the pass runs at the same 96 registers, where
+//   the biased pass already spills.  The branches' guide rates and the
+//   internal nodes' stable time order are in the group's slice (w.rate,
+//   w.order): each lane ranks its internal nodes by an exact count over
+//   the tree's times, and lane 0 merges the rates in that order, as the
+//   narrow pass does (a node's rate reads a child later in the order at
+//   0, so the order, ties by index, decides the bits); the guided point's
+//   weights, the guide's search pivots (staged per block by cp.async) and
+//   the gap in guide mass are the narrow pass's, the point's running sum
+//   in node order as the biased point's.  The local ring's free slots and
+//   drops are lane 0's words in the slice (w.lst), read from the ring's
+//   positions by one ballot per slot stripe at entry; each trip's leaves
+//   below the cut are a walk per leaf stripe and one ballot per stripe
+//   into a 64-bit word (leaf 63 its sign bit), the lag's epoch a minimum
+//   over lanes, and lane 0 writes the event.  The segment's ungated
+//   opportunity sums the lanes' epochs in double.
 // ===========================================================================
 
 #define WIDE_MAX_LEAVES 64  // the reference's u64 Descendants_t
@@ -1727,29 +1762,39 @@ __device__ __forceinline__ int wide_scan(int v, int lane, unsigned gm) {
 
 // est, eend, i2n [E]; has-data [ML]; with segment the FIFO gate [6E]; with
 // biased the sections' heights and strengths and the delays [E]; with vb
-// the VB table [E]
+// the VB table [E]; with local the lags [E]; with guide the search's first
+// pivots [GUIDE_TOP]
 template <int ML>
 __host__ __device__ inline int wide_tables_words(int E, bool segment,
-                                                 bool biased, bool vb) {
+                                                 bool biased, bool vb,
+                                                 bool local = false,
+                                                 bool guide = false) {
   return 3 * E + ML + (segment ? 6 * E : 0)
-      + (biased ? 2 * MAX_SECTIONS + 1 + E : 0) + (vb ? E : 0);
+      + (biased ? 2 * MAX_SECTIONS + 1 + E : 0) + (vb ? E : 0)
+      + (local ? E : 0) + (guide ? GUIDE_TOP : 0);
 }
 
 // one particle's slice: node times, parent, children, data leaves below
 // [N]; tree length and hazard mass per epoch [E]; the segment pass's
-// statistics [6E]; the biased pass's ring
+// statistics [6E]; the biased pass's ring; with guide the branches' guide
+// rates and the internal nodes in time order [N] each; with local the
+// local ring's free slots and drops [2]
 __host__ __device__ inline int wide_work_words(int N, int E, bool segment,
-                                               bool biased) {
+                                               bool biased,
+                                               bool guide = false,
+                                               bool local = false) {
   return (5 * N + 2 * E + (segment ? 6 * E : 0)
-          + (biased ? 4 * MAX_DELAY_SLOTS : 0)) | 1;  // odd
+          + (biased ? 4 * MAX_DELAY_SLOTS : 0) + (guide ? 2 * N : 0)
+          + (local ? 2 : 0)) | 1;  // odd
 }
 
 template <int ML>
 __host__ __device__ inline int wide_block_words(int G, int N, int E,
                                                 bool segment, bool biased,
-                                                bool vb) {
-  return wide_tables_words<ML>(E, segment, biased, vb)
-      + (BLOCK / G) * wide_work_words(N, E, segment, biased);
+                                                bool vb, bool local = false,
+                                                bool guide = false) {
+  return wide_tables_words<ML>(E, segment, biased, vb, local, guide)
+      + (BLOCK / G) * wide_work_words(N, E, segment, biased, guide, local);
 }
 
 struct WideWork {
@@ -1764,6 +1809,9 @@ struct WideWork {
   float* rlogf;
   float* rdelta;
   int* rk;
+  float* rate;    // GUIDE: [N] the branches' guide rates
+  int* order;     // GUIDE: [N] the internal nodes in stable time order
+  unsigned* lst;  // LOCAL: the ring's free slots (bit s: slot s), drops
 };
 
 // the calling lane's chunk: nodes j0 .. j0 + cr - 1 of the tree, their
@@ -1775,7 +1823,7 @@ struct WideChunk {
   int j0, cr;
 };
 
-template <int ML>
+template <int ML, bool LOCAL = false, bool GUIDE = false>
 __device__ void wide_stage_tables(const Args& a, float* smem, bool segment,
                                   bool biased, bool vb) {
   const int E = a.E;
@@ -1804,9 +1852,21 @@ __device__ void wide_stage_tables(const Args& a, float* smem, bool segment,
   }
   if (vb)
     for (int e = threadIdx.x; e < E; e += blockDim.x) p[e] = a.vb_coal[e];
+  if constexpr (LOCAL || GUIDE) {
+    if (vb) p += E;
+    if constexpr (LOCAL) {
+      for (int e = threadIdx.x; e < E; e += blockDim.x) p[e] = a.lags[e];
+      p += E;
+    }
+    if constexpr (GUIDE) {
+      // under way at once (the caller waits for them before its barrier)
+      for (int h = threadIdx.x; h < GUIDE_TOP; h += blockDim.x)
+        copy_word_async(&p[h], &a.g_top[h]);
+    }
+  }
 }
 
-template <int ML>
+template <int ML, bool LOCAL = false, bool GUIDE = false>
 __device__ void wide_bind_tables(const Args& a, float* smem, Tables& tb,
                                  bool segment, bool biased, bool vb) {
   const int E = a.E;
@@ -1823,6 +1883,21 @@ __device__ void wide_bind_tables(const Args& a, float* smem, Tables& tb,
   if (biased) p += 2 * MAX_SECTIONS + 1 + E;
   tb.vb = vb ? p : nullptr;
   tb.lag = nullptr;
+  if constexpr (LOCAL || GUIDE) {
+    if (vb) p += E;
+    if constexpr (LOCAL) {
+      tb.lag = p;
+      p += E;
+    }
+    if constexpr (GUIDE) {
+      tb.g_rel = a.g_rel;
+      tb.cum_mass = a.cum_mass;
+      tb.g_leaf = a.g_leaf;
+      tb.Wg = a.Wg;
+      tb.ws = a.ws;
+      tb.g_top = p;
+    }
+  }
   tb.front = a.front;
   tb.S = a.S;
   tb.delay_type = a.delay_type;
@@ -1840,13 +1915,15 @@ __device__ void wide_bind_tables(const Args& a, float* smem, Tables& tb,
 
 // Carve this group's slice (`pend` is only there for segment_pass).
 // Returns the particle index of the calling thread's group.
-template <int G, int ML>
+template <int G, int ML, bool LOCAL = false, bool GUIDE = false>
 __device__ int wide_carve(const Args& a, float* smem, bool segment,
                           bool biased, bool vb, WideWork& w, float*& pend) {
   const int E = a.E, N = 2 * a.n - 1;
   const int group = threadIdx.x / G;
-  float* base = smem + wide_tables_words<ML>(E, segment, biased, vb)
-      + (size_t)group * wide_work_words(N, E, segment, biased);
+  float* base = smem
+      + wide_tables_words<ML>(E, segment, biased, vb, LOCAL, GUIDE)
+      + (size_t)group
+          * wide_work_words(N, E, segment, biased, GUIDE, LOCAL);
   w.t = base;
   w.par = reinterpret_cast<int*>(base + N);
   w.c0 = reinterpret_cast<int*>(base + 2 * N);
@@ -1860,6 +1937,12 @@ __device__ int wide_carve(const Args& a, float* smem, bool segment,
   w.rlogf = ring + MAX_DELAY_SLOTS;
   w.rdelta = ring + 2 * MAX_DELAY_SLOTS;
   w.rk = reinterpret_cast<int*>(ring + 3 * MAX_DELAY_SLOTS);
+  if constexpr (LOCAL || GUIDE) {
+    float* x = ring + (biased ? 4 * MAX_DELAY_SLOTS : 0);
+    w.rate = x;
+    w.order = reinterpret_cast<int*>(x + N);
+    w.lst = reinterpret_cast<unsigned*>(x + (GUIDE ? 2 * N : 0));
+  }
   return blockIdx.x * (blockDim.x / G) + group;
 }
 
@@ -2033,14 +2116,18 @@ __device__ void wide_summaries(const Tables& tb, const WideWork& w,
 // memory.  Called by all lanes of a synchronised group with identical
 // scalars, w.tle and the chunks up to date; returns the same way.  ARG
 // pushes the trip's R and C rows into particle i's ARG ring, from row *an
-// on.
-template <int G, int ML, bool BIAS, bool VB, bool ARG = false>
+// on.  GUIDE (with BIAS) and LOCAL are one_trip's: the guide's survival
+// weight, the point weighed by the branches' guide rates (w.rate, merged
+// by lane 0 in the stable order of the times), the gap in guide mass from
+// *m_up; the trip's local event into the first free slot of w.lst[0].
+template <int G, int ML, bool BIAS, bool VB, bool ARG = false,
+          bool GUIDE = false, bool LOCAL = false>
 __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
                                WideChunk<WIDE_CHUNK(G, ML)>& h, int lane,
                                unsigned gm, const float4 u, float* pend,
                                float& nr, float& up, float& lw, float& tl,
                                float& B, const Args* a = nullptr, int i = 0,
-                               int* an = nullptr) {
+                               int* an = nullptr, float* m_up = nullptr) {
   constexpr int C = WIDE_CHUNK(G, ML);
   const int N = tb.N, E = tb.E;
   const float u_pt = clip_u(u.x), u_exp = clip_u(u.y);
@@ -2051,10 +2138,24 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
   // ---- extension: no-mutation likelihood + recombination opportunity ----
   const float delta = nr - up;
   lw = lw - tb.mu * B * delta;
+  float liw = 0.0f, m_nr = 0.0f;  // GUIDE: the mass at the event
+  if constexpr (GUIDE) {
+    // the guide's survival weight over the extension (smc.py:903-914): the
+    // mass at its start is the last trip's (*m_up); the window of its end
+    // gives the mass there and the leaves' rates (leaf l lane l % G's),
+    // the internal nodes' rates 0 until merged
+    const float x0 = tb.front + up, x1 = tb.front + nr;
+    const int win = guide_window(tb, x1);
+    for (int j = lane; j < N; j += G)
+      w.rate[j] = j < tb.n ? tb.g_leaf[(size_t)win * tb.n + j] : 0.0f;
+    m_nr = guide_mass(tb, win, x1);
+    liw = guide_span(tb, tl, x0, x1, *m_up, m_nr);
+    lw = lw + liw;
+  }
 
   int c = -1;
   double h_r;  // the point's height; the trip's decisions take it in double
-  float log_iw = 0.0f, strength = 1.0f;
+  float log_iw = 0.0f, strength = 1.0f, log_iw_bias = 0.0f;
   if constexpr (!BIAS) {
     // ---- recombination point: first node whose running sum of branch
     // lengths reaches u * total ----
@@ -2097,15 +2198,55 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
     // segments weighted by strength, node-major, found as the plain point
     // is; the pairs of the hit lane's chunk are weighed again by that lane
     const int S = tb.S;
-    double s = 0.0, ps = 0.0;
+    if constexpr (GUIDE) {
+      // the branches' guide rates (transition.py:124): each lane ranks its
+      // internal nodes (n + lane, n + lane + G, ...) in the stable order of
+      // the times, an exact count; lane 0 merges them in that order (the
+      // mean of the children's rates, a child later in the order read at
+      // 0) and gives both children of the last the larger of their two
+      // rates
+      const int n = tb.n;
+      for (int v = n + lane; v < N; v += G) {
+        const float tv = w.t[v];
+        int rank = 0;
+        for (int k = n; k < N; ++k) {
+          const float tk = w.t[k];
+          rank += (tk < tv || (tk == tv && k < v)) ? 1 : 0;
+        }
+        w.order[rank] = v;
+      }
+      __syncwarp(gm);
+      if (lane == 0) {
+        for (int k = 0; k < n - 1; ++k) {
+          const int v = w.order[k];
+          w.rate[v] = 0.5f * (w.rate[w.c0[v]] + w.rate[w.c1[v]]);
+        }
+        const int root = w.order[n - 2];
+        const int rc0 = w.c0[root], rc1 = w.c1[root];
+        const float mx = fmaxf(w.rate[rc0], w.rate[rc1]);
+        w.rate[rc0] = mx;
+        w.rate[rc1] = mx;
+      }
+      __syncwarp(gm);
+    }
+    // GUIDE: bs sums the segments weighted by the strengths alone
+    double s = 0.0, ps = 0.0, bs = 0.0;
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       if (h.pt[k] < BIG) {  // the root's lineage and padding weigh nothing
         const double t_k = h.t[k], pt_k = h.pt[k];
+        double r_k = 1.0;
+        if constexpr (GUIDE) r_k = w.rate[h.j0 + k];
         for (int q = 0; q < S; ++q) {
           const double seg = fmax(fmin(pt_k, (double)tb.bh[q + 1])
                                   - fmax(t_k, (double)tb.bh[q]), 0.0);
-          s += seg * (double)tb.bs[q];
+          if constexpr (GUIDE) {
+            const double wq = seg * (double)tb.bs[q];
+            s += wq * r_k;
+            bs += wq;
+          } else {
+            s += seg * (double)tb.bs[q];
+          }
           ps += seg;
         }
       }
@@ -2127,13 +2268,18 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
       for (int k = 0; k < C; ++k) {
         if (!found && k < h.cr && h.j0 + k < N) {
           const double t_k = h.t[k], pt_k = h.pt[k];
+          double r_k = 1.0;
+          if constexpr (GUIDE) r_k = w.rate[h.j0 + k];
           for (int q = 0; q < S && !found; ++q) {
             const double seg = pt_k < BIG
                 ? fmax(fmin(pt_k, (double)tb.bh[q + 1])
                            - fmax(t_k, (double)tb.bh[q]), 0.0)
                 : 0.0;
             prev = ex + r;
-            r += seg * (double)tb.bs[q];
+            if constexpr (GUIDE)
+              r += seg * (double)tb.bs[q] * r_k;
+            else
+              r += seg * (double)tb.bs[q];
             found = ex + r >= x;
             c_l = h.j0 + k;
             q_l = q;
@@ -2141,15 +2287,30 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
           }
         }
       }
-      hr_l = lo + (x - prev) / fmax((double)tb.bs[q_l], 1e-30);
+      // the point's weight per unit length: its strength (times its
+      // branch's guide rate)
+      double lw_l = tb.bs[q_l];
+      if constexpr (GUIDE) lw_l = lw_l * (double)w.rate[c_l];
+      hr_l = lo + (x - prev) / fmax(lw_l, 1e-30);
     }
     c = wide_from<G>(c_l, src, gm);
     const int s_hit = wide_from<G>(q_l, src, gm);
     h_r = wide_from<G>(hr_l, src, gm);
     strength = tb.bs[s_hit];
-    // log(wtot) - log(ptot) - log(strength), one logarithm
-    log_iw = (float)log(wtot / (fmax(ptot, 1e-30)
-                                * fmax((double)strength, 1e-30)));
+    if constexpr (GUIDE) {
+      // log(wtot) - log(ptot) - log(strength rate_c), and against the
+      // segments weighted by the strengths alone its height-bias part
+      const double local_w = (double)strength * (double)w.rate[c];
+      log_iw = (float)log(wtot / (fmax(ptot, 1e-30) * fmax(local_w, 1e-30)));
+      log_iw_bias = (float)log(wide_sum<G>(bs, gm)
+                               / (fmax(ptot, 1e-30)
+                                  * fmax((double)strength, 1e-30)));
+    } else {
+      // log(wtot) - log(ptot) - log(strength), one logarithm
+      log_iw = (float)log(wtot / (fmax(ptot, 1e-30)
+                                  * fmax((double)strength, 1e-30)));
+      log_iw_bias = log_iw;
+    }
   }
 
   // ---- SMC' hazard inversion (one_trip's, in double) --------------------
@@ -2254,7 +2415,7 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
       ? wide_sum<G>(chunk_overlap(h, fmax((double)tb.est[ecut], h_r),
                                   tb.eend[ecut], t_c), gm)
       : 0.0;
-  int key_epoch = E;
+  int key_epoch = E, lag_epoch = E;
   float vbv = 0.0f;
   for (int e = lane; e < E; e += G) {
     const double st_e = tb.est[e], hi_e = tb.eend[e];
@@ -2268,6 +2429,7 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
       if (tb.delay_type == 0 ? in_r : in_c) key_epoch = e;
     }
     if (VB && in_c) vbv = tb.vb[e];
+    if (LOCAL && in_r) lag_epoch = e;
     pend[e] += (float)coal_opp;
     pend[E + e] += in_c ? 1.0f : 0.0f;
     pend[2 * E + e] += (float)span;
@@ -2275,6 +2437,49 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
     pend[5 * E + e] += in_r ? 1.0f : 0.0f;
   }
   const float vb = VB ? wide_sum<G>(vbv, gm) : 0.0f;
+
+  if constexpr (LOCAL) {
+    // ---- the trip's local event (one_trip's): due a lag of h_r's epoch
+    // after its position; the leaves below c in the tree before the SPR,
+    // leaf l lane l % G's walking up to c, its stripe's ballot the word's
+    // bits l - l % G on (leaf 63 the sign bit); lane 0 takes the first
+    // free slot and writes the event ----
+    int e = wide_min<G>(lag_epoch, gm);
+    if (e >= E) e = h_r >= (double)tb.est[0] ? E - 1 : 0;
+    constexpr int LSTRIPES = (ML + G - 1) / G;
+    unsigned long long desc = 0ull;
+#pragma unroll
+    for (int k = 0; k < LSTRIPES; ++k) {
+      const int l = k * G + lane;
+      bool below = false;
+      if (l < tb.n) {
+        int cur = l;
+        for (int s = 0; s < N && cur >= 0; ++s) {
+          if (cur == c) {
+            below = true;
+            break;
+          }
+          cur = w.par[cur];
+        }
+      }
+      desc |= (unsigned long long)wide_ballot<G>(gm, below) << (k * G);
+    }
+    if (lane == 0) {
+      const unsigned fr = w.lst[0];
+      if (fr != 0u) {
+        const int slot = __ffs((int)fr) - 1;
+        w.lst[0] = fr & (fr - 1u);
+        const size_t at = (size_t)i * a->R + slot;
+        const float pos = tb.front + nr;
+        a->lr_pos[at] = pos;
+        a->lr_due[at] = pos + tb.lag[e];
+        a->lr_time[at] = (float)h_r;
+        a->lr_desc[at] = (long long)desc;
+      } else {
+        w.lst[1] += 1u;
+      }
+    }
+  }
 
   if constexpr (ARG) {
     // ---- the trip's ARG rows (one_trip's): leaf l is lane l % G's, its
@@ -2342,11 +2547,22 @@ __device__ TripEvent wide_trip(const Tables& tb, const WideWork& w,
   // ---- refreshed tree summaries, then the next gap ----------------------
   wide_chunk_load<G>(w, N, lane, h);
   wide_summaries<G>(tb, w, h, lane, gm, tl, B);
-  const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
-  up = nr;
-  nr = nr + gap;
+  if constexpr (GUIDE) {
+    // the gap in guide mass from the event's position (smc.py:802-808),
+    // whose mass the extension read; it is the next extension's start
+    const float gap_m = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
+    const float at = tb.front + nr;
+    const float nxt = guide_inv_mass(tb, m_nr + gap_m);
+    *m_up = m_nr;
+    up = nr;
+    nr = nr + fmaxf(nxt - at, 1e-3f);
+  } else {
+    const float gap = -log1pf(-u_gap) / fmaxf(tb.rho * tl, 1e-30f);
+    up = nr;
+    nr = nr + gap;
+  }
   return TripEvent{(float)h_r, (float)t_c, log_iw, strength, key_epoch, vb,
-                   0.0f, log_iw};
+                   liw, BIAS ? log_iw_bias : log_iw};
 }
 
 template <int G, int ML>
@@ -2431,15 +2647,18 @@ __device__ __forceinline__ void wide_push_delayed(
   changed |= 1u << (first / G);
 }
 
-// segment_pass_body for the wide tree (no guide, no local recording; ARG
-// without BIAS)
-template <int G, int ML, bool BIAS, bool VB, bool ARG = false>
+// segment_pass_body for the wide tree (ARG without BIAS, GUIDE or LOCAL;
+// GUIDE with BIAS).  LOCAL keeps the ring's free slots and drops in the
+// group's slice (w.lst, lane 0's), GUIDE the branches' rates (w.rate).
+template <int G, int ML, bool BIAS, bool VB, bool ARG = false,
+          bool GUIDE = false, bool LOCAL = false>
 __device__ __forceinline__ void wide_segment_body(const Args& a) {
   constexpr int SLOTS = MAX_DELAY_SLOTS / G;  // ring slots per lane
   extern __shared__ float smem[];
   WideWork w;
   float* pend;
-  const int i = wide_carve<G, ML>(a, smem, true, BIAS, VB, w, pend);
+  const int i = wide_carve<G, ML, LOCAL, GUIDE>(a, smem, true, BIAS, VB, w,
+                                                pend);
   const int lane = threadIdx.x % G;
   const unsigned gm = wide_mask<G>();
   const int N = 2 * a.n - 1, E = a.E, K = 6 * a.E;
@@ -2450,7 +2669,7 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
   // this lane's ring slots (bit k: slot lane + k G) to write back
   unsigned changed = 0u;
   int an = 0;  // ARG: the ring's rows pushed so far
-  wide_stage_tables<ML>(a, smem, true, BIAS, VB);
+  wide_stage_tables<ML, LOCAL, GUIDE>(a, smem, true, BIAS, VB);
   if (live) {
     wide_load_tree<G, ML>(a, w, i, N, lane);
     for (int k = lane; k < K; k += G) pend[k] = 0.0f;
@@ -2464,7 +2683,26 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
         if (s < D) w.rpos[s] = a.df_pos[(size_t)i * D + s];
       }
     }
+    if constexpr (LOCAL) {
+      // the local ring's free slots (slot lane + k G a ballot's bit), read
+      // only by a particle that recombines in this segment
+      unsigned fr = 0u;
+      if (nr < a.L) {
+#pragma unroll
+        for (int k = 0; k < MAX_LOCAL_SLOTS / G; ++k) {
+          const int s = lane + k * G;
+          const bool f =
+              s < a.R && a.lr_pos[(size_t)i * a.R + s] >= 0.5f * BIG;
+          fr |= wide_ballot<G>(gm, f) << (k * G);
+        }
+      }
+      if (lane == 0) {
+        w.lst[0] = fr;
+        w.lst[1] = 0u;
+      }
+    }
   }
+  if constexpr (GUIDE) wait_copies();  // the guide's staged pivots
   __syncthreads();
   if (!live) return;
   if constexpr (BIAS) {
@@ -2483,11 +2721,13 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
     }
   }
   Tables tb;
-  wide_bind_tables<ML>(a, smem, tb, true, BIAS, VB);
+  wide_bind_tables<ML, LOCAL, GUIDE>(a, smem, tb, true, BIAS, VB);
   WideChunk<WIDE_CHUNK(G, ML)> h;
   wide_chunk_load<G>(w, N, lane, h);
   float tl, B;
   wide_summaries<G>(tb, w, h, lane, gm, tl, B);  // at segment entry
+  float m_up = 0.0f;  // GUIDE: the guide mass at front + up
+  if constexpr (GUIDE) m_up = guide_mass(tb, tb.front + up);
 
   bool moved = false;
   float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -2496,12 +2736,13 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
     if (!(nr < a.L)) break;
     const float4 u_next = k + 1 < a.trips ? load_uniforms(a, k + 1, i) : u;
     const float delta = nr - up, B_pre = B;
-    const TripEvent ev = wide_trip<G, ML, BIAS, VB, ARG>(
-        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &an);
+    const TripEvent ev = wide_trip<G, ML, BIAS, VB, ARG, GUIDE, LOCAL>(
+        tb, w, h, lane, gm, u, pend, nr, up, lw, tl, B, &a, i, &an, &m_up);
     if (VB) lw = lw + ev.vb;
     if constexpr (BIAS) {
       // segment_pass_body's weights (smc.py:968-1020)
       lp = lp - a.mu * B_pre * delta;
+      if constexpr (GUIDE) lp = lp + ev.liw;
       if (VB) lp = lp + ev.vb;
       lw = lw + ev.log_iw;
       const float d_h = a.delay_type == 0 ? ev.h_r : ev.t_c;
@@ -2511,7 +2752,9 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
         for (int s = 0; s <= tb.S; ++s) cnt += tb.bh[s] <= d_h ? 1 : 0;
         strength_h = tb.bs[min(max(cnt - 1, 0), tb.S - 1)];
       }
-      const float imm = fabsf(strength_h - 1.0f) < 1e-6f ? ev.log_iw : 0.0f;
+      // the immediate part is the height-bias part (all of log_iw unguided)
+      const float imm =
+          fabsf(strength_h - 1.0f) < 1e-6f ? ev.log_iw_bias : 0.0f;
       const float late = ev.log_iw - imm;
       lp = lp + imm;
       if (fabsf(late) > 1e-9f)
@@ -2525,11 +2768,33 @@ __device__ __forceinline__ void wide_segment_body(const Args& a) {
   // ---- final extension to the segment end -------------------------------
   const float delta = a.L - up;
   lw = lw - a.mu * B * delta;
+  float liwf = 0.0f;
+  if constexpr (GUIDE) {
+    // the guide's survival weight of the final extension (smc.py:1123-1131)
+    if (delta > 0.0f) {
+      const float x1 = tb.front + a.L;
+      liwf = guide_span(tb, tl, tb.front + up, x1, m_up, guide_mass(tb, x1));
+    }
+    lw = lw + liwf;
+  }
   for (int e = lane; e < E; e += G) pend[4 * E + e] += delta * w.tle[e];
   nr = nr - a.L;
+  if constexpr (LOCAL) {
+    // the segment's ungated recombination opportunity (each lane's epochs,
+    // the lanes' sums in double); the dropped events
+    double mine = 0.0;
+    for (int e = lane; e < E; e += G) mine += (double)pend[4 * E + e];
+    const float ropp = (float)wide_sum<G>(mine, gm);
+    if (lane == 0) {
+      a.ropp[i] = ropp;
+      const int dropped = (int)w.lst[1];
+      if (dropped > 0) atomicAdd(a.lr_dropped, dropped);
+    }
+  }
   if constexpr (BIAS) {
     // ---- the pilot's extension; the delayed factors due at front + L ----
     lp = lp - a.mu * B * delta;
+    if constexpr (GUIDE) lp = lp + liwf;
     const float end = a.front + a.L;
     unsigned due = 0u;
 #pragma unroll
@@ -2611,6 +2876,21 @@ template <int G, int ML, bool VB>
 __global__ void __launch_bounds__(BLOCK, WIDE_MIN_BLOCKS)
     segment_pass_biased_wide_kernel(const Args a) {
   wide_segment_body<G, ML, true, VB>(a);
+}
+
+// the wide plain pass with local recording (-alpha's iteration 0)
+template <int G, int ML, bool VB>
+__global__ void __launch_bounds__(BLOCK, WIDE_MIN_BLOCKS)
+    segment_pass_wide_local_kernel(const Args a) {
+  wide_segment_body<G, ML, false, VB, false, false, true>(a);
+}
+
+// the wide biased pass guided, with local recording or both (-guide, and
+// -alpha's iterations)
+template <int G, int ML, bool VB, bool GUIDE, bool LOCAL>
+__global__ void __launch_bounds__(BLOCK, WIDE_MIN_BLOCKS)
+    segment_pass_biased_wide_proposal_kernel(const Args a) {
+  wide_segment_body<G, ML, true, VB, false, GUIDE, LOCAL>(a);
 }
 
 // ===========================================================================
@@ -4116,6 +4396,70 @@ namespace {
 
 #endif
 
+#if SMC_WIDE_PROP
+// dynamic shared bytes of a block of a wide guided or local pass
+template <int G, int ML>
+size_t wide_proposal_bytes(int n, int E, bool biased, bool vb, bool guide,
+                           bool local) {
+  return sizeof(float)
+      * (size_t)wide_block_words<ML>(G, 2 * n - 1, E, true, biased, vb,
+                                     local, guide);
+}
+
+// A wide guided or local kernel for the run-time flags: launched (res ==
+// nullptr) or asked for its resources.
+template <int G, int ML, bool VB>
+int wide_proposal_variant(const Args& a, bool biased, bool guide, bool local,
+                          cudaStream_t s, int* res) {
+  const size_t bytes =
+      wide_proposal_bytes<G, ML>(a.n, a.E, biased, VB, guide, local);
+  void (*kernel)(const Args) =
+      !biased ? segment_pass_wide_local_kernel<G, ML, VB>
+      : !guide ? segment_pass_biased_wide_proposal_kernel<G, ML, VB, false,
+                                                          true>
+      : local  ? segment_pass_biased_wide_proposal_kernel<G, ML, VB, true,
+                                                          true>
+               : segment_pass_biased_wide_proposal_kernel<G, ML, VB, true,
+                                                          false>;
+  if (res) return resources_of(kernel, BLOCK, bytes, BLOCK / G, res);
+  const dim3 grid((unsigned)((a.P + BLOCK / G - 1) / (BLOCK / G)));
+  return launch_kernel(kernel, a, grid, bytes, s);
+}
+
+template <int G, int ML>
+int wide_proposal_group(const Args& a, bool biased, bool vb, bool guide,
+                        bool local, cudaStream_t s, int* res) {
+  return vb ? wide_proposal_variant<G, ML, true>(a, biased, guide, local, s,
+                                                 res)
+            : wide_proposal_variant<G, ML, false>(a, biased, guide, local,
+                                                  s, res);
+}
+
+}  // namespace
+
+// the wide guided and local kernels for n leaves, grouped as the wide
+// passes are (8 lanes per particle up to 16 leaves, 16 above): the plain
+// pass with local recording, the biased pass guided, with local recording
+// or both (each with and without VB)
+extern "C" int smc_wide_proposal_dispatch(const void* args, int biased,
+                                          int vb, int guide, int local,
+                                          void* stream, int* res) {
+  const Args& a = *static_cast<const Args*>(args);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!(guide || local) || (guide && !biased))
+    return (int)cudaErrorInvalidValue;
+  return a.n <= 16
+      ? wide_proposal_group<8, 16>(a, biased != 0, vb != 0, guide != 0,
+                                   local != 0, s, res)
+      : wide_proposal_group<16, WIDE_MAX_LEAVES>(a, biased != 0, vb != 0,
+                                                 guide != 0, local != 0, s,
+                                                 res);
+}
+
+namespace {
+
+#endif
+
 #if SMC_MIG || SMC_MIG_VB
 // The migration pass's variant for the run-time flags (arg: the ARG
 // variant; bias, guide: guided and biased, local: a proposal variant),
@@ -4239,15 +4583,13 @@ int launch(const Args& a, bool segment, cudaStream_t stream) {
 
 int dispatch(const Args& a, bool segment, void* stream) {
   // above MAX_LEAVES the wide kernels: the plain and biased passes and
-  // trip, no migration, guide or local recording; ARG recording in the
+  // trip, the guided and local passes, no migration; ARG recording in the
   // plain, the biased and the migration pass and the wide plain pass,
   // without the guide or local recording (nor bias in the migration pass)
   const bool wide = a.n > MAX_LEAVES;
   const bool arg = a.arg_pos != nullptr;
   if (a.n < 2 || a.n > WIDE_MAX_LEAVES || a.E < 1 || a.E > MAX_EPOCHS
-      || a.trips < 0
-      || (wide && (a.pop != nullptr || a.g_rel != nullptr
-                   || a.lr_pos != nullptr))
+      || a.trips < 0 || (wide && a.pop != nullptr)
       || (arg && (!segment || a.g_rel != nullptr || a.lr_pos != nullptr
                   || (wide && a.log_pilot != nullptr)
                   || (a.pop != nullptr && a.log_pilot != nullptr) || a.A < 1
@@ -4290,6 +4632,11 @@ int dispatch(const Args& a, bool segment, void* stream) {
   }
   if (a.P <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (wide && (a.g_rel != nullptr || a.lr_pos != nullptr))
+    return smc_wide_proposal_dispatch(&a, a.log_pilot != nullptr,
+                                      a.vb_coal != nullptr,
+                                      a.g_rel != nullptr,
+                                      a.lr_pos != nullptr, s, nullptr);
   if (wide)
     return smc_wide_dispatch(&a, segment, a.log_pilot != nullptr,
                              segment && a.vb_coal != nullptr, arg, s,
@@ -4452,10 +4799,11 @@ int resources_np(int kind, int n, int E, int S, bool vb, bool guide,
 // kind 0: trip, 1: segment_pass, 2: its biased variant (S sections), 3:
 // its migration variant (Pp populations, buffers of Mw events), 4: the
 // migration variant biased (S sections); at n leaves (above MAX_LEAVES
-// the wide kernels of kinds 0-2), E epochs; vb: the pass's VB variant
-// (not for trip); guide: the biased or biased migration pass's guided
-// variant; local: the plain, biased or migration pass's local recording;
-// arg: the ARG variant of the plain, biased (narrow) or migration pass.
+// the wide kernels of kinds 0-2, guided and local ones among them), E
+// epochs; vb: the pass's VB variant (not for trip); guide: the biased or
+// biased migration pass's guided variant; local: the plain, biased or
+// migration pass's local recording; arg: the ARG variant of the plain,
+// biased (narrow) or migration pass.
 extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
                                     int Mw, int vb, int guide, int local,
                                     int arg, int* out) {
@@ -4464,7 +4812,7 @@ extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
       || ((kind == 2 || kind == 4) && (S < 1 || S > MAX_SECTIONS))
       || (kind == 0 && vb) || (guide && kind != 2 && kind != 4)
       || (local && kind == 0)
-      || (n > MAX_LEAVES && (kind >= 3 || guide || local))
+      || (n > MAX_LEAVES && kind >= 3)
       || (arg && (kind == 0 || kind == 4 || guide || local
                   || (n > MAX_LEAVES && kind == 2))))
     return (int)cudaErrorInvalidValue;
@@ -4473,6 +4821,9 @@ extern "C" int smc_kernel_resources(int kind, int n, int E, int S, int Pp,
     a.n = n;
     a.E = E;
     a.S = S;
+    if (guide || local)
+      return smc_wide_proposal_dispatch(&a, kind == 2, vb != 0, guide != 0,
+                                        local != 0, nullptr, out);
     return smc_wide_dispatch(&a, kind != 0, kind == 2, vb != 0, arg != 0,
                              nullptr, out);
   }

@@ -174,13 +174,14 @@ def refuse_caps(demo: Demography, cfg: EMConfig) -> None:
     """Raise NotImplementedError for a run on the card that the CUDA
     kernels' compile-time caps do not hold (ROADMAP queue 1, item 19):
     more haplotypes, epochs or populations, or longer migration buffers;
-    above MAX_LEAVES haplotypes (the wide kernels of the plain and biased
-    passes) also several populations or migration, ``-guide``, ``-alpha``
-    and ``-apf``, whose passes have no wide form; and ``-arg`` with
-    ``-guide`` or ``-alpha``, or with height bias above MAX_LEAVES
-    haplotypes or with several populations or migration, which have no ARG
-    variant (ROADMAP queue 1, item 16).  The CPU runs every size and
-    combination.  Callers check before any tree is built."""
+    above MAX_LEAVES haplotypes (the wide kernels of the plain, biased,
+    guided and local passes: ``-guide`` and ``-alpha`` run there) also
+    several populations or migration and ``-apf``, whose passes have no
+    wide form; and ``-arg`` with ``-guide`` or ``-alpha``, or with height
+    bias above MAX_LEAVES haplotypes or with several populations or
+    migration, which have no ARG variant (ROADMAP queue 1, item 16).  The
+    CPU runs every size and combination.  Callers check before any tree
+    is built."""
     if torch.device(cfg.device).type != "cuda":
         return
     buffer = cfg.mig_buffer or _auto_mig_buffer(demo)
@@ -203,8 +204,7 @@ def refuse_caps(demo: Demography, cfg: EMConfig) -> None:
     if n > MAX_LEAVES:
         for what, used in (
                 ("several populations or migration", structured),
-                ("-guide", cfg.guide_file is not None),
-                ("-alpha", cfg.alpha > 0), ("-apf", cfg.apf > 0)):
+                ("-apf", cfg.apf > 0)):
             if used:
                 raise NotImplementedError(
                     f"{n} haplotypes with {what} on the card: the kernels "

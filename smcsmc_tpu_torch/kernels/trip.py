@@ -95,8 +95,8 @@ from .tree import (
 
 # compile-time caps of the CUDA kernel (csrc/trip.cu MAX_LEAVES/MAX_EPOCHS):
 # the narrow kernels take up to MAX_LEAVES leaves; the wide ones (the plain
-# and biased passes, each with and without VB, and trip) up to
-# WIDE_MAX_LEAVES
+# and biased passes, the guided and local passes, each with and without VB,
+# the plain pass's ARG variant and trip) up to WIDE_MAX_LEAVES
 MAX_LEAVES = 8
 WIDE_MAX_LEAVES = 64
 MAX_EPOCHS = 64
@@ -466,8 +466,8 @@ def _check_caps(N: int, E: int, Pp: int = 1, Mw: int = 0,
     (for the migration pass also populations and buffer capacity).  The
     plain and biased passes and trip take up to :data:`WIDE_MAX_LEAVES`
     leaves (the wide kernels above :data:`MAX_LEAVES`); ``variant`` names
-    a pass that has no wide form (migration, guided, local, biased ARG),
-    which takes up to :data:`MAX_LEAVES`."""
+    a pass that has no wide form (the migration pass and its variants, the
+    biased ARG pass), which takes up to :data:`MAX_LEAVES`."""
     n = (N + 1) // 2
     cap = MAX_LEAVES if variant else WIDE_MAX_LEAVES
     if N != 2 * n - 1 or n < 2 or n > cap:
@@ -488,8 +488,9 @@ def narrow_variant(biased=False, migration=False, guide=False, local=False,
                    arg=False) -> str | None:
     """The name :func:`_check_caps` gives a pass that has no wide form
     (the migration pass and its biased, guided and local variants, the
-    guided and local passes, the biased pass's ARG variant), or None."""
-    if not (migration or guide or local or (biased and arg)):
+    biased pass's ARG variant), or None: the guided and local passes have
+    wide forms."""
+    if not (migration or (biased and arg)):
         return None
     return " ".join(w for w, on in (
         ("migration", migration), ("guided", guide),
@@ -841,11 +842,12 @@ def segment_pass(uniforms, leaf_status, time, parent, child0, child1,
     at slot ``arg_n % A``; the pass draws nothing and changes no weight.
 
     Up to :data:`MAX_LEAVES` leaves every variant runs; above, up to
-    :data:`WIDE_MAX_LEAVES`, the plain and biased passes with and without
-    VB and the plain pass's ARG variant run as the wide kernels (counted
-    as ``wide_launches``, ``biased_wide_vb_launches``, ``wide_arg_launches``,
-    ...) and the migration, guided, local and biased ARG variants
-    raise.
+    :data:`WIDE_MAX_LEAVES`, the plain and biased passes, the guided and
+    local passes (each with and without VB) and the plain pass's ARG
+    variant run as the wide kernels (counted as ``wide_launches``,
+    ``biased_wide_vb_launches``, ``wide_local_launches``,
+    ``biased_wide_guide_local_vb_launches``, ``wide_arg_launches``, ...)
+    and the migration and biased ARG variants raise.
 
     CPU tensors run :func:`segment_pass_plain`.  CUDA tensors launch the
     kernel of ``csrc/trip.cu`` on the current stream (one launch) or raise;
@@ -1056,10 +1058,11 @@ def launch_count(biased=False, migration=False, vb=False, guide=False,
 # launches of every variant of the kernel: the plain, the biased and the
 # migration pass, each with and without VB; the plain pass with local
 # recording; the biased pass guided, with local recording or both; the
-# wide plain and biased passes; the ARG variants of the plain, biased,
-# migration and wide plain passes; the migration pass biased, guided
-# (and biased), with local recording, biased with local recording, and
-# guided with local recording
+# wide plain and biased passes, the wide plain pass with local recording
+# and the wide biased pass guided, with local recording or both; the ARG
+# variants of the plain, biased, migration and wide plain passes; the
+# migration pass biased, guided (and biased), with local recording,
+# biased with local recording, and guided with local recording
 LAUNCH_COUNTS = tuple(
     launch_count(b, m, v, g, lo, wd, a)
     for b, m, g, lo, wd, a in ((False, False, False, False, False, False),
@@ -1071,6 +1074,10 @@ LAUNCH_COUNTS = tuple(
                                (True, False, True, True, False, False),
                                (False, False, False, False, True, False),
                                (True, False, False, False, True, False),
+                               (False, False, False, True, True, False),
+                               (True, False, True, False, True, False),
+                               (True, False, False, True, True, False),
+                               (True, False, True, True, True, False),
                                (False, False, False, False, False, True),
                                (True, False, False, False, False, True),
                                (False, True, False, False, False, True),
@@ -1107,8 +1114,8 @@ def kernel_resources(variant: str, n: int, E: int, Pp: int = 1,
     and the card's SMs (:data:`RESOURCES`), and from those the particles an
     SM holds and the waves a launch of :data:`WAVES_AT` particles takes.  ``variant`` is a key of :data:`RESOURCE_VARIANTS`
     (n picks the instantiation: 7 padded nodes up to 4 leaves, 15 up to 8;
-    above 8 the wide kernels, 8 lanes per particle up to 16 leaves and 16
-    up to 64;
+    above 8 the wide kernels, the guided and local ones among them, 8
+    lanes per particle up to 16 leaves and 16 up to 64;
     ``vb`` a pass's VB variant, ``guide`` the biased pass's guided one,
     ``local`` the plain or biased pass's local recording, ``arg`` the
     plain, biased or migration pass's ARG recording; for the migration

@@ -454,14 +454,25 @@ def _structured_demo(n=8, E=64, Pp=4):
     ("cuda", {"mig_buffer": 97}, r"97 -migbuf.*at most 96 \(MAX_MIG\)"),
     ("cuda", {}, None),  # exactly at the caps
     ("cpu", {"n": 9, "E": 65, "Pp": 5, "mig_buffer": 97}, None),
+    # one population above 8 haplotypes: -guide and -alpha run on the
+    # wide guided and local passes; -arg with -alpha has no ARG variant
+    ("cuda", {"n": 16, "Pp": 1, "guide_file": "g.gz"}, None),
+    ("cuda", {"n": 16, "Pp": 1, "alpha": 0.5}, None),
+    ("cuda", {"n": 64, "Pp": 1, "alpha": 0.5, "guide_file": "g.gz"}, None),
+    ("cuda", {"n": 16, "Pp": 1, "alpha": 0.5, "record_arg": True},
+     r"-arg with -alpha on the card.*item 16"),
 ])
 def test_kernel_caps_are_refused_on_the_card(device, over, cap):
     """``em.refuse_caps`` refuses, by quantity and cap, what the CUDA
     kernels do not hold when the run is on the card (it does not resolve
     the device, so no GPU is needed here); at the caps, and on the CPU at
-    any size, it passes."""
+    any size, it passes.  Above 8 haplotypes in one population ``-guide``
+    and ``-alpha`` pass; ``-arg -alpha`` is refused."""
     over = dict(over)
-    cfg = tem.EMConfig(device=device, mig_buffer=over.pop("mig_buffer", 96))
+    options = {k: over.pop(k) for k in ("guide_file", "alpha", "record_arg")
+               if k in over}
+    cfg = tem.EMConfig(device=device, mig_buffer=over.pop("mig_buffer", 96),
+                       **options)
     demo = _structured_demo(**over)
     if cap is None:
         tem.refuse_caps(demo, cfg)
@@ -471,12 +482,12 @@ def test_kernel_caps_are_refused_on_the_card(device, over, cap):
 
 
 @pytest.mark.parametrize("n,options,cap", [
-    (65, {}, "WIDE_MAX_LEAVES"), (9, {"alpha": 0.5}, "-alpha.*MAX_LEAVES")])
+    (65, {}, "WIDE_MAX_LEAVES"), (9, {"apf": 2}, "-apf.*MAX_LEAVES")])
 def test_run_em_refuses_the_caps_before_any_tree(monkeypatch, n, options,
                                                  cap):
-    """``run_em`` on the card refuses 65 haplotypes, and 9 with ``-alpha``
-    (whose local pass has no wide form), before it sets up a sweep: nothing
-    is built or swept."""
+    """``run_em`` on the card refuses 65 haplotypes, and 9 with ``-apf``
+    (refused above 8 haplotypes on the card), before it sets up a sweep:
+    nothing is built or swept."""
     def reached(*args, **kwargs):
         raise AssertionError("the sweep was set up")
 

@@ -2,7 +2,7 @@
 ``-alpha``) against the JAX package, on the CPU.
 
 - ``guide_branch_rates``: equal to JAX's exactly (means of two and maxima),
-  at n = 2, 4, 8, with tied internal node times.
+  at n = 2, 4, 8, 16 and 64, with tied internal node times.
 - The guided ``biased_point`` against JAX's ``_sample_recomb_point_biased``
   with JAX's uniform from the same key: ``c`` equal; ``h_r``, ``log_iw``
   and ``log_iw_bias`` within rtol 1e-5 (the running sums of the weighted
@@ -81,7 +81,7 @@ def _guide_rates(W, n, seed):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("n", [2, 4, 8, 16, 64])
 def test_guide_branch_rates_equal_jax(n):
     P = 96
     tr = _jax_trees(n, P, 10 + n)

@@ -74,10 +74,10 @@ def test_guided_passes_match_plain(lib, label, j, vb):
     assert f["P"] % 16 != 0  # a ragged last block
     results = rehearse.check_guide(lib, st, f, gt, table, variants=GUIDED,
                                    label=f" ({label})")
-    assert [name for name, _ in results] == (
+    assert [name for name, _, _ in results] == (
         ["biased guide vb", "biased guide local vb"] if vb
         else ["biased guide", "biased guide local"])
-    bad = [name for name, good in results if not good]
+    bad = [name for name, good, _ in results if not good]
     assert not bad, f"{label}: {bad} apart from the plain version"
 
 

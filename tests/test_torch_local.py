@@ -7,15 +7,19 @@
   ring full, one empty, one with a free slot among used ones), counts of
   dropped events included; ``add_window_opportunity`` (one window,
   several, a span ending on a window edge, the last window) and
-  ``commit_due_local`` within rtol 1e-6 of JAX's; ``flush_pending``
-  commits every pending event.
+  ``commit_due_local`` within rtol 1e-6 of JAX's (at 64 leaves too, leaf
+  63 the int64's sign bit); ``flush_pending`` commits every pending
+  event.
 - ``state_from_numpy`` / ``state_to_numpy`` carry JAX's ``win_*`` and
   ``lr_*`` there and back; the mid-sweep checkpoint keeps them.
 - One step with a chain of trips against JAX's XLA step with
   ``use_guide`` and ``num_windows`` > 0, its transitions the port's on the
   port's uniforms (through ``jax.pure_callback``, as
   tests/test_torch_vb.py does): (guide, bias), (guide, no bias), (local,
-  plain), (guide, local, bias, VB).  log_w and log_pilot within rtol 1e-5
+  plain), (guide, local, bias, VB) at n=4, and (guide, bias), (local,
+  plain), (guide, local, bias, VB) at n=16 and 33 (at mu 1e-6 there: at
+  1e-8 the float32 site likelihood of young branches parts the two
+  packages, ROADMAP section 3).  log_w and log_pilot within rtol 1e-5
   and atol 1e-5; next_rec within rtol 1e-5; trees equal; the ring's slots
   in use and counts equal, its floats within rtol 1e-5; window
   accumulators within rtol 1e-5; the FIFO within rtol 1e-5, its
@@ -26,6 +30,7 @@
 """
 
 import gzip
+import types
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +55,7 @@ from smcsmc_tpu_torch.convert import (
 )
 from smcsmc_tpu_torch.demography import Demography as TDemography
 from smcsmc_tpu_torch.kernels import guide as tguide
+from smcsmc_tpu_torch.kernels import likelihood as tlik
 from smcsmc_tpu_torch.kernels import local as tlocal
 from smcsmc_tpu_torch.kernels import trip as ttrip
 from smcsmc_tpu_torch.kernels.tree import INF, descendant_bitmask
@@ -97,7 +103,9 @@ def test_descendant_bitmask_equals_jax(n):
 
 
 def _ring(rng, front, R=8, case="mixed", n=4):
-    """A ring of pending events [P, R]: some slots free, some due soon."""
+    """A ring of pending events [P, R]: some slots free, some due soon;
+    the leaves below in JAX's words (two above 32 leaves, the last leaf
+    below half of the cuts)."""
     used = {"mixed": rng.uniform(size=(P, R)) < 0.5,
             "full": np.ones((P, R), bool),
             "empty": np.zeros((P, R), bool)}[case]
@@ -106,9 +114,18 @@ def _ring(rng, front, R=8, case="mixed", n=4):
     pos = np.where(used, rng.uniform(front - 2e4, front, (P, R)), INF)
     due = np.where(used, pos + rng.uniform(0.0, 3e4, (P, R)), INF)
     time = np.where(used, rng.uniform(10.0, 5e4, (P, R)), 0.0)
-    desc = np.where(used, rng.integers(1, 1 << n, (P, R)), 0)
+    if n <= 32:
+        desc = np.where(used, rng.integers(1, 1 << n, (P, R)), 0)
+        words = desc.astype(np.uint32)[..., None]
+    else:
+        lo = rng.integers(0, 1 << 32, (P, R), dtype=np.uint64)
+        hi = rng.integers(1, 1 << (n - 32), (P, R), dtype=np.uint64)
+        top = np.uint64(1 << (n - 33))
+        hi = np.where(rng.uniform(size=(P, R)) < 0.5, hi | top, hi & ~top)
+        words = np.stack([np.where(used, lo, 0), np.where(used, hi, 0)],
+                         axis=-1).astype(np.uint32)
     return (pos.astype(np.float32), due.astype(np.float32),
-            time.astype(np.float32), desc.astype(np.uint32)[..., None])
+            time.astype(np.float32), words)
 
 
 @pytest.mark.parametrize("case", ["mixed", "full", "empty"])
@@ -164,9 +181,10 @@ def test_add_window_opportunity_matches_jax(x_start, x_end):
 def _local_jax_state(rng, front, W=1000, n=4, R=8):
     cfg = jsmc.PFConfig(num_particles=P, num_leaves=n, num_windows=W,
                         local_ring=R)
-    st = jsmc.init_state(jax.random.PRNGKey(2), j_epochs(_demo(JDemography)),
-                         cfg, np.zeros(n, np.int32), RHO)
-    pos, due, time, desc = _ring(rng, front, R)
+    st = jsmc.init_state(jax.random.PRNGKey(2),
+                         j_epochs(_demo(JDemography, n=n)), cfg,
+                         np.zeros(n, np.int32), RHO)
+    pos, due, time, desc = _ring(rng, front, R, n=n)
     return st._replace(
         lr_pos=jnp.asarray(pos), lr_due=jnp.asarray(due),
         lr_time=jnp.asarray(time), lr_desc=jnp.asarray(desc),
@@ -193,6 +211,34 @@ def test_commit_due_local_matches_jax():
     for k in ("lr_pos", "lr_due"):
         np.testing.assert_array_equal(out[k], getattr(ref, k))
     assert (out["lr_pos"] < INF).sum() < (np.asarray(st.lr_pos) < INF).sum()
+
+
+def test_commit_due_local_matches_jax_at_64_leaves():
+    """At 64 leaves the leaves below a cut are JAX's two words, one int64
+    in the port: leaf 63 is its sign bit, and the commit counts it as leaf
+    63 (its column of the window accumulators) where it lies below a
+    cut."""
+    rng = np.random.default_rng(12)
+    front, n = 5e4, 64
+    st = _local_jax_state(rng, front, n=n)
+    w = rng.dirichlet(np.ones(P)).astype(np.float32)
+    at = front + 1e4
+    desc = desc_words_to_int64(np.asarray(st.lr_desc))
+    due = (np.asarray(st.lr_due) <= at) & (np.asarray(st.lr_pos) < INF)
+    assert (desc[due] < 0).any() and (desc[due] > 0).any()
+    ref = jax.tree_util.tree_map(np.asarray, jsmc._commit_due_local(
+        st, jnp.asarray(w), jnp.float32(at), 100.0))
+    got = state_from_numpy(jax.tree_util.tree_map(np.asarray, st), "cpu")
+    tlocal.commit_due_local(got.win_cnt, got.lr_pos, got.lr_due, got.lr_time,
+                            got.lr_desc, _t(w), at, 100.0)
+    out = state_to_numpy(got)
+    for k in ("win_leaf_cnt", "win_time_cnt", "win_logtime_cnt"):
+        np.testing.assert_allclose(out[k], getattr(ref, k), rtol=1e-6,
+                                   err_msg=k)
+    moved = out["win_leaf_cnt"] != np.asarray(st.win_leaf_cnt)
+    assert moved[:, n - 1].any() and moved[:, 0].any()
+    for k in ("lr_pos", "lr_due"):
+        np.testing.assert_array_equal(out[k], getattr(ref, k))
 
 
 def test_flush_pending_commits_every_event():
@@ -306,11 +352,16 @@ def _key_chain(key, T):
     return {k: j for j, k in enumerate(firsts)}, np.stack(gap_u)
 
 
-@pytest.mark.parametrize("guide,local,biased,vb", [
-    (True, False, True, False), (True, False, False, False),
-    (False, True, False, False), (True, True, True, True)],
-    ids=["guide+bias", "guide", "local", "guide+local+bias+vb"])
-def test_step_with_trips_matches_jax_step(guide, local, biased, vb,
+@pytest.mark.parametrize("guide,local,biased,vb,n", [
+    (True, False, True, False, 4), (True, False, False, False, 4),
+    (False, True, False, False, 4), (True, True, True, True, 4)] + [
+    (True, False, True, False, n) for n in (16, 33)] + [
+    (False, True, False, False, n) for n in (16, 33)] + [
+    (True, True, True, True, n) for n in (16, 33)],
+    ids=["guide+bias", "guide", "local", "guide+local+bias+vb"] + [
+        f"{v}-n{n}" for v in ("guide+bias", "local", "guide+local+bias+vb")
+        for n in (16, 33)])
+def test_step_with_trips_matches_jax_step(guide, local, biased, vb, n,
                                           monkeypatch):
     """One segment step with several trips per particle: the port's step
     (its plain pass) against JAX's XLA step (``make_segment_step`` with
@@ -321,10 +372,18 @@ def test_step_with_trips_matches_jax_step(guide, local, biased, vb,
     transitions: the extensions with the guide's survival weight, the
     guided gaps, the split of the importance weight, the ring of delayed
     factors, the pushes of local events, the window opportunity and the
-    commit of due events, the site likelihood and the normalisations."""
+    commit of due events, the site likelihood (above 8 leaves the port's,
+    see below) and the normalisations."""
     from smcsmc_tpu.kernels import transition as jtr
 
-    E, n, L, dist_mut, seed = 4, 4, 50000, 3000.0, 80
+    E, L, dist_mut, seed = 4, 50000, 3000.0, 80
+    # above 8 leaves the weights after the no-mutation term (some 90 nats
+    # at MU, its tree length summed in another order in each package)
+    # carry 1-2 of its ulps (7.6e-6 each), and where no guide concentrates
+    # the weights, the plain local pass's window counts then part by
+    # 1.5e-5 relative, beyond their rtol: that pass runs at 1e-6 there; the
+    # guided passes, local recording among them, run at MU
+    mu = MU if n <= 8 or guide else 1e-6
     W, R = 1000, 8
     jd, td = _demo(JDemography, E, n), _demo(TDemography, E, n)
     epochs, t_ep = j_epochs(jd), t_epochs(td, "cpu")
@@ -348,7 +407,7 @@ def test_step_with_trips_matches_jax_step(guide, local, biased, vb,
         front=jnp.float32(front),
         next_rec=jnp.asarray(rng.uniform(0.0, 0.4 * L, P), jnp.float32))
     if local:
-        pos, due, time, desc = _ring(rng, front, R)
+        pos, due, time, desc = _ring(rng, front, R, n=n)
         full = rng.uniform(size=P) < 0.2  # rings that fill and drop
         for a, v in ((pos, front - 10.0), (due, 3e37), (time, 5.0),
                      (desc, 1)):
@@ -381,7 +440,7 @@ def test_step_with_trips_matches_jax_step(guide, local, biased, vb,
                          use_bias=biased, use_guide=guide,
                          num_windows=W if local else 0, local_ring=R)
     t_step = tsmc.make_segment_step(
-        tcfg, t_ep, MU, RHO, lags, torch.Generator().manual_seed(0),
+        tcfg, t_ep, mu, RHO, lags, torch.Generator().manual_seed(0),
         bias_heights=bh if biased else None,
         bias_strengths=bs if biased else None,
         delays=delays if (biased or guide) else None,
@@ -419,7 +478,7 @@ def test_step_with_trips_matches_jax_step(guide, local, biased, vb,
                 point += (_t(leaf_rates),)
         out, rec = ttrip._trip(
             U[j], 1, *tr, nr, zeros, zeros, torch.ones(P), zeros,
-            torch.zeros((P, E)), pend, f32(L), f32(MU), f32(RHO), est, eend,
+            torch.zeros((P, E)), pend, f32(L), f32(mu), f32(RHO), est, eend,
             t_ep.inv2ne, has_data, point)
         trips.append(j)
         ev = [torch.where(act, x, 0.0).numpy() for x in rec[:5]]
@@ -451,8 +510,31 @@ def test_step_with_trips_matches_jax_step(guide, local, biased, vb,
                               child1=c1), rec
 
     monkeypatch.setattr(jsmc, "recombination_transition", transition)
+    if n > 8:
+        # above 8 leaves the young branches put the site likelihood's
+        # float32 1 - exp(-mu t) within a few ulps of 0 at MU, where the two
+        # packages round it apart (ROADMAP section 3, open in both;
+        # tests/test_torch_wide.py holds the site likelihood at 1e-6): JAX's
+        # step takes the port's site likelihood here, so that both steps
+        # add the same one to the same trees
+        def port_site(time, parent, c0, c1, alleles):
+            trees = types.SimpleNamespace(**{
+                k: torch.from_numpy(np.array(x)) for k, x in (
+                    ("time", time), ("parent", parent), ("child0", c0),
+                    ("child1", c1))})
+            return tlik.site_log_likelihood(
+                trees, torch.from_numpy(np.array(alleles)), mu).numpy()
+
+        def site(trees, alleles, mutation_rate, ancestral_aware=False):
+            assert not ancestral_aware  # mutation_rate: the step's, mu
+            return jax.pure_callback(
+                port_site, jax.ShapeDtypeStruct((P,), jnp.float32),
+                trees.time, trees.parent, trees.child0, trees.child1,
+                alleles)
+
+        monkeypatch.setattr(jsmc, "site_log_likelihood", site)
     step = jsmc.make_segment_step(
-        cfg, epochs, MU, RHO, jnp.asarray(lags),
+        cfg, epochs, mu, RHO, jnp.asarray(lags),
         *((jnp.asarray(bh), jnp.asarray(bs)) if biased else (None, None)),
         jnp.asarray(delays) if (biased or guide) else None,
         guide=(jnp.asarray(g_rate), jnp.asarray(g_leaf)) if guide else None,
@@ -488,7 +570,7 @@ def test_step_with_trips_matches_jax_step(guide, local, biased, vb,
     off = jsmc.stats_width(E, 1) - 2 * E
     atol[off:off + E] = ttrip.float_tolerances(
         {"time": _t(ref.trees.time), "pending": torch.zeros((1, K))},
-        float(L), MU)["pending"][off:off + E].numpy()
+        float(L), mu)["pending"][off:off + E].numpy()
     err = np.abs(got["fifo"] - ref.fifo) - 1e-5 * np.abs(ref.fifo)
     assert (err <= atol).all(), np.argwhere(err > atol)[:5]
     if local:
@@ -541,12 +623,16 @@ def test_segment_pass_refuses_a_guide_without_the_biased_pass():
     (("segment_pass", 4, 9), dict(guide=True), "guided variant"),
     (("trip", 4, 9), dict(local=True), "record locally"),
     (("trip", 8, 33), dict(local=True), "record locally"),
+    (("trip", 16, 9), dict(local=True), "record locally"),
+    (("trip", 64, 9), dict(local=True), "record locally"),
+    (("segment_pass", 16, 9), dict(guide=True), "guided variant"),
+    (("segment_pass", 16, 9), dict(arg=True, local=True), "record the ARG"),
 ])
 def test_kernel_resources_refuses_missing_variants(monkeypatch, args, kw,
                                                    match):
     """Only the biased and migration passes have a guided variant, and
-    only the plain, biased and migration passes a local one (trip none):
-    refused before the library is loaded."""
+    only the plain, biased and migration passes a local one (trip none, at
+    any n): refused before the library is loaded."""
     def no_library():
         raise AssertionError("the library was loaded")
 
@@ -555,12 +641,35 @@ def test_kernel_resources_refuses_missing_variants(monkeypatch, args, kw,
         ttrip.kernel_resources(*args, **kw)
 
 
+@pytest.mark.parametrize("n", [16, 64])
+@pytest.mark.parametrize("variant,kw", [
+    ("segment_pass", dict(local=True)), ("segment_pass", dict(local=True,
+                                                             vb=True)),
+    ("biased", dict(local=True)), ("biased", dict(guide=True)),
+    ("biased", dict(guide=True, local=True, vb=True))])
+def test_kernel_resources_takes_the_wide_guided_and_local_passes(
+        monkeypatch, n, variant, kw):
+    """Above 8 leaves the guided and local passes have wide forms:
+    ``kernel_resources`` checks them through and asks the library (which
+    this test replaces, as there is no card here)."""
+    class Reached(Exception):
+        pass
+
+    def library():
+        raise Reached
+
+    monkeypatch.setattr(ttrip, "load_trip_library", library)
+    with pytest.raises(Reached):
+        ttrip.kernel_resources(variant, n, 9, **kw)
+
+
 def test_launch_counts_name_every_variant():
     """Every variant of the kernel has its own launch count, at 0 on
     import, named as ``launch_count`` names it (the wide plain and biased
-    passes, the ARG variants and the migration pass's proposal variants,
-    with and without VB, among them)."""
-    assert len(set(ttrip.LAUNCH_COUNTS)) == 36
+    passes, the wide guided and local passes, the ARG variants and the
+    migration pass's proposal variants, with and without VB, among
+    them)."""
+    assert len(set(ttrip.LAUNCH_COUNTS)) == 44
     for b, m, g, lo, vb, name in [
             (True, False, True, False, False, "biased_guide_launches"),
             (True, False, True, True, True, "biased_guide_local_vb_launches"),
@@ -571,5 +680,13 @@ def test_launch_counts_name_every_variant():
              "migration_biased_guide_local_vb_launches"),
             (False, True, False, True, False, "migration_local_launches")]:
         assert ttrip.launch_count(b, m, vb, g, lo) == name
+        assert name in ttrip.LAUNCH_COUNTS
+        assert isinstance(getattr(ttrip.segment_pass, name), int)
+    for b, g, lo, vb, name in [
+            (False, False, True, False, "wide_local_launches"),
+            (True, False, True, True, "biased_wide_local_vb_launches"),
+            (True, True, False, False, "biased_wide_guide_launches"),
+            (True, True, True, True, "biased_wide_guide_local_vb_launches")]:
+        assert ttrip.launch_count(b, False, vb, g, lo, wide=True) == name
         assert name in ttrip.LAUNCH_COUNTS
         assert isinstance(getattr(ttrip.segment_pass, name), int)

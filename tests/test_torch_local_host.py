@@ -102,8 +102,8 @@ def test_local_passes_match_plain(lib, label, c, ring, vb):
             assert int((got["lr_pos"] >= rehearse.INF).sum()) == 0
     results = rehearse.check_guide(lib, st, f, gt, table, variants=LOCAL,
                                    label=f" ({label})")
-    assert [name for name, _ in results] == (
+    assert [name for name, _, _ in results] == (
         ["biased local vb", "plain local vb"] if vb
         else ["biased local", "plain local"])
-    bad = [name for name, good in results if not good]
+    bad = [name for name, good, _ in results if not good]
     assert not bad, f"{label}: {bad} apart from the plain version"

@@ -12,8 +12,9 @@ crossing t_c), so that the port's plain trip runs on the same numbers.
 Trees are held exactly, floats within ``kernels.trip.float_tolerances``
 (rtol 1e-4).  Then the site likelihood at 16, 33 and 64 leaves (its
 n - 1 passes equal the data-dependent loop bit for bit), valid initial
-trees, ``run_chunk`` at n=16 against JAX's statistically, and
-``em.refuse_caps`` over every wide and narrow path.  The ``cuda`` tests
+trees, ``run_chunk`` at n=16 against JAX's statistically (with and
+without ``-alpha``), and ``em.refuse_caps`` over every wide and narrow
+path.  The ``cuda`` tests
 hold the wide kernels to the plain version in float64 on the card and
 skip here.
 
@@ -361,13 +362,9 @@ def test_make_initial_trees_are_valid_wide(n):
         float(np.asarray(jt.time).max(axis=1).mean()), rel=0.1)
 
 
-def test_wide_run_chunk_agrees_with_jax():
-    """``run_chunk`` at n=16 (P=64, 100 kb, four seeds each) against
-    JAX's: the mean log-likelihood within three standard errors of the
-    difference of the two means (at this size one seed's LogL spreads by
-    about 7% either way, against under 1% at n=4), the pooled coalescence
-    Ne within 30% and the recombination rate within 50%, as
-    tests/test_torch_bias.py holds the biased sweep."""
+def _wide_run_chunks(alpha=0.0):
+    """``run_chunk`` of both packages at n=16 (P=64, 100 kb, seeds 1-4),
+    with ``-alpha`` where given: {"jax": [...], "torch": [...]}."""
     from smcsmc_tpu_torch.simulate import simulate_seg
 
     _, _, jem, _, Demography, _, _ = _jax()
@@ -382,9 +379,18 @@ def test_wide_run_chunk_agrees_with_jax():
     res = {"jax": [], "torch": []}
     for s in (1, 2, 3, 4):
         res["jax"].append(jem.run_chunk(
-            jd, seg, jem.EMConfig(num_particles=64, block_size=512), seed=s))
+            jd, seg, jem.EMConfig(num_particles=64, block_size=512,
+                                  alpha=alpha), seed=s))
         res["torch"].append(tem.run_chunk(
-            td, seg, tem.EMConfig(num_particles=64, device="cpu"), seed=s))
+            td, seg, tem.EMConfig(num_particles=64, device="cpu",
+                                  alpha=alpha), seed=s))
+    return res
+
+
+def _check_run_chunk_bands(res):
+    """The mean log-likelihood within three standard errors of the
+    difference of the two means, the pooled coalescence Ne within 30% and
+    the recombination rate within 50%."""
     summary = {}
     for side, runs in res.items():
         logl = np.array([r[2] for r in runs])
@@ -401,6 +407,31 @@ def test_wide_run_chunk_agrees_with_jax():
     assert rt == pytest.approx(rj, rel=0.5), summary
 
 
+def test_wide_run_chunk_agrees_with_jax():
+    """``run_chunk`` at n=16 (P=64, 100 kb, four seeds each) against
+    JAX's: the mean log-likelihood within three standard errors of the
+    difference of the two means (at this size one seed's LogL spreads by
+    about 7% either way, against under 1% at n=4), the pooled coalescence
+    Ne within 30% and the recombination rate within 50%, as
+    tests/test_torch_bias.py holds the biased sweep."""
+    _check_run_chunk_bands(_wide_run_chunks())
+
+
+def test_wide_run_chunk_with_alpha_agrees_with_jax():
+    """``run_chunk`` at n=16 with ``-alpha 0.5`` (the local pass, which
+    records each trip's event for the windows of ``.recomb.gz``) against
+    JAX's, in the bands of :func:`test_wide_run_chunk_agrees_with_jax`;
+    the windows' summed leaf counts, pooled over the seeds, within 50% of
+    JAX's, and every one of the 16 leaf columns counted."""
+    res = _wide_run_chunks(alpha=0.5)
+    _check_run_chunk_bands(res)
+    leaf = {side: sum(r[3]["local_recomb"]["leaf_cnt"] for r in runs)
+            for side, runs in res.items()}
+    assert leaf["torch"].shape == leaf["jax"].shape == (1000, 16)
+    assert np.all(leaf["torch"].sum(axis=0) > 0)
+    assert leaf["torch"].sum() == pytest.approx(leaf["jax"].sum(), rel=0.5)
+
+
 # ---------------------------------------------------------------------------
 # em.refuse_caps: the wide kernels take the plain and biased paths
 # ---------------------------------------------------------------------------
@@ -411,7 +442,7 @@ PATHS = {
     "chunks": dict(chunks=4, dephase=True),
     "migration": "structured", "guide": dict(guide_file="g.gz"),
     "alpha": dict(alpha=0.5), "apf": dict(apf=2)}
-NARROW_ONLY = ("migration", "guide", "alpha", "apf")
+NARROW_ONLY = ("migration", "apf")
 
 
 def _refuse_demo(n, path):
@@ -428,10 +459,10 @@ def _refuse_demo(n, path):
 @pytest.mark.parametrize("n", [8, 9, 16, 64, 65])
 def test_refuse_caps_wide_and_narrow(n, path, device):
     """On the card: up to 8 haplotypes every path runs; from 9 to 64 the
-    plain and biased paths (with -vb, calibrated lags, chunks) run and
-    migration, -guide, -alpha and -apf are refused by name; above 64 every
-    path is refused at WIDE_MAX_LEAVES.  The CPU runs every size.  Nothing
-    here touches a card."""
+    plain, biased, guided and local paths (with -vb, calibrated lags,
+    chunks, -guide, -alpha) run and migration and -apf are refused by
+    name; above 64 every path is refused at WIDE_MAX_LEAVES.  The CPU runs
+    every size.  Nothing here touches a card."""
     opts = PATHS[path]
     cfg = tem.EMConfig(device=device, **(opts if isinstance(opts, dict)
                                          else {}))
@@ -443,7 +474,7 @@ def test_refuse_caps_wide_and_narrow(n, path, device):
         match = r"65 haplotypes on the card.*at most 64 \(WIDE_MAX_LEAVES\)"
     else:
         what = {"migration": "several populations or migration",
-                "guide": "-guide", "alpha": "-alpha", "apf": "-apf"}[path]
+                "apf": "-apf"}[path]
         match = rf"{n} haplotypes with {what} on the card.*at most 8 " \
             r"\(MAX_LEAVES\)"
     with pytest.raises(NotImplementedError, match=match):
@@ -451,13 +482,25 @@ def test_refuse_caps_wide_and_narrow(n, path, device):
 
 
 def test_segment_pass_refuses_the_narrow_only_variants_above_8():
-    """The wrappers' caps: above 8 leaves the migration, guided and local
-    variants are refused by name before any CUDA call; 65 leaves by
-    everything."""
+    """The wrappers' caps: above 8 leaves the migration pass and its
+    variants and the biased ARG pass are refused by name before any CUDA
+    call, and the guided and local passes (which have wide forms) are not;
+    65 leaves by everything."""
     with pytest.raises(ValueError, match="migration kernel supports 2..8"):
         ttrip._check_caps(17, 9, 2, 8, "migration")
-    with pytest.raises(ValueError, match="guided kernel supports 2..8"):
-        ttrip._check_caps(17, 9, variant="guided")
+    with pytest.raises(ValueError, match="migration guided local kernel "
+                                         "supports 2..8"):
+        ttrip._check_caps(17, 9, variant=ttrip.narrow_variant(
+            True, True, True, True))
+    with pytest.raises(ValueError, match="biased ARG kernel supports 2..8"):
+        ttrip._check_caps(17, 9, variant=ttrip.narrow_variant(
+            biased=True, arg=True))
+    for flags in (dict(biased=True, guide=True), dict(local=True),
+                  dict(biased=True, local=True),
+                  dict(biased=True, guide=True, local=True)):
+        assert ttrip.narrow_variant(**flags) is None
+        assert ttrip._check_caps(127, 9,
+                                 variant=ttrip.narrow_variant(**flags)) == 64
     with pytest.raises(ValueError, match="trip kernel supports 2..64"):
         ttrip._check_caps(129, 9)
     assert ttrip._check_caps(127, 64) == 64

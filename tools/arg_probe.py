@@ -810,8 +810,10 @@ def variants(text: str, filler):
 
 
 # the kernels a tree may add beside its parent's: the migration pass's
-# proposal variants
-NEW_KERNELS = ("segment_pass_mig_proposal_kernel",)
+# proposal variants, the wide guided and local passes
+NEW_KERNELS = ("segment_pass_mig_proposal_kernel",
+               "segment_pass_wide_local_kernel",
+               "segment_pass_biased_wide_proposal_kernel")
 # --changed by name: the narrow kernels with local recording (the plain
 # pass's LOCAL, the third template argument; the biased pass's, the
 # fourth)
@@ -852,7 +854,7 @@ def sass(parent: str, here: str, changed: str | None = None) -> int:
     print(f"sass: {len(old)} kernels of the parent, {len(differ)} differ "
           f"({len(outside)} outside those named {changed!r}), "
           f"{len(missing)} missing; {len(added)} new, {len(foreign)} of "
-          f"them not a proposal kernel", flush=True)
+          f"them not a proposal or wide guided or local kernel", flush=True)
     return 1 if outside or missing or foreign else 0
 
 

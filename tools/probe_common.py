@@ -4,11 +4,12 @@ build loaded behind this tree's wrappers and launched through them,
 timing in turns, and a library's SASS.
 
 ``tools/arg_probe.py``, ``tools/mig_proposal_probe.py`` and
-``tools/local_probe.py`` import it.  A build of trip.cu is four units
-(``-DSMC_PART=0..3``, as ``smcsmc_tpu_torch/kernels/_build.py`` builds
-it); the narrow kernels (``trip``, the plain, biased and guided passes
-and their local, VB and ARG variants) are unit 0, the migration pass
-without VB, and its proposal variants, unit 2."""
+``tools/local_probe.py`` import it.  A build of trip.cu is five units
+(``-DSMC_PART=0..4``, as ``smcsmc_tpu_torch/kernels/_build.py`` builds
+it; a source of four units compiles an empty fifth); the narrow kernels
+(``trip``, the plain, biased and guided passes and their local, VB and
+ARG variants) are unit 0, the migration pass without VB, and its
+proposal variants, unit 2."""
 
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 from smcsmc_tpu_torch.kernels import _build
 from smcsmc_tpu_torch.kernels.trip import segment_pass_launch_args
 
-UNITS = 4
+UNITS = _build.TRIP_PARTS
 NARROW_UNIT = 0
 MIG_UNIT = 2
 
@@ -65,7 +66,7 @@ def build(out: Path, wholes: dict[str, str],
           base: str | None = None,
           unit: int = MIG_UNIT) -> dict[str, tuple[Path, str]]:
     """{name: (library, ptxas log)} under ``out``: each text of ``wholes``
-    built whole (its four units), each of ``variants`` as unit ``unit``
+    built whole (its units), each of ``variants`` as unit ``unit``
     (the migration unit unless given) linked with the other units of
     ``base`` (a text of ``wholes``); every nvcc process started together,
     libraries that exist (by hash) not built again."""

@@ -36,17 +36,25 @@ their tolerances, its bitmasks, slots in use and drop count equal; and
 every output bit for bit COMMIT's (``--against``) on the same inputs.
 
 ``--wide`` holds the working tree's wide kernels (more than 8 leaves: the
-plain and biased passes with and without VB, and ``trip``) to their plain
-versions: n of 9, 16, 33 and 64 at 9 and 64 epochs, leaf status 1, 0 and
--1, one trip at 20 kb and 64 trips at 50 kb, the biased pass with 2
-sections at 9 epochs and 8 at 64 and a ring 30% in use, VB on every other
-case, P ragged against the block; trees equal, floats within
-``float_tolerances`` (rtol 1e-4), against the plain version run in
-float64 (``chip_smoke._in_double``): the wide kernels compute a trip in
-double,
-and a float32 chain of 64 trips of the plain version itself drifts from
-the float64 one by up to 2.4 node units at 64 leaves.  ``--quick`` runs
-every third case.
+plain and biased passes with and without VB, and ``trip``; the plain pass
+with local recording, the biased pass with it, guided, and guided with
+it, each with and without VB) to their plain versions: n of 9, 16, 17,
+33 and 64 at 9 and 64 epochs, leaf status 1, 0 and -1, one trip at 20 kb
+and 64 trips at 50 kb, the biased pass with 2 sections at 9 epochs and 8
+at 64 and a ring 30% in use, VB on every other case (the plain and
+biased passes on one half, the guided and local ones on the other), P
+ragged against the block; for the guided and local passes a guide that
+is not constant and a ring of pending local events 30% in use (every
+ring full on every fifth case); trees equal, floats within
+``float_tolerances`` (rtol 1e-4), the local ring's positions, due
+positions, heights and the segment's opportunity within their
+tolerances, its bitmasks, slots in use and drop count equal, against the
+plain version run in float64 (``chip_smoke._in_double``): the wide
+kernels compute a trip in double, and a float32 chain of 64 trips of the
+plain version itself drifts from the float64 one by up to 2.4 node units
+at 64 leaves.  The plain and biased passes and ``trip`` are also held bit
+for bit to COMMIT's kernel (``--against``) on the same inputs.
+``--quick`` runs every third case.
 
 ``--arg`` holds the working tree's ARG variants (the plain, biased,
 migration and wide plain passes, each with and without VB) to their plain
@@ -446,7 +454,7 @@ def local_ring(st, f, seed, R=32, full_rows=16):
             (P, R), generator=g), torch.full((P, R), INF)),
         lr_time=torch.where(used, 5e4 * torch.rand((P, R), generator=g),
                             0.0),
-        lr_desc=torch.where(used, torch.randint(1, 1 << n, (P, R),
+        lr_desc=torch.where(used, torch.randint(1, 1 << min(n, 62), (P, R),
                                                 generator=g), 0),
         lr_dropped=torch.tensor(3, dtype=torch.int32),
         ropp=torch.zeros(P))
@@ -509,14 +517,17 @@ def guide_case(c, j, tied=False, windows=None, vb=False):
 
 
 def check_guide(lib, st, f, gt, vb=None, old=None, variants=GUIDE_VARIANTS,
-                label=""):
+                label="", double=False):
     """Each of ``variants`` of ``lib`` on state ``st`` and inputs ``f``,
-    with the guide ``gt`` and VB table ``vb``, against its plain version:
-    trees equal, floats within ``float_tolerances`` (rtol 1e-4), the local
-    ring's positions, due positions, heights and the segment's
-    opportunity within their tolerances, its bitmasks, slots in use and
-    drop count equal; with ``old`` (another build) every output bit for bit
-    ``old``'s.  Prints a line for each; returns [(name, good)]."""
+    with the guide ``gt`` and VB table ``vb``, against its plain version
+    (run in float64 with ``double``, as the wide kernels compute a trip,
+    and rounded to the float32 they store): trees equal, floats within
+    ``float_tolerances`` (rtol 1e-4), the local ring's positions, due
+    positions, heights and the segment's opportunity within their
+    tolerances, its bitmasks, slots in use and drop count equal, and an
+    event pushed unless every ring is full; with ``old`` (another build)
+    every output bit for bit ``old``'s.  Prints a line for each; returns
+    [(name, good, worst share of a tolerance)]."""
     from smcsmc_tpu_torch.kernels.bias import BiasedPass
     from smcsmc_tpu_torch.kernels.local import LocalPass
     from smcsmc_tpu_torch.kernels.trip import (
@@ -525,24 +536,31 @@ def check_guide(lib, st, f, gt, vb=None, old=None, variants=GUIDE_VARIANTS,
         segment_pass_plain,
     )
 
+    st_r, f_r, vb_r = ((cs._in_double(x) for x in (st, f, vb)) if double
+                       else (st, f, vb))
+    full = "lr_pos" in st and bool((st["lr_pos"] < INF).all())
     out = []
     for biased, guide, local in variants:
         got = run(lib, st, f, biased, vb, gt if guide else None, local)
-        ref = {k: v.clone() for k, v in st.items()}
+        ref = {k: v.clone() for k, v in st_r.items()}
         b = (BiasedPass(ref["log_pilot"], ref["df_pos"], ref["df_logf"],
-                        ref["df_delta"], ref["df_k"], f["heights"],
-                        f["strengths"], f["delays"], f["front"],
+                        ref["df_delta"], ref["df_k"], f_r["heights"],
+                        f_r["strengths"], f_r["delays"], f["front"],
                         ("recomb", "coal")[f["delay_type"]], f["delay_k"])
              if biased else None)
-        lp = (LocalPass(*(ref[k] for k in LOCAL_STATE), f["lags"],
+        lp = (LocalPass(*(ref[k] for k in LOCAL_STATE), f_r["lags"],
                         ref["ropp"], f["front"]) if local else None)
         segment_pass_plain(
-            f["u"], f["ls"], *(ref[k] for k in cs.SEGMENT_STATE),
-            ref["fifo"], f["mask"], ref["tl"], f["L"], cs.MU, cs.RHO,
-            f["start"], f["inv2ne"], f["hd"], b,
-            vb=None if vb is None else (vb[:, None],
-                                        torch.zeros((f["E"], 1, 1))),
+            f_r["u"], f["ls"], *(ref[k] for k in cs.SEGMENT_STATE),
+            ref["fifo"], f_r["mask"], ref["tl"], f["L"], cs.MU, cs.RHO,
+            f_r["start"], f_r["inv2ne"], f["hd"], b,
+            vb=None if vb is None else (
+                vb_r[:, None], torch.zeros((f["E"], 1, 1),
+                                           dtype=vb_r.dtype)),
             guide=gt if guide else None, local=lp)
+        # the float64 answer as the float32 the kernel stores
+        ref = {k: v.float() if v.dtype == torch.float64 else v
+               for k, v in ref.items()}
         keys = cs.SEGMENT_STATE + (("log_pilot", "df_pos", "df_logf",
                                     "df_delta", "df_k") if biased else ())
         res = [{**{k: x[k] for k in keys}, "tl": x["tl"],
@@ -563,6 +581,8 @@ def check_guide(lib, st, f, gt, vb=None, old=None, variants=GUIDE_VARIANTS,
             if not torch.equal(got["lr_pos"] < INF, ref["lr_pos"] < INF):
                 ring_bad.append("slots in use")
         pushed = int((ref["lr_pos"] != st["lr_pos"]).sum()) if local else 0
+        if local and pushed == 0 and not full:
+            ring_bad.append("no event pushed")
         apart = (differing(got, run(old, st, f, biased, vb,
                                     gt if guide else None, local))
                  if old is not None else [])
@@ -571,14 +591,16 @@ def check_guide(lib, st, f, gt, vb=None, old=None, variants=GUIDE_VARIANTS,
         name = (f"{'biased' if biased else 'plain'}"
                 f"{' guide' if guide else ''}{' local' if local else ''}"
                 f"{' vb' if vb is not None else ''}")
+        worst = max(errs, key=lambda k: errs[k][1])
         against = ("" if old is None else "; against the commit "
                    + ("bit for bit" if not apart else f"DIFFER in {apart}"))
         print(f"{name}{label}: {int(trees.sum())} trees, "
-              f"{int(floats.sum())} floats apart, ring "
+              f"{int(floats.sum())} floats apart (worst {worst} at "
+              f"{errs[worst][1]:.3g} of its tolerance), ring "
               f"{'ok' if not ring_bad else ring_bad} ({pushed} slots "
               f"pushed, dropped {int(ref['lr_dropped']) if local else 0})"
               f"{against} -> {'ok' if good else 'FAIL'}", flush=True)
-        out.append((name, good))
+        out.append((name, good, errs[worst][1]))
     return out
 
 
@@ -613,7 +635,7 @@ def rehearse_guide(against: str) -> int:
     failed = 0
     for j, (c, opts) in enumerate(guide_cases()):
         st, f, gt, vb = guide_case(c, j, vb=j % 3 == 1, **opts)
-        failed += sum(not good for _, good in check_guide(
+        failed += sum(not good for _, good, _ in check_guide(
             new, st, f, gt, vb, old, label=f" {c} {opts}"))
     print(f"{failed} of the guide and local cases fail")
     return 1 if failed else 0
@@ -663,12 +685,14 @@ TRIP_FIELDS = ("time", "parent", "child0", "child1", "next_rec", "upd",
                "log_w", "tl", "B", "tl_e", "pending")
 
 
-def check_wide(lib, c, seed, vb_seed=None):
+def check_wide(lib, c, seed, vb_seed=None, old=None):
     """One ``--wide`` case ``c`` (a dict of :func:`case`'s arguments) made
     from ``seed``: the plain and the biased pass of ``lib`` (with a VB
     table drawn from ``vb_seed`` where one is given) and its ``trip``
-    against their plain versions run in float64.  Prints a line for each
-    and returns a list of (name, good, worst share of a tolerance)."""
+    against their plain versions run in float64; with ``old`` (another
+    build) each output also bit for bit ``old``'s on the same inputs.
+    Prints a line for each and returns a list of (name, good, worst share
+    of a tolerance)."""
     from smcsmc_tpu_torch.kernels.bias import BiasedPass
     from smcsmc_tpu_torch.kernels.trip import disagreement, segment_pass_plain
 
@@ -676,9 +700,11 @@ def check_wide(lib, c, seed, vb_seed=None):
     vb = vb_table(f["E"], vb_seed) if vb_seed is not None else None
     # the reference: the plain version in float64
     st_r, f_r, vb_r = (cs._in_double(x) for x in (st, f, vb))
-    results = []
+    results, apart = [], {}
     for biased in (False, True):
         got = run(lib, st, f, biased, vb)
+        if old is not None:
+            apart[biased] = differing(got, run(old, st, f, biased, vb))
         ref = {k: v.clone() for k, v in st_r.items()}
         b = (BiasedPass(ref["log_pilot"], ref["df_pos"], ref["df_logf"],
                         ref["df_delta"], ref["df_k"], f_r["heights"],
@@ -700,33 +726,73 @@ def check_wide(lib, c, seed, vb_seed=None):
                           "pending": x["fifo"][:, 0]}
                          for x in (got, ref)]))
     got, ref = run_trip(lib, st, f), run_trip(None, st_r, f_r)
+    if old is not None:
+        apart["trip"] = differing(got, run_trip(old, st, f))
     results.append(("trip", [{k: x[k] for k in TRIP_FIELDS}
                              for x in (got, ref)]))
     out = []
-    for name, res in results:
+    for (name, res), key in zip(results, (False, True, "trip")):
         # the float64 answer as the float32 the kernel stores
         res[1] = {k: v.float() if v.dtype == torch.float64 else v
                   for k, v in res[1].items()}
         trees, floats, errs = disagreement(*res, f["L"], cs.MU, 1e-4)
         moved = int((res[1]["parent"] != st["parent"]).any(1).sum())
-        good = not trees.any() and not floats.any()
+        bits = apart.get(key, [])
+        good = not trees.any() and not floats.any() and not bits
         worst = max(errs, key=lambda k: errs[k][1])
+        against = ("" if old is None else "; against the commit "
+                   + ("bit for bit" if not bits else f"DIFFER in {bits}"))
         print(f"wide {name} {c}: {int(trees.sum())} trees, "
               f"{int(floats.sum())} floats apart ({moved} trees moved; "
               f"worst {worst} at {errs[worst][1]:.3g} of its "
-              f"tolerance) -> {'ok' if good else 'FAIL'}", flush=True)
+              f"tolerance){against} -> {'ok' if good else 'FAIL'}",
+              flush=True)
         out.append((name, good, errs[worst][1]))
     return out
 
 
-def rehearse_wide(quick: bool) -> int:
+# the wide guided and local passes, (biased, guide, local): the plain pass
+# with local recording, the biased pass with it, guided, guided with it
+WIDE_PROPOSALS = ((False, False, True), (True, False, True),
+                  (True, True, False), (True, True, True))
+
+
+def wide_proposal_case(c, seed, vb_seed=None, full=False, tied=False):
+    """A case of the wide guided and local passes: ``--wide`` case ``c``
+    made from ``seed`` with a ring of pending local events 30% in use (the
+    first third of the rings, at most 16, full; every ring full with
+    ``full``), a guide that is not constant, a VB table drawn from
+    ``vb_seed`` where one is given, and with ``tied`` each tree's first
+    internal node tied in time with its parent of lower index
+    (:func:`tie_first_node`).  Returns (state, inputs, guide, VB table or
+    None) for :func:`check_guide` with ``variants=WIDE_PROPOSALS``,
+    ``double=True``."""
+    st, f = case(seed=seed, **c)
+    local_ring(st, f, seed + 1,
+               full_rows=f["P"] if full else min(16, f["P"] // 3))
+    if tied:
+        tie_first_node(st, f["n"])
+    return (st, f, guide_of(f, seed),
+            vb_table(f["E"], vb_seed) if vb_seed is not None else None)
+
+
+def rehearse_wide(quick: bool, against: str) -> int:
     """The ``--wide`` check of the module docstring."""
     lib = build((ROOT / SOURCE).read_text(), "tree")
+    old = build(subprocess.run(["git", "show", f"{against}:{SOURCE}"],
+                               cwd=ROOT, capture_output=True, text=True,
+                               check=True).stdout, "against")
     failed = 0
     todo = wide_cases()[::3] if quick else wide_cases()
     for j, c in enumerate(todo):
         failed += sum(not good for _, good, _ in check_wide(
-            lib, c, 900 + j, j if j % 2 else None))
+            lib, c, 900 + j, j if j % 2 else None, old))
+        full = j % 5 == 4
+        failed += sum(not good for _, good, _ in check_guide(
+            lib, *wide_proposal_case(c, 900 + j, j if j % 2 == 0 else None,
+                                     full),
+            variants=WIDE_PROPOSALS, double=True,
+            label=f" wide {c}{' every ring full' if full else ''}"))
     print(f"{failed} of the wide cases fail")
     return 1 if failed else 0
 
@@ -747,7 +813,7 @@ def main(argv=None) -> int:
     if args.arg:
         return rehearse_arg(args.quick, args.against)
     if args.wide:
-        return rehearse_wide(args.quick)
+        return rehearse_wide(args.quick, args.against)
     if args.vb:
         return rehearse_vb()
     if args.guide:
